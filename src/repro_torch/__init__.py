@@ -1,0 +1,23 @@
+"""`repro_torch` — the iCh loop scheduler in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+This package is the PyTorch/CUDA counterpart of `repro`. Its layout mirrors
+`repro` (`core/`, `sched/`, `kernels/ich_spmv/`) so each module's twin is
+easy to find, but it imports nothing of `repro` and nothing of JAX: the
+numpy host code it needs is copied, not shared.
+
+The main path is the SpMV one:
+
+    from repro_torch import sched
+
+    scheduler = sched.LoopScheduler(p=132)          # device defaults to "cuda"
+    op = scheduler.build("spmv", indptr, indices, data)
+    y = op(x)                                       # ich_spmv_sharded kernel
+    op2 = sched.SpmvOp(op.observe().refine(), indptr, indices, data)
+
+Entry points run on the card unless the caller passes `device="cpu"`, which
+selects each kernel's plain PyTorch version (`repro_torch.device`).
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels.
+
+Each `repro_torch/csrc/<name>.cu` has a plain C interface. On first use it
+is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under
+`build/repro_torch_kernels/` at the root of the checkout, named by a hash
+of the source and the flags so an edited source is rebuilt, and loaded with
+`ctypes`. Nothing is compiled or loaded when a module is imported: the
+kernel wrappers call `load()` on their first launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin "
+                           "directory on PATH or set CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from `csrc/<name>.cu` lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for `name` unless its library is built; returns
+    (process or None, temporary output, final path)."""
+    out = library_path(name)
+    if out.exists():
+        return None, None, out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, proc, tmp, out) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_all() -> list[str]:
+    """Compile every `csrc/*.cu` that is not built yet, one nvcc each, all
+    started together. Returns the names."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with _LOCK:
+        jobs = [(n, *_start(n)) for n in names]
+        for job in jobs:
+            _finish(*job)
+    return names
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            _finish(name, *_start(name))
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

@@ -1,0 +1,197 @@
+"""iCh-scheduled segmented SpMV: the CUDA kernels' wrappers and their plain
+PyTorch versions.
+
+* `ich_spmv` — the sequential walk over the (T, R, W) payload, the
+  cross-check path (counterpart of `repro`'s (T,)-grid kernel);
+* `ich_spmv_sharded` — the main path: one worker per CTA over the (p, S_B)
+  superstep layout of `core.tiling.WorkerShards`, reading blocks of B tiles
+  straight out of the flat (T_pad, R, W) payload, with the optional
+  (p, S_B) cost stream the measured-cost refiner consumes.
+
+A wrapper given CPU tensors runs the plain version (`ich_spmv_plain`,
+`ich_spmv_sharded_plain`), which does the same per-slot partials in the
+same order and the same ordered fold (`core/segmented.py`). Given CUDA
+tensors it launches the kernel of `csrc/ich_spmv.cu` or raises: there is
+no fallback. Each wrapper counts its launches in `LAUNCHES`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.segmented import (emit_step_cost, segmented_apply,
+                                        worker_reduce)
+from repro_torch.kernels import _build
+
+__all__ = ["LAUNCHES", "ich_spmv", "ich_spmv_plain", "ich_spmv_sharded",
+           "ich_spmv_sharded_plain", "reset_launches"]
+
+# kernel launches per wrapper since the last reset_launches()
+LAUNCHES = {"ich_spmv": 0, "ich_spmv_sharded": 0}
+
+_MAX_SMEM = 48 * 1024  # static-launch shared memory limit per CTA
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------- plain versions
+def tile_partials(vals: torch.Tensor, cols: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """(N, R) slot partials of (N, R, W) tiles: the left fold over w of
+    vals * x[cols], in ascending w — the kernel's order."""
+    acc = torch.zeros(vals.shape[:2], dtype=torch.float32, device=vals.device)
+    for w in range(vals.shape[2]):
+        acc = acc + vals[:, :, w] * x[cols[:, :, w].long()]
+    return acc
+
+
+def ich_spmv_plain(vals, cols, rowid, x, n_rows: int) -> torch.Tensor:
+    """Plain version of `ich_spmv`: vals/cols (T, R, W), rowid (T, R),
+    x (n,) -> y (n_rows,)."""
+    y = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+    return segmented_apply(y, rowid, tile_partials(vals, cols, x))
+
+
+def _shard_tiles(blkid: torch.Tensor, B: int) -> torch.Tensor:
+    """Flat tile index of every tile slot of the shard layout, (p*S,)."""
+    b = torch.arange(B, device=blkid.device)
+    return (blkid.long()[:, None] * B + b[None, :]).reshape(-1)
+
+
+def ich_spmv_sharded_plain(vals, cols, rowid, blkid, x, n_rows: int, p: int,
+                           superstep: int, *, slot_cost=None):
+    """Plain version of `ich_spmv_sharded`, written as the reference is:
+    each worker folds its tiles, in shard order, into its own row of a
+    (p, n_rows) accumulator, and `worker_reduce` folds the rows."""
+    T_pad, R, _ = vals.shape
+    B = int(superstep)
+    S_B = blkid.numel() // p
+    tiles = _shard_tiles(blkid, B)
+    partial = tile_partials(vals, cols, x)[tiles]           # (p*S, R)
+    owner = torch.arange(p, device=x.device).repeat_interleave(S_B * B)
+    rows = torch.where(rowid >= 0, rowid.long() + owner[:, None] * n_rows,
+                       -1)
+    acc = torch.zeros(p * n_rows, dtype=torch.float32, device=x.device)
+    y = worker_reduce(segmented_apply(acc, rows, partial).view(p, n_rows))
+    if slot_cost is None:
+        return y
+    costs = emit_step_cost(rowid.reshape(p * S_B, B * R),
+                           slot_cost[tiles].reshape(p * S_B, B * R))
+    return y, costs.view(p, S_B)
+
+
+# --------------------------------------------------------------- wrappers
+def _check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor when x is")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+
+
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU (plain version); False when
+    all lie on CUDA (kernel). Anything else is an error."""
+    devs = {t.device.type for t in tensors if t is not None}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"tensors must all lie on the CPU or all on CUDA, "
+                     f"got {sorted(devs)}")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ich_spmv")
+    if not getattr(lib, "_typed", False):
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.ich_spmv_sharded_launch.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+        lib.ich_spmv_sharded_launch.restype = i32
+        lib.ich_spmv_launch.argtypes = [ptr] * 5 + [i64, i32, i32, ptr]
+        lib.ich_spmv_launch.restype = i32
+        lib.ich_spmv_seq_tiles.argtypes = []
+        lib.ich_spmv_seq_tiles.restype = i32
+        lib._typed = True
+    return lib
+
+
+def _raise_on(code: int, kernel: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{kernel} launch failed with CUDA error {code}")
+
+
+def ich_spmv(vals, cols, rowid, x, n_rows: int) -> torch.Tensor:
+    """Sequential walk. vals/cols (T, R, W) f32/i32, rowid (T, R) i32,
+    x (n,) f32 -> y (n_rows,) f32."""
+    if _on_cpu(vals, cols, rowid, x):
+        return ich_spmv_plain(vals, cols, rowid, x, n_rows)
+    T, R, W = vals.shape
+    _check("vals", vals, torch.float32)
+    _check("cols", cols, torch.int32, (T, R, W))
+    _check("rowid", rowid, torch.int32, (T, R))
+    _check("x", x, torch.float32)
+    y = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+    if T == 0:
+        return y
+    lib = _lib()
+    if lib.ich_spmv_seq_tiles() * R * 8 > _MAX_SMEM:
+        raise ValueError(f"rows_per_tile={R} needs more shared memory than "
+                         "a static launch has")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.ich_spmv_launch(vals.data_ptr(), cols.data_ptr(),
+                               rowid.data_ptr(), x.data_ptr(), y.data_ptr(),
+                               T, R, W, stream)
+    _raise_on(code, "ich_spmv")
+    LAUNCHES["ich_spmv"] += 1
+    return y
+
+
+def ich_spmv_sharded(vals, cols, rowid, blkid, x, n_rows: int, p: int,
+                     superstep: int, *, slot_cost=None):
+    """Worker-sharded walk. vals/cols (T_pad, R, W): the FLAT payload with
+    T padded to whole supersteps (`pack_csr(..., pad_tiles_to=B)`); rowid
+    (p*S, R) and blkid (p*S_B,) from `WorkerShards` (`shard_item_id` /
+    `kernel_block_ids`); x (n,). Returns y (n_rows,), or (y, costs) with
+    costs (p, S_B) when `slot_cost`, the (T_pad, R) per-slot cost stream,
+    is given."""
+    T_pad, R, W = vals.shape
+    p, B = int(p), int(superstep)
+    S_B = blkid.shape[0] // p
+    if blkid.shape[0] != p * S_B or rowid.shape[0] != p * S_B * B \
+            or T_pad % B:
+        raise ValueError(f"shard layout mismatch: blkid {tuple(blkid.shape)},"
+                         f" rowid {tuple(rowid.shape)}, T_pad={T_pad}, p={p},"
+                         f" B={B}")
+    if _on_cpu(vals, cols, rowid, blkid, x, slot_cost):
+        return ich_spmv_sharded_plain(vals, cols, rowid, blkid, x, n_rows,
+                                      p, B, slot_cost=slot_cost)
+    _check("vals", vals, torch.float32)
+    _check("cols", cols, torch.int32, (T_pad, R, W))
+    _check("rowid", rowid, torch.int32, (p * S_B * B, R))
+    _check("blkid", blkid, torch.int32, (p * S_B,))
+    _check("x", x, torch.float32)
+    if slot_cost is not None:
+        _check("slot_cost", slot_cost, torch.float32, (T_pad, R))
+    if B * R * 8 > _MAX_SMEM:
+        raise ValueError(f"superstep {B} x rows_per_tile {R} needs more "
+                         "shared memory than a static launch has")
+    y = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+    costs = (None if slot_cost is None else
+             torch.empty((p, S_B), dtype=torch.float32, device=x.device))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _lib().ich_spmv_sharded_launch(
+        vals.data_ptr(), cols.data_ptr(), rowid.data_ptr(), blkid.data_ptr(),
+        None if slot_cost is None else slot_cost.data_ptr(), x.data_ptr(),
+        y.data_ptr(), None if costs is None else costs.data_ptr(),
+        p, S_B, B, R, W, stream)
+    _raise_on(code, "ich_spmv_sharded")
+    LAUNCHES["ich_spmv_sharded"] += 1
+    return y if costs is None else (y, costs)

@@ -1,0 +1,52 @@
+"""`repro_torch.sched` — the port's public entry point for loop scheduling.
+
+    from repro_torch import sched
+
+    scheduler = sched.LoopScheduler(p=132)        # device defaults to "cuda"
+    s = scheduler.schedule(costs)                 # -> Schedule (cached, LRU)
+    spmv = scheduler.build("spmv", indptr, indices, data)
+    y = spmv(x)                                   # sharded CUDA kernel
+    s2 = spmv.observe().refine()                  # measured cost -> new gen
+
+Pass ``device="cpu"`` to `LoopScheduler` to run the kernels' plain
+PyTorch versions instead.
+
+Exports are lazy (PEP 562): `repro_torch.core` imports
+`repro_torch.sched.defaults`, so this init must not import core back
+while it is itself being imported.
+"""
+from .defaults import (ICH_EPS, MAX_WIDTH, MIN_WIDTH, ROWS_PER_TILE,
+                       SUPERSTEP)
+
+_LAZY = {
+    "LoopScheduler": "api",
+    "Schedule": "api",
+    "CostRefiner": "adaptive",
+    "CostProvider": "costs",
+    "ExplicitCosts": "costs",
+    "NnzCosts": "costs",
+    "RefinedCosts": "costs",
+    "as_cost_provider": "costs",
+    "CacheStats": "cache",
+    "ScheduleCache": "cache",
+    "SpmvOp": "kernels",
+    "WorkloadSpec": "registry",
+    "get": "registry",
+    "register": "registry",
+    "registered": "registry",
+}
+
+__all__ = ["ICH_EPS", "MAX_WIDTH", "MIN_WIDTH", "ROWS_PER_TILE", "SUPERSTEP",
+           *sorted(_LAZY)]
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(f".{mod}", __name__), name)
+
+
+def __dir__():
+    return sorted(__all__)

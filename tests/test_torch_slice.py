@@ -1,0 +1,126 @@
+"""The SpMV slice end to end through both packages, and the port's
+boundaries: it imports nothing of JAX or of `repro`, and its entry points
+run on the card unless asked for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import random_csr
+from repro import sched as RS
+from repro_torch import sched as PS
+from repro_torch.kernels.ich_spmv import ich_spmv as K
+
+ROOT = Path(__file__).resolve().parents[1]
+N = 260
+
+
+def _assert_same_schedule(port, ref):
+    assert port.width == ref.width and port.generation == ref.generation
+    np.testing.assert_array_equal(port.item_id, ref.item_id)
+    np.testing.assert_array_equal(port.costs, ref.costs)
+    np.testing.assert_array_equal(port.shard().worker, ref.shard().worker)
+    np.testing.assert_array_equal(port.shard().block_perm,
+                                  ref.shard().block_perm)
+
+
+def test_slice_end_to_end_matches_reference():
+    indptr, indices, data = random_csr(N, seed=11)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal(N).astype(np.float32)
+    ref_op = RS.LoopScheduler(p=4).build("spmv", indptr, indices, data)
+    port_op = PS.LoopScheduler(p=4, device="cpu").build(
+        "spmv", indptr, indices, data)
+    K.reset_launches()
+    for round_ in range(2):
+        _assert_same_schedule(port_op.schedule, ref_op.schedule)
+        y_ref = np.asarray(ref_op(x, interpret=True))
+        y = port_op(x)
+        np.testing.assert_allclose(y.numpy(), y_ref, rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(port_op.last_costs.numpy(),
+                                      np.asarray(ref_op.last_costs))
+        np.testing.assert_array_equal(
+            port_op.last_costs.numpy().sum(axis=1),
+            port_op.shards.worker_cost(
+                port_op.schedule.tile_cost()).astype(np.float32))
+        if round_ == 0:
+            ref_s2 = ref_op.observe().refine()
+            port_s2 = port_op.observe().refine()
+            _assert_same_schedule(port_s2, ref_s2)
+            from repro.sched.kernels import SpmvOp as RefSpmvOp
+            ref_op = RefSpmvOp(ref_s2, indptr, indices, data)
+            port_op = PS.SpmvOp(port_s2, indptr, indices, data,
+                                device="cpu")
+    # on the CPU the wrapper runs the plain version: no kernel launched
+    assert K.LAUNCHES == {"ich_spmv": 0, "ich_spmv_sharded": 0}
+
+
+def test_schedule_cache_and_observe_levels():
+    indptr, indices, data = random_csr(N, seed=5)
+    scheduler = PS.LoopScheduler(p=2, device="cpu")
+    s = scheduler.schedule(PS.NnzCosts(indptr))
+    assert scheduler.schedule(PS.NnzCosts(indptr)) is s
+    assert scheduler.cache_stats.hits == 1
+    ref = RS.LoopScheduler(p=2).schedule(RS.NnzCosts(indptr))
+    tiles_measured = s.tile_cost() * 1.5
+    s2 = s.observe(tiles_measured, level="tile").refine()
+    r2 = ref.observe(tiles_measured, level="tile").refine()
+    _assert_same_schedule(s2, r2)
+    items_measured = np.arange(N, dtype=np.float64)
+    s3 = s2.observe(items_measured, level="item").refine()
+    r3 = r2.observe(items_measured, level="item").refine()
+    _assert_same_schedule(s3, r3)
+    with pytest.raises(ValueError, match="does not match"):
+        s.observe(np.zeros((3, 3)))
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    indptr, indices, data = random_csr(40, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PS.LoopScheduler(p=2)
+    s = PS.LoopScheduler(p=2, device="cpu").schedule(np.diff(indptr))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PS.SpmvOp(s, indptr, indices, data)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PS.LoopScheduler(p=2, device="cuda")
+    assert PS.SpmvOp(s, indptr, indices, data, device="cpu")(
+        np.ones(40, np.float32)).device.type == "cpu"
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = ("import sys; import repro_torch, repro_torch.sched, "
+            "repro_torch.convert, repro_torch.sched.kernels, "
+            "repro_torch.kernels.ich_spmv.ref; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_port_file_imports_jax_or_the_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        bad = {r for r in _imported_roots(f)
+               if r in ("jax", "jaxlib", "repro")}
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
