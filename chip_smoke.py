@@ -3,14 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
-against its plain PyTorch version on the card, drives the SpMV main path
-(schedule -> sharded kernel -> observe/refine -> sharded kernel) on the
-paper's `wikipedia` matrix at its published size (3,566,907 rows), checks
-the result against a float64 host product, times every kernel beside its
-plain version, its bound and cuSPARSE, and prints one JSON line per
-result. Any failed check raises, so the script exits non-zero and prints
-no final line. It needs CUDA and the repository's `src/` beside it.
+Builds the port's CUDA kernels from `src/repro_torch/csrc/` (one nvcc per
+source, all started together), holds each against its plain PyTorch
+version on the card, and drives the port's three main paths, each with
+its launch counters set to 0 just before it and read just after:
+
+* SpMV (schedule -> sharded kernel -> observe/refine -> sharded kernel) on
+  the paper's `wikipedia` matrix at its published size (3,566,907 rows),
+  checked against a float64 host product;
+* BFS (`levels(0)`, cross-checked against the sequential kernel at every
+  level, then observe/refine and `levels(0)` again) at Rodinia BFS's
+  largest published input, 1,000,000 vertices, on both graph kinds of the
+  paper's BF workload, checked against a host BFS (scipy);
+* K-Means assignment (run, cross-check, observe/refine, run, and two more
+  rounds' schedules) at the shape of Rodinia K-Means' `kdd_cup` input,
+  494,020 points x 34 features, K = 5, checked against a float64 host
+  argmin.
+
+It times every kernel beside its plain version, its bound and one PyTorch
+call computing the same function (cuSPARSE SpMV, `torch.cdist` argmin),
+and prints one JSON line per result. Any failed check raises, so the
+script exits non-zero and prints no final line. It needs CUDA and the
+repository's `src/` beside it.
 
 The last line is `{"ok": true, "device": {...}}`; the line before the
 last gives the card's name and power limit as nvidia-smi reports them, and
@@ -30,13 +44,31 @@ SEED = 0
 N_ROWS = 3_566_907          # SuiteSparse Gleich/wikipedia-20070206
 MATRIX = "wikipedia"
 SMALL_ROWS = 20_000
+N_VERTICES = 1_000_000      # Rodinia BFS, largest published input (graph1M)
+GRAPHS = ("uniform", "scale_free")   # the paper's BF workload (Fig. 5a)
+N_POINTS, N_FEATURES, N_CLUSTERS = 494_020, 34, 5   # Rodinia kdd_cup
+KMEANS_ROUNDS = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 RTOL = ATOL = 1e-5          # kernel vs plain: same adds, other reductions
 HOST_RTOL = 1e-4            # vs float64, relative to each row's sum |a*x|
-SOURCE = "src/repro_torch/csrc/ich_spmv.cu"
-REPLACES = {"ich_spmv": "src/repro/kernels/ich_spmv/ich_spmv.py:109",
-            "ich_spmv_sharded": "src/repro/kernels/ich_spmv/ich_spmv.py:215"}
+COST_RTOL = 1e-6            # K-Means float cost sums vs float64 totals
+TIE_RTOL = 1e-5             # K-Means ids may differ from float64 only here
+PASS = "src/repro/kernels/"
+KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
+    "ich_spmv": ("src/repro_torch/csrc/ich_spmv.cu",
+                 PASS + "ich_spmv/ich_spmv.py:109"),
+    "ich_spmv_sharded": ("src/repro_torch/csrc/ich_spmv.cu",
+                         PASS + "ich_spmv/ich_spmv.py:215"),
+    "ich_bfs_step": ("src/repro_torch/csrc/ich_bfs.cu",
+                     PASS + "ich_bfs/ich_bfs.py:90"),
+    "ich_bfs_step_sharded": ("src/repro_torch/csrc/ich_bfs.cu",
+                             PASS + "ich_bfs/ich_bfs.py:195"),
+    "ich_kmeans_assign": ("src/repro_torch/csrc/ich_kmeans.cu",
+                          PASS + "ich_kmeans/ich_kmeans.py:83"),
+    "ich_kmeans_assign_sharded": ("src/repro_torch/csrc/ich_kmeans.cu",
+                                  PASS + "ich_kmeans/ich_kmeans.py:163"),
+}
 
 
 def log(**kw) -> None:
@@ -80,6 +112,21 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return float(np.median(times))
+
+
+def kernel_entry(name, *, launches, err, ms, plain_ms, library_ms,
+                 bytes_, flops) -> dict:
+    """One kernel's record for the `kernels` line: `bound_ms` is the larger
+    of its bytes over the memory rate and its operations over the float32
+    rate."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "bytes": bytes_, "flops": flops}
 
 
 def phase_environment():
@@ -145,6 +192,82 @@ def phase_small():
           "0-tile schedule returns zeros with no launch")
     log(phase="small", rows=SMALL_ROWS, nnz=int(indptr[-1]),
         max_abs_err=worst, ok=True)
+
+
+def phase_small_bfs_kmeans():
+    """The BFS and K-Means kernels against their plain versions at
+    p in {1, 2, 4} x B in {1, 4, 8}: BFS on a small uniform graph, K-Means
+    on small points with a heavy point split over several tiles; sharded ==
+    sequential exactly; a 0-vertex graph and a 0-point K-Means launch
+    nothing."""
+    import torch
+    from repro_torch.core.workloads import bfs_graph
+    from repro_torch.kernels.ich_bfs import ich_bfs as KB
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as KK
+    from repro_torch.sched import LoopScheduler
+    rng = np.random.default_rng(SEED + 2)
+    indptr, indices = bfs_graph("uniform", SMALL_ROWS, SEED)
+    f = torch.from_numpy((rng.random(SMALL_ROWS) < 0.05).astype(
+        np.float32)).cuda()
+    v = torch.maximum(f, torch.from_numpy(
+        (rng.random(SMALL_ROWS) < 0.3).astype(np.float32)).cuda())
+    costs = rng.uniform(6.0, 10.0, SMALL_ROWS)
+    costs[123] = 20_000.0  # heavier than many slots: split over tiles
+    pts = torch.from_numpy(rng.standard_normal(
+        (SMALL_ROWS, N_FEATURES)).astype(np.float32)).cuda()
+    cent = torch.from_numpy(rng.standard_normal(
+        (N_CLUSTERS, N_FEATURES)).astype(np.float32)).cuda()
+    for p in (1, 2, 4):
+        for B in (1, 4, 8):
+            sched = LoopScheduler(p=p, superstep=B, cache_size=0)
+            op = sched.build("bfs", indptr, indices)
+            args = (op.mask, op.cols, op.rowid, op.blkid, f, v, op.n, p, B)
+            nxt, c = KB.ich_bfs_step_sharded(*args, slot_cost=op.slot_cost)
+            nxt_p, c_p = KB.ich_bfs_step_sharded_plain(
+                *args, slot_cost=op.slot_cost)
+            T = op.n_tiles
+            seq = (op.mask[:T], op.cols[:T],
+                   torch.from_numpy(op.schedule.item_id).cuda(), f, v, op.n)
+            nxt_s = KB.ich_bfs_step(*seq)
+            torch.cuda.synchronize()
+            check(torch.equal(nxt, nxt_p) and torch.equal(c, c_p),
+                  f"BFS sharded kernel == plain at p={p} B={B}")
+            check(torch.equal(nxt_s, KB.ich_bfs_step_plain(*seq)),
+                  f"BFS sequential kernel == plain at p={p} B={B}")
+            check(torch.equal(nxt, nxt_s),
+                  f"BFS sharded == sequential bit for bit at p={p} B={B}")
+            km = sched.build("kmeans", costs)
+            check(np.unique(np.nonzero(km.schedule.item_id == 123)[0]).size
+                  > 1, "the heavy point spans several tiles")
+            ids, c = KK.ich_kmeans_assign_sharded(
+                pts, cent, km.rowid, p, B, slot_cost=km.slot_cost)
+            ids_p, c_p = KK.ich_kmeans_assign_sharded_plain(
+                pts, cent, km.rowid, p, B, slot_cost=km.slot_cost)
+            rid = torch.from_numpy(km.schedule.item_id).cuda()
+            ids_s = KK.ich_kmeans_assign(pts, cent, rid)
+            torch.cuda.synchronize()
+            check(torch.equal(ids, ids_p) and torch.equal(c, c_p),
+                  f"K-Means sharded kernel == plain at p={p} B={B}")
+            check(torch.equal(ids_s,
+                              KK.ich_kmeans_assign_plain(pts, cent, rid)),
+                  f"K-Means sequential kernel == plain at p={p} B={B}")
+            check(torch.equal(ids, ids_s),
+                  f"K-Means sharded == sequential at p={p} B={B}")
+    before = (dict(KB.LAUNCHES), dict(KK.LAUNCHES))
+    empty = LoopScheduler(p=4).build("bfs", np.zeros(1, np.int64),
+                                     np.zeros(0, np.int32))
+    z = torch.zeros(0, device="cuda")
+    nxt0 = empty.step(z, z)
+    km0 = LoopScheduler(p=4).build("kmeans", np.zeros(0))
+    ids0 = km0(torch.zeros((0, 3), device="cuda"),
+               torch.zeros((2, 3), device="cuda"))
+    check(nxt0.shape == (0,) and nxt0.dtype == torch.float32
+          and ids0.shape == (0,) and ids0.dtype == torch.int32
+          and not empty.last_costs.any() and not km0.last_costs.any()
+          and (dict(KB.LAUNCHES), dict(KK.LAUNCHES)) == before,
+          "0-vertex BFS and 0-point K-Means return empty outputs unlaunched")
+    log(phase="small_bfs_kmeans", vertices=SMALL_ROWS,
+        edges=int(indptr[-1]), points=SMALL_ROWS, ok=True)
 
 
 def _host_reference(indptr, indices, data, x):
@@ -216,7 +339,7 @@ def phase_main(sm_count):
     launches = dict(K.LAUNCHES)
     log(phase="main_path", seconds=t_path, launches=launches,
         generation=s2.generation)
-    for name in REPLACES:
+    for name in launches:
         check(launches[name] > 0, f"{name} launched on the main path")
     _check_run(op, y, y64, absum, "generation 0")
     check(torch.equal(y, y_seq), "full-size sharded == sequential bit for bit")
@@ -272,18 +395,287 @@ def phase_main(sm_count):
         "ich_spmv": common + T * R * 4,         # rowid
     }
     flops = 2 * real * W
+    return [kernel_entry(name, launches=launches[name], err=err,
+                         ms=ms[name], plain_ms=plain_ms[name],
+                         library_ms=library_ms, bytes_=bytes_[name],
+                         flops=flops)
+            for name, err in (("ich_spmv_sharded", err_sharded),
+                              ("ich_spmv", err_seq))]
+
+
+def _host_levels(indptr, indices):
+    """BFS levels from vertex 0 on the host (scipy): row u of the CSR lists
+    u's in-neighbors, so the edges are v -> u; unreached = -1."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+    n = indptr.size - 1
+    row = np.repeat(np.arange(n), np.diff(indptr))
+    g = csr_matrix((np.ones(indices.size, np.float32), (indices, row)),
+                   shape=(n, n))
+    d = shortest_path(g, unweighted=True, indices=0)
+    return np.where(np.isinf(d), -1, d).astype(np.int32)
+
+
+def _bfs_run(kind, sm_count):
+    """One graph's BFS main path, counted; then its kernels against their
+    plain versions and their times at the level with the largest
+    frontier."""
+    import torch
+    from repro_torch.core.workloads import bfs_graph
+    from repro_torch.kernels.ich_bfs import ich_bfs as K
+    from repro_torch.sched import BfsOp, LoopScheduler
+
+    t0 = time.perf_counter()
+    indptr, indices = bfs_graph(kind, N_VERTICES, SEED)
+    level_host = _host_levels(indptr, indices)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = LoopScheduler(p=sm_count).build("bfs", indptr, indices)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    s, n, T = op.schedule, op.n, op.n_tiles
+    rowid_seq = torch.from_numpy(s.item_id).cuda()
+
+    def seq_args(f, v):
+        return (op.mask[:T], op.cols[:T], rowid_seq, f, v, n)
+
+    # ---- the main path, counted: levels -> per-level cross-check ->
+    #      refine -> levels ----
+    K.reset_launches()
+    t0 = time.perf_counter()
+    level = op.levels(0)
+    torch.cuda.synchronize()
+    t_levels = time.perf_counter() - t0
+    frontier = torch.zeros(n, device="cuda")
+    frontier[0] = 1.0
+    visited = frontier.clone()
+    level_loop = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+    level_loop[0] = 0
+    depth, widest, big = 0, -1, None
+    while bool(frontier.any()):
+        width = int(frontier.sum())
+        if width > widest:
+            widest, big = width, (frontier, visited)
+        nxt = op.step(frontier, visited)
+        check(torch.equal(nxt, K.ich_bfs_step(*seq_args(frontier, visited))),
+              f"{kind}: sharded == sequential frontier at level {depth + 1}")
+        depth += 1
+        level_loop = torch.where(nxt > 0, depth, level_loop)
+        visited = torch.maximum(visited, nxt)
+        frontier = nxt
+    s2 = op.observe().refine()
+    level2 = BfsOp(s2, indptr, indices).levels(0)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    log(phase="bfs_main_path", graph=kind, vertices=n,
+        edges=int(indptr[-1]), max_degree=int(np.diff(indptr).max()),
+        width=s.width, tiles=T, steps=op.shards.n_steps, levels=depth,
+        widest_frontier=widest, reached=int((level >= 0).sum()),
+        traversal_s=t_levels, setup_s=t_setup, build_s=t_build,
+        launches=launches, generation=s2.generation)
+    check(np.array_equal(level.cpu().numpy(), level_host),
+          f"{kind}: levels == host BFS")
+    check(torch.equal(level_loop, level), f"{kind}: step loop == levels()")
+    emitted = op.last_costs.cpu().numpy().sum(axis=1)
+    check(np.array_equal(emitted, op.shards.worker_cost(
+        s.tile_cost()).astype(np.float32)),
+        f"{kind}: per-worker cost sums == worker_cost(tile_cost())")
+    check(s2.generation == 1 and torch.equal(level2, level),
+          f"{kind}: refined generation gives the same levels")
+    del level2, level_loop
+    # the first traversal above paid for PyTorch's first use of its own
+    # kernels; the warm traversal is the median of three more
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        op.levels(0)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    log(phase="bfs_traversal", graph=kind, levels=depth,
+        first_s=t_levels, warm_median_s=float(np.median(warm)))
+
+    # ---- kernels against their plain versions at the widest level ----
+    f, v = big
+    args = (op.mask, op.cols, op.rowid, op.blkid, f, v, n, op.p,
+            op.superstep)
+    y_k, c_k = K.ich_bfs_step_sharded(*args, slot_cost=op.slot_cost)
+    y_p, c_p = K.ich_bfs_step_sharded_plain(*args, slot_cost=op.slot_cost)
+    check(torch.equal(y_k, y_p) and torch.equal(c_k, c_p),
+          f"{kind}: full-size sharded kernel == plain")
+    y_s = K.ich_bfs_step(*seq_args(f, v))
+    y_sp = K.ich_bfs_step_plain(*seq_args(f, v))
+    check(torch.equal(y_s, y_sp), f"{kind}: full-size sequential == plain")
+    err = {"ich_bfs_step_sharded": float((y_k - y_p).abs().max()),
+           "ich_bfs_step": float((y_s - y_sp).abs().max())}
+    del y_p, c_p, y_sp
+    ms = {"ich_bfs_step_sharded": timed_ms(
+              lambda: K.ich_bfs_step_sharded(*args, slot_cost=op.slot_cost)),
+          "ich_bfs_step": timed_ms(lambda: K.ich_bfs_step(*seq_args(f, v)))}
+    plain_ms = {
+        "ich_bfs_step_sharded": timed_ms(lambda: K.ich_bfs_step_sharded_plain(
+            *args, slot_cost=op.slot_cost)),
+        "ich_bfs_step": timed_ms(
+            lambda: K.ich_bfs_step_plain(*seq_args(f, v)))}
+    # yardstick: cuSPARSE over the 0/1 CSR counts each vertex's frontier
+    # in-neighbors; count > 0 on an unvisited vertex is the next frontier
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(indptr.astype(np.int32)).cuda(),
+        torch.from_numpy(indices.astype(np.int32)).cuda(),
+        torch.ones(indices.size, device="cuda"), size=(n, n),
+        check_invariants=False)
+    hits = csr @ f
+    check(torch.equal((hits > 0).float() * (1.0 - v), y_k),
+          f"{kind}: cuSPARSE frontier count agrees")
+    library_ms = timed_ms(lambda: csr @ f)
+    del csr, hits
+
+    # ---- bounds: bytes each input is read once / output written once ----
+    real = int((s.item_id >= 0).sum())        # slots the kernels read
+    W = s.width
+    p, S_B = op.shards.block_perm.shape
+    common = real * W * 8 + 3 * n * 4         # mask+cols; f, visited, out
+    bytes_ = {"ich_bfs_step_sharded": common + real * 4
+              + op.rowid.numel() * 4 + p * S_B * 4 * 2,
+              "ich_bfs_step": common + T * s.rows_per_tile * 4}
+    flops = 2 * real * W                      # a multiply and a max a lane
+    return {name: kernel_entry(name, launches=launches[name], err=err[name],
+                               ms=ms[name], plain_ms=plain_ms[name],
+                               library_ms=library_ms, bytes_=bytes_[name],
+                               flops=flops)
+            for name in ms}
+
+
+def phase_bfs(sm_count):
+    """Both graphs of the paper's BF workload at 1,000,000 vertices. The
+    `kernels` line takes the uniform graph's times and both graphs'
+    launches; the scale-free graph's times are logged beside them."""
+    runs = {kind: _bfs_run(kind, sm_count) for kind in GRAPHS}
+    for kind, entries in runs.items():
+        log(phase="bfs_kernels", graph=kind, kernels=list(entries.values()))
     kernels = []
-    for name, err in (("ich_spmv_sharded", err_sharded), ("ich_spmv", err_seq)):
-        t_bytes = bytes_[name] / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": err, "ms": ms[name], "plain_ms": plain_ms[name],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "bytes": bytes_[name], "flops": flops})
+    for name, entry in runs[GRAPHS[0]].items():
+        entry = dict(entry)
+        entry["launches"] = sum(r[name]["launches"] for r in runs.values())
+        check(entry["launches"] > 0, f"{name} launched on the main path")
+        kernels.append(entry)
     return kernels
+
+
+def _near_tie_mismatches(points, centroids, ids):
+    """Points whose id differs from the float64 host argmin, and whether
+    every one of them is a near tie (float64 distances of the two
+    centroids within TIE_RTOL)."""
+    pts = points.cpu().numpy().astype(np.float64)
+    cent = centroids.cpu().numpy().astype(np.float64)
+    d2 = np.stack([((pts - c) ** 2).sum(axis=1) for c in cent], axis=1)
+    host = d2.argmin(axis=1)
+    ours = ids.cpu().numpy()
+    diff = np.nonzero(ours != host)[0]
+    a, b = d2[diff, ours[diff]], d2[diff, host[diff]]
+    return diff.size, bool(np.all(np.abs(a - b) <= TIE_RTOL * b))
+
+
+def phase_kmeans(sm_count):
+    """K-Means assignment at the kdd_cup shape: the round-0 schedule's run,
+    its sequential cross-check, observe/refine and the refined run, then
+    rounds 1-2 as fresh schedules, all giving the same ids."""
+    import torch
+    from repro_torch.core.workloads import kmeans_rounds
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as K
+    from repro_torch.sched import KMeansOp, LoopScheduler
+
+    t0 = time.perf_counter()
+    rounds, _ = kmeans_rounds(N_POINTS, rounds=KMEANS_ROUNDS, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    pts = torch.from_numpy(rng.standard_normal(
+        (N_POINTS, N_FEATURES)).astype(np.float32)).cuda()
+    cent = torch.from_numpy(rng.standard_normal(
+        (N_CLUSTERS, N_FEATURES)).astype(np.float32)).cuda()
+    t_setup = time.perf_counter() - t0
+    scheduler = LoopScheduler(p=sm_count)
+    t0 = time.perf_counter()
+    op = scheduler.build("kmeans", rounds[0])
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    s = op.schedule
+    rowid_seq = torch.from_numpy(s.item_id).cuda()
+
+    # ---- the main path, counted ----
+    K.reset_launches()
+    t0 = time.perf_counter()
+    ids = op(pts, cent)
+    ids_seq = K.ich_kmeans_assign(pts, cent, rowid_seq)
+    s2 = op.observe().refine()
+    ids2 = KMeansOp(s2, rounds[0])(pts, cent)
+    later = [scheduler.build("kmeans", r)(pts, cent) for r in rounds[1:]]
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    n_ties, ties_ok = _near_tie_mismatches(pts, cent, ids)
+    log(phase="kmeans_main_path", points=N_POINTS, features=N_FEATURES,
+        clusters=N_CLUSTERS, width=s.width, tiles=s.n_tiles,
+        live_slots=int((s.item_id >= 0).sum()), steps=op.shards.n_steps,
+        seconds=t_path, setup_s=t_setup, build_s=t_build,
+        launches=launches, generation=s2.generation,
+        near_tie_mismatches=n_ties)
+    for name in launches:
+        check(launches[name] > 0, f"{name} launched on the main path")
+    check(torch.equal(ids, ids_seq), "K-Means sharded == sequential ids")
+    check(ties_ok, "K-Means ids == float64 argmin outside near ties")
+    emitted = op.last_costs.cpu().numpy().astype(np.float64).sum(axis=1)
+    expect = op.shards.worker_cost(s.tile_cost())
+    check(bool(np.allclose(emitted, expect, rtol=COST_RTOL, atol=0)),
+          "K-Means per-worker cost sums within 1e-6 of worker_cost")
+    check(s2.generation == 1 and torch.equal(ids2, ids),
+          "K-Means refined generation gives the same ids")
+    check(all(torch.equal(x, ids) for x in later),
+          "K-Means rounds 1-2 give the same ids")
+    del ids2, later
+
+    # ---- kernels against their plain versions at the main path's shapes ----
+    args = (pts, cent, op.rowid, op.p, op.superstep)
+    i_k, c_k = K.ich_kmeans_assign_sharded(*args, slot_cost=op.slot_cost)
+    i_p, c_p = K.ich_kmeans_assign_sharded_plain(*args,
+                                                 slot_cost=op.slot_cost)
+    check(torch.equal(i_k, i_p) and torch.equal(c_k, c_p),
+          "full-size K-Means sharded kernel == plain")
+    i_sp = K.ich_kmeans_assign_plain(pts, cent, rowid_seq)
+    check(torch.equal(ids_seq, i_sp), "full-size K-Means sequential == plain")
+    err = {"ich_kmeans_assign_sharded": float((i_k - i_p).abs().max()),
+           "ich_kmeans_assign": float((ids_seq - i_sp).abs().max())}
+    del i_k, c_k, i_p, c_p, i_sp
+    ms = {"ich_kmeans_assign_sharded": timed_ms(
+              lambda: K.ich_kmeans_assign_sharded(
+                  *args, slot_cost=op.slot_cost)),
+          "ich_kmeans_assign": timed_ms(
+              lambda: K.ich_kmeans_assign(pts, cent, rowid_seq))}
+    plain_ms = {
+        "ich_kmeans_assign_sharded": timed_ms(
+            lambda: K.ich_kmeans_assign_sharded_plain(
+                *args, slot_cost=op.slot_cost)),
+        "ich_kmeans_assign": timed_ms(
+            lambda: K.ich_kmeans_assign_plain(pts, cent, rowid_seq))}
+    # yardstick: cdist's distances take another formula, so its ids may
+    # differ on near ties; the count is logged, not held
+    lib_ids = torch.cdist(pts, cent).argmin(dim=1)
+    log(phase="kmeans_library", cdist_argmin_mismatches=int(
+        (lib_ids != ids).sum()))
+    library_ms = timed_ms(lambda: torch.cdist(pts, cent).argmin(dim=1))
+
+    # ---- bounds: bytes each input is read once / output written once ----
+    live = int((s.item_id >= 0).sum())
+    p, S_B = op.shards.block_perm.shape
+    common = (N_POINTS * N_FEATURES + N_CLUSTERS * N_FEATURES
+              + N_POINTS) * 4                  # points, centroids, ids
+    bytes_ = {"ich_kmeans_assign_sharded": common + op.rowid.numel() * 8
+              + p * S_B * 4,                   # rowid+slot_cost, costs
+              "ich_kmeans_assign": common + rowid_seq.numel() * 4}
+    flops = 3 * live * N_CLUSTERS * N_FEATURES   # sub, mul, add
+    return [kernel_entry(name, launches=launches[name], err=err[name],
+                         ms=ms[name], plain_ms=plain_ms[name],
+                         library_ms=library_ms, bytes_=bytes_[name],
+                         flops=flops)
+            for name in ms]
 
 
 def main() -> int:
@@ -295,7 +687,10 @@ def main() -> int:
     from repro_torch.device import card_identity
     sm_count = phase_environment()
     phase_small()
+    phase_small_bfs_kmeans()
     kernels = phase_main(sm_count)
+    kernels += phase_bfs(sm_count)
+    kernels += phase_kmeans(sm_count)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)
     print(json.dumps({"ok": True, "device": {

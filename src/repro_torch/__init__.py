@@ -2,11 +2,12 @@
 CUDA kernels for NVIDIA Hopper (sm_90a).
 
 This package is the PyTorch/CUDA counterpart of `repro`. Its layout mirrors
-`repro` (`core/`, `sched/`, `kernels/ich_spmv/`) so each module's twin is
-easy to find, but it imports nothing of `repro` and nothing of JAX: the
-numpy host code it needs is copied, not shared.
+`repro` (`core/`, `sched/`, `kernels/ich_{spmv,bfs,kmeans}/`) so each
+module's twin is easy to find, but it imports nothing of `repro` and
+nothing of JAX: the numpy host code it needs is copied, not shared.
 
-The main path is the SpMV one:
+It runs the paper's three applications, each schedule -> sharded CUDA
+kernel -> observe/refine:
 
     from repro_torch import sched
 
@@ -14,6 +15,8 @@ The main path is the SpMV one:
     op = scheduler.build("spmv", indptr, indices, data)
     y = op(x)                                       # ich_spmv_sharded kernel
     op2 = sched.SpmvOp(op.observe().refine(), indptr, indices, data)
+    level = scheduler.build("bfs", indptr, indices).levels(0)
+    ids = scheduler.build("kmeans", point_costs)(points, centroids)
 
 Entry points run on the card unless the caller passes `device="cpu"`, which
 selects each kernel's plain PyTorch version (`repro_torch.device`).

@@ -1,20 +1,55 @@
 """Carry state across from the reference package.
 
 The system has no weights: its state is the lowered schedule and the
-packed payload. `spmv_op_from_reference` takes them as numpy arrays — the
-reference's `TileSchedule` (`item_id`, `width`, `rows_per_tile`), its
-`WorkerShards` (`worker`, `block_perm`, `superstep`), the packed
-`vals`/`cols` and the (T_pad, R) slot-cost stream — and builds the port's
-`SpmvOp` over exactly that lowering, so both packages' kernels can be fed
-the same bytes. Nothing here imports the reference: the caller hands the
-arrays over.
+packed payload. Each function here takes a lowering of the reference as
+numpy arrays — the `TileSchedule` (`item_id`, `width`, `rows_per_tile`),
+its `WorkerShards` (`worker`, `block_perm`, `superstep`), the packed
+payload and the slot-cost stream in the layout the reference's kernel
+reads — and builds the port's op over exactly that lowering, so both
+packages' kernels can be fed the same bytes:
+
+* `spmv_op_from_reference` — `vals`/`cols` and the (T_pad, R) stream;
+* `bfs_op_from_reference` — the all-ones `mask`/`cols` and the (T_pad, R)
+  stream;
+* `kmeans_op_from_reference` — no payload; the (p*S, R) stream in the
+  shard layout.
+
+Nothing here imports the reference: the caller hands the arrays over.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.core.tiling import WorkerShards
-from repro_torch.sched.kernels import SpmvOp
+from repro_torch.sched.kernels import BfsOp, KMeansOp, SpmvOp
+
+
+def _shards(item_id, rows_per_tile, worker, block_perm, superstep):
+    item_id = np.asarray(item_id, np.int32)
+    if item_id.ndim != 2 or item_id.shape[1] != int(rows_per_tile):
+        raise ValueError(f"item_id {item_id.shape} must be (T, "
+                         f"{int(rows_per_tile)})")
+    shards = WorkerShards(worker=np.asarray(worker, np.int32),
+                          block_perm=np.asarray(block_perm, np.int32),
+                          superstep=int(superstep))
+    return item_id, shards
+
+
+def _payload(item_id, width, superstep, vals, cols, slot_cost):
+    """The flat payload and stream as the kernels take them; raises when
+    their shapes disagree with the lowering."""
+    vals = np.asarray(vals, np.float32)
+    cols = np.asarray(cols, np.int32)
+    slot_cost = np.asarray(slot_cost, np.float32)
+    (T, R), W, B = item_id.shape, int(width), int(superstep)
+    T_pad = -(-T // B) * B
+    if vals.shape != (T_pad, R, W) or cols.shape != vals.shape \
+            or slot_cost.shape != (T_pad, R):
+        raise ValueError(
+            f"lowering shapes disagree: item_id {item_id.shape}, payload "
+            f"{vals.shape}, cols {cols.shape}, slot_cost {slot_cost.shape} "
+            f"for R={R}, W={W}, B={B}")
+    return vals, cols, slot_cost
 
 
 def spmv_op_from_reference(*, item_id, width: int, rows_per_tile: int,
@@ -22,21 +57,35 @@ def spmv_op_from_reference(*, item_id, width: int, rows_per_tile: int,
                            slot_cost, n_rows: int, device=None) -> SpmvOp:
     """The port's `SpmvOp` over a lowering given as numpy arrays (see the
     module docstring). Raises when the arrays disagree on shape."""
-    item_id = np.asarray(item_id, np.int32)
-    vals = np.asarray(vals, np.float32)
-    cols = np.asarray(cols, np.int32)
-    slot_cost = np.asarray(slot_cost, np.float32)
-    R, W, B = int(rows_per_tile), int(width), int(superstep)
-    T = item_id.shape[0]
-    T_pad = -(-T // B) * B
-    if item_id.shape != (T, R) or vals.shape != (T_pad, R, W) \
-            or cols.shape != vals.shape or slot_cost.shape != (T_pad, R):
-        raise ValueError(
-            f"lowering shapes disagree: item_id {item_id.shape}, vals "
-            f"{vals.shape}, cols {cols.shape}, slot_cost {slot_cost.shape} "
-            f"for R={R}, W={W}, B={B}")
-    shards = WorkerShards(worker=np.asarray(worker, np.int32),
-                          block_perm=np.asarray(block_perm, np.int32),
-                          superstep=B)
+    item_id, shards = _shards(item_id, rows_per_tile, worker, block_perm,
+                              superstep)
+    vals, cols, slot_cost = _payload(item_id, width, superstep, vals, cols,
+                                     slot_cost)
     return SpmvOp.from_lowering(item_id, shards, vals, cols, slot_cost,
                                 n_rows, device=device)
+
+
+def bfs_op_from_reference(*, item_id, width: int, rows_per_tile: int,
+                          worker, block_perm, superstep: int, mask, cols,
+                          slot_cost, n_vertices: int, device=None) -> BfsOp:
+    """The port's `BfsOp` over a lowering given as numpy arrays (see the
+    module docstring). Raises when the arrays disagree on shape."""
+    item_id, shards = _shards(item_id, rows_per_tile, worker, block_perm,
+                              superstep)
+    mask, cols, slot_cost = _payload(item_id, width, superstep, mask, cols,
+                                     slot_cost)
+    return BfsOp.from_lowering(item_id, shards, mask, cols, slot_cost,
+                               n_vertices, device=device)
+
+
+def kmeans_op_from_reference(*, item_id, rows_per_tile: int, worker,
+                             block_perm, superstep: int, slot_cost,
+                             n_points: int, device=None) -> KMeansOp:
+    """The port's `KMeansOp` over a lowering given as numpy arrays, with
+    `slot_cost` in the (p*S, R) shard layout the reference's K-Means op
+    passes its kernel. Raises when the arrays disagree on shape."""
+    item_id, shards = _shards(item_id, rows_per_tile, worker, block_perm,
+                              superstep)
+    return KMeansOp.from_lowering(item_id, shards,
+                                  np.asarray(slot_cost, np.float32),
+                                  n_points, device=device)

@@ -1,3 +1,4 @@
 """Host-side scheduler core of the port: tile construction (numpy), the
-policy descriptors, Welford statistics, Table-1 workloads, and the plain
-PyTorch segmented epilogue of the kernels."""
+policy descriptors, Welford statistics, the paper's workload generators
+(Table-1 matrices, BFS graphs, K-Means costs), and the plain PyTorch
+segmented epilogue of the kernels."""

@@ -1,8 +1,11 @@
-"""Paper Table 1 matrix specs and the row-nnz synthesizer — the port's copy
-of the SpMV part of `repro.core.workloads` (`MatrixSpec`, `TABLE1`,
-`HUB_*`, `matrix_row_nnz`, `spmv_costs`). The synthesis must stay
-draw-for-draw identical to the reference: the parity tests and the chip
-smoke run build the same matrices through both packages' schedules."""
+"""Workload generators — the port's copy of the kernel-path parts of
+`repro.core.workloads`: the paper's Table 1 matrix specs and row-nnz
+synthesizer (`MatrixSpec`, `TABLE1`, `HUB_*`, `matrix_row_nnz`,
+`spmv_costs`), the BFS graph generator (`bfs_graph`, the graph that
+`bfs_levels` builds) and the K-Means per-round costs (`kmeans_rounds`).
+Every synthesis must stay draw-for-draw identical to the reference: the
+parity tests and the chip smoke run build the same inputs through both
+packages' schedules."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +13,41 @@ import math
 import zlib
 
 import numpy as np
+
+
+def bfs_graph(kind: str = "uniform", n: int = 100_000,
+              seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """The Rodinia-BFS graph of the paper's BF workload, as the reference's
+    `bfs_levels` builds it: uniform degrees in [1, 20] or scale-free
+    degrees P(k) ~ k^-2.3 clipped at n // 10, then uniformly random
+    targets from `seed + 1`. Returns (indptr, indices), both int64."""
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        degrees = rng.integers(1, 21, size=n)
+    elif kind == "scale_free":
+        degrees = np.minimum(rng.zipf(2.3, size=n), n // 10)
+    else:
+        raise ValueError(kind)
+    degrees = degrees.astype(np.int64)
+    rng = np.random.default_rng(seed + 1)
+    indptr = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int64)
+    indices = rng.integers(0, n, size=int(indptr[-1]), dtype=np.int64)
+    return indptr, indices
+
+
+def kmeans_rounds(n: int = 100_000, rounds: int = 10,
+                  seed: int = 0) -> tuple[list[np.ndarray], np.ndarray]:
+    """Per-round per-point costs of the paper's K-Means loop, and the
+    round-0 estimate: a near-uniform base in [6, 10) with a reshuffled 2%
+    heavy tail (Exp(120) added) every round."""
+    rng = np.random.default_rng(seed)
+    out: list[np.ndarray] = []
+    for _ in range(rounds):
+        base = rng.uniform(6.0, 10.0, size=n)
+        tail_idx = rng.choice(n, size=n // 50, replace=False)
+        base[tail_idx] += rng.exponential(120.0, size=len(tail_idx))
+        out.append(base)
+    return out, out[0].copy()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,7 +17,8 @@
 // the same sequence of IEEE float adds and multiplies however tiles are
 // batched into steps: the sharded kernel equals the sequential one bit for
 // bit. Adds and multiplies use __fadd_rn/__fmul_rn so that no FMA
-// contraction changes that sequence.
+// contraction changes that sequence. The fold into y and the cost stream
+// are the shared epilogue of segmented.cuh (AddFold).
 //
 // Ordering without races. The TPU grid runs its steps in order on one core;
 // here one CTA stands for one worker and walks that worker's S_B supersteps
@@ -50,6 +51,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "segmented.cuh"
 
 namespace {
 
@@ -86,30 +89,9 @@ __device__ void fold_tiles(const float* __restrict__ vals,
     partial[k] = acc;
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int row = srow[k];
-    if (row < 0 || (k > 0 && srow[k - 1] == row)) continue;
-    // this thread owns the run of slots on `row` that starts at k; the
-    // run may cross tile boundaries (a split row), each tile's part is
-    // summed first and then added to the row
-    float out = y[row];
-    int i = k;
-    while (i < n && srow[i] == row) {
-      const int tile_end = (i / R + 1) * R;
-      float g = partial[i++];
-      while (i < tile_end && i < n && srow[i] == row) {
-        g = __fadd_rn(g, partial[i++]);
-      }
-      out = __fadd_rn(out, g);
-    }
-    y[row] = out;
-  }
+  ich::fold_runs<ich::AddFold>(srow, partial, n, R, y);
   if (cost_out != nullptr && threadIdx.x == 0) {
-    float c = 0.0f;
-    for (int k = 0; k < n; ++k) {
-      c = __fadd_rn(c, srow[k] >= 0 ? slot_cost[slot0 + k] : 0.0f);
-    }
-    *cost_out = c;
+    *cost_out = ich::masked_cost(srow, slot_cost + slot0, n);
   }
   // the next step overwrites the scratch and may read rows stored here
   __syncthreads();

@@ -3,9 +3,10 @@
 Each `repro_torch/csrc/<name>.cu` has a plain C interface. On first use it
 is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under
 `build/repro_torch_kernels/` at the root of the checkout, named by a hash
-of the source and the flags so an edited source is rebuilt, and loaded with
-`ctypes`. Nothing is compiled or loaded when a module is imported: the
-kernel wrappers call `load()` on their first launch.
+of the source, every shared header `csrc/*.cuh` and the flags, so an edited
+source or header is rebuilt, and loaded with `ctypes`. Nothing is compiled
+or loaded when a module is imported: the kernel wrappers call `load()` on
+their first launch.
 """
 from __future__ import annotations
 
@@ -39,10 +40,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from `csrc/<name>.cu` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library built from `csrc/<name>.cu` lives: named by a hash
+    of the source, of every `csrc/*.cuh` it may include and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -1,0 +1,59 @@
+"""What every kernel wrapper of the port does around its launch: pick the
+plain version or the kernel from where the tensors lie, check what the
+kernel takes, and raise on a failed launch."""
+from __future__ import annotations
+
+import torch
+
+MAX_STATIC_SMEM = 48 * 1024  # static-launch shared memory limit per CTA
+MAX_DYNAMIC_SMEM = 232_448   # what one CTA can have on Hopper (227 KB)
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU (plain version); False when
+    all lie on CUDA (kernel). Anything else is an error."""
+    devs = {t.device.type for t in tensors if t is not None}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"tensors must all lie on the CPU or all on CUDA, "
+                     f"got {sorted(devs)}")
+
+
+def check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and
+    `shape`, when given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor when x is")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+
+
+def raise_on(code: int, kernel: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{kernel} launch failed with CUDA error {code}")
+
+
+def shard_tiles(blkid: torch.Tensor, B: int) -> torch.Tensor:
+    """Flat tile index of every tile slot of the shard layout, (p*S,)."""
+    b = torch.arange(B, device=blkid.device)
+    return (blkid.long()[:, None] * B + b[None, :]).reshape(-1)
+
+
+def check_shard_layout(T_pad: int, rowid, blkid, p: int, B: int) -> int:
+    """S_B of a flat-payload shard layout; raises when rowid (p*S, R),
+    blkid (p*S_B,) and the payload's T_pad do not fit p workers and
+    supersteps of B tiles."""
+    S_B = blkid.shape[0] // p
+    if blkid.shape[0] != p * S_B or rowid.shape[0] != p * S_B * B \
+            or T_pad % B:
+        raise ValueError(f"shard layout mismatch: blkid {tuple(blkid.shape)},"
+                         f" rowid {tuple(rowid.shape)}, T_pad={T_pad}, p={p},"
+                         f" B={B}")
+    return S_B

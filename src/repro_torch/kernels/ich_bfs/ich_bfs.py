@@ -1,0 +1,188 @@
+"""iCh-scheduled pull-direction BFS frontier step: the CUDA kernels'
+wrappers and their plain PyTorch versions.
+
+* `ich_bfs_step` — the sequential walk over the (T, R, W) payload, the
+  cross-check path (counterpart of `repro`'s (T,)-grid kernel);
+* `ich_bfs_step_sharded` — the main path: one worker per CTA over the
+  (p, S_B) superstep layout of `core.tiling.WorkerShards`, reading blocks
+  of B tiles straight out of the flat (T_pad, R, W) payload, with the
+  optional (p, S_B) cost stream the measured-cost refiner consumes.
+
+The graph's row u lists u's in-neighbors; `mask` is the all-ones CSR
+payload packed like SpMV's values (1.0 on real edge lanes, 0.0 on
+padding). Frontier, visited and the result are (n,) float32 0/1
+indicators, so every version gives the same bits.
+
+A wrapper given CPU tensors runs the plain version (`ich_bfs_step_plain`,
+`ich_bfs_step_sharded_plain`); given CUDA tensors it launches the kernel
+of `csrc/ich_bfs.cu` or raises: there is no fallback. Each wrapper counts
+its launches in `LAUNCHES`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.segmented import (emit_step_cost, segmented_apply,
+                                        worker_reduce)
+from repro_torch.kernels import _build
+from repro_torch.kernels._common import (MAX_STATIC_SMEM, check,
+                                         check_shard_layout, on_cpu,
+                                         raise_on, shard_tiles)
+
+__all__ = ["LAUNCHES", "ich_bfs_step", "ich_bfs_step_plain",
+           "ich_bfs_step_sharded", "ich_bfs_step_sharded_plain",
+           "reset_launches"]
+
+# kernel launches per wrapper since the last reset_launches()
+LAUNCHES = {"ich_bfs_step": 0, "ich_bfs_step_sharded": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------- plain versions
+def slot_increments(mask, cols, rows, frontier, visited) -> torch.Tensor:
+    """(N, R) slot values of (N, R, W) tiles on vertices `rows` (N, R):
+    `hit = max_w mask * frontier[cols]`, `inc = hit * (1 - visited[row])`
+    (padding slots, row -1, are left to the fold, which skips them)."""
+    hit = (mask * frontier[cols.long()]).amax(dim=2)
+    valid = rows >= 0
+    seen = torch.zeros_like(hit)
+    seen[valid] = visited[rows[valid].long()]
+    return hit * (1.0 - seen)
+
+
+def ich_bfs_step_plain(mask, cols, rowid, frontier, visited,
+                       n_vertices: int) -> torch.Tensor:
+    """Plain version of `ich_bfs_step`: mask/cols (T, R, W), rowid (T, R),
+    frontier/visited (n,) -> next frontier (n_vertices,)."""
+    out = torch.zeros(n_vertices, dtype=torch.float32, device=frontier.device)
+    inc = slot_increments(mask, cols, rowid, frontier, visited)
+    return segmented_apply(out, rowid, inc, combine="max")
+
+
+def ich_bfs_step_sharded_plain(mask, cols, rowid, blkid, frontier, visited,
+                               n_vertices: int, p: int, superstep: int, *,
+                               slot_cost=None):
+    """Plain version of `ich_bfs_step_sharded`, written as the reference
+    is: each worker max-folds its tiles into its own row of a
+    (p, n_vertices) accumulator, and `worker_reduce` folds the rows."""
+    B = int(superstep)
+    S_B = blkid.numel() // p
+    tiles = shard_tiles(blkid, B)
+    inc = slot_increments(mask[tiles], cols[tiles], rowid, frontier, visited)
+    owner = torch.arange(p, device=frontier.device).repeat_interleave(S_B * B)
+    rows = torch.where(rowid >= 0, rowid.long() + owner[:, None] * n_vertices,
+                       -1)
+    acc = torch.zeros(p * n_vertices, dtype=torch.float32,
+                      device=frontier.device)
+    out = worker_reduce(segmented_apply(acc, rows, inc, combine="max")
+                        .view(p, n_vertices), "max")
+    if slot_cost is None:
+        return out
+    R = rowid.shape[1]
+    costs = emit_step_cost(rowid.reshape(p * S_B, B * R),
+                           slot_cost[tiles].reshape(p * S_B, B * R))
+    return out, costs.view(p, S_B)
+
+
+# --------------------------------------------------------------- wrappers
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ich_bfs")
+    if not getattr(lib, "_typed", False):
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.ich_bfs_step_sharded_launch.argtypes = [ptr] * 9 + [i32] * 5 \
+            + [ptr]
+        lib.ich_bfs_step_sharded_launch.restype = i32
+        lib.ich_bfs_step_launch.argtypes = [ptr] * 6 + [i64, i32, i32, ptr]
+        lib.ich_bfs_step_launch.restype = i32
+        lib.ich_bfs_seq_tiles.argtypes = []
+        lib.ich_bfs_seq_tiles.restype = i32
+        lib._typed = True
+    return lib
+
+
+def _check_indicators(frontier, visited, n_vertices: int) -> None:
+    check("frontier", frontier, torch.float32, (n_vertices,))
+    check("visited", visited, torch.float32, (n_vertices,))
+
+
+def ich_bfs_step(mask, cols, rowid, frontier, visited,
+                 n_vertices: int) -> torch.Tensor:
+    """Sequential walk. mask/cols (T, R, W) f32/i32, rowid (T, R) i32,
+    frontier/visited (n,) f32 -> next frontier (n_vertices,) f32."""
+    if on_cpu(mask, cols, rowid, frontier, visited):
+        return ich_bfs_step_plain(mask, cols, rowid, frontier, visited,
+                                  n_vertices)
+    T, R, W = mask.shape
+    check("mask", mask, torch.float32)
+    check("cols", cols, torch.int32, (T, R, W))
+    check("rowid", rowid, torch.int32, (T, R))
+    _check_indicators(frontier, visited, n_vertices)
+    out = torch.zeros(n_vertices, dtype=torch.float32, device=frontier.device)
+    if T == 0:
+        return out
+    lib = _lib()
+    if lib.ich_bfs_seq_tiles() * R * 8 > MAX_STATIC_SMEM:
+        raise ValueError(f"rows_per_tile={R} needs more shared memory than "
+                         "a static launch has")
+    stream = torch.cuda.current_stream(frontier.device).cuda_stream
+    code = lib.ich_bfs_step_launch(mask.data_ptr(), cols.data_ptr(),
+                                   rowid.data_ptr(), frontier.data_ptr(),
+                                   visited.data_ptr(), out.data_ptr(),
+                                   T, R, W, stream)
+    raise_on(code, "ich_bfs_step")
+    LAUNCHES["ich_bfs_step"] += 1
+    return out
+
+
+def ich_bfs_step_sharded(mask, cols, rowid, blkid, frontier, visited,
+                         n_vertices: int, p: int, superstep: int, *,
+                         slot_cost=None):
+    """Worker-sharded walk. mask/cols (T_pad, R, W): the FLAT payload with
+    T padded to whole supersteps (`pack_csr(..., pad_tiles_to=B)`); rowid
+    (p*S, R) and blkid (p*S_B,) from `WorkerShards`; frontier/visited
+    (n,). Returns the next frontier (n_vertices,), or (frontier, costs)
+    with costs (p, S_B) when `slot_cost`, the (T_pad, R) per-slot cost
+    stream, is given."""
+    T_pad, R, W = mask.shape
+    p, B = int(p), int(superstep)
+    S_B = check_shard_layout(T_pad, rowid, blkid, p, B)
+    cpu = on_cpu(mask, cols, rowid, blkid, frontier, visited, slot_cost)
+    if T_pad == 0:  # an empty graph: nothing to run
+        out = torch.zeros(n_vertices, dtype=torch.float32,
+                          device=frontier.device)
+        return out if slot_cost is None else (
+            out, torch.zeros((p, S_B), dtype=torch.float32,
+                             device=frontier.device))
+    if cpu:
+        return ich_bfs_step_sharded_plain(mask, cols, rowid, blkid, frontier,
+                                          visited, n_vertices, p, B,
+                                          slot_cost=slot_cost)
+    check("mask", mask, torch.float32)
+    check("cols", cols, torch.int32, (T_pad, R, W))
+    check("rowid", rowid, torch.int32, (p * S_B * B, R))
+    check("blkid", blkid, torch.int32, (p * S_B,))
+    _check_indicators(frontier, visited, n_vertices)
+    if slot_cost is not None:
+        check("slot_cost", slot_cost, torch.float32, (T_pad, R))
+    if B * R * 8 > MAX_STATIC_SMEM:
+        raise ValueError(f"superstep {B} x rows_per_tile {R} needs more "
+                         "shared memory than a static launch has")
+    out = torch.zeros(n_vertices, dtype=torch.float32, device=frontier.device)
+    costs = (None if slot_cost is None else
+             torch.empty((p, S_B), dtype=torch.float32,
+                         device=frontier.device))
+    stream = torch.cuda.current_stream(frontier.device).cuda_stream
+    code = _lib().ich_bfs_step_sharded_launch(
+        mask.data_ptr(), cols.data_ptr(), rowid.data_ptr(), blkid.data_ptr(),
+        None if slot_cost is None else slot_cost.data_ptr(),
+        frontier.data_ptr(), visited.data_ptr(), out.data_ptr(),
+        None if costs is None else costs.data_ptr(), p, S_B, B, R, W, stream)
+    raise_on(code, "ich_bfs_step_sharded")
+    LAUNCHES["ich_bfs_step_sharded"] += 1
+    return out if costs is None else (out, costs)

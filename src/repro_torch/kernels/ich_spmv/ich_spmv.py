@@ -23,14 +23,18 @@ import torch
 from repro_torch.core.segmented import (emit_step_cost, segmented_apply,
                                         worker_reduce)
 from repro_torch.kernels import _build
+from repro_torch.kernels._common import MAX_STATIC_SMEM as _MAX_SMEM
+from repro_torch.kernels._common import check as _check
+from repro_torch.kernels._common import check_shard_layout
+from repro_torch.kernels._common import on_cpu as _on_cpu
+from repro_torch.kernels._common import raise_on as _raise_on
+from repro_torch.kernels._common import shard_tiles as _shard_tiles
 
 __all__ = ["LAUNCHES", "ich_spmv", "ich_spmv_plain", "ich_spmv_sharded",
            "ich_spmv_sharded_plain", "reset_launches"]
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"ich_spmv": 0, "ich_spmv_sharded": 0}
-
-_MAX_SMEM = 48 * 1024  # static-launch shared memory limit per CTA
 
 
 def reset_launches() -> None:
@@ -56,12 +60,6 @@ def ich_spmv_plain(vals, cols, rowid, x, n_rows: int) -> torch.Tensor:
     return segmented_apply(y, rowid, tile_partials(vals, cols, x))
 
 
-def _shard_tiles(blkid: torch.Tensor, B: int) -> torch.Tensor:
-    """Flat tile index of every tile slot of the shard layout, (p*S,)."""
-    b = torch.arange(B, device=blkid.device)
-    return (blkid.long()[:, None] * B + b[None, :]).reshape(-1)
-
-
 def ich_spmv_sharded_plain(vals, cols, rowid, blkid, x, n_rows: int, p: int,
                            superstep: int, *, slot_cost=None):
     """Plain version of `ich_spmv_sharded`, written as the reference is:
@@ -85,30 +83,6 @@ def ich_spmv_sharded_plain(vals, cols, rowid, blkid, x, n_rows: int, p: int,
 
 
 # --------------------------------------------------------------- wrappers
-def _check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor when x is")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-
-
-def _on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU (plain version); False when
-    all lie on CUDA (kernel). Anything else is an error."""
-    devs = {t.device.type for t in tensors if t is not None}
-    if devs == {"cpu"}:
-        return True
-    if devs == {"cuda"}:
-        return False
-    raise ValueError(f"tensors must all lie on the CPU or all on CUDA, "
-                     f"got {sorted(devs)}")
-
-
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ich_spmv")
     if not getattr(lib, "_typed", False):
@@ -121,11 +95,6 @@ def _lib() -> ctypes.CDLL:
         lib.ich_spmv_seq_tiles.restype = i32
         lib._typed = True
     return lib
-
-
-def _raise_on(code: int, kernel: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{kernel} launch failed with CUDA error {code}")
 
 
 def ich_spmv(vals, cols, rowid, x, n_rows: int) -> torch.Tensor:
@@ -164,12 +133,7 @@ def ich_spmv_sharded(vals, cols, rowid, blkid, x, n_rows: int, p: int,
     is given."""
     T_pad, R, W = vals.shape
     p, B = int(p), int(superstep)
-    S_B = blkid.shape[0] // p
-    if blkid.shape[0] != p * S_B or rowid.shape[0] != p * S_B * B \
-            or T_pad % B:
-        raise ValueError(f"shard layout mismatch: blkid {tuple(blkid.shape)},"
-                         f" rowid {tuple(rowid.shape)}, T_pad={T_pad}, p={p},"
-                         f" B={B}")
+    S_B = check_shard_layout(T_pad, rowid, blkid, p, B)
     if _on_cpu(vals, cols, rowid, blkid, x, slot_cost):
         return ich_spmv_sharded_plain(vals, cols, rowid, blkid, x, n_rows,
                                       p, B, slot_cost=slot_cost)

@@ -7,6 +7,10 @@
     spmv = scheduler.build("spmv", indptr, indices, data)
     y = spmv(x)                                   # sharded CUDA kernel
     s2 = spmv.observe().refine()                  # measured cost -> new gen
+    bfs = scheduler.build("bfs", indptr, indices)
+    level = bfs.levels(0)                         # (n,) int32, -1 unreached
+    km = scheduler.build("kmeans", point_costs)
+    ids = km(points, centroids)                   # (n,) int32 argmin
 
 Pass ``device="cpu"`` to `LoopScheduler` to run the kernels' plain
 PyTorch versions instead.
@@ -22,8 +26,11 @@ _LAZY = {
     "LoopScheduler": "api",
     "Schedule": "api",
     "CostRefiner": "adaptive",
+    "BfsOp": "kernels",
     "CostProvider": "costs",
+    "DegreeCosts": "costs",
     "ExplicitCosts": "costs",
+    "KMeansOp": "kernels",
     "NnzCosts": "costs",
     "RefinedCosts": "costs",
     "as_cost_provider": "costs",

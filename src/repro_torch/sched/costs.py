@@ -10,8 +10,9 @@ the port's copy of the providers the SpMV path needs from
   stream the sharded kernel emits);
 * ``fingerprint()`` -> stable content hash, the schedule-cache key part.
 
-`NnzCosts` covers the SpMV workload (CSR row lengths), `ExplicitCosts` any
-per-item array, and `RefinedCosts` the output of measured-cost
+`NnzCosts` covers the SpMV workload (CSR row lengths), `DegreeCosts` the
+BFS one (vertex degrees), `ExplicitCosts` any per-item array (K-Means
+per-point costs), and `RefinedCosts` the output of measured-cost
 refinement. `as_cost_provider` lets callers pass a bare array anywhere a
 provider is expected.
 """
@@ -150,6 +151,14 @@ class NnzCosts:
     def sizes_are_structural(self) -> bool:
         """Row lengths ARE the CSR payload layout; refinement keeps them."""
         return True
+
+
+class DegreeCosts(NnzCosts):
+    """Per-vertex degree of a CSR graph (row u = u's neighbor list): the
+    paper's BFS per-vertex cost. Structurally `NnzCosts`; kept distinct so
+    registry entries and fingerprints name the workload they describe."""
+
+    _kind = "degree"
 
 
 class RefinedCosts:

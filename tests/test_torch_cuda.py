@@ -5,9 +5,11 @@ and skip without one; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: y at rtol=atol=1e-5 against the plain version (the plain
-version does the same adds; the margin covers PyTorch's own kernels),
-the cost stream exactly."""
+Tolerance: SpMV's y at rtol=atol=1e-5 against the plain version (the
+plain version does the same adds; the margin covers PyTorch's own
+kernels). Everything else exactly: BFS frontiers are 0/1, K-Means ids come
+from the same left fold over D in both versions, and every cost stream is
+the same left fold."""
 import numpy as np
 import pytest
 import torch
@@ -65,3 +67,91 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         K.ich_spmv(vals, cols, rowid, torch.zeros(8, device=cuda), 8)
     with pytest.raises(ValueError, match="all on CUDA"):
         K.ich_spmv(vals, cols.int(), rowid, torch.zeros(8), 8)
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_bfs_kernels_match_plain_and_each_other(cuda, p, B):
+    from repro_torch.core.workloads import bfs_graph
+    from repro_torch.kernels.ich_bfs import ich_bfs as K
+    from repro_torch.sched import LoopScheduler
+    n = 3000
+    indptr, indices = bfs_graph("scale_free" if p > 1 else "uniform", n,
+                                seed=p * 10 + B)
+    rng = np.random.default_rng(p)
+    f = torch.from_numpy((rng.random(n) < 0.05).astype(np.float32)).to(cuda)
+    v = torch.maximum(f, torch.from_numpy(
+        (rng.random(n) < 0.3).astype(np.float32)).to(cuda))
+    op = LoopScheduler(p=p, superstep=B, cache_size=0).build(
+        "bfs", indptr, indices)
+    K.reset_launches()
+    nxt = op.step(f, v)
+    rowid = torch.from_numpy(op.schedule.item_id).to(cuda)
+    T = op.n_tiles
+    seq = K.ich_bfs_step(op.mask[:T], op.cols[:T], rowid, f, v, n)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"ich_bfs_step": 1, "ich_bfs_step_sharded": 1}
+    plain, c_plain = K.ich_bfs_step_sharded_plain(
+        op.mask, op.cols, op.rowid, op.blkid, f, v, n, p, B,
+        slot_cost=op.slot_cost)
+    assert torch.equal(nxt, plain) and torch.equal(op.last_costs, c_plain)
+    assert torch.equal(seq, K.ich_bfs_step_plain(op.mask[:T], op.cols[:T],
+                                                 rowid, f, v, n))
+    assert torch.equal(nxt, seq)
+    np.testing.assert_array_equal(
+        op.last_costs.cpu().numpy().sum(axis=1),
+        op.shards.worker_cost(op.schedule.tile_cost()).astype(np.float32))
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_kmeans_kernels_match_plain_and_each_other(cuda, p, B):
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as K
+    from repro_torch.sched import LoopScheduler
+    n, D, k = 3000, 34, 5
+    rng = np.random.default_rng(p * 10 + B)
+    costs = rng.uniform(6.0, 10.0, n)
+    costs[7] = 5000.0  # a heavy point split over several tiles
+    pts = torch.from_numpy(rng.standard_normal((n, D)).astype(
+        np.float32)).to(cuda)
+    cent = torch.from_numpy(rng.standard_normal((k, D)).astype(
+        np.float32)).to(cuda)
+    op = LoopScheduler(p=p, superstep=B, cache_size=0).build("kmeans", costs)
+    assert (op.schedule.item_id == 7).sum() > 1
+    K.reset_launches()
+    ids = op(pts, cent)
+    seq = K.ich_kmeans_assign(pts, cent,
+                              torch.from_numpy(op.schedule.item_id).to(cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"ich_kmeans_assign": 1,
+                          "ich_kmeans_assign_sharded": 1}
+    plain, c_plain = K.ich_kmeans_assign_sharded_plain(
+        pts, cent, op.rowid, p, B, slot_cost=op.slot_cost)
+    assert torch.equal(ids, plain) and torch.equal(op.last_costs, c_plain)
+    assert torch.equal(seq, K.ich_kmeans_assign_plain(
+        pts, cent, torch.from_numpy(op.schedule.item_id).to(cuda)))
+    assert torch.equal(ids, seq)
+    np.testing.assert_allclose(
+        op.last_costs.cpu().numpy().sum(axis=1),
+        op.shards.worker_cost(op.schedule.tile_cost()), rtol=1e-6)
+
+
+def test_bfs_and_kmeans_wrappers_raise_instead_of_falling_back(cuda):
+    from repro_torch.kernels.ich_bfs import ich_bfs as KB
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as KK
+    mask = torch.zeros((8, 8, 8), device=cuda)
+    cols = torch.zeros((8, 8, 8), dtype=torch.int32, device=cuda)
+    rowid = torch.zeros((8, 8), dtype=torch.int32, device=cuda)
+    f = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError, match="frontier"):
+        KB.ich_bfs_step(mask, cols, rowid, f.double(), f, 8)
+    with pytest.raises(ValueError, match="all on CUDA"):
+        KB.ich_bfs_step(mask, cols, rowid, torch.zeros(8), f, 8)
+    pts = torch.zeros((8, 3), device=cuda)
+    with pytest.raises(ValueError, match="share D"):
+        KK.ich_kmeans_assign(pts, torch.zeros((2, 4), device=cuda), rowid)
+    with pytest.raises(ValueError, match="shared memory"):
+        KK.ich_kmeans_assign(torch.zeros((8, 20000), device=cuda),
+                             torch.zeros((3, 20000), device=cuda), rowid)
+    with pytest.raises(ValueError, match="all on CUDA"):
+        KK.ich_kmeans_assign(pts, torch.zeros((2, 3)), rowid)

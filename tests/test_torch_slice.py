@@ -1,6 +1,13 @@
-"""The SpMV slice end to end through both packages, and the port's
-boundaries: it imports nothing of JAX or of `repro`, and its entry points
-run on the card unless asked for the CPU."""
+"""The SpMV, BFS and K-Means slices end to end through both packages, and
+the port's boundaries: it imports nothing of JAX or of `repro`, its entry
+points run on the card unless asked for the CPU, and its kernel libraries
+are rebuilt when a source or a shared header changes.
+
+Tolerances: SpMV's y at rtol = atol = 1e-5 (XLA sums a tile's slots in
+another order than the port's left folds); BFS levels and K-Means ids
+exactly (0/1 maxima and argmins of well-separated distances); integer cost
+streams exactly, K-Means' float cost stream at rtol 1e-6 (summation
+order)."""
 import ast
 import os
 import subprocess
@@ -13,17 +20,23 @@ import torch
 
 from conftest import random_csr
 from repro import sched as RS
+from repro.sched.kernels import BfsOp as RefBfsOp
+from repro.sched.kernels import KMeansOp as RefKMeansOp
 from repro_torch import sched as PS
+from repro_torch.core.workloads import bfs_graph, kmeans_rounds
+from repro_torch.kernels import _build
+from repro_torch.kernels.ich_bfs import ich_bfs as KB
+from repro_torch.kernels.ich_kmeans import ich_kmeans as KK
 from repro_torch.kernels.ich_spmv import ich_spmv as K
 
 ROOT = Path(__file__).resolve().parents[1]
 N = 260
 
 
-def _assert_same_schedule(port, ref):
+def _assert_same_schedule(port, ref, cost_rtol=0.0):
     assert port.width == ref.width and port.generation == ref.generation
     np.testing.assert_array_equal(port.item_id, ref.item_id)
-    np.testing.assert_array_equal(port.costs, ref.costs)
+    np.testing.assert_allclose(port.costs, ref.costs, rtol=cost_rtol, atol=0)
     np.testing.assert_array_equal(port.shard().worker, ref.shard().worker)
     np.testing.assert_array_equal(port.shard().block_perm,
                                   ref.shard().block_perm)
@@ -60,6 +73,64 @@ def test_slice_end_to_end_matches_reference():
     assert K.LAUNCHES == {"ich_spmv": 0, "ich_spmv_sharded": 0}
 
 
+@pytest.mark.parametrize("kind", ["uniform", "scale_free"])
+def test_bfs_slice_end_to_end_matches_reference(kind):
+    indptr, indices = bfs_graph(kind, N, seed=13)
+    ref_op = RS.LoopScheduler(p=4).build("bfs", indptr, indices)
+    port_op = PS.LoopScheduler(p=4, device="cpu").build("bfs", indptr,
+                                                         indices)
+    KB.reset_launches()
+    levels = []
+    for round_ in range(2):
+        _assert_same_schedule(port_op.schedule, ref_op.schedule)
+        level = port_op.levels(0)
+        np.testing.assert_array_equal(level.numpy(),
+                                      ref_op.levels(0, interpret=True))
+        np.testing.assert_array_equal(port_op.last_costs.numpy(),
+                                      np.asarray(ref_op.last_costs))
+        levels.append(level)
+        if round_ == 0:
+            ref_op = RefBfsOp(ref_op.observe().refine(), indptr, indices)
+            port_op = PS.BfsOp(port_op.observe().refine(), indptr, indices,
+                               device="cpu")
+    # the degree cost stream does not depend on the frontier: the refined
+    # generation traverses identically
+    assert port_op.schedule.generation == 1
+    assert torch.equal(levels[0], levels[1])
+    assert KB.LAUNCHES == {"ich_bfs_step": 0, "ich_bfs_step_sharded": 0}
+
+
+def test_kmeans_slice_end_to_end_matches_reference():
+    rounds, _ = kmeans_rounds(N, rounds=2, seed=3)
+    rng = np.random.default_rng(4)
+    pts = rng.standard_normal((N, 5)).astype(np.float32)
+    cent = rng.standard_normal((4, 5)).astype(np.float32)
+    ref_op = RS.LoopScheduler(p=4).build("kmeans", rounds[0])
+    port_op = PS.LoopScheduler(p=4, device="cpu").build("kmeans", rounds[0])
+    KK.reset_launches()
+    for round_ in range(2):
+        # refined costs come from each package's float32 cost stream, whose
+        # sums differ in their last bits: the tiles and shards still agree
+        _assert_same_schedule(port_op.schedule, ref_op.schedule,
+                              cost_rtol=1e-6)
+        ids = port_op(pts, cent)
+        np.testing.assert_array_equal(
+            ids.numpy(), np.asarray(ref_op(pts, cent, interpret=True)))
+        np.testing.assert_allclose(port_op.last_costs.numpy(),
+                                   np.asarray(ref_op.last_costs), rtol=1e-6)
+        np.testing.assert_allclose(
+            port_op.last_costs.numpy().sum(axis=1),
+            port_op.shards.worker_cost(port_op.schedule.tile_cost()),
+            rtol=1e-6)
+        if round_ == 0:
+            ref_op = RefKMeansOp(ref_op.observe().refine(), rounds[0])
+            port_op = PS.KMeansOp(port_op.observe().refine(), rounds[0],
+                                  device="cpu")
+    assert port_op.schedule.generation == 1
+    assert KK.LAUNCHES == {"ich_kmeans_assign": 0,
+                           "ich_kmeans_assign_sharded": 0}
+
+
 def test_schedule_cache_and_observe_levels():
     indptr, indices, data = random_csr(N, seed=5)
     scheduler = PS.LoopScheduler(p=2, device="cpu")
@@ -91,12 +162,23 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         PS.LoopScheduler(p=2, device="cuda")
     assert PS.SpmvOp(s, indptr, indices, data, device="cpu")(
         np.ones(40, np.float32)).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PS.BfsOp(s, indptr, indices)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PS.KMeansOp(s, np.diff(indptr))
+    assert PS.BfsOp(s, indptr, indices, device="cpu").levels(0).device.type \
+        == "cpu"
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import sys; import repro_torch, repro_torch.sched, "
             "repro_torch.convert, repro_torch.sched.kernels, "
-            "repro_torch.kernels.ich_spmv.ref; "
+            "repro_torch.kernels.ich_spmv.ref, "
+            "repro_torch.kernels.ich_bfs.ich_bfs, "
+            "repro_torch.kernels.ich_bfs.ref, "
+            "repro_torch.kernels.ich_kmeans.ich_kmeans, "
+            "repro_torch.kernels.ich_kmeans.ref, "
+            "repro_torch.core.workloads; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -124,3 +206,23 @@ def test_no_port_file_imports_jax_or_the_reference():
         bad = {r for r in _imported_roots(f)
                if r in ("jax", "jaxlib", "repro")}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
+    # an edited shared header must give a new library, so a stale build of
+    # a source that includes it is never loaded
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// version 1\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "shared.cuh").write_text("// version 2\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "other.cuh").write_text("// another header\n")
+    assert _build.library_path("k") not in (first, second)
+    # the real sources each name their own library
+    monkeypatch.undo()
+    paths = {_build.library_path(n) for n in ("ich_spmv", "ich_bfs",
+                                              "ich_kmeans")}
+    assert len(paths) == 3
