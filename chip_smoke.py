@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` (one nvcc per
 source, all started together), holds each against its plain PyTorch
-version on the card, and drives the port's three main paths, each with
+version on the card, and drives the port's four main paths, each with
 its launch counters set to 0 just before it and read just after:
 
 * SpMV (schedule -> sharded kernel -> observe/refine -> sharded kernel) on
@@ -18,13 +18,18 @@ its launch counters set to 0 just before it and read just after:
 * K-Means assignment (run, cross-check, observe/refine, run, and two more
   rounds' schedules) at the shape of Rodinia K-Means' `kdd_cup` input,
   494,020 points x 34 features, K = 5, checked against a float64 host
-  argmin.
+  argmin;
+* MoE expert dispatch (plan -> schedule -> sharded kernel -> expert load
+  -> `refine_cap_scale` -> next plan, three closed-loop rounds) at the
+  width of one OLMoE-1B-7B MoE layer (64 experts, top-8, D = 2048, expert
+  F = 1024, float32) over 4,096 tokens, checked against a float64 host
+  evaluation of 64 sampled tokens.
 
-It times every kernel beside its plain version, its bound and one PyTorch
-call computing the same function (cuSPARSE SpMV, `torch.cdist` argmin),
-and prints one JSON line per result. Any failed check raises, so the
-script exits non-zero and prints no final line. It needs CUDA and the
-repository's `src/` beside it.
+It times every kernel beside its plain version, its bound and PyTorch
+computing the same function (cuSPARSE SpMV, `torch.cdist` argmin, MoE's
+capacity-buffer `torch.bmm` form), and prints one JSON line per result.
+Any failed check raises, so the script exits non-zero and prints no final
+line. It needs CUDA and the repository's `src/` beside it.
 
 The last line is `{"ok": true, "device": {...}}`; the line before the
 last gives the card's name and power limit as nvidia-smi reports them, and
@@ -54,6 +59,13 @@ RTOL = ATOL = 1e-5          # kernel vs plain: same adds, other reductions
 HOST_RTOL = 1e-4            # vs float64, relative to each row's sum |a*x|
 COST_RTOL = 1e-6            # K-Means float cost sums vs float64 totals
 TIE_RTOL = 1e-5             # K-Means ids may differ from float64 only here
+# MoE: one OLMoE-1B-7B MoE layer (src/repro/configs/olmoe_1b_7b.py)
+MOE_EXPERTS, MOE_TOP_K, MOE_D, MOE_F = 64, 8, 2048, 1024
+MOE_TOKENS = 4096
+MOE_ROWS_PER_TILE = 2       # as the reference's MoE benchmark lowers it
+MOE_ROUNDS = 3
+MOE_SAMPLE = 64             # tokens checked against float64 on the host
+MOE_TOL = 1e-4              # kernel vs plain: fmaf chains vs cuBLAS sums
 PASS = "src/repro/kernels/"
 KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "ich_spmv": ("src/repro_torch/csrc/ich_spmv.cu",
@@ -68,6 +80,8 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                           PASS + "ich_kmeans/ich_kmeans.py:83"),
     "ich_kmeans_assign_sharded": ("src/repro_torch/csrc/ich_kmeans.cu",
                                   PASS + "ich_kmeans/ich_kmeans.py:163"),
+    "ich_moe_sharded": ("src/repro_torch/csrc/ich_moe.cu",
+                        PASS + "ich_moe/ich_moe.py:197"),
 }
 
 
@@ -98,9 +112,15 @@ def _csr_from_row_nnz(row_nnz, n_cols, rng):
 
 
 def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of `iters` CUDA-event timings of fn(), after `warmup` calls."""
+    """Median of `iters` CUDA-event timings of fn(), after `warmup` calls;
+    5 timings after one warm-up when a first call takes over 100 ms."""
     import torch
-    for _ in range(warmup):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 0.1:
+        iters, warmup = 5, 1
+    for _ in range(warmup - 1):
         fn()
     times = []
     for _ in range(iters):
@@ -678,6 +698,274 @@ def phase_kmeans(sm_count):
             for name in ms]
 
 
+def _moe_weights(E, D, F, T, seed):
+    """Expert weights (scaled by fan-in) and activations drawn on the card
+    from a seeded generator."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    wi = torch.randn((E, D, F), generator=g, device="cuda") * D ** -0.5
+    wg = torch.randn((E, D, F), generator=g, device="cuda") * D ** -0.5
+    wo = torch.randn((E, F, D), generator=g, device="cuda") * F ** -0.5
+    x = torch.randn((T, D), generator=g, device="cuda")
+    return x, wi, wg, wo
+
+
+def phase_small_moe():
+    """The MoE kernel against its plain version at p in {1, 2, 4} x
+    B in {1, 4, 8} on a narrow layer whose experts split over several slot
+    rows (W = 64) and whose F is no multiple of the kernel's tiles: y
+    within MOE_TOL, cost streams exactly, one y bit for bit across every
+    lowering (p = 1, B = 1 is the sequential walk); a plan that admits no
+    token launches nothing."""
+    import torch
+    from repro_torch.core.workloads import moe_router
+    from repro_torch.kernels.ich_moe import ich_moe as K
+    from repro_torch.sched import LoopScheduler, plan_dispatch
+    T, E, D, F = 2000, 16, 72, 200
+    e_topk, w = moe_router(T, E, 4, seed=SEED + 3, skew=1.2)
+    plan = plan_dispatch(e_topk, w, cap_scale=np.ones(E))
+    x, wi, wg, wo = _moe_weights(E, D, F, T, SEED + 3)
+    first, worst = None, 0.0
+    for p in (1, 2, 4):
+        for B in (1, 4, 8):
+            op = LoopScheduler(p=p, superstep=B, rows_per_tile=2,
+                               cache_size=0).build("moe-dispatch", plan,
+                                                   width=64)
+            args = (op.vals, op.cols, op.rowid, op.blkid, x, wi, wg, wo, p,
+                    B, op.slots)
+            y, c, ec = K.ich_moe_sharded(*args, slot_cost=op.slot_cost)
+            y_p, c_p, ec_p = K.ich_moe_sharded_plain(
+                *args, slot_cost=op.slot_cost)
+            torch.cuda.synchronize()
+            check(torch.allclose(y, y_p, rtol=MOE_TOL, atol=MOE_TOL),
+                  f"MoE kernel == plain at p={p} B={B}")
+            check(torch.equal(c, c_p) and torch.equal(ec, ec_p),
+                  f"MoE cost streams == plain at p={p} B={B}")
+            check(np.array_equal(ec.cpu().numpy().sum(axis=0),
+                                 plan.counts.astype(np.float32)),
+                  f"MoE expert costs sum to the plan at p={p} B={B}")
+            first = y if first is None else first
+            check(torch.equal(y, first),
+                  f"MoE sharded == sequential bit for bit at p={p} B={B}")
+            worst = max(worst, float((y - y_p).abs().max()))
+    before = dict(K.LAUNCHES)
+    empty = plan_dispatch(np.zeros((0, 2), np.int64),
+                          np.zeros((0, 2), np.float32))
+    op0 = LoopScheduler(p=4).build("moe-dispatch", empty)
+    E0 = empty.n_experts
+    y0 = op0(torch.zeros((0, 8), device="cuda"),
+             torch.zeros((E0, 8, 16), device="cuda"),
+             torch.zeros((E0, 8, 16), device="cuda"),
+             torch.zeros((E0, 16, 8), device="cuda"))
+    check(op0.n_tiles > 0 and tuple(y0.shape) == (0, 8)
+          and K.LAUNCHES == before and not op0.last_costs.any()
+          and not op0.expert_load().any(),
+          "MoE plan with no token returns an empty y unlaunched")
+    log(phase="small_moe", tokens=T, experts=E, d=D, f=F,
+        kept=int(plan.counts.sum()), max_abs_err=worst, ok=True)
+
+
+def torch_index(a):
+    """An int64 index tensor on the card."""
+    import torch
+    return torch.from_numpy(np.asarray(a, np.int64)).cuda()
+
+
+def _moe_host_reference(plan, x, wi, wg, wo, sample):
+    """float64 y of the `sample` tokens on the host, and per element the
+    sum over each token's entries of |w| * sum_f |a_f * wo[f, d]| (the
+    terms of the last product), the scale an error is measured against."""
+    keep = plan.keep & np.isin(plan.token, sample)
+    row = {int(t): i for i, t in enumerate(sample)}
+    xs = x[torch_index(sample)].cpu().numpy().astype(np.float64)
+    y64 = np.zeros((sample.size, x.shape[1]))
+    absum = np.zeros_like(y64)
+    for e in np.unique(plan.expert[keep]):
+        sel = keep & (plan.expert == e)
+        rows = np.array([row[int(t)] for t in plan.token[sel]])
+        wt = plan.weight[sel].astype(np.float64)[:, None]
+        a_in = xs[rows]
+        h = a_in @ wi[e].cpu().numpy().astype(np.float64)
+        g = a_in @ wg[e].cpu().numpy().astype(np.float64)
+        a = g / (1.0 + np.exp(-g)) * h
+        w_o = wo[e].cpu().numpy().astype(np.float64)
+        np.add.at(y64, rows, wt * (a @ w_o))
+        np.add.at(absum, rows, wt * (np.abs(a) @ np.abs(w_o)))
+    return y64, absum
+
+
+def capacity_buffer_moe(x, wi, wg, wo, plan):
+    """The dense capacity-buffer form of the reference's `moe_local`: kept
+    entries gathered into an (E, C, D) buffer (C = the plan's largest
+    capacity), three float32 `torch.bmm` with silu, weighted scatter-add
+    back to the tokens. Several PyTorch calls; the yardstick, never used
+    by the port."""
+    import torch
+    E, D = wi.shape[0], x.shape[1]
+    C = int(plan.cap.max())
+    k = plan.keep
+    at = torch_index(plan.expert[k].astype(np.int64) * C + plan.pos[k])
+    tok = torch_index(plan.token[k])
+    wt = torch.from_numpy(plan.weight[k]).cuda()
+
+    def run():
+        buf = torch.zeros((E * C, D), device="cuda")
+        buf[at] = x[tok]
+        buf = buf.view(E, C, D)
+        a = torch.nn.functional.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
+        yb = torch.bmm(a, wo).view(E * C, D)
+        return torch.zeros_like(x).index_add_(0, tok, yb[at] * wt[:, None])
+    return run, C
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """Device milliseconds per kernel name over one call of fn (after one
+    warm-up call), from torch.profiler's CUDA trace; empty when the trace
+    holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key[:80]: ev.device_time_total / 1e3
+            for ev in prof.key_averages() if ev.device_time_total > 0}
+
+
+def phase_moe(sm_count):
+    """One OLMoE-1B-7B MoE layer over 4,096 tokens routed by
+    `moe_router(seed=0)`, p = SM count, R = 2, B = 8: the counted main path
+    (run, then three closed-loop rounds of refine_cap_scale -> plan ->
+    rebuilt op -> run), the checks, the kernel against its plain version
+    and the timings."""
+    import torch
+    from repro_torch.core.workloads import moe_router
+    from repro_torch.kernels.ich_moe import ich_moe as K
+    from repro_torch.sched import (LoopScheduler, plan_dispatch,
+                                   refine_cap_scale)
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain + library: f32
+    E, Kt, D, F, T = MOE_EXPERTS, MOE_TOP_K, MOE_D, MOE_F, MOE_TOKENS
+    t0 = time.perf_counter()
+    e_topk, w = moe_router(T, E, Kt, seed=SEED)
+    plan = plan_dispatch(e_topk, w, cap_scale=np.ones(E))
+    x, wi, wg, wo = _moe_weights(E, D, F, T, SEED)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    log(phase="moe_plan", tokens=T, experts=E, top_k=Kt, d_model=D,
+        expert_ff=F, kept=int(plan.counts.sum()), stolen=plan.stolen,
+        dropped=plan.dropped, load_min=int(plan.counts.min()),
+        load_max=int(plan.counts.max()), cap_max=int(plan.cap.max()),
+        weight_bytes=3 * E * D * F * 4, x_bytes=T * D * 4, setup_s=t_setup)
+    scheduler = LoopScheduler(p=sm_count, rows_per_tile=MOE_ROWS_PER_TILE)
+    t0 = time.perf_counter()
+    op = scheduler.build("moe-dispatch", plan)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    s = op.schedule
+    n_slots = op.slots.tok_slot.numel()
+    log(phase="moe_lowering", tiles=op.n_tiles, width=s.width,
+        rows_per_tile=s.rows_per_tile, p=op.p, superstep=op.superstep,
+        blocks=int((op.shards.block_perm >= 0).sum()),
+        steps=op.shards.n_steps, live_slots=n_slots,
+        slot_buffer_bytes=n_slots * D * 4, scratch_bytes=n_slots * F * 4,
+        build_s=t_build)
+
+    # ---- the main path, counted: run -> three closed-loop rounds ----
+    K.reset_launches()
+    t0 = time.perf_counter()
+    y = op(x, wi, wg, wo)
+    load = op.expert_load()
+    rounds, s_r, op_r, load_r = [], s, op, load
+    for r in range(1, MOE_ROUNDS + 1):
+        s_r, cap_scale = refine_cap_scale(s_r, load_r)
+        plan_r = plan_dispatch(e_topk, w, cap_scale=cap_scale)
+        op_r = scheduler.build("moe-dispatch", plan_r)
+        y_r = op_r(x, wi, wg, wo)
+        load_r = op_r.expert_load()
+        check(np.array_equal(load_r, plan_r.counts.astype(np.float64)),
+              f"MoE round {r}: expert_load() == plan.counts")
+        check(bool(torch.isfinite(y_r).all()), f"MoE round {r}: y finite")
+        rounds.append({"round": r, "generation": s_r.generation,
+                       "kept": int(plan_r.counts.sum()),
+                       "stolen": plan_r.stolen, "dropped": plan_r.dropped,
+                       "cap_max": int(plan_r.cap.max()),
+                       "tiles": op_r.n_tiles,
+                       "blocks": int((op_r.shards.block_perm >= 0).sum())})
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    log(phase="moe_main_path", seconds=t_path, launches=launches,
+        rounds=rounds)
+    check(launches["ich_moe_sharded"] > 0, "ich_moe_sharded launched")
+    check(all(rd["generation"] == rd["round"] for rd in rounds),
+          "MoE refine generations count the rounds")
+    del op_r, y_r
+
+    # ---- checks of round 0 ----
+    check(np.array_equal(load, plan.counts.astype(np.float64)),
+          "MoE expert_load() == plan.counts")
+    emitted = op.last_costs.cpu().numpy().sum(axis=1)
+    check(np.array_equal(emitted, op.shards.worker_cost(
+        s.tile_cost()).astype(np.float32)),
+        "MoE per-worker step costs == worker_cost(tile_cost())")
+    check(tuple(y.shape) == (T, D) and bool(torch.isfinite(y).all()),
+          "MoE y finite, (n_tokens, D)")
+    sample = np.sort(np.random.default_rng(SEED).choice(T, MOE_SAMPLE,
+                                                        replace=False))
+    t0 = time.perf_counter()
+    y64, absum = _moe_host_reference(plan, x, wi, wg, wo, sample)
+    err = np.abs(y[torch_index(sample)].cpu().numpy() - y64)
+    check(bool(np.all(err <= HOST_RTOL * absum)),
+          f"MoE y within {HOST_RTOL} of float64 relative to each token's "
+          f"sum |terms| (worst excess {float(np.max(err - HOST_RTOL * absum))})")
+    log(phase="moe_host_check", tokens=MOE_SAMPLE,
+        max_rel=float(np.max(err / np.maximum(absum, 1e-30))),
+        seconds=time.perf_counter() - t0)
+
+    # ---- the kernel against its plain version at the main path's shapes ----
+    args = (op.vals, op.cols, op.rowid, op.blkid, x, wi, wg, wo, op.p,
+            op.superstep, op.slots)
+    y_k, c_k, e_k = K.ich_moe_sharded(*args, slot_cost=op.slot_cost)
+    y_p, c_p, e_p = K.ich_moe_sharded_plain(*args, slot_cost=op.slot_cost)
+    check(torch.allclose(y_k, y_p, rtol=MOE_TOL, atol=MOE_TOL),
+          "full-width MoE kernel == plain")
+    check(torch.equal(c_k, c_p) and torch.equal(e_k, e_p),
+          "full-width MoE cost streams == plain")
+    check(torch.equal(y_k, y), "full-width MoE kernel is deterministic")
+    err_k = float((y_k - y_p).abs().max())
+    del y_k, c_k, e_k, y_p, c_p, e_p
+    library, C = capacity_buffer_moe(x, wi, wg, wo, plan)
+    y_lib = library()
+    torch.cuda.synchronize()
+    lib_err = float((y_lib - y).abs().max())
+    check(torch.allclose(y_lib, y, rtol=MOE_TOL, atol=MOE_TOL),
+          "capacity-buffer bmm y agrees")
+    del y_lib
+    ms = timed_ms(lambda: K.ich_moe_sharded(*args, slot_cost=op.slot_cost))
+    plain_ms = timed_ms(lambda: K.ich_moe_sharded_plain(
+        *args, slot_cost=op.slot_cost))
+    library_ms = timed_ms(library)
+    log(phase="moe_library", capacity=C, buffer_entries=E * C,
+        kept=int(plan.counts.sum()), max_abs_diff=lib_err)
+    breakdown = device_ms_by_kernel(
+        lambda: K.ich_moe_sharded(*args, slot_cost=op.slot_cost))
+    log(phase="moe_breakdown", event_ms=ms, device_ms=breakdown,
+        device_total_ms=sum(breakdown.values()))
+
+    # ---- bound: each input read once, each output written once ----
+    inputs = [op.vals, op.cols, op.rowid, op.blkid, op.slot_cost, x, wi, wg,
+              wo, *op.slots]
+    bytes_ = sum(t.numel() * t.element_size() for t in inputs) \
+        + (T * D + op.p * (op.shards.n_steps + E)) * 4   # y, both streams
+    flops = 6 * D * F * int(plan.counts.sum())            # three products
+    return [kernel_entry("ich_moe_sharded",
+                         launches=launches["ich_moe_sharded"], err=err_k,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bytes_=bytes_, flops=flops)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -688,9 +976,11 @@ def main() -> int:
     sm_count = phase_environment()
     phase_small()
     phase_small_bfs_kmeans()
+    phase_small_moe()
     kernels = phase_main(sm_count)
     kernels += phase_bfs(sm_count)
     kernels += phase_kmeans(sm_count)
+    kernels += phase_moe(sm_count)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)
     print(json.dumps({"ok": True, "device": {

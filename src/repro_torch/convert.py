@@ -12,7 +12,12 @@ packages' kernels can be fed the same bytes:
 * `bfs_op_from_reference` — the all-ones `mask`/`cols` and the (T_pad, R)
   stream;
 * `kmeans_op_from_reference` — no payload; the (p*S, R) stream in the
-  shard layout.
+  shard layout;
+* `moe_dispatch_op_from_reference` — the packed combine weights (`vals`)
+  and token ids (`cols`) of a dispatch plan's CSR, the (T_pad, R) stream
+  and the plan's per-expert kept token counts. The expert weights and
+  activations are plain arrays the op takes at call time, in the
+  reference's layouts (wi/wg (E, D, F), wo (E, F, D)).
 
 Nothing here imports the reference: the caller hands the arrays over.
 """
@@ -21,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.tiling import WorkerShards
-from repro_torch.sched.kernels import BfsOp, KMeansOp, SpmvOp
+from repro_torch.sched.kernels import BfsOp, KMeansOp, MoeDispatchOp, SpmvOp
 
 
 def _shards(item_id, rows_per_tile, worker, block_perm, superstep):
@@ -89,3 +94,20 @@ def kmeans_op_from_reference(*, item_id, rows_per_tile: int, worker,
     return KMeansOp.from_lowering(item_id, shards,
                                   np.asarray(slot_cost, np.float32),
                                   n_points, device=device)
+
+
+def moe_dispatch_op_from_reference(*, item_id, width: int,
+                                   rows_per_tile: int, worker, block_perm,
+                                   superstep: int, vals, cols, slot_cost,
+                                   counts, n_tokens: int,
+                                   device=None) -> MoeDispatchOp:
+    """The port's `MoeDispatchOp` over a lowering given as numpy arrays
+    (see the module docstring); `counts` are the plan's (E,) kept token
+    counts. Raises when the arrays disagree on shape or with the counts."""
+    item_id, shards = _shards(item_id, rows_per_tile, worker, block_perm,
+                              superstep)
+    vals, cols, slot_cost = _payload(item_id, width, superstep, vals, cols,
+                                     slot_cost)
+    return MoeDispatchOp.from_lowering(item_id, shards, vals, cols,
+                                       slot_cost, np.asarray(counts),
+                                       n_tokens, device=device)

@@ -8,7 +8,8 @@ does this on the TPU with a length-R window read-modify-write per tile,
 which relies on grid steps running in order on one core.
 
 On the card the CUDA kernels (`csrc/segmented.cuh`, shared by
-`csrc/ich_spmv.cu`, `ich_bfs.cu` and `ich_kmeans.cu`) do the same fold in a
+`csrc/ich_spmv.cu`, `ich_bfs.cu`, `ich_kmeans.cu` and, for its step
+costs, `ich_moe.cu`) do the same fold in a
 fixed order, and this module is its plain twin, vectorized over a batch of
 tiles:
 

@@ -2,7 +2,9 @@
 `repro.core.workloads`: the paper's Table 1 matrix specs and row-nnz
 synthesizer (`MatrixSpec`, `TABLE1`, `HUB_*`, `matrix_row_nnz`,
 `spmv_costs`), the BFS graph generator (`bfs_graph`, the graph that
-`bfs_levels` builds) and the K-Means per-round costs (`kmeans_rounds`).
+`bfs_levels` builds), the K-Means per-round costs (`kmeans_rounds`) and the
+MoE router of the reference's dispatch benchmark (`moe_router`,
+`benchmarks/bench_schedule_build.py:bench_moe_dispatch`).
 Every synthesis must stay draw-for-draw identical to the reference: the
 parity tests and the chip smoke run build the same inputs through both
 packages' schedules."""
@@ -48,6 +50,23 @@ def kmeans_rounds(n: int = 100_000, rounds: int = 10,
         base[tail_idx] += rng.exponential(120.0, size=len(tail_idx))
         out.append(base)
     return out, out[0].copy()
+
+
+def moe_router(n_tokens: int, n_experts: int, k: int, seed: int = 0,
+               skew: float = 1.0) -> tuple[np.ndarray, np.ndarray]:
+    """A zipf-skewed MoE router, drawn as the reference's dispatch
+    benchmark draws it: gumbel noise plus log zipf(`skew`) popularity per
+    expert, the top-k experts of each token, then combine weights
+    `rng.random + 0.1` renormalised per token. Every expert sees traffic
+    at skew 1.0, the hot ones several times the mean. Returns (e_topk
+    (n_tokens, k) int32, weights (n_tokens, k) float32)."""
+    rng = np.random.default_rng(seed)
+    pop = np.arange(1, n_experts + 1, dtype=np.float64) ** -float(skew)
+    logits = rng.gumbel(size=(n_tokens, n_experts)) + np.log(pop)[None]
+    e_topk = np.argsort(-logits, axis=1)[:, :k].astype(np.int32)
+    w = (rng.random((n_tokens, k)) + 0.1).astype(np.float32)
+    w /= w.sum(1, keepdims=True)
+    return e_topk, w
 
 
 @dataclasses.dataclass(frozen=True)

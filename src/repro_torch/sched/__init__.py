@@ -11,6 +11,10 @@
     level = bfs.levels(0)                         # (n,) int32, -1 unreached
     km = scheduler.build("kmeans", point_costs)
     ids = km(points, centroids)                   # (n,) int32 argmin
+    plan = sched.plan_dispatch(e_topk, weights)   # MoE routing, host side
+    moe = scheduler.build("moe-dispatch", plan)
+    y = moe(x, wi, wg, wo)                        # (n_tokens, D) expert FFN
+    s2, cap_scale = sched.refine_cap_scale(moe.schedule, moe.expert_load())
 
 Pass ``device="cpu"`` to `LoopScheduler` to run the kernels' plain
 PyTorch versions instead.
@@ -29,14 +33,21 @@ _LAZY = {
     "BfsOp": "kernels",
     "CostProvider": "costs",
     "DegreeCosts": "costs",
+    "ExpertLoadCosts": "costs",
     "ExplicitCosts": "costs",
     "KMeansOp": "kernels",
+    "MoeDispatchOp": "kernels",
     "NnzCosts": "costs",
     "RefinedCosts": "costs",
     "as_cost_provider": "costs",
     "CacheStats": "cache",
     "ScheduleCache": "cache",
     "SpmvOp": "kernels",
+    "DispatchPlan": "moe",
+    "cap_scale_from_costs": "moe",
+    "expert_capacity": "moe",
+    "plan_dispatch": "moe",
+    "refine_cap_scale": "moe",
     "WorkloadSpec": "registry",
     "get": "registry",
     "register": "registry",

@@ -12,7 +12,8 @@ the port's copy of the providers the SpMV path needs from
 
 `NnzCosts` covers the SpMV workload (CSR row lengths), `DegreeCosts` the
 BFS one (vertex degrees), `ExplicitCosts` any per-item array (K-Means
-per-point costs), and `RefinedCosts` the output of measured-cost
+per-point costs), `ExpertLoadCosts` the MoE dispatch one (per-expert kept
+token counts), and `RefinedCosts` the output of measured-cost
 refinement. `as_cost_provider` lets callers pass a bare array anywhere a
 provider is expected.
 """
@@ -159,6 +160,51 @@ class DegreeCosts(NnzCosts):
     registry entries and fingerprints name the workload they describe."""
 
     _kind = "degree"
+
+
+class ExpertLoadCosts:
+    """Per-expert kept token counts from an MoE dispatch plan — the
+    expert-dispatch analogue of `NnzCosts`: item = expert, work units =
+    tokens dispatched to it. The counts ARE the plan's expert-major CSR
+    payload layout, so sizes are structural (refinement re-weights the
+    partition but never re-derives the token layout). Zero-load experts
+    are allowed (a cold expert still owns a slot). Fingerprint eager,
+    arrays copied on first use."""
+
+    _kind = "expert-load"
+
+    def __init__(self, counts: np.ndarray):
+        counts = np.asarray(counts)
+        if counts.ndim != 1 or counts.size < 1:
+            raise ValueError(
+                f"expert loads must be 1-D non-empty, got {counts.shape}")
+        if not np.issubdtype(counts.dtype, np.integer):
+            raise TypeError(
+                f"expert loads are token counts, expected an integer "
+                f"array, got {counts.dtype}")
+        if (counts < 0).any():
+            raise ValueError("expert loads must be non-negative")
+        self._counts = counts
+        self._sizes = None
+        self._fp = f"{self._kind}:{_digest(counts)}"
+
+    def sizes(self) -> np.ndarray:
+        if self._sizes is None:
+            self._sizes = self._counts.astype(np.int64)  # astype copies
+            self._counts = None
+        return self._sizes
+
+    def costs(self) -> np.ndarray:
+        return self.sizes().astype(np.float64)
+
+    def fingerprint(self) -> str:
+        return self._fp
+
+    @property
+    def sizes_are_structural(self) -> bool:
+        """Token counts ARE the dispatch payload layout; refinement keeps
+        them."""
+        return True
 
 
 class RefinedCosts:

@@ -27,3 +27,14 @@ SUPERSTEP = 8
 # measurements fully, the paper's posture). Unobserved items keep their
 # prior.
 REFINE_BLEND = 1.0
+
+# MoE expert dispatch (`sched/moe.py`): per-expert capacity is the chunk-
+# size analogue. C_base = ceil(K * T * factor / E), floored at
+# MOE_MIN_CAPACITY; the compiled expert buffer is MOE_CMAX_FACTOR * C_base,
+# and cap_scale (the d_i array) is clipped to [MOE_CAP_SCALE_MIN,
+# MOE_CAP_SCALE_MAX] so it never asks for more than that buffer.
+MOE_CAPACITY_FACTOR = 1.25
+MOE_CMAX_FACTOR = 2.0
+MOE_MIN_CAPACITY = 4
+MOE_CAP_SCALE_MIN = 0.25
+MOE_CAP_SCALE_MAX = 2.0

@@ -1,10 +1,12 @@
-"""Registry-backed kernel ops for the paper's three applications — the
-port's `scheduler.build("spmv" | "bfs" | "kmeans", ...)`.
+"""Registry-backed kernel ops for the paper's three applications and MoE
+expert dispatch — the port's `scheduler.build("spmv" | "bfs" | "kmeans" |
+"moe-dispatch", ...)`.
 
 Each op binds a constructed `Schedule` to its workload once: it lowers the
 schedule onto `schedule.p` workers (`Schedule.shard()`), packs the payload
 (SpMV's vals/cols, BFS's all-ones mask/cols) into the flat (T_pad, R, W)
-layout padded to whole supersteps, and keeps the payload, the sharded row
+layout padded to whole supersteps (MoE: its plan's expert-major CSR of
+token ids and combine weights), and keeps the payload, the sharded row
 ids, the block ids and the per-slot cost stream on its device. Each call
 runs the sharded kernel (the CUDA kernel on the card, its plain version on
 the CPU), which also emits the (p, S_B) cost stream; the op stashes it as
@@ -19,10 +21,16 @@ totals (exactly for integer costs; K-Means' float costs to rounding).
   visited and levels on the op's device and syncs once per level;
 * `KMeansOp` — `op(points, centroids)`: nearest-centroid ids
   (`ich_kmeans_assign_sharded`), whose row ids and slot costs are laid out
-  in the shard layout itself (no flat payload, no block ids).
+  in the shard layout itself (no flat payload, no block ids);
+* `MoeDispatchOp` — `op(x, wi, wg, wo)`: the gated expert FFN of a
+  `DispatchPlan` (`ich_moe_sharded`), combined per token; besides the
+  (p, S_B) stream it keeps the (p, E) per-expert costs as
+  `last_expert_costs`, and `expert_load()` worker-sums them into the
+  measured per-expert load that `sched.moe.refine_cap_scale` turns into
+  the next plan's capacity scale.
 
-An empty workload (0 tiles) lowers as a no-op: no launch, a zero output
-and an all-zero cost stream of the layout's shape.
+An empty workload (0 tiles; for MoE also 0 tokens) lowers as a no-op: no
+launch, a zero output and all-zero cost streams of the layout's shape.
 """
 from __future__ import annotations
 
@@ -36,10 +44,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ich_bfs.ich_bfs import ich_bfs_step_sharded
 from repro_torch.kernels.ich_kmeans.ich_kmeans import \
     ich_kmeans_assign_sharded
+from repro_torch.kernels.ich_moe.ich_moe import ich_moe_sharded, moe_slots
 from repro_torch.kernels.ich_spmv.ich_spmv import ich_spmv_sharded
 
 from .api import Schedule
-from .costs import DegreeCosts, ExplicitCosts, NnzCosts
+from .costs import DegreeCosts, ExpertLoadCosts, ExplicitCosts, NnzCosts
 from .registry import register
 
 
@@ -334,6 +343,98 @@ class KMeansOp(_ObservableOp):
         return ids
 
 
+class MoeDispatchOp(_ObservableOp):
+    """iCh-scheduled MoE expert application: pack a dispatch plan once,
+    apply the expert FFN stack many times.
+
+    The plan's expert-major CSR (token ids + combine weights per expert)
+    packs through the same `pack_csr` path as SpMV — expert = item, a hot
+    expert's tokens split across slot rows like a heavy row — and runs on
+    the sharded `ich_moe_sharded` kernel, which also returns the (p, E)
+    per-worker per-expert costs (`last_expert_costs`)."""
+
+    def __init__(self, schedule: Schedule, plan, *, device=None):
+        shards = schedule.shard()
+        indptr, tok, w = plan.csr()
+        vals, cols = pack_csr(indptr, tok, w, schedule.tiles,
+                              pad_tiles_to=shards.superstep)
+        self._bind(schedule.item_id, shards, vals, cols,
+                   schedule.slot_cost(), plan.counts, plan.n_tokens,
+                   resolve_device(device), schedule)
+
+    @classmethod
+    def from_lowering(cls, item_id: np.ndarray, shards: WorkerShards,
+                      vals: np.ndarray, cols: np.ndarray,
+                      slot_cost: np.ndarray, counts: np.ndarray,
+                      n_tokens: int, *, device=None,
+                      schedule: Optional[Schedule] = None
+                      ) -> "MoeDispatchOp":
+        """An op over an explicit lowering: the (T, R) tile expert ids, its
+        worker shards, the packed (T_pad, R, W) combine weights and token
+        ids, the (T, R) or (T_pad, R) slot-cost stream and the plan's
+        per-expert kept token counts, which the CSR was laid out with
+        (`repro_torch.convert` builds one from the reference's lowering).
+        `observe()` needs `schedule`."""
+        op = cls.__new__(cls)
+        op._bind(np.asarray(item_id), shards, vals, cols,
+                 np.asarray(slot_cost), np.asarray(counts), int(n_tokens),
+                 resolve_device(device), schedule)
+        return op
+
+    def _bind(self, item_id, shards, vals, cols, slot_cost, counts,
+              n_tokens, device, schedule) -> None:
+        self._lower(schedule, shards, item_id.shape[0], device)
+        self.n_tokens = n_tokens
+        self.n_experts = int(counts.size)
+        self.vals = self._put(vals, np.float32)
+        self.cols = self._put(cols, np.int32)
+        self._put_flat_lowering(item_id, slot_cost)
+        self.slots = moe_slots(item_id, counts, np.asarray(cols), n_tokens,
+                               device)
+        self.last_expert_costs = None  # (p, E) of the latest call
+
+    def __call__(self, x, wi, wg, wo) -> torch.Tensor:
+        """y (n_tokens, D) float32 on the op's device: x (n_tokens, D)
+        token activations, wi/wg (E, D, F) and wo (E, F, D) expert FFN
+        weights, float32 tensors on the op's device or arrays copied
+        there."""
+        x = self._input("x", x, np.float32)
+        wi, wg, wo = (self._input(n, a, np.float32)
+                      for n, a in (("wi", wi), ("wg", wg), ("wo", wo)))
+        if x.ndim != 2 or x.shape[0] != self.n_tokens:
+            raise ValueError(f"x must be ({self.n_tokens}, D), got "
+                             f"{tuple(x.shape)}")
+        D = x.shape[1]
+        if wi.ndim != 3 or wi.shape[:2] != (self.n_experts, D) \
+                or wg.shape != wi.shape \
+                or tuple(wo.shape) != (self.n_experts, wi.shape[2], D):
+            raise ValueError(
+                f"expert weights must be wi/wg ({self.n_experts}, {D}, F) "
+                f"and wo ({self.n_experts}, F, {D}), got {tuple(wi.shape)}, "
+                f"{tuple(wg.shape)}, {tuple(wo.shape)}")
+        # 0 tokens is a no-op too: a zero-admission plan still has one
+        # tile per (zero-count) expert, but no token to gather
+        if self.n_tiles == 0 or self.n_tokens == 0:
+            self.last_expert_costs = torch.zeros(
+                (self.p, self.n_experts), dtype=torch.float32,
+                device=self.device)
+            return self._noop((self.n_tokens, D), torch.float32)
+        y, self.last_costs, self.last_expert_costs = ich_moe_sharded(
+            self.vals, self.cols, self.rowid, self.blkid, x, wi, wg, wo,
+            self.p, self.superstep, self.slots, slot_cost=self.slot_cost)
+        return y
+
+    def expert_load(self) -> np.ndarray:
+        """Measured per-expert cost totals of the latest call, worker-summed
+        into an (E,) float64 array: the plan's kept token counts, exactly;
+        what `refine_cap_scale` consumes."""
+        if self.last_expert_costs is None:
+            raise ValueError("no kernel invocation to read yet; run the "
+                             "op first")
+        return self.last_expert_costs.cpu().numpy().astype(
+            np.float64).sum(axis=0)
+
+
 register(
     "spmv",
     costs=lambda indptr, indices, data: NnzCosts(indptr),
@@ -351,3 +452,9 @@ register(
     costs=lambda costs: ExplicitCosts(np.asarray(costs, np.float64)),
     build=KMeansOp,
     doc="K-Means assignment; input (predicted per-point costs).")
+register(
+    "moe-dispatch",
+    costs=lambda plan: ExpertLoadCosts(plan.counts),
+    build=MoeDispatchOp,
+    doc="MoE expert FFN over a dispatch plan (sched/moe.py); input "
+        "(DispatchPlan); cost = per-expert kept token load.")

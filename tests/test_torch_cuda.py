@@ -7,9 +7,11 @@ and skip without one; run them there with
 
 Tolerance: SpMV's y at rtol=atol=1e-5 against the plain version (the
 plain version does the same adds; the margin covers PyTorch's own
-kernels). Everything else exactly: BFS frontiers are 0/1, K-Means ids come
-from the same left fold over D in both versions, and every cost stream is
-the same left fold."""
+kernels); MoE's y at rtol=atol=1e-4 (the kernel's products are fmaf chains
+over ascending k, the plain version's are cuBLAS float32 products, which
+sum in another order). Everything else exactly: BFS frontiers are 0/1,
+K-Means ids come from the same left fold over D in both versions, and
+every cost stream is the same left fold."""
 import numpy as np
 import pytest
 import torch
@@ -155,3 +157,75 @@ def test_bfs_and_kmeans_wrappers_raise_instead_of_falling_back(cuda):
                              torch.zeros((3, 20000), device=cuda), rowid)
     with pytest.raises(ValueError, match="all on CUDA"):
         KK.ich_kmeans_assign(pts, torch.zeros((2, 3)), rowid)
+
+
+def test_moe_kernel_matches_plain_and_is_lowering_independent(cuda):
+    """p in {1, 2, 4} x B in {1, 4, 8} over one plan, with experts split
+    across slot rows and a width that is not a multiple of the kernel's
+    tiles: kernel == plain, cost streams exactly, and one y bit for bit
+    across every lowering (p = 1, B = 1 is the sequential walk)."""
+    from repro_torch.core.workloads import moe_router
+    from repro_torch.kernels.ich_moe import ich_moe as K
+    from repro_torch.sched import LoopScheduler, plan_dispatch
+    T, E, D, F = 600, 16, 72, 200
+    e_topk, w = moe_router(T, E, 4, seed=3, skew=1.2)
+    plan = plan_dispatch(e_topk, w, cap_scale=np.ones(E))
+    rng = np.random.default_rng(3)
+    wi, wg = (torch.from_numpy((rng.standard_normal((E, D, F)) * D ** -0.5)
+                               .astype(np.float32)).to(cuda)
+              for _ in range(2))
+    wo = torch.from_numpy((rng.standard_normal((E, F, D)) * F ** -0.5)
+                          .astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(
+        np.float32)).to(cuda)
+    first = None
+    for p in (1, 2, 4):
+        for B in (1, 4, 8):
+            op = LoopScheduler(p=p, superstep=B, rows_per_tile=2,
+                               cache_size=0).build("moe-dispatch", plan,
+                                                   width=64)
+            K.reset_launches()
+            y = op(x, wi, wg, wo)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES == {"ich_moe_sharded": 1}
+            y_p, c_p, e_p = K.ich_moe_sharded_plain(
+                op.vals, op.cols, op.rowid, op.blkid, x, wi, wg, wo, p, B,
+                op.slots, slot_cost=op.slot_cost)
+            torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
+            assert torch.equal(op.last_costs, c_p)
+            assert torch.equal(op.last_expert_costs, e_p)
+            np.testing.assert_array_equal(op.expert_load(),
+                                          plan.counts.astype(np.float64))
+            np.testing.assert_array_equal(
+                op.last_costs.cpu().numpy().sum(axis=1),
+                op.shards.worker_cost(
+                    op.schedule.tile_cost()).astype(np.float32))
+            first = y if first is None else first
+            assert torch.equal(y, first)
+
+
+def test_moe_zero_tokens_and_bad_inputs_on_the_card(cuda):
+    from repro_torch.kernels.ich_moe import ich_moe as K
+    from repro_torch.sched import LoopScheduler, plan_dispatch
+    plan = plan_dispatch(np.zeros((0, 2), np.int64),
+                         np.zeros((0, 2), np.float32))
+    op = LoopScheduler(p=4).build("moe-dispatch", plan)
+    K.reset_launches()
+    E = plan.n_experts
+    y = op(torch.zeros((0, 8), device=cuda),
+           torch.zeros((E, 8, 16), device=cuda),
+           torch.zeros((E, 8, 16), device=cuda),
+           torch.zeros((E, 16, 8), device=cuda))
+    assert tuple(y.shape) == (0, 8) and K.LAUNCHES == {"ich_moe_sharded": 0}
+    np.testing.assert_array_equal(op.expert_load(), np.zeros(E))
+    e_topk = np.arange(16, dtype=np.int32).reshape(8, 2) % 4
+    op = LoopScheduler(p=2).build("moe-dispatch", plan_dispatch(e_topk))
+    x = torch.zeros((8, 4), device=cuda)
+    wi = torch.zeros((4, 4, 6), device=cuda)
+    wo = torch.zeros((4, 6, 4), device=cuda)
+    with pytest.raises(TypeError, match="wg"):
+        K.ich_moe_sharded(op.vals, op.cols, op.rowid, op.blkid, x, wi,
+                          wi.double(), wo, 2, op.superstep, op.slots)
+    with pytest.raises(ValueError, match="all on CUDA"):
+        K.ich_moe_sharded(op.vals, op.cols, op.rowid, op.blkid, x.cpu(), wi,
+                          wi, wo, 2, op.superstep, op.slots)

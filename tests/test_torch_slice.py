@@ -1,4 +1,5 @@
-"""The SpMV, BFS and K-Means slices end to end through both packages, and
+"""The SpMV, BFS and K-Means slices end to end through both packages (MoE
+dispatch's is in tests/test_torch_moe.py), and
 the port's boundaries: it imports nothing of JAX or of `repro`, its entry
 points run on the card unless asked for the CPU, and its kernel libraries
 are rebuilt when a source or a shared header changes.
@@ -178,6 +179,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.kernels.ich_bfs.ref, "
             "repro_torch.kernels.ich_kmeans.ich_kmeans, "
             "repro_torch.kernels.ich_kmeans.ref, "
+            "repro_torch.kernels.ich_moe.ich_moe, "
+            "repro_torch.kernels.ich_moe.ref, repro_torch.sched.moe, "
             "repro_torch.core.workloads; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
@@ -224,5 +227,5 @@ def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
     # the real sources each name their own library
     monkeypatch.undo()
     paths = {_build.library_path(n) for n in ("ich_spmv", "ich_bfs",
-                                              "ich_kmeans")}
-    assert len(paths) == 3
+                                              "ich_kmeans", "ich_moe")}
+    assert len(paths) == 4
