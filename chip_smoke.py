@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` (one nvcc per
 source, all started together), holds each against its plain PyTorch
-version on the card, and drives the port's four main paths, each with
+version on the card, and drives the port's five main paths, each with
 its launch counters set to 0 just before it and read just after:
 
 * SpMV (schedule -> sharded kernel -> observe/refine -> sharded kernel) on
@@ -23,11 +23,19 @@ its launch counters set to 0 just before it and read just after:
   -> `refine_cap_scale` -> next plan, three closed-loop rounds) at the
   width of one OLMoE-1B-7B MoE layer (64 experts, top-8, D = 2048, expert
   F = 1024, float32) over 4,096 tokens, checked against a float64 host
-  evaluation of 64 sampled tokens.
+  evaluation of 64 sampled tokens;
+* Zamba2-1.2B serving (`Engine.generate`: iCh-chunked prefill, each chunk
+  re-running the prefix through 6 flash-attention and 32 SSD-scan
+  launches, then 32 decode steps) at full width (38 layers, d_model 2048,
+  random float32 weights from a seeded generator) on 4 prompts of 2,048
+  tokens, held to three bars: the last chunk's logits equal a one-shot
+  prefill bit for bit, decode at position S matches a fresh prefill of
+  S + 1 tokens, the logits are finite.
 
 It times every kernel beside its plain version, its bound and PyTorch
 computing the same function (cuSPARSE SpMV, `torch.cdist` argmin, MoE's
-capacity-buffer `torch.bmm` form), and prints one JSON line per result.
+capacity-buffer `torch.bmm` form, `scaled_dot_product_attention`; the SSD
+scan has no single PyTorch call), and prints one JSON line per result.
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs CUDA and the repository's `src/` beside it.
 
@@ -82,7 +90,18 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                                   PASS + "ich_kmeans/ich_kmeans.py:163"),
     "ich_moe_sharded": ("src/repro_torch/csrc/ich_moe.cu",
                         PASS + "ich_moe/ich_moe.py:197"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        PASS + "flash_attention/flash_attention.py:95"),
+    "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                   PASS + "mamba_scan/mamba_scan.py:83"),
 }
+# Zamba2-1.2B serving (src/repro/configs/zamba2_1_2b.py, full width)
+LM_ARCH = "zamba2-1.2b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+LM_MAX_SEQ = 4096
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:23-24
+SCAN_TOL = 2e-4        # tests/test_kernels.py:206-209 (main shape: of sum |terms|)
+DECODE_TOL = 2e-3        # decode vs fresh prefill (tests/test_arch_smoke.py)
 
 
 def log(**kw) -> None:
@@ -966,6 +985,325 @@ def phase_moe(sm_count):
                          bytes_=bytes_, flops=flops)]
 
 
+def phase_small_lm():
+    """Flash attention and the SSD scan against their plain versions on
+    small shapes: flash over causal and not, GQA rep in {1, 2, 4}, ragged
+    S, window in {0, 32}, float32 and bfloat16, dh in {64, 128}; the scan
+    over several (S, H, N, Pd, chunk), ragged S among them, with q/k
+    materialised and shared across heads (head stride 0)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 4)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = 0
+    for causal in (True, False):
+        for rep in (1, 2, 4):
+            for S in (128, 200):
+                for window in (0, 32):
+                    for dtype in ("float32", "bfloat16"):
+                        dh = 128 if rep == 4 else 64
+                        q = torch.randn((2, S, 2 * rep, dh), generator=g,
+                                        device="cuda")
+                        k = torch.randn((2, S, 2, dh), generator=g,
+                                        device="cuda")
+                        v = torch.randn((2, S, 2, dh), generator=g,
+                                        device="cuda")
+                        q, k, v = (t.to(getattr(torch, dtype))
+                                   for t in (q, k, v))
+                        out = KF.flash_attention(q, k, v, causal=causal,
+                                                 window=window)
+                        plain = KF.flash_attention_plain(
+                            q, k, v, causal=causal, window=window)
+                        torch.cuda.synchronize()
+                        tol = FLASH_TOL[dtype]
+                        check(torch.allclose(out.float(), plain.float(),
+                                             rtol=tol, atol=tol),
+                              f"flash == plain at causal={causal} rep={rep} "
+                              f"S={S} window={window} {dtype}")
+                        worst[dtype] = max(worst[dtype], float(
+                            (out.float() - plain.float()).abs().max()))
+                        cases += 1
+    scan_worst = 0.0
+    for S, H, N, Pd, chunk in ((128, 2, 16, 32, 64), (300, 4, 64, 64, 256),
+                               (129, 2, 8, 16, 64), (100, 2, 64, 128, 32),
+                               (520, 8, 64, 64, 256), (37, 3, 64, 64, 256)):
+        for shared in (False, True):
+            q = torch.randn((2, S, 1 if shared else H, N), generator=g,
+                            device="cuda")
+            k = torch.randn((2, S, 1 if shared else H, N), generator=g,
+                            device="cuda")
+            q, k = q.expand(2, S, H, N), k.expand(2, S, H, N)
+            v = torch.randn((2, S, H, Pd), generator=g, device="cuda")
+            la = -torch.rand((2, S, H), generator=g, device="cuda") * 0.3
+            y, st = KS.mamba_scan(q, k, v, la, chunk=chunk)
+            y_p, st_p = KS.mamba_scan_plain(q, k, v, la, chunk=chunk)
+            torch.cuda.synchronize()
+            check(torch.allclose(y, y_p, rtol=SCAN_TOL, atol=SCAN_TOL)
+                  and torch.allclose(st, st_p, rtol=SCAN_TOL, atol=SCAN_TOL),
+                  f"scan == plain at S={S} H={H} N={N} Pd={Pd} "
+                  f"chunk={chunk} shared={shared}")
+            scan_worst = max(scan_worst, float((y - y_p).abs().max()),
+                             float((st - st_p).abs().max()))
+    log(phase="small_lm", flash_cases=cases, flash_max_abs_err=worst,
+        scan_max_abs_err=scan_worst, ok=True)
+
+
+def _kernel_split(ms_by_name: dict) -> dict:
+    """Device milliseconds of one traced call grouped: the two kernels of
+    this slice, matrix products (cuBLAS/CUTLASS), everything else."""
+    out = {"flash_attention": 0.0, "mamba_scan": 0.0, "matmul": 0.0,
+           "other": 0.0}
+    for name, ms in ms_by_name.items():
+        low = name.lower()
+        if "flash_fwd_kernel" in name:
+            out["flash_attention"] += ms
+        elif "ssd_scan_kernel" in name:
+            out["mamba_scan"] += ms
+        elif "gemm" in low or "cutlass" in low or "matmul" in low:
+            out["matmul"] += ms
+        else:
+            out["other"] += ms
+    return out
+
+
+def _scan_work(B, S, H, N, Pd, chunk, *, shared_qk: bool):
+    """Operations the scan's algebra needs on these shapes. Per chunk of
+    length c (the last may be short) and c(c+1)/2 causal pairs: 2N for the
+    q.k score of each pair, once per batch row when q and k are shared by
+    all heads (Zamba2's C and B, a head stride of 0) and once per head
+    otherwise; per head, 2Pd + 1 for each pair's decayed product with v,
+    and 4 c N Pd for the inter-chunk term and the state update."""
+    score = per_head = 0
+    for t0 in range(0, S, chunk):
+        c = min(chunk, S - t0)
+        pairs = c * (c + 1) // 2
+        score += pairs * 2 * N
+        per_head += pairs * (2 * Pd + 1) + 4 * c * N * Pd
+    return B * (score * (1 if shared_qk else H) + H * per_head)
+
+
+def phase_zamba2():
+    """Zamba2-1.2B at full width (38 layers, d_model 2048, random weights
+    from a seeded generator on the card, float32): the counted main path
+    `Engine.generate` on 4 prompts of 2,048 tokens with 32 new tokens;
+    bars (a) the last chunk's logits == a one-shot prefill bit for bit,
+    (b) decode at position S == a fresh prefill of S + 1 tokens within
+    DECODE_TOL, (c) finite logits; then both kernels at the main path's
+    shapes against their plain versions, timed beside their bounds and
+    (flash) scaled_dot_product_attention."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    from repro_torch.kernels.mamba_scan.ref import ssd_sequential_ref
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 end to end
+    cfg = get_arch(LM_ARCH)
+    B, S, n_new = LM_BATCH, LM_PROMPT, LM_NEW
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int64)
+    log(phase="zamba2_setup", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, attention_uses=cfg.block_pattern.count("A"),
+        mamba_blocks=cfg.block_pattern.count("M"), params=n_params,
+        weight_bytes=n_params * 4, batch=B, prompt=S, new_tokens=n_new,
+        init_s=time.perf_counter() - t0)
+    # first use of cuBLAS and of both kernel libraries, outside the count
+    M.prefill(cfg, params, {"tokens": torch.from_numpy(
+        prompts[:, :64]).cuda()})
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    KF.reset_launches()
+    KS.reset_launches()
+    engine = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ids, stats = engine.generate(prompts, n_new=n_new)
+    torch.cuda.synchronize()
+    t_generate = time.perf_counter() - t0
+    launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
+                "mamba_scan": KS.LAUNCHES["mamba_scan"]}
+    chunks = stats["chunks"]
+    t_prefill = sum(c["dt"] for c in chunks)
+    reruns = engine.n_prefill_fallbacks
+    log(phase="zamba2_main_path", chunk_log=chunks,
+        n_prefill_fallbacks=reruns, launches=launches,
+        generate_s=t_generate, time_to_first_token_s=t_prefill,
+        decode_ms_per_token=(t_generate - t_prefill) / n_new * 1e3,
+        generated_ids=ids.tolist(), peak_gb=torch.cuda.max_memory_allocated()
+        / 1e9)
+    check(reruns == len(chunks) > 0, "every prefill chunk counted")
+    check(launches["flash_attention"] == cfg.block_pattern.count("A") * reruns
+          and launches["mamba_scan"] == cfg.block_pattern.count("M") * reruns,
+          "flash 6 and scan 32 launches per prefill rerun")
+    check(ids.shape == (B, n_new) and bool(np.all((ids >= 0)
+                                                  & (ids < cfg.vocab_size))),
+          "generated ids in the vocabulary")
+
+    # ---- bars ----
+    toks = torch.from_numpy(prompts).cuda()
+    last, _, _ = Engine(cfg, params, EngineConfig(
+        max_seq=LM_MAX_SEQ)).prefill_chunked(prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_shot, cache = M.prefill(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_one_shot = time.perf_counter() - t0
+    check(torch.equal(last, one_shot),
+          "(a) last chunk's logits == one-shot prefill bit for bit")
+    check(bool(torch.isfinite(one_shot).all()), "(c) prefill logits finite")
+    first = torch.from_numpy(ids[:, :1].astype(np.int64)).cuda()
+    d_logits, _ = M.decode_step(cfg, params, first, engine._pad_cache(cache),
+                                S)
+    fresh, _ = M.prefill(cfg, params, {"tokens": torch.cat([toks, first],
+                                                           dim=1)})
+    torch.cuda.synchronize()
+    err = float((d_logits - fresh).abs().max())
+    log(phase="zamba2_bars", one_shot_prefill_s=t_one_shot,
+        decode_vs_prefill_max_abs=err,
+        logits_max_abs=float(fresh.abs().max()),
+        decode_argmax_is_second_id=bool(np.array_equal(
+            d_logits.argmax(-1).cpu().numpy(), ids[:, 1])))
+    check(bool(torch.isfinite(d_logits).all()), "(c) decode logits finite")
+    check(torch.allclose(d_logits, fresh, rtol=DECODE_TOL, atol=DECODE_TOL),
+          f"(b) decode at S == prefill of S + 1 within {DECODE_TOL}")
+    split = _kernel_split(device_ms_by_kernel(
+        lambda: M.prefill(cfg, params, {"tokens": toks})))
+    log(phase="zamba2_prefill_split", device_ms=split,
+        device_total_ms=sum(split.values()))
+    # one decode step (position S, rewritten in place each call): the
+    # card's busy time against the host's wall time
+    dec_cache = engine._pad_cache(cache)
+
+    def one_decode():
+        M.decode_step(cfg, params, first, dec_cache, S)
+    dec_split = _kernel_split(device_ms_by_kernel(one_decode))
+    wall = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        one_decode()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    dec_device = sum(dec_split.values())
+    dec_wall = float(np.median(wall)) * 1e3
+    log(phase="zamba2_decode_split", device_ms=dec_split,
+        device_total_ms=dec_device, wall_ms=dec_wall,
+        idle_share=1.0 - dec_device / dec_wall)
+    del cache, dec_cache, last, one_shot, d_logits, fresh, engine
+
+    # ---- both kernels at the main path's shapes ----
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 5)
+    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    q = torch.randn((B, S, Hq, dh), generator=g, device="cuda")
+    k = torch.randn((B, S, Hkv, dh), generator=g, device="cuda")
+    v = torch.randn((B, S, Hkv, dh), generator=g, device="cuda")
+    win = cfg.attn_window
+    out = KF.flash_attention(q, k, v, causal=True, window=win)
+    plain = KF.flash_attention_plain(q, k, v, causal=True, window=win)
+    torch.cuda.synchronize()
+    check(torch.allclose(out, plain, rtol=FLASH_TOL["float32"],
+                         atol=FLASH_TOL["float32"]),
+          "main-path-shape flash == plain")
+    err_flash = float((out - plain).abs().max())
+    del plain
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    gqa = Hq != Hkv
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=gqa)
+    lib_out = sdpa().transpose(1, 2)
+    log(phase="flash_library", sdpa_max_abs_diff=float(
+        (lib_out - out).abs().max()))
+    del lib_out
+    flash_ms = timed_ms(lambda: KF.flash_attention(q, k, v, causal=True,
+                                                   window=win))
+    flash_plain_ms = timed_ms(lambda: KF.flash_attention_plain(
+        q, k, v, causal=True, window=win))
+    flash_lib_ms = timed_ms(sdpa)
+    pairs = S * (S + 1) // 2                 # S <= window: causal pairs
+    flash_flops = 4 * dh * pairs * B * Hq    # q.k and p.v, 2 flops a MAC
+    flash_bytes = 4 * (q.numel() + k.numel() + v.numel() + out.numel())
+    del q, k, v, out, qt, kt, vt
+
+    d_in = cfg.mamba_expand * cfg.d_model
+    H, N, Pd = d_in // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
+    chunk = min(cfg.ssm_chunk, S)
+    Cm = torch.randn((B, S, N), generator=g, device="cuda")
+    Bm = torch.randn((B, S, N), generator=g, device="cuda")
+    qs, ks = Cm[:, :, None].expand(B, S, H, N), Bm[:, :, None].expand(
+        B, S, H, N)                           # shared across heads
+    vs = torch.randn((B, S, H, Pd), generator=g, device="cuda")
+    # the model's decay: log_a = -exp(A_log) dt with A_log = 0 and
+    # dt = softplus(.), so l reaches ~ -180 inside a 256-step chunk
+    la = -torch.nn.functional.softplus(torch.randn((B, S, H), generator=g,
+                                                   device="cuda"))
+    y, st = KS.mamba_scan(qs, ks, vs, la, chunk=chunk)
+    y_p, st_p = KS.mamba_scan_plain(qs, ks, vs, la, chunk=chunk)
+    # exp(l_i - l_j) subtracts two large cumulative sums, whose rounding
+    # depends on the order they were summed in (a parallel cumsum on each
+    # side): the error is measured against each element's sum of |terms|,
+    # the scan of |q|, |k|, |v| with the same decays
+    y_abs, st_abs = KS.mamba_scan_plain(qs.abs(), ks.abs(), vs.abs(), la,
+                                        chunk=chunk)
+    torch.cuda.synchronize()
+    rel_y = float(((y - y_p).abs() / (y_abs + 1e-30)).max())
+    rel_st = float(((st - st_p).abs() / (st_abs + 1e-30)).max())
+    log(phase="scan_main_shape_check", max_abs_y=float((y - y_p).abs().max()),
+        max_rel_to_terms_y=rel_y, max_rel_to_terms_state=rel_st,
+        y_max_abs=float(y_p.abs().max()))
+    check(rel_y <= SCAN_TOL and rel_st <= SCAN_TOL,
+          f"main-path-shape scan == plain within {SCAN_TOL} of each "
+          f"element's sum |terms|")
+    # which side drifts: both against the step-by-step recurrence in
+    # float64, which has no cumulative sum and no exp(l_i - l_j)
+    y_64, st_64 = ssd_sequential_ref(qs, ks, vs, la)
+
+    def rel64(a, b, terms):
+        return float(((a.double() - b).abs() / (terms.double() + 1e-30))
+                     .max())
+    drift = {"kernel_y": rel64(y, y_64, y_abs),
+             "plain_y": rel64(y_p, y_64, y_abs),
+             "kernel_state": rel64(st, st_64, st_abs),
+             "plain_state": rel64(st_p, st_64, st_abs)}
+    log(phase="scan_main_shape_f64", max_rel_to_terms=drift,
+        max_abs={"kernel_y": float((y.double() - y_64).abs().max()),
+                 "plain_y": float((y_p.double() - y_64).abs().max())})
+    check(drift["kernel_y"] <= SCAN_TOL and drift["kernel_state"] <= SCAN_TOL,
+          f"main-path-shape scan == float64 recurrence within {SCAN_TOL} "
+          f"of each element's sum |terms|")
+    del y_64, st_64
+    err_scan = max(float((y - y_p).abs().max()),
+                   float((st - st_p).abs().max()))
+    del y_p, st_p, y_abs, st_abs
+    scan_ms = timed_ms(lambda: KS.mamba_scan(qs, ks, vs, la, chunk=chunk))
+    scan_plain_ms = timed_ms(lambda: KS.mamba_scan_plain(qs, ks, vs, la,
+                                                         chunk=chunk))
+    scan_flops = _scan_work(B, S, H, N, Pd, chunk, shared_qk=True)
+    scan_bytes = 4 * (Cm.numel() + Bm.numel() + vs.numel() + la.numel()
+                      + y.numel() + st.numel())
+    log(phase="lm_kernels", flash_shape=[B, S, Hq, Hkv, dh],
+        scan_shape=[B, S, H, N, Pd, chunk], flash_flops=flash_flops,
+        scan_flops=scan_flops)
+    return [kernel_entry("flash_attention",
+                         launches=launches["flash_attention"], err=err_flash,
+                         ms=flash_ms, plain_ms=flash_plain_ms,
+                         library_ms=flash_lib_ms, bytes_=flash_bytes,
+                         flops=flash_flops),
+            kernel_entry("mamba_scan", launches=launches["mamba_scan"],
+                         err=err_scan, ms=scan_ms, plain_ms=scan_plain_ms,
+                         library_ms=None, bytes_=scan_bytes,
+                         flops=scan_flops)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -977,10 +1315,12 @@ def main() -> int:
     phase_small()
     phase_small_bfs_kmeans()
     phase_small_moe()
+    phase_small_lm()
     kernels = phase_main(sm_count)
     kernels += phase_bfs(sm_count)
     kernels += phase_kmeans(sm_count)
     kernels += phase_moe(sm_count)
+    kernels += phase_zamba2()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)
     print(json.dumps({"ok": True, "device": {

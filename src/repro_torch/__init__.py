@@ -2,9 +2,10 @@
 CUDA kernels for NVIDIA Hopper (sm_90a).
 
 This package is the PyTorch/CUDA counterpart of `repro`. Its layout mirrors
-`repro` (`core/`, `sched/`, `kernels/ich_{spmv,bfs,kmeans,moe}/`) so each
-module's twin is easy to find, but it imports nothing of `repro` and
-nothing of JAX: the numpy host code it needs is copied, not shared.
+`repro` (`core/`, `sched/`, `configs/`, `models/`, `serve/`,
+`kernels/{ich_spmv,ich_bfs,ich_kmeans,ich_moe,flash_attention,mamba_scan}/`)
+so each module's twin is easy to find, but it imports nothing of `repro`
+and nothing of JAX: the numpy host code it needs is copied, not shared.
 
 It runs the paper's three applications, each schedule -> sharded CUDA
 kernel -> observe/refine, and MoE expert dispatch (plan -> sharded kernel
@@ -20,6 +21,17 @@ kernel -> observe/refine, and MoE expert dispatch (plan -> sharded kernel
     ids = scheduler.build("kmeans", point_costs)(points, centroids)
     moe = scheduler.build("moe-dispatch", sched.plan_dispatch(e_topk, w))
     y = moe(x, wi, wg, wo)                          # ich_moe_sharded kernel
+
+and serves Zamba2-1.2B, whose prefill runs the flash attention and SSD
+scan kernels:
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import Engine, EngineConfig
+
+    cfg = get_arch("zamba2-1.2b")
+    engine = Engine(cfg, init_params(cfg, seed=0), EngineConfig(max_seq=4096))
+    ids, stats = engine.generate(prompts, n_new=32)
 
 Entry points run on the card unless the caller passes `device="cpu"`, which
 selects each kernel's plain PyTorch version (`repro_torch.device`).

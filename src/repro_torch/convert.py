@@ -19,13 +19,23 @@ packages' kernels can be fed the same bytes:
   activations are plain arrays the op takes at call time, in the
   reference's layouts (wi/wg (E, D, F), wo (E, F, D)).
 
+A language model's state is its weights:
+
+* `lm_params_from_reference` — the reference's `init_params` tree, as
+  numpy arrays (nested dicts and lists), loaded by name into the port's
+  model (`embed/tok` -> `embed.tok`, `blocks/1/mamba/in_x`,
+  `shared_attn/attn/wq`, ...).
+
 Nothing here imports the reference: the caller hands the arrays over.
 """
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from repro_torch.core.tiling import WorkerShards
+from repro_torch.models.model import init_params
 from repro_torch.sched.kernels import BfsOp, KMeansOp, MoeDispatchOp, SpmvOp
 
 
@@ -111,3 +121,38 @@ def moe_dispatch_op_from_reference(*, item_id, width: int,
     return MoeDispatchOp.from_lowering(item_id, shards, vals, cols,
                                        slot_cost, np.asarray(counts),
                                        n_tokens, device=device)
+
+
+def _flatten(tree, prefix: str = ""):
+    """Leaves of a nested dict/list tree as ("a.b.0.c", array) pairs."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for key, sub in items:
+        yield from _flatten(sub, f"{prefix}.{key}" if prefix else str(key))
+
+
+def lm_params_from_reference(cfg, np_params, device=None):
+    """The port's model (`models.model.HybridLM`) holding exactly the
+    reference's weights: `np_params` is `repro.models.model.init_params`'s
+    tree with numpy leaves. Raises when a name or a shape disagrees."""
+    model = init_params(cfg, device=device)
+    theirs = dict(_flatten(np_params))
+    ours = model.state_dict()
+    if set(theirs) != set(ours):
+        raise ValueError(f"parameter names disagree: only in the reference "
+                         f"{sorted(set(theirs) - set(ours))}, only in the "
+                         f"port {sorted(set(ours) - set(theirs))}")
+    state = {}
+    for name, arr in theirs.items():
+        t = torch.from_numpy(np.array(arr, np.float32))
+        if tuple(t.shape) != tuple(ours[name].shape):
+            raise ValueError(f"{name}: reference shape {tuple(t.shape)}, "
+                             f"port shape {tuple(ours[name].shape)}")
+        state[name] = t
+    model.load_state_dict(state, strict=True)
+    return model

@@ -1,6 +1,8 @@
-"""Vectorized Welford running statistics (paper §3.2, eqs. 6-7) — the
-port's copy of `repro.core.welford.WelfordVec`, which the measured-cost
-refiner (`sched/adaptive.py`) folds observations through."""
+"""Running statistics used by iCh (paper §3.2, eqs. 4-8) — the port's copy
+of `repro.core.welford`: `WelfordVec`, which the measured-cost refiner
+(`sched/adaptive.py`) folds observations through, and the paper's cheap
+band (`ich_band`, `classify`, `adapt_d`), which the serving engine's
+chunked prefill adapts its chunk divisor with."""
 from __future__ import annotations
 
 import dataclasses
@@ -45,3 +47,44 @@ class WelfordVec:
         return np.divide(self.m2, self.count,
                          out=np.zeros_like(self.m2),
                          where=self.count > 0)
+
+
+# ---------------------------------------------------------- the iCh band
+# (the rest of `repro.core.welford`, which the serving engine's chunked
+# prefill adapts its divisor with)
+
+LOW, NORMAL, HIGH = -1, 0, 1
+
+
+def ich_band(ks: np.ndarray, eps: float) -> tuple[float, float]:
+    """Paper eq. 8: the (mu, delta) band from per-worker completed counts.
+
+    mu    = sum_j k_j / p   (mean iteration throughput)
+    delta = eps * mu
+    """
+    mu = float(np.sum(ks)) / len(ks)
+    return mu, eps * mu
+
+
+def classify(k_i: float, mu: float, delta: float) -> int:
+    """Paper eqs. 1-3: classify a worker's throughput against mu +- delta."""
+    if k_i < mu - delta:
+        return LOW
+    if k_i > mu + delta:
+        return HIGH
+    return NORMAL
+
+
+def adapt_d(d_i: float, cls: int, d_min: float = 1.0, d_max: float = 4096.0) -> float:
+    """Paper §3.2 adaptation of the chunk divisor d_i.
+
+    chunk = ceil(|q_i| / d_i); the *direction* is deliberately inverted vs.
+    load-balance tuning:
+      low  (slow worker)  -> d/2  -> chunk DOUBLES  (fewer interruptions)
+      high (fast worker)  -> 2d   -> chunk HALVES   (more stealable work)
+    """
+    if cls == LOW:
+        d_i = d_i / 2.0
+    elif cls == HIGH:
+        d_i = d_i * 2.0
+    return float(min(max(d_i, d_min), d_max))

@@ -1,0 +1,137 @@
+"""Causal GQA flash attention (forward): the CUDA kernel's wrapper and its
+plain PyTorch version.
+
+`flash_attention(q, k, v, causal=, window=)` computes, per batch row and
+query head h (KV head h // rep, rep = Hq // Hkv; K/V are never repeated),
+
+    out[i] = sum_j softmax_j(q_i . k_j / sqrt(dh)) v_j
+
+over the keys j the masks keep: j < Skv always; j <= i when causal; and
+j > i - window when window > 0 (the sliding window of
+`repro.models.attention.blockwise_attention`, which the reference's model
+path calls). Query and key positions both start at 0. Masked scores are
+-1e30, so a query row with no kept key averages all of its values, as the
+reference's online softmax does; with a window, Sq <= Skv, so that every
+query keeps a key. Math is float32; the output has q's type.
+
+Given CPU tensors the wrapper runs the plain version
+(`flash_attention_plain`, the scores materialised); given CUDA tensors it
+launches the kernel of `csrc/flash_attention.cu` or raises: there is no
+fallback. Each launch adds one to `LAUNCHES["flash_attention"]`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._common import on_cpu, raise_on
+
+__all__ = ["LAUNCHES", "NEG_INF", "flash_attention", "flash_attention_plain",
+           "reset_launches"]
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)  # the head widths the kernel is built for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches since the last reset_launches()
+LAUNCHES = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check_shapes(q, k, v) -> tuple[int, int]:
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or q.shape[2] % k.shape[2]:
+        raise ValueError(f"q (B,Sq,Hq,dh), k/v (B,Skv,Hkv,dh) with Hq % Hkv "
+                         f"== 0; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    return q.shape[2] // k.shape[2], q.shape[3]
+
+
+def mask(Sq: int, Skv: int, *, causal: bool, window: int, device,
+         q_offset: int = 0) -> torch.Tensor:
+    """(Sq, Skv) bool: which keys each query keeps; query i sits at
+    position q_offset + i."""
+    qp = q_offset + torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Skv, device=device)[None, :]
+    keep = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        keep = keep & (kp <= qp)
+    if window > 0:
+        keep = keep & (kp > qp - window)
+    return keep
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0) -> torch.Tensor:
+    """Plain version: the (B, Hkv, rep, Sq, Skv) scores materialised in
+    float32, masked with -1e30, softmax, product with v. Query i sits at
+    position q_offset + i (the kernel's queries start at 0); decode calls
+    it with q_offset = the token's position."""
+    rep, dh = _check_shapes(q, k, v)
+    B, Sq, Hq, _ = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, Hkv, rep, dh)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * dh ** -0.5
+    keep = mask(Sq, Skv, causal=causal, window=window, device=q.device,
+                q_offset=q_offset)
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return out.reshape(B, Sq, Hq, dh).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
+        lib.flash_attention_launch.restype = i32
+        lib._typed = True
+    return lib
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """q (B,Sq,Hq,dh); k, v (B,Skv,Hkv,dh), Hq % Hkv == 0. Returns
+    (B,Sq,Hq,dh) in q's type. Any Sq, Skv (ragged edges are masked in the
+    kernel, not padded). On CUDA: float32 or bfloat16, one type for all
+    three, contiguous, dh in {64, 128}."""
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if k.shape[1] == 0:
+        raise ValueError("no keys: Skv must be > 0")
+    if window > 0 and q.shape[1] > k.shape[1]:
+        # then a late query could keep no key at all
+        raise ValueError(f"a window needs Sq <= Skv, got Sq={q.shape[1]}, "
+                         f"Skv={k.shape[1]}")
+    if on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    rep, dh = _check_shapes(q, k, v)
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one of {list(_DTYPES)}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head width {dh} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, Sq, Hq, _ = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
+        Hq, Hkv, dh, int(bool(causal)), window, _DTYPES[q.dtype], stream)
+    raise_on(code, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

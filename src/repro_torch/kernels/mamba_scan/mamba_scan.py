@@ -1,0 +1,154 @@
+"""Chunked SSD scan (the Mamba2 mixer's recurrence): the CUDA kernel's
+wrapper and its plain PyTorch version.
+
+Per batch row and head, with state S (N, Pd) in float32,
+
+    S_t = a_t * S_{t-1} + k_t (x) v_t,      y_t = q_t . S_t,
+
+a_t = exp(log_a_t) <= 1, computed in chunks of Q steps: with l the
+inclusive cumulative sum of log_a inside a chunk and `total` its last
+entry,
+
+    y_i   = sum_{j<=i} (q_i . k_j) exp(clip(l_i - l_j, -60, 0)) v_j
+            + exp(l_i) q_i . S_prev
+    S_new = exp(total) S_prev + sum_j exp(clip(total - l_j, -60, 0)) k_j (x) v_j
+
+— the algebra of `repro`'s `_ssd_kernel` and `chunked_gated_scan`. A
+sequence that is no multiple of Q is padded with zeros (log_a = 0 and
+k = 0 leave the state unchanged), as `mamba_scan_op` pads it.
+
+Given CPU tensors the wrapper runs the plain version (`mamba_scan_plain`,
+one chunk at a time in eager PyTorch); given CUDA tensors it launches the
+kernel of `csrc/mamba_scan.cu` or raises: there is no fallback. Each
+launch adds one to `LAUNCHES["mamba_scan"]`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._common import on_cpu, raise_on
+
+__all__ = ["LAUNCHES", "MAX_CHUNK", "MAX_STATE", "mamba_scan",
+           "mamba_scan_plain", "reset_launches"]
+
+MAX_STATE = 64    # state rows N the kernel holds
+MAX_CHUNK = 1024  # chunk lengths the kernel takes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches since the last reset_launches()
+LAUNCHES = {"mamba_scan": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check_shapes(q, k, v, log_a, chunk: int) -> None:
+    if q.ndim != 4 or k.shape != q.shape or v.ndim != 4 \
+            or v.shape[:3] != q.shape[:3] or tuple(log_a.shape) != q.shape[:3]:
+        raise ValueError(f"q, k (B,S,H,N), v (B,S,H,Pd), log_a (B,S,H); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(log_a.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+
+def mamba_scan_plain(q, k, v, log_a, *, chunk: int, state=None):
+    """Plain version, one chunk of `chunk` steps at a time. `state`
+    (B,H,N,Pd), when given, is the state before the first step (zeros
+    otherwise). Returns (y (B,S,H,Pd) in v's type, final state (B,H,N,Pd)
+    float32)."""
+    _check_shapes(q, k, v, log_a, chunk)
+    B, S, H, N = q.shape
+    Pd = v.shape[-1]
+    Q = int(chunk)
+    pad = (-S) % Q
+    if pad:
+        zf = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+        q, k, v = zf(q), zf(k), zf(v)
+        log_a = torch.nn.functional.pad(log_a, (0, 0, 0, pad))
+    nc = (S + pad) // Q
+
+    def chunks(t):  # (B, nc*Q, H, *) -> (B, nc, Q, H, *)
+        return t.reshape(B, nc, Q, *t.shape[2:])
+
+    qc, kc, vc = chunks(q.float()), chunks(k.float()), chunks(v.float())
+    lc = chunks(log_a.float())
+    st = (torch.zeros((B, H, N, Pd), dtype=torch.float32, device=q.device)
+          if state is None else state.float())
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=q.device).tril()
+    ys = []
+    for c in range(nc):
+        qb, kb, vb = qc[:, c], kc[:, c], vc[:, c]        # (B,Q,H,*)
+        l = torch.cumsum(lc[:, c], dim=1)                 # (B,Q,H)
+        total = l[:, -1]                                  # (B,H)
+        s_qk = torch.einsum("bihn,bjhn->bhij", qb, kb)
+        decay = torch.exp(torch.clamp(l[:, :, None] - l[:, None, :],
+                                      -60.0, 0.0)).permute(0, 3, 1, 2)
+        s_qk = torch.where(causal, s_qk * decay, torch.zeros_like(s_qk))
+        y = torch.einsum("bhij,bjhp->bihp", s_qk, vb)
+        y = y + torch.einsum("bihn,bhnp->bihp", qb, st) \
+            * torch.exp(l)[..., None]
+        w = torch.exp(torch.clamp(total[:, None] - l, -60.0, 0.0))
+        st = st * torch.exp(total)[:, :, None, None] + torch.einsum(
+            "bjhn,bjhp->bhnp", kb * w[..., None], vb)
+        ys.append(y)
+    y = torch.stack(ys, 1).reshape(B, nc * Q, H, Pd)[:, :S]
+    return y.to(v.dtype), st
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("mamba_scan")
+    if not getattr(lib, "_typed", False):
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.mamba_scan_launch.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 6 \
+            + [i32, ptr]
+        lib.mamba_scan_launch.restype = i32
+        lib._typed = True
+    return lib
+
+
+def mamba_scan(q, k, v, log_a, *, chunk: int = 128):
+    """q, k (B,S,H,N); v (B,S,H,Pd); log_a (B,S,H) <= 0. Returns
+    (y (B,S,H,Pd) in v's type, final state (B,H,N,Pd) float32). Any S: a
+    ragged last chunk is zero-padded (in the kernel: masked, not copied).
+
+    On CUDA: q, k, v float32 or bfloat16 (one type), log_a float32,
+    N <= 64, chunk <= 1024; v and log_a contiguous, q and k with a unit
+    stride over N and any other strides — a head stride of 0 serves B/C
+    shared by all heads without materialising them."""
+    chunk = int(chunk)
+    if on_cpu(q, k, v, log_a):
+        return mamba_scan_plain(q, k, v, log_a, chunk=chunk)
+    _check_shapes(q, k, v, log_a, chunk)
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one of {list(_DTYPES)}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if log_a.dtype != torch.float32:
+        raise TypeError(f"log_a must be float32, got {log_a.dtype}")
+    B, S, H, N = q.shape
+    Pd = v.shape[-1]
+    if N > MAX_STATE or chunk > MAX_CHUNK:
+        raise ValueError(f"the kernel takes N <= {MAX_STATE} and chunk <= "
+                         f"{MAX_CHUNK}, got N={N}, chunk={chunk}")
+    if q.stride(3) != 1 or k.stride(3) != 1:
+        raise ValueError("q and k need a unit stride over N")
+    for name, t in (("v", v), ("log_a", log_a)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    y = torch.empty_like(v)
+    state = torch.zeros((B, H, N, Pd), dtype=torch.float32, device=v.device)
+    if y.numel() == 0:
+        return y, state
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    code = _lib().mamba_scan_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
+        y.data_ptr(), state.data_ptr(), B, S, H, N, Pd, chunk,
+        *q.stride()[:3], *k.stride()[:3], _DTYPES[v.dtype], stream)
+    raise_on(code, "mamba_scan")
+    LAUNCHES["mamba_scan"] += 1
+    return y, state

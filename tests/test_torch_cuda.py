@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version, the
-sharded kernel against the sequential one bit for bit, and the launch
-counters. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU
+sharded kernel against the sequential one bit for bit, the launch
+counters, and the Zamba2 serving path through the flash attention and SSD
+scan kernels. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU
 and skip without one; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -11,7 +12,8 @@ kernels); MoE's y at rtol=atol=1e-4 (the kernel's products are fmaf chains
 over ascending k, the plain version's are cuBLAS float32 products, which
 sum in another order). Everything else exactly: BFS frontiers are 0/1,
 K-Means ids come from the same left fold over D in both versions, and
-every cost stream is the same left fold."""
+every cost stream is the same left fold. Flash attention and the SSD scan
+use the reference's kernel-test tolerances, stated at each test."""
 import numpy as np
 import pytest
 import torch
@@ -229,3 +231,143 @@ def test_moe_zero_tokens_and_bad_inputs_on_the_card(cuda):
     with pytest.raises(ValueError, match="all on CUDA"):
         K.ich_moe_sharded(op.vals, op.cols, op.rowid, op.blkid, x.cpu(), wi,
                           wi, wo, 2, op.superstep, op.slots)
+
+
+# ------------------------------------------------- flash attention, SSD scan
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Sq,Skv,rep,dh,causal,window", [
+    (128, 128, 1, 64, True, 0), (200, 200, 2, 64, True, 0),
+    (77, 77, 4, 128, True, 0), (96, 150, 2, 64, False, 0),
+    (130, 130, 2, 64, True, 32), (100, 140, 1, 128, False, 32),
+    (64, 64, 4, 64, False, 0), (300, 300, 1, 64, True, 32)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, Sq, Skv,
+                                              rep, dh, causal, window):
+    """Tolerances of the reference's own kernel tests (test_kernels.py:
+    23-24): both versions compute in float32 and differ in summation order;
+    in bfloat16 the output's rounding adds up to half an ulp."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    g = torch.Generator(device=cuda).manual_seed(Sq + rep + dh)
+    Hkv = 2
+    q = torch.randn((2, Sq, Hkv * rep, dh), generator=g, device=cuda)
+    k = torch.randn((2, Skv, Hkv, dh), generator=g, device=cuda)
+    v = torch.randn((2, Skv, Hkv, dh), generator=g, device=cuda)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    K.reset_launches()
+    out = K.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"flash_attention": 1} and out.dtype == dtype
+    plain = K.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S,H,N,Pd,chunk", [
+    (128, 2, 16, 32, 64), (256, 3, 16, 32, 64), (256, 1, 64, 64, 128),
+    (300, 2, 64, 64, 256), (129, 2, 8, 16, 64), (100, 2, 64, 128, 32),
+    (520, 4, 64, 64, 256), (37, 3, 64, 64, 256)])
+def test_mamba_scan_kernel_matches_plain(cuda, S, H, N, Pd, chunk):
+    """2e-4 in float32, the reference's tolerance for its kernel against
+    the chunked oracle (test_kernels.py:206-209)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as K
+    g = torch.Generator(device=cuda).manual_seed(S + N + Pd)
+    q = torch.randn((2, S, H, N), generator=g, device=cuda)
+    k = torch.randn((2, S, H, N), generator=g, device=cuda)
+    v = torch.randn((2, S, H, Pd), generator=g, device=cuda)
+    la = -torch.rand((2, S, H), generator=g, device=cuda) * 0.3
+    K.reset_launches()
+    y, st = K.mamba_scan(q, k, v, la, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"mamba_scan": 1}
+    y_p, st_p = K.mamba_scan_plain(q, k, v, la, chunk=chunk)
+    torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st, st_p, rtol=2e-4, atol=2e-4)
+    # B/C shared by all heads, read with a head stride of 0
+    qs, ks = q[:, :, :1].expand_as(q), k[:, :, :1].expand_as(k)
+    y_s, st_s = K.mamba_scan(qs, ks, v, la, chunk=chunk)
+    y_sp, st_sp = K.mamba_scan_plain(qs.contiguous(), ks.contiguous(), v, la,
+                                     chunk=chunk)
+    torch.testing.assert_close(y_s, y_sp, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st_s, st_sp, rtol=2e-4, atol=2e-4)
+    # bfloat16 inputs: float32 math, y rounded to bfloat16 (the reference's
+    # bfloat16 tolerance, 10 x 2e-2)
+    yb, _ = K.mamba_scan(q.bfloat16(), k.bfloat16(), v.bfloat16(), la,
+                         chunk=chunk)
+    yb_p, _ = K.mamba_scan_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 la, chunk=chunk)
+    torch.testing.assert_close(yb.float(), yb_p.float(), rtol=0.2, atol=0.2)
+
+
+def test_flash_and_scan_refuse_what_they_do_not_take(cuda):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as SS
+    q = torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        KF.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="share one of"):
+        KF.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        KF.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                           q.transpose(1, 2))
+    with pytest.raises(ValueError, match="all on CUDA"):
+        KF.flash_attention(q, q.cpu(), q)
+    qs = torch.zeros((1, 8, 2, 128), device=cuda)
+    la = torch.zeros((1, 8, 2), device=cuda)
+    with pytest.raises(ValueError, match="N <= 64"):
+        KS.mamba_scan(qs, qs, qs, la, chunk=4)
+    with pytest.raises(TypeError, match="log_a"):
+        KS.mamba_scan(q, q, q, la.double(), chunk=4)
+    # a chunked scan from a state has no kernel yet: raise, never the
+    # plain version
+    cfg = reduced(get_arch("zamba2-1.2b"), d_model=256, n_heads=4)
+    model = M.init_params(cfg, 0, device=cuda)
+    x = torch.zeros((1, 4, 256), device=cuda)
+    _, st = SS.apply_mamba2(cfg, model.blocks[0].mamba, x)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SS.apply_mamba2(cfg, model.blocks[0].mamba, x, state=st)
+
+
+def test_zamba2_serving_on_the_card_matches_the_cpu(cuda):
+    """A reduced Zamba2 with dh = 64 (so the flash kernel takes it):
+    prefill on the card through both kernels against the plain versions on
+    the CPU within 1e-4; generate gives the same ids; decode at S matches a
+    fresh prefill of S + 1 tokens within 2e-3 (test_arch_smoke.py's bar)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_arch("zamba2-1.2b"), d_model=256, n_heads=4,
+                  block_pattern=("M", "A", "M", "A"), n_layers=4,
+                  ssm_chunk=16)
+    model = M.init_params(cfg, 1, device=cuda)
+    cpu_model = M.init_params(cfg, 1, device="cpu")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in
+                               model.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 41)))
+    KF.reset_launches()
+    KS.reset_launches()
+    logits, _ = M.prefill(cfg, model, {"tokens": toks[:, :40].to(cuda)})
+    torch.cuda.synchronize()
+    assert KF.LAUNCHES == {"flash_attention": 2}
+    assert KS.LAUNCHES == {"mamba_scan": 2}
+    cpu_logits, _ = M.prefill(cfg, cpu_model, {"tokens": toks[:, :40]})
+    torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=1e-4,
+                               atol=1e-4)
+    prompts = toks[:, :24].numpy()
+    ids, _ = Engine(cfg, model, EngineConfig(max_seq=64)).generate(
+        prompts, n_new=8)
+    cpu_ids, _ = Engine(cfg, cpu_model, EngineConfig(max_seq=64),
+                        device="cpu").generate(prompts, n_new=8)
+    np.testing.assert_array_equal(ids, cpu_ids)
+    eng = Engine(cfg, model, EngineConfig(max_seq=64))
+    _, cache = M.prefill(cfg, model, {"tokens": toks[:, :40].to(cuda)})
+    d_logits, _ = M.decode_step(cfg, model, toks[:, 40:].to(cuda),
+                                eng._pad_cache(cache), 40)
+    full, _ = M.prefill(cfg, model, {"tokens": toks.to(cuda)})
+    torch.testing.assert_close(d_logits, full, rtol=2e-3, atol=2e-3)

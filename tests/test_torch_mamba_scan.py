@@ -1,0 +1,126 @@
+"""The port's SSD scan (its plain version: these tests run on the CPU)
+against the JAX reference: the Pallas kernel in interpret mode, `ssd_ref`
+(the XLA chunked scan) with its state layout, the padded `mamba_scan_op`,
+the sequential recurrence of tests/test_kernels.py:211, and the model's
+`chunked_gated_scan` with `state=` and `exact_chunk=`.
+
+Inputs come from numpy seeds and go to both packages. Tolerance 2e-4,
+the reference's own for float32 (tests/test_kernels.py:206-209): both
+sides compute in float32 and differ in summation order (and, against the
+sequential recurrence, in association)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mamba_scan.mamba_scan import mamba_scan as ref_scan
+from repro.kernels.mamba_scan.ops import mamba_scan_op
+from repro.kernels.mamba_scan.ref import ssd_ref
+from repro.models.ssm import chunked_gated_scan as ref_chunked
+from repro_torch.kernels.mamba_scan import mamba_scan as K
+from repro_torch.kernels.mamba_scan.ref import ssd_sequential_ref
+from repro_torch.models.ssm import chunked_gated_scan
+
+TOL = 2e-4
+SHAPES = [(1, 128, 2, 16, 32, 64), (2, 256, 3, 16, 32, 64),
+          (1, 256, 1, 64, 64, 128), (2, 128, 4, 8, 16, 128)]
+
+
+def _inputs(B, S, H, N, Pd, seed, decay=0.2):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, N)).astype(np.float32),
+            rng.standard_normal((B, S, H, N)).astype(np.float32),
+            rng.standard_normal((B, S, H, Pd)).astype(np.float32),
+            (-np.abs(rng.standard_normal((B, S, H))) * decay).astype(
+                np.float32))
+
+
+def _t(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _close(port, ref, tol=TOL):
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,N,Pd,chunk", SHAPES)
+def test_plain_matches_reference_kernel_and_oracle(B, S, H, N, Pd, chunk):
+    arrays = _inputs(B, S, H, N, Pd, seed=S + N)
+    y, st = K.mamba_scan(*_t(arrays), chunk=chunk)
+    jx = [jnp.asarray(a) for a in arrays]
+    y_ref, st_ref = ref_scan(*jx, chunk=chunk, interpret=True)
+    _close(y, y_ref)
+    _close(st, st_ref)       # kernel layout (B, H, N, Pd)
+    y_o, st_o = ssd_ref(*jx, chunk=chunk)
+    _close(y, y_o)
+    _close(st, st_o)
+    assert st.dtype == torch.float32 and tuple(st.shape) == (B, H, N, Pd)
+
+
+@pytest.mark.parametrize("S,chunk", [(100, 32), (37, 16), (5, 8)])
+def test_ragged_sequence_matches_reference_op(S, chunk):
+    arrays = _inputs(2, S, 3, 8, 16, seed=S)
+    y, st = K.mamba_scan(*_t(arrays), chunk=chunk)
+    y_ref, st_ref = mamba_scan_op(*(jnp.asarray(a) for a in arrays),
+                                  chunk=chunk, interpret=True)
+    _close(y, y_ref)
+    _close(st, st_ref)
+
+
+def test_plain_matches_sequential_recurrence():
+    """The reference's end-to-end oracle (test_kernels.py:211): y and the
+    state of the step-by-step recurrence, here in float64."""
+    arrays = _inputs(1, 64, 2, 8, 16, seed=11, decay=0.3)
+    y, st = K.mamba_scan(*_t(arrays), chunk=32)
+    y64, st64 = ssd_sequential_ref(*_t(arrays))
+    np.testing.assert_allclose(y.numpy(), y64.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(st.numpy(), st64.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    # and the reference kernel meets the same oracle
+    y_ref, _ = ref_scan(*(jnp.asarray(a) for a in arrays), chunk=32,
+                        interpret=True)
+    np.testing.assert_allclose(np.asarray(y_ref), y64.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_shared_heads_broadcast_as_the_model_passes_them():
+    """Zamba2 shares B/C across heads: q/k expanded with a head stride of
+    0 give the same result as materialised copies."""
+    q, k, v, la = _inputs(2, 48, 4, 8, 16, seed=3)
+    qs, ks = _t([q[:, :, :1], k[:, :, :1]])
+    y, st = K.mamba_scan(qs.expand(2, 48, 4, 8), ks.expand(2, 48, 4, 8),
+                         *_t([v, la]), chunk=16)
+    y_m, st_m = K.mamba_scan(qs.expand(2, 48, 4, 8).contiguous(),
+                             ks.expand(2, 48, 4, 8).contiguous(),
+                             *_t([v, la]), chunk=16)
+    assert torch.equal(y, y_m) and torch.equal(st, st_m)
+
+
+@pytest.mark.parametrize("S,chunk,exact", [(40, 16, False), (40, 16, True),
+                                           (10, 16, True), (10, 16, False)])
+def test_chunked_gated_scan_matches_reference(S, chunk, exact):
+    q, k, v, la = _inputs(2, S, 3, 8, 16, seed=S + chunk)
+    state = np.random.default_rng(1).standard_normal(
+        (2, 3, 16, 8)).astype(np.float32)            # (B, H, Pd, N)
+    for st in (None, state):
+        y, s_out = chunked_gated_scan(
+            *_t([q, k, v, la]), state=None if st is None else
+            torch.from_numpy(st), chunk=chunk, exact_chunk=exact)
+        y_ref, s_ref = ref_chunked(
+            *(jnp.asarray(a) for a in (q, k, v, la)),
+            state=None if st is None else jnp.asarray(st), chunk=chunk,
+            exact_chunk=exact)
+        _close(y, y_ref)
+        _close(s_out, s_ref)       # model layout (B, H, Pd, N)
+
+
+def test_plain_refuses_bad_shapes_and_launches_nothing():
+    q, k, v, la = _t(_inputs(1, 8, 2, 4, 4, seed=0))
+    with pytest.raises(ValueError, match="log_a"):
+        K.mamba_scan(q, k, v, la[:, :4], chunk=4)
+    with pytest.raises(ValueError, match="chunk"):
+        K.mamba_scan(q, k, v, la, chunk=0)
+    K.reset_launches()
+    K.mamba_scan(q, k, v, la, chunk=4)
+    assert K.LAUNCHES == {"mamba_scan": 0}

@@ -1,5 +1,6 @@
 """The SpMV, BFS and K-Means slices end to end through both packages (MoE
-dispatch's is in tests/test_torch_moe.py), and
+dispatch's is in tests/test_torch_moe.py, Zamba2 serving's in
+tests/test_torch_lm.py), and
 the port's boundaries: it imports nothing of JAX or of `repro`, its entry
 points run on the card unless asked for the CPU, and its kernel libraries
 are rebuilt when a source or a shared header changes.
@@ -169,6 +170,21 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         PS.KMeansOp(s, np.diff(indptr))
     assert PS.BfsOp(s, indptr, indices, device="cpu").levels(0).device.type \
         == "cpu"
+    # the Zamba2 serving path: init_params and Engine
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import Engine, EngineConfig
+    cfg = reduced(get_arch("zamba2-1.2b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(cfg, 0)
+    model = init_params(cfg, 0, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(cfg, model, EngineConfig(max_seq=32))
+    ids, _ = Engine(cfg, model, EngineConfig(max_seq=32),
+                    device="cpu").generate(np.ones((1, 6), np.int32),
+                                           n_new=2)
+    assert ids.shape == (1, 2)
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -181,7 +197,12 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.kernels.ich_kmeans.ref, "
             "repro_torch.kernels.ich_moe.ich_moe, "
             "repro_torch.kernels.ich_moe.ref, repro_torch.sched.moe, "
-            "repro_torch.core.workloads; "
+            "repro_torch.core.workloads, repro_torch.configs, "
+            "repro_torch.kernels.flash_attention.flash_attention, "
+            "repro_torch.kernels.flash_attention.ref, "
+            "repro_torch.kernels.mamba_scan.mamba_scan, "
+            "repro_torch.kernels.mamba_scan.ref, repro_torch.models.model, "
+            "repro_torch.serve, repro_torch.serve.engine; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -226,6 +247,8 @@ def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") not in (first, second)
     # the real sources each name their own library
     monkeypatch.undo()
-    paths = {_build.library_path(n) for n in ("ich_spmv", "ich_bfs",
-                                              "ich_kmeans", "ich_moe")}
-    assert len(paths) == 4
+    names = ("ich_spmv", "ich_bfs", "ich_kmeans", "ich_moe",
+             "flash_attention", "mamba_scan")
+    paths = {_build.library_path(n) for n in names}
+    assert len(paths) == len(names)
+    assert sorted(names) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
