@@ -11,7 +11,7 @@ its launch counters set to 0 just before it and read just after:
 * SpMV (schedule -> sharded kernel -> observe/refine -> sharded kernel) on
   the paper's `wikipedia` matrix at its published size (3,566,907 rows),
   checked against a float64 host product;
-* BFS (`levels(0)`, cross-checked against the sequential kernel at every
+* BFS (`levels(0)`, cross-checked against the flat walk at every
   level, then observe/refine and `levels(0)` again) at Rodinia BFS's
   largest published input, 1,000,000 vertices, on both graph kinds of the
   paper's BF workload, checked against a host BFS (scipy);
@@ -31,6 +31,10 @@ its launch counters set to 0 just before it and read just after:
   tokens, held to three bars: the last chunk's logits equal a one-shot
   prefill bit for bit, decode at position S matches a fresh prefill of
   S + 1 tokens, the logits are finite.
+
+For the flat walks (`ich_spmv`, `ich_bfs_step`: two kernels a call over
+the whole card) it logs the launch shape, the longest run of one row (the
+serial part of their fold) and the device time of each phase.
 
 It times every kernel beside its plain version, its bound and PyTorch
 computing the same function (cuSPARSE SpMV, `torch.cdist` argmin, MoE's
@@ -184,7 +188,7 @@ def phase_environment():
 
 def phase_small():
     """Both kernels against their plain versions on a small Zipf CSR, at
-    p in {1, 2, 4} x B in {1, 4, 8}; sharded == sequential bit for bit; a
+    p in {1, 2, 4} x B in {1, 4, 8}; sharded == flat walk bit for bit; a
     0-tile schedule returns zeros without a launch."""
     import torch
     from repro_torch.kernels.ich_spmv import ich_spmv as K
@@ -214,9 +218,9 @@ def phase_small():
             check(torch.equal(costs, c_plain),
                   f"cost stream == plain at p={p} B={B}")
             check(torch.allclose(y_seq, y_seq_plain, rtol=RTOL, atol=ATOL),
-                  f"sequential kernel == plain at p={p} B={B}")
+                  f"flat walk == plain at p={p} B={B}")
             check(torch.equal(y, y_seq),
-                  f"sharded == sequential bit for bit at p={p} B={B}")
+                  f"sharded == flat walk bit for bit at p={p} B={B}")
             worst = max(worst, float((y - y_plain).abs().max()),
                         float((y_seq - y_seq_plain).abs().max()))
     # a matrix with no rows lowers to a 0-tile schedule (every row, even
@@ -272,9 +276,9 @@ def phase_small_bfs_kmeans():
             check(torch.equal(nxt, nxt_p) and torch.equal(c, c_p),
                   f"BFS sharded kernel == plain at p={p} B={B}")
             check(torch.equal(nxt_s, KB.ich_bfs_step_plain(*seq)),
-                  f"BFS sequential kernel == plain at p={p} B={B}")
+                  f"BFS flat walk == plain at p={p} B={B}")
             check(torch.equal(nxt, nxt_s),
-                  f"BFS sharded == sequential bit for bit at p={p} B={B}")
+                  f"BFS sharded == flat walk bit for bit at p={p} B={B}")
             km = sched.build("kmeans", costs)
             check(np.unique(np.nonzero(km.schedule.item_id == 123)[0]).size
                   > 1, "the heavy point spans several tiles")
@@ -381,7 +385,7 @@ def phase_main(sm_count):
     for name in launches:
         check(launches[name] > 0, f"{name} launched on the main path")
     _check_run(op, y, y64, absum, "generation 0")
-    check(torch.equal(y, y_seq), "full-size sharded == sequential bit for bit")
+    check(torch.equal(y, y_seq), "full-size sharded == flat walk bit for bit")
     _check_run(op2, y2, y64, absum, "generation 1")
     check(torch.equal(y2, y), "refined schedule gives the same y")
     del op2, y2
@@ -398,7 +402,7 @@ def phase_main(sm_count):
     seq_args = (op.vals[:T], op.cols[:T], rowid_seq, x, op.n_rows)
     y_sp = K.ich_spmv_plain(*seq_args)
     check(torch.allclose(y_seq, y_sp, rtol=RTOL, atol=ATOL),
-          "full-size sequential kernel == plain")
+          "full-size flat walk == plain")
     err_seq = float((y_seq - y_sp).abs().max())
     del y_k, c_k, y_p, c_p, y_sp
 
@@ -423,6 +427,8 @@ def phase_main(sm_count):
                       <= HOST_RTOL * absum)), "cuSPARSE y sane")
     library_ms = timed_ms(lambda: csr @ x)
     del csr, y_lib
+    log_flat_walk("spmv", K, lambda: K.ich_spmv(*seq_args), T, R, W,
+                  rowid_seq, sm_count)
 
     # ---- bounds: bytes each input is read once / output written once ----
     real = int((s.item_id >= 0).sum())          # slots the kernels read
@@ -497,7 +503,7 @@ def _bfs_run(kind, sm_count):
             widest, big = width, (frontier, visited)
         nxt = op.step(frontier, visited)
         check(torch.equal(nxt, K.ich_bfs_step(*seq_args(frontier, visited))),
-              f"{kind}: sharded == sequential frontier at level {depth + 1}")
+              f"{kind}: sharded == flat frontier at level {depth + 1}")
         depth += 1
         level_loop = torch.where(nxt > 0, depth, level_loop)
         visited = torch.maximum(visited, nxt)
@@ -543,7 +549,7 @@ def _bfs_run(kind, sm_count):
           f"{kind}: full-size sharded kernel == plain")
     y_s = K.ich_bfs_step(*seq_args(f, v))
     y_sp = K.ich_bfs_step_plain(*seq_args(f, v))
-    check(torch.equal(y_s, y_sp), f"{kind}: full-size sequential == plain")
+    check(torch.equal(y_s, y_sp), f"{kind}: full-size flat walk == plain")
     err = {"ich_bfs_step_sharded": float((y_k - y_p).abs().max()),
            "ich_bfs_step": float((y_s - y_sp).abs().max())}
     del y_p, c_p, y_sp
@@ -567,6 +573,8 @@ def _bfs_run(kind, sm_count):
           f"{kind}: cuSPARSE frontier count agrees")
     library_ms = timed_ms(lambda: csr @ f)
     del csr, hits
+    log_flat_walk("bfs", K, lambda: K.ich_bfs_step(*seq_args(f, v)), T,
+                  s.rows_per_tile, s.width, rowid_seq, sm_count, graph=kind)
 
     # ---- bounds: bytes each input is read once / output written once ----
     real = int((s.item_id >= 0).sum())        # slots the kernels read
@@ -851,6 +859,34 @@ def device_ms_by_kernel(fn) -> dict:
         torch.cuda.synchronize()
     return {ev.key[:80]: ev.device_time_total / 1e3
             for ev in prof.key_averages() if ev.device_time_total > 0}
+
+
+def log_flat_walk(label, K, fn, T, R, W, rowid, sm_count, **extra) -> None:
+    """Three lines on a flat walk: its grid (the CTAs of each phase on this
+    card), the longest run of one row in slots (one thread folds it), and
+    the device milliseconds of each phase over one call of fn beside the
+    host's microseconds to enqueue one call (the mean of 20, unsynced)."""
+    import torch
+    from repro_torch.core.segmented import longest_run
+    shape = K.flat_launch_shape(T, R, W)
+    check(shape["ctas_phase_a"] >= min(sm_count, -(-T * R // shape[
+        "chunk_slots"])), f"{label}: the phase-A grid spans the card")
+    log(phase=f"{label}_flat_grid", sm_count=sm_count, tiles=T,
+        rows_per_tile=R, width=W, **shape, **extra)
+    log(phase=f"{label}_flat_longest_run", slots=longest_run(rowid),
+        **extra)
+    by_name = device_ms_by_kernel(fn)
+    a = sum(v for k, v in by_name.items() if "flat_slot_partials" in k)
+    b = sum(v for k, v in by_name.items() if "flat_fold_rows" in k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn()
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
+    log(phase=f"{label}_flat_split", phase_a_ms=a, phase_b_ms=b,
+        other_ms=sum(by_name.values()) - a - b, host_enqueue_us=host_us,
+        device_ms=by_name, **extra)
 
 
 def phase_moe(sm_count):

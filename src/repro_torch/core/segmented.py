@@ -26,6 +26,9 @@ tiles:
   row's owning worker, so no window (`slot_window`) is formed at all;
 * `emit_step_cost` — one superstep's executed cost, slots with row -1
   masked out (padding steps read a clamped block);
+* `longest_run` — the most slots one row holds in a row of consecutive
+  slots of the flat stream: the serial part of the flat kernels' fold,
+  where each row's run is folded by one thread;
 * `worker_reduce` — the fixed-order pairwise tree over (p, n) per-worker
   accumulators: add for "add", maximum for "max" and for "store" (lowered
   to max over the zero-initialized identity, as the reference does).
@@ -114,6 +117,21 @@ def emit_step_cost(rows: torch.Tensor,
     for k in range(rows.shape[1]):
         acc = acc + torch.where(rows[:, k] >= 0, slot_cost[:, k], zero)
     return acc
+
+
+def longest_run(rows: torch.Tensor) -> int:
+    """Slots in the longest run of one row (>= 0) over the flat slot
+    stream `rows` (any shape, read in C order, across tile boundaries);
+    0 when every slot is padding."""
+    r = rows.reshape(-1)
+    if r.numel() == 0:
+        return 0
+    head = torch.ones_like(r, dtype=torch.bool)
+    head[1:] = r[1:] != r[:-1]
+    starts = torch.nonzero(head).flatten()
+    ends = torch.cat([starts[1:], starts.new_tensor([r.numel()])])
+    lengths = (ends - starts)[r[starts] >= 0]
+    return int(lengths.max()) if lengths.numel() else 0
 
 
 def worker_reduce(acc: torch.Tensor, combine: str = "add") -> torch.Tensor:

@@ -2,14 +2,17 @@
 // the counterpart of src/repro/core/segmented.py's segmented_apply[_batch]
 // and emit_step_cost, inside a kernel instead of after it.
 //
-// A step of B tiles has computed one value per slot, partial[k] for slot k
-// on row srow[k] (-1 = padding slot), both in shared memory. Same-row
-// slots are consecutive (construction emits segments in item order), and a
-// row's run may cross tile boundaries (a split row). `fold_runs` gives
-// each run to one thread, which folds the run's slots of one tile first,
-// in ascending slot order, and then folds that per-tile value into
-// y[row] once per tile, tiles in ascending order. The fold is templated on
-// the combine:
+// A stretch of n slots, starting at a tile boundary, has one value per
+// slot, partial[k] for slot k on row srow[k] (-1 = padding slot): in
+// shared memory for one superstep of the sharded kernels, in global memory
+// for the whole flat stream in the flat walk's phase B (flat_walk.cuh).
+// Same-row slots are consecutive (construction emits segments in item
+// order), and a row's run may cross tile boundaries (a split row).
+// `fold_runs` gives each run to one thread, which folds the run's slots of
+// one tile first, in ascending slot order, and then folds that per-tile
+// value into y[row] once per tile, tiles in ascending order, starting from
+// the y[row] it finds (0.0f in a zeroed y, or what an earlier superstep of
+// the same worker left). The fold is templated on the combine:
 //   * AddFold — the SpMV "add": adds with __fadd_rn, so no FMA contraction
 //     changes the sequence of IEEE adds;
 //   * MaxFold — the BFS "max": exact in any order.
@@ -39,26 +42,53 @@ struct MaxFold {
   __device__ static float across(float out, float g) { return fmaxf(out, g); }
 };
 
-// Fold the n = ntiles*R slot values of one step into y (see above). The
-// caller synchronizes the block before (partial/srow written) and after
+// Fold the run of `row` that starts at slot k (a run head) into `out`:
+// the run's slots of one tile with Fold::within in ascending slot order,
+// each tile's value with Fold::across, tiles ascending. The walk reads
+// kAhead slots (row id and value) at a time, all in flight before any is
+// tested, so a long run waits on one load latency per kAhead slots, not
+// per slot; the operations and their order do not depend on kAhead.
+template <class Fold, int kAhead, class Index>
+__device__ inline float fold_run(const int* srow, const float* partial,
+                                 Index k, Index n, int R, int row,
+                                 float out) {
+  Index tile_end = k - k % R + R;
+  float g = partial[k];
+  for (Index i = k + 1;; i += kAhead) {
+    int r[kAhead];
+    float v[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      r[j] = i + j < n ? srow[i + j] : -1;
+      v[j] = i + j < n ? partial[i + j] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (r[j] != row) return Fold::across(out, g);
+      if (i + j == tile_end) {
+        out = Fold::across(out, g);
+        g = v[j];
+        tile_end += R;
+      } else {
+        g = Fold::within(g, v[j]);
+      }
+    }
+  }
+}
+
+// Fold the n slot values into y (see above): the thread that sees slot
+// k = first, first + stride, ... at a run head owns that run's row. The
+// sharded kernels fold one step in shared memory with the threads of one
+// CTA and synchronize the block before (partial/srow written) and after
 // (the next step overwrites them and may read rows stored here).
-template <class Fold>
-__device__ inline void fold_runs(const int* srow, const float* partial, int n,
-                                 int R, float* y) {
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+template <class Fold, int kAhead, class Index>
+__device__ inline void fold_runs(const int* srow, const float* partial,
+                                 Index n, int R, float* y, Index first,
+                                 Index stride) {
+  for (Index k = first; k < n; k += stride) {
     const int row = srow[k];
     if (row < 0 || (k > 0 && srow[k - 1] == row)) continue;
-    float out = y[row];
-    int i = k;
-    while (i < n && srow[i] == row) {
-      const int tile_end = (i / R + 1) * R;
-      float g = partial[i++];
-      while (i < tile_end && i < n && srow[i] == row) {
-        g = Fold::within(g, partial[i++]);
-      }
-      out = Fold::across(out, g);
-    }
-    y[row] = out;
+    y[row] = fold_run<Fold, kAhead>(srow, partial, k, n, R, row, y[row]);
   }
 }
 

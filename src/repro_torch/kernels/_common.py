@@ -3,6 +3,8 @@ plain version or the kernel from where the tensors lie, check what the
 kernel takes, and raise on a failed launch."""
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 MAX_STATIC_SMEM = 48 * 1024  # static-launch shared memory limit per CTA
@@ -35,9 +37,27 @@ def check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
                          f"got {tuple(t.shape)}")
 
 
+SMEM_TOO_LARGE = -1  # a launcher's code: the shapes need more shared memory
+
+
 def raise_on(code: int, kernel: str) -> None:
+    if code == SMEM_TOO_LARGE:
+        raise ValueError(f"{kernel}: the tile width needs more shared "
+                         "memory than one CTA has")
     if code != 0:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {code}")
+
+
+def flat_shape(shape_fn, T: int, R: int, W: int, kernel: str) -> dict:
+    """The launch shape of a flat walk (csrc/flat_walk.cuh) over T tiles of
+    R slots and W lanes, from its C `*_flat_shape` function: slots per
+    phase-A chunk, the CTAs of phase A (the slot values) and phase B (the
+    ordered row fold), phase A's shared memory, and its load path."""
+    out = (ctypes.c_int * 5)()
+    raise_on(shape_fn(T, R, W, out), kernel)
+    return {"chunk_slots": out[0], "ctas_phase_a": out[1],
+            "ctas_phase_b": out[2], "smem_bytes": out[3],
+            "load_path": "cp.async.bulk" if out[4] else "cp.async 4-byte"}
 
 
 def shard_tiles(blkid: torch.Tensor, B: int) -> torch.Tensor:

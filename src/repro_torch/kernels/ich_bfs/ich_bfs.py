@@ -1,12 +1,24 @@
 """iCh-scheduled pull-direction BFS frontier step: the CUDA kernels'
 wrappers and their plain PyTorch versions.
 
-* `ich_bfs_step` — the sequential walk over the (T, R, W) payload, the
-  cross-check path (counterpart of `repro`'s (T,)-grid kernel);
+* `ich_bfs_step` — the flat walk over the (T, R, W) payload, the
+  cross-check path, run at every level. It replaces the sequential
+  (T,)-grid Pallas kernel `src/repro/kernels/ich_bfs/ich_bfs.py:90`
+  (`ich_bfs_step`) with SpMV's two launches over the whole card
+  (`csrc/flat_walk.cuh`): phase A computes every slot's increment in
+  parallel (a persistent grid filling every SM, chunks of slots streamed
+  through a two-stage shared-memory ring), phase B gives each vertex to
+  the one thread at the head of its run of slots, which max-folds the run
+  and writes the vertex once. One owner a vertex keeps the bits, with no
+  atomics. What bounds it: bytes (8·W a slot of payload). The serial part
+  left is the longest run (2,091 slots, the heaviest vertex of the
+  1,000,000-vertex scale-free graph at W = 8). It reads only the flat
+  payload and rowid, never the shard layout.
 * `ich_bfs_step_sharded` — the main path: one worker per CTA over the
   (p, S_B) superstep layout of `core.tiling.WorkerShards`, reading blocks
   of B tiles straight out of the flat (T_pad, R, W) payload, with the
-  optional (p, S_B) cost stream the measured-cost refiner consumes.
+  optional (p, S_B) cost stream the measured-cost refiner consumes. It
+  replaces `ich_bfs.py:195` (`ich_bfs_step_sharded`).
 
 The graph's row u lists u's in-neighbors; `mask` is the all-ones CSR
 payload packed like SpMV's values (1.0 on real edge lanes, 0.0 on
@@ -14,9 +26,10 @@ padding). Frontier, visited and the result are (n,) float32 0/1
 indicators, so every version gives the same bits.
 
 A wrapper given CPU tensors runs the plain version (`ich_bfs_step_plain`,
-`ich_bfs_step_sharded_plain`); given CUDA tensors it launches the kernel
+`ich_bfs_step_sharded_plain`); given CUDA tensors it launches the kernels
 of `csrc/ich_bfs.cu` or raises: there is no fallback. Each wrapper counts
-its launches in `LAUNCHES`.
+its calls that launched in `LAUNCHES` (a flat walk is two CUDA kernels a
+call).
 """
 from __future__ import annotations
 
@@ -28,10 +41,11 @@ from repro_torch.core.segmented import (emit_step_cost, segmented_apply,
                                         worker_reduce)
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (MAX_STATIC_SMEM, check,
-                                         check_shard_layout, on_cpu,
-                                         raise_on, shard_tiles)
+                                         check_shard_layout, flat_shape,
+                                         on_cpu, raise_on, shard_tiles)
 
-__all__ = ["LAUNCHES", "ich_bfs_step", "ich_bfs_step_plain",
+__all__ = ["LAUNCHES", "flat_launch_shape", "ich_bfs_step",
+           "ich_bfs_step_plain",
            "ich_bfs_step_sharded", "ich_bfs_step_sharded_plain",
            "reset_launches"]
 
@@ -98,10 +112,12 @@ def _lib() -> ctypes.CDLL:
         lib.ich_bfs_step_sharded_launch.argtypes = [ptr] * 9 + [i32] * 5 \
             + [ptr]
         lib.ich_bfs_step_sharded_launch.restype = i32
-        lib.ich_bfs_step_launch.argtypes = [ptr] * 6 + [i64, i32, i32, ptr]
+        lib.ich_bfs_step_launch.argtypes = [ptr] * 6 + [i64, ptr, i64, i32,
+                                                         i32, ptr]
         lib.ich_bfs_step_launch.restype = i32
-        lib.ich_bfs_seq_tiles.argtypes = []
-        lib.ich_bfs_seq_tiles.restype = i32
+        lib.ich_bfs_flat_shape.argtypes = [i64, i32, i32,
+                                           ctypes.POINTER(i32)]
+        lib.ich_bfs_flat_shape.restype = i32
         lib._typed = True
     return lib
 
@@ -111,9 +127,16 @@ def _check_indicators(frontier, visited, n_vertices: int) -> None:
     check("visited", visited, torch.float32, (n_vertices,))
 
 
+def flat_launch_shape(T: int, R: int, W: int) -> dict:
+    """The launch shape `ich_bfs_step` takes on the card for T tiles of R
+    slots and W lanes (16-byte-aligned payloads): see
+    `_common.flat_shape`."""
+    return flat_shape(_lib().ich_bfs_flat_shape, T, R, W, "ich_bfs_step")
+
+
 def ich_bfs_step(mask, cols, rowid, frontier, visited,
                  n_vertices: int) -> torch.Tensor:
-    """Sequential walk. mask/cols (T, R, W) f32/i32, rowid (T, R) i32,
+    """Flat walk. mask/cols (T, R, W) f32/i32, rowid (T, R) i32,
     frontier/visited (n,) f32 -> next frontier (n_vertices,) f32."""
     if on_cpu(mask, cols, rowid, frontier, visited):
         return ich_bfs_step_plain(mask, cols, rowid, frontier, visited,
@@ -123,18 +146,18 @@ def ich_bfs_step(mask, cols, rowid, frontier, visited,
     check("cols", cols, torch.int32, (T, R, W))
     check("rowid", rowid, torch.int32, (T, R))
     _check_indicators(frontier, visited, n_vertices)
-    out = torch.zeros(n_vertices, dtype=torch.float32, device=frontier.device)
+    dev = frontier.device
     if T == 0:
-        return out
-    lib = _lib()
-    if lib.ich_bfs_seq_tiles() * R * 8 > MAX_STATIC_SMEM:
-        raise ValueError(f"rows_per_tile={R} needs more shared memory than "
-                         "a static launch has")
-    stream = torch.cuda.current_stream(frontier.device).cuda_stream
-    code = lib.ich_bfs_step_launch(mask.data_ptr(), cols.data_ptr(),
-                                   rowid.data_ptr(), frontier.data_ptr(),
-                                   visited.data_ptr(), out.data_ptr(),
-                                   T, R, W, stream)
+        return torch.zeros(n_vertices, dtype=torch.float32, device=dev)
+    # phase A zeroes `out`
+    out = torch.empty(n_vertices, dtype=torch.float32, device=dev)
+    partial = torch.empty(T * R, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = _lib().ich_bfs_step_launch(mask.data_ptr(), cols.data_ptr(),
+                                      rowid.data_ptr(), frontier.data_ptr(),
+                                      visited.data_ptr(), out.data_ptr(),
+                                      n_vertices, partial.data_ptr(), T, R, W,
+                                      stream)
     raise_on(code, "ich_bfs_step")
     LAUNCHES["ich_bfs_step"] += 1
     return out

@@ -1,18 +1,31 @@
 """iCh-scheduled segmented SpMV: the CUDA kernels' wrappers and their plain
 PyTorch versions.
 
-* `ich_spmv` — the sequential walk over the (T, R, W) payload, the
-  cross-check path (counterpart of `repro`'s (T,)-grid kernel);
+* `ich_spmv` — the flat walk over the (T, R, W) payload, the cross-check
+  path. It replaces the sequential (T,)-grid Pallas kernel
+  `src/repro/kernels/ich_spmv/ich_spmv.py:109` (`ich_spmv`) with two
+  launches over the whole card (`csrc/flat_walk.cuh`): phase A computes
+  every slot partial in parallel (a persistent grid filling every SM,
+  chunks of slots streamed through a two-stage shared-memory ring), phase
+  B gives each row to the one thread at the head of its run of slots,
+  which folds the run in tile order and writes y once. The TPU grid's
+  order only binds the slots of one row, and each row has one owner, so
+  the bits are those of the sequential order, with no atomics. What
+  bounds it: bytes (8·W a slot of payload). The serial part left is the
+  longest run of one row (27 slots on `wikipedia` at W = 32). It reads
+  only the flat payload and rowid, never the shard layout.
 * `ich_spmv_sharded` — the main path: one worker per CTA over the (p, S_B)
   superstep layout of `core.tiling.WorkerShards`, reading blocks of B tiles
   straight out of the flat (T_pad, R, W) payload, with the optional
-  (p, S_B) cost stream the measured-cost refiner consumes.
+  (p, S_B) cost stream the measured-cost refiner consumes. It replaces
+  `ich_spmv.py:215` (`ich_spmv_sharded`).
 
 A wrapper given CPU tensors runs the plain version (`ich_spmv_plain`,
 `ich_spmv_sharded_plain`), which does the same per-slot partials in the
 same order and the same ordered fold (`core/segmented.py`). Given CUDA
-tensors it launches the kernel of `csrc/ich_spmv.cu` or raises: there is
-no fallback. Each wrapper counts its launches in `LAUNCHES`.
+tensors it launches the kernels of `csrc/ich_spmv.cu` or raises: there is
+no fallback. Each wrapper counts its calls that launched in `LAUNCHES`
+(a flat walk is two CUDA kernels a call).
 """
 from __future__ import annotations
 
@@ -26,12 +39,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._common import MAX_STATIC_SMEM as _MAX_SMEM
 from repro_torch.kernels._common import check as _check
 from repro_torch.kernels._common import check_shard_layout
+from repro_torch.kernels._common import flat_shape as _flat_shape
 from repro_torch.kernels._common import on_cpu as _on_cpu
 from repro_torch.kernels._common import raise_on as _raise_on
 from repro_torch.kernels._common import shard_tiles as _shard_tiles
 
-__all__ = ["LAUNCHES", "ich_spmv", "ich_spmv_plain", "ich_spmv_sharded",
-           "ich_spmv_sharded_plain", "reset_launches"]
+__all__ = ["LAUNCHES", "flat_launch_shape", "ich_spmv", "ich_spmv_plain",
+           "ich_spmv_sharded", "ich_spmv_sharded_plain", "reset_launches"]
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"ich_spmv": 0, "ich_spmv_sharded": 0}
@@ -89,16 +103,24 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.ich_spmv_sharded_launch.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         lib.ich_spmv_sharded_launch.restype = i32
-        lib.ich_spmv_launch.argtypes = [ptr] * 5 + [i64, i32, i32, ptr]
+        lib.ich_spmv_launch.argtypes = [ptr] * 5 + [i64, ptr, i64, i32, i32,
+                                                     ptr]
         lib.ich_spmv_launch.restype = i32
-        lib.ich_spmv_seq_tiles.argtypes = []
-        lib.ich_spmv_seq_tiles.restype = i32
+        lib.ich_spmv_flat_shape.argtypes = [i64, i32, i32,
+                                            ctypes.POINTER(i32)]
+        lib.ich_spmv_flat_shape.restype = i32
         lib._typed = True
     return lib
 
 
+def flat_launch_shape(T: int, R: int, W: int) -> dict:
+    """The launch shape `ich_spmv` takes on the card for T tiles of R slots
+    and W lanes (16-byte-aligned payloads): see `_common.flat_shape`."""
+    return _flat_shape(_lib().ich_spmv_flat_shape, T, R, W, "ich_spmv")
+
+
 def ich_spmv(vals, cols, rowid, x, n_rows: int) -> torch.Tensor:
-    """Sequential walk. vals/cols (T, R, W) f32/i32, rowid (T, R) i32,
+    """Flat walk. vals/cols (T, R, W) f32/i32, rowid (T, R) i32,
     x (n,) f32 -> y (n_rows,) f32."""
     if _on_cpu(vals, cols, rowid, x):
         return ich_spmv_plain(vals, cols, rowid, x, n_rows)
@@ -107,17 +129,16 @@ def ich_spmv(vals, cols, rowid, x, n_rows: int) -> torch.Tensor:
     _check("cols", cols, torch.int32, (T, R, W))
     _check("rowid", rowid, torch.int32, (T, R))
     _check("x", x, torch.float32)
-    y = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
     if T == 0:
-        return y
-    lib = _lib()
-    if lib.ich_spmv_seq_tiles() * R * 8 > _MAX_SMEM:
-        raise ValueError(f"rows_per_tile={R} needs more shared memory than "
-                         "a static launch has")
+        return torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+    # phase A zeroes y
+    y = torch.empty(n_rows, dtype=torch.float32, device=x.device)
+    partial = torch.empty(T * R, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.ich_spmv_launch(vals.data_ptr(), cols.data_ptr(),
-                               rowid.data_ptr(), x.data_ptr(), y.data_ptr(),
-                               T, R, W, stream)
+    code = _lib().ich_spmv_launch(vals.data_ptr(), cols.data_ptr(),
+                                  rowid.data_ptr(), x.data_ptr(),
+                                  y.data_ptr(), n_rows, partial.data_ptr(),
+                                  T, R, W, stream)
     _raise_on(code, "ich_spmv")
     LAUNCHES["ich_spmv"] += 1
     return y

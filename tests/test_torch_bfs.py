@@ -96,6 +96,34 @@ def test_sequential_plain_matches_reference_kernel_and_oracles():
                      t[3], t[4]).numpy(), expect)
 
 
+def test_sequential_plain_matches_reference_kernel_on_a_long_run():
+    # a hub with 3,000 in-neighbors: its run of slots crosses 25 tiles at
+    # W = 16, the input class the flat walk's run owners are built for
+    indptr, indices = bfs_graph("uniform", 2000, seed=5)
+    nbrs = [indices[indptr[u]:indptr[u + 1]] for u in range(2000)]
+    nbrs[5] = np.random.default_rng(6).integers(0, 2000, 3000).astype(
+        np.int32)
+    indptr = np.concatenate([[0], np.cumsum([a.size for a in nbrs])]
+                            ).astype(np.int64)
+    indices = np.concatenate(nbrs).astype(np.int32)
+    frontier, visited = _indicators(2000, seed=8)
+    visited[5] = 0.0   # the hub is unvisited: its OR over 25 tiles decides
+    s = RS.LoopScheduler(p=1, cache_size=0).schedule(RS.DegreeCosts(indptr))
+    assert np.unique(np.nonzero(s.item_id == 5)[0]).size >= 20
+    mask, cols = RT.pack_csr(indptr, indices,
+                             np.ones(len(indices), np.float32), s.tiles)
+    nxt_ref = ref_ich_bfs_step(jnp.asarray(mask), jnp.asarray(cols),
+                               jnp.asarray(s.item_id), jnp.asarray(frontier),
+                               jnp.asarray(visited), 2000, interpret=True)
+    t = [torch.from_numpy(a) for a in (mask, cols, s.item_id, frontier,
+                                       visited)]
+    nxt = K.ich_bfs_step_plain(*t, 2000)
+    np.testing.assert_array_equal(nxt.numpy(), np.asarray(nxt_ref))
+    np.testing.assert_array_equal(
+        nxt.numpy(), np_bfs_step_ref(indptr, indices, frontier, visited))
+    assert nxt[5] == 1.0
+
+
 @pytest.mark.parametrize("p", [1, 2, 4])
 @pytest.mark.parametrize("B", [1, 4, 8])
 def test_sharded_plain_bit_identical_to_sequential(p, B):

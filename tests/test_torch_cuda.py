@@ -1,19 +1,26 @@
 """The port's CUDA kernels on the card: each against its plain version, the
-sharded kernel against the sequential one bit for bit, the launch
-counters, and the Zamba2 serving path through the flash attention and SSD
-scan kernels. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU
-and skip without one; run them there with
+sharded kernel against the flat walk bit for bit, the flat walks of SpMV
+and BFS (two kernels over the whole card) on inputs built for their
+design (a run of slots far longer than a chunk, T = 1, ragged chunks, an
+all-padding tail tile, W in {1, 2} and a misaligned payload on the 4-byte
+cp.async path, T = 0, -0.0 products), the launch counters, and the Zamba2
+serving path through the flash attention and SSD scan kernels. A CUDA
+kernel has no CPU mode, so these tests need an NVIDIA GPU and skip
+without one; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: SpMV's y at rtol=atol=1e-5 against the plain version (the
 plain version does the same adds; the margin covers PyTorch's own
-kernels); MoE's y at rtol=atol=1e-4 (the kernel's products are fmaf chains
-over ascending k, the plain version's are cuBLAS float32 products, which
-sum in another order). Everything else exactly: BFS frontiers are 0/1,
-K-Means ids come from the same left fold over D in both versions, and
-every cost stream is the same left fold. Flash attention and the SSD scan
-use the reference's kernel-test tolerances, stated at each test."""
+kernels), except in the flat-walk tests, which hold y to the plain
+version's bits: there the plain version's eager multiplies and adds are
+the kernel's, one IEEE operation each, in the same order; MoE's y at
+rtol=atol=1e-4 (the kernel's products are fmaf chains over ascending k,
+the plain version's are cuBLAS float32 products, which sum in another
+order). Everything else exactly: BFS frontiers are 0/1, K-Means ids come
+from the same left fold over D in both versions, and every cost stream is
+the same left fold. Flash attention and the SSD scan use the reference's
+kernel-test tolerances, stated at each test."""
 import numpy as np
 import pytest
 import torch
@@ -371,3 +378,163 @@ def test_zamba2_serving_on_the_card_matches_the_cpu(cuda):
                                 eng._pad_cache(cache), 40)
     full, _ = M.prefill(cfg, model, {"tokens": toks.to(cuda)})
     torch.testing.assert_close(d_logits, full, rtol=2e-3, atol=2e-3)
+
+
+# ---- the flat walks (two kernels over the whole card) on inputs built
+#      for their design: bit for bit against the plain versions and the
+#      sharded kernels ----
+FLAT_CASES = ["long_run", "one_tile", "ragged_chunks", "w1", "w2",
+              "misaligned", "padding_tail", "neg_zero"]
+
+
+def _flat_csr(case):
+    """(indptr, indices, data, x, width) of one flat-walk case."""
+    rng = np.random.default_rng(FLAT_CASES.index(case))
+    if case == "long_run":
+        # one row of 50,000 nonzeros at W = 8: a run of 6,250 slots,
+        # far more than a phase-A chunk (256 slots at W = 8)
+        row_nnz = rng.integers(0, 6, 600)
+        row_nnz[17] = 50_000
+        width = 8
+    elif case == "one_tile":
+        row_nnz, width = np.array([3, 0, 5]), None
+    elif case == "neg_zero":
+        # rows 0-99 multiply negative values by x == 0: every product is
+        # -0.0, so a fold that starts from a product instead of 0.0f
+        # leaves -0.0 where the sequential order gives +0.0
+        row_nnz = rng.integers(1, 12, 300)
+        width = 4
+    else:
+        row_nnz = np.minimum(rng.zipf(1.8, 5000), 200)
+        row_nnz[rng.random(5000) < 0.1] = 0
+        width = {"w1": 1, "w2": 2, "ragged_chunks": 16}.get(case, 8)
+    n = row_nnz.size
+    indptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int64)
+    indices = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
+    data = rng.standard_normal(int(indptr[-1])).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    if case == "neg_zero":
+        x[:50] = 0.0
+        first = slice(0, int(indptr[100]))
+        indices[first] = rng.integers(0, 50, int(indptr[100]))
+        data[first] = -np.abs(data[first]) - 0.5
+    return indptr, indices, data, x, width
+
+
+def _flat_inputs(case, kernel, cuda, p=4, B=4):
+    """The flat arguments and the sharded arguments of one case, on the
+    card: (flat, sharded) tuples for the kernel's wrapper."""
+    from repro_torch.core import tiling as PT
+    indptr, indices, data, x, width = _flat_csr(case)
+    n = indptr.size - 1
+    sizes = np.diff(indptr)
+    tiles = PT.build_schedule(sizes, width=width)
+    shards = PT.shard_schedule(tiles, tiles.tile_cost(sizes, sizes), p,
+                               superstep=B)
+    if kernel == "bfs":
+        data = np.ones_like(data)
+    vals, cols = PT.pack_csr(indptr, indices, data, tiles, pad_tiles_to=B)
+    T = tiles.n_tiles
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    fv, fc, rowid = vals[:T], cols[:T], tiles.item_id
+    if case == "padding_tail":
+        # an all-padding tail tile whose lanes are NaN: it writes nothing
+        fv = np.concatenate([fv, np.full((1,) + fv.shape[1:], np.nan,
+                                         np.float32)])
+        fc = np.concatenate([fc, np.zeros((1,) + fc.shape[1:], np.int32)])
+        rowid = np.concatenate([rowid, np.full((1, rowid.shape[1]), -1,
+                                               np.int32)])
+    fv, fc = dev(fv), dev(fc)
+    if case == "misaligned":
+        # a W % 4 == 0 payload 4 bytes off a 16-byte boundary: the 4-byte
+        # cp.async path
+        def shift(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+            out = buf[1:].view(t.shape)
+            out.copy_(t)
+            return out
+        fv, fc = shift(fv), shift(fc)
+        assert fv.data_ptr() % 16 and fc.data_ptr() % 16
+    if kernel == "spmv":
+        xs = (dev(x),)
+    else:
+        f = (rng_ind := np.random.default_rng(7)).random(n) < 0.2
+        v = np.maximum(f, rng_ind.random(n) < 0.3)
+        xs = (dev(f.astype(np.float32)), dev(v.astype(np.float32)))
+    flat = (fv, fc, dev(rowid), *xs, n)
+    sharded = (dev(vals), dev(cols), dev(shards.shard_item_id(tiles.item_id)),
+               dev(shards.kernel_block_ids()), *xs, n, p, B)
+    return flat, sharded, tiles
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("kernel", ["spmv", "bfs"])
+@pytest.mark.parametrize("case", FLAT_CASES)
+def test_flat_walk_bit_identical_to_plain_and_sharded(cuda, case, kernel):
+    from repro_torch.core.segmented import longest_run
+    from repro_torch.kernels.ich_bfs import ich_bfs as KB
+    from repro_torch.kernels.ich_spmv import ich_spmv as KS
+    flat, sharded, tiles = _flat_inputs(case, kernel, cuda)
+    if kernel == "spmv":
+        mod, run, plain, sh = (KS, KS.ich_spmv, KS.ich_spmv_plain,
+                               KS.ich_spmv_sharded)
+    else:
+        mod, run, plain, sh = (KB, KB.ich_bfs_step, KB.ich_bfs_step_plain,
+                               KB.ich_bfs_step_sharded)
+    T, R, W = flat[0].shape
+    shape = mod.flat_launch_shape(T, R, W)
+    if case == "long_run":
+        assert longest_run(flat[2]) > 20 * shape["chunk_slots"]
+    if case == "one_tile":
+        assert T == 1
+    if case == "ragged_chunks":
+        assert (T * R) % shape["chunk_slots"]
+    assert shape["load_path"] == ("cp.async 4-byte" if W % 4 else
+                                  "cp.async.bulk")
+    mod.reset_launches()
+    y = run(*flat)
+    torch.cuda.synchronize()
+    assert sum(mod.LAUNCHES.values()) == 1
+    y_plain = plain(*flat)
+    y_sh = sh(*sharded)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(y_plain))
+    assert torch.equal(_bits(y), _bits(y_sh))
+    if case == "neg_zero" and kernel == "spmv":
+        assert not _bits(y[:100]).any()   # +0.0, never -0.0
+
+
+@pytest.mark.parametrize("kernel", ["spmv", "bfs"])
+def test_flat_walk_of_no_tiles_launches_nothing(cuda, kernel):
+    from repro_torch.kernels.ich_bfs import ich_bfs as KB
+    from repro_torch.kernels.ich_spmv import ich_spmv as KS
+    a = torch.zeros((0, 8, 8), device=cuda)
+    c = torch.zeros((0, 8, 8), dtype=torch.int32, device=cuda)
+    r = torch.zeros((0, 8), dtype=torch.int32, device=cuda)
+    z = torch.zeros(5, device=cuda)
+    mod = KS if kernel == "spmv" else KB
+    mod.reset_launches()
+    y = (KS.ich_spmv(a, c, r, z, 5) if kernel == "spmv"
+         else KB.ich_bfs_step(a, c, r, z, z, 5))
+    assert y.shape == (5,) and not y.any()
+    assert not any(mod.LAUNCHES.values())
+
+
+def test_flat_walk_grid_spans_the_card(cuda):
+    """At the uniform 1M-vertex graph's size the phase-A grid has a CTA on
+    every SM (and several on each), phase B as many as it has blocks of
+    slots up to 8 a SM."""
+    from repro_torch.kernels.ich_bfs import ich_bfs as KB
+    from repro_torch.kernels.ich_spmv import ich_spmv as KS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape in (KS.flat_launch_shape(481_631, 8, 32),
+                  KB.flat_launch_shape(150_019, 8, 16)):
+        assert shape["ctas_phase_a"] >= 2 * sms
+        assert shape["ctas_phase_a"] % sms == 0
+        assert shape["ctas_phase_b"] == 8 * sms
+        assert shape["smem_bytes"] <= 232_448
+    with pytest.raises(ValueError, match="shared memory"):
+        KS.flat_launch_shape(4, 8, 20_000)

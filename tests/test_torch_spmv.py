@@ -84,6 +84,31 @@ def test_sequential_plain_matches_reference_kernel():
         rtol=1e-5, atol=1e-5)
 
 
+def test_sequential_plain_matches_reference_kernel_on_a_long_run():
+    # the input class the flat walk's run owners are built for: one row
+    # whose run of slots crosses many tiles (here 63 at W = 8), folded by
+    # one thread on the card, slot by slot, tiles ascending
+    rng = np.random.default_rng(11)
+    row_nnz = rng.integers(0, 6, 2000)
+    row_nnz[3] = 4000
+    indptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int64)
+    n = row_nnz.size
+    indices = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
+    data = rng.standard_normal(int(indptr[-1])).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    s = RefScheduler(p=1, cache_size=0).schedule(np.diff(indptr))
+    assert np.unique(np.nonzero(s.item_id == 3)[0]).size >= 20
+    vals, cols = RT.pack_csr(indptr, indices, data, s.tiles)
+    y_ref = ref_ich_spmv(jnp.asarray(vals), jnp.asarray(cols),
+                         jnp.asarray(s.item_id), jnp.asarray(x), n,
+                         interpret=True)
+    t = [torch.from_numpy(a) for a in (vals, cols, s.item_id, x)]
+    y = K.ich_spmv_plain(*t, n)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=1e-5,
+                               atol=1e-5)
+    assert PS.longest_run(t[2]) == int((s.item_id == 3).sum())
+
+
 @pytest.mark.parametrize("p", [1, 2, 4])
 @pytest.mark.parametrize("B", [1, 4, 8])
 def test_sharded_plain_bit_identical_to_sequential(p, B):
