@@ -34,7 +34,12 @@ its launch counters set to 0 just before it and read just after:
 
 For the flat walks (`ich_spmv`, `ich_bfs_step`: two kernels a call over
 the whole card) it logs the launch shape, the longest run of one row (the
-serial part of their fold) and the device time of each phase.
+serial part of their fold) and the device time of each phase. For the
+sharded SpMV walk (`ich_spmv_sharded`: one CTA per worker, a ring of
+supersteps) it logs the launch shape, the worker balance (the most live
+slots of one worker over the mean) and the device time beside the host's
+enqueue time; for the flat K-Means walk (`ich_kmeans_assign`, one launch
+over the whole card) its grid and the same split.
 
 It times every kernel beside its plain version, its bound and PyTorch
 computing the same function (cuSPARSE SpMV, `torch.cdist` argmin, MoE's
@@ -429,6 +434,8 @@ def phase_main(sm_count):
     del csr, y_lib
     log_flat_walk("spmv", K, lambda: K.ich_spmv(*seq_args), T, R, W,
                   rowid_seq, sm_count)
+    log_sharded_walk(K, op, lambda: K.ich_spmv_sharded(
+        *args, slot_cost=op.slot_cost))
 
     # ---- bounds: bytes each input is read once / output written once ----
     real = int((s.item_id >= 0).sum())          # slots the kernels read
@@ -708,6 +715,13 @@ def phase_kmeans(sm_count):
     log(phase="kmeans_library", cdist_argmin_mismatches=int(
         (lib_ids != ids).sum()))
     library_ms = timed_ms(lambda: torch.cdist(pts, cent).argmin(dim=1))
+    shape = K.assign_launch_shape(rowid_seq.numel(), N_FEATURES, N_CLUSTERS)
+    check(shape["ctas"] >= min(sm_count, -(-rowid_seq.numel() // max(
+        shape["chunk_slots"], 1))), "K-Means flat walk's grid spans the card")
+    log(phase="kmeans_flat_grid", sm_count=sm_count,
+        slots=rowid_seq.numel(), **shape)
+    log_split("kmeans_flat", lambda: K.ich_kmeans_assign(pts, cent, rowid_seq),
+              "ich_kmeans_assign_kernel")
 
     # ---- bounds: bytes each input is read once / output written once ----
     live = int((s.item_id >= 0).sum())
@@ -866,7 +880,6 @@ def log_flat_walk(label, K, fn, T, R, W, rowid, sm_count, **extra) -> None:
     card), the longest run of one row in slots (one thread folds it), and
     the device milliseconds of each phase over one call of fn beside the
     host's microseconds to enqueue one call (the mean of 20, unsynced)."""
-    import torch
     from repro_torch.core.segmented import longest_run
     shape = K.flat_launch_shape(T, R, W)
     check(shape["ctas_phase_a"] >= min(sm_count, -(-T * R // shape[
@@ -878,15 +891,52 @@ def log_flat_walk(label, K, fn, T, R, W, rowid, sm_count, **extra) -> None:
     by_name = device_ms_by_kernel(fn)
     a = sum(v for k, v in by_name.items() if "flat_slot_partials" in k)
     b = sum(v for k, v in by_name.items() if "flat_fold_rows" in k)
+    log(phase=f"{label}_flat_split", phase_a_ms=a, phase_b_ms=b,
+        other_ms=sum(by_name.values()) - a - b,
+        host_enqueue_us=enqueue_us(fn), device_ms=by_name, **extra)
+
+
+def enqueue_us(fn) -> float:
+    """The host's microseconds to enqueue one call of fn: the mean of 20
+    calls, unsynced, from an idle card."""
+    import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
         fn()
     host_us = (time.perf_counter() - t0) / 20 * 1e6
     torch.cuda.synchronize()
-    log(phase=f"{label}_flat_split", phase_a_ms=a, phase_b_ms=b,
-        other_ms=sum(by_name.values()) - a - b, host_enqueue_us=host_us,
+    return host_us
+
+
+def log_split(label, fn, kernel, **extra) -> None:
+    """The device milliseconds of one call of fn, the kernel whose name
+    holds `kernel` apart from everything else (output fills), beside the
+    host's microseconds to enqueue one call."""
+    by_name = device_ms_by_kernel(fn)
+    k = sum(v for name, v in by_name.items() if kernel in name)
+    log(phase=f"{label}_split", kernel_ms=k,
+        other_ms=sum(by_name.values()) - k, host_enqueue_us=enqueue_us(fn),
         device_ms=by_name, **extra)
+
+
+def log_sharded_walk(K, op, fn) -> None:
+    """The sharded SpMV walk's launch (one CTA per worker, checked), the
+    worker balance of this schedule (live slots of the busiest worker over
+    the mean: the LPT makespan the one-CTA-per-worker rule keeps), and its
+    device time and host enqueue."""
+    p, B = op.p, op.superstep
+    S_B = op.blkid.numel() // p
+    T_pad, R, W = op.vals.shape
+    shape = K.sharded_launch_shape(p, S_B, B, R, W)
+    check(shape["ctas"] == p and shape["stages"] >= 3,
+          "sharded walk: one CTA per worker, a ring of >= 3 stages")
+    live = (op.rowid >= 0).view(p, -1).sum(dim=1).double()
+    log(phase="spmv_sharded_grid", p=p, steps=S_B, superstep=B,
+        rows_per_tile=R, width=W, **shape,
+        live_slots_max=int(live.max()), live_slots_mean=float(live.mean()),
+        balance=float(live.max() / live.mean()))
+    log_split("spmv_sharded", fn, "sharded_walk")
 
 
 def phase_moe(sm_count):

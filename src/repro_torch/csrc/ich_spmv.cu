@@ -4,9 +4,11 @@
 //   * the flat walk (ich_spmv_launch: flat_slot_partials + flat_fold_rows)
 //                              <- ich_spmv (sequential (T,) grid,
 //                                 _spmv_kernel, ich_spmv.py:109)
-//   * ich_spmv_sharded_kernel  <- ich_spmv_sharded ((p, S_B) grid,
-//                                 _spmv_sharded_body, with its cost stream and
-//                                 the host-side worker_reduce folded away)
+//   * the sharded walk (ich_spmv_sharded_launch: sharded_walk)
+//                              <- ich_spmv_sharded ((p, S_B) grid,
+//                                 _spmv_sharded_body, ich_spmv.py:215, with
+//                                 its cost stream and the host-side
+//                                 worker_reduce folded away)
 //
 // What they compute. The payload is the flat (T_pad, R, W) pack of the CSR
 // matrix built by the iCh schedule: slot (t, r) holds up to W nonzeros of
@@ -35,20 +37,28 @@
 // The flat walk reads only the flat payload and the flat (T, R) rowid,
 // never the shard layout, so it stays an independent check of sharding.
 //
-// The sharded kernel. The TPU grid runs its steps in order on one core;
-// here one CTA stands for one worker and walks that worker's S_B
-// supersteps in ascending order, with a barrier between steps. The shard
-// partition is item-closed (every row is owned by exactly one worker), so
-// it writes straight into one zeroed (n_rows,) y with no float atomics,
-// and only the rows that a tile's slots name are written: the reference's
-// length-R window write-back would also rewrite rows another worker owns.
-// Within a step, one thread folds each row's run of slots (fold_runs), and
-// distinct runs of a step name distinct rows. Both kernels compute a slot
-// partial with the same left fold, so sharded == flat bit for bit.
+// The sharded kernel (sharded_walk.cuh). The TPU grid runs its steps in
+// order on one core; here one CTA of 768 threads stands for one worker.
+// Its three pipelines of 256 threads take the worker's windows (whole
+// tiles, in order) in turn, each through its own three-stage
+// shared-memory ring that its warp 0 fills ahead with cp.async.bulk
+// (4-byte cp.async when W or R is not a multiple of 4 or a pointer is not
+// 16-byte aligned): all its threads evaluate a window's lanes, one thread
+// per slot folds them, and the thread at each run head folds the run
+// (fold_run with AddFold). A run that goes on from the previous window
+// starts from the value that window's pipeline handed over, so each row
+// is folded in tile order and written once. The shard partition is
+// item-closed (every row is owned by exactly one worker), so it writes
+// straight into one (n_rows,) y with no float atomics, and only the rows
+// that a tile's slots name are written: the reference's length-R window
+// write-back would also rewrite rows another worker owns. Both kernels
+// compute a slot partial with the same left fold and fold a row's slots
+// in the same order, so sharded == flat bit for bit.
 //
 // Cost stream. With slot_cost, the sharded kernel writes costs[w, j] = the
 // left fold in slot order of slot_cost over the slots of step j whose row
-// is >= 0 (padding steps read block 0, clamped, whose rows are all -1).
+// is >= 0, one thread a step (a padding step, blkid clamped to block 0,
+// has rows all -1: it fetches no payload and emits 0).
 //
 // What bounds them. Bytes: each real slot moves W*(4 + 4) bytes of vals
 // and cols plus 4 of rowid (and 4 of slot_cost for the sharded kernel); x
@@ -59,110 +69,65 @@
 // stated on the bytes of this pack. The flat walk's scratch adds 8 bytes a
 // slot (written, read back from L2).
 //
-// The sharded kernel is still the simple design: one CTA per worker (p
-// CTAs, 128 threads, one thread per slot) makes its gathers with no
-// double buffering of the next superstep, so it tracks steps per worker,
-// not bytes. Payload offsets are computed in 64 bits (blk * B * R * W
-// exceeds 2^31 slots on large matrices).
+// Payload offsets are computed in 64 bits (blk * B * R * W exceeds 2^31
+// slots on large matrices).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flat_walk.cuh"
 #include "segmented.cuh"
+#include "sharded_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // sharded kernel: one CTA per worker
-
-// The flat walk's arithmetic (flat_walk.cuh): a lane's product and a
-// slot's left fold, exactly as fold_tiles below does them.
+// The walks' arithmetic (flat_walk.cuh, sharded_walk.cuh): a lane's
+// product and a slot's left fold over its lanes, w ascending from 0.0f.
 struct SpmvLanes {
   const float* x;
   __device__ float lane(float v, int c) const {
     return __fmul_rn(v, __ldg(x + c));
   }
-  __device__ float slot(const float* lanes, int W, int) const {
-    float acc = 0.0f;
+  __device__ float step(float acc, const float* lanes, int n) const {
 #pragma unroll 4
-    for (int w = 0; w < W; ++w) acc = __fadd_rn(acc, lanes[w]);
+    for (int w = 0; w < n; ++w) acc = __fadd_rn(acc, lanes[w]);
     return acc;
   }
+  __device__ float finish(float acc, int) const { return acc; }
+  __device__ float slot(const float* lanes, int W, int row) const {
+    return finish(step(0.0f, lanes, W), row);
+  }
 };
-
-// Fold `ntiles` consecutive tiles of the flat payload, starting at flat
-// tile `tile0`, into y. `rows` points at their ntiles*R row ids. When
-// `cost_out` is set, thread 0 also writes the masked slot-cost fold of
-// these tiles there (`slot_cost` points at tile0's first slot cost).
-// Shared scratch: `partial` and `srow`, ntiles*R entries each.
-__device__ void fold_tiles(const float* __restrict__ vals,
-                           const int* __restrict__ cols,
-                           const int* __restrict__ rows, int64_t tile0,
-                           int ntiles, int R, int W,
-                           const float* __restrict__ x, float* y,
-                           const float* __restrict__ slot_cost,
-                           float* cost_out, float* partial, int* srow) {
-  const int n = ntiles * R;
-  const int64_t slot0 = tile0 * (int64_t)R;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int row = rows[k];
-    float acc = 0.0f;
-    if (row >= 0) {
-      const int64_t off = (slot0 + k) * (int64_t)W;
-      const float* v = vals + off;
-      const int* c = cols + off;
-      for (int w = 0; w < W; ++w) {
-        acc = __fadd_rn(acc, __fmul_rn(v[w], x[c[w]]));
-      }
-    }
-    srow[k] = row;
-    partial[k] = acc;
-  }
-  __syncthreads();
-  ich::fold_runs<ich::AddFold, 1, int>(srow, partial, n, R, y,
-                                     (int)threadIdx.x, (int)blockDim.x);
-  if (cost_out != nullptr && threadIdx.x == 0) {
-    *cost_out = ich::masked_cost(srow, slot_cost + slot0, n);
-  }
-  // the next step overwrites the scratch and may read rows stored here
-  __syncthreads();
-}
-
-// One CTA per worker w: walk its S_B supersteps in ascending order.
-__global__ void ich_spmv_sharded_kernel(
-    const float* __restrict__ vals, const int* __restrict__ cols,
-    const int* __restrict__ rowid, const int* __restrict__ blkid,
-    const float* __restrict__ slot_cost, const float* __restrict__ x,
-    float* y, float* costs, int S_B, int B, int R, int W) {
-  extern __shared__ unsigned char smem[];
-  float* partial = reinterpret_cast<float*>(smem);
-  int* srow = reinterpret_cast<int*>(partial + B * R);
-  const int64_t w = blockIdx.x;
-  for (int j = 0; j < S_B; ++j) {
-    const int64_t step = w * S_B + j;
-    const int64_t tile0 = (int64_t)blkid[step] * B;
-    const int* rows = rowid + step * B * (int64_t)R;
-    fold_tiles(vals, cols, rows, tile0, B, R, W, x, y, slot_cost,
-               costs != nullptr ? costs + step : nullptr, partial, srow);
-  }
-}
 
 }  // namespace
 
 extern "C" {
 
-// Launch the sharded kernel on `stream`; y must be zeroed (n_rows,) and
-// costs (p*S_B,) or null (then slot_cost is ignored). Returns the launch's
-// cudaGetLastError() code (0 = success).
+// Launch the sharded walk on `stream` (T_pad > 0): y must be zeroed
+// (n_rows,) and costs (p*S_B,) or null (then slot_cost is ignored).
+// Returns 0, a CUDA error code, or -1 when the shapes need more shared
+// memory than one CTA has (a tile of thousands of slots).
 int ich_spmv_sharded_launch(const float* vals, const int* cols,
                             const int* rowid, const int* blkid,
                             const float* slot_cost, const float* x, float* y,
                             float* costs, int p, int S_B, int B, int R, int W,
                             void* stream) {
-  const size_t smem = (size_t)B * R * (sizeof(float) + sizeof(int));
-  ich_spmv_sharded_kernel<<<p, kThreads, smem, (cudaStream_t)stream>>>(
-      vals, cols, rowid, blkid, slot_cost, x, y, costs, S_B, B, R, W);
-  return (int)cudaGetLastError();
+  return ich::sharded::walk<SpmvLanes, ich::AddFold>(
+      vals, cols, rowid, blkid, slot_cost, SpmvLanes{x}, y, costs, p, S_B, B,
+      R, W, (cudaStream_t)stream);
+}
+
+// The sharded walk's launch shape as eight ints: CTAs (= p), threads,
+// ring stages a pipeline, shared memory, bulk copies (1) or 4-byte
+// cp.async (0), tiles a window, chunks a window, pipelines a CTA. `bulk` says which copies the pointers
+// allow. Returns as ich_spmv_sharded_launch does.
+int ich_spmv_sharded_shape(int p, int S_B, int B, int R, int W, int bulk,
+                           int* out) {
+  ich::sharded::Shape sh;
+  const int err = ich::sharded::shape<SpmvLanes, ich::AddFold>(
+      p, S_B, B, R, W, bulk != 0 && W % 4 == 0 && R % 4 == 0, &sh);
+  if (err == 0) ich::sharded::to_ints(sh, out);
+  return err;
 }
 
 // Launch the flat walk on `stream` (T > 0) into y (n_rows,), which it

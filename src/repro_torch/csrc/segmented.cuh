@@ -4,8 +4,11 @@
 //
 // A stretch of n slots, starting at a tile boundary, has one value per
 // slot, partial[k] for slot k on row srow[k] (-1 = padding slot): in
-// shared memory for one superstep of the sharded kernels, in global memory
-// for the whole flat stream in the flat walk's phase B (flat_walk.cuh).
+// shared memory for one superstep of the sharded BFS kernel (ich_bfs.cu)
+// or one window of the sharded walk (sharded_walk.cuh, which starts a run
+// that goes on from the previous window from the value that window left),
+// in global memory for the whole flat stream in the flat walk's phase B
+// (flat_walk.cuh).
 // Same-row slots are consecutive (construction emits segments in item
 // order), and a row's run may cross tile boundaries (a split row).
 // `fold_runs` gives each run to one thread, which folds the run's slots of
@@ -78,9 +81,9 @@ __device__ inline float fold_run(const int* srow, const float* partial,
 
 // Fold the n slot values into y (see above): the thread that sees slot
 // k = first, first + stride, ... at a run head owns that run's row. The
-// sharded kernels fold one step in shared memory with the threads of one
-// CTA and synchronize the block before (partial/srow written) and after
-// (the next step overwrites them and may read rows stored here).
+// sharded BFS kernel folds one step in shared memory with the threads of
+// one CTA and synchronizes the block before (partial/srow written) and
+// after (the next step overwrites them and may read rows stored here).
 template <class Fold, int kAhead, class Index>
 __device__ inline void fold_runs(const int* srow, const float* partial,
                                  Index n, int R, float* y, Index first,

@@ -1,8 +1,10 @@
 """iCh-scheduled K-Means assignment: the CUDA kernels' wrappers and their
 plain PyTorch versions.
 
-* `ich_kmeans_assign` — the sequential walk over the (T, R) schedule, the
-  cross-check path (counterpart of `repro`'s (T,)-grid kernel);
+* `ich_kmeans_assign` — the flat walk over the (T, R) schedule, the
+  cross-check path (counterpart of `repro`'s (T,)-grid kernel): one launch
+  over the whole card, chunks of slots whose point rows are staged through
+  shared memory with coalesced loads (`assign_launch_shape` reports it);
 * `ich_kmeans_assign_sharded` — the main path: one worker per CTA over the
   (p*S, R) shard layout of `core.tiling.WorkerShards`, with the optional
   (p, S_B) cost stream; `rowid` and `slot_cost` both come in the shard
@@ -29,7 +31,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._common import (MAX_DYNAMIC_SMEM, check, on_cpu,
                                          raise_on)
 
-__all__ = ["LAUNCHES", "ich_kmeans_assign", "ich_kmeans_assign_plain",
+__all__ = ["LAUNCHES", "assign_launch_shape", "ich_kmeans_assign",
+           "ich_kmeans_assign_plain",
            "ich_kmeans_assign_sharded", "ich_kmeans_assign_sharded_plain",
            "reset_launches"]
 
@@ -101,6 +104,9 @@ def _lib() -> ctypes.CDLL:
         lib.ich_kmeans_assign_launch.argtypes = [ptr] * 4 \
             + [i64, i32, i32, ptr]
         lib.ich_kmeans_assign_launch.restype = i32
+        lib.ich_kmeans_assign_shape.argtypes = [i64, i32, i32,
+                                                ctypes.POINTER(i32)]
+        lib.ich_kmeans_assign_shape.restype = i32
         lib._typed = True
     return lib
 
@@ -123,8 +129,20 @@ def _check_tables(points, centroids) -> tuple[int, int]:
     return D, K
 
 
+def assign_launch_shape(n_slots: int, D: int, K: int) -> dict:
+    """The launch `ich_kmeans_assign` makes on the card for n_slots slots,
+    D features and K centroids: slots a CTA stages at a time (0: the
+    centroids leave no room, points are read from global memory), CTAs,
+    threads and shared memory."""
+    out = (ctypes.c_int * 4)()
+    raise_on(_lib().ich_kmeans_assign_shape(n_slots, D, K, out),
+             "ich_kmeans_assign")
+    return {"chunk_slots": out[0], "ctas": out[1], "threads": out[2],
+            "smem_bytes": out[3]}
+
+
 def ich_kmeans_assign(points, centroids, rowid) -> torch.Tensor:
-    """Sequential walk. points (n, D) f32, centroids (K, D) f32, rowid
+    """Flat walk. points (n, D) f32, centroids (K, D) f32, rowid
     (T, R) i32 -> ids (n,) int32."""
     if on_cpu(points, centroids, rowid):
         return ich_kmeans_assign_plain(points, centroids, rowid)

@@ -18,7 +18,14 @@ PyTorch versions.
   superstep layout of `core.tiling.WorkerShards`, reading blocks of B tiles
   straight out of the flat (T_pad, R, W) payload, with the optional
   (p, S_B) cost stream the measured-cost refiner consumes. It replaces
-  `ich_spmv.py:215` (`ich_spmv_sharded`).
+  `ich_spmv.py:215` (`ich_spmv_sharded`) with one launch
+  (`csrc/sharded_walk.cuh`): still exactly one CTA per worker, now of
+  768 threads in three pipelines that take the worker's windows of
+  whole tiles in turn, each through its own three-stage shared-memory
+  ring filled ahead with cp.async.bulk; lanes, then slot folds, then each
+  run folded by the thread at its head, a run crossing windows handed on
+  in order. It takes every width (a slot wider than a stage streams in
+  pieces). `sharded_launch_shape` reports the launch.
 
 A wrapper given CPU tensors runs the plain version (`ich_spmv_plain`,
 `ich_spmv_sharded_plain`), which does the same per-slot partials in the
@@ -36,7 +43,6 @@ import torch
 from repro_torch.core.segmented import (emit_step_cost, segmented_apply,
                                         worker_reduce)
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import MAX_STATIC_SMEM as _MAX_SMEM
 from repro_torch.kernels._common import check as _check
 from repro_torch.kernels._common import check_shard_layout
 from repro_torch.kernels._common import flat_shape as _flat_shape
@@ -45,7 +51,8 @@ from repro_torch.kernels._common import raise_on as _raise_on
 from repro_torch.kernels._common import shard_tiles as _shard_tiles
 
 __all__ = ["LAUNCHES", "flat_launch_shape", "ich_spmv", "ich_spmv_plain",
-           "ich_spmv_sharded", "ich_spmv_sharded_plain", "reset_launches"]
+           "ich_spmv_sharded", "ich_spmv_sharded_plain", "reset_launches",
+           "sharded_launch_shape"]
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"ich_spmv": 0, "ich_spmv_sharded": 0}
@@ -109,6 +116,9 @@ def _lib() -> ctypes.CDLL:
         lib.ich_spmv_flat_shape.argtypes = [i64, i32, i32,
                                             ctypes.POINTER(i32)]
         lib.ich_spmv_flat_shape.restype = i32
+        lib.ich_spmv_sharded_shape.argtypes = [i32] * 6 + [
+            ctypes.POINTER(i32)]
+        lib.ich_spmv_sharded_shape.restype = i32
         lib._typed = True
     return lib
 
@@ -117,6 +127,23 @@ def flat_launch_shape(T: int, R: int, W: int) -> dict:
     """The launch shape `ich_spmv` takes on the card for T tiles of R slots
     and W lanes (16-byte-aligned payloads): see `_common.flat_shape`."""
     return _flat_shape(_lib().ich_spmv_flat_shape, T, R, W, "ich_spmv")
+
+
+def sharded_launch_shape(p: int, S_B: int, B: int, R: int, W: int, *,
+                         bulk: bool = True) -> dict:
+    """The launch `ich_spmv_sharded` makes on the card for p workers of
+    S_B supersteps of B tiles of R slots and W lanes: CTAs (always p),
+    threads, ring stages of each pipeline, shared memory, load path
+    (`bulk`: 16-byte-aligned pointers), tiles a window, chunks a window and
+    pipelines a CTA."""
+    out = (ctypes.c_int * 8)()
+    _raise_on(_lib().ich_spmv_sharded_shape(p, S_B, B, R, W, int(bulk), out),
+              "ich_spmv_sharded")
+    return {"ctas": out[0], "threads": out[1], "stages": out[2],
+            "smem_bytes": out[3],
+            "load_path": "cp.async.bulk" if out[4] else "cp.async 4-byte",
+            "window_tiles": out[5], "chunks_per_window": out[6],
+            "pipelines": out[7]}
 
 
 def ich_spmv(vals, cols, rowid, x, n_rows: int) -> torch.Tensor:
@@ -165,10 +192,10 @@ def ich_spmv_sharded(vals, cols, rowid, blkid, x, n_rows: int, p: int,
     _check("x", x, torch.float32)
     if slot_cost is not None:
         _check("slot_cost", slot_cost, torch.float32, (T_pad, R))
-    if B * R * 8 > _MAX_SMEM:
-        raise ValueError(f"superstep {B} x rows_per_tile {R} needs more "
-                         "shared memory than a static launch has")
     y = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+    if T_pad == 0:  # no tiles: nothing to run
+        return y if slot_cost is None else (
+            y, torch.zeros((p, S_B), dtype=torch.float32, device=x.device))
     costs = (None if slot_cost is None else
              torch.empty((p, S_B), dtype=torch.float32, device=x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -3,8 +3,14 @@ sharded kernel against the flat walk bit for bit, the flat walks of SpMV
 and BFS (two kernels over the whole card) on inputs built for their
 design (a run of slots far longer than a chunk, T = 1, ragged chunks, an
 all-padding tail tile, W in {1, 2} and a misaligned payload on the 4-byte
-cp.async path, T = 0, -0.0 products), the launch counters, and the Zamba2
-serving path through the flash attention and SSD scan kernels. A CUDA
+cp.async path, T = 0, -0.0 products), the sharded SpMV walk (one CTA per
+worker, a ring of supersteps) on layouts built for its design (p and B
+grids, W in {1, 3, 8, 32}, a misaligned payload, slots wider than a stage,
+a run across supersteps and windows, all-padding workers, p above the SM
+count), the flat K-Means walk over the whole card (D in {1, 34}, centroids
+near the shared-memory limit, fewer slots than one CTA, the kdd_cup
+shape), the launch counters, and the Zamba2 serving path through the
+flash attention and SSD scan kernels. A CUDA
 kernel has no CPU mode, so these tests need an NVIDIA GPU and skip
 without one; run them there with
 
@@ -13,8 +19,9 @@ without one; run them there with
 Tolerance: SpMV's y at rtol=atol=1e-5 against the plain version (the
 plain version does the same adds; the margin covers PyTorch's own
 kernels), except in the flat-walk tests, which hold y to the plain
-version's bits: there the plain version's eager multiplies and adds are
-the kernel's, one IEEE operation each, in the same order; MoE's y at
+version's bits, as are the sharded-walk tests: there the plain version's
+eager multiplies and adds are the kernel's, one IEEE operation each, in
+the same order; MoE's y at
 rtol=atol=1e-4 (the kernel's products are fmaf chains over ascending k,
 the plain version's are cuBLAS float32 products, which sum in another
 order). Everything else exactly: BFS frontiers are 0/1, K-Means ids come
@@ -538,3 +545,204 @@ def test_flat_walk_grid_spans_the_card(cuda):
         assert shape["smem_bytes"] <= 232_448
     with pytest.raises(ValueError, match="shared memory"):
         KS.flat_launch_shape(4, 8, 20_000)
+
+
+# ---- the sharded SpMV walk (one CTA per worker, a ring of supersteps):
+#      bit for bit against the plain version and the flat walk ----
+def _walk_csr(kind, seed):
+    """(indptr, indices, data, x) of one sharded-walk layout."""
+    rng = np.random.default_rng(seed)
+    if kind == "long_run":
+        # one row of 50,000 nonzeros: at W = 8 a run of 782 tiles, across
+        # many supersteps and windows of its worker
+        row_nnz = rng.integers(0, 6, 600)
+        row_nnz[17] = 50_000
+    elif kind == "tiny":
+        row_nnz = rng.integers(1, 5, 30)     # one block of 4 tiles
+    else:
+        n = 5000 if kind == "zipf" else 200
+        row_nnz = np.minimum(rng.zipf(1.8, n), 200)
+        row_nnz[rng.random(n) < 0.1] = 0
+    n = row_nnz.size
+    indptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int64)
+    indices = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
+    data = rng.standard_normal(int(indptr[-1])).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    return indptr, indices, data, x
+
+
+SHARDED_CASES = {  # name -> (matrix, p (None: SM count + 40), B, W, shift)
+    **{f"p{p}-B{B}": ("zipf", p, B, None, False)
+       for p in (1, 2, 4) for B in (1, 4, 8)},
+    "w1": ("zipf", 4, 4, 1, False),
+    "w3": ("zipf", 4, 4, 3, False),
+    "w8": ("zipf", 4, 4, 8, False),
+    "w32": ("zipf", 4, 8, 32, False),
+    "misaligned": ("zipf", 4, 8, 32, True),
+    "whole_slot_chunks": ("zipf_small", 2, 4, 1024, False),
+    "slot_pieces": ("zipf_small", 2, 2, 6000, False),
+    "slot_pieces_4byte": ("zipf_small", 2, 2, 6001, False),
+    "run_across_windows": ("long_run", 2, 4, 8, False),
+    "padding_workers": ("tiny", 8, 4, 8, False),
+    "p_above_sms": ("zipf", None, 1, 8, False),
+}
+
+
+def _shifted(t):
+    """A copy of t 4 bytes off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("case", list(SHARDED_CASES))
+def test_sharded_walk_bit_identical_to_plain_and_flat(cuda, case):
+    from repro_torch.kernels.ich_spmv import ich_spmv as K
+    from repro_torch.sched import LoopScheduler
+    kind, p, B, width, shift = SHARDED_CASES[case]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = sms + 40 if p is None else p
+    indptr, indices, data, x = _walk_csr(kind, list(SHARDED_CASES).index(case))
+    n = indptr.size - 1
+    op = LoopScheduler(p=p, superstep=B, cache_size=0).build(
+        "spmv", indptr, indices, data, width=width)
+    vals, cols = op.vals, op.cols
+    if shift:
+        vals, cols = _shifted(vals), _shifted(cols)
+    T_pad, R, W = vals.shape
+    S_B = op.blkid.numel() // p
+    shape = K.sharded_launch_shape(p, S_B, B, R, W, bulk=not shift)
+    assert shape["ctas"] == p and shape["stages"] >= 3
+    assert shape["load_path"] == (
+        "cp.async.bulk" if W % 4 == 0 and R % 4 == 0 and not shift
+        else "cp.async 4-byte")
+    item = op.schedule.item_id
+    if case == "run_across_windows":
+        tiles = np.unique(np.nonzero(item == 17)[0])
+        assert tiles.size > shape["window_tiles"] + B
+        assert np.unique(op.shards.worker[tiles]).size == 1
+    if case == "padding_workers":
+        assert (op.shards.block_perm < 0).all(axis=1).any()
+    if case in ("whole_slot_chunks", "slot_pieces", "slot_pieces_4byte"):
+        assert shape["chunks_per_window"] > 1
+    xt = torch.from_numpy(x).to(cuda)
+    K.reset_launches()
+    y, c = K.ich_spmv_sharded(vals, cols, op.rowid, op.blkid, xt, n, p, B,
+                              slot_cost=op.slot_cost)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"ich_spmv": 0, "ich_spmv_sharded": 1}
+    y_p, c_p = K.ich_spmv_sharded_plain(vals, cols, op.rowid, op.blkid, xt,
+                                        n, p, B, slot_cost=op.slot_cost)
+    T = op.n_tiles
+    y_f = K.ich_spmv(op.vals[:T], op.cols[:T],
+                     torch.from_numpy(item).to(cuda), xt, n)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(y_p))
+    assert torch.equal(_bits(y), _bits(y_f))
+    assert torch.equal(c, c_p)
+    np.testing.assert_array_equal(
+        c.cpu().numpy().sum(axis=1),
+        op.shards.worker_cost(op.schedule.tile_cost()).astype(np.float32))
+
+
+def test_sharded_walk_of_no_tiles_launches_nothing(cuda):
+    """A 0-tile payload (every step padding) returns zeros and an all-zero
+    cost stream with no launch: the walk would read block 0 of the
+    payload at each worker's first step."""
+    from repro_torch.kernels.ich_spmv import ich_spmv as K
+    p, B, R = 4, 8, 8
+    vals = torch.zeros((0, R, 8), device=cuda)
+    cols = torch.zeros((0, R, 8), dtype=torch.int32, device=cuda)
+    rowid = torch.full((p * B, R), -1, dtype=torch.int32, device=cuda)
+    blkid = torch.zeros(p, dtype=torch.int32, device=cuda)
+    K.reset_launches()
+    y, c = K.ich_spmv_sharded(vals, cols, rowid, blkid,
+                              torch.ones(5, device=cuda), 5, p, B,
+                              slot_cost=torch.zeros((0, R), device=cuda))
+    assert y.shape == (5,) and not y.any()
+    assert c.shape == (p, 1) and not c.any()
+    assert not any(K.LAUNCHES.values())
+
+
+def test_sharded_walk_keeps_one_cta_per_worker(cuda):
+    """At the main path's shape (wikipedia: p = 132, S_B = 460, B = R = 8,
+    W = 32) the walk is one CTA per worker with a ring of at least three
+    stages; it takes any width (a slot wider than a stage streams in
+    pieces) and refuses only tiles of thousands of slots."""
+    from repro_torch.kernels.ich_spmv import ich_spmv as K
+    shape = K.sharded_launch_shape(132, 460, 8, 8, 32)
+    assert shape["ctas"] == 132 and shape["threads"] >= 512
+    assert shape["stages"] >= 3 and shape["smem_bytes"] <= 232_448
+    assert shape["load_path"] == "cp.async.bulk"
+    for W in (1, 3, 11_600, 50_000):
+        assert K.sharded_launch_shape(4, 10, 8, 8, W)["ctas"] == 4
+    with pytest.raises(ValueError, match="shared memory"):
+        K.sharded_launch_shape(4, 10, 8, 4096, 8)
+
+
+# ---- the flat K-Means walk (one launch over the whole card) ----
+KMEANS_CASES = {  # name -> (points, D, K, p, B)
+    "d1": (3000, 1, 5, 4, 8),
+    "d34": (3000, 34, 5, 4, 8),
+    "smem_limit": (2000, 34, 1700, 2, 4),  # 231,200 bytes of centroids
+    "few_slots": (10, 34, 5, 1, 1),        # fewer slots than one CTA
+}
+
+
+@pytest.mark.parametrize("case", list(KMEANS_CASES))
+def test_kmeans_flat_walk_matches_plain_and_sharded(cuda, case):
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as K
+    from repro_torch.sched import LoopScheduler
+    n, D, k, p, B = KMEANS_CASES[case]
+    rng = np.random.default_rng(list(KMEANS_CASES).index(case))
+    costs = rng.uniform(6.0, 10.0, n)
+    costs[n // 2] = 5000.0  # a heavy point split over several tiles
+    pts = torch.from_numpy(rng.standard_normal((n, D)).astype(
+        np.float32)).to(cuda)
+    cent = torch.from_numpy(rng.standard_normal((k, D)).astype(
+        np.float32)).to(cuda)
+    op = LoopScheduler(p=p, superstep=B, cache_size=0).build("kmeans", costs)
+    item = op.schedule.item_id
+    assert np.unique(np.nonzero(item == n // 2)[0]).size > 1
+    shape = K.assign_launch_shape(item.size, D, k)
+    assert (shape["chunk_slots"] == 0) == (case == "smem_limit")
+    if case == "few_slots":
+        assert item.size < shape["chunk_slots"] and shape["ctas"] == 1
+    rid = torch.from_numpy(item).to(cuda)
+    K.reset_launches()
+    ids = K.ich_kmeans_assign(pts, cent, rid)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"ich_kmeans_assign": 1,
+                          "ich_kmeans_assign_sharded": 0}
+    assert torch.equal(ids, K.ich_kmeans_assign_plain(pts, cent, rid))
+    assert torch.equal(ids, K.ich_kmeans_assign_sharded(pts, cent, op.rowid,
+                                                        p, B))
+
+
+def test_kmeans_flat_walk_at_kdd_cup_shape_spans_the_card(cuda):
+    """494,020 points x 34 features, K = 5, lowered with p = SM count: the
+    flat kernel's grid fills every SM (several CTAs each) and its ids equal
+    the plain version's and the sharded kernel's."""
+    from repro_torch.core.workloads import kmeans_rounds
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as K
+    from repro_torch.sched import LoopScheduler
+    n, D, k = 494_020, 34, 5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rounds, _ = kmeans_rounds(n, rounds=1, seed=0)
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.standard_normal((n, D)).astype(
+        np.float32)).to(cuda)
+    cent = torch.from_numpy(rng.standard_normal((k, D)).astype(
+        np.float32)).to(cuda)
+    op = LoopScheduler(p=sms).build("kmeans", rounds[0])
+    item = op.schedule.item_id
+    shape = K.assign_launch_shape(item.size, D, k)
+    assert shape["chunk_slots"] > 0
+    assert shape["ctas"] >= 2 * sms and shape["ctas"] % sms == 0
+    rid = torch.from_numpy(item).to(cuda)
+    ids = K.ich_kmeans_assign(pts, cent, rid)
+    assert torch.equal(ids, K.ich_kmeans_assign_plain(pts, cent, rid))
+    assert torch.equal(ids, K.ich_kmeans_assign_sharded(
+        pts, cent, op.rowid, op.p, op.superstep))

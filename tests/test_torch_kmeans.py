@@ -194,3 +194,45 @@ def test_wrappers_refuse_mixed_devices_and_bad_layouts():
             worker=op.shards.worker, block_perm=op.shards.block_perm,
             superstep=op.superstep, slot_cost=np.zeros((1, 8)), n_points=64,
             device="cpu")
+
+
+# the layouts the card's flat K-Means walk is tested on (tests/
+# test_torch_cuda.py): name -> (points, D, K, p, B)
+WALK_LAYOUTS = {
+    "d1": (300, 1, 5, 4, 8),
+    "split_points": (300, 6, 5, 4, 8),
+    "all_padding_workers": (12, 6, 3, 8, 4),
+    "few_slots": (10, 34, 5, 1, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(WALK_LAYOUTS))
+def test_plain_matches_reference_on_walk_layouts(case):
+    n, D, K_, p, B = WALK_LAYOUTS[case]
+    pts, cent, costs = _inputs(n, D, K_, seed=list(WALK_LAYOUTS).index(case))
+    costs[n // 2] = 3000.0          # a point split over several tiles
+    s = RS.LoopScheduler(p=p, superstep=B, cache_size=0).schedule(
+        RS.ExplicitCosts(costs))
+    shards = s.shard()
+    assert np.unique(np.nonzero(s.item_id == n // 2)[0]).size > 1
+    if case == "all_padding_workers":
+        assert (shards.block_perm < 0).all(axis=1).any()
+    rid = shards.shard_item_id(s.tiles)
+    sc = ref_sharded_slot_cost(s, shards)
+    ids_ref, c_ref = ref_ich_kmeans_assign_sharded(
+        jnp.asarray(pts), jnp.asarray(cent), jnp.asarray(rid), p, B,
+        slot_cost=jnp.asarray(sc), interpret=True)
+    flat_ref = ref_ich_kmeans_assign(jnp.asarray(pts), jnp.asarray(cent),
+                                     jnp.asarray(s.item_id), interpret=True)
+    op = convert.kmeans_op_from_reference(
+        item_id=s.item_id, rows_per_tile=s.rows_per_tile,
+        worker=shards.worker, block_perm=shards.block_perm, superstep=B,
+        slot_cost=sc, n_points=n, device="cpu")
+    ids = op(pts, cent)
+    flat = K.ich_kmeans_assign(torch.from_numpy(pts), torch.from_numpy(cent),
+                               torch.from_numpy(s.item_id))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ids_ref))
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(flat_ref))
+    assert torch.equal(ids, flat)
+    np.testing.assert_allclose(op.last_costs.numpy(), np.asarray(c_ref),
+                               rtol=RTOL)

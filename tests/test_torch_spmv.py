@@ -189,3 +189,68 @@ def test_wrappers_refuse_mixed_devices_and_bad_layouts():
                            torch.from_numpy(x), N, 2, 8)
     with pytest.raises(ValueError, match="all on CUDA"):
         K._on_cpu(torch.zeros(1), torch.zeros(1, device="meta"))
+
+
+# the layouts the card's sharded walk is tested on (tests/test_torch_cuda.py
+# drives them at larger sizes): name -> (p, B, W)
+WALK_LAYOUTS = {
+    "run_across_supersteps": (2, 4, 8),
+    "all_padding_workers": (8, 4, 8),
+    "w1": (2, 4, 1),
+    "w3": (4, 1, 3),
+}
+
+
+def _walk_layout_csr(case):
+    rng = np.random.default_rng(list(WALK_LAYOUTS).index(case))
+    if case == "run_across_supersteps":
+        row_nnz = rng.integers(0, 6, 300)
+        row_nnz[11] = 2000          # a run of 250 slots, 32 tiles
+    elif case == "all_padding_workers":
+        row_nnz = rng.integers(1, 5, 30)   # one block for 8 workers
+    else:
+        row_nnz = np.minimum(rng.zipf(1.8, 200), 40)
+        row_nnz[rng.random(200) < 0.1] = 0
+    n = row_nnz.size
+    indptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int64)
+    indices = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
+    data = rng.standard_normal(int(indptr[-1])).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    return indptr, indices, data, x
+
+
+@pytest.mark.parametrize("case", list(WALK_LAYOUTS))
+def test_sharded_plain_matches_reference_on_walk_layouts(case):
+    p, B, W = WALK_LAYOUTS[case]
+    indptr, indices, data, x = _walk_layout_csr(case)
+    n = indptr.size - 1
+    s = RefScheduler(p=p, superstep=B, cache_size=0).schedule(
+        np.diff(indptr), width=W)
+    shards = s.shard()
+    assert s.width == W
+    if case == "run_across_supersteps":
+        tiles = np.unique(np.nonzero(s.item_id == 11)[0])
+        assert tiles.size > 2 * B
+        assert np.unique(shards.worker[tiles]).size == 1
+    if case == "all_padding_workers":
+        assert (shards.block_perm < 0).all(axis=1).any()
+    vals, cols = RT.pack_csr(indptr, indices, data, s.tiles, pad_tiles_to=B)
+    sc = ref_flat_slot_cost(s, shards.n_tiles_padded)
+    y_ref, c_ref = ref_ich_spmv_sharded(
+        jnp.asarray(vals), jnp.asarray(cols),
+        jnp.asarray(shards.shard_item_id(s.tiles)),
+        jnp.asarray(shards.kernel_block_ids()), jnp.asarray(x), n, p, B,
+        slot_cost=jnp.asarray(sc), interpret=True)
+    op = convert.spmv_op_from_reference(
+        item_id=s.item_id, width=W, rows_per_tile=s.rows_per_tile,
+        worker=shards.worker, block_perm=shards.block_perm, superstep=B,
+        vals=vals, cols=cols, slot_cost=sc, n_rows=n, device="cpu")
+    y = op(x)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(op.last_costs.numpy(), np.asarray(c_ref))
+    # inside the port: the flat walk's plain version, bit for bit
+    T = s.n_tiles
+    y_flat = K.ich_spmv(torch.from_numpy(vals[:T]), torch.from_numpy(cols[:T]),
+                        torch.from_numpy(s.item_id), torch.from_numpy(x), n)
+    assert torch.equal(y, y_flat)
