@@ -35,11 +35,12 @@ its launch counters set to 0 just before it and read just after:
 For the flat walks (`ich_spmv`, `ich_bfs_step`: two kernels a call over
 the whole card) it logs the launch shape, the longest run of one row (the
 serial part of their fold) and the device time of each phase. For the
-sharded SpMV walk (`ich_spmv_sharded`: one CTA per worker, a ring of
-supersteps) it logs the launch shape, the worker balance (the most live
-slots of one worker over the mean) and the device time beside the host's
-enqueue time; for the flat K-Means walk (`ich_kmeans_assign`, one launch
-over the whole card) its grid and the same split.
+sharded walks (`ich_spmv_sharded`, `ich_bfs_step_sharded`: one CTA per
+worker, a ring of supersteps) it logs the launch shape, the worker balance
+(the most live slots of one worker over the mean) and the device time
+beside the host's enqueue time; for the flat K-Means walk
+(`ich_kmeans_assign`, one launch over the whole card) its grid and the
+same split; for MoE the device time and achieved rate of each product.
 
 It times every kernel beside its plain version, its bound and PyTorch
 computing the same function (cuSPARSE SpMV, `torch.cdist` argmin, MoE's
@@ -72,6 +73,7 @@ N_POINTS, N_FEATURES, N_CLUSTERS = 494_020, 34, 5   # Rodinia kdd_cup
 KMEANS_ROUNDS = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
 RTOL = ATOL = 1e-5          # kernel vs plain: same adds, other reductions
 HOST_RTOL = 1e-4            # vs float64, relative to each row's sum |a*x|
 COST_RTOL = 1e-6            # K-Means float cost sums vs float64 totals
@@ -82,7 +84,7 @@ MOE_TOKENS = 4096
 MOE_ROWS_PER_TILE = 2       # as the reference's MoE benchmark lowers it
 MOE_ROUNDS = 3
 MOE_SAMPLE = 64             # tokens checked against float64 on the host
-MOE_TOL = 1e-4              # kernel vs plain: fmaf chains vs cuBLAS sums
+MOE_TOL = 1e-4              # kernel vs plain: 3xTF32 sums vs cuBLAS float32
 PASS = "src/repro/kernels/"
 KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "ich_spmv": ("src/repro_torch/csrc/ich_spmv.cu",
@@ -163,12 +165,13 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_entry(name, *, launches, err, ms, plain_ms, library_ms,
-                 bytes_, flops) -> dict:
+                 bytes_, flops, peak=F32_FLOPS) -> dict:
     """One kernel's record for the `kernels` line: `bound_ms` is the larger
-    of its bytes over the memory rate and its operations over the float32
-    rate."""
+    of its bytes over the memory rate and its operations over `peak`, the
+    rate of the units its arithmetic runs on (float32 CUDA cores unless
+    said otherwise)."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -434,7 +437,7 @@ def phase_main(sm_count):
     del csr, y_lib
     log_flat_walk("spmv", K, lambda: K.ich_spmv(*seq_args), T, R, W,
                   rowid_seq, sm_count)
-    log_sharded_walk(K, op, lambda: K.ich_spmv_sharded(
+    log_sharded_walk("spmv", K, op, op.vals, lambda: K.ich_spmv_sharded(
         *args, slot_cost=op.slot_cost))
 
     # ---- bounds: bytes each input is read once / output written once ----
@@ -582,6 +585,8 @@ def _bfs_run(kind, sm_count):
     del csr, hits
     log_flat_walk("bfs", K, lambda: K.ich_bfs_step(*seq_args(f, v)), T,
                   s.rows_per_tile, s.width, rowid_seq, sm_count, graph=kind)
+    log_sharded_walk("bfs", K, op, op.mask, lambda: K.ich_bfs_step_sharded(
+        *args, slot_cost=op.slot_cost), graph=kind)
 
     # ---- bounds: bytes each input is read once / output written once ----
     real = int((s.item_id >= 0).sum())        # slots the kernels read
@@ -920,23 +925,24 @@ def log_split(label, fn, kernel, **extra) -> None:
         device_ms=by_name, **extra)
 
 
-def log_sharded_walk(K, op, fn) -> None:
-    """The sharded SpMV walk's launch (one CTA per worker, checked), the
-    worker balance of this schedule (live slots of the busiest worker over
-    the mean: the LPT makespan the one-CTA-per-worker rule keeps), and its
-    device time and host enqueue."""
+def log_sharded_walk(label, K, op, payload, fn, **extra) -> None:
+    """A sharded walk's launch (one CTA per worker, a ring of >= 3 stages:
+    checked) over its (T_pad, R, W) payload, the worker balance of this
+    schedule (live slots of the busiest worker over the mean: the LPT
+    makespan the one-CTA-per-worker rule keeps), and its device time and
+    host enqueue."""
     p, B = op.p, op.superstep
     S_B = op.blkid.numel() // p
-    T_pad, R, W = op.vals.shape
+    T_pad, R, W = payload.shape
     shape = K.sharded_launch_shape(p, S_B, B, R, W)
     check(shape["ctas"] == p and shape["stages"] >= 3,
-          "sharded walk: one CTA per worker, a ring of >= 3 stages")
+          f"{label} sharded walk: one CTA per worker, a ring of >= 3 stages")
     live = (op.rowid >= 0).view(p, -1).sum(dim=1).double()
-    log(phase="spmv_sharded_grid", p=p, steps=S_B, superstep=B,
+    log(phase=f"{label}_sharded_grid", p=p, steps=S_B, superstep=B,
         rows_per_tile=R, width=W, **shape,
         live_slots_max=int(live.max()), live_slots_mean=float(live.mean()),
-        balance=float(live.max() / live.mean()))
-    log_split("spmv_sharded", fn, "sharded_walk")
+        balance=float(live.max() / live.mean()), **extra)
+    log_split(f"{label}_sharded", fn, "sharded_walk", **extra)
 
 
 def phase_moe(sm_count):
@@ -955,11 +961,12 @@ def phase_moe(sm_count):
     t0 = time.perf_counter()
     e_topk, w = moe_router(T, E, Kt, seed=SEED)
     plan = plan_dispatch(e_topk, w, cap_scale=np.ones(E))
+    kept = int(plan.counts.sum())
     x, wi, wg, wo = _moe_weights(E, D, F, T, SEED)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     log(phase="moe_plan", tokens=T, experts=E, top_k=Kt, d_model=D,
-        expert_ff=F, kept=int(plan.counts.sum()), stolen=plan.stolen,
+        expert_ff=F, kept=kept, stolen=plan.stolen,
         dropped=plan.dropped, load_min=int(plan.counts.min()),
         load_max=int(plan.counts.max()), cap_max=int(plan.cap.max()),
         weight_bytes=3 * E * D * F * 4, x_bytes=T * D * 4, setup_s=t_setup)
@@ -1053,22 +1060,33 @@ def phase_moe(sm_count):
         *args, slot_cost=op.slot_cost))
     library_ms = timed_ms(library)
     log(phase="moe_library", capacity=C, buffer_entries=E * C,
-        kept=int(plan.counts.sum()), max_abs_diff=lib_err)
+        kept=kept, max_abs_diff=lib_err)
     breakdown = device_ms_by_kernel(
         lambda: K.ich_moe_sharded(*args, slot_cost=op.slot_cost))
+    # achieved rate of each product: its float32 operations (up: two
+    # products, 4*D*F a kept entry; down: 2*D*F) over its device time; the
+    # tensor cores run three TF32 products for each
+    rate = {}
+    for label, key, per_entry in (("up", "moe_product<true", 4),
+                                  ("down", "moe_product<false", 2)):
+        k_ms = sum(v for name, v in breakdown.items() if key in name)
+        rate[f"{label}_ms"] = k_ms
+        rate[f"{label}_tflops"] = (per_entry * D * F * kept / (k_ms * 1e-3)
+                                   / 1e12 if k_ms > 0 else None)
     log(phase="moe_breakdown", event_ms=ms, device_ms=breakdown,
-        device_total_ms=sum(breakdown.values()))
+        device_total_ms=sum(breakdown.values()), **rate)
 
     # ---- bound: each input read once, each output written once ----
     inputs = [op.vals, op.cols, op.rowid, op.blkid, op.slot_cost, x, wi, wg,
               wo, *op.slots]
     bytes_ = sum(t.numel() * t.element_size() for t in inputs) \
         + (T * D + op.p * (op.shards.n_steps + E)) * 4   # y, both streams
-    flops = 6 * D * F * int(plan.counts.sum())            # three products
+    flops = 6 * D * F * kept                              # three products
+    # each float32 product runs as three TF32 products on the tensor cores
     return [kernel_entry("ich_moe_sharded",
                          launches=launches["ich_moe_sharded"], err=err_k,
                          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bytes_=bytes_, flops=flops)]
+                         bytes_=bytes_, flops=flops, peak=TF32_FLOPS / 3)]
 
 
 def phase_small_lm():

@@ -4,10 +4,11 @@
 //   * the flat walk (ich_bfs_step_launch: flat_slot_partials +
 //     flat_fold_rows)          <- ich_bfs_step (sequential (T,) grid,
 //                                 _bfs_kernel, ich_bfs.py:90)
-//   * ich_bfs_step_sharded_kernel  <- ich_bfs_step_sharded ((p, S_B) grid,
-//                                     _bfs_sharded_body, with its cost stream
-//                                     and the host-side worker_reduce "max"
-//                                     folded away)
+//   * the sharded walk (ich_bfs_step_sharded_launch: sharded_walk)
+//                              <- ich_bfs_step_sharded ((p, S_B) grid,
+//                                 _bfs_sharded_body, ich_bfs.py:195, with
+//                                 its cost stream and the host-side
+//                                 worker_reduce "max" folded away)
 //
 // What they compute. The graph is a CSR whose row u lists u's in-neighbors,
 // packed by the iCh schedule into the flat (T_pad, R, W) layout: slot
@@ -36,130 +37,94 @@
 // 1,000,000 vertices, all folded by one thread. It reads only the flat
 // payload and flat rowid, never the shard layout.
 //
-// The sharded kernel: as in ich_spmv.cu, one CTA per worker walks that
-// worker's S_B supersteps in ascending order with a barrier between steps,
-// and the item-closed partition makes every vertex one worker's, so it
-// writes straight into one zeroed (n,) output — no (p, n) accumulators
-// (0.5 GB at p = 132 and a million vertices), no atomics — and only the
+// The sharded walk (sharded_walk.cuh, the walk ich_spmv.cu's sharded
+// kernel runs): one CTA of 768 threads per worker, so the schedule's LPT
+// balance is the card's; its three pipelines take the worker's windows of
+// whole tiles in turn, each through its own three-stage shared-memory ring
+// that its warp 0 fills ahead with cp.async.bulk (4-byte cp.async when W
+// or R is not a multiple of 4 or a pointer is not 16-byte aligned). Lanes
+// (mask * frontier[col]) go to a table, one thread per slot max-folds them
+// and masks the slot with its vertex's visited bit (BfsLanes::finish), and
+// the thread at each run head max-folds the run (fold_run with MaxFold); a
+// heavy vertex's run that crosses windows is handed on through the walk's
+// carry links, so each vertex is written once, with no atomics and the
+// output never read. The item-closed partition makes every vertex one
+// worker's, so it writes straight into one zeroed (n,) output (no (p, n)
+// accumulators: 0.5 GB at p = 132 and a million vertices) and only the
 // vertices its slots name. The cost stream is SpMV's: the masked left fold
-// of slot_cost over each step's slots.
+// of slot_cost over each step's slots, one thread a step.
 //
 // What bounds them. Bytes: each real slot moves W*(4 + 4) bytes of mask
-// and cols plus 4 of rowid (and 4 of slot_cost for the sharded kernel);
+// and cols plus 4 of rowid (and 4 of slot_cost for the sharded walk);
 // frontier and visited are gathered (n floats each, mostly from the 50 MB
 // L2) and the output written once. A multiply and a max per edge lane are
-// far below the card's ratio of compute to bandwidth. Neither kernel stops
-// a slot's lane loop at the first hit, so the time does not depend on the
-// frontier; the 0/1 mask is read as float where a bit would do. The
-// sharded kernel is still the simple design (one 128-thread CTA per
-// worker, no double buffering), so it tracks steps per worker, not bytes.
+// far below the card's ratio of compute to bandwidth. Neither walk stops a
+// slot's lane loop at the first hit, so the time does not depend on the
+// frontier; the 0/1 mask is read as float where a bit would do. What the
+// sharded walk does about the bytes: up to 3 x 2 chunks of 2,048 lanes in
+// flight per SM while the pipelines gather frontier bits and fold, the
+// barriers of one pipeline hidden behind the other two's work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flat_walk.cuh"
 #include "segmented.cuh"
+#include "sharded_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // sharded kernel: one CTA per worker
-
-// The flat walk's arithmetic (flat_walk.cuh): a lane's product and a
-// slot's max over its lanes, exactly as expand_tiles below does them.
+// The walks' arithmetic (flat_walk.cuh, sharded_walk.cuh): a lane's
+// product, a slot's max over its lanes continued from `acc` (w ascending;
+// the max of 0/1 values is exact in any order) and the slot's increment,
+// masked by its vertex's visited bit.
 struct BfsLanes {
   const float* frontier;
   const float* visited;
   __device__ float lane(float m, int c) const {
     return __fmul_rn(m, __ldg(frontier + c));
   }
-  __device__ float slot(const float* lanes, int W, int row) const {
-    float hit = 0.0f;
+  __device__ float step(float acc, const float* lanes, int n) const {
 #pragma unroll 4
-    for (int w = 0; w < W; ++w) hit = fmaxf(hit, lanes[w]);
-    return __fmul_rn(hit, __fsub_rn(1.0f, __ldg(visited + row)));
+    for (int w = 0; w < n; ++w) acc = fmaxf(acc, lanes[w]);
+    return acc;
+  }
+  __device__ float finish(float acc, int row) const {
+    return __fmul_rn(acc, __fsub_rn(1.0f, __ldg(visited + row)));
+  }
+  __device__ float slot(const float* lanes, int W, int row) const {
+    return finish(step(0.0f, lanes, W), row);
   }
 };
-
-// Expand `ntiles` consecutive tiles of the flat payload, starting at flat
-// tile `tile0`, into `out`. `rows` points at their ntiles*R vertex ids.
-// When `cost_out` is set, thread 0 also writes the masked slot-cost fold
-// of these tiles there (`slot_cost` is the flat (T_pad, R) stream).
-// Shared scratch: `partial` and `srow`, ntiles*R entries each.
-__device__ void expand_tiles(const float* __restrict__ mask,
-                             const int* __restrict__ cols,
-                             const int* __restrict__ rows, int64_t tile0,
-                             int ntiles, int R, int W,
-                             const float* __restrict__ frontier,
-                             const float* __restrict__ visited, float* out,
-                             const float* __restrict__ slot_cost,
-                             float* cost_out, float* partial, int* srow) {
-  const int n = ntiles * R;
-  const int64_t slot0 = tile0 * (int64_t)R;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int row = rows[k];
-    float inc = 0.0f;
-    if (row >= 0) {
-      const int64_t off = (slot0 + k) * (int64_t)W;
-      const float* m = mask + off;
-      const int* c = cols + off;
-      float hit = 0.0f;
-      for (int w = 0; w < W; ++w) {
-        hit = fmaxf(hit, __fmul_rn(m[w], frontier[c[w]]));
-      }
-      inc = __fmul_rn(hit, __fsub_rn(1.0f, visited[row]));
-    }
-    srow[k] = row;
-    partial[k] = inc;
-  }
-  __syncthreads();
-  ich::fold_runs<ich::MaxFold, 1, int>(srow, partial, n, R, out,
-                                     (int)threadIdx.x, (int)blockDim.x);
-  if (cost_out != nullptr && threadIdx.x == 0) {
-    *cost_out = ich::masked_cost(srow, slot_cost + slot0, n);
-  }
-  // the next step overwrites the scratch and may read vertices stored here
-  __syncthreads();
-}
-
-// One CTA per worker w: walk its S_B supersteps in ascending order.
-__global__ void ich_bfs_step_sharded_kernel(
-    const float* __restrict__ mask, const int* __restrict__ cols,
-    const int* __restrict__ rowid, const int* __restrict__ blkid,
-    const float* __restrict__ slot_cost, const float* __restrict__ frontier,
-    const float* __restrict__ visited, float* out, float* costs, int S_B,
-    int B, int R, int W) {
-  extern __shared__ unsigned char smem[];
-  float* partial = reinterpret_cast<float*>(smem);
-  int* srow = reinterpret_cast<int*>(partial + B * R);
-  const int64_t w = blockIdx.x;
-  for (int j = 0; j < S_B; ++j) {
-    const int64_t step = w * S_B + j;
-    const int64_t tile0 = (int64_t)blkid[step] * B;
-    const int* rows = rowid + step * B * (int64_t)R;
-    expand_tiles(mask, cols, rows, tile0, B, R, W, frontier, visited, out,
-                 slot_cost, costs != nullptr ? costs + step : nullptr,
-                 partial, srow);
-  }
-}
 
 }  // namespace
 
 extern "C" {
 
-// Launch the sharded kernel on `stream`; out must be zeroed (n,) and costs
-// (p*S_B,) or null (then slot_cost is ignored). Returns the launch's
-// cudaGetLastError() code (0 = success).
+// Launch the sharded walk on `stream` (T_pad > 0): out must be zeroed
+// (n,) and costs (p*S_B,) or null (then slot_cost is ignored). Returns 0,
+// a CUDA error code, or -1 when the shapes need more shared memory than
+// one CTA has (a tile of thousands of slots).
 int ich_bfs_step_sharded_launch(const float* mask, const int* cols,
                                 const int* rowid, const int* blkid,
                                 const float* slot_cost, const float* frontier,
                                 const float* visited, float* out,
                                 float* costs, int p, int S_B, int B, int R,
                                 int W, void* stream) {
-  const size_t smem = (size_t)B * R * (sizeof(float) + sizeof(int));
-  ich_bfs_step_sharded_kernel<<<p, kThreads, smem, (cudaStream_t)stream>>>(
-      mask, cols, rowid, blkid, slot_cost, frontier, visited, out, costs, S_B,
-      B, R, W);
-  return (int)cudaGetLastError();
+  return ich::sharded::walk<BfsLanes, ich::MaxFold>(
+      mask, cols, rowid, blkid, slot_cost, BfsLanes{frontier, visited}, out,
+      costs, p, S_B, B, R, W, (cudaStream_t)stream);
+}
+
+// The sharded walk's launch shape as eight ints (see
+// ich_spmv_sharded_shape). Returns as ich_bfs_step_sharded_launch does.
+int ich_bfs_sharded_shape(int p, int S_B, int B, int R, int W, int bulk,
+                          int* out) {
+  ich::sharded::Shape sh;
+  const int err = ich::sharded::shape<BfsLanes, ich::MaxFold>(
+      p, S_B, B, R, W, bulk != 0 && W % 4 == 0 && R % 4 == 0, &sh);
+  if (err == 0) ich::sharded::to_ints(sh, out);
+  return err;
 }
 
 // Launch the flat walk on `stream` (T > 0) into out (n,), which it zeroes;

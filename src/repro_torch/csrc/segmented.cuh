@@ -4,18 +4,17 @@
 //
 // A stretch of n slots, starting at a tile boundary, has one value per
 // slot, partial[k] for slot k on row srow[k] (-1 = padding slot): in
-// shared memory for one superstep of the sharded BFS kernel (ich_bfs.cu)
-// or one window of the sharded walk (sharded_walk.cuh, which starts a run
-// that goes on from the previous window from the value that window left),
-// in global memory for the whole flat stream in the flat walk's phase B
-// (flat_walk.cuh).
+// shared memory for one window of the sharded walk (sharded_walk.cuh,
+// which starts a run that goes on from the previous window from the value
+// that window left), in global memory for the whole flat stream in the
+// flat walk's phase B (flat_walk.cuh).
 // Same-row slots are consecutive (construction emits segments in item
 // order), and a row's run may cross tile boundaries (a split row).
 // `fold_runs` gives each run to one thread, which folds the run's slots of
 // one tile first, in ascending slot order, and then folds that per-tile
 // value into y[row] once per tile, tiles in ascending order, starting from
-// the y[row] it finds (0.0f in a zeroed y, or what an earlier superstep of
-// the same worker left). The fold is templated on the combine:
+// 0.0f (the flat walk's zeroed y) or from the value the previous window
+// handed over (the sharded walk). The fold is templated on the combine:
 //   * AddFold — the SpMV "add": adds with __fadd_rn, so no FMA contraction
 //     changes the sequence of IEEE adds;
 //   * MaxFold — the BFS "max": exact in any order.
@@ -80,10 +79,7 @@ __device__ inline float fold_run(const int* srow, const float* partial,
 }
 
 // Fold the n slot values into y (see above): the thread that sees slot
-// k = first, first + stride, ... at a run head owns that run's row. The
-// sharded BFS kernel folds one step in shared memory with the threads of
-// one CTA and synchronizes the block before (partial/srow written) and
-// after (the next step overwrites them and may read rows stored here).
+// k = first, first + stride, ... at a run head owns that run's row.
 template <class Fold, int kAhead, class Index>
 __device__ inline void fold_runs(const int* srow, const float* partial,
                                  Index n, int R, float* y, Index first,

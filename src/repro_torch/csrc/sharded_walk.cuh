@@ -1,7 +1,9 @@
 // The worker-sharded walk of the iCh kernels for Hopper (sm_90a): the
-// counterpart of the (p, S_B) grid of src/repro/kernels/ich_spmv/ich_spmv.py
-// (`ich_spmv_sharded`), with core/pipelining.py's fetch_double_buffered as
-// rings of asynchronous copies.
+// counterpart of the (p, S_B) grids of src/repro/kernels/ich_spmv/ich_spmv.py
+// (`ich_spmv_sharded`, an add fold: ich_spmv.cu) and
+// src/repro/kernels/ich_bfs/ich_bfs.py (`ich_bfs_step_sharded`, a max fold:
+// ich_bfs.cu), with core/pipelining.py's fetch_double_buffered as rings of
+// asynchronous copies.
 //
 // The schedule gives worker w the S_B supersteps w*S_B .. w*S_B + S_B - 1;
 // step j runs the B tiles of block blkid[w*S_B + j] out of the FLAT

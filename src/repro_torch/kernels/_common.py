@@ -7,7 +7,6 @@ import ctypes
 
 import torch
 
-MAX_STATIC_SMEM = 48 * 1024  # static-launch shared memory limit per CTA
 MAX_DYNAMIC_SMEM = 232_448   # what one CTA can have on Hopper (227 KB)
 
 
@@ -58,6 +57,22 @@ def flat_shape(shape_fn, T: int, R: int, W: int, kernel: str) -> dict:
     return {"chunk_slots": out[0], "ctas_phase_a": out[1],
             "ctas_phase_b": out[2], "smem_bytes": out[3],
             "load_path": "cp.async.bulk" if out[4] else "cp.async 4-byte"}
+
+
+def sharded_shape(shape_fn, p: int, S_B: int, B: int, R: int, W: int,
+                  bulk: bool, kernel: str) -> dict:
+    """The launch of a sharded walk (csrc/sharded_walk.cuh) for p workers of
+    S_B supersteps of B tiles of R slots and W lanes, from its C
+    `*_sharded_shape` function: CTAs (always p), threads, ring stages of
+    each pipeline, shared memory, load path (`bulk`: 16-byte-aligned
+    pointers), tiles a window, chunks a window and pipelines a CTA."""
+    out = (ctypes.c_int * 8)()
+    raise_on(shape_fn(p, S_B, B, R, W, int(bulk), out), kernel)
+    return {"ctas": out[0], "threads": out[1], "stages": out[2],
+            "smem_bytes": out[3],
+            "load_path": "cp.async.bulk" if out[4] else "cp.async 4-byte",
+            "window_tiles": out[5], "chunks_per_window": out[6],
+            "pipelines": out[7]}
 
 
 def shard_tiles(blkid: torch.Tensor, B: int) -> torch.Tensor:

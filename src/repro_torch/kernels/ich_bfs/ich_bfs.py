@@ -18,7 +18,14 @@ wrappers and their plain PyTorch versions.
   (p, S_B) superstep layout of `core.tiling.WorkerShards`, reading blocks
   of B tiles straight out of the flat (T_pad, R, W) payload, with the
   optional (p, S_B) cost stream the measured-cost refiner consumes. It
-  replaces `ich_bfs.py:195` (`ich_bfs_step_sharded`).
+  replaces `ich_bfs.py:195` (`ich_bfs_step_sharded`) with one launch of
+  SpMV's sharded walk (`csrc/sharded_walk.cuh`) with a max fold: still
+  exactly one CTA per worker, of 768 threads in three pipelines that take
+  the worker's windows of whole tiles in turn, each through its own
+  three-stage shared-memory ring filled ahead with cp.async.bulk; lanes,
+  then slot maxes masked by the visited bits, then each run max-folded by
+  the thread at its head, a run crossing windows handed on in order. It
+  takes every width. `sharded_launch_shape` reports the launch.
 
 The graph's row u lists u's in-neighbors; `mask` is the all-ones CSR
 payload packed like SpMV's values (1.0 on real edge lanes, 0.0 on
@@ -40,14 +47,14 @@ import torch
 from repro_torch.core.segmented import (emit_step_cost, segmented_apply,
                                         worker_reduce)
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (MAX_STATIC_SMEM, check,
-                                         check_shard_layout, flat_shape,
-                                         on_cpu, raise_on, shard_tiles)
+from repro_torch.kernels._common import (check, check_shard_layout,
+                                         flat_shape, on_cpu, raise_on,
+                                         shard_tiles, sharded_shape)
 
 __all__ = ["LAUNCHES", "flat_launch_shape", "ich_bfs_step",
            "ich_bfs_step_plain",
            "ich_bfs_step_sharded", "ich_bfs_step_sharded_plain",
-           "reset_launches"]
+           "reset_launches", "sharded_launch_shape"]
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"ich_bfs_step": 0, "ich_bfs_step_sharded": 0}
@@ -118,6 +125,9 @@ def _lib() -> ctypes.CDLL:
         lib.ich_bfs_flat_shape.argtypes = [i64, i32, i32,
                                            ctypes.POINTER(i32)]
         lib.ich_bfs_flat_shape.restype = i32
+        lib.ich_bfs_sharded_shape.argtypes = [i32] * 6 + [
+            ctypes.POINTER(i32)]
+        lib.ich_bfs_sharded_shape.restype = i32
         lib._typed = True
     return lib
 
@@ -132,6 +142,15 @@ def flat_launch_shape(T: int, R: int, W: int) -> dict:
     slots and W lanes (16-byte-aligned payloads): see
     `_common.flat_shape`."""
     return flat_shape(_lib().ich_bfs_flat_shape, T, R, W, "ich_bfs_step")
+
+
+def sharded_launch_shape(p: int, S_B: int, B: int, R: int, W: int, *,
+                         bulk: bool = True) -> dict:
+    """The launch `ich_bfs_step_sharded` makes on the card for p workers
+    of S_B supersteps of B tiles of R slots and W lanes: see
+    `_common.sharded_shape`."""
+    return sharded_shape(_lib().ich_bfs_sharded_shape, p, S_B, B, R, W,
+                         bulk, "ich_bfs_step_sharded")
 
 
 def ich_bfs_step(mask, cols, rowid, frontier, visited,
@@ -193,9 +212,6 @@ def ich_bfs_step_sharded(mask, cols, rowid, blkid, frontier, visited,
     _check_indicators(frontier, visited, n_vertices)
     if slot_cost is not None:
         check("slot_cost", slot_cost, torch.float32, (T_pad, R))
-    if B * R * 8 > MAX_STATIC_SMEM:
-        raise ValueError(f"superstep {B} x rows_per_tile {R} needs more "
-                         "shared memory than a static launch has")
     out = torch.zeros(n_vertices, dtype=torch.float32, device=frontier.device)
     costs = (None if slot_cost is None else
              torch.empty((p, S_B), dtype=torch.float32,

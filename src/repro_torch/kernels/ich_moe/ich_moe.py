@@ -19,9 +19,11 @@ order. The plain version (`ich_moe_sharded_plain`) computes each expert's
 slots in one product per weight matrix (its slots in CSR order, so its
 output does not depend on the lowering either) and the same fold and cost
 folds, so the cost streams agree with the kernel exactly and y to the
-rounding of the products' sums. A wrapper given CPU tensors runs the plain
+rounding of the products' sums: the kernel runs both products on the
+tensor cores as three TF32 products each (the 3xTF32 split, float32-level
+accuracy; `csrc/ich_moe.cu`). A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches `csrc/ich_moe.cu` or raises: there
-is no fallback. One call of the wrapper launches four CUDA kernels and
+is no fallback. One call of the wrapper launches five CUDA kernels and
 counts one launch in `LAUNCHES`.
 """
 from __future__ import annotations
@@ -212,7 +214,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ich_moe")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ich_moe_sharded_launch.argtypes = [ptr] * 18 + [i32] * 9 + [ptr]
+        lib.ich_moe_sharded_launch.argtypes = [ptr] * 19 + [i32] * 9 + [
+            ctypes.c_int64, ptr]
         lib.ich_moe_sharded_launch.restype = i32
         lib._typed = True
     return lib
@@ -257,6 +260,9 @@ def ich_moe_sharded(vals, cols, rowid, blkid, x, wi, wg, wo, p: int,
         check("slot_cost", slot_cost, torch.float32, (T_pad, R))
     dev = x.device
     n_slots = slots.tok_slot.numel()
+    # the expert each flat slot row runs, -1 where the shard layout names
+    # none (written by the launch's first kernel)
+    named = torch.full((T_pad * R,), -1, dtype=torch.int32, device=dev)
     abuf = torch.empty((n_slots, F), dtype=torch.float32, device=dev)
     # zeroed: the combine reads every slot, named by the lowering or not
     ybuf = torch.zeros((n_slots, D), dtype=torch.float32, device=dev)
@@ -271,11 +277,11 @@ def ich_moe_sharded(vals, cols, rowid, blkid, x, wi, wg, wo, p: int,
         slots.base.data_ptr(), slots.length.data_ptr(),
         slots.tok_ptr.data_ptr(), slots.tok_slot.data_ptr(),
         None if slot_cost is None else slot_cost.data_ptr(), x.data_ptr(),
-        wi.data_ptr(), wg.data_ptr(), wo.data_ptr(), abuf.data_ptr(),
-        ybuf.data_ptr(), y.data_ptr(),
+        wi.data_ptr(), wg.data_ptr(), wo.data_ptr(), named.data_ptr(),
+        abuf.data_ptr(), ybuf.data_ptr(), y.data_ptr(),
         None if costs is None else costs.data_ptr(),
         None if ecosts is None else ecosts.data_ptr(),
-        p, S_B, B, R, W, n_tokens, D, F, E, stream)
+        p, S_B, B, R, W, n_tokens, D, F, E, T_pad * R, stream)
     raise_on(code, "ich_moe_sharded")
     LAUNCHES["ich_moe_sharded"] += 1
     return y if costs is None else (y, costs, ecosts)

@@ -49,6 +49,7 @@ from repro_torch.kernels._common import flat_shape as _flat_shape
 from repro_torch.kernels._common import on_cpu as _on_cpu
 from repro_torch.kernels._common import raise_on as _raise_on
 from repro_torch.kernels._common import shard_tiles as _shard_tiles
+from repro_torch.kernels._common import sharded_shape as _sharded_shape
 
 __all__ = ["LAUNCHES", "flat_launch_shape", "ich_spmv", "ich_spmv_plain",
            "ich_spmv_sharded", "ich_spmv_sharded_plain", "reset_launches",
@@ -132,18 +133,10 @@ def flat_launch_shape(T: int, R: int, W: int) -> dict:
 def sharded_launch_shape(p: int, S_B: int, B: int, R: int, W: int, *,
                          bulk: bool = True) -> dict:
     """The launch `ich_spmv_sharded` makes on the card for p workers of
-    S_B supersteps of B tiles of R slots and W lanes: CTAs (always p),
-    threads, ring stages of each pipeline, shared memory, load path
-    (`bulk`: 16-byte-aligned pointers), tiles a window, chunks a window and
-    pipelines a CTA."""
-    out = (ctypes.c_int * 8)()
-    _raise_on(_lib().ich_spmv_sharded_shape(p, S_B, B, R, W, int(bulk), out),
-              "ich_spmv_sharded")
-    return {"ctas": out[0], "threads": out[1], "stages": out[2],
-            "smem_bytes": out[3],
-            "load_path": "cp.async.bulk" if out[4] else "cp.async 4-byte",
-            "window_tiles": out[5], "chunks_per_window": out[6],
-            "pipelines": out[7]}
+    S_B supersteps of B tiles of R slots and W lanes: see
+    `_common.sharded_shape`."""
+    return _sharded_shape(_lib().ich_spmv_sharded_shape, p, S_B, B, R, W,
+                          bulk, "ich_spmv_sharded")
 
 
 def ich_spmv(vals, cols, rowid, x, n_rows: int) -> torch.Tensor:

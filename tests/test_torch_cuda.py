@@ -3,11 +3,13 @@ sharded kernel against the flat walk bit for bit, the flat walks of SpMV
 and BFS (two kernels over the whole card) on inputs built for their
 design (a run of slots far longer than a chunk, T = 1, ragged chunks, an
 all-padding tail tile, W in {1, 2} and a misaligned payload on the 4-byte
-cp.async path, T = 0, -0.0 products), the sharded SpMV walk (one CTA per
-worker, a ring of supersteps) on layouts built for its design (p and B
-grids, W in {1, 3, 8, 32}, a misaligned payload, slots wider than a stage,
-a run across supersteps and windows, all-padding workers, p above the SM
-count), the flat K-Means walk over the whole card (D in {1, 34}, centroids
+cp.async path, T = 0, -0.0 products), the sharded walk of SpMV and BFS
+(one CTA per worker, a ring of supersteps) on layouts built for its design
+(p and B grids, W in {1, 2, 3, 8, 32}, a misaligned payload, slots wider
+than a stage, a run across supersteps and windows, all-padding workers, p
+above the SM count), the MoE products on the tensor cores (D and F off
+the 16-byte path and off the tiles, a slot row of one token, OLMoE's
+K = 2048 against float64), the flat K-Means walk over the whole card (D in {1, 34}, centroids
 near the shared-memory limit, fewer slots than one CTA, the kdd_cup
 shape), the launch counters, and the Zamba2 serving path through the
 flash attention and SSD scan kernels. A CUDA
@@ -22,9 +24,10 @@ kernels), except in the flat-walk tests, which hold y to the plain
 version's bits, as are the sharded-walk tests: there the plain version's
 eager multiplies and adds are the kernel's, one IEEE operation each, in
 the same order; MoE's y at
-rtol=atol=1e-4 (the kernel's products are fmaf chains over ascending k,
-the plain version's are cuBLAS float32 products, which sum in another
-order). Everything else exactly: BFS frontiers are 0/1, K-Means ids come
+rtol=atol=1e-4 (the kernel's products are 3xTF32 tensor-core sums over
+ascending k, float32-level, the plain version's are cuBLAS float32
+products, which sum in another order), and against float64 at 1e-4 of
+each element's sum of |terms|, as chip_smoke.py holds the main path. Everything else exactly: BFS frontiers are 0/1, K-Means ids come
 from the same left fold over D in both versions, and every cost stream is
 the same left fold. Flash attention and the SSD scan use the reference's
 kernel-test tolerances, stated at each test."""
@@ -245,6 +248,97 @@ def test_moe_zero_tokens_and_bad_inputs_on_the_card(cuda):
     with pytest.raises(ValueError, match="all on CUDA"):
         K.ich_moe_sharded(op.vals, op.cols, op.rowid, op.blkid, x.cpu(), wi,
                           wi, wo, 2, op.superstep, op.slots)
+
+
+def _moe_case(T, E, D, F, e_topk, seed, cuda, cap=None):
+    """A plan over e_topk (T, K) and seeded float32 weights on the card."""
+    from repro_torch.sched import plan_dispatch
+    rng = np.random.default_rng(seed)
+    w = (rng.random(e_topk.shape) + 0.1).astype(np.float32)
+    plan = (plan_dispatch(e_topk, w, cap=cap) if cap is not None else
+            plan_dispatch(e_topk, w, cap_scale=np.ones(E)))
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+    wi = put(rng.standard_normal((E, D, F)) * D ** -0.5)
+    wg = put(rng.standard_normal((E, D, F)) * D ** -0.5)
+    wo = put(rng.standard_normal((E, F, D)) * F ** -0.5)
+    x = put(rng.standard_normal((T, D)))
+    return plan, x, wi, wg, wo
+
+
+def _moe_float64(plan, x, wi, wg, wo):
+    """y in float64 on the host and, per element, the sum over each
+    token's entries of |w| * sum_f |a_f * wo[f, d]|."""
+    X, Wi, Wg, Wo = (t.double().cpu().numpy() for t in (x, wi, wg, wo))
+    y64, absum = np.zeros(X.shape), np.zeros(X.shape)
+    keep = plan.keep
+    for e in np.unique(plan.expert[keep]):
+        sel = keep & (plan.expert == e)
+        tok, wt = plan.token[sel], plan.weight[sel].astype(np.float64)
+        g = X[tok] @ Wg[e]
+        a = g / (1.0 + np.exp(-g)) * (X[tok] @ Wi[e])
+        np.add.at(y64, tok, wt[:, None] * (a @ Wo[e]))
+        np.add.at(absum, tok, np.abs(wt)[:, None] * (np.abs(a) @ np.abs(Wo[e])))
+    return y64, absum
+
+
+MOE_SHAPES = {  # name -> (T, E, D, F, width)
+    "d_f_off_16_bytes": (400, 8, 37, 53, 64),   # 4-byte cp.async
+    "off_the_tiles": (400, 8, 200, 100, 96),    # D, F, W past tile edges
+    "row_of_one": (200, 4, 64, 96, 64),         # rows of 64, 64, 1, 1, ...
+    "olmoe_k2048": (256, 4, 2048, 1024, 128),   # OLMoE's D and F
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_SHAPES))
+def test_moe_products_take_every_shape(cuda, case):
+    """The tensor-core products against the plain version (1e-4) and
+    against float64 (1e-4 of each element's sum of |terms|), the cost
+    streams exactly, y the same bits at p = 1, B = 1 and p = 4, B = 8, on
+    shapes off the kernel's 16-byte path and tiles, slot rows of one token
+    and OLMoE's widths."""
+    from repro_torch.kernels.ich_moe import ich_moe as K
+    from repro_torch.sched import LoopScheduler
+    T, E, D, F, width = MOE_SHAPES[case]
+    rng = np.random.default_rng(list(MOE_SHAPES).index(case))
+    if case == "row_of_one":
+        # expert 0: 129 tokens (rows of 64, 64, 1), expert 1: 1 token,
+        # expert 2: 70 (rows of 64, 6), expert 3: none
+        e_topk = np.full((T, 1), 2, np.int32)
+        e_topk[:129, 0] = 0
+        e_topk[129, 0] = 1
+        cap = np.bincount(e_topk[:, 0], minlength=E)
+    else:
+        e_topk = np.stack([rng.permutation(E)[:2] for _ in range(T)]
+                          ).astype(np.int32)
+        cap = None
+    plan, x, wi, wg, wo = _moe_case(T, E, D, F, e_topk, 7, cuda, cap=cap)
+    if case == "row_of_one":
+        assert plan.counts[0] == 129 and plan.counts[1] == 1
+    y64, absum = _moe_float64(plan, x, wi, wg, wo)
+    first = None
+    for p, B in ((1, 1), (4, 8)):
+        op = LoopScheduler(p=p, superstep=B, rows_per_tile=2,
+                           cache_size=0).build("moe-dispatch", plan,
+                                               width=width)
+        assert op.vals.shape[2] == width
+        if case == "row_of_one":
+            assert (op.slots.length == 1).sum() == 2
+        K.reset_launches()
+        y = op(x, wi, wg, wo)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == {"ich_moe_sharded": 1}
+        y_p, c_p, e_p = K.ich_moe_sharded_plain(
+            op.vals, op.cols, op.rowid, op.blkid, x, wi, wg, wo, p, B,
+            op.slots, slot_cost=op.slot_cost)
+        torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
+        assert torch.equal(op.last_costs, c_p)
+        assert torch.equal(op.last_expert_costs, e_p)
+        err = np.abs(y.double().cpu().numpy() - y64)
+        assert np.all(err <= 1e-4 * absum), float(np.max(err / absum))
+        first = y if first is None else first
+        assert torch.equal(y, first)
 
 
 # ------------------------------------------------- flash attention, SSD scan
@@ -575,6 +669,7 @@ SHARDED_CASES = {  # name -> (matrix, p (None: SM count + 40), B, W, shift)
     **{f"p{p}-B{B}": ("zipf", p, B, None, False)
        for p in (1, 2, 4) for B in (1, 4, 8)},
     "w1": ("zipf", 4, 4, 1, False),
+    "w2": ("zipf", 4, 4, 2, False),
     "w3": ("zipf", 4, 4, 3, False),
     "w8": ("zipf", 4, 4, 8, False),
     "w32": ("zipf", 4, 8, 32, False),
@@ -586,6 +681,10 @@ SHARDED_CASES = {  # name -> (matrix, p (None: SM count + 40), B, W, shift)
     "padding_workers": ("tiny", 8, 4, 8, False),
     "p_above_sms": ("zipf", None, 1, 8, False),
 }
+# the BFS step on the same walk: 0/1 frontiers and visited masks
+BFS_SHARDED_CASES = ["p1-B1", "p4-B8", "w1", "w2", "w8", "whole_slot_chunks",
+                     "slot_pieces_4byte", "misaligned", "run_across_windows",
+                     "padding_workers"]
 
 
 def _shifted(t):
@@ -597,23 +696,47 @@ def _shifted(t):
     return out
 
 
-@pytest.mark.parametrize("case", list(SHARDED_CASES))
-def test_sharded_walk_bit_identical_to_plain_and_flat(cuda, case):
-    from repro_torch.kernels.ich_spmv import ich_spmv as K
+def _walk_kernel(kernel):
+    """(module, sharded wrapper, its plain version, flat walk) of one
+    kernel of the sharded walk."""
+    from repro_torch.kernels.ich_bfs import ich_bfs as KB
+    from repro_torch.kernels.ich_spmv import ich_spmv as KS
+    if kernel == "spmv":
+        return KS, KS.ich_spmv_sharded, KS.ich_spmv_sharded_plain, KS.ich_spmv
+    return (KB, KB.ich_bfs_step_sharded, KB.ich_bfs_step_sharded_plain,
+            KB.ich_bfs_step)
+
+
+@pytest.mark.parametrize("kernel,case",
+                         [("spmv", c) for c in SHARDED_CASES]
+                         + [("bfs", c) for c in BFS_SHARDED_CASES])
+def test_sharded_walk_bit_identical_to_plain_and_flat(cuda, kernel, case):
     from repro_torch.sched import LoopScheduler
+    mod, run, plain, flat = _walk_kernel(kernel)
     kind, p, B, width, shift = SHARDED_CASES[case]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     p = sms + 40 if p is None else p
     indptr, indices, data, x = _walk_csr(kind, list(SHARDED_CASES).index(case))
     n = indptr.size - 1
-    op = LoopScheduler(p=p, superstep=B, cache_size=0).build(
-        "spmv", indptr, indices, data, width=width)
-    vals, cols = op.vals, op.cols
+    sched = LoopScheduler(p=p, superstep=B, cache_size=0)
+    if kernel == "spmv":
+        op = sched.build("spmv", indptr, indices, data, width=width)
+        a = op.vals
+        xs = (torch.from_numpy(x).to(cuda),)
+    else:
+        op = sched.build("bfs", indptr, indices, width=width)
+        a = op.mask
+        rng = np.random.default_rng(n)
+        f = rng.random(n) < 0.2
+        v = np.maximum(f, rng.random(n) < 0.3)
+        xs = tuple(torch.from_numpy(t.astype(np.float32)).to(cuda)
+                   for t in (f, v))
+    cols = op.cols
     if shift:
-        vals, cols = _shifted(vals), _shifted(cols)
-    T_pad, R, W = vals.shape
+        a, cols = _shifted(a), _shifted(cols)
+    T_pad, R, W = a.shape
     S_B = op.blkid.numel() // p
-    shape = K.sharded_launch_shape(p, S_B, B, R, W, bulk=not shift)
+    shape = mod.sharded_launch_shape(p, S_B, B, R, W, bulk=not shift)
     assert shape["ctas"] == p and shape["stages"] >= 3
     assert shape["load_path"] == (
         "cp.async.bulk" if W % 4 == 0 and R % 4 == 0 and not shift
@@ -627,21 +750,24 @@ def test_sharded_walk_bit_identical_to_plain_and_flat(cuda, case):
         assert (op.shards.block_perm < 0).all(axis=1).any()
     if case in ("whole_slot_chunks", "slot_pieces", "slot_pieces_4byte"):
         assert shape["chunks_per_window"] > 1
-    xt = torch.from_numpy(x).to(cuda)
-    K.reset_launches()
-    y, c = K.ich_spmv_sharded(vals, cols, op.rowid, op.blkid, xt, n, p, B,
-                              slot_cost=op.slot_cost)
+    mod.reset_launches()
+    y, c = run(a, cols, op.rowid, op.blkid, *xs, n, p, B,
+               slot_cost=op.slot_cost)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"ich_spmv": 0, "ich_spmv_sharded": 1}
-    y_p, c_p = K.ich_spmv_sharded_plain(vals, cols, op.rowid, op.blkid, xt,
-                                        n, p, B, slot_cost=op.slot_cost)
+    assert mod.LAUNCHES == {k: int(k.endswith("_sharded"))
+                            for k in mod.LAUNCHES}
+    y_p, c_p = plain(a, cols, op.rowid, op.blkid, *xs, n, p, B,
+                     slot_cost=op.slot_cost)
     T = op.n_tiles
-    y_f = K.ich_spmv(op.vals[:T], op.cols[:T],
-                     torch.from_numpy(item).to(cuda), xt, n)
+    src = op.vals if kernel == "spmv" else op.mask
+    y_f = flat(src[:T], op.cols[:T], torch.from_numpy(item).to(cuda), *xs,
+               n)
     torch.cuda.synchronize()
     assert torch.equal(_bits(y), _bits(y_p))
     assert torch.equal(_bits(y), _bits(y_f))
     assert torch.equal(c, c_p)
+    if kernel == "bfs":
+        assert bool(((y == 0) | (y == 1)).all())
     np.testing.assert_array_equal(
         c.cpu().numpy().sum(axis=1),
         op.shards.worker_cost(op.schedule.tile_cost()).astype(np.float32))
@@ -666,20 +792,23 @@ def test_sharded_walk_of_no_tiles_launches_nothing(cuda):
     assert not any(K.LAUNCHES.values())
 
 
-def test_sharded_walk_keeps_one_cta_per_worker(cuda):
-    """At the main path's shape (wikipedia: p = 132, S_B = 460, B = R = 8,
-    W = 32) the walk is one CTA per worker with a ring of at least three
-    stages; it takes any width (a slot wider than a stage streams in
-    pieces) and refuses only tiles of thousands of slots."""
-    from repro_torch.kernels.ich_spmv import ich_spmv as K
-    shape = K.sharded_launch_shape(132, 460, 8, 8, 32)
+@pytest.mark.parametrize("kernel", ["spmv", "bfs"])
+def test_sharded_walk_keeps_one_cta_per_worker(cuda, kernel):
+    """At the main paths' shapes (wikipedia: p = 132, S_B = 460, B = R = 8,
+    W = 32; the uniform 1M-vertex graph: S_B = 150, W = 16) the walk is
+    one CTA per worker with a ring of at least three stages; it takes any
+    width (a slot wider than a stage streams in pieces) and refuses only
+    tiles of thousands of slots."""
+    mod = _walk_kernel(kernel)[0]
+    S_B, W = (460, 32) if kernel == "spmv" else (150, 16)
+    shape = mod.sharded_launch_shape(132, S_B, 8, 8, W)
     assert shape["ctas"] == 132 and shape["threads"] >= 512
     assert shape["stages"] >= 3 and shape["smem_bytes"] <= 232_448
     assert shape["load_path"] == "cp.async.bulk"
     for W in (1, 3, 11_600, 50_000):
-        assert K.sharded_launch_shape(4, 10, 8, 8, W)["ctas"] == 4
+        assert mod.sharded_launch_shape(4, 10, 8, 8, W)["ctas"] == 4
     with pytest.raises(ValueError, match="shared memory"):
-        K.sharded_launch_shape(4, 10, 8, 4096, 8)
+        mod.sharded_launch_shape(4, 10, 8, 4096, 8)
 
 
 # ---- the flat K-Means walk (one launch over the whole card) ----

@@ -13,7 +13,10 @@ another order than XLA's. The bridge to the reference's `moe_local` at
 2e-4, its own bar (a softmax router and einsum products on that side).
 Inside the port y is bit-identical across p, B and refine generations:
 each slot is computed in the plan's CSR order and each token's slots are
-folded in one fixed order, whatever the lowering."""
+folded in one fixed order, whatever the lowering. Last, the 3xTF32 split
+that the card's kernel runs its products in, modelled in numpy at
+OLMoE-1B-7B's widths against float64: it keeps the 1e-4 bars, one TF32
+pass does not."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -485,3 +488,105 @@ def test_wrappers_and_op_refuse_bad_inputs():
         K.token_slots(np.array([0, 5]), 4)
     with pytest.raises(ValueError, match="ascending"):
         K.slot_layout(np.array([[1, 0]], np.int32), np.array([3, 3]), 4, 1)
+
+
+# ---------------------------------- the 3xTF32 split of the card's products
+# csrc/ich_moe.cu runs both products on the tensor cores: each float32
+# operand v is split into TF32 parts hi = rna(v), lo = rna(v - hi), and the
+# products lo.hi + hi.lo + hi.hi are summed in float32. These tests model
+# that split in numpy (products of TF32 parts are exact in float32; the sums
+# here round to nearest, where the tensor cores truncate, which the card
+# tests and chip_smoke.py measure) at OLMoE-1B-7B's widths, against float64.
+MOE_BAR = 1e-4     # chip_smoke.py's bars: kernel == plain, and vs float64
+
+
+def _tf32(v):
+    """float32 v rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero, by bit arithmetic: PTX's cvt.rna.tf32.f32."""
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _product(a, b, passes):
+    """a @ b with float32 operands as the tensor cores take them: one TF32
+    pass (hi.hi) or the 3xTF32 split (lo.hi + hi.lo + hi.hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _olmoe_expert(M=256, D=2048, F=1024, seed=0):
+    """M token rows and one expert's weights at OLMoE-1B-7B's widths, scaled
+    by fan-in as chip_smoke.py draws them."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, D)).astype(np.float32)
+    wi, wg = ((rng.standard_normal((D, F)) * D ** -0.5).astype(np.float32)
+              for _ in range(2))
+    wo = (rng.standard_normal((F, D)) * F ** -0.5).astype(np.float32)
+    return x, wi, wg, wo
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)                 # TF32's step at 1.0
+    v = np.array([1 + 2.0 ** -11, 1 + 2.0 ** -11 - 2.0 ** -23,
+                  -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11, 3.0], np.float32)
+    np.testing.assert_array_equal(
+        _tf32(v), np.array([one + ulp, one, -(one + ulp), one + 2 * ulp,
+                            3.0], np.float32))
+    # hi + lo keeps ~22 bits of every float32
+    w = np.random.default_rng(0).standard_normal(10_000).astype(np.float32)
+    hi = _tf32(w)
+    lo = _tf32(w - hi)
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    assert not (lo.view(np.uint32) & 0x1FFF).any()
+    rest = np.abs(w.astype(np.float64) - hi - lo)
+    assert np.all(rest <= 2.0 ** -22 * np.abs(w))
+
+
+@pytest.mark.parametrize("product", ["up", "down"])
+def test_3xtf32_product_keeps_the_float32_bar(product):
+    """One product at OLMoE's depth (up: K = D = 2048, down: K = F = 1024):
+    the 3xTF32 split stays within 1e-4 of float64 (allclose, as kernel ==
+    plain is held) and far under 1e-4 of each element's sum of |terms|;
+    one TF32 pass breaks the allclose bar."""
+    x, wi, wg, wo = _olmoe_expert()
+    if product == "up":
+        a, b = x, wg
+    else:
+        g = x.astype(np.float64) @ wg
+        a = (g / (1.0 + np.exp(-g)) * (x.astype(np.float64) @ wi)).astype(
+            np.float32)
+        b = wo
+    y64 = a.astype(np.float64) @ b.astype(np.float64)
+    terms = np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64)
+    three, one = _product(a, b, 3), _product(a, b, 1)
+    assert np.allclose(three, y64, rtol=MOE_BAR, atol=MOE_BAR)
+    assert np.max(np.abs(three - y64) / terms) < MOE_BAR / 100
+    assert not np.allclose(one, y64, rtol=MOE_BAR, atol=MOE_BAR)
+
+
+def test_3xtf32_expert_ffn_keeps_the_host_bar_one_pass_does_not():
+    """The expert FFN at OLMoE's widths, y = (silu(x.wg) * (x.wi)) . wo,
+    held as chip_smoke.py holds the card's y against float64: within 1e-4
+    of each element's sum of |terms| of the last product. With the 3xTF32
+    split in every product it holds with a wide margin; with one TF32 pass
+    it does not."""
+    x, wi, wg, wo = _olmoe_expert()
+    X = x.astype(np.float64)
+    g64 = X @ wg
+    a64 = g64 / (1.0 + np.exp(-g64)) * (X @ wi)
+    y64 = a64 @ wo
+    terms = np.abs(a64) @ np.abs(wo.astype(np.float64))
+
+    def ffn(passes):
+        g = _product(x, wg, passes)
+        a = (g / (1.0 + np.exp(-g)) * _product(x, wi, passes)).astype(
+            np.float32)
+        return _product(a, wo, passes)
+    rel3 = np.max(np.abs(ffn(3) - y64) / terms)
+    rel1 = np.max(np.abs(ffn(1) - y64) / terms)
+    assert rel3 < MOE_BAR / 100
+    assert rel1 > MOE_BAR
