@@ -111,6 +111,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
 #include "segmented.cuh"
 
 namespace {
@@ -210,26 +211,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// v = hi + lo + (a remainder below 2^-22 |v|), hi and lo TF32, each
-// rounded to nearest (ties away from zero) as cvt.rna does
-__device__ __forceinline__ void split_tf32(float v, uint32_t* hi,
-                                           uint32_t* lo) {
-  uint32_t h, l;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(v));
-  const float rest = __fsub_rn(v, __uint_as_float(h));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(rest));
-  *hi = h;
-  *lo = l;
-}
-
-// c (16 x 8, float32) += a (16 x 8, TF32) . b (8 x 8, TF32)
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using ich::mma_tf32;
+using ich::split_tf32;
 
 // Stage column of the j-th n8 tile of warp column wn: the warp's 64 stage
 // columns are [32 wn, 32 wn + 32) and [64 + 32 wn, 96 + 32 wn), so in the

@@ -15,50 +15,84 @@
 // a ragged last chunk behaves as the reference's zero padding: the state is
 // unchanged by them and their y is not stored.
 //
-// Order. On the TPU the chunk axis is a sequential grid dimension and the
-// state persists in VMEM scratch. CTAs on this card run in no order, so one
-// CTA walks all chunks of its (b, h) in ascending order and keeps the state
-// in shared memory. Each column of the state evolves on its own, so a CTA
-// owns a slice of 64 columns of Pd (grid (B*H, ceil(Pd/64))); at Pd = 64 a
-// CTA owns the whole head.
-//
 // What bounds it. Operations: per chunk, Q(Q+1)/2 causal pairs need 2N
 // for their q.k score (once per batch row when q and k are shared across
 // heads, once per head otherwise), and per head 2Pd + 1 for each pair's
 // decayed product with v plus 4 Q N Pd for the inter-chunk term and the
 // state update; at the serving shape (B = 4, S = 2048, H = 64,
-// N = Pd = 64, Q = 256, q and k shared: head stride 0) 17.4 GFLOP against
-// 0.28 GB of inputs and outputs: the kernel is bound by operations.
+// N = Pd = 64, Q = 256, q and k shared: head stride 0) 17.42 GFLOP against
+// 0.28 GB of inputs and outputs. On the float32 CUDA cores that is
+// 0.260 ms; on the tensor cores in 3xTF32, 3 x 17.42 GFLOP at 495 TFLOP/s
+// = 0.106 ms, beside 0.083 ms for the bytes: bound by operations.
 //
-// What this simple design does about that. A (Q, Q) score tile at Q = 256
-// is 256 KB in float32, more than a CTA's 227 KB, so the chunk is worked
-// through in 64-row tiles: for each row tile, the 64-key tiles at or before
-// it are loaded to shared memory, their decayed, causally masked scores
-// formed (64 x 64) and multiplied into the row tile's y in registers; the
-// key tiles above the diagonal are never touched. The inter-chunk term
-// reads the state from shared memory, and after the last row tile the
-// state update walks the key tiles once more. 256 threads hold 4 x 4
-// patches, so each shared-memory load feeds 2-4 FMAs; 83 KB of shared
-// memory lets two CTAs share an SM, and B*H = 256 CTAs fill the 132 SMs in
-// one wave. q and k are read through explicit (b, s, h) strides, so B and C
-// shared by all heads (Zamba2, ssm.py:182-183) are read with a head stride
-// of 0, never materialised. The score tile does not depend on the head when
-// q and k are shared, but each CTA recomputes it (a third of the work it
-// executes at the serving shape); no tensor cores and no pipelined loads:
-// later work.
+// The design: the SSD chunk decomposition, so that the work is parallel
+// over (b, h, chunk) and not a walk of the chunks of one (b, h) in a CTA.
+// On the TPU the chunk axis is a sequential grid dimension with the state
+// in VMEM scratch; here the only sequential part is step 4 below, an
+// elementwise walk over the chunks' states. One call runs five kernels in
+// turn on the caller's stream, each reading only what the ones before it
+// wrote, into scratch buffers the wrapper allocates:
+//   1. ssd_scan_kernel_cumsum — l for every (b, h, chunk), one warp each
+//      (lane runs, then a warp scan of the lane totals): lc (B, H, nc, Q).
+//   2. ssd_scan_kernel_cb — only when q and k are shared by all heads
+//      (head stride 0, Zamba2's C and B, or H = 1): the raw score tiles
+//      q_i . k_j of each (b, chunk), 64 x 64 tiles at or below the diagonal,
+//      computed once for all heads into cb (B, nc, Q, Q) (8.4 MB at the
+//      serving shape, which stays in L2). Recomputed in each of the 64
+//      heads, this tile would be a third of the work there.
+//   3. ssd_scan_kernel_states — each chunk's own state
+//      dS_c = sum_j exp(clip(total - l_j)) k_j (x) v_j, (N, Pd) per
+//      (b, h, chunk), into st (B, H, nc, N, Pd) (33.5 MB at the serving
+//      shape).
+//   4. ssd_scan_kernel_pass — one thread per state element walks the
+//      chunks in ascending order: st[c] <- S_{c-1} (the state before chunk
+//      c, in place of dS_c), S_c = exp(total_c) S_{c-1} + dS_c; the last is
+//      the final state.
+//   5. ssd_scan_kernel_y — per (b, h, chunk, 64-row tile, 64 columns of
+//      Pd): the intra-chunk term over the key tiles at or before the row
+//      tile (scores from cb, or q.k computed in place when q and k differ by
+//      head), decayed and causally masked in registers, times v; then the
+//      inter-chunk term exp(l_i) q_i . S_prev; the heaviest row tiles are
+//      launched first.
+// Every product (q.k, scores . v, k^T . v, q . S) runs on the tensor cores
+// as mma.sync m16n8k8 TF32 in the 3xTF32 split (mma_tf32.cuh), which keeps
+// the float32 bars (2e-4, and 2e-4 of each element's sum of |terms|
+// against a float64 recurrence); score rows are used as A fragments where
+// they lie, by the k-slot order of mma_tf32.cuh, and the three passes run
+// over 8 accumulators at a time (mma_row). Sums over the chunk
+// (scores . v, k^T . v) are made per 64-key tile from a zero fragment and
+// added into a float32 accumulator with a rounded add, so the tensor cores'
+// truncating accumulation never runs over more than one tile. The decays
+// use the fast exponential (__expf, a relative error near 1e-6 at the
+// -60 clip, far inside the bars). In kernels 3 and 5 the key tiles come
+// through a two-stage ring, the next tile's copy in flight while this one
+// is multiplied: by 16-byte cp.async when the inputs are float32 with
+// 16-byte aligned rows (the serving path), else by plain loads (any
+// strides, bfloat16 converted to float32 in shared memory). q and k are
+// read through their (b, s, h) strides, so a head stride of 0 serves B and
+// C shared by all heads without materialising them. Shared-memory rows are
+// padded to 68 or 72 floats so every fragment read of a warp hits
+// distinct banks. Fixed order everywhere and no atomics: y and the state
+// are the same bits from call to call, whatever the number of SMs, and the
+// same whether q and k come shared (kernel 2) or per head.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_tf32.cuh"
+
 namespace {
 
-constexpr int kT = 64;         // rows of a row tile and of a key tile
-constexpr int kNMax = 64;      // state rows held
-constexpr int kPB = 64;        // state columns per CTA
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kNP = kNMax + 1; // padded row of the q and k tiles
-constexpr int kSP = kT + 1;    // padded row of the score tile
+constexpr int kT = 64;          // rows of a tile (64 rows, 64 columns)
+constexpr int kNMax = 64;       // state rows held
+constexpr int kMaxChunk = 1024; // the longest chunk taken
+constexpr int kThreads = 128;   // 4 warps, 16 tile rows each
+constexpr int kRow = kT + 8;    // rows read along the row (q, k for q.k)
+constexpr int kCol = kT + 4;    // tiles read down a column (v, k^T, S)
+constexpr int kTile = kT * kRow;   // floats of a staged tile (>= kT * kCol)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -69,276 +103,610 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-size_t smem_bytes(int chunk) {
-  return sizeof(float) *
-         ((size_t)2 * kT * kNP + kT * kPB + kT * kSP + kNMax * kPB + chunk);
-}
-
 __device__ __forceinline__ float decay(float x) {
-  return expf(fminf(fmaxf(x, -60.0f), 0.0f));
+  return __expf(fminf(fmaxf(x, -60.0f), 0.0f));
 }
 
-// Thread (tx, ty) = (tid % 16, tid / 16) owns rows ty + 16 a and columns
-// tx + 16 c (a, c < 4) of every 64 x 64 tile: y rows x state columns,
-// score rows x key columns, and state rows x state columns.
+// Stage a 64 x 64 tile: dst[r * ss + c] = src[r * rs + c] for r < rows,
+// c < cols; zeros elsewhere. Each thread starts all 32 of its loads before
+// it stores any, so the tile costs one memory latency, not 32.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, int ss, const T* src,
+                                      int64_t rs, int rows, int cols) {
+  constexpr int kPer = kT * kT / kThreads;
+  const int c = threadIdx.x % kT, r0 = threadIdx.x / kT;
+  constexpr int kStep = kThreads / kT;   // rows a pass
+  float x[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = r0 + i * kStep;
+    x[i] = r < rows && c < cols ? to_f(src[(int64_t)r * rs + c]) : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = r0 + i * kStep;
+    dst[r * ss + c] = x[i];
+  }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// stage() by 16-byte cp.async, for float32 rows whose starts are 16-byte
+// aligned (rs a multiple of 4): the copies land while the thread goes on.
+__device__ __forceinline__ void stage_async(float* dst, int ss,
+                                            const float* src, int64_t rs,
+                                            int rows, int cols) {
+  constexpr int kChunks = kT / 4;   // 16-byte copies a row
+#pragma unroll
+  for (int i = 0; i < kT * kChunks / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / kChunks, c = (e % kChunks) * 4;
+    const int n = r < rows ? min(4, max(0, cols - c)) : 0;   // floats read
+    const float* from = n > 0 ? src + (int64_t)r * rs + c : src;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst + r * ss + c)),
+                 "l"(from), "r"(4 * n)
+                 : "memory");
+  }
+}
+
+// A 64 x 64 tile by cp.async (kAsync: float32, aligned) or by plain loads
+template <bool kAsync, typename T>
+__device__ __forceinline__ void load_tile(float* dst, int ss, const T* src,
+                                          int64_t rs, int rows, int cols) {
+  if constexpr (kAsync) {
+    static_assert(std::is_same<T, float>::value, "cp.async path is float32");
+    stage_async(dst, ss, src, rs, rows, cols);
+  } else {
+    stage(dst, ss, src, rs, rows, cols);
+  }
+}
+
+__device__ __forceinline__ void zero(float (*f)[4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[n][e] = 0.0f;
+}
+
+// s += this warp's 16 rows of A (a [64][kRow] tile) . B^T (B a [64][kRow]
+// tile) over the first np columns (a multiple of 8): a 16 x 64 tile of
+// the warp, in accumulator fragments s[n] (columns n*8 + 2 tig, + 1).
+__device__ __forceinline__ void row_product(const float* A, const float* B,
+                                            int np, float (*s)[4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const float* ar = A + (warp * 16 + gid) * kRow + 2 * tig;
+  for (int kk = 0; kk < np; kk += 8) {
+    const float2 a0 = *reinterpret_cast<const float2*>(ar + kk);
+    const float2 a1 = *reinterpret_cast<const float2*>(ar + 8 * kRow + kk);
+    ich::FragA a;
+    a.set(a0.x, a1.x, a0.y, a1.y);
+    ich::FragB bf[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 b = *reinterpret_cast<const float2*>(
+          B + (n * 8 + gid) * kRow + kk + 2 * tig);
+      bf[n].set(b.x, b.y);
+    }
+    ich::mma_row<8>(s, a, bf);
+  }
+}
+
+// acc += p . V for the warp's 16 rows, p given as accumulator fragments
+// p[ks] over 64 keys (key ks*8 + 2 tig, + 1) and V a [64][kCol] tile (key
+// rows): the 8 k8 steps from a zero fragment, then one rounded add.
+__device__ __forceinline__ void key_product(const float (*p)[4],
+                                            const float* V,
+                                            float (*acc)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  float pv[8][4];
+  zero(pv);
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    ich::FragA a;
+    a.set(p[ks][0], p[ks][2], p[ks][1], p[ks][3]);
+    const float* vr = V + (ks * 8 + 2 * tig) * kCol + gid;
+    ich::FragB bf[8];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) bf[nt].set(vr[nt * 8], vr[kCol + nt * 8]);
+    ich::mma_row<8>(pv, a, bf);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = __fadd_rn(acc[nt][e], pv[nt][e]);
+}
+
+// 1. l: inclusive cumulative sum of log_a inside each chunk; one warp per
+// (b, h, chunk); steps past S add 0.
+__global__ void ssd_scan_kernel_cumsum(const float* __restrict__ log_a,
+                                       float* __restrict__ lc, int B, int S,
+                                       int H, int Q, int nc) {
+  const int64_t unit = blockIdx.x * (int64_t)(kThreads / 32) +
+                       (threadIdx.x >> 5);   // (b * H + h) * nc + c
+  if (unit >= (int64_t)B * H * nc) return;
+  const int lane = threadIdx.x & 31;
+  const int c = (int)(unit % nc);
+  const int64_t bh = unit / nc;
+  const int b = (int)(bh / H), h = (int)(bh % H);
+  const float* la = log_a + (int64_t)b * S * H + h;
+  float* l = lc + unit * Q;
+  const int t0 = c * Q;
+  const int per = (Q + 31) / 32;
+  const int lo = min(lane * per, Q), hi = min(lo + per, Q);
+  float run = 0.0f;
+  for (int i = lo; i < hi; ++i) {
+    const int t = t0 + i;
+    run += t < S ? la[(int64_t)t * H] : 0.0f;
+    l[i] = run;
+  }
+  float incl = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  const float base = incl - run;
+  for (int i = lo; i < hi; ++i) l[i] += base;
+}
+
+// Which (row tile, key tile) at or below the diagonal the linear index u
+// names: u = it (it + 1) / 2 + jt, jt <= it.
+__device__ __forceinline__ void lower_tile(int u, int* it, int* jt) {
+  int i = (int)((sqrtf(8.0f * u + 1.0f) - 1.0f) * 0.5f);
+  while (i * (i + 1) / 2 > u) --i;
+  while ((i + 1) * (i + 2) / 2 <= u) ++i;
+  *it = i;
+  *jt = u - i * (i + 1) / 2;
+}
+
+// 2. cb[b, c, i, j] = q_i . k_j for the tiles at or below the diagonal of
+// each (b, chunk), q and k read at head 0. Grid (tiles, nc, B).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ssd_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ log_a,
-                    T* __restrict__ y, float* __restrict__ state_out, int S,
-                    int H, int N, int Pd, int chunk, int64_t q_sb,
-                    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
-                    int64_t k_sh) {
-  extern __shared__ float smem[];
-  float* Qs = smem;               // [kT][kNP]  q rows of the row tile
-  float* Ks = Qs + kT * kNP;      // [kT][kNP]  k rows of the key tile
-  float* Vs = Ks + kT * kNP;      // [kT][kPB]  v rows of the key tile
-  float* Ss = Vs + kT * kPB;      // [kT][kSP]  decayed scores
-  float* St = Ss + kT * kSP;      // [kNMax][kPB] state, this CTA's columns
-  float* l = St + kNMax * kPB;    // [chunk] cumulative log_a in the chunk
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int p0 = blockIdx.y * kPB;
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const int64_t v_tok = (int64_t)H * Pd;  // v and y: (B, S, H, Pd)
-  const int64_t vy0 = (int64_t)b * S * v_tok + (int64_t)h * Pd + p0;
-  const float* lab = log_a + (int64_t)b * S * H + h;
-
-  for (int e = tid; e < kNMax * kPB; e += kThreads) St[e] = 0.0f;
-
-  // load rows [t0, t0 + rows) of q or k (scaled by w[j] when given) into
-  // a [kT][kNP] tile; rows past the chunk or the sequence read 0
-  auto load_qk = [&](float* dst, const T* src, int64_t ss, int t0, int i0,
-                     const float* w, float total) {
-    for (int e = tid; e < kT * kNMax; e += kThreads) {
-      const int r = e / kNMax, n = e % kNMax;
-      const int i = i0 + r;
-      const int t = t0 + i;
-      float x = 0.0f;
-      if (i < chunk && t < S && n < N) {
-        x = to_f(src[(int64_t)t * ss + n]);
-        if (w != nullptr) x *= decay(total - w[i]);
-      }
-      dst[r * kNP + n] = x;
-    }
-  };
-  auto load_v = [&](int t0, int j0) {
-    for (int e = tid; e < kT * kPB; e += kThreads) {
-      const int r = e / kPB, p = e % kPB;
-      const int j = j0 + r;
-      const int t = t0 + j;
-      Vs[r * kPB + p] = (j < chunk && t < S && p0 + p < Pd)
-                            ? to_f(v[vy0 + (int64_t)t * v_tok + p])
-                            : 0.0f;
-    }
-  };
-
-  const int n_chunks = (S + chunk - 1) / chunk;
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const int t0 = ci * chunk;
-    __syncthreads();  // the previous chunk is done with l and the tiles
-    // l: inclusive cumulative sum; warp 0, a run of steps per lane, then
-    // an exclusive scan of the lane totals
-    if (tid < 32) {
-      const int per = (chunk + 31) / 32;
-      const int lo = min(tid * per, chunk), hi = min(lo + per, chunk);
-      float run = 0.0f;
-      for (int i = lo; i < hi; ++i) {
-        const int t = t0 + i;
-        run += t < S ? lab[(int64_t)t * H] : 0.0f;
-        l[i] = run;
-      }
-      float incl = run;
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, incl, o);
-        if (tid >= o) incl += u;
-      }
-      const float base = incl - run;
-      for (int i = lo; i < hi; ++i) l[i] += base;
-    }
-    __syncthreads();
-    const float total = l[chunk - 1];
-
-    for (int i0 = 0; i0 < chunk; i0 += kT) {
-      __syncthreads();  // the previous row tile is done with Qs
-      load_qk(Qs, qb, q_ss, t0, i0, nullptr, 0.0f);
-      float acc[4][4];
+    ssd_scan_kernel_cb(const T* __restrict__ q, const T* __restrict__ k,
+                       float* __restrict__ cb, int S, int N, int Q,
+                       int64_t q_sb, int64_t q_ss, int64_t k_sb,
+                       int64_t k_ss) {
+  __shared__ __align__(16) float Qs[kTile];
+  __shared__ __align__(16) float Ks[kTile];
+  int it, jt;
+  lower_tile(blockIdx.x, &it, &jt);
+  const int c = blockIdx.y, b = blockIdx.z;
+  const int i0 = it * kT, j0 = jt * kT;
+  const int t0 = c * Q;
+  const int rows_i = min(Q - i0, S - (t0 + i0));
+  const int rows_j = min(Q - j0, S - (t0 + j0));
+  stage(Qs, kRow, q + b * q_sb + (int64_t)(t0 + i0) * q_ss, q_ss, rows_i,
+        N);
+  stage(Ks, kRow, k + b * k_sb + (int64_t)(t0 + j0) * k_ss, k_ss, rows_j,
+        N);
+  __syncthreads();
+  float s[8][4];
+  zero(s);
+  row_product(Qs, Ks, (N + 7) / 8 * 8, s);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  float* out = cb + ((int64_t)b * gridDim.y + c) * Q * Q;
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+  for (int e = 0; e < 4; ++e) {
+    const int i = i0 + warp * 16 + gid + (e >> 1) * 8;
+    if (i >= Q) continue;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
-
-      for (int j0 = 0; j0 <= i0; j0 += kT) {
-        __syncthreads();  // the previous key tile's readers are done
-        load_qk(Ks, kb, k_ss, t0, j0, nullptr, 0.0f);
-        load_v(t0, j0);
-        __syncthreads();
-        float s[4][4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[a][c] = 0.0f;
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          float qa[4], kc[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) qa[a] = Qs[(ty + 16 * a) * kNP + n];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) kc[c] = Ks[(tx + 16 * c) * kNP + n];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int r = ty + 16 * a, i = i0 + r;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int cc = tx + 16 * c, j = j0 + cc;
-            Ss[r * kSP + cc] = (j <= i && i < chunk)
-                                   ? s[a][c] * decay(l[i] - l[j])
-                                   : 0.0f;
-          }
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int cc = 0; cc < kT; ++cc) {
-          float sa[4], vc[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) sa[a] = Ss[(ty + 16 * a) * kSP + cc];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) vc[c] = Vs[cc * kPB + tx + 16 * c];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(sa[a], vc[c], acc[a][c]);
-        }
-      }
-
-      // inter-chunk term: exp(l_i) q_i . S_prev
-      float yi[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) yi[a][c] = 0.0f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float qa[4], sc[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) qa[a] = Qs[(ty + 16 * a) * kNP + n];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) sc[c] = St[n * kPB + tx + 16 * c];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) yi[a][c] = fmaf(qa[a], sc[c], yi[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = i0 + ty + 16 * a;
-        const int t = t0 + i;
-        if (i >= chunk || t >= S) continue;
-        const float e = expf(l[i]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int p = tx + 16 * c;
-          if (p0 + p < Pd)
-            store(y + vy0 + (int64_t)t * v_tok + p, acc[a][c] + yi[a][c] * e);
-        }
-      }
-    }
-
-    // state update: S = exp(total) S + sum_j (w_j k_j) (x) v_j
-    float su[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) su[a][c] = 0.0f;
-    for (int j0 = 0; j0 < chunk; j0 += kT) {
-      __syncthreads();  // every reader of the state and the tiles is done
-      load_qk(Ks, kb, k_ss, t0, j0, l, total);
-      load_v(t0, j0);
-      __syncthreads();
-#pragma unroll 4
-      for (int cc = 0; cc < kT; ++cc) {
-        float ka[4], vc[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) ka[a] = Ks[cc * kNP + ty + 16 * a];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) vc[c] = Vs[cc * kPB + tx + 16 * c];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) su[a][c] = fmaf(ka[a], vc[c], su[a][c]);
-      }
-    }
-    const float et = expf(total);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float* s = St + (ty + 16 * a) * kPB + tx + 16 * c;
-        *s = *s * et + su[a][c];  // this thread's own entry
-      }
-  }
-
-  float* so = state_out + ((int64_t)b * H + h) * N * Pd + p0;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int n = ty + 16 * a;
-    if (n >= N) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int p = tx + 16 * c;
-      if (p0 + p < Pd) so[(int64_t)n * Pd + p] = St[n * kPB + p];
+    for (int n = 0; n < 8; ++n) {
+      const int j = j0 + n * 8 + 2 * tig + (e & 1);
+      if (j < Q) out[(int64_t)i * Q + j] = s[n][e];
     }
   }
 }
 
+// 4. For each state element, the chunks in ascending order: st[c] <- the
+// state before chunk c; state_out <- the state after the last.
+__global__ void ssd_scan_kernel_pass(float* __restrict__ st,
+                                     const float* __restrict__ lc,
+                                     float* __restrict__ state_out,
+                                     int64_t BH, int NP, int Q, int nc) {
+  constexpr int kBatch = 8;   // chunks whose loads are in flight together
+  const int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (e >= BH * NP) return;
+  const int64_t bh = e / NP, np = e % NP;
+  float s = 0.0f;
+  for (int c0 = 0; c0 < nc; c0 += kBatch) {
+    float d[kBatch], lt[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int64_t u = bh * nc + c0 + i;
+      d[i] = c0 + i < nc ? st[u * NP + np] : 0.0f;
+      lt[i] = c0 + i < nc ? lc[u * Q + Q - 1] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (c0 + i >= nc) break;
+      st[(bh * nc + c0 + i) * NP + np] = s;
+      s = __fadd_rn(__fmul_rn(s, expf(lt[i])), d[i]);
+    }
+  }
+  state_out[e] = s;
+}
+
+// 3. st[b, h, c] = dS_c = sum_j exp(clip(total - l_j)) k_j (x) v_j over the
+// chunk, columns p0 .. p0 + 63 of Pd. Grid (B * H * nc, ceil(Pd / 64)).
+// The k and v tiles of 64 keys come through a two-stage ring, the next
+// tile's copy in flight while this one is multiplied; the weights multiply
+// k at the fragment read.
+template <typename T, bool kAsync>
+__global__ void __launch_bounds__(kThreads)
+    ssd_scan_kernel_states(const T* __restrict__ k, const T* __restrict__ v,
+                           const float* __restrict__ lc,
+                           float* __restrict__ st, int S, int H, int N,
+                           int Pd, int Q, int nc, int64_t k_sb, int64_t k_ss,
+                           int64_t k_sh) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                   // 2 x ([key][n], [key][p]), kCol
+  float* w = ring + 4 * kT * kCol;      // [Q rounded up to kT] weights
+  const int64_t unit = blockIdx.x;   // (b * H + h) * nc + c
+  const int c = (int)(unit % nc);
+  const int b = (int)(unit / nc / H), h = (int)(unit / nc % H);
+  const int p0 = blockIdx.y * kT;
+  const int t0 = c * Q;
+  const float* l = lc + unit * Q;
+  const T* kb = k + b * k_sb + h * k_sh;
+  const int64_t v_tok = (int64_t)H * Pd;
+  const T* vb = v + (int64_t)b * S * v_tok + (int64_t)h * Pd + p0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int len = min(Q, S - t0);   // steps of this chunk in the sequence
+  const int n_kt = (len + kT - 1) / kT;
+  const float total = l[Q - 1];
+  for (int j = threadIdx.x; j < n_kt * kT; j += kThreads)
+    w[j] = j < len ? decay(total - l[j]) : 0.0f;
+  auto fetch = [&](int jt) {
+    float* Ks = ring + (jt & 1) * 2 * kT * kCol;
+    const int j0 = jt * kT, rows = min(kT, len - j0);
+    load_tile<kAsync>(Ks, kCol, kb + (int64_t)(t0 + j0) * k_ss, k_ss, rows,
+                      N);
+    load_tile<kAsync>(Ks + kT * kCol, kCol, vb + (int64_t)(t0 + j0) * v_tok,
+                      v_tok, rows, Pd - p0);
+    cp_commit();
+  };
+  float acc[8][4];
+  zero(acc);
+  fetch(0);
+  for (int jt = 0; jt < n_kt; ++jt) {
+    cp_wait<0>();
+    __syncthreads();   // tile jt is in (and w); tile jt - 1's readers done
+    if (jt + 1 < n_kt) fetch(jt + 1);
+    const float* Ks = ring + (jt & 1) * 2 * kT * kCol;
+    const float* Vs = Ks + kT * kCol;
+    const float* wt = w + jt * kT;
+    // A = (w k)^T: row n, key slot ks*8 + 2 tig (+1)
+    float pv[8][4];
+    zero(pv);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const int j = ks * 8 + 2 * tig;
+      const float* kr = Ks + j * kCol + warp * 16 + gid;
+      const float w0 = wt[j], w1 = wt[j + 1];
+      ich::FragA a;
+      a.set(kr[0] * w0, kr[8] * w0, kr[kCol] * w1, kr[kCol + 8] * w1);
+      const float* vr = Vs + j * kCol + gid;
+      ich::FragB bf[8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        bf[nt].set(vr[nt * 8], vr[kCol + nt * 8]);
+      ich::mma_row<8>(pv, a, bf);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[nt][e] = __fadd_rn(acc[nt][e], pv[nt][e]);
+  }
+  float* out = st + unit * N * Pd;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int n = warp * 16 + gid + (e >> 1) * 8;
+    if (n >= N) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int p = p0 + nt * 8 + 2 * tig + (e & 1);
+      if (p < Pd) out[(int64_t)n * Pd + p] = acc[nt][e];
+    }
+  }
+}
+
+constexpr int states_smem_bytes(int Q) {
+  return (int)sizeof(float) * (4 * kT * kCol + (Q + kT - 1) / kT * kT);
+}
+
+// 5. y for one (b, h, chunk, 64-row tile, 64 columns of Pd). kShared: the
+// raw scores come from cb; else q.k is computed here from this head's q, k.
+// Grid (n_tiles * B * H * nc, ceil(Pd / 64)), row tiles heaviest first.
+// The key tiles (a tile of scores or of k, and a tile of v) come through a
+// two-stage ring, the next one's copy in flight while this one is
+// multiplied.
+template <typename T, bool kShared, bool kAsync>
+__global__ void __launch_bounds__(kThreads)
+    ssd_scan_kernel_y(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ lc,
+                      const float* __restrict__ cb,
+                      const float* __restrict__ st, T* __restrict__ y,
+                      int S, int H, int N, int Pd, int Q, int nc,
+                      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                      int64_t k_ss, int64_t k_sh) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kStage = kTile + kT * kCol;
+  float* Qs = smem;                 // [row][n], kRow
+  float* ring = Qs + kTile;         // 2 x ([row][key] or [key][n], kRow;
+                                    //      [key][p], kCol)
+  float* Sp = ring + 2 * kStage;    // [n][p], kCol: S_prev
+  float* l = Sp + kT * kCol;        // [Q] this chunk's l
+  const int n_tiles = (Q + kT - 1) / kT;
+  const int64_t units = (int64_t)gridDim.x / n_tiles;
+  const int rt = n_tiles - 1 - (int)(blockIdx.x / units);
+  const int64_t unit = blockIdx.x % units;   // (b * H + h) * nc + c
+  const int c = (int)(unit % nc);
+  const int b = (int)(unit / nc / H), h = (int)(unit / nc % H);
+  const int p0 = blockIdx.y * kT;
+  const int t0 = c * Q, i0 = rt * kT;
+  const int len = min(Q, S - t0);
+  if (i0 >= len) return;   // a row tile past the end of the sequence
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + h * k_sh;
+  const int64_t v_tok = (int64_t)H * Pd;
+  const int64_t vy0 = (int64_t)b * S * v_tok + (int64_t)h * Pd + p0;
+  const float* cbb = kShared ? cb + ((int64_t)b * nc + c) * Q * Q : cb;
+  const int np = (N + 7) / 8 * 8;
+
+  for (int i = threadIdx.x; i < Q; i += kThreads) l[i] = lc[unit * Q + i];
+  load_tile<kAsync>(Qs, kRow, qb + (int64_t)(t0 + i0) * q_ss, q_ss,
+                    min(kT, len - i0), N);
+  if (c > 0)   // the state before this chunk; S_prev = 0 in the first
+    load_tile<kAsync>(Sp, kCol, st + unit * N * Pd + p0, (int64_t)Pd, N,
+                      Pd - p0);
+  auto fetch = [&](int jt) {
+    float* A = ring + (jt & 1) * kStage;
+    const int j0 = jt * kT, rows = min(kT, len - j0);
+    if constexpr (kShared)
+      load_tile<kAsync>(A, kRow, cbb + (int64_t)i0 * Q + j0, (int64_t)Q,
+                        min(kT, Q - i0), min(kT, Q - j0));
+    else
+      load_tile<kAsync>(A, kRow, kb + (int64_t)(t0 + j0) * k_ss, k_ss, rows,
+                        N);
+    load_tile<kAsync>(A + kTile, kCol, v + vy0 + (int64_t)(t0 + j0) * v_tok,
+                      v_tok, rows, Pd - p0);
+    cp_commit();
+  };
+  fetch(0);
+  float li[2];   // l of this thread's rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + warp * 16 + gid + 8 * r;
+    li[r] = i < Q ? lc[unit * Q + i] : 0.0f;
+  }
+  float acc[8][4];
+  zero(acc);
+  for (int jt = 0; jt <= rt; ++jt) {
+    cp_wait<0>();
+    __syncthreads();   // tile jt is in (and l, Qs, Sp); tile jt - 1 is free
+    if (jt < rt) fetch(jt + 1);
+    const float* A = ring + (jt & 1) * kStage;
+    const int j0 = jt * kT;
+    float s[8][4];
+    if constexpr (kShared) {   // the scores as they lie in the tile
+      const float* sr = A + (warp * 16 + gid) * kRow + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 u = *reinterpret_cast<const float2*>(sr + n * 8);
+        const float2 d = *reinterpret_cast<const float2*>(sr + 8 * kRow +
+                                                          n * 8);
+        s[n][0] = u.x;
+        s[n][1] = u.y;
+        s[n][2] = d.x;
+        s[n][3] = d.y;
+      }
+    } else {
+      zero(s);
+      row_product(Qs, A, np, s);
+    }
+    // decay and causal mask, in registers (entries above the diagonal
+    // are never read: cb holds no value there)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + warp * 16 + gid + (e >> 1) * 8;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int j = j0 + n * 8 + 2 * tig + (e & 1);
+        s[n][e] = (j <= i && i < Q) ? s[n][e] * decay(li[e >> 1] - l[j])
+                                    : 0.0f;
+      }
+    }
+    key_product(s, A + kTile, acc);
+  }
+
+  // inter-chunk term: exp(l_i) q_i . S_prev (S_prev = 0 in the first chunk)
+  float inter[8][4];
+  zero(inter);
+  if (c > 0) {
+    const float* ar = Qs + (warp * 16 + gid) * kRow + 2 * tig;
+    for (int kk = 0; kk < np; kk += 8) {
+      const float2 a0 = *reinterpret_cast<const float2*>(ar + kk);
+      const float2 a1 = *reinterpret_cast<const float2*>(ar + 8 * kRow + kk);
+      ich::FragA a;
+      a.set(a0.x, a1.x, a0.y, a1.y);
+      const float* sr = Sp + (kk + 2 * tig) * kCol + gid;
+      ich::FragB bf[8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        bf[nt].set(sr[nt * 8], sr[kCol + nt * 8]);
+      ich::mma_row<8>(inter, a, bf);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = i0 + warp * 16 + gid + (e >> 1) * 8;
+    if (i >= len) continue;
+    const float el = expf(li[e >> 1]);
+    T* yr = y + vy0 + (int64_t)(t0 + i) * v_tok;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int p = nt * 8 + 2 * tig + (e & 1);
+      if (p0 + p < Pd)
+        store(yr + p, __fadd_rn(acc[nt][e], __fmul_rn(inter[nt][e], el)));
+    }
+  }
+}
+
+constexpr int y_smem_bytes(int Q) {
+  return (int)sizeof(float) * (kTile + 2 * (kTile + kT * kCol) + kT * kCol +
+                               Q);
+}
+
+int launched() { return (int)cudaGetLastError(); }
+
+// Raise a kernel's dynamic shared-memory limit to `bytes` once per device
+// (at the longest chunk, so one setting serves every call):
+// cudaFuncSetAttribute costs more than a small launch, and the serving
+// path calls the kernels hundreds of times.
+template <auto Kernel>
+int allow_smem(int bytes) {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices && done[dev]) return 0;
+  e = cudaFuncSetAttribute(Kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return (int)e;
+}
+
+
+// The chunk states, the state pass and y, once the path is chosen.
+template <typename T, bool kAsync>
+int launch_rest(const T* q, const T* k, const T* v, T* y, float* state,
+                float* lc, float* cb, float* st, int B, int S, int H, int N,
+                int Pd, int Q, int nc, int64_t q_sb, int64_t q_ss,
+                int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                cudaStream_t s) {
+  const int n_tiles = (Q + kT - 1) / kT;
+  const int p_tiles = (Pd + kT - 1) / kT;
+  const int64_t units = (int64_t)B * H * nc;
+  int err = allow_smem<ssd_scan_kernel_states<T, kAsync>>(
+      states_smem_bytes(kMaxChunk));
+  if (err != 0) return err;
+  ssd_scan_kernel_states<T, kAsync>
+      <<<dim3((unsigned)units, p_tiles), kThreads, states_smem_bytes(Q), s>>>(
+          k, v, lc, st, S, H, N, Pd, Q, nc, k_sb, k_ss, k_sh);
+  if ((err = launched()) != 0) return err;
+  const int64_t elems = (int64_t)B * H * N * Pd;
+  ssd_scan_kernel_pass<<<(unsigned)((elems + 255) / 256), 256, 0, s>>>(
+      st, lc, state, (int64_t)B * H, N * Pd, Q, nc);
+  if ((err = launched()) != 0) return err;
+  const int smem = y_smem_bytes(Q);
+  const dim3 grid((unsigned)(units * n_tiles), p_tiles);
+  if (cb != nullptr) {
+    auto kernel = ssd_scan_kernel_y<T, true, kAsync>;
+    err = allow_smem<ssd_scan_kernel_y<T, true, kAsync>>(
+        y_smem_bytes(kMaxChunk));
+    if (err != 0) return err;
+    kernel<<<grid, kThreads, smem, s>>>(q, k, v, lc, cb, st, y, S, H, N, Pd,
+                                        Q, nc, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                        k_sh);
+  } else {
+    auto kernel = ssd_scan_kernel_y<T, false, kAsync>;
+    err = allow_smem<ssd_scan_kernel_y<T, false, kAsync>>(
+        y_smem_bytes(kMaxChunk));
+    if (err != 0) return err;
+    kernel<<<grid, kThreads, smem, s>>>(q, k, v, lc, cb, st, y, S, H, N, Pd,
+                                        Q, nc, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                        k_sh);
+  }
+  return launched();
+}
+
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const float* log_a,
-           void* y, float* state, int B, int S, int H, int N, int Pd,
-           int chunk, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-           int64_t k_ss, int64_t k_sh, cudaStream_t stream) {
-  const size_t smem = smem_bytes(chunk);
-  auto kernel = ssd_scan_kernel<T>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Pd + kPB - 1) / kPB);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, log_a, (T*)y, state, S, H, N,
-      Pd, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh);
-  return (int)cudaGetLastError();
+int launch(const T* q, const T* k, const T* v, const float* log_a, T* y,
+           float* state, float* lc, float* cb, float* st, int B, int S,
+           int H, int N, int Pd, int Q, int64_t q_sb, int64_t q_ss,
+           int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+           cudaStream_t s) {
+  const int nc = (S + Q - 1) / Q;
+  const int n_tiles = (Q + kT - 1) / kT;
+  const int p_tiles = (Pd + kT - 1) / kT;
+  const int64_t units = (int64_t)B * H * nc;
+  if (units * n_tiles > INT32_MAX || nc > 65535 || B > 65535 ||
+      p_tiles > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const int warps = kThreads / 32;
+  ssd_scan_kernel_cumsum<<<(unsigned)((units + warps - 1) / warps), kThreads,
+                           0, s>>>(log_a, lc, B, S, H, Q, nc);
+  int err = launched();
+  if (err != 0) return err;
+  if (cb != nullptr) {
+    ssd_scan_kernel_cb<T><<<dim3(n_tiles * (n_tiles + 1) / 2, nc, B),
+                            kThreads, 0, s>>>(q, k, cb, S, N, Q, q_sb, q_ss,
+                                              k_sb, k_ss);
+    if ((err = launched()) != 0) return err;
+  }
+  // the 16-byte copy path: float32, every row start of q, k, v, cb and the
+  // state 16-byte aligned
+  auto al = [](const void* ptr) { return (uintptr_t)ptr % 16 == 0; };
+  auto al4 = [](int64_t x) { return x % 4 == 0; };
+  const bool vec = std::is_same<T, float>::value && al(q) && al(k) &&
+                   al(v) && al(cb) && al(st) && al4(Q) && al4(Pd) &&
+                   al4(q_sb) && al4(q_ss) && al4(q_sh) && al4(k_sb) &&
+                   al4(k_ss) && al4(k_sh);
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec)
+      return launch_rest<T, true>(q, k, v, y, state, lc, cb, st, B, S, H, N,
+                                  Pd, Q, nc, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                  k_sh, s);
+  }
+  return launch_rest<T, false>(q, k, v, y, state, lc, cb, st, B, S, H, N,
+                               Pd, Q, nc, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                               s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`. dtype 0 = float32, 1 = bfloat16 (q, k, v and y);
-// log_a and the state are float32; N <= 64; 1 <= chunk <= 1024; strides of
-// q and k in elements over (b, s, h), unit over N; v, log_a, y and the
-// (zeroed) state contiguous. Returns a CUDA error code (0 = success).
+// Launch the five kernels on `stream`. dtype 0 = float32, 1 = bfloat16 (q,
+// k, v and y); log_a and the state are float32; N <= 64;
+// 1 <= chunk <= 1024; strides of q and k in elements over (b, s, h), unit
+// over N; v, log_a, y and the state contiguous. Scratch: lc (B, H, nc,
+// chunk), st (B, H, nc, N, Pd), and cb (B, nc, chunk, chunk) when q and k
+// are shared by all heads (their head strides are then ignored), else
+// null. Returns a CUDA error code (0 = success).
 int mamba_scan_launch(const void* q, const void* k, const void* v,
-                      const float* log_a, void* y, float* state, int B,
-                      int S, int H, int N, int Pd, int chunk, int64_t q_sb,
-                      int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
-                      int64_t k_sh, int dtype, void* stream) {
-  if (N > kNMax || chunk < 1 || chunk > 1024)
+                      const float* log_a, void* y, float* state, float* lc,
+                      float* cb, float* st, int B, int S, int H, int N,
+                      int Pd, int chunk, int64_t q_sb, int64_t q_ss,
+                      int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                      int dtype, void* stream) {
+  if (N > kNMax || N < 1 || chunk < 1 || chunk > kMaxChunk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(q, k, v, log_a, y, state, B, S, H, N, Pd, chunk,
-                         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, s);
+    return launch<float>((const float*)q, (const float*)k, (const float*)v,
+                         log_a, (float*)y, state, lc, cb, st, B, S, H, N, Pd,
+                         chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, log_a, y, state, B, S, H, N, Pd,
-                                 chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                 s);
+    return launch<__nv_bfloat16>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, log_a, (__nv_bfloat16*)y, state, lc, cb, st,
+        B, S, H, N, Pd, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -32,7 +32,7 @@ __all__ = ["LAUNCHES", "NEG_INF", "flash_attention", "flash_attention_plain",
            "reset_launches"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the head widths the kernel is built for
+HEAD_DIMS = (64, 96, 128)  # the head widths the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset_launches()
@@ -102,7 +102,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q (B,Sq,Hq,dh); k, v (B,Skv,Hkv,dh), Hq % Hkv == 0. Returns
     (B,Sq,Hq,dh) in q's type. Any Sq, Skv (ragged edges are masked in the
     kernel, not padded). On CUDA: float32 or bfloat16, one type for all
-    three, contiguous, dh in {64, 128}."""
+    three, contiguous and 16-byte aligned, dh in {64, 96, 128}."""
     window = int(window)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
@@ -123,6 +123,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "copies rows by 16-byte cp.async)")
     B, Sq, Hq, _ = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

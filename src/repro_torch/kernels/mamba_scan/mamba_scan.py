@@ -19,8 +19,10 @@ k = 0 leave the state unchanged), as `mamba_scan_op` pads it.
 
 Given CPU tensors the wrapper runs the plain version (`mamba_scan_plain`,
 one chunk at a time in eager PyTorch); given CUDA tensors it launches the
-kernel of `csrc/mamba_scan.cu` or raises: there is no fallback. Each
-launch adds one to `LAUNCHES["mamba_scan"]`.
+kernels of `csrc/mamba_scan.cu` (five in turn: the chunk decomposition,
+parallel over batch row, head and chunk) or raises: there is no fallback.
+Each call adds one to `LAUNCHES["mamba_scan"]`, however many CUDA kernels
+it runs.
 """
 from __future__ import annotations
 
@@ -101,11 +103,18 @@ def mamba_scan_plain(q, k, v, log_a, *, chunk: int, state=None):
     return y.to(v.dtype), st
 
 
+def _shared_heads(q, k) -> bool:
+    """True when q and k are the same for every head (a head stride of 0,
+    or one head): the kernel then computes the q.k tiles once per batch
+    row and chunk, not once per head."""
+    return q.shape[2] == 1 or (q.stride(2) == 0 and k.stride(2) == 0)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mamba_scan")
     if not getattr(lib, "_typed", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.mamba_scan_launch.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 6 \
+        lib.mamba_scan_launch.argtypes = [ptr] * 9 + [i32] * 6 + [i64] * 6 \
             + [i32, ptr]
         lib.mamba_scan_launch.restype = i32
         lib._typed = True
@@ -141,14 +150,29 @@ def mamba_scan(q, k, v, log_a, *, chunk: int = 128):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     y = torch.empty_like(v)
-    state = torch.zeros((B, H, N, Pd), dtype=torch.float32, device=v.device)
     if y.numel() == 0:
-        return y, state
+        return y, torch.zeros((B, H, N, Pd), dtype=torch.float32,
+                              device=v.device)
+    state = torch.empty((B, H, N, Pd), dtype=torch.float32, device=v.device)
+    # scratch, written before it is read, on the caller's stream: l per
+    # chunk, each chunk's state (then the state before it), and the raw
+    # q.k tiles once per (b, chunk) when q and k are shared by all heads
+    # (one allocation, the three parts at 16-byte-aligned offsets)
+    nc = -(-S // chunk)
+    sizes = [B * H * nc * chunk, B * H * nc * N * Pd,
+             B * nc * chunk * chunk if _shared_heads(q, k) else 0]
+    offsets = [0]
+    for n in sizes[:-1]:
+        offsets.append(offsets[-1] + -(-n // 4) * 4)
+    scratch = torch.empty(offsets[-1] + sizes[-1], dtype=torch.float32,
+                          device=v.device)
+    lc, st, cb = (scratch.data_ptr() + 4 * o for o in offsets)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     code = _lib().mamba_scan_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
-        y.data_ptr(), state.data_ptr(), B, S, H, N, Pd, chunk,
-        *q.stride()[:3], *k.stride()[:3], _DTYPES[v.dtype], stream)
+        y.data_ptr(), state.data_ptr(), lc, cb if sizes[-1] else None, st,
+        B, S, H, N, Pd, chunk, *q.stride()[:3], *k.stride()[:3],
+        _DTYPES[v.dtype], stream)
     raise_on(code, "mamba_scan")
     LAUNCHES["mamba_scan"] += 1
     return y, state

@@ -12,7 +12,9 @@ the 16-byte path and off the tiles, a slot row of one token, OLMoE's
 K = 2048 against float64), the flat K-Means walk over the whole card (D in {1, 34}, centroids
 near the shared-memory limit, fewer slots than one CTA, the kdd_cup
 shape), the launch counters, and the Zamba2 serving path through the
-flash attention and SSD scan kernels. A CUDA
+flash attention and SSD scan kernels (on the tensor cores: shapes off
+their tile edges, dh 96, chunks of 1, 7 and 1,024 steps, and the same bits
+from two calls at the serving shapes). A CUDA
 kernel has no CPU mode, so these tests need an NVIDIA GPU and skip
 without one; run them there with
 
@@ -348,7 +350,14 @@ def test_moe_products_take_every_shape(cuda, case):
     (128, 128, 1, 64, True, 0), (200, 200, 2, 64, True, 0),
     (77, 77, 4, 128, True, 0), (96, 150, 2, 64, False, 0),
     (130, 130, 2, 64, True, 32), (100, 140, 1, 128, False, 32),
-    (64, 64, 4, 64, False, 0), (300, 300, 1, 64, True, 32)])
+    (64, 64, 4, 64, False, 0), (300, 300, 1, 64, True, 32),
+    # off the tile edges (64-row query tiles, 64-key blocks, 16-row warp
+    # strips, n8 fragments), Sq != Skv without the causal mask, dh 96
+    (1, 1, 1, 64, True, 0), (15, 15, 2, 64, True, 0),
+    (17, 17, 1, 96, True, 0), (200, 200, 2, 96, True, 32),
+    (1, 200, 2, 64, False, 0), (15, 17, 4, 96, False, 0),
+    (17, 15, 1, 128, False, 0), (200, 17, 2, 96, False, 0),
+    (17, 200, 1, 64, False, 0), (200, 15, 4, 64, False, 0)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, Sq, Skv,
                                               rep, dh, causal, window):
     """Tolerances of the reference's own kernel tests (test_kernels.py:
@@ -372,7 +381,11 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, Sq, Skv,
 @pytest.mark.parametrize("S,H,N,Pd,chunk", [
     (128, 2, 16, 32, 64), (256, 3, 16, 32, 64), (256, 1, 64, 64, 128),
     (300, 2, 64, 64, 256), (129, 2, 8, 16, 64), (100, 2, 64, 128, 32),
-    (520, 4, 64, 64, 256), (37, 3, 64, 64, 256)])
+    (520, 4, 64, 64, 256), (37, 3, 64, 64, 256),
+    # chunks of one and seven steps, 11 chunks, N and Pd off the 4-float
+    # copies (the plain-load path) and off the tiles
+    (50, 2, 64, 64, 1), (60, 2, 64, 64, 7), (700, 2, 64, 64, 64),
+    (300, 2, 13, 30, 100), (90, 3, 64, 70, 16)])
 def test_mamba_scan_kernel_matches_plain(cuda, S, H, N, Pd, chunk):
     """2e-4 in float32, the reference's tolerance for its kernel against
     the chunked oracle (test_kernels.py:206-209)."""
@@ -405,6 +418,70 @@ def test_mamba_scan_kernel_matches_plain(cuda, S, H, N, Pd, chunk):
     torch.testing.assert_close(yb.float(), yb_p.float(), rtol=0.2, atol=0.2)
 
 
+def _scan_terms_error(y, y_ref, terms):
+    return float(((y.double() - y_ref.double()).abs()
+                  / (terms.double() + 1e-30)).max())
+
+
+@pytest.mark.parametrize("S,chunk,shared", [(1500, 1024, True),
+                                            (1100, 1024, False)])
+def test_mamba_scan_kernel_long_chunks(cuda, S, chunk, shared):
+    """chunk = 1024, the longest the kernel takes. Inside a chunk that long
+    l runs to ~-150, and exp(l_i - l_j) subtracts two large cumulative
+    sums whose rounding depends on the order they were summed in (the
+    plain version's torch.cumsum differs from the kernel's scan), so the
+    two versions are held as chip_smoke.py holds the serving shape: within
+    2e-4 of each element's sum of |terms|, against each other and against
+    the float64 recurrence."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as K
+    from repro_torch.kernels.mamba_scan.ref import ssd_sequential_ref
+    g = torch.Generator(device=cuda).manual_seed(S)
+    H, N, Pd = 2, 64, 64
+    q = torch.randn((2, S, 1 if shared else H, N), generator=g, device=cuda)
+    k = torch.randn((2, S, 1 if shared else H, N), generator=g, device=cuda)
+    q, k = q.expand(2, S, H, N), k.expand(2, S, H, N)
+    v = torch.randn((2, S, H, Pd), generator=g, device=cuda)
+    la = -torch.rand((2, S, H), generator=g, device=cuda) * 0.3
+    y, st = K.mamba_scan(q, k, v, la, chunk=chunk)
+    y_p, st_p = K.mamba_scan_plain(q, k, v, la, chunk=chunk)
+    y_a, st_a = K.mamba_scan_plain(q.abs(), k.abs(), v.abs(), la,
+                                   chunk=chunk)
+    y_64, st_64 = ssd_sequential_ref(q, k, v, la)
+    for got in ((y, st), (y_p, st_p)):
+        assert _scan_terms_error(got[0], y_64, y_a) <= 2e-4
+        assert _scan_terms_error(got[1], st_64, st_a) <= 2e-4
+    assert _scan_terms_error(y, y_p, y_a) <= 2e-4
+    assert _scan_terms_error(st, st_p, st_a) <= 2e-4
+
+
+def test_flash_and_scan_repeat_bit_identical(cuda):
+    """At the serving path's shapes (Zamba2-1.2B, 4 x 2,048 tokens) two
+    calls give the same bits: fixed order, no atomics, whatever the SMs
+    run first. The scan also gives the same bits with B/C shared by all
+    heads (its score tiles computed once a batch row) and materialised."""
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((4, 2048, 32, 64), generator=g, device=cuda)
+    k, v = torch.randn_like(q), torch.randn_like(q)
+    a = KF.flash_attention(q, k, v, causal=True, window=4096)
+    assert torch.equal(a, KF.flash_attention(q, k, v, causal=True,
+                                             window=4096))
+    del q, k, v, a
+    Cm = torch.randn((4, 2048, 1, 64), generator=g, device=cuda)
+    Bm = torch.randn((4, 2048, 1, 64), generator=g, device=cuda)
+    qs, ks = Cm.expand(4, 2048, 64, 64), Bm.expand(4, 2048, 64, 64)
+    vs = torch.randn((4, 2048, 64, 64), generator=g, device=cuda)
+    la = -torch.nn.functional.softplus(
+        torch.randn((4, 2048, 64), generator=g, device=cuda))
+    y, st = KS.mamba_scan(qs, ks, vs, la, chunk=256)
+    y2, st2 = KS.mamba_scan(qs, ks, vs, la, chunk=256)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    y3, st3 = KS.mamba_scan(qs.contiguous(), ks.contiguous(), vs, la,
+                            chunk=256)
+    assert torch.equal(y, y3) and torch.equal(st, st3)
+
+
 def test_flash_and_scan_refuse_what_they_do_not_take(cuda):
     from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels.flash_attention import flash_attention as KF
@@ -413,6 +490,11 @@ def test_flash_and_scan_refuse_what_they_do_not_take(cuda):
     from repro_torch.models import ssm as SS
     q = torch.zeros((1, 8, 2, 32), device=cuda)
     with pytest.raises(ValueError, match="head width"):
+        KF.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 96), device=cuda)   # 96 is built
+    assert KF.flash_attention(q, q, q).shape == q.shape
+    q = torch.zeros(1 + 8 * 2 * 64, device=cuda)[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
         KF.flash_attention(q, q, q)
     q = torch.zeros((1, 8, 2, 64), device=cuda)
     with pytest.raises(TypeError, match="share one of"):

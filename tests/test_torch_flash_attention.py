@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _tf32 import product, tf32
 
 from repro.kernels.flash_attention.flash_attention import \
     flash_attention as ref_flash
@@ -101,3 +102,75 @@ def test_plain_refuses_what_it_does_not_define():
     K.reset_launches()
     K.flash_attention(q, k, v)
     assert K.LAUNCHES == {"flash_attention": 0}
+
+
+# ------------------------------------ the card's float32 path, in numpy
+# csrc/flash_attention.cu runs q.k^T and p.v on the tensor cores in the
+# 3xTF32 split (tests/_tf32.py models it) over blocks of 64 keys: each
+# block's scores, an online softmax, the block's p.v summed from zero and
+# then added to the rescaled accumulator. These tests hold that algorithm,
+# at Zamba2's head width (64) and S >= 512, against float64 within the
+# float32 bar of 2e-5; one TF32 pass would not keep it.
+KEY_BLOCK = 64
+
+
+def _flash_blocks(q, k, v, *, causal, passes):
+    """One (S, dh) head as the card's kernel computes it, products by
+    `_tf32.product` with `passes` TF32 passes; float32 elsewhere."""
+    Sq, dh = q.shape
+    Skv = k.shape[0]
+    scale = np.float32(dh ** -0.5)
+    m = np.full(Sq, -1e30, np.float32)
+    l = np.zeros(Sq, np.float32)
+    acc = np.zeros((Sq, dh), np.float32)
+    rows = np.arange(Sq)[:, None]
+    for k0 in range(0, Skv, KEY_BLOCK):
+        kb, vb = k[k0:k0 + KEY_BLOCK], v[k0:k0 + KEY_BLOCK]
+        s = product(q, kb.T, passes).astype(np.float32) * scale
+        if causal:
+            cols = k0 + np.arange(kb.shape[0])[None, :]
+            s = np.where(cols <= rows, s, np.float32(-1e30))
+        m_new = np.maximum(m, s.max(axis=1))
+        corr = np.exp(m - m_new)
+        p = np.exp(s - m_new[:, None]).astype(np.float32)
+        l = l * corr + p.sum(axis=1, dtype=np.float32)
+        pv = product(p, vb, passes).astype(np.float32)   # from zero
+        acc = (acc * corr[:, None] + pv).astype(np.float32)
+        m = m_new
+    return acc / np.maximum(l, np.float32(1e-20))[:, None]
+
+
+def _attention64(q, k, v, *, causal):
+    q, k, v = (a.astype(np.float64) for a in (q, k, v))
+    s = q @ k.T * q.shape[1] ** -0.5
+    if causal:
+        s = np.where(np.tril(np.ones(s.shape, bool)), s, -np.inf)
+    p = np.exp(s - s.max(axis=1, keepdims=True))
+    return (p / p.sum(axis=1, keepdims=True)) @ v
+
+
+@pytest.mark.parametrize("S,causal", [(512, True), (512, False),
+                                      (1024, True), (2048, True)])
+def test_3xtf32_blocks_keep_the_float32_bar(S, causal):
+    q, k, v = (a[0, :, 0] for a in _qkv(1, S, S, 1, 1, 64, seed=S))
+    ref = _attention64(q, k, v, causal=causal)
+    three = _flash_blocks(q, k, v, causal=causal, passes=3)
+    assert np.abs(three - ref).max() < 2e-5 / 4
+    np.testing.assert_allclose(three, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_one_tf32_pass_breaks_the_float32_bar(causal):
+    q, k, v = (a[0, :, 0] for a in _qkv(1, 512, 512, 1, 1, 64, seed=7))
+    one = _flash_blocks(q, k, v, causal=causal, passes=1)
+    ref = _attention64(q, k, v, causal=causal)
+    assert not np.allclose(one, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_bfloat16_values_are_exact_in_tf32():
+    """The bfloat16 path takes one TF32 pass: its inputs lose nothing."""
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(0))
+    b = x.bfloat16().float().numpy()
+    np.testing.assert_array_equal(tf32(b), b)
+    # while float32 values do lose their low 13 bits
+    assert not np.array_equal(tf32(x.numpy()), x.numpy())

@@ -124,3 +124,65 @@ def test_plain_refuses_bad_shapes_and_launches_nothing():
     K.reset_launches()
     K.mamba_scan(q, k, v, la, chunk=4)
     assert K.LAUNCHES == {"mamba_scan": 0}
+
+
+# ------------------------------------ the card's chunk decomposition, in numpy
+# csrc/mamba_scan.cu computes the scan in four steps that are parallel over
+# (batch row, head, chunk) but for the third, an elementwise walk over the
+# chunks: (1) l per chunk and the raw score tiles q_i . k_j (once per batch
+# row when q and k are shared by all heads); (2) per chunk, the intra-chunk
+# y and the chunk's own state dS_c; (3) S_c = exp(total_c) S_{c-1} + dS_c;
+# (4) y_i += exp(l_i) q_i . S_{c-1}. This is that algebra in float32
+# numpy, held against the reference kernel (interpret mode) and ssd_ref.
+def _decomposed(q, k, v, log_a, chunk, shared):
+    B, S, H, N = q.shape
+    Pd = v.shape[-1]
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+              for a in (q, k, v, log_a)]
+    qc, kc, vc, lac = (a.reshape(B, nc, Q, *a.shape[2:]) for a in padded)
+    l = np.cumsum(lac, axis=2, dtype=np.float32)          # (B, nc, Q, H)
+    total = l[:, :, -1]                                    # (B, nc, H)
+    causal = np.tril(np.ones((Q, Q), bool))
+    if shared:   # step 1: the raw scores once per (b, chunk), head 0
+        cb = np.einsum("bcin,bcjn->bcij", qc[:, :, :, 0], kc[:, :, :, 0])
+        cb = np.broadcast_to(cb[:, :, None], (B, nc, H, Q, Q))
+    else:
+        cb = np.einsum("bcihn,bcjhn->bchij", qc, kc)
+    lh = l.transpose(0, 1, 3, 2)                           # (B, nc, H, Q)
+    decay = np.exp(np.clip(lh[..., :, None] - lh[..., None, :], -60, 0))
+    s = np.where(causal, cb * decay, 0).astype(np.float32)
+    y = np.einsum("bchij,bcjhp->bcihp", s, vc)             # step 2: intra
+    w = np.exp(np.clip(total[:, :, None] - l, -60, 0))     # (B, nc, Q, H)
+    dS = np.einsum("bcjhn,bcjhp->bchnp", kc * w[..., None], vc)
+    S_prev = np.zeros((B, nc, H, N, Pd), np.float32)       # step 3
+    st = np.zeros((B, H, N, Pd), np.float32)
+    for c in range(nc):
+        S_prev[:, c] = st
+        st = st * np.exp(total[:, c])[..., None, None] + dS[:, c]
+    y = y + np.einsum("bcihn,bchnp->bcihp", qc, S_prev) \
+        * np.exp(l)[..., None]                             # step 4: inter
+    return y.reshape(B, nc * Q, H, Pd)[:, :S].astype(np.float32), st
+
+
+@pytest.mark.parametrize("S,H,N,Pd,chunk,shared", [
+    (128, 2, 16, 32, 64, True), (128, 2, 16, 32, 64, False),
+    (256, 3, 16, 32, 64, True), (100, 2, 8, 16, 32, False),
+    (37, 3, 8, 16, 16, True), (60, 2, 8, 16, 7, False),
+    (20, 2, 8, 16, 1, True), (144, 2, 8, 16, 16, True)])
+def test_chunk_decomposition_matches_reference(S, H, N, Pd, chunk, shared):
+    q, k, v, la = _inputs(2, S, H, N, Pd, seed=S + chunk)
+    if shared:
+        q, k = (np.ascontiguousarray(np.broadcast_to(a[:, :, :1], a.shape))
+                for a in (q, k))
+    y, st = _decomposed(q, k, v, la, chunk, shared)
+    jx = [jnp.asarray(a) for a in (q, k, v, la)]
+    y_op, st_op = mamba_scan_op(*jx, chunk=chunk, interpret=True)
+    _close(torch.from_numpy(y), y_op)
+    _close(torch.from_numpy(st), st_op)
+    if S % chunk == 0:
+        y_o, st_o = ssd_ref(*jx, chunk=chunk)
+        _close(torch.from_numpy(y), y_o)
+        _close(torch.from_numpy(st), st_o)

@@ -22,6 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _tf32 import product as _product
+from _tf32 import tf32 as _tf32
 
 from repro import sched as RS
 from repro.configs import get_arch, reduced
@@ -491,30 +493,10 @@ def test_wrappers_and_op_refuse_bad_inputs():
 
 
 # ---------------------------------- the 3xTF32 split of the card's products
-# csrc/ich_moe.cu runs both products on the tensor cores: each float32
-# operand v is split into TF32 parts hi = rna(v), lo = rna(v - hi), and the
-# products lo.hi + hi.lo + hi.hi are summed in float32. These tests model
-# that split in numpy (products of TF32 parts are exact in float32; the sums
-# here round to nearest, where the tensor cores truncate, which the card
-# tests and chip_smoke.py measure) at OLMoE-1B-7B's widths, against float64.
+# csrc/ich_moe.cu runs both products on the tensor cores in the 3xTF32 split
+# (csrc/mma_tf32.cuh); tests/_tf32.py models it in numpy. These tests hold
+# the model at OLMoE-1B-7B's widths against float64.
 MOE_BAR = 1e-4     # chip_smoke.py's bars: kernel == plain, and vs float64
-
-
-def _tf32(v):
-    """float32 v rounded to TF32 (10 stored mantissa bits), to nearest with
-    ties away from zero, by bit arithmetic: PTX's cvt.rna.tf32.f32."""
-    u = np.ascontiguousarray(v, np.float32).view(np.uint32)
-    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _product(a, b, passes):
-    """a @ b with float32 operands as the tensor cores take them: one TF32
-    pass (hi.hi) or the 3xTF32 split (lo.hi + hi.lo + hi.hi)."""
-    ah, bh = _tf32(a), _tf32(b)
-    if passes == 1:
-        return ah @ bh
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
 
 
 def _olmoe_expert(M=256, D=2048, F=1024, seed=0):
