@@ -38,11 +38,24 @@ serial part of their fold) and the device time of each phase. For the
 sharded walks (`ich_spmv_sharded`, `ich_bfs_step_sharded`: one CTA per
 worker, a ring of supersteps) it logs the launch shape, the worker balance
 (the most live slots of one worker over the mean) and the device time
-beside the host's enqueue time; for the flat K-Means walk
-(`ich_kmeans_assign`, one launch over the whole card) its grid and the
-same split; for MoE the device time and achieved rate of each product,
-and for flash attention and the SSD scan (on the tensor cores) the device
-time of each of their kernels and the achieved rate of float32 work.
+beside the host's enqueue time; for both K-Means walks
+(`ich_kmeans_assign` and `ich_kmeans_assign_sharded`, each one launch over
+the whole card, the sharded one in chunks of whole supersteps) their grids,
+checked to span the card, and the same split; for MoE the device time and
+achieved rate of each product, and for flash attention and the SSD scan
+(on the tensor cores) the device time of each of their kernels and the
+achieved rate of float32 work.
+
+Each sharded kernel that emits a cost stream (SpMV, BFS, K-Means, MoE) is
+held against the port's discrete-event simulator at its main path's
+shapes: `Schedule.replay_sharded` under zero overhead and jitter runs each
+tile on the worker the kernel's shard layout gave it, and its per-worker
+busy time must equal the per-worker sums of the emitted stream (within
+COST_RTOL), its makespan their max. On the K-Means path the threaded
+executor runs the schedule's work units on four host threads
+(`parallel_for_units`), its chunk timings are folded in
+(`observe(ExecStats)` -> `refine()`), and the refined generation's kernel
+must give the main path's ids.
 
 It times every kernel beside its plain version, its bound and PyTorch
 computing the same function (cuSPARSE SpMV, `torch.cdist` argmin, MoE's
@@ -78,7 +91,8 @@ F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
 RTOL = ATOL = 1e-5          # kernel vs plain: same adds, other reductions
 HOST_RTOL = 1e-4            # vs float64, relative to each row's sum |a*x|
-COST_RTOL = 1e-6            # K-Means float cost sums vs float64 totals
+COST_RTOL = 1e-6            # float32 cost-stream sums vs float64 totals
+EXEC_THREADS = 4            # host threads of the executor phase
 TIE_RTOL = 1e-5             # K-Means ids may differ from float64 only here
 # MoE: one OLMoE-1B-7B MoE layer (src/repro/configs/olmoe_1b_7b.py)
 MOE_EXPERTS, MOE_TOP_K, MOE_D, MOE_F = 64, 8, 2048, 1024
@@ -307,6 +321,34 @@ def phase_small_bfs_kmeans():
                   f"K-Means sequential kernel == plain at p={p} B={B}")
             check(torch.equal(ids, ids_s),
                   f"K-Means sharded == sequential at p={p} B={B}")
+    # the sharded K-Means walk's other paths: 4-byte row copies (odd D, a
+    # point table off 8-byte alignment), a superstep wider than a chunk
+    for D, misaligned, R in ((33, False, 8), (34, True, 8), (34, False, 64)):
+        host = rng.standard_normal((SMALL_ROWS, D)).astype(np.float32)
+        pts_d = torch.from_numpy(host).cuda()
+        if misaligned:
+            pts_d = torch.empty(host.size + 1, device="cuda")[1:].view(
+                SMALL_ROWS, D).copy_(pts_d)
+        cent_d = torch.from_numpy(rng.standard_normal(
+            (N_CLUSTERS, D)).astype(np.float32)).cuda()
+        km = LoopScheduler(p=4, superstep=8, rows_per_tile=R,
+                           cache_size=0).build("kmeans", costs)
+        shape = KK.sharded_launch_shape(4, km.shards.n_steps, 8, R, D,
+                                        N_CLUSTERS, aligned=not misaligned)
+        ids, c = KK.ich_kmeans_assign_sharded(pts_d, cent_d, km.rowid, 4, 8,
+                                              slot_cost=km.slot_cost)
+        ids_p, c_p = KK.ich_kmeans_assign_sharded_plain(
+            pts_d, cent_d, km.rowid, 4, 8, slot_cost=km.slot_cost)
+        rid = torch.from_numpy(km.schedule.item_id).cuda()
+        torch.cuda.synchronize()
+        label = f"D={D} misaligned={misaligned} R={R}"
+        check(shape["copy_bytes"] == (4 if D % 2 or misaligned else 8)
+              and shape["chunk_slots"] >= 8 * R,
+              f"K-Means sharded launch shape at {label}")
+        check(torch.equal(ids, ids_p) and torch.equal(c, c_p),
+              f"K-Means sharded kernel == plain at {label}")
+        check(torch.equal(ids, KK.ich_kmeans_assign(pts_d, cent_d, rid)),
+              f"K-Means sharded == sequential at {label}")
     before = (dict(KB.LAUNCHES), dict(KK.LAUNCHES))
     empty = LoopScheduler(p=4).build("bfs", np.zeros(1, np.int64),
                                      np.zeros(0, np.int32))
@@ -400,6 +442,7 @@ def phase_main(sm_count):
     _check_run(op2, y2, y64, absum, "generation 1")
     check(torch.equal(y2, y), "refined schedule gives the same y")
     del op2, y2
+    replay_cross_check("spmv", op)
 
     # ---- kernels against their plain versions at the main path's shapes ----
     args = (op.vals, op.cols, op.rowid, op.blkid, x, op.n_rows, op.p,
@@ -540,6 +583,7 @@ def _bfs_run(kind, sm_count):
         f"{kind}: per-worker cost sums == worker_cost(tile_cost())")
     check(s2.generation == 1 and torch.equal(level2, level),
           f"{kind}: refined generation gives the same levels")
+    replay_cross_check("bfs", op, graph=kind)
     del level2, level_loop
     # the first traversal above paid for PyTorch's first use of its own
     # kernels; the warm traversal is the median of three more
@@ -640,7 +684,11 @@ def _near_tie_mismatches(points, centroids, ids):
 def phase_kmeans(sm_count):
     """K-Means assignment at the kdd_cup shape: the round-0 schedule's run,
     its sequential cross-check, observe/refine and the refined run, then
-    rounds 1-2 as fresh schedules, all giving the same ids."""
+    rounds 1-2 as fresh schedules, all giving the same ids; the simulator
+    cross-check of the cost stream; the threaded executor over the
+    schedule's work units, observed and refined, and the kernel on that
+    generation; the kernels against their plain versions, their launch
+    shapes and timings."""
     import torch
     from repro_torch.core.workloads import kmeans_rounds
     from repro_torch.kernels.ich_kmeans import ich_kmeans as K
@@ -693,6 +741,28 @@ def phase_kmeans(sm_count):
     check(all(torch.equal(x, ids) for x in later),
           "K-Means rounds 1-2 give the same ids")
     del ids2, later
+    replay_cross_check("kmeans", op)
+
+    # ---- the threaded executor over the schedule's work units ----
+    t0 = time.perf_counter()
+    stats = s.parallel_for_units(lambda u: None, p=EXEC_THREADS,
+                                 record_chunks=True)
+    t_exec = time.perf_counter() - t0
+    ranges = sorted((b, e) for b, e, _, _ in stats.chunk_log)
+    check(np.array_equal(np.asarray(ranges), s.unit_ranges()),
+          "executor dispatched every tile chunk once")
+    t0 = time.perf_counter()
+    s3 = s.observe(stats).refine()
+    t_refine = time.perf_counter() - t0
+    ids3 = KMeansOp(s3, rounds[0])(pts, cent)
+    torch.cuda.synchronize()
+    log(phase="kmeans_executor", threads=EXEC_THREADS,
+        units=int(s.sizes.sum()), chunks=len(stats.chunk_log),
+        exec_s=t_exec, observe_refine_s=t_refine, generation=s3.generation,
+        tiles=s3.n_tiles)
+    check(s3.generation == 1 and torch.equal(ids3, ids),
+          "K-Means generation refined from the executor gives the same ids")
+    del ids3
 
     # ---- kernels against their plain versions at the main path's shapes ----
     args = (pts, cent, op.rowid, op.p, op.superstep)
@@ -730,6 +800,18 @@ def phase_kmeans(sm_count):
         slots=rowid_seq.numel(), **shape)
     log_split("kmeans_flat", lambda: K.ich_kmeans_assign(pts, cent, rowid_seq),
               "ich_kmeans_assign_kernel")
+    S_B = op.shards.n_steps
+    shape = K.sharded_launch_shape(op.p, S_B, op.superstep, s.rows_per_tile,
+                                   N_FEATURES, N_CLUSTERS)
+    n_chunks = -(-op.p * S_B // shape["chunk_steps"])
+    check(shape["chunk_slots"] > 0
+          and shape["ctas"] >= min(sm_count, n_chunks),
+          "K-Means sharded walk's grid spans the card")
+    log(phase="kmeans_sharded_grid", sm_count=sm_count, p=op.p, steps=S_B,
+        superstep=op.superstep, rows_per_tile=s.rows_per_tile,
+        chunks=n_chunks, **shape)
+    log_split("kmeans_sharded", lambda: K.ich_kmeans_assign_sharded(
+        *args, slot_cost=op.slot_cost), "ich_kmeans_assign_sharded_kernel")
 
     # ---- bounds: bytes each input is read once / output written once ----
     live = int((s.item_id >= 0).sum())
@@ -870,21 +952,27 @@ def capacity_buffer_moe(x, wi, wg, wo, plan):
 
 def device_ms_by_kernel(fn) -> dict:
     """Device milliseconds per kernel name over one call of fn (after one
-    warm-up call), from torch.profiler's CUDA trace; empty when the trace
-    holds no device time."""
+    warm-up call), from torch.profiler's CUDA trace, taken up to three
+    times while a trace holds no device time (one has come back empty);
+    empty if every trace did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # the trace can miss the first kernel it sees: let that be a
-        # short spin (left out below), not the first kernel of fn
-        torch.cuda._sleep(1000)
-        fn()
-        torch.cuda.synchronize()
-    return {ev.key[:80]: ev.device_time_total / 1e3
-            for ev in prof.key_averages()
-            if ev.device_time_total > 0 and "spin_kernel" not in ev.key}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # the trace can miss the first kernel it sees: let that be a
+            # short spin (left out below), not the first kernel of fn
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        by_name = {ev.key[:80]: ev.device_time_total / 1e3
+                   for ev in prof.key_averages()
+                   if ev.device_time_total > 0
+                   and "spin_kernel" not in ev.key}
+        if by_name:
+            return by_name
+    return {}
 
 
 def log_flat_walk(label, K, fn, T, R, W, rowid, sm_count, **extra) -> None:
@@ -950,6 +1038,34 @@ def log_sharded_walk(label, K, op, payload, fn, **extra) -> None:
         live_slots_max=int(live.max()), live_slots_mean=float(live.mean()),
         balance=float(live.max() / live.mean()), **extra)
     log_split(f"{label}_sharded", fn, "sharded_walk", **extra)
+
+
+def replay_cross_check(label, op, **extra) -> None:
+    """The simulator's twin of a sharded kernel run: `replay_sharded` under
+    zero overhead and jitter dispatches each tile on the worker the op's
+    shard layout gave it. Its per-worker busy time must equal the
+    per-worker sums of the cost stream the kernel emitted on its last call
+    (within COST_RTOL), and its makespan their max."""
+    from repro_torch.core.simulator import SimParams
+    emitted = op.last_costs.double().sum(dim=1).cpu().numpy()
+    t0 = time.perf_counter()
+    rep = op.schedule.replay_sharded(
+        p=op.p, superstep=op.superstep,
+        params=SimParams(dispatch_overhead=0.0, local_dispatch_overhead=0.0,
+                         speed_jitter=0.0), record_chunks=False)
+    seconds = time.perf_counter() - t0
+    diff = np.abs(rep.worker_busy - emitted)
+    log(phase=f"{label}_replay_cross_check", workers=op.p, tiles=op.n_tiles,
+        chunks=rep.chunks, makespan=rep.makespan,
+        emitted_max=float(emitted.max()),
+        max_rel_diff=float(np.max(diff / np.maximum(emitted, 1e-300))),
+        seconds=seconds, **extra)
+    check(rep.chunks == op.n_tiles and bool(np.all(
+        diff <= COST_RTOL * emitted)),
+        f"{label}: replay_sharded per-worker busy == emitted per-worker sums")
+    check(abs(rep.makespan - float(emitted.max()))
+          <= COST_RTOL * float(emitted.max()),
+          f"{label}: replay_sharded makespan == max emitted per-worker sum")
 
 
 def phase_moe(sm_count):
@@ -1029,6 +1145,7 @@ def phase_moe(sm_count):
     check(np.array_equal(emitted, op.shards.worker_cost(
         s.tile_cost()).astype(np.float32)),
         "MoE per-worker step costs == worker_cost(tile_cost())")
+    replay_cross_check("moe", op)
     check(tuple(y.shape) == (T, D) and bool(torch.isfinite(y).all()),
           "MoE y finite, (n_tokens, D)")
     sample = np.sort(np.random.default_rng(SEED).choice(T, MOE_SAMPLE,

@@ -2,9 +2,11 @@
 port's copy of the `Policy` dataclass and its constructors from
 `repro.core.policies`.
 
-In this package a policy is part of a schedule's identity (the schedule
-cache keys on the full frozen dataclass) and supplies iCh's epsilon for the
-tile-width band. Two families exist:
+A policy is part of a schedule's identity (the schedule cache keys on the
+full frozen dataclass), supplies iCh's epsilon for the tile-width band,
+and drives the discrete-event simulator (`core.simulator`) and the
+threaded executor (`core.executor`) through the chunk laws below. Two
+families exist:
 
 * central-queue policies — ``dynamic``, ``guided``, ``taskloop``, ``binlpt``,
   ``static``, ``pretiled``, ``assigned``;
@@ -13,7 +15,10 @@ tile-width band. Two families exist:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
+
+import numpy as np
 
 from repro_torch.sched.defaults import ICH_EPS
 
@@ -106,3 +111,66 @@ def stealing(chunk: int = 1) -> Policy:
 def ich(eps: float = ICH_EPS) -> Policy:
     """iCh: adaptive chunk work-stealing (the paper's contribution)."""
     return Policy("ich", DISTRIBUTED, adaptive=True, eps=eps)
+
+
+# ----------------------------------------------------------------------------
+# Chunk laws / pretiling helpers (shared by simulator and executor)
+# ----------------------------------------------------------------------------
+
+def guided_next_chunk(remaining: int, p: int, min_chunk: int) -> int:
+    """Guided self-scheduling law (paper §2.1): ~remaining/p, floored."""
+    return max(min(remaining, min_chunk), int(math.ceil(remaining / p)))
+
+
+def pretile(policy: Policy, costs: np.ndarray, p: int) -> list[tuple[int, int]]:
+    """Build the chunk list for pretiled central policies.
+
+    Returns [(begin, end), ...] in the order workers will be offered them.
+    """
+    n = len(costs)
+    if policy.explicit is not None:
+        return [(int(b), int(e)) for b, e in policy.explicit]
+    if policy.name in ("taskloop", "static"):
+        k = p if (policy.num_tasks is None or policy.num_tasks < 0) else policy.num_tasks
+        k = max(1, min(k, n))
+        bounds = np.linspace(0, n, k + 1).astype(np.int64)
+        return [(int(bounds[i]), int(bounds[i + 1])) for i in range(k) if bounds[i] < bounds[i + 1]]
+    if policy.name == "binlpt":
+        k = max(p, min(policy.binlpt_chunks or p, n))
+        # Equal-WORK contiguous chunking from the (known) workload estimate.
+        csum = np.concatenate([[0.0], np.cumsum(costs, dtype=np.float64)])
+        total = csum[-1]
+        targets = np.linspace(0, total, k + 1)
+        bounds = np.searchsorted(csum, targets, side="left")
+        bounds[0], bounds[-1] = 0, n
+        bounds = np.unique(bounds)
+        chunks = [(int(bounds[i]), int(bounds[i + 1])) for i in range(len(bounds) - 1)]
+        # LPT order: heaviest chunks are handed out first.
+        work = [float(csum[e] - csum[b]) for b, e in chunks]
+        order = np.argsort(work)[::-1]
+        return [chunks[i] for i in order]
+    raise ValueError(f"not a pretiled policy: {policy.name}")
+
+
+def ich_initial_d(p: int) -> float:
+    """Paper §3.1: d_i = p so that the initial chunk is |q_i|/p = n/p^2."""
+    return float(p)
+
+
+def ich_chunk(queue_len: int, d_i: float) -> int:
+    """chunk = ceil(|q_i| / d_i), at least 1 (consistent w/ paper Fig. 2)."""
+    if queue_len <= 0:
+        return 0
+    return max(1, int(math.ceil(queue_len / d_i)))
+
+
+def paper_policy_grid(p: int) -> list[Policy]:
+    """The full Table 2 parameter grid used in the paper's evaluation."""
+    grid: list[Policy] = []
+    grid += [guided(c) for c in (1, 2, 3)]
+    grid += [dynamic(c) for c in (1, 2, 3)]
+    grid += [taskloop(p)]
+    grid += [binlpt(c) for c in (128, 384, 576)]
+    grid += [stealing(c) for c in (1, 2, 3, 64)]
+    grid += [ich(e) for e in (0.25, 0.33, 0.50)]
+    return grid

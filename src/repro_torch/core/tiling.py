@@ -1,7 +1,8 @@
 """iCh schedule construction: the paper's band heuristic as a tiling layer.
 
 The port's copy of the numpy construction in `repro.core.tiling`, cut to
-what the SpMV path needs. Given per-item work sizes (nnz per CSR row) it
+what the kernel paths and the simulator need. Given per-item work sizes
+(nnz per CSR row) it
 
 1. picks a tile width W with the paper's variance band (eqs. 1-3, 8):
    W = pow2-roundup of mu * (1 + eps) (`ich_tile_width`);
@@ -16,7 +17,11 @@ the sharding layer (`partition_tiles`, `make_shards`, `shard_schedule`)
 LPT-assigns item-closed chains of superstep blocks to p workers and lays
 the result out as the (p, S_B) block permutation whose blocks the sharded
 kernel reads straight out of the flat payload: lowering moves no payload
-bytes. Host construction stays numpy; the outputs must be element-identical
+bytes. `shards_from_block_perm` lays an explicit, possibly partial block
+layout out the same way. `TileSchedule.slot_ranges` / `unit_costs` give
+the schedule as the simulator's pretiled chunk list, and
+`coverage_counts` checks that it covers every work unit once. Host
+construction stays numpy; the outputs must be element-identical
 to the reference's (tests/test_torch_tiling.py). The loop formulations are
 kept as `_reference_*` oracles.
 """
@@ -233,6 +238,28 @@ class TileSchedule:
         `sizes[i]` work units (zero-size items carry no units)."""
         return self.slot_cost(costs, sizes).sum(axis=1)
 
+    def slot_ranges(self) -> np.ndarray:
+        """(T, 2) [begin, end) chunks in flattened work-unit space.
+
+        Greedy packing keeps segments in item order, so each tile covers a
+        contiguous run of work units — i.e. the schedule IS a pretiled
+        central-queue chunking, directly consumable by
+        `simulate(unit_costs, p, policies.pretiled(ranges))`.
+        """
+        cum = np.concatenate([[0], np.cumsum(self.seg_len.reshape(-1))])
+        bounds = cum[::self.rows_per_tile]  # len T*R+1 strided by R -> T+1
+        return np.stack([bounds[:-1], bounds[1:]], axis=1).astype(np.int64)
+
+    def unit_costs(self, costs: np.ndarray, sizes: np.ndarray) -> np.ndarray:
+        """Expand per-item costs to the flattened work-unit cost array that
+        `slot_ranges` indexes into (item i -> sizes[i] units of equal cost)."""
+        costs = np.asarray(costs, np.float64)
+        sizes = np.asarray(sizes, np.int64)
+        unit = np.divide(costs, sizes, out=np.zeros_like(costs),
+                         where=sizes > 0)
+        return np.repeat(unit, sizes)
+
+
 
 # ---------------------------------------------------------------------------
 # Worker sharding: lower the schedule's parallelism p onto the card. Tiles
@@ -438,6 +465,37 @@ def make_shards(worker: np.ndarray, p: int,
     block_perm[w_sorted, pos] = order.astype(np.int32)
     return WorkerShards(worker=worker, block_perm=block_perm, superstep=B)
 
+def shards_from_block_perm(block_perm: np.ndarray, n_tiles: int,
+                           superstep: int = SUPERSTEP) -> WorkerShards:
+    """A `WorkerShards` over an EXPLICIT (p, S_B) block layout that may
+    cover only a subset of the blocks — how recovery runs the standard
+    sharded kernels over partial block sets (the completed prefix of an
+    interrupted run, or the survivor re-execution layout). Tiles of
+    unlisted blocks get worker -1 ("not executed in this layout"); padding
+    steps stay -1 as usual. Listed block ids must be in range and
+    pairwise distinct."""
+    bp = np.ascontiguousarray(block_perm, np.int32)
+    if bp.ndim != 2:
+        raise ValueError(f"block_perm must be 2-D (p, S_B), got {bp.shape}")
+    T, B = int(n_tiles), int(superstep)
+    if B < 1:
+        raise ValueError(f"superstep must be positive, got {superstep}")
+    n_blocks = -(-T // B)
+    flat = bp.reshape(-1)
+    sel = flat >= 0
+    ids = flat[sel]
+    if ids.size and (int(ids.max()) >= n_blocks):
+        raise ValueError(f"block id {int(ids.max())} out of range for "
+                         f"{n_blocks} blocks of {B} tiles")
+    if np.unique(ids).size != ids.size:
+        raise ValueError("block_perm lists a block more than once")
+    w_of_block = np.full(n_blocks, -1, np.int32)
+    rows = np.repeat(np.arange(bp.shape[0], dtype=np.int32), bp.shape[1])
+    w_of_block[ids] = rows[sel]
+    worker = np.repeat(w_of_block, B)[:T]
+    return WorkerShards(worker=worker, block_perm=bp, superstep=B)
+
+
 def shard_schedule(schedule: TileSchedule, tile_cost: np.ndarray, p: int,
                    superstep: int = SUPERSTEP) -> WorkerShards:
     """Partition tiles by cost (at superstep-block granularity) and lower
@@ -602,3 +660,31 @@ def _reference_pack_csr(indptr: np.ndarray, indices: np.ndarray,
                 vals[t, j, :ln] = data[base:base + ln]
                 cols[t, j, :ln] = indices[base:base + ln]
     return vals, cols
+
+
+def _unit_coords(schedule: TileSchedule) -> tuple[np.ndarray, np.ndarray]:
+    """De-flatten the schedule to work-unit granularity: (slot, pos) where
+    `slot` is the flat (t*R + j) slot owning each unit and `pos` the unit's
+    rank within its segment. One `repeat` + one `cumsum`. Used by
+    `coverage_counts`."""
+    seg_len = schedule.seg_len.reshape(-1).astype(np.int64)
+    slot = np.repeat(np.arange(seg_len.size, dtype=np.int64), seg_len)
+    first = np.repeat(np.cumsum(seg_len) - seg_len, seg_len)
+    pos = np.arange(int(seg_len.sum()), dtype=np.int64) - first
+    return slot, pos
+
+
+def coverage_counts(schedule: TileSchedule, sizes: np.ndarray) -> np.ndarray:
+    """How many times each item's work units appear in the schedule; a valid
+    schedule covers every unit exactly once.
+
+    Vectorized: each scheduled unit's global position is
+    offsets[item] + seg_start + pos; the histogram is one `bincount`."""
+    sizes = np.asarray(sizes, np.int64)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    total = int(offsets[-1])
+    item_f = schedule.item_id.reshape(-1).astype(np.int64)
+    start_f = schedule.seg_start.reshape(-1).astype(np.int64)
+    slot, pos = _unit_coords(schedule)
+    where = offsets[item_f[slot]] + start_f[slot] + pos
+    return np.bincount(where, minlength=total).astype(np.int64)

@@ -1,8 +1,9 @@
 """Running statistics used by iCh (paper §3.2, eqs. 4-8) — the port's copy
 of `repro.core.welford`: `WelfordVec`, which the measured-cost refiner
 (`sched/adaptive.py`) folds observations through, and the paper's cheap
-band (`ich_band`, `classify`, `adapt_d`), which the serving engine's
-chunked prefill adapts its chunk divisor with."""
+band (`ich_band`, `classify`, `adapt_d`, `steal_merge`), which the
+serving engine's chunked prefill, the simulator and the executor adapt
+their chunk divisors with."""
 from __future__ import annotations
 
 import dataclasses
@@ -88,3 +89,8 @@ def adapt_d(d_i: float, cls: int, d_min: float = 1.0, d_max: float = 4096.0) -> 
     elif cls == HIGH:
         d_i = d_i * 2.0
     return float(min(max(d_i, d_min), d_max))
+
+
+def steal_merge(k_thief: float, d_thief: float, k_victim: float, d_victim: float) -> tuple[float, float]:
+    """Paper Listing 1 lines 6-7: average thief/victim bookkeeping on steal."""
+    return (k_thief + k_victim) / 2.0, (d_thief + d_victim) / 2.0

@@ -1,10 +1,11 @@
-"""Workload generators — the port's copy of the kernel-path parts of
-`repro.core.workloads`: the paper's Table 1 matrix specs and row-nnz
-synthesizer (`MatrixSpec`, `TABLE1`, `HUB_*`, `matrix_row_nnz`,
-`spmv_costs`), the BFS graph generator (`bfs_graph`, the graph that
-`bfs_levels` builds), the K-Means per-round costs (`kmeans_rounds`) and the
-MoE router of the reference's dispatch benchmark (`moe_router`,
-`benchmarks/bench_schedule_build.py:bench_moe_dispatch`).
+"""Workload generators — the port's copy of `repro.core.workloads`: the
+paper's synthetic loops (`synth_linear`, `synth_exp`), the BFS graph
+generator and its per-level loop costs (`bfs_graph`, `bfs_levels`), the
+K-Means per-round costs (`kmeans_rounds`), LavaMD's box costs
+(`lavamd_costs`), the Table 1 matrix specs and row-nnz synthesizer
+(`MatrixSpec`, `TABLE1`, `HUB_*`, `matrix_row_nnz`, `spmv_costs`,
+`achieved_stats`) and the MoE router of the reference's dispatch benchmark
+(`moe_router`, `benchmarks/bench_schedule_build.py:bench_moe_dispatch`).
 Every synthesis must stay draw-for-draw identical to the reference: the
 parity tests and the chip smoke run build the same inputs through both
 packages' schedules."""
@@ -15,6 +16,24 @@ import math
 import zlib
 
 import numpy as np
+
+
+def synth_linear(n: int = 100_000, seed: int = 0) -> np.ndarray:
+    """Linearly increasing workload (BinLPT's 'linear')."""
+    return np.linspace(1.0, 1000.0, n)
+
+
+def synth_exp(n: int = 100_000, increasing: bool = True, beta: float = None, seed: int = 0) -> np.ndarray:
+    """1e6 samples from Exp(beta=1e6), sorted (paper uses n=beta=1e6).
+
+    We keep beta = n so the workload *range* (max/min ~ 1e6 -> 1) matches the
+    paper at any simulation scale.
+    """
+    rng = np.random.default_rng(seed)
+    beta = float(n) if beta is None else beta
+    w = rng.exponential(scale=beta, size=n)
+    w = np.maximum(np.sort(w), 1.0)
+    return w if increasing else w[::-1].copy()
 
 
 def bfs_graph(kind: str = "uniform", n: int = 100_000,
@@ -37,6 +56,43 @@ def bfs_graph(kind: str = "uniform", n: int = 100_000,
     return indptr, indices
 
 
+def bfs_levels(kind: str = "uniform", n: int = 100_000, seed: int = 0,
+               mask_cost: float = 0.5) -> tuple[list[np.ndarray], np.ndarray]:
+    """Rodinia-BFS loops over `bfs_graph(kind, n, seed)`: each level is a
+    parallel-for over ALL n vertices; cost = mask check (~mask_cost)
+    everywhere + edge scans for vertices on the current frontier. Returns
+    the per-level costs and the static, frontier-oblivious degree-based
+    estimate (mask_cost + 1 + degree)."""
+    indptr, indices = bfs_graph(kind, n, seed)
+    visited = np.zeros(n, dtype=bool)
+    frontier = np.array([0], dtype=np.int64)
+    visited[0] = True
+    levels: list[np.ndarray] = []
+    deg = (indptr[1:] - indptr[:-1]).astype(np.float64)
+    while len(frontier) > 0:
+        costs = np.full(n, mask_cost)
+        costs[frontier] += 1.0 + deg[frontier]
+        levels.append(costs)
+        nbr = np.concatenate([indices[indptr[v]:indptr[v + 1]] for v in frontier]) \
+            if len(frontier) < 4096 else indices[_ranges_mask(indptr, frontier)]
+        nbr = np.unique(nbr)
+        nbr = nbr[~visited[nbr]]
+        visited[nbr] = True
+        frontier = nbr
+    return levels, mask_cost + 1.0 + deg
+
+
+def _ranges_mask(indptr: np.ndarray, frontier: np.ndarray) -> np.ndarray:
+    """Gather concatenated index ranges for a large frontier, vectorized."""
+    starts = indptr[frontier]
+    lens = (indptr[frontier + 1] - indptr[frontier]).astype(np.int64)
+    total = int(lens.sum())
+    # standard trick: offsets within each concatenated range
+    rep = np.repeat(np.arange(len(frontier)), lens)
+    within = np.arange(total) - np.repeat(np.concatenate([[0], np.cumsum(lens)[:-1]]), lens)
+    return (starts[rep] + within).astype(np.int64)
+
+
 def kmeans_rounds(n: int = 100_000, rounds: int = 10,
                   seed: int = 0) -> tuple[list[np.ndarray], np.ndarray]:
     """Per-round per-point costs of the paper's K-Means loop, and the
@@ -50,6 +106,26 @@ def kmeans_rounds(n: int = 100_000, rounds: int = 10,
         base[tail_idx] += rng.exponential(120.0, size=len(tail_idx))
         out.append(base)
     return out, out[0].copy()
+
+
+def lavamd_costs(nx: int = 8, particles_mean: float = 100.0, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    shape = (nx, nx, nx)
+    particles = rng.poisson(particles_mean, size=shape).astype(np.float64)
+    cost = np.zeros(shape)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                shifted = np.zeros(shape)
+                xs = slice(max(0, dx), nx + min(0, dx))
+                xd = slice(max(0, -dx), nx + min(0, -dx))
+                ys = slice(max(0, dy), nx + min(0, dy))
+                yd = slice(max(0, -dy), nx + min(0, -dy))
+                zs = slice(max(0, dz), nx + min(0, dz))
+                zd = slice(max(0, -dz), nx + min(0, -dz))
+                shifted[xd, yd, zd] = particles[xs, ys, zs]
+                cost += particles * shifted  # pairwise interactions
+    return cost.reshape(-1) / 10.0  # heavy iterations (~1e3 units each)
 
 
 def moe_router(n_tokens: int, n_experts: int, k: int, seed: int = 0,
@@ -165,3 +241,7 @@ def spmv_costs(spec: MatrixSpec, n: int = 150_000,
     """Row cost = row overhead (1) + 1 per nonzero (multiply-add +
     gather)."""
     return 1.0 + matrix_row_nnz(spec, n, seed)
+
+
+def achieved_stats(nnz: np.ndarray) -> tuple[float, float, float]:
+    return float(nnz.mean()), float(nnz.max() / max(nnz.min(), 1.0)), float(nnz.var())

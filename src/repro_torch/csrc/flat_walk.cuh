@@ -141,6 +141,13 @@ __device__ inline void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+// dst and src 8-byte aligned
+__device__ inline void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
 __device__ inline void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }

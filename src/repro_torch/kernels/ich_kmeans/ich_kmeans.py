@@ -5,10 +5,12 @@ plain PyTorch versions.
   cross-check path (counterpart of `repro`'s (T,)-grid kernel): one launch
   over the whole card, chunks of slots whose point rows are staged through
   shared memory with coalesced loads (`assign_launch_shape` reports it);
-* `ich_kmeans_assign_sharded` — the main path: one worker per CTA over the
-  (p*S, R) shard layout of `core.tiling.WorkerShards`, with the optional
-  (p, S_B) cost stream; `rowid` and `slot_cost` both come in the shard
-  layout (this kernel has no flat payload, so no block-index stream).
+* `ich_kmeans_assign_sharded` — the main path over the (p*S, R) shard
+  layout of `core.tiling.WorkerShards`, with the optional (p, S_B) cost
+  stream; `rowid` and `slot_cost` both come in the shard layout (this
+  kernel has no flat payload, so no block-index stream). On the card it is
+  one launch over the whole card too, in chunks of whole supersteps, the
+  same staging as the flat walk (`sharded_launch_shape` reports it).
 
 Each slot on point i computes `argmin_k sum_d (points[i, d] - c[k, d])^2`,
 the sum a left fold over d and the argmin the first minimum, and "stores"
@@ -34,7 +36,7 @@ from repro_torch.kernels._common import (MAX_DYNAMIC_SMEM, check, on_cpu,
 __all__ = ["LAUNCHES", "assign_launch_shape", "ich_kmeans_assign",
            "ich_kmeans_assign_plain",
            "ich_kmeans_assign_sharded", "ich_kmeans_assign_sharded_plain",
-           "reset_launches"]
+           "reset_launches", "sharded_launch_shape"]
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"ich_kmeans_assign": 0, "ich_kmeans_assign_sharded": 0}
@@ -104,9 +106,10 @@ def _lib() -> ctypes.CDLL:
         lib.ich_kmeans_assign_launch.argtypes = [ptr] * 4 \
             + [i64, i32, i32, ptr]
         lib.ich_kmeans_assign_launch.restype = i32
-        lib.ich_kmeans_assign_shape.argtypes = [i64, i32, i32,
-                                                ctypes.POINTER(i32)]
+        lib.ich_kmeans_assign_shape.argtypes = [i64] + [i32] * 3 + [ptr]
         lib.ich_kmeans_assign_shape.restype = i32
+        lib.ich_kmeans_assign_sharded_shape.argtypes = [i32] * 8 + [ptr]
+        lib.ich_kmeans_assign_sharded_shape.restype = i32
         lib._typed = True
     return lib
 
@@ -129,16 +132,37 @@ def _check_tables(points, centroids) -> tuple[int, int]:
     return D, K
 
 
-def assign_launch_shape(n_slots: int, D: int, K: int) -> dict:
+def assign_launch_shape(n_slots: int, D: int, K: int, *,
+                        aligned: bool = True) -> dict:
     """The launch `ich_kmeans_assign` makes on the card for n_slots slots,
-    D features and K centroids: slots a CTA stages at a time (0: the
+    D features and K centroids (`aligned`: the point table is 8-byte
+    aligned, as a fresh tensor is): slots a CTA stages at a time (0: the
     centroids leave no room, points are read from global memory), CTAs,
-    threads and shared memory."""
-    out = (ctypes.c_int * 4)()
-    raise_on(_lib().ich_kmeans_assign_shape(n_slots, D, K, out),
-             "ich_kmeans_assign")
+    threads, shared memory and the bytes of one row copy."""
+    out = (ctypes.c_int * 5)()
+    raise_on(_lib().ich_kmeans_assign_shape(n_slots, D, K, int(aligned),
+                                            out), "ich_kmeans_assign")
     return {"chunk_slots": out[0], "ctas": out[1], "threads": out[2],
-            "smem_bytes": out[3]}
+            "smem_bytes": out[3], "copy_bytes": out[4]}
+
+
+def sharded_launch_shape(p: int, S_B: int, B: int, R: int, D: int, K: int,
+                         *, with_costs: bool = True,
+                         aligned: bool = True) -> dict:
+    """The launch `ich_kmeans_assign_sharded` makes on the card for p
+    workers of S_B supersteps of B tiles of R slots, D features and K
+    centroids (`with_costs`: a cost stream is asked for; `aligned`: the
+    point table is 8-byte aligned): slots a CTA stages at a time (whole
+    supersteps; 0: points read from global memory), CTAs (they walk all
+    p*S_B supersteps grid-stride), threads, shared memory, bytes of one row
+    copy and supersteps a chunk."""
+    out = (ctypes.c_int * 6)()
+    raise_on(_lib().ich_kmeans_assign_sharded_shape(
+        p, S_B, B, R, D, K, int(with_costs), int(aligned), out),
+        "ich_kmeans_assign_sharded")
+    return {"chunk_slots": out[0], "ctas": out[1], "threads": out[2],
+            "smem_bytes": out[3], "copy_bytes": out[4],
+            "chunk_steps": out[5]}
 
 
 def ich_kmeans_assign(points, centroids, rowid) -> torch.Tensor:
@@ -191,6 +215,8 @@ def ich_kmeans_assign_sharded(points, centroids, rowid, p: int,
     costs = (None if slot_cost is None else
              torch.empty((p, S_B), dtype=torch.float32,
                          device=points.device))
+    if PS == 0:  # no supersteps: nothing to launch
+        return out if costs is None else (out, costs)
     stream = torch.cuda.current_stream(points.device).cuda_stream
     code = _lib().ich_kmeans_assign_sharded_launch(
         points.data_ptr(), centroids.data_ptr(), rowid.data_ptr(),

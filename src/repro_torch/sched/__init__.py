@@ -15,6 +15,9 @@
     moe = scheduler.build("moe-dispatch", plan)
     y = moe(x, wi, wg, wo)                        # (n_tokens, D) expert FFN
     s2, cap_scale = sched.refine_cap_scale(moe.schedule, moe.expert_load())
+    res = s.replay_sharded()                      # simulator twin of shard()
+    stats = s.parallel_for_units(body, record_chunks=True)  # host threads
+    s3 = s.observe(stats).refine()                # executor's wall clock
 
 Pass ``device="cpu"`` to `LoopScheduler` to run the kernels' plain
 PyTorch versions instead.
@@ -29,6 +32,7 @@ from .defaults import (ICH_EPS, MAX_WIDTH, MIN_WIDTH, ROWS_PER_TILE,
 _LAZY = {
     "LoopScheduler": "api",
     "Schedule": "api",
+    "default_scheduler": "api",
     "CostRefiner": "adaptive",
     "BfsOp": "kernels",
     "CostProvider": "costs",
@@ -39,6 +43,7 @@ _LAZY = {
     "MoeDispatchOp": "kernels",
     "NnzCosts": "costs",
     "RefinedCosts": "costs",
+    "RemainingTokensCosts": "costs",
     "as_cost_provider": "costs",
     "CacheStats": "cache",
     "ScheduleCache": "cache",

@@ -1,6 +1,5 @@
 """Measured-cost feedback: fold observed execution costs into refreshed
-per-item estimates — the port's copy of the parts of
-`repro.sched.adaptive` the SpMV path uses.
+per-item estimates — the port's copy of `repro.sched.adaptive`.
 
 The paper's iCh adapts chunk size *during* a loop from the running
 mean/deviation band of observed progress (§3.2, eqs. 4-8). Here the
@@ -10,7 +9,11 @@ cost stream (`sched/kernels.py`), `CostRefiner` distributes it down to
 items proportionally to the current estimates and folds one Welford
 sample per covered item (`core/welford.WelfordVec`), `refined_costs()`
 blends the running means with the priors, and `Schedule.refine()`
-re-partitions from the result under a fresh cache generation.
+re-partitions from the result under a fresh cache generation. The host
+layers feed it too: the discrete-event simulator's per-chunk work
+(`SimResult.chunk_log`) and the threaded executor's per-chunk wall
+seconds (`ExecStats.chunk_log`), over item or work-unit ranges
+(`observe_item_ranges`, `observe_unit_ranges`).
 
 An item only partially covered by an observation has its sample
 extrapolated by the observed fraction of its estimated mass, so partial
@@ -160,6 +163,49 @@ class CostRefiner:
         # an all-zero-estimate item is covered if any of its units was seen
         unit_cov = np.bincount(item[valid], weights=seg[valid],
                                minlength=self.n_items)
+        sample, covered = self._covered_sample(per_item, est_covered)
+        covered |= (unit_cov > 0) & (self.est <= 0)
+        self._fold(sample, covered)
+
+    def observe_item_ranges(self, ranges, measured: np.ndarray) -> None:
+        """Chunk records over ITEM index space (the threaded executor's
+        `parallel_for` chunk_log): each chunk's measurement splits over the
+        items it ran, proportional to current estimates."""
+        ranges = np.asarray(ranges, np.int64).reshape(-1, 2)
+        measured = np.asarray(measured, np.float64)
+        owner = np.full(self.n_items, -1, np.int64)
+        for c, (b, e) in enumerate(ranges):
+            owner[b:e] = c
+        per_item = _proportional_split(measured, self.est, owner,
+                                       len(ranges))
+        est_covered = np.where(owner >= 0, self.est, 0.0)
+        sample, covered = self._covered_sample(per_item, est_covered)
+        covered |= (owner >= 0) & (self.est <= 0)
+        self._fold(sample, covered)
+
+    def observe_unit_ranges(self, ranges, measured: np.ndarray) -> None:
+        """Chunk records over flattened WORK-UNIT space (simulator replay /
+        `parallel_for_units` logs): split each chunk over its units by the
+        current per-unit estimate, then fold units into their items."""
+        ranges = np.asarray(ranges, np.int64).reshape(-1, 2)
+        measured = np.asarray(measured, np.float64)
+        n_units = int(self.sizes.sum())
+        unit_item = np.repeat(np.arange(self.n_items, dtype=np.int64),
+                              self.sizes)
+        unit_est = np.repeat(
+            np.divide(self.est, self.sizes, out=np.zeros_like(self.est),
+                      where=self.sizes > 0), self.sizes)
+        owner = np.full(n_units, -1, np.int64)
+        for c, (b, e) in enumerate(ranges):
+            owner[b:e] = c
+        per_unit = _proportional_split(measured, unit_est, owner,
+                                       len(ranges))
+        seen = owner >= 0
+        per_item = np.bincount(unit_item[seen], weights=per_unit[seen],
+                               minlength=self.n_items)
+        est_covered = np.bincount(unit_item[seen], weights=unit_est[seen],
+                                  minlength=self.n_items)
+        unit_cov = np.bincount(unit_item[seen], minlength=self.n_items)
         sample, covered = self._covered_sample(per_item, est_covered)
         covered |= (unit_cov > 0) & (self.est <= 0)
         self._fold(sample, covered)

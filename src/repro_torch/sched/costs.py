@@ -1,6 +1,5 @@
 """Cost providers: how a workload tells the scheduler what its items cost —
-the port's copy of the providers the SpMV path needs from
-`repro.sched.costs`.
+the port's copy of `repro.sched.costs`.
 
 `CostProvider` is the small protocol the `LoopScheduler` facade consumes:
 
@@ -13,9 +12,10 @@ the port's copy of the providers the SpMV path needs from
 `NnzCosts` covers the SpMV workload (CSR row lengths), `DegreeCosts` the
 BFS one (vertex degrees), `ExplicitCosts` any per-item array (K-Means
 per-point costs), `ExpertLoadCosts` the MoE dispatch one (per-expert kept
-token counts), and `RefinedCosts` the output of measured-cost
-refinement. `as_cost_provider` lets callers pass a bare array anywhere a
-provider is expected.
+token counts), `RemainingTokensCosts` a serving batch's remaining prompt
+tokens, and `RefinedCosts` the output of measured-cost refinement.
+`as_cost_provider` lets callers pass a bare array anywhere a provider is
+expected.
 """
 from __future__ import annotations
 
@@ -203,6 +203,58 @@ class ExpertLoadCosts:
     @property
     def sizes_are_structural(self) -> bool:
         """Token counts ARE the dispatch payload layout; refinement keeps
+        them."""
+        return True
+
+
+class RemainingTokensCosts:
+    """Per-request REMAINING prompt tokens — the serving engine's cost
+    provider (DESIGN.md §2.10): item = an in-flight request's prefill
+    stream, work units = prompt tokens not yet prefilled. The continuous
+    batcher re-presents this every engine step as chunks complete, and the
+    measured step wall-clock flows back through `Schedule.observe/refine`
+    so the per-request cost estimates track the machine, not the token
+    count alone.
+
+    Zero-remaining requests are allowed (a request that finished prefill
+    but still holds a batch slot). Token counts ARE the chunk layout the
+    batcher slices, so sizes are structural. Fingerprint eager, arrays
+    copied on first use — same cache-hit economics and no-aliasing
+    guarantees as the other providers."""
+
+    _kind = "remaining-tokens"
+
+    def __init__(self, remaining: np.ndarray):
+        remaining = np.asarray(remaining)
+        if remaining.ndim != 1 or remaining.size < 1:
+            raise ValueError(
+                f"remaining tokens must be 1-D non-empty, got "
+                f"{remaining.shape}")
+        if not np.issubdtype(remaining.dtype, np.integer):
+            raise TypeError(
+                f"remaining tokens are counts, expected an integer array, "
+                f"got {remaining.dtype}")
+        if (remaining < 0).any():
+            raise ValueError("remaining token counts must be non-negative")
+        self._remaining = remaining
+        self._sizes = None
+        self._fp = f"{self._kind}:{_digest(remaining)}"
+
+    def sizes(self) -> np.ndarray:
+        if self._sizes is None:
+            self._sizes = self._remaining.astype(np.int64)  # astype copies
+            self._remaining = None
+        return self._sizes
+
+    def costs(self) -> np.ndarray:
+        return self.sizes().astype(np.float64)
+
+    def fingerprint(self) -> str:
+        return self._fp
+
+    @property
+    def sizes_are_structural(self) -> bool:
+        """Token counts ARE the prefill chunk layout; refinement keeps
         them."""
         return True
 

@@ -11,7 +11,10 @@ above the SM count), the MoE products on the tensor cores (D and F off
 the 16-byte path and off the tiles, a slot row of one token, OLMoE's
 K = 2048 against float64), the flat K-Means walk over the whole card (D in {1, 34}, centroids
 near the shared-memory limit, fewer slots than one CTA, the kdd_cup
-shape), the launch counters, and the Zamba2 serving path through the
+shape) and the sharded one (D in {1, 33, 34}, a misaligned point table,
+chunks of supersteps that split workers, a superstep wider than a chunk,
+centroids too large to stage, p above the SM count, empty and
+all-padding layouts, the kdd_cup shape), the launch counters, and the Zamba2 serving path through the
 flash attention and SSD scan kernels (on the tensor cores: shapes off
 their tile edges, dh 96, chunks of 1, 7 and 1,024 steps, and the same bits
 from two calls at the serving shapes). A CUDA
@@ -957,3 +960,116 @@ def test_kmeans_flat_walk_at_kdd_cup_shape_spans_the_card(cuda):
     assert torch.equal(ids, K.ich_kmeans_assign_plain(pts, cent, rid))
     assert torch.equal(ids, K.ich_kmeans_assign_sharded(
         pts, cent, op.rowid, op.p, op.superstep))
+
+
+# ---- the sharded K-Means walk (one launch over the whole card) ----
+# name -> (points, D, K, p, B, R, misaligned points)
+KMEANS_SHARDED_CASES = {
+    "d1": (3000, 1, 5, 4, 8, 8, False),
+    "d33": (3000, 33, 7, 4, 8, 8, False),          # 4-byte copies: odd D
+    "d34": (3000, 34, 5, 4, 8, 8, False),          # 8-byte copies
+    "misaligned": (3000, 34, 5, 4, 8, 8, True),    # 4-byte copies
+    "chunk_splits_workers": (9000, 34, 5, 3, 2, 8, False),
+    "step_wider_than_chunk": (3000, 34, 5, 2, 8, 64, False),
+    "smem_limit": (2000, 34, 1700, 2, 4, 8, False),  # read from global
+    "p_above_sms": (3000, 34, 5, 300, 1, 8, False),
+}
+
+
+def _points(n, D, rng, device, misaligned):
+    pts = rng.standard_normal((n, D)).astype(np.float32)
+    if not misaligned:
+        return torch.from_numpy(pts).to(device)
+    buf = torch.empty(n * D + 1, device=device)[1:]
+    buf.copy_(torch.from_numpy(pts.reshape(-1)))
+    return buf.view(n, D)
+
+
+@pytest.mark.parametrize("case", list(KMEANS_SHARDED_CASES))
+def test_kmeans_sharded_walk_matches_plain_and_flat(cuda, case):
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as K
+    from repro_torch.sched import LoopScheduler
+    n, D, k, p, B, R, misaligned = KMEANS_SHARDED_CASES[case]
+    rng = np.random.default_rng(list(KMEANS_SHARDED_CASES).index(case))
+    costs = rng.uniform(6.0, 10.0, n)
+    costs[n // 2] = 5000.0  # a heavy point split over several tiles
+    pts = _points(n, D, rng, cuda, misaligned)
+    assert (pts.data_ptr() % 8 != 0) == misaligned
+    cent = torch.from_numpy(rng.standard_normal((k, D)).astype(
+        np.float32)).to(cuda)
+    op = LoopScheduler(p=p, superstep=B, rows_per_tile=R,
+                       cache_size=0).build("kmeans", costs)
+    S_B = op.shards.n_steps
+    shape = K.sharded_launch_shape(p, S_B, B, R, D, k,
+                                   aligned=not misaligned)
+    assert (shape["chunk_slots"] == 0) == (case == "smem_limit")
+    if shape["chunk_slots"]:
+        assert shape["chunk_slots"] == shape["chunk_steps"] * B * R
+        assert shape["copy_bytes"] == (8 if D % 2 == 0 and not misaligned
+                                       else 4)
+    if case == "chunk_splits_workers":
+        assert S_B % shape["chunk_steps"] and S_B > shape["chunk_steps"]
+    if case == "step_wider_than_chunk":
+        assert shape["chunk_steps"] == 1 and B * R > 256
+    K.reset_launches()
+    ids, c = K.ich_kmeans_assign_sharded(pts, cent, op.rowid, p, B,
+                                         slot_cost=op.slot_cost)
+    bare = K.ich_kmeans_assign_sharded(pts, cent, op.rowid, p, B)
+    rid = torch.from_numpy(op.schedule.item_id).to(cuda)
+    flat = K.ich_kmeans_assign(pts, cent, rid)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"ich_kmeans_assign": 1,
+                          "ich_kmeans_assign_sharded": 2}
+    ids_p, c_p = K.ich_kmeans_assign_sharded_plain(pts, cent, op.rowid, p, B,
+                                                   slot_cost=op.slot_cost)
+    assert torch.equal(ids, ids_p) and torch.equal(c, c_p)
+    assert torch.equal(bare, ids) and torch.equal(flat, ids)
+
+
+def test_kmeans_sharded_walk_of_empty_and_all_padding_layouts(cuda):
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as K
+    pts = torch.randn((50, 34), device=cuda)
+    cent = torch.randn((5, 34), device=cuda)
+    K.reset_launches()
+    # no supersteps: nothing is launched
+    empty = torch.zeros((0, 8), dtype=torch.int32, device=cuda)
+    ids, c = K.ich_kmeans_assign_sharded(
+        pts, cent, empty, 4, 8, slot_cost=torch.zeros((0, 8), device=cuda))
+    assert K.LAUNCHES["ich_kmeans_assign_sharded"] == 0
+    assert ids.shape == (50,) and not ids.any() and c.shape == (4, 0)
+    # every slot padding: one launch, no id written, every cost 0
+    pad = torch.full((4 * 3 * 8, 8), -1, dtype=torch.int32, device=cuda)
+    ids, c = K.ich_kmeans_assign_sharded(
+        pts, cent, pad, 4, 8, slot_cost=torch.ones((96, 8), device=cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ich_kmeans_assign_sharded"] == 1
+    assert not ids.any() and c.shape == (4, 3) and not c.any()
+
+
+def test_kmeans_sharded_walk_at_kdd_cup_shape_spans_the_card(cuda):
+    """494,020 points x 34 features, K = 5, p = SM count: one launch of
+    several CTAs on every SM in chunks of whole supersteps, 8-byte row
+    copies; ids and costs equal the plain version's, ids the flat walk's."""
+    from repro_torch.core.workloads import kmeans_rounds
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as K
+    from repro_torch.sched import LoopScheduler
+    n, D, k = 494_020, 34, 5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rounds, _ = kmeans_rounds(n, rounds=1, seed=0)
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.standard_normal((n, D)).astype(
+        np.float32)).to(cuda)
+    cent = torch.from_numpy(rng.standard_normal((k, D)).astype(
+        np.float32)).to(cuda)
+    op = LoopScheduler(p=sms).build("kmeans", rounds[0])
+    B, R = op.superstep, op.schedule.rows_per_tile
+    shape = K.sharded_launch_shape(sms, op.shards.n_steps, B, R, D, k)
+    assert shape["chunk_slots"] > 0 and shape["copy_bytes"] == 8
+    assert shape["ctas"] >= 2 * sms and shape["ctas"] % sms == 0
+    ids, c = K.ich_kmeans_assign_sharded(pts, cent, op.rowid, sms, B,
+                                         slot_cost=op.slot_cost)
+    ids_p, c_p = K.ich_kmeans_assign_sharded_plain(pts, cent, op.rowid, sms,
+                                                   B, slot_cost=op.slot_cost)
+    assert torch.equal(ids, ids_p) and torch.equal(c, c_p)
+    rid = torch.from_numpy(op.schedule.item_id).to(cuda)
+    assert torch.equal(ids, K.ich_kmeans_assign(pts, cent, rid))

@@ -236,3 +236,84 @@ def test_plain_matches_reference_on_walk_layouts(case):
     assert torch.equal(ids, flat)
     np.testing.assert_allclose(op.last_costs.numpy(), np.asarray(c_ref),
                                rtol=RTOL)
+
+
+# The card's sharded walk (csrc/ich_kmeans.cu) takes the p*S_B supersteps
+# in chunks of whole supersteps (as many as fit in 256 slots, at least
+# one), chunk c on CTA c mod the grid, and folds each step's cost from the
+# slots it staged. `_chunked_walk` is a numpy model of that walk: the same
+# float32 left folds (numpy float32 arithmetic rounds each operation as the
+# kernel's __fsub_rn/__fmul_rn/__fadd_rn do), visiting steps in the
+# kernel's order.
+CHUNK_SLOTS = 256
+
+
+def _nearest(x, cent):
+    d2 = np.zeros(cent.shape[0], np.float32)
+    for d in range(x.size):
+        diff = x[d] - cent[:, d]
+        d2 = d2 + diff * diff
+    return int(np.argmin(d2))   # the first minimum, as the kernel's strict <
+
+
+def _chunked_walk(pts, cent, rowid, slot_cost, p, B, ctas):
+    PS_, R = rowid.shape
+    step = B * R
+    n_steps = PS_ // B
+    cs = max(1, CHUNK_SLOTS // step)
+    rows, sc = rowid.reshape(n_steps, step), slot_cost.reshape(n_steps, step)
+    ids = np.zeros(pts.shape[0], np.int32)
+    costs = np.zeros(n_steps, np.float32)
+    visits = np.zeros(n_steps, np.int64)
+    for b in range(ctas):
+        for g0 in range(b * cs, n_steps, ctas * cs):
+            for g in range(g0, min(g0 + cs, n_steps)):
+                visits[g] += 1
+                c = np.float32(0.0)
+                for k in range(step):
+                    i = rows[g, k]
+                    if i >= 0:
+                        ids[i] = _nearest(pts[i], cent)
+                    c = c + (sc[g, k] if i >= 0 else np.float32(0.0))
+                costs[g] = c
+    assert (visits == 1).all()
+    return ids, costs.reshape(p, -1), cs
+
+
+# name -> (points, D, K, p, B, R): layouts where chunks of whole steps
+# split workers and S_B is not a multiple of a chunk's steps, and one
+# whose superstep (512 slots) is larger than a chunk
+CHUNK_LAYOUTS = {
+    "chunk_splits_workers": (900, 6, 5, 3, 2, 8),
+    "s_b_off_the_chunk": (600, 6, 5, 4, 8, 8),
+    "step_wider_than_chunk": (600, 6, 3, 2, 8, 64),
+}
+
+
+@pytest.mark.parametrize("ctas", [1, 3, 1000])
+@pytest.mark.parametrize("case", list(CHUNK_LAYOUTS))
+def test_sharded_plain_matches_reference_on_chunked_layouts(case, ctas):
+    n, D, K_, p, B, R = CHUNK_LAYOUTS[case]
+    pts, cent, costs = _inputs(n, D, K_, seed=list(CHUNK_LAYOUTS).index(case))
+    costs[n // 3] = 2000.0          # a point split over several tiles
+    s = RS.LoopScheduler(p=p, superstep=B, rows_per_tile=R,
+                         cache_size=0).schedule(RS.ExplicitCosts(costs))
+    shards = s.shard()
+    S_B = shards.n_steps
+    rid = shards.shard_item_id(s.tiles)
+    sc = ref_sharded_slot_cost(s, shards).astype(np.float32)
+    ids_m, costs_m, cs = _chunked_walk(pts, cent, rid, sc, p, B, ctas)
+    if case == "step_wider_than_chunk":
+        assert B * R > CHUNK_SLOTS and cs == 1
+    else:
+        assert S_B % cs and p * S_B > cs   # a chunk spans two workers
+    ids_ref, c_ref = ref_ich_kmeans_assign_sharded(
+        jnp.asarray(pts), jnp.asarray(cent), jnp.asarray(rid), p, B,
+        slot_cost=jnp.asarray(sc), interpret=True)
+    ids, c = K.ich_kmeans_assign_sharded(
+        torch.from_numpy(pts), torch.from_numpy(cent), torch.from_numpy(rid),
+        p, B, slot_cost=torch.from_numpy(sc))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ids_ref))
+    np.testing.assert_array_equal(ids.numpy(), ids_m)
+    np.testing.assert_array_equal(c.numpy(), costs_m)
+    np.testing.assert_allclose(c.numpy(), np.asarray(c_ref), rtol=RTOL)

@@ -202,7 +202,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.kernels.flash_attention.ref, "
             "repro_torch.kernels.mamba_scan.mamba_scan, "
             "repro_torch.kernels.mamba_scan.ref, repro_torch.models.model, "
-            "repro_torch.serve, repro_torch.serve.engine; "
+            "repro_torch.serve, repro_torch.serve.engine, "
+            "repro_torch.core, repro_torch.core.simulator, "
+            "repro_torch.core.executor, repro_torch.robust, "
+            "repro_torch.robust.faults, repro_torch.sched.api; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -230,6 +233,17 @@ def test_no_port_file_imports_jax_or_the_reference():
         bad = {r for r in _imported_roots(f)
                if r in ("jax", "jaxlib", "repro")}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_host_modules_import_no_torch():
+    # the numpy host side is copied as numpy: the simulator, executor,
+    # fault injection and construction import no torch, as in the reference
+    core = ROOT / "src" / "repro_torch" / "core"
+    files = [core / f"{m}.py" for m in ("simulator", "executor", "policies",
+                                         "welford", "workloads", "tiling")]
+    files.append(ROOT / "src" / "repro_torch" / "robust" / "faults.py")
+    for f in files:
+        assert "torch" not in set(_imported_roots(f)), f.name
 
 
 def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
