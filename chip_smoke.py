@@ -32,6 +32,26 @@ its launch counters set to 0 just before it and read just after:
   prefill bit for bit, decode at position S matches a fresh prefill of
   S + 1 tokens, the logits are finite.
 
+Then two paths of the schedule layer, each counted on its own:
+
+* the schedule pipeline on the card (`LoopScheduler(backend="torch")` ->
+  `device_lowering()` -> `pack_csr_torch` -> `ich_spmv_sharded` at
+  wikipedia, whose y and costs must equal the host-built op's bit for bit,
+  and `device_lowering()` of every other main path's schedule, through
+  the `segment_fold` and `lpt_assign` kernels of `csrc/lpt.cu`): every
+  lowering element-identical to the host `build_schedule` +
+  `shard_schedule` (tile costs bit for bit), with and without `n_steps=`;
+  the host path (schedule, shard, pack + upload) and the device path
+  (CSR upload, lower, pack) timed per shape; both kernels at wikipedia's
+  full size against np.bincount / `partition_tiles` and their plain
+  versions;
+* sharded recovery (`Schedule.reshard_survivors` -> the completed-prefix
+  and survivor layouts through rows 2, 4 and 6 -> `combine`) for SpMV,
+  a mid-depth BFS step on both graphs and K-Means, one or two workers
+  dead, with a ragged checkpoint or none: the combined output must equal
+  the fault-free run's bits and each run's cost stream must sum per
+  worker to its layout's `worker_cost`.
+
 For the flat walks (`ich_spmv`, `ich_bfs_step`: two kernels a call over
 the whole card) it logs the launch shape, the longest run of one row (the
 serial part of their fold) and the device time of each phase. For the
@@ -72,6 +92,7 @@ path and their times.
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -88,6 +109,7 @@ N_POINTS, N_FEATURES, N_CLUSTERS = 494_020, 34, 5   # Rodinia kdd_cup
 KMEANS_ROUNDS = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+F64_FLOPS = 34e12           # H100 SXM float64 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
 RTOL = ATOL = 1e-5          # kernel vs plain: same adds, other reductions
 HOST_RTOL = 1e-4            # vs float64, relative to each row's sum |a*x|
@@ -121,7 +143,21 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                         PASS + "flash_attention/flash_attention.py:95"),
     "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                    PASS + "mamba_scan/mamba_scan.py:83"),
+    # the schedule pipeline's two kernels replace XLA code of the reference's
+    # jitted pipeline, not a Pallas kernel: its segment sum and LPT loop
+    "segment_fold": ("src/repro_torch/csrc/lpt.cu",
+                     "src/repro/core/tiling_jax.py:198"),
+    "lpt_assign": ("src/repro_torch/csrc/lpt.cu",
+                   "src/repro/core/tiling_jax.py:292"),
 }
+# the schedule pipeline and recovery (this slice's paths) re-use the main
+# paths' schedules, ops and inputs, which each phase leaves here by name
+SHAPES: dict = {}
+PIPELINE_REPS = 3           # synchronized runs a pipeline timing is the median of
+# lpt_assign's latency bound: one dependent shared-memory round trip per
+# chain, taken as 30 SM cycles (an assumption, not a measurement) at the
+# card's maximum SM clock (nvidia-smi clocks.max.sm)
+SMEM_ROUND_TRIP_CYCLES = 30
 # Zamba2-1.2B serving (src/repro/configs/zamba2_1_2b.py, full width)
 LM_ARCH = "zamba2-1.2b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
@@ -496,6 +532,11 @@ def phase_main(sm_count):
         "ich_spmv": common + T * R * 4,         # rowid
     }
     flops = 2 * real * W
+    SHAPES["wikipedia"] = {
+        "workload": "spmv", "inputs": (indptr, indices, data),
+        "sched": {"p": sm_count}, "schedule": s, "op": op,
+        "csr": (indptr, indices, data), "x": x, "y": y,
+        "costs": op.last_costs}
     return [kernel_entry(name, launches=launches[name], err=err,
                          ms=ms[name], plain_ms=plain_ms[name],
                          library_ms=library_ms, bytes_=bytes_[name],
@@ -644,6 +685,11 @@ def _bfs_run(kind, sm_count):
               + op.rowid.numel() * 4 + p * S_B * 4 * 2,
               "ich_bfs_step": common + T * s.rows_per_tile * 4}
     flops = 2 * real * W                      # a multiply and a max a lane
+    SHAPES[f"bfs_{kind}"] = {
+        "workload": "bfs", "inputs": (indptr, indices),
+        "sched": {"p": sm_count}, "schedule": s, "op": op,
+        "csr": (indptr, indices, np.ones(indices.size, np.float32)),
+        "level": level}
     return {name: kernel_entry(name, launches=launches[name], err=err[name],
                                ms=ms[name], plain_ms=plain_ms[name],
                                library_ms=library_ms, bytes_=bytes_[name],
@@ -822,6 +868,10 @@ def phase_kmeans(sm_count):
               + p * S_B * 4,                   # rowid+slot_cost, costs
               "ich_kmeans_assign": common + rowid_seq.numel() * 4}
     flops = 3 * live * N_CLUSTERS * N_FEATURES   # sub, mul, add
+    SHAPES["kmeans"] = {
+        "workload": "kmeans", "inputs": (rounds[0],),
+        "sched": {"p": sm_count}, "schedule": s, "op": op, "csr": None,
+        "pts": pts, "cent": cent}
     return [kernel_entry(name, launches=launches[name], err=err[name],
                          ms=ms[name], plain_ms=plain_ms[name],
                          library_ms=library_ms, bytes_=bytes_[name],
@@ -1136,6 +1186,10 @@ def phase_moe(sm_count):
     check(launches["ich_moe_sharded"] > 0, "ich_moe_sharded launched")
     check(all(rd["generation"] == rd["round"] for rd in rounds),
           "MoE refine generations count the rounds")
+    SHAPES["moe"] = {
+        "workload": "moe-dispatch", "inputs": (plan,),
+        "sched": {"p": sm_count, "rows_per_tile": MOE_ROWS_PER_TILE},
+        "schedule": s, "csr": None}
     del op_r, y_r
 
     # ---- checks of round 0 ----
@@ -1634,6 +1688,381 @@ def _scan_step(name: str) -> str:
     return "other"
 
 
+def _median_steps(steps, reps=PIPELINE_REPS) -> list:
+    """Run the callables of `steps` in order, `reps` times, each step ending
+    in a synchronize; the median host seconds of each step. A step gets the
+    previous step's result."""
+    import torch
+    times = []
+    for _ in range(reps):
+        out, row = None, []
+        for step in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(out)
+            torch.cuda.synchronize()
+            row.append(time.perf_counter() - t0)
+        times.append(row)
+    return [float(t) for t in np.median(np.asarray(times), axis=0)]
+
+
+def _lowering_mismatches(low, s) -> list:
+    """The fields of the device lowering `low` that differ from the host
+    lowering of schedule `s` (its tiles, `shard()` and the kernels'
+    streams) in dtype, shape or any bit."""
+    from repro_torch.sched.kernels import _flat_slot_cost
+    sh = s.shard(p=low.p, superstep=low.superstep)
+    host = {"item_id": s.tiles.item_id, "seg_start": s.tiles.seg_start,
+            "seg_len": s.tiles.seg_len, "tile_cost": s.tile_cost(),
+            "worker": sh.worker, "block_perm": sh.block_perm,
+            "rowid": sh.shard_item_id(s.item_id),
+            "blkid": sh.kernel_block_ids(),
+            "slot_cost": _flat_slot_cost(s.slot_cost(), sh.n_tiles_padded)}
+    dev = {"item_id": low.schedule.item_id,
+           "seg_start": low.schedule.seg_start,
+           "seg_len": low.schedule.seg_len, "tile_cost": low.tile_cost,
+           "worker": low.worker, "block_perm": low.block_perm,
+           "rowid": low.rowid, "blkid": low.blkid,
+           "slot_cost": low.slot_cost}
+    bad = [] if low.schedule.width == s.width else ["width"]
+    for name, want in host.items():
+        got = dev[name].cpu().numpy()
+        want = np.ascontiguousarray(want)
+        if got.dtype != want.dtype or got.shape != want.shape \
+                or got.tobytes() != want.tobytes():
+            bad.append(name)
+    return bad
+
+
+def _sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.split()[0])
+
+
+def once_ms(fn):
+    """CUDA-event milliseconds of one call of fn, and its result."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def phase_pipeline(sm_count):
+    """The schedule pipeline on the card. Its main path, counted:
+    `LoopScheduler(backend="torch")` -> schedule -> `device_lowering()` ->
+    `pack_csr_torch` -> `ich_spmv_sharded` on the device lowering at
+    wikipedia (y and costs == the host-built op's, bit for bit), and
+    `device_lowering()` of every other main path's schedule. Then each
+    lowering against the host's element for element, with and without
+    `n_steps=`; the device pack against the host pack; the host and device
+    pipelines timed per shape; and `segment_fold` / `lpt_assign` at
+    wikipedia's full size against np.bincount / partition_tiles and their
+    plain versions, timed."""
+    import torch
+    from repro_torch.core import tiling_torch as TT
+    from repro_torch.core.tiling import block_chains
+    from repro_torch.kernels.ich_spmv import ich_spmv as KS
+    from repro_torch.kernels.lpt import lpt as L
+    from repro_torch.sched import LoopScheduler, NnzCosts, registry
+
+    w = SHAPES["wikipedia"]
+    indptr = w["csr"][0]
+
+    # ---- this slice's main path, counted ----
+    L.reset_launches()
+    KS.reset_launches()
+    t0 = time.perf_counter()
+    s_t = LoopScheduler(p=sm_count, backend="torch").schedule(
+        NnzCosts(indptr))
+    low = s_t.device_lowering()
+    csr = [torch.from_numpy(a).cuda() for a in w["csr"]]
+    vals, cols = TT.pack_csr_torch(*csr, low.schedule,
+                                   pad_tiles_to=low.superstep)
+    y, costs = KS.ich_spmv_sharded(vals, cols, low.rowid, low.blkid, w["x"],
+                                   indptr.size - 1, low.p, low.superstep,
+                                   slot_cost=low.slot_cost)
+    lows = {"wikipedia": low}
+    lows.update({name: sh["schedule"].device_lowering()
+                 for name, sh in SHAPES.items() if name != "wikipedia"})
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    launches = {**L.LAUNCHES,
+                "ich_spmv_sharded": KS.LAUNCHES["ich_spmv_sharded"]}
+    log(phase="pipeline_main_path", seconds=t_path, launches=launches,
+        shapes=list(lows), backend=s_t.backend)
+    for name, count in launches.items():
+        check(count > 0, f"{name} launched on the pipeline path")
+    check(np.array_equal(s_t.item_id, w["schedule"].item_id),
+          "backend='torch' tiles == host tiles")
+    check(torch.equal(y, w["y"]) and torch.equal(costs, w["costs"]),
+          "ich_spmv_sharded on the device lowering == the host op, bit "
+          "for bit")
+    check(torch.equal(vals, w["op"].vals) and torch.equal(cols, w["op"].cols),
+          "pack_csr_torch == host pack_csr at wikipedia, bit for bit")
+    del vals, cols, y, costs, csr
+
+    # ---- every main path's lowering == the host's, element for element ----
+    for name, sh in SHAPES.items():
+        s, low = sh["schedule"], lows[name]
+        again = TT.lower_schedule_torch(
+            s.sizes, s.costs, p=low.p, superstep=low.superstep,
+            rows_per_tile=s.rows_per_tile, width=s.width, eps=s.band_eps,
+            n_steps=low.n_steps)
+        bad, bad_again = _lowering_mismatches(low, s), \
+            _lowering_mismatches(again, s)
+        log(phase="pipeline_lowering_check", shape=name, items=s.n_items,
+            tiles=s.n_tiles, width=s.width, p=low.p, steps=low.n_steps,
+            mismatched=bad, mismatched_with_n_steps=bad_again)
+        check(not bad and not bad_again,
+              f"{name}: device lowering == host lowering element for "
+              "element, with and without n_steps=")
+    del lows, again
+
+    # ---- host and device pipelines, timed per shape ----
+    for name, sh in SHAPES.items():
+        s, entry = sh["schedule"], registry.get(sh["workload"])
+        B = s.superstep
+        host = _median_steps([
+            lambda _: LoopScheduler(cache_size=0, **sh["sched"]).schedule(
+                entry.costs(*sh["inputs"])),
+            lambda s_h: (s_h.shard(), s_h)[1],
+            lambda s_h: entry.build(s_h, *sh["inputs"])])
+
+        def lower():
+            return TT.lower_schedule_torch(
+                s.sizes, s.costs, p=s.p, superstep=B,
+                rows_per_tile=s.rows_per_tile, width=s.width,
+                eps=s.band_eps)
+
+        upload = (lambda _: [torch.from_numpy(a).cuda() for a in sh["csr"]]) \
+            if sh["csr"] is not None else (lambda _: None)
+        dev = _median_steps([
+            upload, lambda c: (c, lower()),
+            lambda c_low: (TT.pack_csr_torch(*c_low[0], c_low[1].schedule,
+                                             pad_tiles_to=B)
+                           if c_low[0] is not None else None)])
+        by_name = device_ms_by_kernel(lower)
+        chain = block_chains(s.item_id, B)
+        log(phase="pipeline_timing", shape=name, tiles=s.n_tiles,
+            blocks=int(chain.size), chains=int(chain[-1]) + 1,
+            longest_chain_blocks=int(np.bincount(chain).max()),
+            host_schedule_s=host[0], host_shard_s=host[1],
+            host_pack_upload_s=host[2], host_total_s=sum(host),
+            device_upload_csr_s=dev[0], device_lower_s=dev[1],
+            device_pack_s=dev[2] if sh["csr"] is not None else None,
+            device_total_s=sum(dev), speedup=sum(host) / sum(dev),
+            lowering_device_ms=sum(by_name.values()),
+            lpt_assign_ms=sum(v for k, v in by_name.items()
+                              if "lpt_assign_kernel" in k),
+            segment_fold_ms=sum(v for k, v in by_name.items()
+                                if "segment_fold_kernel" in k),
+            device_ms=by_name, reps=PIPELINE_REPS)
+
+    # ---- both kernels at wikipedia's full size: against host numpy, their
+    #      plain versions, index_add_ and their bounds ----
+    s = w["schedule"]
+    B, p, T = s.superstep, s.p, s.n_tiles
+    tc = s.tile_cost()
+    chain = block_chains(s.item_id, B)
+    n_blocks, n_real = chain.size, int(chain[-1]) + 1
+    blk = np.arange(T) // B
+    bcost = np.bincount(blk, weights=tc, minlength=n_blocks)
+    ccost = np.bincount(chain, weights=bcost, minlength=n_blocks)
+    order = np.argsort(-ccost + 0.0, kind="stable")
+    dev = {k: torch.from_numpy(np.ascontiguousarray(a)).cuda() for k, a in
+           (("tc", tc), ("blk", blk), ("chain", chain), ("bcost", bcost),
+            ("ccost", ccost), ("order", order))}
+    fold = (dev["tc"], dev["blk"], n_blocks)
+    chain_fold = (dev["bcost"], dev["chain"], n_blocks)
+    lpt = (dev["ccost"], dev["order"],
+           torch.tensor([n_real]).cuda(), p)
+    got_b, got_c = L.segment_fold(*fold), L.segment_fold(*chain_fold)
+    got_w = L.lpt_assign(*lpt)
+    worker = np.repeat(got_w.cpu().numpy()[chain], B)[:T]
+    check(got_b.cpu().numpy().tobytes() == bcost.tobytes()
+          and got_c.cpu().numpy().tobytes() == ccost.tobytes(),
+          "segment_fold == np.bincount bit for bit at wikipedia")
+    check(np.array_equal(worker, s.shard().worker),
+          "lpt_assign == partition_tiles at wikipedia")
+    plain_b = L.segment_fold_plain(*fold)
+    check(torch.equal(got_b, plain_b)
+          and torch.equal(got_c, L.segment_fold_plain(*chain_fold)),
+          "segment_fold == plain at wikipedia")
+    lpt_plain_ms, plain_w = once_ms(lambda: L.lpt_assign_plain(*lpt))
+    check(torch.equal(got_w, plain_w), "lpt_assign == plain at wikipedia")
+    index_add = torch.zeros_like(dev["ccost"]).index_add_(
+        0, dev["blk"], dev["tc"])
+    ms = {"segment_fold": timed_ms(lambda: L.segment_fold(*fold)),
+          "lpt_assign": timed_ms(lambda: L.lpt_assign(*lpt))}
+    log(phase="segment_fold_calls", block_fold_values=T,
+        block_fold_ms=ms["segment_fold"], chain_fold_values=n_blocks,
+        chain_fold_ms=timed_ms(lambda: L.segment_fold(*chain_fold)),
+        longest_chain_blocks=int(np.bincount(chain).max()),
+        index_add_bits_equal=bool(torch.equal(index_add, got_b)))
+    plain_ms = {"segment_fold": timed_ms(lambda: L.segment_fold_plain(*fold)),
+                "lpt_assign": lpt_plain_ms}
+    library_ms = {"segment_fold": timed_ms(lambda: torch.zeros_like(
+        dev["ccost"]).index_add_(0, dev["blk"], dev["tc"])),
+        "lpt_assign": None}
+    clock_mhz = _sm_clock_mhz()
+    latency_ms = n_real * SMEM_ROUND_TRIP_CYCLES / (clock_mhz * 1e3)
+    log(phase="lpt_assign_bound", chains=n_real, workers=p,
+        round_trip_cycles=SMEM_ROUND_TRIP_CYCLES,
+        sm_clock_mhz=clock_mhz, latency_bound_ms=latency_ms,
+        ms=ms["lpt_assign"])
+    bytes_ = {"segment_fold": T * 16 + n_blocks * 8,
+              "lpt_assign": n_blocks * 12 + n_real * 8 + 8}
+    flops = {"segment_fold": T, "lpt_assign": n_real * p}
+    out = []
+    for name in ("segment_fold", "lpt_assign"):
+        entry = kernel_entry(name, launches=launches[name], err=0.0,
+                             ms=ms[name], plain_ms=plain_ms[name],
+                             library_ms=library_ms[name],
+                             bytes_=bytes_[name], flops=flops[name],
+                             peak=F64_FLOPS)
+        if name == "lpt_assign":
+            entry["latency_bound_ms"] = latency_ms
+        out.append(entry)
+    return out
+
+
+def phase_recovery(sm_count):
+    """Sharded recovery on the card at the main paths' shapes, counted:
+    SpMV (wikipedia), a BFS step from the mid-depth frontier of each graph
+    and K-Means (kdd_cup), each with two workers' sets dead ((0,) and two)
+    and with a ragged checkpoint (worker w done through (7 w) mod (S_B + 1)
+    steps) or none. `reshard_survivors` plans; the kernel runs the
+    completed-prefix layout (its -1 steps) and the survivor layout (p - k
+    rows: p - k CTAs for SpMV and BFS); `combine` must give the fault-free
+    output's bits, and each run's cost stream must sum per worker to its
+    layout's worker_cost. Logs p_rec, S_rec, the redo share of blocks,
+    each run's time and makespan_model."""
+    import torch
+    from repro_torch.kernels.ich_bfs import ich_bfs as KB
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as KK
+    from repro_torch.kernels.ich_spmv import ich_spmv as KS
+    from repro_torch.robust import CheckpointLog
+    from repro_torch.sched.kernels import _sharded_slot_cost
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    def flat(op, kernel, payload, tail):
+        """Layout -> a call of a flat-payload sharded kernel (rows 2, 4)."""
+        def runner(sh):
+            rowid = put(sh.shard_item_id(op.schedule.item_id))
+            blkid = put(sh.kernel_block_ids())
+            return lambda: kernel(*payload, rowid, blkid, *tail, sh.p,
+                                  op.superstep, slot_cost=op.slot_cost)
+        return runner
+
+    def kmeans(op, pts, cent):
+        """Layout -> a call of the sharded K-Means kernel (row 6)."""
+        s = op.schedule
+
+        def runner(sh):
+            rowid = put(sh.shard_item_id(s.item_id))
+            slot = put(_sharded_slot_cost(s.slot_cost(), sh))
+            return lambda: KK.ich_kmeans_assign_sharded(
+                pts, cent, rowid, sh.p, op.superstep, slot_cost=slot)
+        return runner
+
+    for K in (KS, KB, KK):
+        K.reset_launches()
+    t0 = time.perf_counter()
+    w = SHAPES["wikipedia"]
+    op = w["op"]
+    cases = [("spmv", op, KS, flat(op, KS.ich_spmv_sharded,
+                                   (op.vals, op.cols), (w["x"], op.n_rows)),
+              w["y"], op.vals)]
+    for kind in GRAPHS:
+        b = SHAPES[f"bfs_{kind}"]
+        op, level = b["op"], b["level"]
+        d = int(level.max()) // 2
+        f = (level == d).float()
+        v = ((level >= 0) & (level <= d)).float()
+        cases.append((f"bfs_{kind}", op, KB, flat(
+            op, KB.ich_bfs_step_sharded, (op.mask, op.cols), (f, v, op.n)),
+            op.step(f, v), op.mask))
+    k = SHAPES["kmeans"]
+    cases.append(("kmeans", k["op"], None, kmeans(k["op"], k["pts"],
+                                                  k["cent"]),
+                  k["op"](k["pts"], k["cent"]), None))
+    for label, op, K, runner, full, payload in cases:
+        s, sh = op.schedule, op.shards
+        tc = s.tile_cost()
+        n_blocks = -(-s.n_tiles // sh.superstep)
+        clean = float(sh.worker_cost(tc).max())
+        full_ms = timed_ms(runner(sh), iters=5)
+        for dead in ((0,), (0, sh.p // 2)):
+            for ragged in (True, False):
+                ckpt = None
+                if ragged:
+                    ckpt = CheckpointLog()
+                    for wk in range(sh.p):
+                        ckpt.mark_through(wk, (7 * wk) % (sh.n_steps + 1))
+                t1 = time.perf_counter()
+                plan = s.reshard_survivors(dead=dead, checkpoint=ckpt)
+                t_plan = time.perf_counter() - t1
+                outs, run_ms = [], []
+                for layout in (plan.done_shards, plan.shards):
+                    fn = runner(layout)
+                    res, c = fn()
+                    expect = layout.worker_cost(tc)
+                    if K is None:   # float costs: float32 stream vs float64
+                        ok = np.allclose(c.double().sum(dim=1).cpu().numpy(),
+                                         expect, rtol=COST_RTOL, atol=0)
+                    else:
+                        ok = np.array_equal(c.cpu().numpy().sum(axis=1),
+                                            expect.astype(np.float32))
+                    check(ok, f"recovery {label} dead={dead}: per-worker "
+                          "cost sums == the layout's worker_cost")
+                    outs.append(res)
+                    run_ms.append(timed_ms(fn, iters=5))
+                check(torch.equal(plan.combine(*outs), full),
+                      f"recovery {label} dead={dead} checkpoint="
+                      f"{'ragged' if ragged else 'none'}: combine == the "
+                      "fault-free bits")
+                extra = {}
+                if K is not None:
+                    T_pad, R, W = payload.shape
+                    extra["ctas_rec"] = K.sharded_launch_shape(
+                        plan.p_rec, plan.shards.n_steps, sh.superstep, R,
+                        W)["ctas"]
+                    check(extra["ctas_rec"] == plan.p_rec,
+                          f"recovery {label}: the survivor walk launches "
+                          "p - k CTAs")
+                mm = plan.makespan_model(tc)
+                log(phase="recovery", workload=label, dead=list(dead),
+                    checkpoint="ragged" if ragged else "none", p=sh.p,
+                    p_rec=plan.p_rec, steps=sh.n_steps,
+                    steps_done=plan.done_shards.n_steps,
+                    steps_rec=plan.shards.n_steps,
+                    redo_share=plan.redo_blocks.size / n_blocks,
+                    lost_share=plan.lost_blocks.size / n_blocks,
+                    redo_items=int(plan.redo_items.sum()), plan_s=t_plan,
+                    full_ms=full_ms, done_ms=run_ms[0], rec_ms=run_ms[1],
+                    makespan_model=mm, clean_makespan=clean,
+                    model_inflation=mm["makespan"] / clean, **extra)
+    torch.cuda.synchronize()
+    launches = {"ich_spmv_sharded": KS.LAUNCHES["ich_spmv_sharded"],
+                "ich_bfs_step_sharded": KB.LAUNCHES["ich_bfs_step_sharded"],
+                "ich_kmeans_assign_sharded":
+                    KK.LAUNCHES["ich_kmeans_assign_sharded"]}
+    log(phase="recovery_path", seconds=time.perf_counter() - t0,
+        launches=launches)
+    for name, count in launches.items():
+        check(count > 0, f"{name} launched on the recovery path")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1650,7 +2079,11 @@ def main() -> int:
     kernels += phase_bfs(sm_count)
     kernels += phase_kmeans(sm_count)
     kernels += phase_moe(sm_count)
+    sched_kernels = phase_pipeline(sm_count)
+    phase_recovery(sm_count)
+    SHAPES.clear()
     kernels += phase_zamba2()
+    kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Host-side scheduler core of the port: tile construction (numpy), the
 policy descriptors and chunk laws, Welford statistics, the discrete-event
 simulator, the threaded executor, the paper's workload generators
-(Table-1 matrices, BFS graphs, K-Means costs), and the plain PyTorch
-segmented epilogue of the kernels (`core.segmented`, imported on its own:
-it is the one core module that needs torch)."""
+(Table-1 matrices, BFS graphs, K-Means costs). Two core modules need
+torch and are imported on their own: the plain PyTorch segmented epilogue
+of the kernels (`core.segmented`) and the schedule pipeline on the card
+(`core.tiling_torch`)."""
 from .policies import (
     Policy,
     assigned,

@@ -18,13 +18,17 @@ One object per constructed schedule, three consumers:
   `LoopScheduler.build(name, *inputs)` instantiates a registered
   workload's kernel op on the scheduler's device, and the op's
   `observe().refine()` re-lowers the schedule from the cost stream the
-  kernel measured.
+  kernel measured. ``Schedule.device_lowering()`` is the same lowering
+  built on the scheduler's device by the tensor pipeline
+  (`core/tiling_torch.py`), element-identical to `shard()` and its
+  kernel streams; ``LoopScheduler(backend="torch")`` builds the tiles
+  themselves with that pipeline. ``Schedule.reshard_survivors()`` plans
+  the recovery of an interrupted sharded run on the surviving workers
+  (`robust/recovery.py`).
 
 `observe()` takes what each layer measures: a simulator `SimResult`, an
 executor `ExecStats`, a kernel's (p, S_B) cost stream, or per-item or
-per-tile arrays. The reference's device construction pipeline
-(`device_lowering`, `backend="jax"`) and sharded recovery
-(`reshard_survivors`) are not ported yet.
+per-tile arrays.
 """
 from __future__ import annotations
 
@@ -38,8 +42,10 @@ from repro_torch.core import executor as E
 from repro_torch.core import policies as P
 from repro_torch.core import simulator as S
 from repro_torch.core import tiling as T
+from repro_torch.core import tiling_torch as TT
 from repro_torch.device import resolve_device
 from repro_torch.robust import faults as F
+from repro_torch.robust import recovery as R
 
 from .adaptive import CostRefiner
 from .cache import CacheStats, ScheduleCache
@@ -86,6 +92,11 @@ class Schedule:
     # hand-assembled Schedules (refine then rebuilds directly)
     _scheduler: Optional["LoopScheduler"] = dataclasses.field(
         default=None, repr=False)
+    # construction pipeline of the tiles: "numpy" (host) or "torch"
+    # (core/tiling_torch.py on the scheduler's device)
+    backend: str = "numpy"
+    # memoized device lowerings keyed (p, superstep), like _shards
+    _device: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # ------------------------------------------------------------- lowering
     def lower(self) -> T.TileSchedule:
@@ -104,6 +115,34 @@ class Schedule:
         if hit is None:
             hit = self._shards.setdefault(key, T.shard_schedule(
                 self.tiles, self.tile_cost(), key[0], superstep=key[1]))
+        return hit
+
+    def device_lowering(self, *, p: Optional[int] = None,
+                        superstep: Optional[int] = None):
+        """The lowering of this schedule built on the device by the tensor
+        pipeline (`core/tiling_torch.DeviceLowering`): build -> cost ->
+        partition -> shard layout, element-identical to the host `shard()`
+        arrays and the kernels' streams, but resident as tensors the
+        sharded kernels consume without a host round trip. It runs on the
+        constructing scheduler's device (the card for a hand-assembled
+        Schedule, raising without CUDA). Memoized per (p, superstep) like
+        `shard()`.
+
+        Generation safety: `refine()` always returns a NEW Schedule under a
+        fresh cache generation with an EMPTY device memo, so a memoized
+        lowering never serves a later generation's costs. The width is
+        pinned to this schedule's own, so the pipeline reproduces these
+        exact tiles rather than re-deriving the band."""
+        key = (int(p if p is not None else self.p),
+               int(superstep if superstep is not None else self.superstep))
+        hit = self._device.get(key)
+        if hit is None:
+            device = (self._scheduler.device if self._scheduler is not None
+                      else None)
+            hit = self._device.setdefault(key, TT.lower_schedule_torch(
+                self.sizes, self.costs, p=key[0], superstep=key[1],
+                rows_per_tile=self.rows_per_tile, width=self.width,
+                eps=self.band_eps, device=device))
         return hit
 
     @property
@@ -409,14 +448,19 @@ class Schedule:
                 eps=self.band_eps, superstep=self.superstep,
                 _generation=self.generation + 1)
         else:  # hand-assembled schedule: rebuild directly, no cache
-            tiles = T.build_schedule(provider.sizes(),
-                                     rows_per_tile=self.rows_per_tile,
-                                     width=self.width_arg,
-                                     eps=self.band_eps)
+            if self.backend == "torch":
+                tiles = TT.build_schedule_torch(
+                    provider.sizes(), rows_per_tile=self.rows_per_tile,
+                    width=self.width_arg, eps=self.band_eps).to_host()
+            else:
+                tiles = T.build_schedule(provider.sizes(),
+                                         rows_per_tile=self.rows_per_tile,
+                                         width=self.width_arg,
+                                         eps=self.band_eps)
             new = dataclasses.replace(
                 self, sizes=provider.sizes(), costs=provider.costs(),
                 tiles=tiles, generation=self.generation + 1,
-                _shards={}, _feedback={})
+                _shards={}, _feedback={}, _device={})
         new._feedback["refiner"] = r.successor(new.sizes)
         return new
 
@@ -465,6 +509,24 @@ class Schedule:
             params=params if params is not None else self.sim_params,
             record_chunks=record_chunks,
             record_assignment=record_assignment)
+
+    def reshard_survivors(self, *, dead,
+                          checkpoint: Optional[R.CheckpointLog] = None,
+                          p: Optional[int] = None,
+                          superstep: Optional[int] = None) -> R.RecoveryPlan:
+        """Recovery re-lowering for an interrupted sharded run: given the
+        workers lost and a `CheckpointLog` of blocks completed at superstep
+        barriers, re-partition every incomplete item-closed chain onto the
+        p - k survivors with the same `partition_tiles` LPT the original
+        lowering used. The returned `RecoveryPlan` carries the survivor
+        layout (`.shards`), the completed-prefix layout (`.done_shards`)
+        and `.combine()`: both layouts drive the standard sharded kernels
+        over the original flat payload, and the combined output is
+        bit-identical to the fault-free run. Without a checkpoint the plan
+        is a full re-execution on the survivors."""
+        shards = self.shard(p=p, superstep=superstep)
+        return R.plan_recovery(self.tiles, self.tile_cost(), shards,
+                               dead=dead, checkpoint=checkpoint)
 
     # -------------------------------------------------------- (b) executor
     def parallel_for(self, body: Callable[[int], None], *,
@@ -525,11 +587,19 @@ class LoopScheduler:
     Construction parameters set here are the instance defaults; every
     method takes per-call overrides. Schedules are cached (LRU) on
     ``(cost fingerprint, full policy, p, construction params, superstep,
-    generation)`` — see `sched/cache.py`. `cache_size=0` disables caching.
+    generation, backend)`` — see `sched/cache.py`. `cache_size=0` disables
+    caching.
 
     `device` is where the ops that `build()` returns keep their payload
-    and launch their kernels: None means the card, and raises when CUDA is
-    unavailable; pass ``device="cpu"`` for the plain PyTorch versions.
+    and launch their kernels, and where `Schedule.device_lowering()` runs:
+    None means the card, and raises when CUDA is unavailable; pass
+    ``device="cpu"`` for the plain PyTorch versions.
+
+    `backend` picks the pipeline that builds the tiles: ``"numpy"`` (host,
+    `core/tiling.py`) or ``"torch"`` (`core/tiling_torch.py` on `device`,
+    element-identical tiles). It is part of the cache key, so the two
+    pipelines' schedules, and the device lowerings a torch-built one
+    memoizes, never alias.
     """
 
     def __init__(self, *, p: int = 8, policy: Optional[P.Policy] = None,
@@ -538,7 +608,11 @@ class LoopScheduler:
                  superstep: int = SUPERSTEP,
                  cache_size: int = 32,
                  sim_params: Optional[S.SimParams] = None,
-                 device=None):
+                 device=None, backend: str = "numpy"):
+        if backend not in ("numpy", "torch"):
+            raise ValueError(
+                f"backend must be 'numpy' or 'torch', got {backend!r}")
+        self.backend = backend
         self.device = resolve_device(device)
         self.p = int(p)
         self.policy = policy if policy is not None else P.ich(ICH_EPS)
@@ -580,19 +654,25 @@ class LoopScheduler:
         # across refinement is always payload-safe (see sched/costs.py)
         structural = bool(getattr(provider, "sizes_are_structural", True))
         key = (provider.fingerprint(), pol, pp, rpt, width,
-               band_eps, self.min_w, self.max_w, sstep, gen)
+               band_eps, self.min_w, self.max_w, sstep, gen, self.backend)
 
         def build() -> Schedule:
             sizes = provider.sizes()
-            tiles = T.build_schedule(sizes, rows_per_tile=rpt,
-                                     width=width, eps=band_eps,
-                                     min_w=self.min_w, max_w=self.max_w)
+            if self.backend == "torch":
+                tiles = TT.build_schedule_torch(
+                    sizes, rows_per_tile=rpt, width=width, eps=band_eps,
+                    min_w=self.min_w, max_w=self.max_w,
+                    device=self.device).to_host()
+            else:
+                tiles = T.build_schedule(sizes, rows_per_tile=rpt,
+                                         width=width, eps=band_eps,
+                                         min_w=self.min_w, max_w=self.max_w)
             return Schedule(sizes=sizes, costs=provider.costs(), policy=pol,
                             p=pp, tiles=tiles, sim_params=self.sim_params,
                             superstep=sstep,
                             generation=gen, structural_sizes=structural,
                             width_arg=width, band_eps=band_eps,
-                            _scheduler=self)
+                            backend=self.backend, _scheduler=self)
 
         if self.cache is None:
             return build()

@@ -3,14 +3,20 @@
 Most requests re-present a cost distribution the scheduler has already
 seen (the same CSR matrix), so `LoopScheduler.schedule()` keys built
 schedules on ``(cost_fingerprint, policy, p, construction params,
-superstep, generation)`` — the full frozen `Policy` dataclass, not its
-lossy ``label()``, and the worker PARTITION parameters `p`/`superstep`: a
-cached `Schedule` memoizes its worker-shard lowering (`Schedule.shard`),
-so entries built for different worker counts must never alias. The
+superstep, generation, backend)`` — the full frozen `Policy` dataclass,
+not its lossy ``label()``, and the worker PARTITION parameters
+`p`/`superstep`: a cached `Schedule` memoizes its worker-shard lowering
+(`Schedule.shard`), so entries built for different worker counts must
+never alias. The construction BACKEND ("numpy" or "torch",
+`core/tiling_torch.py`) keys for the same reason: a torch-built entry
+memoizes device lowerings (`Schedule.device_lowering`) that a numpy
+caller never asked to pin, and the two pipelines' schedules stay
+separately attributable although their tiles are element-identical. The
 refinement GENERATION keys too: `Schedule.refine()` re-enters the cache
 with generation g+1 and a `RefinedCosts` fingerprint, so a stale
-generation-g lowering is never served for generation-g+1 costs. Old
-generations age out through normal LRU eviction.
+generation-g lowering, host or device, is never served for
+generation-g+1 costs. Old generations age out through normal LRU
+eviction.
 
 Thread-safe; eviction is least-recently-used. Construction runs outside
 the cache lock, so a slow build never blocks concurrent hits. Two threads

@@ -17,7 +17,14 @@ centroids too large to stage, p above the SM count, empty and
 all-padding layouts, the kdd_cup shape), the launch counters, and the Zamba2 serving path through the
 flash attention and SSD scan kernels (on the tensor cores: shapes off
 their tile edges, dh 96, chunks of 1, 7 and 1,024 steps, and the same bits
-from two calls at the serving shapes). A CUDA
+from two calls at the serving shapes), and the schedule
+pipeline on the card (each lowering element-identical to the numpy one,
+tile costs bit for bit: one R per branch of numpy's pairwise sum, LPT
+ties, zero and -0.0 costs, a long chain, p = 132, the `n_steps=` path;
+the device pack; `segment_fold` and `lpt_assign` against their plain
+versions, np.bincount and heapq; a device lowering feeding the sharded
+SpMV kernel) and sharded recovery (`combine` of the completed-prefix and
+survivor runs of rows 2, 4 and 6 == the fault-free bits). A CUDA
 kernel has no CPU mode, so these tests need an NVIDIA GPU and skip
 without one; run them there with
 
@@ -1073,3 +1080,259 @@ def test_kmeans_sharded_walk_at_kdd_cup_shape_spans_the_card(cuda):
     assert torch.equal(ids, ids_p) and torch.equal(c, c_p)
     rid = torch.from_numpy(op.schedule.item_id).to(cuda)
     assert torch.equal(ids, K.ich_kmeans_assign(pts, cent, rid))
+
+
+# ------------------------- the schedule pipeline and recovery on the card
+def _zipf_sizes(n, a, seed):
+    rng = np.random.default_rng(seed)
+    return np.minimum(rng.zipf(a, n), 300).astype(np.int64), \
+        rng.uniform(0.5, 2.0, n)
+
+
+def _host_lowering(sizes, costs, p, B, R=8, width=None):
+    from repro_torch.core import tiling as PT
+    sched = PT.build_schedule(sizes, rows_per_tile=R, width=width)
+    tc = sched.tile_cost(costs, sizes)
+    sh = PT.shard_schedule(sched, tc, p, superstep=B)
+    slot = np.zeros((sh.n_tiles_padded, R), np.float32)
+    slot[:sched.n_tiles] = sched.slot_cost(costs, sizes)
+    return {"item_id": sched.item_id, "seg_start": sched.seg_start,
+            "seg_len": sched.seg_len, "tile_cost": tc, "worker": sh.worker,
+            "block_perm": sh.block_perm,
+            "rowid": sh.shard_item_id(sched.item_id),
+            "blkid": sh.kernel_block_ids(), "slot_cost": slot}
+
+
+def _assert_device_lowering(low, want):
+    got = {"item_id": low.schedule.item_id, "seg_start":
+           low.schedule.seg_start, "seg_len": low.schedule.seg_len,
+           "tile_cost": low.tile_cost, "worker": low.worker,
+           "block_perm": low.block_perm, "rowid": low.rowid,
+           "blkid": low.blkid, "slot_cost": low.slot_cost}
+    for name, a in got.items():
+        assert a.is_cuda, name
+        a = a.cpu().numpy()
+        assert a.dtype == want[name].dtype, name
+        np.testing.assert_array_equal(a, want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["zipf-p4-B8", "zipf-p132-B8", "R5", "R12",
+                                  "R136", "ties", "zeros", "long-chain",
+                                  "one-tile"])
+def test_device_lowering_equals_numpy(cuda, case):
+    """lower_schedule_torch on the card == the host numpy lowering, float64
+    tile costs bit for bit, with and without n_steps=."""
+    from repro_torch.core import tiling_torch as TT
+    from repro_torch.kernels.lpt import lpt as L
+    sizes, unit = _zipf_sizes(5000, 1.5, 3)
+    p, B, R, width = 4, 8, 8, None
+    if case == "zipf-p132-B8":
+        sizes, unit = _zipf_sizes(60_000, 1.3, 4)
+        p = 132
+    elif case.startswith("R"):
+        R, B = int(case[1:]), 2
+    elif case == "ties":
+        sizes, unit, width = np.full(4000, 8, np.int64), np.ones(4000), 8
+        p, B = 7, 2
+    elif case == "zeros":
+        unit[np.random.default_rng(1).random(unit.size) < 0.4] = 0.0
+        unit[::13] = -0.0
+    elif case == "long-chain":
+        sizes[2500] = 400_000
+        width = 16
+    elif case == "one-tile":
+        sizes, unit = sizes[:3], unit[:3]
+    costs = (1.0 + sizes) * unit
+    want = _host_lowering(sizes, costs, p, B, R, width)
+    L.reset_launches()
+    low = TT.lower_schedule_torch(sizes, costs, p=p, superstep=B,
+                                  rows_per_tile=R, width=width, device=cuda)
+    torch.cuda.synchronize()
+    _assert_device_lowering(low, want)
+    if p > 1:
+        assert L.LAUNCHES["lpt_assign"] == 1
+        assert L.LAUNCHES["segment_fold"] == (2 if B > 1 else 1)
+    again = TT.lower_schedule_torch(sizes, costs, p=p, superstep=B,
+                                    rows_per_tile=R, width=width,
+                                    n_steps=low.n_steps, device=cuda)
+    _assert_device_lowering(again, want)
+
+
+def test_device_pack_equals_numpy(cuda):
+    from repro_torch.core import tiling as PT
+    from repro_torch.core import tiling_torch as TT
+    indptr, indices, data = random_csr(5000, seed=5, max_nnz=400)
+    sched = PT.build_schedule(np.diff(indptr))
+    vals, cols = PT.pack_csr(indptr, indices, data, sched, pad_tiles_to=8)
+    dev = TT.build_schedule_torch(np.diff(indptr), device=cuda)
+    tv, tc = TT.pack_csr_torch(indptr, indices, data, dev, pad_tiles_to=8)
+    assert tv.is_cuda and torch.equal(tv.cpu(), torch.from_numpy(vals))
+    assert torch.equal(tc.cpu(), torch.from_numpy(cols))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_segment_fold_kernel_matches_plain(cuda, seed):
+    """One thread a run: the same bits as the plain fold and np.bincount,
+    runs of 0 to thousands of values, values across 16 decades, and
+    identical bits from two calls (no atomics)."""
+    from repro_torch.kernels.lpt import lpt as L
+    rng = np.random.default_rng(seed)
+    runs = rng.integers(0, 12, 5000)
+    runs[100] = 5000                     # one long run
+    seg = np.repeat(np.arange(5000), runs)
+    values = rng.uniform(-1.0, 1.0, seg.size) * 10.0 ** rng.integers(
+        -8, 8, seg.size)
+    v, s = torch.from_numpy(values), torch.from_numpy(seg)
+    L.reset_launches()
+    got = L.segment_fold(v.to(cuda), s.to(cuda), 5003)
+    again = L.segment_fold(v.to(cuda), s.to(cuda), 5003)
+    torch.cuda.synchronize()
+    assert L.LAUNCHES["segment_fold"] == 2
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), L.segment_fold_plain(v, s, 5003))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.bincount(seg, weights=values,
+                                              minlength=5003))
+
+
+@pytest.mark.parametrize("p", [1, 2, 31, 33, 132, 1000])
+def test_lpt_assign_kernel_matches_plain(cuda, p):
+    """Ties on every step (costs on a 0.1 grid, many equal), phantom
+    chains past n_real, p below, at and above one warp's 32 lanes."""
+    import heapq
+    from repro_torch.kernels.lpt import lpt as L
+    rng = np.random.default_rng(p)
+    n, n_real = 3000, 2600
+    cost = np.zeros(n)
+    cost[:n_real] = np.round(rng.uniform(0.0, 4.0, n_real), 1)
+    order = np.argsort(-cost + 0.0, kind="stable")
+    args = (torch.from_numpy(cost), torch.from_numpy(order),
+            torch.tensor([n_real]))
+    L.reset_launches()
+    got = L.lpt_assign(*(a.to(cuda) for a in args), p)
+    torch.cuda.synchronize()
+    assert L.LAUNCHES["lpt_assign"] == 1
+    assert torch.equal(got.cpu(), L.lpt_assign_plain(*args, p))
+    heap, want = [(0.0, w) for w in range(p)], np.full(n, -1, np.int32)
+    for c in order[order < n_real]:
+        load, w = heapq.heappop(heap)
+        want[c] = w
+        heapq.heappush(heap, (load + cost[c], w))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_lpt_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels.lpt import lpt as L
+    v = torch.zeros(8, dtype=torch.float64, device=cuda)
+    s = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="seg"):
+        L.segment_fold(v, s, 1)
+    with pytest.raises(ValueError, match="all on CUDA"):
+        L.segment_fold(v, s.long().cpu(), 1)
+    order = torch.arange(8, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        L.lpt_assign(v, order, torch.tensor([8], device=cuda),
+                     L.MAX_WORKERS + 1)
+    with pytest.raises(TypeError, match="cost"):
+        L.lpt_assign(v.float(), order, torch.tensor([8], device=cuda), 4)
+
+
+def test_device_lowering_feeds_the_sharded_kernel(cuda):
+    """LoopScheduler(backend="torch"): device_lowering() + pack_csr_torch
+    give the host-built op's y and costs bit for bit."""
+    from repro_torch.core import tiling_torch as TT
+    from repro_torch.kernels.ich_spmv import ich_spmv as K
+    from repro_torch.sched import LoopScheduler, NnzCosts
+    n = 20_000
+    indptr, indices, data = random_csr(n, seed=8, max_nnz=300)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(n).astype(
+        np.float32)).to(cuda)
+    ls = LoopScheduler(p=16, backend="torch")
+    s = ls.schedule(NnzCosts(indptr))
+    op = ls.build("spmv", indptr, indices, data)
+    assert op.schedule is s
+    low = s.device_lowering()
+    vals, cols = TT.pack_csr_torch(indptr, indices, data, low.schedule,
+                                   pad_tiles_to=low.superstep)
+    y, c = K.ich_spmv_sharded(vals, cols, low.rowid, low.blkid, x, n,
+                              low.p, low.superstep, slot_cost=low.slot_cost)
+    assert torch.equal(y, op(x)) and torch.equal(c, op.last_costs)
+
+
+@pytest.mark.parametrize("dead", [(0,), (1, 5)])
+@pytest.mark.parametrize("with_log", [True, False])
+def test_recovery_combine_bit_identical_on_the_card(cuda, dead, with_log):
+    """Rows 2, 4 and 6 on the completed-prefix layout (-1 steps) and the
+    survivor layout (p - k rows): combine == the fault-free run bit for
+    bit, and each recovery cost stream sums per worker to its layout's
+    worker_cost."""
+    from repro_torch.core.workloads import bfs_graph
+    from repro_torch.kernels.ich_bfs import ich_bfs as KB
+    from repro_torch.kernels.ich_kmeans import ich_kmeans as KK
+    from repro_torch.kernels.ich_spmv import ich_spmv as KS
+    from repro_torch.robust import CheckpointLog
+    from repro_torch.sched import LoopScheduler
+    from repro_torch.sched.kernels import _sharded_slot_cost
+    p = 8
+
+    def plan_for(s):
+        sh = s.shard()
+        log = None
+        if with_log:
+            log = CheckpointLog()
+            for w in range(p):
+                log.mark_through(w, (7 * w) % (sh.n_steps + 1))
+        return s.reshard_survivors(dead=dead, checkpoint=log)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    def flat_run(op, kernel, payload, tail):
+        """Run a flat-payload sharded kernel (rows 2, 4) on a layout."""
+        tc = op.schedule.tile_cost()
+
+        def run(sh):
+            y, c = kernel(*payload, put(sh.shard_item_id(op.schedule.item_id)),
+                          put(sh.kernel_block_ids()), *tail, sh.p,
+                          op.superstep, slot_cost=op.slot_cost)
+            np.testing.assert_array_equal(
+                c.cpu().numpy().sum(axis=1),
+                sh.worker_cost(tc).astype(np.float32))
+            return y
+        return run
+
+    n = 20_000
+    indptr, indices, data = random_csr(n, seed=2, max_nnz=300)
+    op = LoopScheduler(p=p).build("spmv", indptr, indices, data)
+    x = put(np.random.default_rng(2).standard_normal(n).astype(np.float32))
+    run = flat_run(op, KS.ich_spmv_sharded, (op.vals, op.cols), (x, n))
+    plan = plan_for(op.schedule)
+    assert torch.equal(plan.combine(run(plan.done_shards), run(plan.shards)),
+                       op(x))
+
+    gi, gx = bfs_graph("scale_free", n, 2)
+    op = LoopScheduler(p=p).build("bfs", gi, gx)
+    f = (torch.rand(n, device=cuda) < 0.05).float()
+    run = flat_run(op, KB.ich_bfs_step_sharded, (op.mask, op.cols),
+                   (f, f, n))
+    plan = plan_for(op.schedule)
+    assert torch.equal(plan.combine(run(plan.done_shards), run(plan.shards)),
+                       op.step(f, f))
+
+    rng = np.random.default_rng(3)
+    op = LoopScheduler(p=p).build("kmeans", rng.uniform(1.0, 9.0, n))
+    pts = put(rng.standard_normal((n, 34)).astype(np.float32))
+    cent = put(rng.standard_normal((5, 34)).astype(np.float32))
+    s = op.schedule
+
+    def run_k(sh):
+        ids, c = KK.ich_kmeans_assign_sharded(
+            pts, cent, put(sh.shard_item_id(s.item_id)), sh.p, op.superstep,
+            slot_cost=put(_sharded_slot_cost(s.slot_cost(), sh)))
+        np.testing.assert_allclose(c.cpu().numpy().sum(axis=1),
+                                   sh.worker_cost(s.tile_cost()), rtol=1e-6)
+        return ids
+
+    plan = plan_for(s)
+    assert torch.equal(plan.combine(run_k(plan.done_shards),
+                                    run_k(plan.shards)), op(pts, cent))

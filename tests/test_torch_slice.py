@@ -205,7 +205,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.serve, repro_torch.serve.engine, "
             "repro_torch.core, repro_torch.core.simulator, "
             "repro_torch.core.executor, repro_torch.robust, "
-            "repro_torch.robust.faults, repro_torch.sched.api; "
+            "repro_torch.robust.faults, repro_torch.sched.api, "
+            "repro_torch.core.tiling_torch, repro_torch.kernels.lpt.lpt, "
+            "repro_torch.robust.recovery; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -262,7 +264,7 @@ def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
     # the real sources each name their own library
     monkeypatch.undo()
     names = ("ich_spmv", "ich_bfs", "ich_kmeans", "ich_moe",
-             "flash_attention", "mamba_scan")
+             "flash_attention", "mamba_scan", "lpt")
     paths = {_build.library_path(n) for n in names}
     assert len(paths) == len(names)
     assert sorted(names) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
