@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` (one nvcc per
 source, all started together), holds each against its plain PyTorch
-version on the card, and drives the port's five main paths, each with
+version on the card, and drives the port's six main paths, each with
 its launch counters set to 0 just before it and read just after:
 
 * SpMV (schedule -> sharded kernel -> observe/refine -> sharded kernel) on
@@ -30,7 +30,16 @@ its launch counters set to 0 just before it and read just after:
   random float32 weights from a seeded generator) on 4 prompts of 2,048
   tokens, held to three bars: the last chunk's logits equal a one-shot
   prefill bit for bit, decode at position S matches a fresh prefill of
-  S + 1 tokens, the logits are finite.
+  S + 1 tokens, the logits are finite;
+* xlstm-350m serving (`Engine.generate` with an incremental prefill: each
+  chunk feeds only its own tokens through `prefill_extend`, 18 SSD-scan
+  launches at N = 512, Pd = 513 from the last chunk's states, then 32
+  decode steps) at full width (24 layers: 18 mLSTM, 6 sLSTM, d_model
+  1024) on the same prompts' shape, held to the incremental prefill
+  equalling a one-shot prefill bit for bit (logits and every block state)
+  with no prefix rerun, decode against a fresh prefill, finite logits, and
+  the scan from a state at that shape against its plain version and the
+  float64 recurrence, split calls bit for bit.
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -80,7 +89,8 @@ must give the main path's ids.
 It times every kernel beside its plain version, its bound and PyTorch
 computing the same function (cuSPARSE SpMV, `torch.cdist` argmin, MoE's
 capacity-buffer `torch.bmm` form, `scaled_dot_product_attention`; the SSD
-scan has no single PyTorch call), and prints one JSON line per result.
+scan has no single PyTorch call; it is listed twice, at Zamba2's and at
+xlstm-350m's shape), and prints one JSON line per result.
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs CUDA and the repository's `src/` beside it.
 
@@ -143,6 +153,9 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                         PASS + "flash_attention/flash_attention.py:95"),
     "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                    PASS + "mamba_scan/mamba_scan.py:83"),
+    # the same kernel at xlstm-350m's mLSTM shape, from a state
+    "mamba_scan_xlstm": ("src/repro_torch/csrc/mamba_scan.cu",
+                         PASS + "mamba_scan/mamba_scan.py:83"),
     # the schedule pipeline's two kernels replace XLA code of the reference's
     # jitted pipeline, not a Pallas kernel: its segment sum and LPT loop
     "segment_fold": ("src/repro_torch/csrc/lpt.cu",
@@ -163,6 +176,9 @@ LM_ARCH = "zamba2-1.2b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_MAX_SEQ = 4096
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:23-24
+# xlstm-350m serving (src/repro/configs/xlstm_350m.py, full width), the
+# same batch, prompts and new tokens
+XLSTM_ARCH = "xlstm-350m"
 SCAN_TOL = 2e-4        # tests/test_kernels.py:206-209 (main shape: of sum |terms|)
 SCAN_TOL_BF16 = 0.2    # bfloat16 q, k, v and y: 10 x the reference's 2e-2
 DECODE_TOL = 2e-3        # decode vs fresh prefill (tests/test_arch_smoke.py)
@@ -1000,11 +1016,13 @@ def capacity_buffer_moe(x, wi, wg, wo, plan):
     return run, C
 
 
-def device_ms_by_kernel(fn) -> dict:
+def device_ms_by_kernel(fn, expect=()) -> dict:
     """Device milliseconds per kernel name over one call of fn (after one
     warm-up call), from torch.profiler's CUDA trace, taken up to three
-    times while a trace holds no device time (one has come back empty);
-    empty if every trace did."""
+    times while a trace holds no device time (one has come back empty) or
+    lacks a kernel whose name holds one of `expect` (one has come back
+    with only some of a call's kernels); the last trace if none held
+    all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1016,13 +1034,15 @@ def device_ms_by_kernel(fn) -> dict:
             torch.cuda._sleep(1000)
             fn()
             torch.cuda.synchronize()
-        by_name = {ev.key[:80]: ev.device_time_total / 1e3
-                   for ev in prof.key_averages()
-                   if ev.device_time_total > 0
-                   and "spin_kernel" not in ev.key}
-        if by_name:
+        by_name = {}
+        for ev in prof.key_averages():
+            if ev.device_time_total > 0 and "spin_kernel" not in ev.key:
+                key = ev.key[:80]
+                by_name[key] = by_name.get(key, 0.0) \
+                    + ev.device_time_total / 1e3
+        if by_name and all(any(e in n for n in by_name) for e in expect):
             return by_name
-    return {}
+    return by_name
 
 
 def log_flat_walk(label, K, fn, T, R, W, rowid, sm_count, **extra) -> None:
@@ -1275,7 +1295,8 @@ def phase_small_lm():
     {64, 96, 128}); the scan over several (S, H, N, Pd, chunk), ragged S,
     chunks of 1 and 7 steps and 11 chunks among them, with q/k
     materialised and shared across heads (head stride 0), in float32 and
-    bfloat16, and chunk = 1024 against the float64 recurrence."""
+    bfloat16, from a given state at N up to 512 and Pd up to 513, and
+    chunk = 1024 against the float64 recurrence."""
     import itertools
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as KF
@@ -1348,6 +1369,26 @@ def phase_small_lm():
                                              .abs().max()),
                     float((st - st_p).abs().max()))
                 scan_cases += 1
+    # from a given state: N over 64 (its slices of 64), Pd over 64 (score
+    # tiles per head) and off the 16-byte copies (xlstm's Pd = 513)
+    for S, H, N, Pd, chunk in ((300, 2, 128, 65, 64), (300, 2, 512, 513, 256),
+                               (129, 3, 16, 33, 64), (520, 2, 64, 64, 256)):
+        q = torch.randn((2, S, H, N), generator=g, device="cuda")
+        k = torch.randn((2, S, H, N), generator=g, device="cuda") / N ** 0.5
+        v = torch.randn((2, S, H, Pd), generator=g, device="cuda")
+        la = -torch.rand((2, S, H), generator=g, device="cuda") * 0.3
+        st0 = torch.randn((2, H, N, Pd), generator=g, device="cuda")
+        y, st = KS.mamba_scan(q, k, v, la, chunk=chunk, state=st0)
+        y_p, st_p = KS.mamba_scan_plain(q, k, v, la, chunk=chunk, state=st0)
+        torch.cuda.synchronize()
+        check(torch.allclose(y, y_p, rtol=SCAN_TOL, atol=SCAN_TOL)
+              and torch.allclose(st, st_p, rtol=SCAN_TOL, atol=SCAN_TOL),
+              f"scan from a state == plain at S={S} H={H} N={N} Pd={Pd} "
+              f"chunk={chunk}")
+        scan_worst["float32"] = max(scan_worst["float32"],
+                                    float((y - y_p).abs().max()),
+                                    float((st - st_p).abs().max()))
+        scan_cases += 1
     # chunk = 1024: inside a chunk that long l runs to ~-150 and
     # exp(l_i - l_j) subtracts two large cumulative sums whose rounding
     # depends on their order (torch.cumsum against the kernel's scan), so
@@ -1640,7 +1681,8 @@ def phase_zamba2():
         scan_flops=scan_flops)
     steps = {}
     for name, ms in device_ms_by_kernel(
-            lambda: KS.mamba_scan(qs, ks, vs, la, chunk=chunk)).items():
+            lambda: KS.mamba_scan(qs, ks, vs, la, chunk=chunk),
+            expect=SCAN_STEPS).items():
         step = _scan_step(name)
         steps[step] = steps.get(step, 0.0) + ms
     scan_device = sum(v for k_, v in steps.items() if k_ != "other")
@@ -1669,6 +1711,271 @@ def phase_zamba2():
                          flops=scan_flops, peak=TF32_FLOPS / 3)]
 
 
+def _states_equal(a, b) -> bool:
+    """Two caches (lists of tensors or of dicts of tensors) equal bit for
+    bit."""
+    import torch
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_states_equal(a[n], b[n]) for n in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_states_equal, a, b))
+    return a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def phase_xlstm():
+    """xlstm-350m at full width (24 layers: 18 mLSTM, 6 sLSTM, d_model 1024,
+    random weights from a seeded generator on the card, float32): the
+    counted main path `Engine.generate` on 4 prompts of 2,048 tokens with
+    32 new tokens, its prefill incremental (each chunk only its own tokens
+    through `prefill_extend`, 18 scan launches a call, from the last
+    chunk's states); bars (a) the incremental prefill's last logits and
+    every block state == a one-shot prefill's bit for bit, no prefix rerun,
+    every chunk but the last a multiple of Q = 256, (b) decode at position
+    S == a fresh prefill of S + 1 tokens within DECODE_TOL, (c) finite
+    logits, (d) 18 scan launches per prefill and per prefill_extend call;
+    then the scan at the mLSTM shape (N 512, Pd 513) without and with a
+    state, (e) within SCAN_TOL of each element's sum of |terms| of the
+    plain version and of the float64 recurrence, (f) one call == two calls
+    split at a chunk boundary bit for bit, (g) two calls the same bits;
+    timed beside its bound."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    from repro_torch.kernels.mamba_scan.ref import ssd_sequential_ref
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as SS
+    from repro_torch.serve import Engine, EngineConfig
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 end to end
+    cfg = get_arch(XLSTM_ARCH)
+    B, S, n_new = LM_BATCH, LM_PROMPT, LM_NEW
+    n_x, H = cfg.block_pattern.count("X"), cfg.n_heads
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int64)
+    log(phase="xlstm_setup", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, mlstm_blocks=n_x,
+        slstm_blocks=cfg.block_pattern.count("S"), params=n_params,
+        weight_bytes=n_params * 4, batch=B, prompt=S, new_tokens=n_new,
+        init_s=time.perf_counter() - t0)
+    # first use of cuBLAS and the scan at these widths, outside the count
+    M.prefill(cfg, params, {"tokens": torch.from_numpy(
+        prompts[:, :64]).cuda()})
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    KS.reset_launches()
+    engine = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ids, stats = engine.generate(prompts, n_new=n_new)
+    torch.cuda.synchronize()
+    t_generate = time.perf_counter() - t0
+    launches = KS.LAUNCHES["mamba_scan"]
+    chunks = stats["chunks"]
+    sizes = [c["chunk"] for c in chunks]
+    t_prefill = sum(c["dt"] for c in chunks)
+    Q = min(cfg.ssm_chunk, S)
+    log(phase="xlstm_main_path", chunk_log=chunks,
+        n_prefill_fallbacks=engine.n_prefill_fallbacks,
+        launches={"mamba_scan": launches}, generate_s=t_generate,
+        time_to_first_token_s=t_prefill,
+        decode_ms_per_token=(t_generate - t_prefill) / n_new * 1e3,
+        generated_ids=ids.tolist(),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(engine.n_prefill_fallbacks == 0 and sum(sizes) == S,
+          "(a) incremental prefill: no prefix rerun")
+    check(all(c % Q == 0 for c in sizes[:-1]),
+          f"(a) every chunk but the last a multiple of Q = {Q}")
+    check(launches == n_x * len(chunks),
+          f"(d) {n_x} scan launches per prefill_extend call")
+    check(ids.shape == (B, n_new) and bool(np.all((ids >= 0)
+                                                  & (ids < cfg.vocab_size))),
+          "generated ids in the vocabulary")
+
+    # ---- bars ----
+    toks = torch.from_numpy(prompts).cuda()
+    KS.reset_launches()
+    last, inc_cache, inc_log = Engine(cfg, params, EngineConfig(
+        max_seq=LM_MAX_SEQ)).prefill_chunked(prompts)
+    torch.cuda.synchronize()
+    inc_launches = KS.LAUNCHES["mamba_scan"]
+    KS.reset_launches()
+    t0 = time.perf_counter()
+    one_shot, cache = M.prefill(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_one_shot = time.perf_counter() - t0
+    one_launches = KS.LAUNCHES["mamba_scan"]
+    check(one_launches == n_x and inc_launches == n_x * len(inc_log),
+          f"(d) {n_x} scan launches per prefill and prefill_extend call")
+    check(torch.equal(last, one_shot) and _states_equal(inc_cache, cache),
+          "(a) incremental prefill's logits and block states == one-shot "
+          "prefill bit for bit")
+    check(bool(torch.isfinite(one_shot).all()), "(c) prefill logits finite")
+    first = torch.from_numpy(ids[:, :1].astype(np.int64)).cuda()
+    d_logits, _ = M.decode_step(cfg, params, first, cache, S)
+    fresh, _ = M.prefill(cfg, params, {"tokens": torch.cat([toks, first],
+                                                           dim=1)})
+    torch.cuda.synchronize()
+    err = float((d_logits - fresh).abs().max())
+    log(phase="xlstm_bars", one_shot_prefill_s=t_one_shot,
+        second_run_chunks=[c["chunk"] for c in inc_log],
+        decode_vs_prefill_max_abs=err,
+        logits_max_abs=float(fresh.abs().max()),
+        decode_argmax_is_second_id=bool(np.array_equal(
+            d_logits.argmax(-1).cpu().numpy(), ids[:, 1])))
+    check(bool(torch.isfinite(d_logits).all()), "(c) decode logits finite")
+    check(torch.allclose(d_logits, fresh, rtol=DECODE_TOL, atol=DECODE_TOL),
+          f"(b) decode at S == prefill of S + 1 within {DECODE_TOL}")
+    del inc_cache, last, d_logits, fresh, cache, one_shot
+    # why the mLSTM and sLSTM run their token-wise products per block of Q
+    # tokens (`ssm.by_blocks`): does a product's row give the same bits
+    # over Q tokens as over the whole prompt?
+    mlstm = params.blocks[0].mlstm
+    gr = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    xm = torch.randn((B, S, mlstm.wq.shape[0]), generator=gr, device="cuda")
+    rows = {}
+    for name in ("w_i", "wq", "down"):
+        w = getattr(mlstm, name)
+        xs = xm[..., :w.shape[0]]
+        full = xs.contiguous() @ w
+        rows[name] = {"shape": list(w.shape), "rows_of_one_call_equal": {
+            f"{how}_{c}": bool(torch.equal(full[:, :c], (
+                xs[:, :c].contiguous() if how == "contiguous" else xs[:, :c])
+                @ w)) for c in (Q, 4 * Q) for how in ("contiguous", "strided")}}
+    log(phase="xlstm_row_invariance", products=rows)
+    del xm, full
+
+    # ---- the scan at the mLSTM shape ----
+    d_in = cfg.mamba_expand * cfg.d_model
+    N = d_in // H
+    Pd = N + 1
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 6)
+    # mLSTM's inputs: q, k scaled by dh^-1/2 (k also by the input gate), v
+    # with the ones channel, log_a = log(sigmoid(.) + 1e-9)
+    q = torch.randn((B, S, H, N), generator=g, device="cuda") * N ** -0.5
+    k = torch.randn((B, S, H, N), generator=g, device="cuda") * N ** -0.5 \
+        * torch.rand((B, S, H, 1), generator=g, device="cuda")
+    v = torch.randn((B, S, H, Pd), generator=g, device="cuda")
+    v[..., -1] = 1.0
+    la = torch.log(torch.sigmoid(torch.randn((B, S, H), generator=g,
+                                             device="cuda") + 1.0) + 1e-9)
+    st0 = torch.randn((B, H, N, Pd), generator=g, device="cuda")
+    rec, err_scan = {}, 0.0
+    for name, state in (("no_state", None), ("state", st0)):
+        y, st = KS.mamba_scan(q, k, v, la, chunk=Q, state=state)
+        y_p, st_p = KS.mamba_scan_plain(q, k, v, la, chunk=Q, state=state)
+        y_a, st_a = KS.mamba_scan_plain(
+            q.abs(), k.abs(), v.abs(), la, chunk=Q,
+            state=None if state is None else state.abs())
+        y_64, st_64 = ssd_sequential_ref(q, k, v, la, state)
+        torch.cuda.synchronize()
+        rel = {"kernel_vs_plain": max(_rel_terms(y, y_p, y_a),
+                                      _rel_terms(st, st_p, st_a)),
+               "kernel_vs_f64": max(_rel_terms(y, y_64, y_a),
+                                    _rel_terms(st, st_64, st_a)),
+               "plain_vs_f64": max(_rel_terms(y_p, y_64, y_a),
+                                   _rel_terms(st_p, st_64, st_a))}
+        del y_64, st_64, y_a, st_a
+        check(rel["kernel_vs_plain"] <= SCAN_TOL
+              and rel["kernel_vs_f64"] <= SCAN_TOL,
+              f"(e) xlstm-shape scan ({name}) within {SCAN_TOL} of each "
+              f"element's sum |terms| of plain and float64")
+        err_scan = max(err_scan, float((y - y_p).abs().max()),
+                       float((st - st_p).abs().max()))
+        del y_p, st_p
+        # (f) split at a chunk boundary, the second call from the first's
+        # final state; (g) a second call
+        cut = S // 2 // Q * Q
+        ya, sa = KS.mamba_scan(q[:, :cut], k[:, :cut],
+                               v[:, :cut].contiguous(),
+                               la[:, :cut].contiguous(), chunk=Q,
+                               state=state)
+        yb, sb = KS.mamba_scan(q[:, cut:], k[:, cut:],
+                               v[:, cut:].contiguous(),
+                               la[:, cut:].contiguous(), chunk=Q, state=sa)
+        check(torch.equal(y, torch.cat([ya, yb], 1)) and torch.equal(st, sb),
+              f"(f) xlstm-shape scan ({name}): one call == two calls split "
+              f"at a chunk boundary, bit for bit")
+        y2, st2 = KS.mamba_scan(q, k, v, la, chunk=Q, state=state)
+        check(torch.equal(y, y2) and torch.equal(st, st2),
+              f"(g) xlstm-shape scan ({name}): two calls, the same bits")
+        del ya, sa, yb, sb, y2, st2, y, st
+        rec[name] = {
+            "max_rel_to_terms": rel,
+            "ms": timed_ms(lambda: KS.mamba_scan(q, k, v, la, chunk=Q,
+                                                 state=state)),
+            "plain_ms": timed_ms(lambda: KS.mamba_scan_plain(
+                q, k, v, la, chunk=Q, state=state))}
+    steps = {}
+    for name, ms in device_ms_by_kernel(
+            lambda: KS.mamba_scan(q, k, v, la, chunk=Q, state=st0),
+            expect=SCAN_STEPS).items():
+        step = _scan_step(name)
+        steps[step] = steps.get(step, 0.0) + ms
+    scan_flops = _scan_work(B, S, H, N, Pd, Q, shared_qk=False)
+    scan_device = sum(v_ for k_, v_ in steps.items() if k_ != "other")
+    # inputs read once (the state too, when given), outputs written once
+    scan_bytes = 4 * (q.numel() + k.numel() + 2 * v.numel() + la.numel()
+                      + 2 * st0.numel())
+    log(phase="xlstm_scan", shape=[B, S, H, N, Pd, Q], flops=scan_flops,
+        bytes=scan_bytes, load_path="16-byte cp.async" if Pd % 4 == 0
+        else "4-byte cp.async (Pd % 4 != 0)",
+        score_tiles_per_head=KS._score_heads(q, k, N, Pd),
+        max_abs_err=err_scan, **rec)
+    log(phase="xlstm_scan_breakdown", device_ms=steps, kernels_ms=scan_device,
+        **_rates(scan_flops, scan_device))
+    del q, k, v, la, st0
+
+    # ---- where the prefill's device time goes: the sLSTM recurrences
+    # (their own trace: bmm and elementwise kernels, launched one step at
+    # a time) taken out of the prefill's cuBLAS products and other ----
+    split = _kernel_split(device_ms_by_kernel(
+        lambda: M.prefill(cfg, params, {"tokens": toks})))
+    gs = torch.Generator(device="cuda")
+    gs.manual_seed(SEED + 7)
+    dh = cfg.d_model // H
+    # z, then the output, input and forget gates (in (0, 1))
+    slstm_in = [torch.randn((B, S, H, dh), generator=gs, device="cuda"),
+                torch.rand((B, S, H, dh), generator=gs, device="cuda"),
+                torch.rand((B, S, H), generator=gs, device="cuda"),
+                torch.rand((B, S, H), generator=gs, device="cuda")]
+    h0 = torch.zeros((B, H, dh), device="cuda")
+    r = params.blocks[cfg.block_pattern.index("S")].slstm.r
+    n_s = cfg.block_pattern.count("S")
+
+    def slstm_loops():
+        for _ in range(n_s):
+            SS.slstm_recurrence(r, *slstm_in, h0, h0)
+    loop = _kernel_split(device_ms_by_kernel(slstm_loops))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slstm_loops()
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t0
+    xsplit = {"cublas_products": split["matmul"] - loop["matmul"],
+              "mamba_scan": split["mamba_scan"],
+              "slstm_loop": loop["matmul"] + loop["other"],
+              "other": split["other"] - loop["other"]}
+    total = sum(split.values())
+    log(phase="xlstm_prefill_split", device_ms=xsplit, device_total_ms=total,
+        share={k_: v_ / total for k_, v_ in xsplit.items()},
+        one_shot_wall_ms=t_one_shot * 1e3,
+        idle_share=1.0 - total / (t_one_shot * 1e3),
+        slstm_loop_wall_s=loop_wall, slstm_steps=n_s * S,
+        slstm_loop_device_ms=loop)
+    del slstm_in
+
+    return [kernel_entry("mamba_scan_xlstm", launches=launches, err=err_scan,
+                         ms=rec["state"]["ms"],
+                         plain_ms=rec["state"]["plain_ms"], library_ms=None,
+                         bytes_=scan_bytes, flops=scan_flops,
+                         peak=TF32_FLOPS / 3)]
+
+
 def _rates(flops: int, device_ms: float) -> dict:
     """Achieved TFLOP/s of float32 work and of the TF32 work that runs it
     (three TF32 products a float32 one); None when the trace held no
@@ -1679,12 +1986,16 @@ def _rates(flops: int, device_ms: float) -> dict:
             "tf32_tflops": 3 * flops / device_ms / 1e9}
 
 
+SCAN_STEPS = tuple(f"ssd_scan_kernel_{step}"
+                   for step in ("cumsum", "cb", "states", "pass", "y"))
+
+
 def _scan_step(name: str) -> str:
     """The step of the SSD scan a CUDA kernel name belongs to
     (csrc/mamba_scan.cu runs five kernels a call), or "other"."""
-    for step in ("cumsum", "cb", "states", "pass", "y"):
-        if f"ssd_scan_kernel_{step}" in name:
-            return step
+    for step in SCAN_STEPS:
+        if step in name:
+            return step[len("ssd_scan_kernel_"):]
     return "other"
 
 
@@ -2083,6 +2394,7 @@ def main() -> int:
     phase_recovery(sm_count)
     SHAPES.clear()
     kernels += phase_zamba2()
+    kernels += phase_xlstm()
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)

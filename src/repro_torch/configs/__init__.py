@@ -1,11 +1,12 @@
 """Architecture registry of the port: the configurations whose serving
-path it runs so far (Zamba2-1.2B). `get_arch` and `reduced` behave as
-`repro.configs`'s do; other architectures join with their slices."""
+path it runs so far (Zamba2-1.2B, hybrid; xlstm-350m, ssm). `get_arch` and
+`reduced` behave as `repro.configs`'s do; other architectures join with
+their slices."""
 from .base import SHAPES, ArchConfig, ShapeSpec
-from . import zamba2_1_2b
+from . import xlstm_350m, zamba2_1_2b
 
 ARCHS: dict[str, ArchConfig] = {c.CONFIG.name: c.CONFIG
-                                for c in (zamba2_1_2b,)}
+                                for c in (zamba2_1_2b, xlstm_350m)}
 
 
 def get_arch(name: str) -> ArchConfig:

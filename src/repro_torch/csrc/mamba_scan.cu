@@ -5,25 +5,33 @@
 // chunked_gated_scan mirrors on the reference's model path.
 //
 // What it computes. Per batch row b and head h, a float32 state S (N, Pd)
-// walks the sequence in chunks of Q steps. With l the inclusive cumulative
-// sum of log_a inside the chunk and total = l[Q-1]:
+// walks the sequence in chunks of Q steps, from a given initial state S_0
+// (zeros when none is given). With l the inclusive cumulative sum of log_a
+// inside the chunk and total = l[Q-1]:
 //   y_i   = sum_{j<=i} (q_i . k_j) exp(clip(l_i - l_j, -60, 0)) v_j
 //           + exp(l_i) q_i . S_prev
 //   S_new = exp(total) S_prev + sum_j exp(clip(total - l_j, -60, 0)) k_j (x) v_j
 // It returns y (B, S, H, Pd) in v's type and the final state (B, H, N, Pd).
 // Steps past the end of the sequence read q = k = v = 0 and log_a = 0, so
 // a ragged last chunk behaves as the reference's zero padding: the state is
-// unchanged by them and their y is not stored.
+// unchanged by them and their y is not stored. A chunk's y and state depend
+// only on its own inputs and the state before it, so a call over a
+// sequence gives the same bits as two calls split at a chunk boundary, the
+// second from the first's final state.
 //
 // What bounds it. Operations: per chunk, Q(Q+1)/2 causal pairs need 2N
 // for their q.k score (once per batch row when q and k are shared across
 // heads, once per head otherwise), and per head 2Pd + 1 for each pair's
 // decayed product with v plus 4 Q N Pd for the inter-chunk term and the
-// state update; at the serving shape (B = 4, S = 2048, H = 64,
+// state update. At Zamba2-1.2B's serving shape (B = 4, S = 2048, H = 64,
 // N = Pd = 64, Q = 256, q and k shared: head stride 0) 17.42 GFLOP against
 // 0.28 GB of inputs and outputs. On the float32 CUDA cores that is
 // 0.260 ms; on the tensor cores in 3xTF32, 3 x 17.42 GFLOP at 495 TFLOP/s
-// = 0.106 ms, beside 0.083 ms for the bytes: bound by operations.
+// = 0.106 ms, beside 0.083 ms for the bytes: bound by operations. At
+// xlstm-350m's mLSTM shape (B = 4, S = 2048, H = 4, N = 512, Pd = 513: the
+// head width plus the normalizer channel, Q = 256, q and k per head)
+// 43.05 GFLOP, 80 % of it the inter-chunk term and the state update,
+// against 0.17 GB: 3 x 43.05 GFLOP at 495 TFLOP/s = 0.261 ms.
 //
 // The design: the SSD chunk decomposition, so that the work is parallel
 // over (b, h, chunk) and not a walk of the chunks of one (b, h) in a CTA.
@@ -34,41 +42,49 @@
 // wrote, into scratch buffers the wrapper allocates:
 //   1. ssd_scan_kernel_cumsum — l for every (b, h, chunk), one warp each
 //      (lane runs, then a warp scan of the lane totals): lc (B, H, nc, Q).
-//   2. ssd_scan_kernel_cb — only when q and k are shared by all heads
-//      (head stride 0, Zamba2's C and B, or H = 1): the raw score tiles
-//      q_i . k_j of each (b, chunk), 64 x 64 tiles at or below the diagonal,
-//      computed once for all heads into cb (B, nc, Q, Q) (8.4 MB at the
-//      serving shape, which stays in L2). Recomputed in each of the 64
-//      heads, this tile would be a third of the work there.
+//   2. ssd_scan_kernel_cb — the raw score tiles q_i . k_j of each chunk,
+//      64 x 64 tiles at or below the diagonal, into cb. When q and k are
+//      shared by all heads (head stride 0, Zamba2's C and B, or H = 1) once
+//      per (b, chunk) for all heads: cb (B, nc, Q, Q) (8.4 MB at Zamba2's
+//      shape, which stays in L2; recomputed in each of the 64 heads this
+//      tile would be a third of the work there). When they differ by head
+//      and step 5 would otherwise compute the tile more than once (Pd
+//      spans more than one 64-column tile) or over more than one slice of
+//      N, once per (b, h, chunk): cb (B, H, nc, Q, Q) (33.5 MB at xlstm's
+//      shape; recomputed in each of its 9 column tiles the tile would add
+//      39 GFLOP to 43). Else (N <= 64, Pd <= 64) step 5 computes it.
 //   3. ssd_scan_kernel_states — each chunk's own state
 //      dS_c = sum_j exp(clip(total - l_j)) k_j (x) v_j, (N, Pd) per
-//      (b, h, chunk), into st (B, H, nc, N, Pd) (33.5 MB at the serving
-//      shape).
+//      (b, h, chunk), 64 rows of N by 64 columns of Pd a block, into st
+//      (B, H, nc, N, Pd) (33.5 MB at Zamba2's shape, 134 MB at xlstm's).
 //   4. ssd_scan_kernel_pass — one thread per state element walks the
-//      chunks in ascending order: st[c] <- S_{c-1} (the state before chunk
-//      c, in place of dS_c), S_c = exp(total_c) S_{c-1} + dS_c; the last is
-//      the final state.
+//      chunks in ascending order from S_0 (the given state, or 0): st[c] <-
+//      S_{c-1} (the state before chunk c, in place of dS_c), S_c =
+//      exp(total_c) S_{c-1} + dS_c; the last is the final state.
 //   5. ssd_scan_kernel_y — per (b, h, chunk, 64-row tile, 64 columns of
 //      Pd): the intra-chunk term over the key tiles at or before the row
-//      tile (scores from cb, or q.k computed in place when q and k differ by
-//      head), decayed and causally masked in registers, times v; then the
-//      inter-chunk term exp(l_i) q_i . S_prev; the heaviest row tiles are
-//      launched first.
+//      tile (scores from cb, or q.k computed in place), decayed and
+//      causally masked in registers, times v; then the inter-chunk term
+//      exp(l_i) q_i . S_prev over N in slices of 64 (skipped in the first
+//      chunk when no state is given); the heaviest row tiles are launched
+//      first.
 // Every product (q.k, scores . v, k^T . v, q . S) runs on the tensor cores
 // as mma.sync m16n8k8 TF32 in the 3xTF32 split (mma_tf32.cuh), which keeps
 // the float32 bars (2e-4, and 2e-4 of each element's sum of |terms|
 // against a float64 recurrence); score rows are used as A fragments where
 // they lie, by the k-slot order of mma_tf32.cuh, and the three passes run
 // over 8 accumulators at a time (mma_row). Sums over the chunk
-// (scores . v, k^T . v) are made per 64-key tile from a zero fragment and
-// added into a float32 accumulator with a rounded add, so the tensor cores'
-// truncating accumulation never runs over more than one tile. The decays
-// use the fast exponential (__expf, a relative error near 1e-6 at the
-// -60 clip, far inside the bars). In kernels 3 and 5 the key tiles come
+// (scores . v, k^T . v) are made per 64-key tile, and sums over N (q.k,
+// q . S_prev) per 64-wide slice of N after the first, from a zero fragment
+// and added into a float32 accumulator with a rounded add, so the tensor
+// cores' truncating accumulation never runs over more than 64 terms. The
+// decays use the fast exponential (__expf, a relative error near 1e-6 at
+// the -60 clip, far inside the bars). In kernels 3 and 5 the key tiles come
 // through a two-stage ring, the next tile's copy in flight while this one
 // is multiplied: by 16-byte cp.async when the inputs are float32 with
-// 16-byte aligned rows (the serving path), else by plain loads (any
-// strides, bfloat16 converted to float32 in shared memory). q and k are
+// 16-byte aligned rows (Zamba2's path), by 4-byte cp.async for other
+// float32 strides (xlstm's Pd = 513), by plain loads for bfloat16
+// (converted to float32 in shared memory). q and k are
 // read through their (b, s, h) strides, so a head stride of 0 serves B and
 // C shared by all heads without materialising them. Shared-memory rows are
 // padded to 68 or 72 floats so every fragment read of a warp hits
@@ -87,7 +103,7 @@
 namespace {
 
 constexpr int kT = 64;          // rows of a tile (64 rows, 64 columns)
-constexpr int kNMax = 64;       // state rows held
+constexpr int kNMax = 512;      // state rows taken (in slices of kT)
 constexpr int kMaxChunk = 1024; // the longest chunk taken
 constexpr int kThreads = 128;   // 4 warps, 16 tile rows each
 constexpr int kRow = kT + 8;    // rows read along the row (q, k for q.k)
@@ -156,13 +172,38 @@ __device__ __forceinline__ void stage_async(float* dst, int ss,
   }
 }
 
-// A 64 x 64 tile by cp.async (kAsync: float32, aligned) or by plain loads
-template <bool kAsync, typename T>
+// stage() by 4-byte cp.async, for float32 rows at any stride: each
+// thread's 32 copies land while it goes on.
+__device__ __forceinline__ void stage_async4(float* dst, int ss,
+                                             const float* src, int64_t rs,
+                                             int rows, int cols) {
+  constexpr int kPer = kT * kT / kThreads;
+  const int c = threadIdx.x % kT, r0 = threadIdx.x / kT;
+  constexpr int kStep = kThreads / kT;   // rows a pass
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = r0 + i * kStep;
+    const int n = r < rows && c < cols ? 4 : 0;   // bytes read
+    const float* from = n > 0 ? src + (int64_t)r * rs + c : src;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst + r * ss + c)),
+                 "l"(from), "r"(n)
+                 : "memory");
+  }
+}
+
+// A 64 x 64 tile by 16-byte cp.async (kCopy 16: float32, 16-byte aligned
+// rows), by 4-byte cp.async (kCopy 4: float32, any strides) or by plain
+// loads (kCopy 0: bfloat16, converted to float32)
+template <int kCopy, typename T>
 __device__ __forceinline__ void load_tile(float* dst, int ss, const T* src,
                                           int64_t rs, int rows, int cols) {
-  if constexpr (kAsync) {
+  if constexpr (kCopy == 16) {
     static_assert(std::is_same<T, float>::value, "cp.async path is float32");
     stage_async(dst, ss, src, rs, rows, cols);
+  } else if constexpr (kCopy == 4) {
+    static_assert(std::is_same<T, float>::value, "cp.async path is float32");
+    stage_async4(dst, ss, src, rs, rows, cols);
   } else {
     stage(dst, ss, src, rs, rows, cols);
   }
@@ -173,6 +214,14 @@ __device__ __forceinline__ void zero(float (*f)[4]) {
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) f[n][e] = 0.0f;
+}
+
+// acc += p, element by element, with a rounded add
+__device__ __forceinline__ void add_rn(float (*acc)[4], const float (*p)[4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = __fadd_rn(acc[n][e], p[n][e]);
 }
 
 // s += this warp's 16 rows of A (a [64][kRow] tile) . B^T (B a [64][kRow]
@@ -219,10 +268,7 @@ __device__ __forceinline__ void key_product(const float (*p)[4],
     for (int nt = 0; nt < 8; ++nt) bf[nt].set(vr[nt * 8], vr[kCol + nt * 8]);
     ich::mma_row<8>(pv, a, bf);
   }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = __fadd_rn(acc[nt][e], pv[nt][e]);
+  add_rn(acc, pv);
 }
 
 // 1. l: inclusive cumulative sum of log_a inside each chunk; one warp per
@@ -267,34 +313,49 @@ __device__ __forceinline__ void lower_tile(int u, int* it, int* jt) {
   *jt = u - i * (i + 1) / 2;
 }
 
-// 2. cb[b, c, i, j] = q_i . k_j for the tiles at or below the diagonal of
-// each (b, chunk), q and k read at head 0. Grid (tiles, nc, B).
+// 2. cb[b, hc, c, i, j] = q_i . k_j for the tiles at or below the diagonal
+// of each (b, chunk) and, with cb_heads = H, each head (cb_heads = 1: q
+// and k read at head 0, shared by all). Grid (tiles, nc, B * cb_heads). N
+// is taken in 64-wide slices staged in turn: the first multiplied straight
+// into the scores, each later one from a zero fragment and a rounded add.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ssd_scan_kernel_cb(const T* __restrict__ q, const T* __restrict__ k,
                        float* __restrict__ cb, int S, int N, int Q,
-                       int64_t q_sb, int64_t q_ss, int64_t k_sb,
-                       int64_t k_ss) {
+                       int cb_heads, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                       int64_t k_sb, int64_t k_ss, int64_t k_sh) {
   __shared__ __align__(16) float Qs[kTile];
   __shared__ __align__(16) float Ks[kTile];
   int it, jt;
   lower_tile(blockIdx.x, &it, &jt);
-  const int c = blockIdx.y, b = blockIdx.z;
+  const int c = blockIdx.y;
+  const int b = blockIdx.z / cb_heads, h = blockIdx.z % cb_heads;
   const int i0 = it * kT, j0 = jt * kT;
   const int t0 = c * Q;
   const int rows_i = min(Q - i0, S - (t0 + i0));
   const int rows_j = min(Q - j0, S - (t0 + j0));
-  stage(Qs, kRow, q + b * q_sb + (int64_t)(t0 + i0) * q_ss, q_ss, rows_i,
-        N);
-  stage(Ks, kRow, k + b * k_sb + (int64_t)(t0 + j0) * k_ss, k_ss, rows_j,
-        N);
-  __syncthreads();
+  const T* qr = q + b * q_sb + h * q_sh + (int64_t)(t0 + i0) * q_ss;
+  const T* kr = k + b * k_sb + h * k_sh + (int64_t)(t0 + j0) * k_ss;
   float s[8][4];
   zero(s);
-  row_product(Qs, Ks, (N + 7) / 8 * 8, s);
+  for (int n0 = 0; n0 < N; n0 += kT) {
+    const int cols = min(kT, N - n0);
+    if (n0 > 0) __syncthreads();   // the last slice's readers are done
+    stage(Qs, kRow, qr + n0, q_ss, rows_i, cols);
+    stage(Ks, kRow, kr + n0, k_ss, rows_j, cols);
+    __syncthreads();
+    if (n0 == 0) {
+      row_product(Qs, Ks, (cols + 7) / 8 * 8, s);
+    } else {
+      float part[8][4];
+      zero(part);
+      row_product(Qs, Ks, (cols + 7) / 8 * 8, part);
+      add_rn(s, part);
+    }
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  float* out = cb + ((int64_t)b * gridDim.y + c) * Q * Q;
+  float* out = cb + ((int64_t)blockIdx.z * gridDim.y + c) * Q * Q;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int i = i0 + warp * 16 + gid + (e >> 1) * 8;
@@ -307,17 +368,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// 4. For each state element, the chunks in ascending order: st[c] <- the
-// state before chunk c; state_out <- the state after the last.
+// 4. For each state element, the chunks in ascending order from state_in
+// (null: zeros): st[c] <- the state before chunk c; state_out <- the state
+// after the last. Batches of 8 chunks have their loads in flight together;
+// the adds run in chunk order whatever the batches, so a call split at a
+// chunk boundary gives the same bits.
 __global__ void ssd_scan_kernel_pass(float* __restrict__ st,
                                      const float* __restrict__ lc,
+                                     const float* __restrict__ state_in,
                                      float* __restrict__ state_out,
                                      int64_t BH, int NP, int Q, int nc) {
   constexpr int kBatch = 8;   // chunks whose loads are in flight together
   const int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (e >= BH * NP) return;
   const int64_t bh = e / NP, np = e % NP;
-  float s = 0.0f;
+  float s = state_in != nullptr ? state_in[e] : 0.0f;
   for (int c0 = 0; c0 < nc; c0 += kBatch) {
     float d[kBatch], lt[kBatch];
 #pragma unroll
@@ -337,11 +402,12 @@ __global__ void ssd_scan_kernel_pass(float* __restrict__ st,
 }
 
 // 3. st[b, h, c] = dS_c = sum_j exp(clip(total - l_j)) k_j (x) v_j over the
-// chunk, columns p0 .. p0 + 63 of Pd. Grid (B * H * nc, ceil(Pd / 64)).
+// chunk, rows n0 .. n0 + 63 of N and columns p0 .. p0 + 63 of Pd. Grid
+// (B * H * nc, ceil(Pd / 64), ceil(N / 64)).
 // The k and v tiles of 64 keys come through a two-stage ring, the next
 // tile's copy in flight while this one is multiplied; the weights multiply
 // k at the fragment read.
-template <typename T, bool kAsync>
+template <typename T, int kCopy>
 __global__ void __launch_bounds__(kThreads)
     ssd_scan_kernel_states(const T* __restrict__ k, const T* __restrict__ v,
                            const float* __restrict__ lc,
@@ -354,10 +420,10 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t unit = blockIdx.x;   // (b * H + h) * nc + c
   const int c = (int)(unit % nc);
   const int b = (int)(unit / nc / H), h = (int)(unit / nc % H);
-  const int p0 = blockIdx.y * kT;
+  const int p0 = blockIdx.y * kT, n0 = blockIdx.z * kT;
   const int t0 = c * Q;
   const float* l = lc + unit * Q;
-  const T* kb = k + b * k_sb + h * k_sh;
+  const T* kb = k + b * k_sb + h * k_sh + n0;
   const int64_t v_tok = (int64_t)H * Pd;
   const T* vb = v + (int64_t)b * S * v_tok + (int64_t)h * Pd + p0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -370,9 +436,9 @@ __global__ void __launch_bounds__(kThreads)
   auto fetch = [&](int jt) {
     float* Ks = ring + (jt & 1) * 2 * kT * kCol;
     const int j0 = jt * kT, rows = min(kT, len - j0);
-    load_tile<kAsync>(Ks, kCol, kb + (int64_t)(t0 + j0) * k_ss, k_ss, rows,
-                      N);
-    load_tile<kAsync>(Ks + kT * kCol, kCol, vb + (int64_t)(t0 + j0) * v_tok,
+    load_tile<kCopy>(Ks, kCol, kb + (int64_t)(t0 + j0) * k_ss, k_ss, rows,
+                      N - n0);
+    load_tile<kCopy>(Ks + kT * kCol, kCol, vb + (int64_t)(t0 + j0) * v_tok,
                       v_tok, rows, Pd - p0);
     cp_commit();
   };
@@ -403,16 +469,12 @@ __global__ void __launch_bounds__(kThreads)
         bf[nt].set(vr[nt * 8], vr[kCol + nt * 8]);
       ich::mma_row<8>(pv, a, bf);
     }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[nt][e] = __fadd_rn(acc[nt][e], pv[nt][e]);
+    add_rn(acc, pv);
   }
   float* out = st + unit * N * Pd;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const int n = warp * 16 + gid + (e >> 1) * 8;
+    const int n = n0 + warp * 16 + gid + (e >> 1) * 8;
     if (n >= N) continue;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -426,21 +488,51 @@ constexpr int states_smem_bytes(int Q) {
   return (int)sizeof(float) * (4 * kT * kCol + (Q + kT - 1) / kT * kT);
 }
 
+// out += this warp's 16 rows of Qt (a [64][kRow] tile of q over 64 of N)
+// . St (a [64][kCol] tile of S_prev, rows of N) over the first np rows of
+// St (a multiple of 8): a 16 x 64 tile of the warp in accumulator fragments.
+__device__ __forceinline__ void state_product(const float* Qt,
+                                              const float* St, int np,
+                                              float (*out)[4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const float* ar = Qt + (warp * 16 + gid) * kRow + 2 * tig;
+  for (int kk = 0; kk < np; kk += 8) {
+    const float2 a0 = *reinterpret_cast<const float2*>(ar + kk);
+    const float2 a1 = *reinterpret_cast<const float2*>(ar + 8 * kRow + kk);
+    ich::FragA a;
+    a.set(a0.x, a1.x, a0.y, a1.y);
+    const float* sr = St + (kk + 2 * tig) * kCol + gid;
+    ich::FragB bf[8];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) bf[nt].set(sr[nt * 8], sr[kCol + nt * 8]);
+    ich::mma_row<8>(out, a, bf);
+  }
+}
+
 // 5. y for one (b, h, chunk, 64-row tile, 64 columns of Pd). kShared: the
-// raw scores come from cb; else q.k is computed here from this head's q, k.
+// raw scores come from cb (cb_heads = 1: one tile for all heads; H: one per
+// head); else q.k is computed here from this head's q, k (N <= 64 only).
 // Grid (n_tiles * B * H * nc, ceil(Pd / 64)), row tiles heaviest first.
 // The key tiles (a tile of scores or of k, and a tile of v) come through a
 // two-stage ring, the next one's copy in flight while this one is
-// multiplied.
-template <typename T, bool kShared, bool kAsync>
+// multiplied. The inter-chunk term takes N in 64-wide slices: the first
+// (q and S_prev staged before the key tiles) straight into its
+// accumulator, the others through the ring once the key tiles are done,
+// each from a zero fragment and a rounded add (kWideN: N may exceed 64;
+// else the slice loop is not compiled, and the kernel keeps the registers
+// of one slice). has_state: the first chunk has a state before it too
+// (st[0], the given state).
+template <typename T, bool kShared, int kCopy, bool kWideN>
 __global__ void __launch_bounds__(kThreads)
     ssd_scan_kernel_y(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ lc,
                       const float* __restrict__ cb,
                       const float* __restrict__ st, T* __restrict__ y,
                       int S, int H, int N, int Pd, int Q, int nc,
-                      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-                      int64_t k_ss, int64_t k_sh) {
+                      int cb_heads, int has_state, int64_t q_sb, int64_t q_ss,
+                      int64_t q_sh, int64_t k_sb, int64_t k_ss,
+                      int64_t k_sh) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kStage = kTile + kT * kCol;
   float* Qs = smem;                 // [row][n], kRow
@@ -460,29 +552,34 @@ __global__ void __launch_bounds__(kThreads)
   if (i0 >= len) return;   // a row tile past the end of the sequence
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const T* qb = q + b * q_sb + h * q_sh;
+  const T* qb = q + b * q_sb + h * q_sh + (int64_t)(t0 + i0) * q_ss;
   const T* kb = k + b * k_sb + h * k_sh;
   const int64_t v_tok = (int64_t)H * Pd;
   const int64_t vy0 = (int64_t)b * S * v_tok + (int64_t)h * Pd + p0;
-  const float* cbb = kShared ? cb + ((int64_t)b * nc + c) * Q * Q : cb;
-  const int np = (N + 7) / 8 * 8;
+  const float* cbb =
+      kShared ? cb + (((int64_t)b * cb_heads + (cb_heads > 1 ? h : 0)) * nc +
+                      c) * Q * Q
+              : cb;
+  const float* sp = st + unit * N * Pd + p0;   // S_prev, columns from p0
+  const int rows_i = min(kT, len - i0);
+  const int n0_cols = min(kT, N);
+  const int np = (n0_cols + 7) / 8 * 8;
+  const bool prev = c > 0 || has_state;   // S_prev != 0
 
   for (int i = threadIdx.x; i < Q; i += kThreads) l[i] = lc[unit * Q + i];
-  load_tile<kAsync>(Qs, kRow, qb + (int64_t)(t0 + i0) * q_ss, q_ss,
-                    min(kT, len - i0), N);
-  if (c > 0)   // the state before this chunk; S_prev = 0 in the first
-    load_tile<kAsync>(Sp, kCol, st + unit * N * Pd + p0, (int64_t)Pd, N,
-                      Pd - p0);
+  load_tile<kCopy>(Qs, kRow, qb, q_ss, rows_i, n0_cols);
+  if (prev)   // the state before this chunk, rows 0 .. 63 of N
+    load_tile<kCopy>(Sp, kCol, sp, (int64_t)Pd, n0_cols, Pd - p0);
   auto fetch = [&](int jt) {
     float* A = ring + (jt & 1) * kStage;
     const int j0 = jt * kT, rows = min(kT, len - j0);
     if constexpr (kShared)
-      load_tile<kAsync>(A, kRow, cbb + (int64_t)i0 * Q + j0, (int64_t)Q,
+      load_tile<kCopy>(A, kRow, cbb + (int64_t)i0 * Q + j0, (int64_t)Q,
                         min(kT, Q - i0), min(kT, Q - j0));
     else
-      load_tile<kAsync>(A, kRow, kb + (int64_t)(t0 + j0) * k_ss, k_ss, rows,
+      load_tile<kCopy>(A, kRow, kb + (int64_t)(t0 + j0) * k_ss, k_ss, rows,
                         N);
-    load_tile<kAsync>(A + kTile, kCol, v + vy0 + (int64_t)(t0 + j0) * v_tok,
+    load_tile<kCopy>(A + kTile, kCol, v + vy0 + (int64_t)(t0 + j0) * v_tok,
                       v_tok, rows, Pd - p0);
     cp_commit();
   };
@@ -533,22 +630,35 @@ __global__ void __launch_bounds__(kThreads)
     key_product(s, A + kTile, acc);
   }
 
-  // inter-chunk term: exp(l_i) q_i . S_prev (S_prev = 0 in the first chunk)
+  // inter-chunk term: exp(l_i) q_i . S_prev (S_prev = 0 in the first chunk
+  // when no state is given)
   float inter[8][4];
   zero(inter);
-  if (c > 0) {
-    const float* ar = Qs + (warp * 16 + gid) * kRow + 2 * tig;
-    for (int kk = 0; kk < np; kk += 8) {
-      const float2 a0 = *reinterpret_cast<const float2*>(ar + kk);
-      const float2 a1 = *reinterpret_cast<const float2*>(ar + 8 * kRow + kk);
-      ich::FragA a;
-      a.set(a0.x, a1.x, a0.y, a1.y);
-      const float* sr = Sp + (kk + 2 * tig) * kCol + gid;
-      ich::FragB bf[8];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        bf[nt].set(sr[nt * 8], sr[kCol + nt * 8]);
-      ich::mma_row<8>(inter, a, bf);
+  if (prev) {
+    state_product(Qs, Sp, np, inter);
+    const int n_slices = (N + kT - 1) / kT;
+    if (kWideN && n_slices > 1) {
+      auto fetch_n = [&](int ns) {   // q and S_prev over N slice ns
+        float* A = ring + (ns & 1) * kStage;
+        const int n0 = ns * kT, cols = min(kT, N - n0);
+        load_tile<kCopy>(A, kRow, qb + n0, q_ss, rows_i, cols);
+        load_tile<kCopy>(A + kTile, kCol, sp + (int64_t)n0 * Pd,
+                          (int64_t)Pd, cols, Pd - p0);
+        cp_commit();
+      };
+      __syncthreads();   // every warp is past its last key tile
+      fetch_n(1);
+      for (int ns = 1; ns < n_slices; ++ns) {
+        cp_wait<0>();
+        __syncthreads();   // slice ns is in; slice ns - 1 is free
+        if (ns + 1 < n_slices) fetch_n(ns + 1);
+        const float* A = ring + (ns & 1) * kStage;
+        float part[8][4];
+        zero(part);
+        state_product(A, A + kTile, (min(kT, N - ns * kT) + 7) / 8 * 8,
+                      part);
+        add_rn(inter, part);
+      }
     }
   }
 #pragma unroll
@@ -593,74 +703,82 @@ int allow_smem(int bytes) {
 
 
 // The chunk states, the state pass and y, once the path is chosen.
-template <typename T, bool kAsync>
-int launch_rest(const T* q, const T* k, const T* v, T* y, float* state,
-                float* lc, float* cb, float* st, int B, int S, int H, int N,
-                int Pd, int Q, int nc, int64_t q_sb, int64_t q_ss,
-                int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                cudaStream_t s) {
+template <typename T, int kCopy>
+int launch_rest(const T* q, const T* k, const T* v, const float* state_in,
+                T* y, float* state, float* lc, float* cb, float* st, int B,
+                int S, int H, int N, int Pd, int Q, int nc, int cb_heads,
+                int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                int64_t k_ss, int64_t k_sh, cudaStream_t s) {
   const int n_tiles = (Q + kT - 1) / kT;
   const int p_tiles = (Pd + kT - 1) / kT;
+  const int n_slices = (N + kT - 1) / kT;
   const int64_t units = (int64_t)B * H * nc;
-  int err = allow_smem<ssd_scan_kernel_states<T, kAsync>>(
+  int err = allow_smem<ssd_scan_kernel_states<T, kCopy>>(
       states_smem_bytes(kMaxChunk));
   if (err != 0) return err;
-  ssd_scan_kernel_states<T, kAsync>
-      <<<dim3((unsigned)units, p_tiles), kThreads, states_smem_bytes(Q), s>>>(
-          k, v, lc, st, S, H, N, Pd, Q, nc, k_sb, k_ss, k_sh);
+  ssd_scan_kernel_states<T, kCopy>
+      <<<dim3((unsigned)units, p_tiles, n_slices), kThreads,
+          states_smem_bytes(Q), s>>>(k, v, lc, st, S, H, N, Pd, Q, nc, k_sb,
+                                     k_ss, k_sh);
   if ((err = launched()) != 0) return err;
   const int64_t elems = (int64_t)B * H * N * Pd;
   ssd_scan_kernel_pass<<<(unsigned)((elems + 255) / 256), 256, 0, s>>>(
-      st, lc, state, (int64_t)B * H, N * Pd, Q, nc);
+      st, lc, state_in, state, (int64_t)B * H, N * Pd, Q, nc);
   if ((err = launched()) != 0) return err;
-  const int smem = y_smem_bytes(Q);
-  const dim3 grid((unsigned)(units * n_tiles), p_tiles);
-  if (cb != nullptr) {
-    auto kernel = ssd_scan_kernel_y<T, true, kAsync>;
-    err = allow_smem<ssd_scan_kernel_y<T, true, kAsync>>(
+  // y: scores from cb, N in one slice or more; or q.k in place (N <= 64,
+  // checked by launch)
+  auto kernel = ssd_scan_kernel_y<T, true, kCopy, true>;
+  if (cb == nullptr) {
+    kernel = ssd_scan_kernel_y<T, false, kCopy, false>;
+    err = allow_smem<ssd_scan_kernel_y<T, false, kCopy, false>>(
         y_smem_bytes(kMaxChunk));
-    if (err != 0) return err;
-    kernel<<<grid, kThreads, smem, s>>>(q, k, v, lc, cb, st, y, S, H, N, Pd,
-                                        Q, nc, q_sb, q_ss, q_sh, k_sb, k_ss,
-                                        k_sh);
+  } else if (N > kT) {
+    err = allow_smem<ssd_scan_kernel_y<T, true, kCopy, true>>(
+        y_smem_bytes(kMaxChunk));
   } else {
-    auto kernel = ssd_scan_kernel_y<T, false, kAsync>;
-    err = allow_smem<ssd_scan_kernel_y<T, false, kAsync>>(
+    kernel = ssd_scan_kernel_y<T, true, kCopy, false>;
+    err = allow_smem<ssd_scan_kernel_y<T, true, kCopy, false>>(
         y_smem_bytes(kMaxChunk));
-    if (err != 0) return err;
-    kernel<<<grid, kThreads, smem, s>>>(q, k, v, lc, cb, st, y, S, H, N, Pd,
-                                        Q, nc, q_sb, q_ss, q_sh, k_sb, k_ss,
-                                        k_sh);
   }
+  if (err != 0) return err;
+  kernel<<<dim3((unsigned)(units * n_tiles), p_tiles), kThreads,
+           y_smem_bytes(Q), s>>>(q, k, v, lc, cb, st, y, S, H, N, Pd, Q, nc,
+                                 cb_heads, state_in != nullptr, q_sb, q_ss,
+                                 q_sh, k_sb, k_ss, k_sh);
   return launched();
 }
 
 template <typename T>
-int launch(const T* q, const T* k, const T* v, const float* log_a, T* y,
-           float* state, float* lc, float* cb, float* st, int B, int S,
-           int H, int N, int Pd, int Q, int64_t q_sb, int64_t q_ss,
-           int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-           cudaStream_t s) {
+int launch(const T* q, const T* k, const T* v, const float* log_a,
+           const float* state_in, T* y, float* state, float* lc, float* cb,
+           float* st, int B, int S, int H, int N, int Pd, int Q,
+           int cb_heads, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+           int64_t k_sb, int64_t k_ss, int64_t k_sh, cudaStream_t s) {
   const int nc = (S + Q - 1) / Q;
   const int n_tiles = (Q + kT - 1) / kT;
   const int p_tiles = (Pd + kT - 1) / kT;
   const int64_t units = (int64_t)B * H * nc;
-  if (units * n_tiles > INT32_MAX || nc > 65535 || B > 65535 ||
-      p_tiles > 65535)
+  if (units * n_tiles > INT32_MAX || nc > 65535 ||
+      (int64_t)B * (cb_heads > 1 ? cb_heads : 1) > 65535 || p_tiles > 65535)
     return (int)cudaErrorInvalidConfiguration;
+  // step 5 computes q.k in place over one slice of N only
+  if (cb == nullptr ? N > kT : (cb_heads != 1 && cb_heads != H))
+    return (int)cudaErrorInvalidValue;
   const int warps = kThreads / 32;
   ssd_scan_kernel_cumsum<<<(unsigned)((units + warps - 1) / warps), kThreads,
                            0, s>>>(log_a, lc, B, S, H, Q, nc);
   int err = launched();
   if (err != 0) return err;
   if (cb != nullptr) {
-    ssd_scan_kernel_cb<T><<<dim3(n_tiles * (n_tiles + 1) / 2, nc, B),
-                            kThreads, 0, s>>>(q, k, cb, S, N, Q, q_sb, q_ss,
-                                              k_sb, k_ss);
+    ssd_scan_kernel_cb<T><<<dim3(n_tiles * (n_tiles + 1) / 2, nc,
+                                 B * cb_heads),
+                            kThreads, 0, s>>>(q, k, cb, S, N, Q, cb_heads,
+                                              q_sb, q_ss, q_sh, k_sb, k_ss,
+                                              k_sh);
     if ((err = launched()) != 0) return err;
   }
   // the 16-byte copy path: float32, every row start of q, k, v, cb and the
-  // state 16-byte aligned
+  // state 16-byte aligned; other float32 strides take 4-byte copies
   auto al = [](const void* ptr) { return (uintptr_t)ptr % 16 == 0; };
   auto al4 = [](int64_t x) { return x % 4 == 0; };
   const bool vec = std::is_same<T, float>::value && al(q) && al(k) &&
@@ -669,13 +787,16 @@ int launch(const T* q, const T* k, const T* v, const float* log_a, T* y,
                    al4(k_ss) && al4(k_sh);
   if constexpr (std::is_same<T, float>::value) {
     if (vec)
-      return launch_rest<T, true>(q, k, v, y, state, lc, cb, st, B, S, H, N,
-                                  Pd, Q, nc, q_sb, q_ss, q_sh, k_sb, k_ss,
-                                  k_sh, s);
+      return launch_rest<T, 16>(q, k, v, state_in, y, state, lc, cb, st, B,
+                                S, H, N, Pd, Q, nc, cb_heads, q_sb, q_ss,
+                                q_sh, k_sb, k_ss, k_sh, s);
+    return launch_rest<T, 4>(q, k, v, state_in, y, state, lc, cb, st, B, S,
+                             H, N, Pd, Q, nc, cb_heads, q_sb, q_ss, q_sh,
+                             k_sb, k_ss, k_sh, s);
   }
-  return launch_rest<T, false>(q, k, v, y, state, lc, cb, st, B, S, H, N,
-                               Pd, Q, nc, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                               s);
+  return launch_rest<T, 0>(q, k, v, state_in, y, state, lc, cb, st, B, S, H,
+                           N, Pd, Q, nc, cb_heads, q_sb, q_ss, q_sh, k_sb,
+                           k_ss, k_sh, s);
 }
 
 }  // namespace
@@ -683,30 +804,34 @@ int launch(const T* q, const T* k, const T* v, const float* log_a, T* y,
 extern "C" {
 
 // Launch the five kernels on `stream`. dtype 0 = float32, 1 = bfloat16 (q,
-// k, v and y); log_a and the state are float32; N <= 64;
+// k, v and y); log_a and the states are float32; 1 <= N <= 512;
 // 1 <= chunk <= 1024; strides of q and k in elements over (b, s, h), unit
-// over N; v, log_a, y and the state contiguous. Scratch: lc (B, H, nc,
-// chunk), st (B, H, nc, N, Pd), and cb (B, nc, chunk, chunk) when q and k
-// are shared by all heads (their head strides are then ignored), else
-// null. Returns a CUDA error code (0 = success).
+// over N; v, log_a, y and the states contiguous. state_in (B, H, N, Pd) is
+// the state before the first step, or null for zeros. Scratch: lc (B, H,
+// nc, chunk), st (B, H, nc, N, Pd), and cb (B, cb_heads, nc, chunk,
+// chunk): cb_heads = 1 when q and k are shared by all heads (their head
+// strides are then ignored), H for score tiles per head, or cb null (only
+// for N <= 64). Returns a CUDA error code (0 = success).
 int mamba_scan_launch(const void* q, const void* k, const void* v,
-                      const float* log_a, void* y, float* state, float* lc,
-                      float* cb, float* st, int B, int S, int H, int N,
-                      int Pd, int chunk, int64_t q_sb, int64_t q_ss,
-                      int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                      int dtype, void* stream) {
+                      const float* log_a, const float* state_in, void* y,
+                      float* state, float* lc, float* cb, float* st, int B,
+                      int S, int H, int N, int Pd, int chunk, int cb_heads,
+                      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                      int64_t k_ss, int64_t k_sh, int dtype, void* stream) {
   if (N > kNMax || N < 1 || chunk < 1 || chunk > kMaxChunk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch<float>((const float*)q, (const float*)k, (const float*)v,
-                         log_a, (float*)y, state, lc, cb, st, B, S, H, N, Pd,
-                         chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, s);
+                         log_a, state_in, (float*)y, state, lc, cb, st, B, S,
+                         H, N, Pd, chunk, cb_heads, q_sb, q_ss, q_sh, k_sb,
+                         k_ss, k_sh, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, log_a, (__nv_bfloat16*)y, state, lc, cb, st,
-        B, S, H, N, Pd, chunk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, s);
+        (const __nv_bfloat16*)v, log_a, state_in, (__nv_bfloat16*)y, state,
+        lc, cb, st, B, S, H, N, Pd, chunk, cb_heads, q_sb, q_ss, q_sh, k_sb,
+        k_ss, k_sh, s);
   return (int)cudaErrorInvalidValue;
 }
 

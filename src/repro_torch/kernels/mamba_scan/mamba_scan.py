@@ -13,9 +13,10 @@ entry,
             + exp(l_i) q_i . S_prev
     S_new = exp(total) S_prev + sum_j exp(clip(total - l_j, -60, 0)) k_j (x) v_j
 
-— the algebra of `repro`'s `_ssd_kernel` and `chunked_gated_scan`. A
-sequence that is no multiple of Q is padded with zeros (log_a = 0 and
-k = 0 leave the state unchanged), as `mamba_scan_op` pads it.
+— the algebra of `repro`'s `_ssd_kernel` and `chunked_gated_scan`, from a
+given state before the first step (zeros when none is given). A sequence
+that is no multiple of Q is padded with zeros (log_a = 0 and k = 0 leave
+the state unchanged), as `mamba_scan_op` pads it.
 
 Given CPU tensors the wrapper runs the plain version (`mamba_scan_plain`,
 one chunk at a time in eager PyTorch); given CUDA tensors it launches the
@@ -36,7 +37,7 @@ from repro_torch.kernels._common import on_cpu, raise_on
 __all__ = ["LAUNCHES", "MAX_CHUNK", "MAX_STATE", "mamba_scan",
            "mamba_scan_plain", "reset_launches"]
 
-MAX_STATE = 64    # state rows N the kernel holds
+MAX_STATE = 512   # state rows N the kernel takes
 MAX_CHUNK = 1024  # chunk lengths the kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -114,25 +115,38 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mamba_scan")
     if not getattr(lib, "_typed", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.mamba_scan_launch.argtypes = [ptr] * 9 + [i32] * 6 + [i64] * 6 \
+        lib.mamba_scan_launch.argtypes = [ptr] * 10 + [i32] * 7 + [i64] * 6 \
             + [i32, ptr]
         lib.mamba_scan_launch.restype = i32
         lib._typed = True
     return lib
 
 
-def mamba_scan(q, k, v, log_a, *, chunk: int = 128):
-    """q, k (B,S,H,N); v (B,S,H,Pd); log_a (B,S,H) <= 0. Returns
-    (y (B,S,H,Pd) in v's type, final state (B,H,N,Pd) float32). Any S: a
-    ragged last chunk is zero-padded (in the kernel: masked, not copied).
+def _score_heads(q, k, N: int, Pd: int) -> int:
+    """How many heads the kernel's score tiles (q.k of each chunk) are
+    computed for ahead of the y kernel: 1 when q and k are shared by all
+    heads; H when they differ by head and the y kernel would otherwise
+    compute a tile more than once (Pd over 64) or over more than 64 of N;
+    else 0 (the y kernel computes each tile once, in place)."""
+    if _shared_heads(q, k):
+        return 1
+    return q.shape[2] if N > 64 or Pd > 64 else 0
+
+
+def mamba_scan(q, k, v, log_a, *, chunk: int = 128, state=None):
+    """q, k (B,S,H,N); v (B,S,H,Pd); log_a (B,S,H) <= 0; `state`
+    (B,H,N,Pd) float32, the state before the first step, or None (zeros).
+    Returns (y (B,S,H,Pd) in v's type, final state (B,H,N,Pd) float32). Any
+    S: a ragged last chunk is zero-padded (in the kernel: masked, not
+    copied).
 
     On CUDA: q, k, v float32 or bfloat16 (one type), log_a float32,
-    N <= 64, chunk <= 1024; v and log_a contiguous, q and k with a unit
-    stride over N and any other strides — a head stride of 0 serves B/C
-    shared by all heads without materialising them."""
+    N <= 512, chunk <= 1024; v, log_a and the state contiguous, q and k
+    with a unit stride over N and any other strides — a head stride of 0
+    serves B/C shared by all heads without materialising them."""
     chunk = int(chunk)
-    if on_cpu(q, k, v, log_a):
-        return mamba_scan_plain(q, k, v, log_a, chunk=chunk)
+    if on_cpu(q, k, v, log_a, state):
+        return mamba_scan_plain(q, k, v, log_a, chunk=chunk, state=state)
     _check_shapes(q, k, v, log_a, chunk)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one of {list(_DTYPES)}, got "
@@ -146,21 +160,29 @@ def mamba_scan(q, k, v, log_a, *, chunk: int = 128):
                          f"{MAX_CHUNK}, got N={N}, chunk={chunk}")
     if q.stride(3) != 1 or k.stride(3) != 1:
         raise ValueError("q and k need a unit stride over N")
-    for name, t in (("v", v), ("log_a", log_a)):
-        if not t.is_contiguous():
+    for name, t in (("v", v), ("log_a", log_a), ("state", state)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if state is not None and (tuple(state.shape) != (B, H, N, Pd)
+                              or state.dtype != torch.float32):
+        raise ValueError(f"state must be float32 (B, H, N, Pd) = "
+                         f"{(B, H, N, Pd)}, got {state.dtype} "
+                         f"{tuple(state.shape)}")
     y = torch.empty_like(v)
     if y.numel() == 0:
-        return y, torch.zeros((B, H, N, Pd), dtype=torch.float32,
-                              device=v.device)
-    state = torch.empty((B, H, N, Pd), dtype=torch.float32, device=v.device)
+        return y, (torch.zeros((B, H, N, Pd), dtype=torch.float32,
+                               device=v.device)
+                   if state is None else state.clone())
+    state_out = torch.empty((B, H, N, Pd), dtype=torch.float32,
+                            device=v.device)
     # scratch, written before it is read, on the caller's stream: l per
     # chunk, each chunk's state (then the state before it), and the raw
-    # q.k tiles once per (b, chunk) when q and k are shared by all heads
-    # (one allocation, the three parts at 16-byte-aligned offsets)
+    # q.k tiles of each chunk for `heads` heads (one allocation, the three
+    # parts at 16-byte-aligned offsets)
     nc = -(-S // chunk)
+    heads = _score_heads(q, k, N, Pd)
     sizes = [B * H * nc * chunk, B * H * nc * N * Pd,
-             B * nc * chunk * chunk if _shared_heads(q, k) else 0]
+             B * heads * nc * chunk * chunk]
     offsets = [0]
     for n in sizes[:-1]:
         offsets.append(offsets[-1] + -(-n // 4) * 4)
@@ -170,9 +192,10 @@ def mamba_scan(q, k, v, log_a, *, chunk: int = 128):
     stream = torch.cuda.current_stream(v.device).cuda_stream
     code = _lib().mamba_scan_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
-        y.data_ptr(), state.data_ptr(), lc, cb if sizes[-1] else None, st,
-        B, S, H, N, Pd, chunk, *q.stride()[:3], *k.stride()[:3],
+        None if state is None else state.data_ptr(), y.data_ptr(),
+        state_out.data_ptr(), lc, cb if heads else None, st,
+        B, S, H, N, Pd, chunk, heads, *q.stride()[:3], *k.stride()[:3],
         _DTYPES[v.dtype], stream)
     raise_on(code, "mamba_scan")
     LAUNCHES["mamba_scan"] += 1
-    return y, state
+    return y, state_out

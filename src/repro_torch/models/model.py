@@ -1,18 +1,23 @@
-"""Model assembly of the port, hybrid family (Zamba2): a Mamba2 backbone
-with one attention block whose weights are shared by every "A" position —
-the counterpart of `repro.models.model` for `cfg.family == "hybrid"`.
+"""Model assembly of the port, the per-layer block families: hybrid
+(Zamba2: a Mamba2 backbone with one attention block whose weights are
+shared by every "A" position) and ssm (xLSTM: mLSTM "X" and sLSTM "S"
+blocks, or Mamba2 "M") — the counterpart of `repro.models.model` for
+`cfg.family in ("hybrid", "ssm")`.
 
 Entry points:
-  init_params          — the model (`HybridLM`), weights from a seeded
-                         torch.Generator on the device
+  init_params           — the model (`HybridLM`), weights from a seeded
+                          torch.Generator on the device
   prefill / decode_step — the serving paths with per-layer caches
-  cache_specs          — shapes and types of decode_step's cache
+  cache_specs           — shapes and types of decode_step's cache
+  extend_cache_specs_ok / empty_extend_cache / prefill_extend
+                        — incremental chunked prefill (the ssm family)
 
 Parameters carry the reference tree's names (`embed.tok`,
-`blocks.0.mamba.in_x`, `shared_attn.attn.wq`, ...): the "A" positions of
-`blocks` are empty, as the reference's `{}` entries are, and their weights
-live in `shared_attn`. Other families raise NotImplementedError: they come
-with later slices (ROADMAP.md).
+`blocks.0.mamba.in_x`, `blocks.0.mlstm.wq`, `blocks.3.slstm.r`,
+`shared_attn.attn.wq`, ...): the "A" positions of `blocks` are empty, as
+the reference's `{}` entries are, and their weights live in
+`shared_attn`. Other families raise NotImplementedError: they come with
+later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,16 +32,21 @@ from . import ssm as SS
 
 
 def _check_family(cfg) -> None:
-    """Raise for a config this slice does not run: the hybrid family with
-    "M" blocks and one shared "A" block, rmsnorm, SwiGLU, RoPE, no qkv
-    bias, untied head."""
-    if cfg.family != "hybrid" or not cfg.shared_attention \
-            or any(k not in ("A", "M") for k in cfg.block_pattern) \
-            or cfg.norm != "rmsnorm" or cfg.act != "swiglu" \
-            or cfg.rope_theta <= 0 or cfg.qkv_bias or cfg.tie_embeddings:
+    """Raise for a config the port does not run yet. It runs the hybrid
+    family with "M" blocks and one shared "A" block (SwiGLU, RoPE, no qkv
+    bias) and the ssm family with "M", "X" and "S" blocks; both with
+    rmsnorm, an untied head and no learned positions."""
+    pattern = set(cfg.block_pattern)
+    if cfg.family == "hybrid":
+        ok = cfg.shared_attention and pattern <= {"A", "M"} \
+            and cfg.act == "swiglu" and not cfg.qkv_bias
+    else:
+        ok = cfg.family == "ssm" and pattern <= {"M", "X", "S"}
+    if not ok or cfg.norm != "rmsnorm" or cfg.rope_theta <= 0 \
+            or cfg.tie_embeddings:
         raise NotImplementedError(
-            f"the port runs the hybrid family (Zamba2) so far; "
-            f"{cfg.name!r} ({cfg.family}) comes with a later slice "
+            f"the port runs the hybrid (Zamba2) and ssm (xLSTM) families so "
+            f"far; {cfg.name!r} ({cfg.family}) comes with a later slice "
             f"(ROADMAP.md)")
 
 
@@ -52,7 +62,7 @@ class AttnBlock(nn.Module):
 
 
 class MambaBlock(nn.Module):
-    """A Mamba2 block: ln1, mamba."""
+    """A Mamba2 block ("M"): ln1, mamba."""
 
     def __init__(self, cfg, g, device=None):
         super().__init__()
@@ -60,9 +70,31 @@ class MambaBlock(nn.Module):
         self.mamba = SS.Mamba2(cfg, g, device)
 
 
+class MLSTMBlock(nn.Module):
+    """An mLSTM block ("X"): ln1, mlstm."""
+
+    def __init__(self, cfg, g, device=None):
+        super().__init__()
+        self.ln1 = L.Norm(cfg, device)
+        self.mlstm = SS.MLSTM(cfg, g, device)
+
+
+class SLSTMBlock(nn.Module):
+    """An sLSTM block ("S"): ln1, slstm."""
+
+    def __init__(self, cfg, g, device=None):
+        super().__init__()
+        self.ln1 = L.Norm(cfg, device)
+        self.slstm = SS.SLSTM(cfg, g, device)
+
+
+_BLOCKS = {"M": MambaBlock, "X": MLSTMBlock, "S": SLSTMBlock}
+
+
 class HybridLM(nn.Module):
     """embed, blocks (one per `cfg.block_pattern` entry; empty at shared
-    "A" positions), shared_attn, final_norm."""
+    "A" positions), shared_attn (when the pattern has "A"), final_norm —
+    the reference's parameter tree of both its hybrid and ssm families."""
 
     def __init__(self, cfg, g: torch.Generator, device=None):
         super().__init__()
@@ -76,7 +108,7 @@ class HybridLM(nn.Module):
                     self.shared_attn = AttnBlock(cfg, g, device)
                 blocks.append(nn.Module())  # weights in shared_attn
             else:
-                blocks.append(MambaBlock(cfg, g, device))
+                blocks.append(_BLOCKS[kind](cfg, g, device))
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = L.Norm(cfg, device)
 
@@ -96,6 +128,19 @@ def init_params(cfg, seed: int = 0, *, device=None) -> HybridLM:
     return HybridLM(cfg, g, dev).eval()
 
 
+def _apply_recurrent(cfg, kind: str, p, x, state=None, **scan):
+    """One "M", "X" or "S" block on x from `state`: (x, new state).
+    `scan` (chunk, exact_chunk) goes to the chunked scans."""
+    xin = p.ln1(x)
+    if kind == "M":
+        h, st = SS.apply_mamba2(cfg, p.mamba, xin, state=state, **scan)
+    elif kind == "X":
+        h, st = SS.apply_mlstm(cfg, p.mlstm, xin, state=state, **scan)
+    else:
+        h, st = SS.apply_slstm(cfg, p.slstm, xin, state=state, **scan)
+    return x + h, st
+
+
 def _apply_block_full(cfg, kind: str, p, x, *, window: int = 0):
     """Full-sequence block (prefill). Returns (x, cache entry)."""
     if kind == "A":
@@ -103,15 +148,15 @@ def _apply_block_full(cfg, kind: str, p, x, *, window: int = 0):
         x = x + h
         x = x + p.mlp(p.ln2(x))
         return x, {"k": k, "v": v}
-    h, st = SS.apply_mamba2(cfg, p.mamba, p.ln1(x))
-    return x + h, st
+    return _apply_recurrent(cfg, kind, p, x)
 
 
 @torch.no_grad()
 def prefill(cfg, params: HybridLM, batch, *, dtype=torch.float32):
     """Process the whole prompt (`batch["tokens"]` (B, S) int); return
     (last-token logits (B, V), cache): per layer {"k", "v"} (B,S,Hkv,dh) at
-    "A" positions and {"conv", "ssm"} at "M" positions."""
+    "A" positions, {"conv", "ssm"} at "M", the (B,H,dh+1,dh) mLSTM state
+    at "X" and {"h", "c"} at "S"."""
     _check_family(cfg)
     x = L.embed_tokens(params.embed, batch["tokens"]).to(dtype)
     cache = []
@@ -143,11 +188,20 @@ def decode_step(cfg, params: HybridLM, tokens, cache, pos: int, *,
             x = x + p.mlp(p.ln2(x))
             new_cache.append({"k": ck, "v": cv})
         else:
-            h, ns = SS.apply_mamba2(cfg, p.mamba, p.ln1(x), state=st)
-            x = x + h
+            x, ns = _apply_recurrent(cfg, kind, p, x, state=st)
             new_cache.append(ns)
     x = params.final_norm(x)
     return L.lm_logits(params.embed, x[:, -1]), new_cache
+
+
+def _state_spec(cfg, kind: str, batch: int, dtype=torch.float32):
+    """(shape, dtype) tree of one recurrent block's state; `dtype` is the
+    Mamba2 conv state's."""
+    if kind == "M":
+        return SS.mamba2_state_spec(cfg, batch, dtype)
+    if kind == "X":
+        return SS.mlstm_state_spec(cfg, batch)
+    return SS.slstm_state_spec(cfg, batch)
 
 
 def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.float32):
@@ -162,5 +216,76 @@ def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.float32):
             specs.append({"k": ((batch, w, hkv, dh), dtype),
                           "v": ((batch, w, hkv, dh), dtype)})
         else:
-            specs.append(SS.mamba2_state_spec(cfg, batch))
+            specs.append(_state_spec(cfg, kind, batch))
     return specs
+
+
+# ----------------------------------------------------------------------------
+# Incremental chunked prefill
+# ----------------------------------------------------------------------------
+
+def extend_cache_specs_ok(cfg) -> bool:
+    """True when `prefill_extend` runs this config: the ssm family, whose
+    O(1) block states (Mamba2 conv + ssm, the mLSTM matrix, sLSTM h/c)
+    thread from chunk to chunk. The reference also extends stacked
+    attention caches (dense, vlm, moe); those come with the dense slice
+    (ROADMAP.md queue 1 item 2). An "A" block in the pattern would need a
+    windowed KV extension: the hybrid family stays on the prefix rerun."""
+    return cfg.family == "ssm" and \
+        all(k in ("M", "X", "S") for k in cfg.block_pattern)
+
+
+def _zeros(spec, device):
+    if isinstance(spec, dict):
+        return {name: _zeros(s, device) for name, s in spec.items()}
+    shape, dtype = spec
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
+                       device=None):
+    """The block states an incremental prefill of `seq` tokens starts
+    from: zeros, which is what a scan from scratch starts from, so the
+    first chunk replays a one-shot prefill's opening steps. (`seq` sizes
+    the attention caches of the families that have them.)"""
+    if not extend_cache_specs_ok(cfg):
+        raise NotImplementedError(
+            f"empty_extend_cache runs the ssm family so far, not "
+            f"{cfg.family!r} (ROADMAP.md queue 1 item 2)")
+    dev = resolve_device(device)
+    return [_zeros(_state_spec(cfg, kind, batch, dtype), dev)
+            for kind in cfg.block_pattern]
+
+
+@torch.no_grad()
+def prefill_extend(cfg, params: HybridLM, tokens, cache, done: int, *,
+                   dtype=torch.float32, ssm_chunk: int = None):
+    """Incremental chunked prefill: run ONLY the new chunk `tokens`
+    (B, C), which starts at absolute position `done`, from the block
+    states in `cache` (`empty_extend_cache` for the first chunk). Returns
+    (last-token logits, new cache).
+
+    ssm family: every scan runs with scan-block length exactly
+    Q = `ssm_chunk` (default cfg.ssm_chunk). With Q the one-shot prefill's
+    min(cfg.ssm_chunk, prompt length) and every chunk boundary a multiple
+    of it — the serving engine keeps both — each call replays exactly the
+    scan steps of the one-shot prefill, and the "X" and "S" blocks run
+    their token-wise products per block of Q tokens (`ssm.by_blocks`), so
+    the last logits and the final states are its bits. ("M" blocks run
+    theirs per call, as Zamba2's prefill does: no ssm config of the repo
+    has them.) The stacked-attention branch of the reference comes with
+    the dense slice (ROADMAP.md queue 1 item 2)."""
+    if not extend_cache_specs_ok(cfg):
+        raise NotImplementedError(
+            f"prefill_extend runs the ssm family so far, not "
+            f"{cfg.family!r}: the stacked-attention branch comes with "
+            f"ROADMAP.md queue 1 item 2")
+    Q = int(ssm_chunk or cfg.ssm_chunk)
+    x = L.embed_tokens(params.embed, tokens).to(dtype)
+    new_cache = []
+    for i, kind in enumerate(cfg.block_pattern):
+        x, ns = _apply_recurrent(cfg, kind, params.blocks[i], x,
+                                 state=cache[i], chunk=Q, exact_chunk=True)
+        new_cache.append(ns)
+    x = params.final_norm(x)
+    return L.lm_logits(params.embed, x[:, -1]), new_cache

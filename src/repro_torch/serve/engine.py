@@ -1,20 +1,27 @@
 """Serving engine of the port with iCh-adaptive chunked prefill — the
-counterpart of `repro.serve.engine` for the hybrid family (Zamba2).
+counterpart of `repro.serve.engine` for the hybrid (Zamba2) and ssm
+(xLSTM) families.
 
 Prefill runs in chunks whose size is the iCh chunk: after each chunk the
 engine classifies its measured token throughput against the running mean
 band (mu +- eps*mu, paper eqs. 1-8) and adapts the divisor d as
-`adapt_d` does. A hybrid model's attention cache does not extend
-incrementally, so each chunk re-runs the whole prefix — quadratic in the
-prompt — and every such chunk is counted in `Engine.n_prefill_fallbacks`,
-as the reference counts it. The last chunk is a one-shot prefill of the
-whole prompt, so its logits and cache are those of one.
+`adapt_d` does.
+
+* ssm family: incremental. Each chunk feeds only its own tokens through
+  `models.model.prefill_extend` from the block states the last chunk left
+  — O(chunk) work a chunk — with chunk boundaries on multiples of the
+  one-shot prefill's scan-block length Q = min(cfg.ssm_chunk, S)
+  (`_ssm_q`), so every chunk replays exactly the scan steps of a one-shot
+  prefill and the last logits and states are its bits.
+* hybrid family: a hybrid model's attention cache does not extend
+  incrementally, so each chunk re-runs the whole prefix — quadratic in the
+  prompt — and every such chunk is counted in `Engine.n_prefill_fallbacks`,
+  as the reference counts it. The last chunk is a one-shot prefill of the
+  whole prompt, so its logits and cache are those of one.
 
 Runs are float32 end to end, as the reference's `Engine` runs them. The
 per-request batcher surface (`start_request`, `prefill_chunk_step`,
-`decode_one`) and `prefill_extend` come with the dense/SSM slices:
-`start_request` raises for a family that cannot extend, as the
-reference's does.
+`decode_one`) comes with ROADMAP.md queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -42,7 +49,9 @@ class EngineConfig:
 class Engine:
     """`Engine(cfg, params, ecfg, device=None)`: `params` is the model
     (`models.model.HybridLM`) on `device` (None = the card; raises without
-    CUDA)."""
+    CUDA). Prefill is incremental when `models.model.extend_cache_specs_ok`
+    says the config's states extend (the ssm family), else a prefix rerun
+    per chunk."""
 
     def __init__(self, cfg, params, ecfg: Optional[EngineConfig] = None, *,
                  device=None):
@@ -54,8 +63,9 @@ class Engine:
                              f"engine runs on {self.device}")
         self.cfg, self.params = cfg, params
         self.ecfg = ecfg if ecfg is not None else EngineConfig()
-        # every prefix-rerun chunk is counted: the O(n^2) path must be
-        # visible, never silent
+        self.incremental = M.extend_cache_specs_ok(cfg)
+        # every prefix-rerun chunk (hybrid) is counted: the O(n^2) path
+        # must be visible, never silent
         self.n_prefill_fallbacks = 0
         # iCh state: divisor d + completed-token throughputs
         self.d = self.ecfg.init_divisor
@@ -74,8 +84,17 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     # ---------------- iCh chunked prefill ----------------
-    def _next_chunk(self, remaining: int) -> int:
+    def _ssm_q(self, prompt_len: int) -> int:
+        """Scan-block quantum of an incremental (ssm) prefill. The one-shot
+        prefill scans in Q = min(cfg.ssm_chunk, S) blocks; incremental
+        chunk boundaries must land on multiples of Q to replay the same
+        scan steps (bit identity, see `models.model.prefill_extend`)."""
+        return min(self.cfg.ssm_chunk, int(prompt_len))
+
+    def _next_chunk(self, remaining: int, q: Optional[int] = None) -> int:
         c = max(self.ecfg.min_chunk, int(np.ceil(remaining / self.d)))
+        if q:
+            c = -(-c // q) * q  # round up to the ssm scan-block quantum
         return min(c, remaining)
 
     def _adapt(self, tokens_done: int, dt: float):
@@ -93,14 +112,24 @@ class Engine:
         B, S = toks.shape
         log = []
         done = 0
-        logits = cache = None
+        logits = None
+        q = self._ssm_q(S) if self.incremental else None
+        cache = (M.empty_extend_cache(self.cfg, B, S, dtype=torch.float32,
+                                      device=self.device)
+                 if self.incremental else None)
         while done < S:
-            c = self._next_chunk(S - done)
+            c = self._next_chunk(S - done, q)
             t0 = time.perf_counter()
-            # re-run the prefix — O(n^2), counted so the fallback can never
-            # hide in the logs
-            self.n_prefill_fallbacks += 1
-            logits, cache = self._prefill(toks[:, : done + c])
+            if self.incremental:
+                # feed ONLY the chunk from the last chunk's states
+                logits, cache = M.prefill_extend(
+                    self.cfg, self.params, toks[:, done: done + c], cache,
+                    done, dtype=torch.float32, ssm_chunk=q)
+            else:
+                # re-run the prefix — O(n^2), counted so the fallback can
+                # never hide in the logs
+                self.n_prefill_fallbacks += 1
+                logits, cache = self._prefill(toks[:, : done + c])
             self._sync()
             dt = time.perf_counter() - t0
             self._adapt(c * B, dt)
@@ -109,9 +138,14 @@ class Engine:
         return logits, cache, log
 
     def start_request(self, st) -> None:
+        if not self.incremental:
+            raise NotImplementedError(
+                f"continuous batching needs prefill_extend; family "
+                f"{self.cfg.family!r} caches don't extend incrementally")
         raise NotImplementedError(
-            f"continuous batching needs prefill_extend; family "
-            f"{self.cfg.family!r} caches don't extend incrementally")
+            "the per-request batcher surface (start_request, "
+            "prefill_chunk_step, decode_one) comes with ROADMAP.md queue 1 "
+            "item 2")
 
     # ---------------- decode ----------------
     def _cache_len(self) -> int:
@@ -127,13 +161,14 @@ class Engine:
         shed (`stats["degraded"]`, `stats["n_shed"]`); at least the prefill
         argmax is produced.
 
-        Raises ValueError when S + n_new exceeds the attention cache
-        (min(max_seq, attn_window)): the reference keeps the FIRST
-        attn_window prefill positions of a longer prompt, so its decode
-        would attend to the wrong keys (ROADMAP.md, queue 3)."""
+        Raises ValueError, for a pattern with attention blocks, when
+        S + n_new exceeds the attention cache (min(max_seq, attn_window)):
+        the reference keeps the FIRST attn_window prefill positions of a
+        longer prompt, so its decode would attend to the wrong keys
+        (ROADMAP.md, queue 3). A recurrent-only pattern has no such cache."""
         t_start = time.perf_counter()
         B, S = np.asarray(prompts).shape
-        if S + n_new > self._cache_len():
+        if "A" in self.cfg.block_pattern and S + n_new > self._cache_len():
             raise ValueError(
                 f"prompt of {S} + {n_new} new tokens exceeds the attention "
                 f"cache of {self._cache_len()} positions (max_seq "
@@ -158,7 +193,7 @@ class Engine:
 
     def _pad_cache(self, cache):
         """Grow the attention caches to the decode cache length (zeros past
-        the prompt); the Mamba states pass through."""
+        the prompt); the recurrent states pass through."""
         w = self._cache_len()
         out = []
         for kind, st in zip(self.cfg.block_pattern, cache):

@@ -17,7 +17,11 @@ centroids too large to stage, p above the SM count, empty and
 all-padding layouts, the kdd_cup shape), the launch counters, and the Zamba2 serving path through the
 flash attention and SSD scan kernels (on the tensor cores: shapes off
 their tile edges, dh 96, chunks of 1, 7 and 1,024 steps, and the same bits
-from two calls at the serving shapes), and the schedule
+from two calls at the serving shapes), the SSD scan from a given state
+(N 16 to 512, Pd 33 to 513; one call == two calls split at a chunk
+boundary, bit for bit), a reduced xLSTM served on the card against the
+CPU (its incremental prefill == a one-shot prefill, bit for bit), and the
+schedule
 pipeline on the card (each lowering element-identical to the numpy one,
 tile costs bit for bit: one R per branch of numpy's pairwise sum, LPT
 ties, zero and -0.0 costs, a long chain, p = 132, the `n_steps=` path;
@@ -514,20 +518,163 @@ def test_flash_and_scan_refuse_what_they_do_not_take(cuda):
                            q.transpose(1, 2))
     with pytest.raises(ValueError, match="all on CUDA"):
         KF.flash_attention(q, q.cpu(), q)
-    qs = torch.zeros((1, 8, 2, 128), device=cuda)
+    qs = torch.zeros((1, 8, 2, 513), device=cuda)
     la = torch.zeros((1, 8, 2), device=cuda)
-    with pytest.raises(ValueError, match="N <= 64"):
+    with pytest.raises(ValueError, match="N <= 512"):
         KS.mamba_scan(qs, qs, qs, la, chunk=4)
     with pytest.raises(TypeError, match="log_a"):
         KS.mamba_scan(q, q, q, la.double(), chunk=4)
-    # a chunked scan from a state has no kernel yet: raise, never the
-    # plain version
+    with pytest.raises(ValueError, match="state must be float32"):
+        KS.mamba_scan(q, q, q, la, chunk=4,
+                      state=torch.zeros((1, 2, 64, 63), device=cuda))
+    # a chunked scan from a state runs the kernel (never the plain
+    # version) and matches the plain version
     cfg = reduced(get_arch("zamba2-1.2b"), d_model=256, n_heads=4)
     model = M.init_params(cfg, 0, device=cuda)
-    x = torch.zeros((1, 4, 256), device=cuda)
+    x = torch.randn((1, 20, 256), device=cuda)
     _, st = SS.apply_mamba2(cfg, model.blocks[0].mamba, x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SS.apply_mamba2(cfg, model.blocks[0].mamba, x, state=st)
+    KS.reset_launches()
+    out, st2 = SS.apply_mamba2(cfg, model.blocks[0].mamba, x, state=st,
+                               exact_chunk=True)
+    torch.cuda.synchronize()
+    assert KS.LAUNCHES == {"mamba_scan": 1}
+    cpu_model = M.init_params(cfg, 0, device="cpu")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in
+                               model.state_dict().items()})
+    cpu_st = {n: t.cpu() for n, t in st.items()}
+    out_p, st2_p = SS.apply_mamba2(cfg, cpu_model.blocks[0].mamba, x.cpu(),
+                                   state=cpu_st, exact_chunk=True)
+    torch.testing.assert_close(out.cpu(), out_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st2["ssm"].cpu(), st2_p["ssm"], rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("chunk", [64, 256])
+@pytest.mark.parametrize("Pd", [33, 64, 65, 513])
+@pytest.mark.parametrize("N", [16, 64, 128, 512])
+def test_mamba_scan_kernel_from_a_state_matches_plain(cuda, N, Pd, chunk):
+    """The kernel from a given state (its first chunk's inter-chunk term
+    reads it) against the plain version, 2e-4, on a ragged S; N over 64
+    takes the slices of N, Pd over 64 the score tiles per head."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as K
+    g = torch.Generator(device=cuda).manual_seed(N * 1000 + Pd + chunk)
+    S, H = 300, 2
+    q = torch.randn((2, S, H, N), generator=g, device=cuda)
+    k = torch.randn((2, S, H, N), generator=g, device=cuda) / N ** 0.5
+    v = torch.randn((2, S, H, Pd), generator=g, device=cuda)
+    la = -torch.rand((2, S, H), generator=g, device=cuda) * 0.3
+    st0 = torch.randn((2, H, N, Pd), generator=g, device=cuda)
+    K.reset_launches()
+    y, st = K.mamba_scan(q, k, v, la, chunk=chunk, state=st0)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"mamba_scan": 1}
+    y_p, st_p = K.mamba_scan_plain(q, k, v, la, chunk=chunk, state=st0)
+    torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st, st_p, rtol=2e-4, atol=2e-4)
+    y0, st0_out = K.mamba_scan(q, k, v, la, chunk=chunk)
+    y0_p, st0_p = K.mamba_scan_plain(q, k, v, la, chunk=chunk)
+    torch.testing.assert_close(y0, y0_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st0_out, st0_p, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("N,Pd,shared", [(64, 64, True), (512, 513, False),
+                                         (128, 33, False), (16, 64, False)])
+def test_mamba_scan_split_calls_bit_identical(cuda, N, Pd, shared):
+    """One call equals two calls split at a chunk boundary, the second
+    from the first's final state, bit for bit; a zero state gives the bits
+    of no state."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as K
+    g = torch.Generator(device=cuda).manual_seed(N + Pd)
+    B, S, H, chunk, cut = 2, 700, 3, 64, 256
+    q = torch.randn((B, S, 1 if shared else H, N), generator=g,
+                    device=cuda).expand(B, S, H, N)
+    k = torch.randn((B, S, 1 if shared else H, N), generator=g,
+                    device=cuda).expand(B, S, H, N)
+    v = torch.randn((B, S, H, Pd), generator=g, device=cuda)
+    la = -torch.rand((B, S, H), generator=g, device=cuda) * 0.3
+    y, st = K.mamba_scan(q, k, v, la, chunk=chunk)
+    ya, sa = K.mamba_scan(q[:, :cut], k[:, :cut], v[:, :cut].contiguous(),
+                          la[:, :cut].contiguous(), chunk=chunk)
+    yb, sb = K.mamba_scan(q[:, cut:], k[:, cut:], v[:, cut:].contiguous(),
+                          la[:, cut:].contiguous(), chunk=chunk, state=sa)
+    assert torch.equal(y, torch.cat([ya, yb], 1)) and torch.equal(st, sb)
+    yz, sz = K.mamba_scan(q, k, v, la, chunk=chunk,
+                          state=torch.zeros_like(st))
+    assert torch.equal(y, yz) and torch.equal(st, sz)
+
+
+def test_mamba_scan_at_zamba2_shape_keeps_its_path(cuda):
+    """Zamba2-1.2B's serving shape (q and k shared by the 64 heads, N = Pd
+    = 64) with state=None: the score tiles once a batch row, N in one
+    slice; a zero state and a split at a chunk boundary give its bits."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as K
+    g = torch.Generator(device=cuda).manual_seed(7)
+    Cm = torch.randn((4, 2048, 1, 64), generator=g, device=cuda)
+    Bm = torch.randn((4, 2048, 1, 64), generator=g, device=cuda)
+    qs, ks = Cm.expand(4, 2048, 64, 64), Bm.expand(4, 2048, 64, 64)
+    vs = torch.randn((4, 2048, 64, 64), generator=g, device=cuda)
+    la = -torch.nn.functional.softplus(
+        torch.randn((4, 2048, 64), generator=g, device=cuda))
+    assert K._score_heads(qs, ks, 64, 64) == 1
+    y, st = K.mamba_scan(qs, ks, vs, la, chunk=256)
+    yz, sz = K.mamba_scan(qs, ks, vs, la, chunk=256,
+                          state=torch.zeros_like(st))
+    assert torch.equal(y, yz) and torch.equal(st, sz)
+    ya, sa = K.mamba_scan(qs[:, :1024], ks[:, :1024],
+                          vs[:, :1024].contiguous(),
+                          la[:, :1024].contiguous(), chunk=256)
+    yb, sb = K.mamba_scan(qs[:, 1024:], ks[:, 1024:],
+                          vs[:, 1024:].contiguous(),
+                          la[:, 1024:].contiguous(), chunk=256, state=sa)
+    assert torch.equal(y, torch.cat([ya, yb], 1)) and torch.equal(st, sb)
+
+
+def test_xlstm_serving_on_the_card_matches_the_cpu(cuda):
+    """A reduced xLSTM (an sLSTM block in the pattern, dh 64 so the scan
+    runs N = 64, Pd = 65): prefill on the card through the scan kernel
+    against the plain version on the CPU within 1e-4; generate gives the
+    same ids; the engine's incremental prefill equals a one-shot prefill
+    bit for bit on the card."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_arch("xlstm-350m"), d_model=128, n_heads=4,
+                  block_pattern=("X", "X", "X", "S"), n_layers=4,
+                  ssm_chunk=16)
+    model = M.init_params(cfg, 1, device=cuda)
+    cpu_model = M.init_params(cfg, 1, device="cpu")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in
+                               model.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 41)))
+    KS.reset_launches()
+    logits, cache = M.prefill(cfg, model, {"tokens": toks[:, :40].to(cuda)})
+    torch.cuda.synchronize()
+    assert KS.LAUNCHES == {"mamba_scan": 3}
+    cpu_logits, _ = M.prefill(cfg, cpu_model, {"tokens": toks[:, :40]})
+    torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=1e-4,
+                               atol=1e-4)
+    prompts = toks[:, :40].numpy()
+    eng = Engine(cfg, model, EngineConfig(max_seq=64, min_chunk=16))
+    ids, stats = eng.generate(prompts, n_new=8)
+    cpu_ids, _ = Engine(cfg, cpu_model, EngineConfig(max_seq=64),
+                        device="cpu").generate(prompts, n_new=8)
+    np.testing.assert_array_equal(ids, cpu_ids)
+    assert eng.n_prefill_fallbacks == 0
+    last, ext, log = Engine(cfg, model, EngineConfig(
+        max_seq=64, min_chunk=1, init_divisor=3.0)).prefill_chunked(prompts)
+    assert len(log) > 1 and all(c["chunk"] % 16 == 0 for c in log[:-1])
+    assert torch.equal(last, logits)
+    for ours, theirs in zip(ext, cache):
+        if isinstance(ours, dict):
+            assert all(torch.equal(ours[n], theirs[n]) for n in ours)
+        else:
+            assert torch.equal(ours, theirs)
+    d_logits, _ = M.decode_step(cfg, model, toks[:, 40:].to(cuda), cache, 40)
+    full, _ = M.prefill(cfg, model, {"tokens": toks.to(cuda)})
+    torch.testing.assert_close(d_logits, full, rtol=2e-3, atol=2e-3)
 
 
 def test_zamba2_serving_on_the_card_matches_the_cpu(cuda):
