@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` (one nvcc per
 source, all started together), holds each against its plain PyTorch
-version on the card, and drives the port's six main paths, each with
+version on the card, and drives the port's seven main paths, each with
 its launch counters set to 0 just before it and read just after:
 
 * SpMV (schedule -> sharded kernel -> observe/refine -> sharded kernel) on
@@ -39,7 +39,19 @@ its launch counters set to 0 just before it and read just after:
   equalling a one-shot prefill bit for bit (logits and every block state)
   with no prefix rerun, decode against a fresh prefill, finite logits, and
   the scan from a state at that shape against its plain version and the
-  float64 recurrence, split calls bit for bit.
+  float64 recurrence, split calls bit for bit;
+* qwen2-1.5b serving (`Engine.generate` with an incremental prefill: each
+  chunk writes its keys and values into the prompt-sized cache and
+  attends from its offset, 28 flash-attention launches a call, then 32
+  decode steps) at full width (28 layers, d_model 1536, qkv biases drawn
+  from a seed, tied embeddings) on the same prompts' shape, held to the
+  incremental prefill equalling a one-shot prefill bit for bit (logits
+  and the whole KV cache), decode against a fresh prefill, finite logits,
+  two runs the same ids; the flash kernel from a query offset at its
+  extend shapes against its plain version (its rows == one call's rows,
+  bit for bit); the continuous batcher (8 Poisson arrivals, IChAdaptive
+  on a wall clock) whose every request equals the prompt served alone;
+  and olmo-1b, glm4-9b and phi3-medium-14b at full width with 2 layers.
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -90,7 +102,9 @@ It times every kernel beside its plain version, its bound and PyTorch
 computing the same function (cuSPARSE SpMV, `torch.cdist` argmin, MoE's
 capacity-buffer `torch.bmm` form, `scaled_dot_product_attention`; the SSD
 scan has no single PyTorch call; it is listed twice, at Zamba2's and at
-xlstm-350m's shape), and prints one JSON line per result.
+xlstm-350m's shape, and flash twice, at Zamba2's prefill and at
+qwen2-1.5b's extend shape from an offset), and prints one JSON line per
+result.
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs CUDA and the repository's `src/` beside it.
 
@@ -156,6 +170,9 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     # the same kernel at xlstm-350m's mLSTM shape, from a state
     "mamba_scan_xlstm": ("src/repro_torch/csrc/mamba_scan.cu",
                          PASS + "mamba_scan/mamba_scan.py:83"),
+    # the flash kernel from a query offset at qwen2-1.5b's extend shape
+    "flash_attention_offset": ("src/repro_torch/csrc/flash_attention.cu",
+                               PASS + "flash_attention/flash_attention.py:95"),
     # the schedule pipeline's two kernels replace XLA code of the reference's
     # jitted pipeline, not a Pallas kernel: its segment sum and LPT loop
     "segment_fold": ("src/repro_torch/csrc/lpt.cu",
@@ -182,6 +199,21 @@ XLSTM_ARCH = "xlstm-350m"
 SCAN_TOL = 2e-4        # tests/test_kernels.py:206-209 (main shape: of sum |terms|)
 SCAN_TOL_BF16 = 0.2    # bfloat16 q, k, v and y: 10 x the reference's 2e-2
 DECODE_TOL = 2e-3        # decode vs fresh prefill (tests/test_arch_smoke.py)
+# qwen2-1.5b serving (src/repro/configs/qwen2_1_5b.py, full width), the
+# same batch, prompts and new tokens; the flash kernel from a query offset
+# at its extend shapes: chunks of DENSE_CHUNK queries against the prompt
+DENSE_ARCH = "qwen2-1.5b"
+DENSE_CHUNK = 512
+DENSE_OFFSETS = (0, 512, 1536)            # kernel vs plain
+DENSE_ROW_OFFSETS = (64, 256, 1536)       # offset rows == one-shot rows
+DENSE_ODD_OFFSETS = (1, 100, 1000)        # not multiples of 64: reported
+DENSE_ROWS = (256, 1024, 8192)            # row counts of the invariance probe
+# the other dense configurations at full width, 2 layers each
+DENSE_OTHERS = ("olmo-1b", "glm4-9b", "phi3-medium-14b")
+DENSE_OTHER_LAYERS, DENSE_OTHER_BATCH, DENSE_OTHER_PROMPT = 2, 2, 1024
+# the continuous batcher over qwen2-1.5b: 8 Poisson arrivals within the
+# first second, prompts uniform in [256, 2048], 16 new tokens each
+BATCHER_REQUESTS, BATCHER_NEW, BATCHER_RATE = 8, 16, 32.0
 
 
 def log(**kw) -> None:
@@ -1831,7 +1863,7 @@ def phase_xlstm():
           f"(b) decode at S == prefill of S + 1 within {DECODE_TOL}")
     del inc_cache, last, d_logits, fresh, cache, one_shot
     # why the mLSTM and sLSTM run their token-wise products per block of Q
-    # tokens (`ssm.by_blocks`): does a product's row give the same bits
+    # tokens (`layers.by_blocks`): does a product's row give the same bits
     # over Q tokens as over the whole prompt?
     mlstm = params.blocks[0].mlstm
     gr = torch.Generator(device="cuda").manual_seed(SEED + 8)
@@ -1973,6 +2005,426 @@ def phase_xlstm():
                          ms=rec["state"]["ms"],
                          plain_ms=rec["state"]["plain_ms"], library_ms=None,
                          bytes_=scan_bytes, flops=scan_flops,
+                         peak=TF32_FLOPS / 3)]
+
+
+def dense_row_invariance(cfg, B: int = LM_BATCH) -> dict:
+    """Does a row of each token-wise product of a dense layer (qwen2's
+    widths: wq and wo 1,536 wide, wk and wv 256, wi and wg 8,960, wo of the
+    MLP back to 1,536) give the same bits in a call of r rows as in one of
+    B x S rows, r in DENSE_ROWS? The answer decides whether the model runs
+    them per block of tokens (`models.layers.by_blocks`)."""
+    import torch
+    gr = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    n = max(DENSE_ROWS)
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hkv = cfg.n_heads * cfg.dh, cfg.n_kv_heads * cfg.dh
+    out = {}
+    for name, (d_in, d_out) in (("wq", (d, hq)), ("wk", (d, hkv)),
+                                ("wv", (d, hkv)), ("wo", (hq, d)),
+                                ("wi", (d, f)), ("wg", (d, f)),
+                                ("down", (f, d))):
+        w = torch.randn((d_in, d_out), generator=gr, device="cuda") \
+            / d_in ** 0.5
+        x = torch.randn((n, d_in), generator=gr, device="cuda")
+        full = x @ w
+        out[name] = {"shape": list(w.shape), "rows_equal_to_8192": {
+            str(r): bool(torch.equal(full[:r], x[:r].contiguous() @ w))
+            for r in DENSE_ROWS[:-1]}}
+        # B rows of one block each, as `by_blocks` feeds them: (B, r, d)
+        xb = x.reshape(B, n // B, -1)
+        r = DENSE_ROWS[0]
+        blk = xb[:, :r].contiguous() @ w
+        out[name]["batched_block_rows_equal"] = bool(torch.equal(
+            (xb @ w)[:, :r], blk))
+    del x, full, xb, blk, w
+    return out
+
+
+def flash_offset_checks(cfg, g) -> dict:
+    """The flash kernel from a query offset at `cfg`'s extend shapes:
+    q (B, DENSE_CHUNK, Hq, dh) from each of DENSE_OFFSETS against k, v
+    (B, S, Hkv, dh), float32 within FLASH_TOL of each element's sum of
+    |terms| of the plain version and bfloat16 within FLASH_TOL; the rows
+    of a call from each of DENSE_ROW_OFFSETS == the same rows of one call
+    over all S queries, bit for bit (reported, not held, at offsets off
+    the 64-row tiles); timed at the last chunk beside the plain version
+    and scaled_dot_product_attention with the boolean mask."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    B, S, C = LM_BATCH, LM_PROMPT, DENSE_CHUNK
+    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    q = torch.randn((B, S, Hq, dh), generator=g, device="cuda")
+    k = torch.randn((B, S, Hkv, dh), generator=g, device="cuda")
+    v = torch.randn((B, S, Hkv, dh), generator=g, device="cuda")
+    rel, err, bf16 = {}, 0.0, {}
+    for off in DENSE_OFFSETS:
+        qc = q[:, off:off + C].contiguous()
+        out = KF.flash_attention(qc, k, v, causal=True, q_offset=off)
+        plain = KF.flash_attention_plain(qc, k, v, causal=True, q_offset=off)
+        terms = KF.flash_attention_plain(qc, k, v.abs(), causal=True,
+                                         q_offset=off)
+        rel[str(off)] = _rel_terms(out, plain, terms)
+        err = max(err, float((out - plain).abs().max()))
+        check(rel[str(off)] <= FLASH_TOL["float32"],
+              f"flash from q_offset {off} == plain within "
+              f"{FLASH_TOL['float32']} of each element's sum |terms|")
+        qh, kh, vh = (t.bfloat16() for t in (qc, k, v))
+        outh = KF.flash_attention(qh, kh, vh, causal=True, q_offset=off)
+        plainh = KF.flash_attention_plain(qh, kh, vh, causal=True,
+                                          q_offset=off)
+        bf16[str(off)] = float((outh.float() - plainh.float()).abs().max())
+        check(bf16[str(off)] <= FLASH_TOL["bfloat16"],
+              f"bfloat16 flash from q_offset {off} == plain within "
+              f"{FLASH_TOL['bfloat16']}")
+    del plain, terms, qh, kh, vh, outh, plainh
+    whole = KF.flash_attention(q, k, v, causal=True)
+    rows = {}
+    for off in DENSE_ROW_OFFSETS + DENSE_ODD_OFFSETS:
+        n = min(C, S - off)
+        part = KF.flash_attention(q[:, off:off + n].contiguous(), k, v,
+                                  causal=True, q_offset=off)
+        rows[str(off)] = {
+            "equal": bool(torch.equal(part, whole[:, off:off + n])),
+            "max_abs": float((part - whole[:, off:off + n]).abs().max())}
+    for off in DENSE_ROW_OFFSETS:
+        check(rows[str(off)]["equal"],
+              f"flash rows from q_offset {off} == one-shot rows bit for bit")
+    del whole, part
+    off = S - C
+    qc = q[:, off:].contiguous()
+    qt, kt, vt = (t.transpose(1, 2) for t in (qc, k, v))
+    keep = (torch.arange(S, device="cuda")[None, :]
+            <= off + torch.arange(C, device="cuda")[:, None])
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep, enable_gqa=Hq != Hkv)
+    lib_diff = float((sdpa().transpose(1, 2) - KF.flash_attention(
+        qc, k, v, causal=True, q_offset=off)).abs().max())
+    ms = timed_ms(lambda: KF.flash_attention(qc, k, v, causal=True,
+                                             q_offset=off))
+    plain_ms = timed_ms(lambda: KF.flash_attention_plain(
+        qc, k, v, causal=True, q_offset=off))
+    lib_ms = timed_ms(sdpa)
+    by_name = device_ms_by_kernel(lambda: KF.flash_attention(
+        qc, k, v, causal=True, q_offset=off), expect=("flash_fwd_kernel",))
+    kernel_ms = sum(v_ for n_, v_ in by_name.items()
+                    if "flash_fwd_kernel" in n_)
+    pairs = C * off + C * (C + 1) // 2        # the keys the mask keeps
+    flops = 4 * dh * pairs * B * Hq           # q.k and p.v, 2 flops a MAC
+    nbytes = 4 * (qc.numel() + k.numel() + v.numel() + qc.numel())
+    rec = {"shape": [B, C, Hq, Hkv, dh, S], "max_rel_to_terms": rel,
+           "bfloat16_max_abs": bf16, "rows_vs_one_shot": rows,
+           "timed_offset": off, "flops": flops, "bytes": nbytes,
+           "sdpa_max_abs_diff": lib_diff, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "kernel_device_ms": kernel_ms,
+           "max_abs_err": err, **_rates(flops, kernel_ms)}
+    del q, k, v, qc, qt, kt, vt
+    return rec
+
+
+def _seed_biases(params, seed: int) -> None:
+    """Draw the qkv biases (zeros at init, as in the reference) from a
+    seeded generator, N(0, 0.1^2), so that the bias path carries weight."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for layer in params.layers:
+            for b in (layer.attn.bq, layer.attn.bk, layer.attn.bv):
+                b.copy_(torch.randn(b.shape, generator=g, device="cuda")
+                        * 0.1)
+
+
+def _dense_bars(label, cfg, params, prompts, n_new, ids, n_chunks):
+    """Bars (a)-(d) of a dense `Engine.generate` run on `prompts`: (a) no
+    prefix rerun, and the incremental prefill's last logits and whole KV
+    cache == a one-shot prefill's bits; (b) one flash launch per layer in
+    every prefill_extend call and in the one-shot prefill; (c) decode at
+    S == a fresh prefill of S + 1 within DECODE_TOL; (d) finite logits.
+    Returns (record, one-shot prefill seconds, one-shot cache)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+    L = cfg.n_layers
+    toks = torch.from_numpy(prompts).cuda()
+    eng = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
+    KF.reset_launches()
+    last, inc_cache, inc_log = eng.prefill_chunked(prompts)
+    torch.cuda.synchronize()
+    inc_launches = KF.LAUNCHES["flash_attention"]
+    KF.reset_launches()
+    t0 = time.perf_counter()
+    one_shot, cache = M.prefill(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_one_shot = time.perf_counter() - t0
+    one_launches = KF.LAUNCHES["flash_attention"]
+    check(eng.n_prefill_fallbacks == 0 and n_chunks > 0,
+          f"({label} a) incremental prefill: no prefix rerun")
+    check(one_launches == L and inc_launches == L * len(inc_log),
+          f"({label} b) {L} flash launches per prefill and prefill_extend "
+          f"call")
+    check(torch.equal(last, one_shot) and _states_equal(inc_cache, cache),
+          f"({label} a) incremental prefill's last logits and KV cache == "
+          f"one-shot prefill bit for bit")
+    check(bool(torch.isfinite(one_shot).all()),
+          f"({label} d) prefill logits finite")
+    first = torch.from_numpy(ids[:, :1].astype(np.int64)).cuda()
+    d_logits, _ = M.decode_step(cfg, params, first, eng._pad_cache(cache),
+                                prompts.shape[1])
+    fresh, _ = M.prefill(cfg, params, {"tokens": torch.cat([toks, first],
+                                                           dim=1)})
+    torch.cuda.synchronize()
+    err = float((d_logits - fresh).abs().max())
+    check(bool(torch.isfinite(d_logits).all()),
+          f"({label} d) decode logits finite")
+    check(torch.allclose(d_logits, fresh, rtol=DECODE_TOL, atol=DECODE_TOL),
+          f"({label} c) decode at S == prefill of S + 1 within {DECODE_TOL}")
+    rec = {"second_run_chunks": [c["chunk"] for c in inc_log],
+           "flash_launches_one_shot": one_launches,
+           "flash_launches_incremental": inc_launches,
+           "one_shot_prefill_s": t_one_shot,
+           "decode_vs_prefill_max_abs": err,
+           "logits_max_abs": float(fresh.abs().max()),
+           "decode_argmax_is_second_id": bool(np.array_equal(
+               d_logits.argmax(-1).cpu().numpy(), ids[:, 1]))
+           if n_new > 1 else None}
+    del last, inc_cache, d_logits, fresh, one_shot
+    return rec, t_one_shot, cache
+
+
+def dense_batcher(cfg, params) -> dict:
+    """The continuous batcher over the dense model: IChAdaptive on a wall
+    clock through `EngineBackend`, 8 Poisson arrivals within the first
+    second (prompts uniform in [256, 2048], 16 new tokens each); every
+    request's tokens must equal the same prompt served alone through
+    `Engine.generate` (B = 1), and its last logits the bits of the prompt
+    served alone through the per-request surface in one chunk; prefill
+    chunks must interleave with decodes."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.robust import ServeJournal
+    from repro_torch.serve import (ContinuousBatcher, Engine, EngineBackend,
+                                   EngineConfig, IChAdaptive, LengthDist,
+                                   OpenPoissonLoadGen, RequestState,
+                                   WallClock, make_request_factory)
+    gen = OpenPoissonLoadGen(
+        BATCHER_RATE, prompt_lens=LengthDist("uniform", 256, 2048),
+        output_lens=LengthDist("fixed", BATCHER_NEW, BATCHER_NEW), seed=SEED)
+    arrivals = gen.arrivals(BATCHER_REQUESTS)
+    check(max(a.t for a in arrivals) < 1.0,
+          "batcher: every arrival within the first second")
+    engine = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
+    journal = ServeJournal()
+    b = ContinuousBatcher(IChAdaptive(), backend=EngineBackend(engine),
+                          clock=WallClock(), journal=journal)
+    KF.reset_launches()
+    t0 = time.perf_counter()
+    m = b.run(arrivals, make_request=make_request_factory(
+        gen, vocab_size=cfg.vocab_size))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = KF.LAUNCHES["flash_attention"]
+    steps = [e for e in journal.events if e["ev"] == "step"]
+    mixed = sum(1 for e in steps if e["decode"] and e["prefill"] is not None)
+    done = sorted(b.queue.done, key=lambda st: st.request.req_id)
+    check(len(done) == BATCHER_REQUESTS and all(
+        len(st.out_tokens) == BATCHER_NEW for st in done),
+          "batcher: every request completed")
+    check(mixed > 0, "batcher: prefill chunks interleaved with decodes")
+    check(m.n_prefill_fallback == 0, "batcher: no prefix rerun")
+    alone = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
+    for st in done:
+        ids, _ = alone.generate(st.request.tokens, n_new=st.request.n_new)
+        check(st.out_tokens == ids[0].tolist(),
+              f"batcher: request {st.request.req_id}'s tokens == the "
+              f"prompt served alone")
+        one = RequestState(request=st.request)
+        alone.prefill_chunk_step(one, st.prompt_len)
+        while len(one.out_tokens) < st.request.n_new:
+            alone.decode_one(one)
+        check(one.out_tokens == st.out_tokens
+              and torch.equal(one.last_logits, st.last_logits),
+              f"batcher: request {st.request.req_id}'s last logits == the "
+              f"prompt served alone in one chunk, bit for bit")
+    summary = m.summary()
+    return {"requests": BATCHER_REQUESTS, "rate_per_s": BATCHER_RATE,
+            "prompt_lens": [st.prompt_len for st in done],
+            "chunks": [[c["chunk"] for c in st.chunk_log] for st in done],
+            "steps": len(steps), "steps_prefill_and_decode": mixed,
+            "flash_launches": launches, "wall_s": wall,
+            "ttft_s": {"p50": summary["ttft"]["p50"],
+                       "p99": summary["ttft"]["p99"]},
+            "ms_per_output_token": {
+                "p50": summary["per_token"]["p50"] * 1e3,
+                "p99": summary["per_token"]["p99"] * 1e3,
+                "mean": summary["per_token"]["mean"] * 1e3},
+            "n_prefill_fallback": summary["n_prefill_fallback"],
+            "goodput_tok_s": summary["goodput_tok_s"],
+            "distinct_ids": len({t for st in done for t in st.out_tokens}),
+            "tokens_and_logits_equal_served_alone": True}
+
+
+def phase_dense():
+    """qwen2-1.5b at full width (28 layers, d_model 1,536, 12 heads, 2 KV
+    heads, dh 128, d_ff 8,960, qkv bias, tied embeddings; random float32
+    weights from a seeded generator, the qkv biases drawn too): first the
+    row-invariance probe of its products; then the counted main path
+    `Engine.generate` on 4 prompts of 2,048 tokens with 32 new tokens, its
+    prefill incremental (`prefill_extend` per chunk, one flash launch a
+    layer from the chunk's offset); bars (a)-(d) of `_dense_bars` and (e)
+    two runs give the same bits; where the prefill's device time goes;
+    the flash kernel from an offset at the extend shapes
+    (`flash_offset_checks`); the continuous batcher (`dense_batcher`);
+    then olmo-1b, glm4-9b and phi3-medium-14b at full width with 2 layers
+    each, bars (a)-(d) on 2 prompts of 1,024 tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 end to end
+    cfg = get_arch(DENSE_ARCH)
+    B, S, n_new = LM_BATCH, LM_PROMPT, LM_NEW
+    log(phase="dense_row_invariance", arch=cfg.name,
+        products=dense_row_invariance(cfg))
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SEED, device="cuda")
+    _seed_biases(params, SEED + 10)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int64)
+    log(phase="dense_setup", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        dh=cfg.dh, d_ff=cfg.d_ff, vocab=cfg.padded_vocab, params=n_params,
+        weight_bytes=n_params * 4, batch=B, prompt=S, new_tokens=n_new,
+        token_block=M.TOKEN_BLOCK, init_s=time.perf_counter() - t0)
+    # first use of cuBLAS at these widths and of the kernel, uncounted
+    M.prefill(cfg, params, {"tokens": torch.from_numpy(
+        prompts[:, :64]).cuda()})
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    KF.reset_launches()
+    engine = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ids, stats = engine.generate(prompts, n_new=n_new)
+    torch.cuda.synchronize()
+    t_generate = time.perf_counter() - t0
+    launches = KF.LAUNCHES["flash_attention"]
+    chunks = stats["chunks"]
+    sizes = [c["chunk"] for c in chunks]
+    t_prefill = sum(c["dt"] for c in chunks)
+    Q = min(M.TOKEN_BLOCK, S)
+    log(phase="dense_main_path", chunk_log=chunks,
+        n_prefill_fallbacks=engine.n_prefill_fallbacks,
+        launches={"flash_attention": launches}, generate_s=t_generate,
+        time_to_first_token_s=t_prefill,
+        decode_ms_per_token=(t_generate - t_prefill) / n_new * 1e3,
+        generated_ids=ids.tolist(), distinct_ids=len(np.unique(ids)),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(engine.n_prefill_fallbacks == 0 and sum(sizes) == S,
+          "(a) incremental prefill: no prefix rerun")
+    check(all(c % Q == 0 for c in sizes[:-1]),
+          f"(a) every chunk but the last a multiple of Q = {Q}")
+    check(launches == cfg.n_layers * len(chunks),
+          f"(b) {cfg.n_layers} flash launches per prefill_extend call")
+    check(ids.shape == (B, n_new) and bool(np.all((ids >= 0)
+                                                  & (ids < cfg.vocab_size))),
+          "generated ids in the vocabulary")
+
+    # ---- bars ----
+    rec, t_one_shot, cache = _dense_bars("qwen2", cfg, params, prompts,
+                                         n_new, ids, len(chunks))
+    ids2, _ = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ)).generate(
+        prompts, n_new=n_new)
+    check(np.array_equal(ids, ids2), "(e) two runs give the same ids")
+    log(phase="dense_bars", **rec)
+
+    # ---- where the prefill's and a decode step's device time goes ----
+    toks = torch.from_numpy(prompts).cuda()
+    split = _kernel_split(device_ms_by_kernel(
+        lambda: M.prefill(cfg, params, {"tokens": toks}),
+        expect=("flash_fwd_kernel",)))
+    split.pop("mamba_scan")
+    total = sum(split.values())
+    log(phase="dense_prefill_split", device_ms=split, device_total_ms=total,
+        share={k_: v_ / total for k_, v_ in split.items()},
+        one_shot_wall_ms=t_one_shot * 1e3,
+        idle_share=1.0 - total / (t_one_shot * 1e3))
+    first = torch.from_numpy(ids[:, :1].astype(np.int64)).cuda()
+    dec_cache = engine._pad_cache(cache)
+
+    def one_decode():
+        M.decode_step(cfg, params, first, dec_cache, S)
+    dec_split = _kernel_split(device_ms_by_kernel(one_decode))
+    dec_split.pop("mamba_scan")
+    wall = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        one_decode()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    dec_device = sum(dec_split.values())
+    dec_wall = float(np.median(wall)) * 1e3
+    log(phase="dense_decode_split", device_ms=dec_split,
+        device_total_ms=dec_device, wall_ms=dec_wall,
+        idle_share=1.0 - dec_device / dec_wall)
+    del cache, dec_cache, toks
+
+    # ---- the flash kernel from an offset at the extend shapes ----
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 11)
+    flash = flash_offset_checks(cfg, g)
+    log(phase="dense_flash_offset", **flash)
+
+    # ---- the continuous batcher ----
+    log(phase="dense_batcher", **dense_batcher(cfg, params))
+    del params, engine
+    torch.cuda.empty_cache()
+
+    # ---- the other dense configurations, 2 layers at full width ----
+    for name in DENSE_OTHERS:
+        ocfg = dataclasses.replace(get_arch(name),
+                                   n_layers=DENSE_OTHER_LAYERS)
+        oparams = M.init_params(ocfg, SEED, device="cuda")
+        oprompts = np.random.default_rng(SEED + 3).integers(
+            0, ocfg.vocab_size, (DENSE_OTHER_BATCH, DENSE_OTHER_PROMPT)
+        ).astype(np.int64)
+        eng = Engine(ocfg, oparams, EngineConfig(max_seq=LM_MAX_SEQ))
+        KF.reset_launches()
+        t0 = time.perf_counter()
+        oids, ostats = eng.generate(oprompts, n_new=8)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        olaunches = KF.LAUNCHES["flash_attention"]
+        check(olaunches == ocfg.n_layers * len(ostats["chunks"]),
+              f"({name} b) {ocfg.n_layers} flash launches per "
+              f"prefill_extend call")
+        orec, _, ocache = _dense_bars(name, ocfg, oparams, oprompts, 8, oids,
+                                      len(ostats["chunks"]))
+        log(phase="dense_other", arch=name, layers=ocfg.n_layers,
+            d_model=ocfg.d_model, heads=ocfg.n_heads,
+            kv_heads=ocfg.n_kv_heads, gqa_ratio=ocfg.n_heads
+            // ocfg.n_kv_heads, dh=ocfg.dh, norm=ocfg.norm,
+            tied=ocfg.tie_embeddings, batch=DENSE_OTHER_BATCH,
+            prompt=DENSE_OTHER_PROMPT,
+            chunks=[c["chunk"] for c in ostats["chunks"]],
+            flash_launches=olaunches, generate_s=t_gen, **orec)
+        del oparams, ocache, eng
+        torch.cuda.empty_cache()
+
+    # float32 inputs: both products run as three TF32 products on the
+    # tensor cores
+    return [kernel_entry("flash_attention_offset", launches=launches,
+                         err=flash["max_abs_err"], ms=flash["ms"],
+                         plain_ms=flash["plain_ms"],
+                         library_ms=flash["library_ms"],
+                         bytes_=flash["bytes"], flops=flash["flops"],
                          peak=TF32_FLOPS / 3)]
 
 
@@ -2395,6 +2847,7 @@ def main() -> int:
     SHAPES.clear()
     kernels += phase_zamba2()
     kernels += phase_xlstm()
+    kernels += phase_dense()
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)

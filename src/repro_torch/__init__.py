@@ -22,8 +22,11 @@ kernel -> observe/refine, and MoE expert dispatch (plan -> sharded kernel
     moe = scheduler.build("moe-dispatch", sched.plan_dispatch(e_topk, w))
     y = moe(x, wi, wg, wo)                          # ich_moe_sharded kernel
 
-and serves Zamba2-1.2B, whose prefill runs the flash attention and SSD
-scan kernels:
+and serves Zamba2-1.2B (its prefill runs the flash attention and SSD
+scan kernels), xlstm-350m (the SSD scan from a state) and the dense
+family (qwen2-1.5b, olmo-1b, glm4-9b, phi3-medium-14b: flash attention
+from a query offset), request by request through the continuous batcher
+of `repro_torch.serve` for the dense and ssm families:
 
     from repro_torch.configs import get_arch
     from repro_torch.models.model import init_params

@@ -24,7 +24,9 @@ A language model's state is its weights:
 * `lm_params_from_reference` — the reference's `init_params` tree, as
   numpy arrays (nested dicts and lists), loaded by name into the port's
   model (`embed/tok` -> `embed.tok`, `blocks/1/mamba/in_x`,
-  `shared_attn/attn/wq`, ...).
+  `shared_attn/attn/wq`, ...); a dense stack's leaves, stacked along a
+  leading layer axis (`segments/0/attn/wq` (L, d, Hq*dh)), one slice a
+  layer (`layers.3.attn.wq`).
 
 Nothing here imports the reference: the caller hands the arrays over.
 """
@@ -136,12 +138,29 @@ def _flatten(tree, prefix: str = ""):
         yield from _flatten(sub, f"{prefix}.{key}" if prefix else str(key))
 
 
+def _unstack_segments(leaves: dict) -> dict:
+    """Segment 0's stacked leaves (`segments.0.<name>`, leading axis L) as
+    one leaf a layer (`layers.<l>.<name>`); other leaves as they are. A
+    second segment (MoE stacks) has no counterpart in the port yet and
+    keeps its name, so the name check below refuses it."""
+    out = {}
+    for name, arr in leaves.items():
+        if name.startswith("segments.0."):
+            rest = name[len("segments.0."):]
+            for layer, sl in enumerate(np.asarray(arr)):
+                out[f"layers.{layer}.{rest}"] = sl
+        else:
+            out[name] = arr
+    return out
+
+
 def lm_params_from_reference(cfg, np_params, device=None):
-    """The port's model (`models.model.HybridLM`) holding exactly the
-    reference's weights: `np_params` is `repro.models.model.init_params`'s
-    tree with numpy leaves. Raises when a name or a shape disagrees."""
+    """The port's model (`models.model.DenseLM` or `HybridLM`) holding
+    exactly the reference's weights: `np_params` is
+    `repro.models.model.init_params`'s tree with numpy leaves. Raises when
+    a name or a shape disagrees."""
     model = init_params(cfg, device=device)
-    theirs = dict(_flatten(np_params))
+    theirs = _unstack_segments(dict(_flatten(np_params)))
     ours = model.state_dict()
     if set(theirs) != set(ours):
         raise ValueError(f"parameter names disagree: only in the reference "

@@ -9,9 +9,10 @@
 // What it computes. For batch row b and query head h (KV head h / rep,
 // rep = Hq / Hkv: K and V are read at Hkv width, never repeated),
 //   out[i] = sum_j softmax_j(q_i . k_j * dh^-1/2) v_j
-// over the keys kept by the masks: j < Skv; j <= i when causal; j > i - w
-// when the window w > 0 (query and key positions both start at 0; masked
-// scores are -1e30). Float32 math with an online softmax (running max m,
+// over the keys kept by the masks: j < Skv; j <= p when causal; j > p - w
+// when the window w > 0, where p = q_offset + i is query i's position (key
+// positions start at 0; an incremental prefill's chunk starts at its
+// offset into the cache; masked scores are -1e30). Float32 math with an online softmax (running max m,
 // running sum l, accumulator acc, rescaled by exp(m_old - m_new) per key
 // block); the output is acc / max(l, 1e-20) in q's type (float32 or
 // bfloat16). q, k, v, out are read and written in the reference's
@@ -152,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int Sq,
                      int Skv, int Hq, int Hkv, int causal, int window,
-                     float scale) {
+                     int q_offset, float scale) {
   using L = Layout<T, DH>;
   constexpr bool kSplit = std::is_same<T, float>::value;
   constexpr int NT = DH / 8;   // n8 tiles of the output, k8 steps of q.k
@@ -172,10 +173,15 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + (int64_t)b * Skv * kv_tok + (int64_t)hk * DH;
   const T* vb = v + (int64_t)b * Skv * kv_tok + (int64_t)hk * DH;
 
-  // the key blocks any row of this tile keeps
+  // the key blocks any row of this tile keeps; p0 and p_last are the
+  // positions of its first and last rows. Key blocks start at multiples of
+  // kBk whatever the offset, and a block wholly past a row's position adds
+  // exp(-1e30 - m) = 0 to it with a correction of 1, so a row's result
+  // does not depend on which tile, or which call, holds it.
   const int q_last = min(q0 + kBq, Sq) - 1;
-  const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int p0 = q_offset + q0, p_last = q_offset + q_last;
+  const int kv_end = causal ? min(Skv, p_last + 1) : Skv;
+  const int kv_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   const int first = kv_begin / kBk;
   const int n_kb = (kv_end + kBk - 1) / kBk - first;   // >= 1
 
@@ -200,7 +206,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.0f;
   float m[2] = {kNegInf, kNegInf};   // running max of rows gid, gid + 8
   float l[2] = {0.0f, 0.0f};         // this thread's part of the row sums
-  const int row0 = q0 + warp * 16 + gid;
+  const int row0 = q0 + warp * 16 + gid;           // query index
+  const int pos0 = q_offset + row0;                 // its position
   const T* qrow = Qs + (warp * 16 + gid) * L::QK + 2 * tig;
 
   for (int j = 0; j < n_kb; ++j) {
@@ -233,15 +240,15 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // scale, and mask where the block crosses an edge of the masks
-    const bool edge = k0 + kBk > Skv || (causal && k0 + kBk - 1 > q0) ||
-                      (window > 0 && k0 <= q_last - window);
+    const bool edge = k0 + kBk > Skv || (causal && k0 + kBk - 1 > p0) ||
+                      (window > 0 && k0 <= p_last - window);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[n][e] * scale;
         if (edge) {
-          const int qi = row0 + (e >> 1) * 8;
+          const int qi = pos0 + (e >> 1) * 8;
           const int kj = k0 + n * 8 + 2 * tig + (e & 1);
           bool keep = kj < Skv;
           if (causal) keep = keep && kj <= qi;
@@ -339,31 +346,31 @@ int allow_smem(int bytes) {
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-           cudaStream_t stream) {
+           int q_offset, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, DH>;
   const int err = allow_smem<flash_fwd_kernel<T, DH>>(Layout<T, DH>::bytes);
   if (err != 0) return err;
   const dim3 grid(B * Hq, (Sq + kBq - 1) / kBq);
   kernel<<<grid, kThreads, Layout<T, DH>::bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, Hq, Hkv,
-      causal, window, 1.0f / sqrtf((float)DH));
+      causal, window, q_offset, 1.0f / sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, void* out, int B,
               int Sq, int Skv, int Hq, int Hkv, int dh, int causal,
-              int window, cudaStream_t s) {
+              int window, int q_offset, cudaStream_t s) {
   switch (dh) {
     case 64:
       return launch<T, 64>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
-                           window, s);
+                           window, q_offset, s);
     case 96:
       return launch<T, 96>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
-                           window, s);
+                           window, q_offset, s);
     case 128:
       return launch<T, 128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
-                            window, s);
+                            window, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -375,19 +382,20 @@ extern "C" {
 
 // Launch on `stream`. dtype 0 = float32, 1 = bfloat16 (q, k, v and out
 // alike); dh 64, 96 or 128; Hq % Hkv == 0; q, k, v and out 16-byte
-// aligned. Returns a CUDA error code (0 = success; cudaErrorInvalidValue
-// for a dtype or dh it was not built for).
+// aligned; q_offset >= 0 the position of query 0. Returns a CUDA error
+// code (0 = success; cudaErrorInvalidValue for a dtype or dh it was not
+// built for).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Sq, int Skv, int Hq,
                            int Hkv, int dh, int causal, int window,
-                           int dtype, void* stream) {
+                           int q_offset, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_dh<float>(q, k, v, out, B, Sq, Skv, Hq, Hkv, dh, causal,
-                            window, s);
+                            window, q_offset, s);
   if (dtype == 1)
     return launch_dh<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, Hq, Hkv, dh,
-                                    causal, window, s);
+                                    causal, window, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

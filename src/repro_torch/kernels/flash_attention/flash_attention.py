@@ -6,13 +6,23 @@ query head h (KV head h // rep, rep = Hq // Hkv; K/V are never repeated),
 
     out[i] = sum_j softmax_j(q_i . k_j / sqrt(dh)) v_j
 
-over the keys j the masks keep: j < Skv always; j <= i when causal; and
-j > i - window when window > 0 (the sliding window of
+over the keys j the masks keep: j < Skv always; j <= p when causal; and
+j > p - window when window > 0 (the sliding window of
 `repro.models.attention.blockwise_attention`, which the reference's model
-path calls). Query and key positions both start at 0. Masked scores are
+path calls), where p = q_offset + i is query i's position: key positions
+start at 0, query positions at `q_offset` (0 for a whole prompt; an
+incremental prefill's chunk starts at its offset into the cache, as the
+reference's `full_attention(q_offset=)` places it). Masked scores are
 -1e30, so a query row with no kept key averages all of its values, as the
-reference's online softmax does; with a window, Sq <= Skv, so that every
-query keeps a key. Math is float32; the output has q's type.
+reference's online softmax does; with a window, q_offset + Sq <= Skv, so
+that every query keeps a key, and so with a causal mask from an offset
+(an incremental prefill's chunk: the cache holds every position of it).
+Math is float32; the output has q's type.
+
+The kernel's rows do not depend on the call: a query row of a call from
+`q_offset` gives the bits of the same position's row of one call over
+all queries (key blocks are walked from position 0 in ascending order,
+and a block past a row's position adds exactly nothing to it).
 
 Given CPU tensors the wrapper runs the plain version
 (`flash_attention_plain`, the scores materialised); given CUDA tensors it
@@ -72,8 +82,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           q_offset: int = 0) -> torch.Tensor:
     """Plain version: the (B, Hkv, rep, Sq, Skv) scores materialised in
     float32, masked with -1e30, softmax, product with v. Query i sits at
-    position q_offset + i (the kernel's queries start at 0); decode calls
-    it with q_offset = the token's position."""
+    position q_offset + i, as in the kernel; decode calls it with
+    q_offset = the token's position."""
     rep, dh = _check_shapes(q, k, v)
     B, Sq, Hq, _ = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -91,29 +101,39 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
+        lib.flash_attention_launch.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
         lib.flash_attention_launch.restype = i32
         lib._typed = True
     return lib
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
-    """q (B,Sq,Hq,dh); k, v (B,Skv,Hkv,dh), Hq % Hkv == 0. Returns
-    (B,Sq,Hq,dh) in q's type. Any Sq, Skv (ragged edges are masked in the
-    kernel, not padded). On CUDA: float32 or bfloat16, one type for all
-    three, contiguous and 16-byte aligned, dh in {64, 96, 128}."""
-    window = int(window)
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q (B,Sq,Hq,dh); k, v (B,Skv,Hkv,dh), Hq % Hkv == 0; query i at
+    position q_offset + i. Returns (B,Sq,Hq,dh) in q's type. Any Sq, Skv
+    (ragged edges are masked in the kernel, not padded). On CUDA: float32
+    or bfloat16, one type for all three, contiguous and 16-byte aligned,
+    dh in {64, 96, 128}."""
+    window, q_offset = int(window), int(q_offset)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if k.shape[1] == 0:
         raise ValueError("no keys: Skv must be > 0")
-    if window > 0 and q.shape[1] > k.shape[1]:
-        # then a late query could keep no key at all
-        raise ValueError(f"a window needs Sq <= Skv, got Sq={q.shape[1]}, "
-                         f"Skv={k.shape[1]}")
+    if q_offset + q.shape[1] > k.shape[1] and (
+            window > 0 or (causal and q_offset > 0)):
+        # with a window a late query could keep no key at all; a causal
+        # call from an offset is an incremental prefill's chunk, and the
+        # reference's extend contract sizes the cache to hold every
+        # position of it (from position 0, causal, any Sq: each query
+        # keeps key 0)
+        raise ValueError(f"a window, or a causal mask from an offset, needs "
+                         f"q_offset + Sq <= Skv, got {q_offset} + "
+                         f"{q.shape[1]} > {k.shape[1]}")
     if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
     rep, dh = _check_shapes(q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one of {list(_DTYPES)}, got "
@@ -134,7 +154,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
-        Hq, Hkv, dh, int(bool(causal)), window, _DTYPES[q.dtype], stream)
+        Hq, Hkv, dh, int(bool(causal)), window, q_offset, _DTYPES[q.dtype],
+        stream)
     raise_on(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

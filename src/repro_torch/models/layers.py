@@ -1,8 +1,9 @@
-"""Shared building blocks of the port's language models: rmsnorm, RoPE
-(split-half layout), the SwiGLU MLP, token embedding and the LM head —
-the port's counterpart of `repro.models.layers`, cut to what the hybrid
-family runs (other norms, GELU, tied heads and learned positions come
-with their families).
+"""Shared building blocks of the port's language models: the norms
+(rmsnorm, layernorm, OLMo's nonparametric LN), RoPE (split-half layout),
+the SwiGLU and GELU MLPs, token embedding and the LM head (its own or the
+embedding's, tied) — the port's counterpart of `repro.models.layers`
+(learned positions come with the encoder-decoder family) — and
+`by_blocks`, which runs a token-wise function per block of tokens.
 
 Blocks are `nn.Module`s whose parameters carry the reference's names
 (`scale`, `wi`/`wg`/`wo`, `tok`/`head`), so a reference parameter tree
@@ -40,16 +41,31 @@ def const(shape, value: float, device) -> nn.Parameter:
 # ------------------------------------------------------------------ norms
 
 class Norm(nn.Module):
-    """rmsnorm with its `scale` (the norm of the families ported so far)."""
+    """`cfg.norm`: rmsnorm (`scale`), layernorm (`scale`, `bias`) or
+    nonparametric_ln (OLMo: no parameters), float32 math."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        self.scale = const((cfg.d_model,), 1.0, device)
+        if cfg.norm not in ("rmsnorm", "layernorm", "nonparametric_ln"):
+            raise ValueError(f"unknown norm {cfg.norm!r}")
+        self.kind = cfg.norm
+        if self.kind != "nonparametric_ln":
+            self.scale = const((cfg.d_model,), 1.0, device)
+        if self.kind == "layernorm":
+            self.bias = const((cfg.d_model,), 0.0, device)
 
     def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
         xf = x.float()
-        xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-        return (xf * self.scale).to(x.dtype)
+        if self.kind == "rmsnorm":
+            xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
+                                  + eps)
+            return (xf * self.scale).to(x.dtype)
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        xf = (xf - mean) * torch.rsqrt(var + eps)
+        if self.kind == "layernorm":
+            xf = xf * self.scale + self.bias
+        return xf.to(x.dtype)
 
 
 # ------------------------------------------------------------------- RoPE
@@ -79,18 +95,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # ------------------------------------------------------------------- MLPs
 
 class MLP(nn.Module):
-    """SwiGLU: `wi`, `wg` (d, f), `wo` (f, d)."""
+    """SwiGLU (`wi`, `wg` (d, f), `wo` (f, d)) or, with `cfg.act` "gelu",
+    `wi` and `wo` around the tanh-approximated GELU (jax.nn.gelu's
+    default)."""
 
     def __init__(self, cfg, g: torch.Generator, device=None):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
+        self.swiglu = cfg.act == "swiglu"
         self.wi = dense_init(g, d, f, device)
-        self.wg = dense_init(g, d, f, device)
+        if self.swiglu:
+            self.wg = dense_init(g, d, f, device)
         self.wo = dense_init(g, f, d, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.nn.functional.silu(x @ self.wg.to(x.dtype)) \
-            * (x @ self.wi.to(x.dtype))
+        h = x @ self.wi.to(x.dtype)
+        if self.swiglu:
+            h = torch.nn.functional.silu(x @ self.wg.to(x.dtype)) * h
+        else:
+            h = torch.nn.functional.gelu(h, approximate="tanh")
         return h @ self.wo.to(x.dtype)
 
 
@@ -98,12 +121,15 @@ class MLP(nn.Module):
 
 class Embed(nn.Module):
     """Token table `tok` (padded vocab, d) and the LM head `head`
-    (d, padded vocab)."""
+    (d, padded vocab), which a tied config (`cfg.tie_embeddings`) does not
+    have: its head is `tok` transposed."""
 
     def __init__(self, cfg, g: torch.Generator, device=None):
         super().__init__()
+        self.tied = bool(cfg.tie_embeddings)
         self.tok = embed_init(g, cfg.padded_vocab, cfg.d_model, device)
-        self.head = dense_init(g, cfg.d_model, cfg.padded_vocab, device)
+        if not self.tied:
+            self.head = dense_init(g, cfg.d_model, cfg.padded_vocab, device)
 
 
 def embed_tokens(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
@@ -111,4 +137,30 @@ def embed_tokens(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(p: Embed, x: torch.Tensor) -> torch.Tensor:
-    return x @ p.head.to(x.dtype)
+    w = p.tok.t() if p.tied else p.head
+    return x @ w.to(x.dtype)
+
+
+# ------------------------------------------------------- token-wise blocks
+
+def by_blocks(fn, block: int, *xs):
+    """fn(*xs) for a token-wise fn of tensors xs (B,S,...) that returns a
+    (B,S,...) tensor or a tuple of them, run on one block of `block`
+    tokens at a time (a contiguous copy of each, when S > block) and
+    concatenated along S.
+    Matrix products and the CPU's vectorised exp/log/sigmoid/cos give bits
+    that depend on how many rows a call holds: cuBLAS splits a product
+    over K by its row count and takes a batched product for a strided
+    input, and the CPU leaves a scalar tail whose place depends on the
+    tensor's size. Per block a token's bits depend on its block alone, so
+    calls on slices that start on multiples of `block` give the bits of
+    one call over the whole sequence (the incremental prefills of the ssm
+    and dense families rely on it)."""
+    S = xs[0].shape[1]
+    if S <= block:
+        return fn(*xs)
+    parts = [fn(*(x[:, t:t + block].contiguous() for x in xs))
+             for t in range(0, S, block)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=1)
+    return tuple(torch.cat(ts, dim=1) for ts in zip(*parts))

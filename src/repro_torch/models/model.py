@@ -1,23 +1,27 @@
-"""Model assembly of the port, the per-layer block families: hybrid
-(Zamba2: a Mamba2 backbone with one attention block whose weights are
-shared by every "A" position) and ssm (xLSTM: mLSTM "X" and sLSTM "S"
-blocks, or Mamba2 "M") — the counterpart of `repro.models.model` for
-`cfg.family in ("hybrid", "ssm")`.
+"""Model assembly of the port — the counterpart of `repro.models.model`
+for three families: dense (a stack of attention layers: qwen2, OLMo,
+GLM-4, Phi-3), hybrid (Zamba2: a Mamba2 backbone with one attention block
+whose weights are shared by every "A" position) and ssm (xLSTM: mLSTM "X"
+and sLSTM "S" blocks, or Mamba2 "M").
 
 Entry points:
-  init_params           — the model (`HybridLM`), weights from a seeded
-                          torch.Generator on the device
-  prefill / decode_step — the serving paths with per-layer caches
+  init_params           — the model (`DenseLM` or `HybridLM`), weights
+                          from a seeded torch.Generator on the device
+  prefill / decode_step — the serving paths with their caches
   cache_specs           — shapes and types of decode_step's cache
   extend_cache_specs_ok / empty_extend_cache / prefill_extend
-                        — incremental chunked prefill (the ssm family)
+                        — incremental chunked prefill (dense and ssm)
 
 Parameters carry the reference tree's names (`embed.tok`,
 `blocks.0.mamba.in_x`, `blocks.0.mlstm.wq`, `blocks.3.slstm.r`,
 `shared_attn.attn.wq`, ...): the "A" positions of `blocks` are empty, as
 the reference's `{}` entries are, and their weights live in
-`shared_attn`. Other families raise NotImplementedError: they come with
-later slices (ROADMAP.md).
+`shared_attn`. A dense model keeps one module a layer (`layers.3.attn.wq`)
+where the reference stacks segment 0's leaves along a leading axis
+(`segments.0.attn.wq[3]`); `convert.lm_params_from_reference` maps one
+onto the other. Its KV cache keeps the reference's per-segment layout,
+{"k", "v"} of (L, B, S, Hkv, dh). Other families raise
+NotImplementedError: they come with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -25,33 +29,58 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention.flash_attention import \
+    flash_attention
 
 from . import attention as A
 from . import layers as L
 from . import ssm as SS
 
 
+# tokens a call of a dense layer's token-wise products holds (`by_blocks`;
+# an incremental prefill's chunk boundaries are multiples of it)
+TOKEN_BLOCK = 256
+
+
 def _check_family(cfg) -> None:
-    """Raise for a config the port does not run yet. It runs the hybrid
-    family with "M" blocks and one shared "A" block (SwiGLU, RoPE, no qkv
-    bias) and the ssm family with "M", "X" and "S" blocks; both with
-    rmsnorm, an untied head and no learned positions."""
+    """Raise for a config the port does not run yet. It runs the dense
+    family (no MoE), the hybrid family with "M" blocks and one shared "A"
+    block, and the ssm family with "M", "X" and "S" blocks; with any of
+    the three norms, SwiGLU or GELU, qkv biases or not, tied heads or not,
+    and RoPE (learned positions come with the encoder-decoder family)."""
     pattern = set(cfg.block_pattern)
-    if cfg.family == "hybrid":
-        ok = cfg.shared_attention and pattern <= {"A", "M"} \
-            and cfg.act == "swiglu" and not cfg.qkv_bias
+    if cfg.family == "dense":
+        ok = not cfg.moe
+    elif cfg.family == "hybrid":
+        ok = cfg.shared_attention and pattern <= {"A", "M"}
     else:
         ok = cfg.family == "ssm" and pattern <= {"M", "X", "S"}
-    if not ok or cfg.norm != "rmsnorm" or cfg.rope_theta <= 0 \
-            or cfg.tie_embeddings:
+    if not ok or cfg.rope_theta <= 0:
         raise NotImplementedError(
-            f"the port runs the hybrid (Zamba2) and ssm (xLSTM) families so "
-            f"far; {cfg.name!r} ({cfg.family}) comes with a later slice "
-            f"(ROADMAP.md)")
+            f"the port runs the dense, hybrid (Zamba2) and ssm (xLSTM) "
+            f"families so far; {cfg.name!r} ({cfg.family}) comes with a "
+            f"later slice (ROADMAP.md)")
+
+
+def segments_of(cfg) -> list[tuple[str, int]]:
+    """Homogeneous (kind, count) segments of a stacked decoder (the
+    reference's; the port runs the "dense" kind)."""
+    if cfg.family in ("dense", "vlm"):
+        return [("dense", cfg.n_layers)]
+    if cfg.family == "moe":
+        segs = []
+        if cfg.moe_layer_start > 0:
+            segs.append(("densffn", cfg.moe_layer_start))
+        segs.append(("moe", cfg.n_layers - cfg.moe_layer_start))
+        return segs
+    if cfg.family == "encdec":
+        return [("dec", cfg.n_layers)]
+    raise ValueError(cfg.family)
 
 
 class AttnBlock(nn.Module):
-    """Zamba2's shared attention block: ln1, attn, ln2, mlp."""
+    """An attention block: ln1, attn, ln2, mlp — every layer of a dense
+    stack, and Zamba2's shared block."""
 
     def __init__(self, cfg, g, device=None):
         super().__init__()
@@ -119,13 +148,30 @@ class HybridLM(nn.Module):
         return self.blocks[i]
 
 
-def init_params(cfg, seed: int = 0, *, device=None) -> HybridLM:
+class DenseLM(nn.Module):
+    """embed, layers (`cfg.n_layers` attention blocks), final_norm — the
+    reference's dense tree, segment 0's stacked leaves one module a
+    layer."""
+
+    def __init__(self, cfg, g: torch.Generator, device=None):
+        super().__init__()
+        _check_family(cfg)
+        self.cfg = cfg
+        self.embed = L.Embed(cfg, g, device)
+        self.layers = nn.ModuleList([AttnBlock(cfg, g, device)
+                                     for _ in range(cfg.n_layers)])
+        self.final_norm = L.Norm(cfg, device)
+
+
+def init_params(cfg, seed: int = 0, *, device=None) -> nn.Module:
     """The model with random weights drawn from a torch.Generator seeded
-    with `seed`, on `device` (None = the card; raises without CUDA)."""
+    with `seed`, on `device` (None = the card; raises without CUDA):
+    `DenseLM` for the dense family, else `HybridLM`."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(int(seed))
-    return HybridLM(cfg, g, dev).eval()
+    lm = DenseLM if cfg.family == "dense" else HybridLM
+    return lm(cfg, g, dev).eval()
 
 
 def _apply_recurrent(cfg, kind: str, p, x, state=None, **scan):
@@ -152,13 +198,21 @@ def _apply_block_full(cfg, kind: str, p, x, *, window: int = 0):
 
 
 @torch.no_grad()
-def prefill(cfg, params: HybridLM, batch, *, dtype=torch.float32):
+def prefill(cfg, params, batch, *, dtype=torch.float32):
     """Process the whole prompt (`batch["tokens"]` (B, S) int); return
-    (last-token logits (B, V), cache): per layer {"k", "v"} (B,S,Hkv,dh) at
-    "A" positions, {"conv", "ssm"} at "M", the (B,H,dh+1,dh) mLSTM state
-    at "X" and {"h", "c"} at "S"."""
+    (last-token logits (B, V), cache). Dense: [{"k", "v"}] of (L, B, S,
+    Hkv, dh), the prompt run as one `prefill_extend` call from position 0
+    (its token-wise parts per block of TOKEN_BLOCK tokens). Hybrid and
+    ssm: per layer {"k", "v"} (B,S,Hkv,dh) at "A" positions, {"conv",
+    "ssm"} at "M", the (B,H,dh+1,dh) mLSTM state at "X" and {"h", "c"} at
+    "S"."""
     _check_family(cfg)
-    x = L.embed_tokens(params.embed, batch["tokens"]).to(dtype)
+    tokens = batch["tokens"]
+    if cfg.family == "dense":
+        cache = empty_extend_cache(cfg, tokens.shape[0], tokens.shape[1],
+                                   dtype, device=tokens.device)
+        return _dense_extend(cfg, params, tokens, cache, 0, dtype)
+    x = L.embed_tokens(params.embed, tokens).to(dtype)
     cache = []
     for i, kind in enumerate(cfg.block_pattern):
         window = cfg.attn_window if kind == "A" else 0
@@ -170,13 +224,21 @@ def prefill(cfg, params: HybridLM, batch, *, dtype=torch.float32):
 
 
 @torch.no_grad()
-def decode_step(cfg, params: HybridLM, tokens, cache, pos: int, *,
+def decode_step(cfg, params, tokens, cache, pos: int, *,
                 dtype=torch.float32):
     """One decode step. tokens (B, 1) int; pos: the current write position,
     the same across the batch. Returns (logits (B, V), new cache); the
     attention caches are written in place."""
     _check_family(cfg)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
+    if cfg.family == "dense":
+        ck, cv = cache[0]["k"], cache[0]["v"]
+        for i, p in enumerate(params.layers):
+            h, _, _ = A.decode_attention(cfg, p.attn, p.ln1(x), ck[i], cv[i],
+                                         pos)
+            x = x + h
+            x = x + p.mlp(p.ln2(x))
+        return L.lm_logits(params.embed, params.final_norm(x[:, -1])), cache
     new_cache = []
     for i, kind in enumerate(cfg.block_pattern):
         p, st = params.block(i), cache[i]
@@ -208,6 +270,9 @@ def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.float32):
     """(shape, dtype) tree matching decode_step's cache argument."""
     _check_family(cfg)
     hkv, dh = cfg.n_kv_heads, cfg.dh
+    if cfg.family == "dense":
+        return [{name: ((cnt, batch, cache_len, hkv, dh), dtype)
+                 for name in ("k", "v")} for _, cnt in segments_of(cfg)]
     specs = []
     for kind in cfg.block_pattern:
         if kind == "A":
@@ -225,12 +290,15 @@ def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.float32):
 # ----------------------------------------------------------------------------
 
 def extend_cache_specs_ok(cfg) -> bool:
-    """True when `prefill_extend` runs this config: the ssm family, whose
-    O(1) block states (Mamba2 conv + ssm, the mLSTM matrix, sLSTM h/c)
-    thread from chunk to chunk. The reference also extends stacked
-    attention caches (dense, vlm, moe); those come with the dense slice
-    (ROADMAP.md queue 1 item 2). An "A" block in the pattern would need a
-    windowed KV extension: the hybrid family stays on the prefix rerun."""
+    """True when `prefill_extend` runs this config: the dense family, whose
+    stacked (L, B, S, Hkv, dh) K/V cache grows chunk by chunk, and the ssm
+    family, whose O(1) block states (Mamba2 conv + ssm, the mLSTM matrix,
+    sLSTM h/c) thread from chunk to chunk. (The reference also extends the
+    vlm and moe stacks, which come with their slices.) An "A" block in
+    the pattern would need a windowed KV extension: the hybrid family
+    stays on the prefix rerun, as in the reference."""
+    if cfg.family == "dense":
+        return True
     return cfg.family == "ssm" and \
         all(k in ("M", "X", "S") for k in cfg.block_pattern)
 
@@ -244,42 +312,62 @@ def _zeros(spec, device):
 
 def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
                        device=None):
-    """The block states an incremental prefill of `seq` tokens starts
-    from: zeros, which is what a scan from scratch starts from, so the
-    first chunk replays a one-shot prefill's opening steps. (`seq` sizes
-    the attention caches of the families that have them.)"""
+    """The cache an incremental prefill of `seq` tokens starts from, zeros.
+    Dense: per segment {"k", "v"} of (L, batch, seq, Hkv, dh), sized to
+    the PROMPT (not max_seq), as the reference sizes it, so that every
+    chunk's attention runs over the same keys as a one-shot prefill's,
+    the positions not written yet masked. Ssm: the block states a scan
+    from scratch starts from, so the first chunk replays a one-shot
+    prefill's opening steps."""
     if not extend_cache_specs_ok(cfg):
         raise NotImplementedError(
-            f"empty_extend_cache runs the ssm family so far, not "
-            f"{cfg.family!r} (ROADMAP.md queue 1 item 2)")
+            f"empty_extend_cache runs the dense and ssm families, not "
+            f"{cfg.family!r}: a hybrid's attention cache does not extend")
     dev = resolve_device(device)
+    if cfg.family == "dense":
+        return [_zeros(spec, dev) for spec in cache_specs(cfg, batch, seq,
+                                                          dtype)]
     return [_zeros(_state_spec(cfg, kind, batch, dtype), dev)
             for kind in cfg.block_pattern]
 
 
 @torch.no_grad()
-def prefill_extend(cfg, params: HybridLM, tokens, cache, done: int, *,
+def prefill_extend(cfg, params, tokens, cache, done: int, *,
                    dtype=torch.float32, ssm_chunk: int = None):
     """Incremental chunked prefill: run ONLY the new chunk `tokens`
-    (B, C), which starts at absolute position `done`, from the block
-    states in `cache` (`empty_extend_cache` for the first chunk). Returns
-    (last-token logits, new cache).
+    (B, C), which starts at absolute position `done`, from the cache
+    (`empty_extend_cache` for the first chunk). Returns (last-token
+    logits, new cache).
+
+    Dense family: each layer writes the chunk's keys and values into the
+    cache at [done, done + C) IN PLACE (the returned cache is the same
+    tensors; the reference returns updated copies) and attends over it
+    from q_offset = done in one flash call, the positions after the chunk
+    masked. Its token-wise parts (norms, q/k/v products with bias and
+    RoPE, the output product, the MLP) run per block of TOKEN_BLOCK
+    tokens (`layers.by_blocks`): a row of a product changes bits with the
+    call's row count, on the card and the CPU. With every chunk boundary
+    a multiple of min(TOKEN_BLOCK, prompt length) — the serving engine
+    keeps it — each block replays the one-shot prefill's block, the flash
+    kernel's rows do not depend on the call, and the last logits and the
+    whole cache are a one-shot `prefill`'s bits. The reference chunks at
+    any boundary; this quantum is the port's.
 
     ssm family: every scan runs with scan-block length exactly
     Q = `ssm_chunk` (default cfg.ssm_chunk). With Q the one-shot prefill's
     min(cfg.ssm_chunk, prompt length) and every chunk boundary a multiple
     of it — the serving engine keeps both — each call replays exactly the
     scan steps of the one-shot prefill, and the "X" and "S" blocks run
-    their token-wise products per block of Q tokens (`ssm.by_blocks`), so
-    the last logits and the final states are its bits. ("M" blocks run
+    their token-wise products per block of Q tokens (`layers.by_blocks`),
+    so the last logits and the final states are its bits. ("M" blocks run
     theirs per call, as Zamba2's prefill does: no ssm config of the repo
-    has them.) The stacked-attention branch of the reference comes with
-    the dense slice (ROADMAP.md queue 1 item 2)."""
+    has them.)"""
     if not extend_cache_specs_ok(cfg):
         raise NotImplementedError(
-            f"prefill_extend runs the ssm family so far, not "
-            f"{cfg.family!r}: the stacked-attention branch comes with "
-            f"ROADMAP.md queue 1 item 2")
+            f"prefill_extend runs the dense and ssm families, not "
+            f"{cfg.family!r}: a hybrid's attention cache does not extend")
+    if cfg.family == "dense":
+        return _dense_extend(cfg, params, tokens, cache, int(done), dtype)
     Q = int(ssm_chunk or cfg.ssm_chunk)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
     new_cache = []
@@ -289,3 +377,32 @@ def prefill_extend(cfg, params: HybridLM, tokens, cache, done: int, *,
         new_cache.append(ns)
     x = params.final_norm(x)
     return L.lm_logits(params.embed, x[:, -1]), new_cache
+
+
+def _dense_extend(cfg, params: DenseLM, tokens, cache, done: int, dtype):
+    """The dense branch of `prefill_extend` (and `prefill`, from 0)."""
+    B, C = tokens.shape
+    x = L.embed_tokens(params.embed, tokens).to(dtype)
+    pos = torch.arange(done, done + C, device=x.device)[None]
+    ck, cv = cache[0]["k"], cache[0]["v"]
+    for i, p in enumerate(params.layers):
+        q, k, v = L.by_blocks(
+            lambda xb, pb: A.qkv_at(cfg, p.attn, p.ln1(xb), pb[0]),
+            TOKEN_BLOCK, x, pos)
+        ck[i, :, done:done + C] = k.to(ck.dtype)
+        cv[i, :, done:done + C] = v.to(cv.dtype)
+        # the chunk's queries against the cache, which holds every
+        # position up to the chunk's last (the later ones masked)
+        o = flash_attention(q, ck[i], cv[i], causal=True,
+                            q_offset=done).reshape(B, C, -1)
+        x = L.by_blocks(lambda xb, ob: _dense_out(p, xb, ob), TOKEN_BLOCK,
+                        x, o)
+    logits = L.lm_logits(params.embed, params.final_norm(x[:, -1]))
+    return logits, cache
+
+
+def _dense_out(p: AttnBlock, x, o):
+    """The token-wise rest of a dense layer: output product, residual,
+    MLP, residual."""
+    x = x + o @ p.attn.wo.to(x.dtype)
+    return x + p.mlp(p.ln2(x))

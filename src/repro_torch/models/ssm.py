@@ -55,29 +55,6 @@ def scan_block(chunk: int, S: int, exact_chunk: bool) -> int:
     return int(chunk) if exact_chunk else min(int(chunk), S)
 
 
-def by_blocks(fn, block: int, *xs):
-    """fn(*xs) for a token-wise fn of tensors xs (B,S,...) that returns a
-    (B,S,...) tensor or a tuple of them, run on one block of `block`
-    tokens at a time (a contiguous copy of each, when S > block) and
-    concatenated along S.
-    Matrix products and the CPU's vectorised exp/log/sigmoid give bits
-    that depend on how many rows a call holds: cuBLAS splits a narrow
-    product (a gate of one column a head) over K by its row count and
-    takes a batched product for a strided input, and the CPU leaves a
-    scalar tail whose place depends on the tensor's size. Per block a
-    token's bits depend on its block alone, so calls on slices that start
-    on multiples of `block` give the bits of one call over the whole
-    sequence."""
-    S = xs[0].shape[1]
-    if S <= block:
-        return fn(*xs)
-    parts = [fn(*(x[:, t:t + block].contiguous() for x in xs))
-             for t in range(0, S, block)]
-    if isinstance(parts[0], torch.Tensor):
-        return torch.cat(parts, dim=1)
-    return tuple(torch.cat(ts, dim=1) for ts in zip(*parts))
-
-
 def gated_scan_step(q, k, v, log_a, state):
     """Single-token recurrence (decode). q,k (B,H,N); v (B,H,Pd);
     log_a (B,H); state (B,H,Pd,N)."""
@@ -243,14 +220,14 @@ def apply_mlstm(cfg, p: MLSTM, x, state=None, *, chunk: int = None,
     from a state runs `gated_scan_step`; every other call
     `chunked_gated_scan` at N = dh, Pd = dh + 1 (`exact_chunk` as in
     `apply_mamba2`). The token-wise parts before and after the scan run
-    `by_blocks` of the scan's Q, so an incremental prefill gives the bits
-    of a one-shot one."""
+    `layers.by_blocks` of the scan's Q, so an incremental prefill gives
+    the bits of a one-shot one."""
     B, S, D = x.shape
     H = cfg.n_heads
     dh = cfg.mamba_expand * D // H
     chunk = chunk or cfg.ssm_chunk
     Q = scan_block(chunk, S, exact_chunk)
-    gz, q, kk, v1, log_a = by_blocks(
+    gz, q, kk, v1, log_a = L.by_blocks(
         lambda xb: _mlstm_tokens(p, xb, H, dh), Q, x)
     if S == 1 and state is not None and not exact_chunk:
         y1, st = gated_scan_step(q[:, 0], kk[:, 0], v1[:, 0], log_a[:, 0],
@@ -259,7 +236,8 @@ def apply_mlstm(cfg, p: MLSTM, x, state=None, *, chunk: int = None,
     else:
         y1, st = chunked_gated_scan(q, kk, v1, log_a, state=state,
                                     chunk=chunk, exact_chunk=exact_chunk)
-    return by_blocks(lambda yb, gb: _mlstm_out(p, yb, gb, dh), Q, y1, gz), st
+    return L.by_blocks(lambda yb, gb: _mlstm_out(p, yb, gb, dh), Q, y1,
+                       gz), st
 
 
 def mlstm_state_spec(cfg, batch: int) -> tuple:
@@ -309,22 +287,22 @@ def apply_slstm(cfg, p: SLSTM, x, state=None, *, chunk: int = None,
     Returns (out, {"h", "c"}). The recurrence runs one step at a time, a
     few small operations a step, as the reference's `lax.scan` does; every
     step has the same shapes. The token-wise parts before and after it
-    run `by_blocks` of the scan-block length (`chunk`, `exact_chunk` as
-    in `apply_mlstm`), so calls split on its multiples give the bits of
-    one call."""
+    run `layers.by_blocks` of the scan-block length (`chunk`,
+    `exact_chunk` as in `apply_mlstm`), so calls split on its multiples
+    give the bits of one call."""
     B, S, D = x.shape
     H = cfg.n_heads
     dh = D // H
     Q = scan_block(chunk or cfg.ssm_chunk, S, exact_chunk)
-    zs, og, ig, fg = by_blocks(lambda xb: _slstm_tokens(p, xb, H, dh), Q, x)
+    zs, og, ig, fg = L.by_blocks(lambda xb: _slstm_tokens(p, xb, H, dh), Q, x)
     if state is None:
         h = x.new_zeros((B, H, dh), dtype=torch.float32)
         c = torch.zeros_like(h)
     else:
         h, c = state["h"], state["c"]
     ys, h, c = slstm_recurrence(p.r, zs, og, ig, fg, h, c)
-    out = by_blocks(lambda yb: yb.reshape(B, yb.shape[1], D).to(x.dtype)
-                    @ p.down.to(x.dtype), Q, ys)
+    out = L.by_blocks(lambda yb: yb.reshape(B, yb.shape[1], D).to(x.dtype)
+                      @ p.down.to(x.dtype), Q, ys)
     return out, {"h": h, "c": c}
 
 

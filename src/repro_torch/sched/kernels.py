@@ -1,6 +1,7 @@
 """Registry-backed kernel ops for the paper's three applications and MoE
 expert dispatch — the port's `scheduler.build("spmv" | "bfs" | "kmeans" |
-"moe-dispatch", ...)`.
+"moe-dispatch", ...)` — and the continuous batcher's "serve-prefill"
+entry, whose op is the schedule itself (no kernel).
 
 Each op binds a constructed `Schedule` to its workload once: it lowers the
 schedule onto `schedule.p` workers (`Schedule.shard()`), packs the payload
@@ -48,7 +49,8 @@ from repro_torch.kernels.ich_moe.ich_moe import ich_moe_sharded, moe_slots
 from repro_torch.kernels.ich_spmv.ich_spmv import ich_spmv_sharded
 
 from .api import Schedule
-from .costs import DegreeCosts, ExpertLoadCosts, ExplicitCosts, NnzCosts
+from .costs import (DegreeCosts, ExpertLoadCosts, ExplicitCosts, NnzCosts,
+                    RemainingTokensCosts)
 from .registry import register
 
 
@@ -458,3 +460,14 @@ register(
     build=MoeDispatchOp,
     doc="MoE expert FFN over a dispatch plan (sched/moe.py); input "
         "(DispatchPlan); cost = per-expert kept token load.")
+register(
+    "serve-prefill",
+    costs=lambda remaining: RemainingTokensCosts(
+        np.asarray(remaining, np.int64)),
+    # there is no kernel here: the "op" IS the schedule — the continuous
+    # batcher (serve/batcher.py) consumes its cost estimates and tile
+    # order to pick the next prefill target, and routes measured step
+    # wall-clock back through Schedule.observe/refine (DESIGN.md §2.10)
+    build=lambda schedule, remaining, device=None: schedule,
+    doc="Continuous-batching prefill scheduling; input (per-request "
+        "remaining prompt token counts); cost = remaining tokens.")

@@ -1,27 +1,41 @@
 """Serving engine of the port with iCh-adaptive chunked prefill — the
-counterpart of `repro.serve.engine` for the hybrid (Zamba2) and ssm
-(xLSTM) families.
+counterpart of `repro.serve.engine` for the dense (qwen2, OLMo, GLM-4,
+Phi-3), hybrid (Zamba2) and ssm (xLSTM) families.
 
 Prefill runs in chunks whose size is the iCh chunk: after each chunk the
 engine classifies its measured token throughput against the running mean
 band (mu +- eps*mu, paper eqs. 1-8) and adapts the divisor d as
 `adapt_d` does.
 
-* ssm family: incremental. Each chunk feeds only its own tokens through
-  `models.model.prefill_extend` from the block states the last chunk left
-  — O(chunk) work a chunk — with chunk boundaries on multiples of the
-  one-shot prefill's scan-block length Q = min(cfg.ssm_chunk, S)
-  (`_ssm_q`), so every chunk replays exactly the scan steps of a one-shot
-  prefill and the last logits and states are its bits.
+* dense and ssm families: incremental. Each chunk feeds only its own
+  tokens through `models.model.prefill_extend` against the cache the last
+  chunk left — O(chunk x context) work a chunk for dense, O(chunk) for
+  ssm — with chunk boundaries on multiples of a quantum Q (`_chunk_q`),
+  so the last logits and the cache are a one-shot prefill's bits. For
+  ssm, Q = min(cfg.ssm_chunk, S), the one-shot scan-block length, as in
+  the reference. For dense, Q = min(models.model.TOKEN_BLOCK, S) = min(
+  256, S): the port runs a dense layer's token-wise products per block
+  of 256 tokens, because a row of a product changes bits with the
+  call's row count (on an H100: every qwen2-1.5b product, 256 rows
+  against 8,192; on the CPU: the vectorised exp/cos tails). This
+  quantum is the port's: the reference chunks attention families at any
+  boundary (and on some JAX builds its own bit-identity test fails).
 * hybrid family: a hybrid model's attention cache does not extend
   incrementally, so each chunk re-runs the whole prefix — quadratic in the
   prompt — and every such chunk is counted in `Engine.n_prefill_fallbacks`,
   as the reference counts it. The last chunk is a one-shot prefill of the
   whole prompt, so its logits and cache are those of one.
 
-Runs are float32 end to end, as the reference's `Engine` runs them. The
-per-request batcher surface (`start_request`, `prefill_chunk_step`,
-`decode_one`) comes with ROADMAP.md queue 1 item 2.
+Two surfaces, as in the reference: `generate(prompts, ...)`, the
+single-request path with the engine-level iCh band; and `start_request` /
+`prefill_chunk_step` / `decode_one`, the per-request primitives the
+continuous batcher (`serve/batcher.py`) drives on a `RequestState` (B = 1,
+its own cache and iCh band). A dense cache is written in place by
+`prefill_extend` and by decode (the reference returns copies): a
+`RequestState` owns its cache, and `EngineBackend.rebuild_state` builds a
+fresh one.
+
+Runs are float32 end to end, as the reference's `Engine` runs them.
 """
 from __future__ import annotations
 
@@ -48,10 +62,10 @@ class EngineConfig:
 
 class Engine:
     """`Engine(cfg, params, ecfg, device=None)`: `params` is the model
-    (`models.model.HybridLM`) on `device` (None = the card; raises without
-    CUDA). Prefill is incremental when `models.model.extend_cache_specs_ok`
-    says the config's states extend (the ssm family), else a prefix rerun
-    per chunk."""
+    (`models.model.init_params`) on `device` (None = the card; raises
+    without CUDA). Prefill is incremental when
+    `models.model.extend_cache_specs_ok` says the config's caches extend
+    (dense, ssm), else a prefix rerun per chunk (hybrid)."""
 
     def __init__(self, cfg, params, ecfg: Optional[EngineConfig] = None, *,
                  device=None):
@@ -75,6 +89,10 @@ class Engine:
         return M.prefill(self.cfg, self.params, {"tokens": tokens},
                          dtype=torch.float32)
 
+    def _extend(self, tokens: torch.Tensor, cache, done: int, q: int):
+        return M.prefill_extend(self.cfg, self.params, tokens, cache, done,
+                                dtype=torch.float32, ssm_chunk=q)
+
     def _decode(self, tok, cache, pos: int):
         return M.decode_step(self.cfg, self.params, tok, cache, pos,
                              dtype=torch.float32)
@@ -84,17 +102,22 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     # ---------------- iCh chunked prefill ----------------
-    def _ssm_q(self, prompt_len: int) -> int:
-        """Scan-block quantum of an incremental (ssm) prefill. The one-shot
-        prefill scans in Q = min(cfg.ssm_chunk, S) blocks; incremental
-        chunk boundaries must land on multiples of Q to replay the same
-        scan steps (bit identity, see `models.model.prefill_extend`)."""
-        return min(self.cfg.ssm_chunk, int(prompt_len))
+    def _chunk_q(self, prompt_len: int) -> Optional[int]:
+        """Chunk quantum of an incremental prefill (None for a prefix
+        rerun). Ssm: the one-shot prefill's scan-block length min(
+        cfg.ssm_chunk, S), so every chunk replays its scan steps. Dense:
+        min(TOKEN_BLOCK, S), so every block of token-wise products replays
+        one-shot's (bit identity, see `models.model.prefill_extend`)."""
+        if not self.incremental:
+            return None
+        q = self.cfg.ssm_chunk if self.cfg.family == "ssm" \
+            else M.TOKEN_BLOCK
+        return min(int(q), int(prompt_len))
 
     def _next_chunk(self, remaining: int, q: Optional[int] = None) -> int:
         c = max(self.ecfg.min_chunk, int(np.ceil(remaining / self.d)))
         if q:
-            c = -(-c // q) * q  # round up to the ssm scan-block quantum
+            c = -(-c // q) * q  # round up to the chunk quantum
         return min(c, remaining)
 
     def _adapt(self, tokens_done: int, dt: float):
@@ -113,7 +136,7 @@ class Engine:
         log = []
         done = 0
         logits = None
-        q = self._ssm_q(S) if self.incremental else None
+        q = self._chunk_q(S)
         cache = (M.empty_extend_cache(self.cfg, B, S, dtype=torch.float32,
                                       device=self.device)
                  if self.incremental else None)
@@ -121,10 +144,9 @@ class Engine:
             c = self._next_chunk(S - done, q)
             t0 = time.perf_counter()
             if self.incremental:
-                # feed ONLY the chunk from the last chunk's states
-                logits, cache = M.prefill_extend(
-                    self.cfg, self.params, toks[:, done: done + c], cache,
-                    done, dtype=torch.float32, ssm_chunk=q)
+                # feed ONLY the chunk, against the last chunk's cache
+                logits, cache = self._extend(toks[:, done: done + c], cache,
+                                             done, q)
             else:
                 # re-run the prefix — O(n^2), counted so the fallback can
                 # never hide in the logs
@@ -137,19 +159,73 @@ class Engine:
             done += c
         return logits, cache, log
 
+    # ---------------- per-request primitives (batcher surface) ----------
     def start_request(self, st) -> None:
+        """Allocate the request's incremental prefill cache, sized to its
+        exact prompt (the bit-identity requirement). Raises ValueError for
+        a dense request whose prompt and new tokens exceed max_seq: its
+        decode would write past the cache."""
         if not self.incremental:
             raise NotImplementedError(
                 f"continuous batching needs prefill_extend; family "
                 f"{self.cfg.family!r} caches don't extend incrementally")
-        raise NotImplementedError(
-            "the per-request batcher surface (start_request, "
-            "prefill_chunk_step, decode_one) comes with ROADMAP.md queue 1 "
-            "item 2")
+        if self._has_kv() and st.prompt_len + st.request.n_new \
+                > self._cache_len():
+            raise ValueError(
+                f"request {st.request.req_id}: prompt of {st.prompt_len} + "
+                f"{st.request.n_new} new tokens exceeds the attention cache "
+                f"of {self._cache_len()} positions")
+        st.cache = M.empty_extend_cache(self.cfg, 1, st.prompt_len,
+                                        dtype=torch.float32,
+                                        device=self.device)
+
+    @torch.no_grad()
+    def prefill_chunk_step(self, st, chunk: int) -> None:
+        """Advance one request's prefill by `chunk` tokens, rounded up to
+        the chunk quantum (`_chunk_q`) and capped at the prompt's end.
+        Mechanical: the caller (batcher + policy) owns timing, chunk logs
+        and divisor adaptation. On completion, grows the cache to max_seq
+        and emits the request's first token (the prefill argmax)."""
+        if st.cache is None:
+            self.start_request(st)
+        done = st.prefill_done
+        chunk = min(chunk, st.remaining_prefill)
+        if chunk <= 0:
+            return
+        q = self._chunk_q(st.prompt_len)
+        chunk = min(-(-chunk // q) * q, st.remaining_prefill)
+        toks = torch.as_tensor(
+            np.asarray(st.request.tokens)[:, done: done + chunk],
+            dtype=torch.long, device=self.device)
+        logits, st.cache = self._extend(toks, st.cache, done, q)
+        st.prefill_done = done + chunk
+        st.last_logits = logits
+        if st.remaining_prefill == 0:
+            st.cache = self._pad_cache(st.cache)
+            st.out_tokens.append(int(torch.argmax(logits[0], -1)))
+
+    @torch.no_grad()
+    def decode_one(self, st) -> None:
+        """One greedy decode token for a stream that finished prefill."""
+        if not st.out_tokens:
+            raise ValueError("decode_one before prefill produced a token")
+        pos = st.prompt_len + len(st.out_tokens) - 1
+        tok = torch.tensor([[st.out_tokens[-1]]], dtype=torch.long,
+                           device=self.device)
+        logits, st.cache = self._decode(tok, st.cache, pos)
+        st.out_tokens.append(int(torch.argmax(logits[0], -1)))
+        st.last_logits = logits
 
     # ---------------- decode ----------------
+    def _has_kv(self) -> bool:
+        """Whether the config keeps an attention KV cache."""
+        return self.cfg.family == "dense" or "A" in self.cfg.block_pattern
+
     def _cache_len(self) -> int:
-        w = self.cfg.attn_window
+        """Positions of the decode KV cache: max_seq, or the attention
+        window when it is shorter (hybrid; a dense stack runs without one,
+        as in the reference)."""
+        w = self.cfg.attn_window if self.cfg.family != "dense" else 0
         return min(self.ecfg.max_seq, w) if w else self.ecfg.max_seq
 
     @torch.no_grad()
@@ -161,14 +237,16 @@ class Engine:
         shed (`stats["degraded"]`, `stats["n_shed"]`); at least the prefill
         argmax is produced.
 
-        Raises ValueError, for a pattern with attention blocks, when
-        S + n_new exceeds the attention cache (min(max_seq, attn_window)):
-        the reference keeps the FIRST attn_window prefill positions of a
-        longer prompt, so its decode would attend to the wrong keys
-        (ROADMAP.md, queue 3). A recurrent-only pattern has no such cache."""
+        Raises ValueError, for a config with an attention cache (dense, or
+        a pattern with attention blocks), when S + n_new exceeds it
+        (max_seq, or min(max_seq, attn_window)): the reference keeps the
+        FIRST attn_window prefill positions of a longer prompt, so its
+        decode would attend to the wrong keys (ROADMAP.md, queue 3), and a
+        dense decode would write past max_seq. A recurrent-only pattern
+        has no such cache."""
         t_start = time.perf_counter()
         B, S = np.asarray(prompts).shape
-        if "A" in self.cfg.block_pattern and S + n_new > self._cache_len():
+        if self._has_kv() and S + n_new > self._cache_len():
             raise ValueError(
                 f"prompt of {S} + {n_new} new tokens exceeds the attention "
                 f"cache of {self._cache_len()} positions (max_seq "
@@ -193,8 +271,22 @@ class Engine:
 
     def _pad_cache(self, cache):
         """Grow the attention caches to the decode cache length (zeros past
-        the prompt); the recurrent states pass through."""
+        the prompt; dense: each segment's (L, B, S, Hkv, dh) along S); the
+        recurrent states pass through."""
         w = self._cache_len()
+        if self.cfg.family == "dense":
+            out = []
+            for seg in cache:
+                grown = {}
+                for name, t in seg.items():
+                    if t.shape[2] >= w:
+                        grown[name] = t
+                        continue
+                    full = t.new_zeros((*t.shape[:2], w, *t.shape[3:]))
+                    full[:, :, :t.shape[2]] = t
+                    grown[name] = full
+                out.append(grown)
+            return out
         out = []
         for kind, st in zip(self.cfg.block_pattern, cache):
             if kind == "A":

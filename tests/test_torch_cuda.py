@@ -20,7 +20,12 @@ their tile edges, dh 96, chunks of 1, 7 and 1,024 steps, and the same bits
 from two calls at the serving shapes), the SSD scan from a given state
 (N 16 to 512, Pd 33 to 513; one call == two calls split at a chunk
 boundary, bit for bit), a reduced xLSTM served on the card against the
-CPU (its incremental prefill == a one-shot prefill, bit for bit), and the
+CPU (its incremental prefill == a one-shot prefill, bit for bit), the
+flash kernel from a query offset (dh 64, 96, 128, GQA ratios 1 to 16,
+float32 and bfloat16; its rows == one call's rows bit for bit; bad
+offsets refused), a reduced qwen2-1.5b at dh 128 served on the card
+(incremental prefill == one-shot bit for bit, the batcher's tokens ==
+each request alone), and the
 schedule
 pipeline on the card (each lowering element-identical to the numpy one,
 tile costs bit for bit: one R per branch of numpy's pairwise sum, LPT
@@ -468,6 +473,61 @@ def test_mamba_scan_kernel_long_chunks(cuda, S, chunk, shared):
     assert _scan_terms_error(st, st_p, st_a) <= 2e-4
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dh", [64, 96, 128])
+@pytest.mark.parametrize("rep", [1, 4, 6, 16])
+def test_flash_attention_from_an_offset_matches_plain(cuda, dtype, tol, dh,
+                                                      rep):
+    """A chunk of queries at q_offset against the whole cache (an
+    incremental prefill's call), offsets on and off the 64-row tiles, with
+    and without a window: the reference's kernel-test tolerances, as
+    above; and the chunk's rows equal the same rows of one call over all
+    queries, bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    g = torch.Generator(device=cuda).manual_seed(dh + rep)
+    Skv, Hkv = 300, 2
+    q = torch.randn((2, Skv, Hkv * rep, dh), generator=g, device=cuda)
+    k = torch.randn((2, Skv, Hkv, dh), generator=g, device=cuda)
+    v = torch.randn((2, Skv, Hkv, dh), generator=g, device=cuda)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    for window in (0, 48):
+        whole = K.flash_attention(q, k, v, causal=True, window=window)
+        for off, n in ((0, 300), (64, 100), (128, 172), (37, 50), (250, 50),
+                       (299, 1)):
+            qc = q[:, off:off + n].contiguous()
+            K.reset_launches()
+            out = K.flash_attention(qc, k, v, causal=True, window=window,
+                                    q_offset=off)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES == {"flash_attention": 1}
+            plain = K.flash_attention_plain(qc, k, v, causal=True,
+                                            window=window, q_offset=off)
+            torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                                       atol=tol)
+            assert torch.equal(out, whole[:, off:off + n]), (off, window)
+
+
+def test_flash_attention_refuses_a_bad_offset(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    k = torch.zeros((1, 16, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="q_offset must be >= 0"):
+        K.flash_attention(q, k, k, q_offset=-1)
+    with pytest.raises(ValueError, match="q_offset \\+ Sq <= Skv"):
+        K.flash_attention(q, k, k, causal=True, q_offset=9)
+    with pytest.raises(ValueError, match="q_offset \\+ Sq <= Skv"):
+        K.flash_attention(q, k, k, causal=False, window=4, q_offset=9)
+    # the last position the cache holds, no mask, or causal from 0 with
+    # more queries than keys (each keeps key 0): no refusal
+    assert K.flash_attention(q, k, k, causal=True, q_offset=8).shape \
+        == q.shape
+    assert K.flash_attention(q, k, k, causal=False, q_offset=100).shape \
+        == q.shape
+    assert K.flash_attention(q, k[:, :3], k[:, :3], causal=True).shape \
+        == q.shape
+
+
 def test_flash_and_scan_repeat_bit_identical(cuda):
     """At the serving path's shapes (Zamba2-1.2B, 4 x 2,048 tokens) two
     calls give the same bits: fixed order, no atomics, whatever the SMs
@@ -718,6 +778,67 @@ def test_zamba2_serving_on_the_card_matches_the_cpu(cuda):
                                 eng._pad_cache(cache), 40)
     full, _ = M.prefill(cfg, model, {"tokens": toks.to(cuda)})
     torch.testing.assert_close(d_logits, full, rtol=2e-3, atol=2e-3)
+
+
+def test_dense_incremental_prefill_on_the_card_is_one_shot(cuda):
+    """A reduced qwen2-1.5b widened to dh = 128 (the kernel's width), its
+    qkv biases drawn at random: on the card, the engine's incremental
+    prefill (chunks on multiples of 256 tokens, one flash launch a layer
+    from each chunk's offset) gives the one-shot prefill's last
+    logits and KV cache bit for bit; the one-shot logits match the CPU's
+    plain versions within 1e-4; generate gives the CPU's ids; the
+    continuous batcher's tokens equal each request served alone."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.models import model as M
+    from repro_torch.serve import (AdmissionQueue, ContinuousBatcher, Engine,
+                                   EngineBackend, EngineConfig, Request,
+                                   RoundRobin, SimClock)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_arch("qwen2-1.5b"), d_model=512, n_heads=4,
+                  n_kv_heads=2, n_layers=3)
+    model = M.init_params(cfg, 2, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    with torch.no_grad():
+        for layer in model.layers:
+            for bias in (layer.attn.bq, layer.attn.bk, layer.attn.bv):
+                bias.copy_(torch.randn(bias.shape, generator=g,
+                                       device=cuda))
+    cpu_model = M.init_params(cfg, 2, device="cpu")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in
+                               model.state_dict().items()})
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 700))
+    ecfg = EngineConfig(max_seq=768, min_chunk=4)
+    KF.reset_launches()
+    eng = Engine(cfg, model, ecfg)
+    logits, cache, log = eng.prefill_chunked(prompts)
+    torch.cuda.synchronize()
+    assert len(log) > 1 and all(c["chunk"] % 256 == 0 for c in log[:-1])
+    assert KF.LAUNCHES == {"flash_attention": 3 * len(log)}
+    one, one_cache = M.prefill(cfg, model, {"tokens": torch.from_numpy(
+        prompts).to(cuda)})
+    assert torch.equal(logits, one)
+    assert all(torch.equal(cache[0][n], one_cache[0][n]) for n in "kv")
+    cpu_one, _ = M.prefill(cfg, cpu_model, {"tokens": torch.from_numpy(
+        prompts)})
+    torch.testing.assert_close(one.cpu(), cpu_one, rtol=1e-4, atol=1e-4)
+    ids, _ = Engine(cfg, model, ecfg).generate(prompts, n_new=6)
+    cpu_ids, _ = Engine(cfg, cpu_model, ecfg, device="cpu").generate(
+        prompts, n_new=6)
+    np.testing.assert_array_equal(ids, cpu_ids)
+    b = ContinuousBatcher(RoundRobin(chunk=256, min_chunk=4),
+                          queue=AdmissionQueue(max_running=4),
+                          backend=EngineBackend(Engine(cfg, model, ecfg)),
+                          clock=SimClock())
+    sts = [b.submit(Request(req_id=i, tokens=prompts[i:i + 1, :n], n_new=5,
+                            t_arrival=0.0))
+           for i, n in enumerate((700, 300))]
+    while b.step():
+        pass
+    alone = Engine(cfg, model, ecfg)
+    for st in sts:
+        out, _ = alone.generate(st.request.tokens, n_new=5)
+        assert st.out_tokens == out[0].tolist()
 
 
 # ---- the flat walks (two kernels over the whole card) on inputs built

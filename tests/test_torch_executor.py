@@ -240,9 +240,12 @@ def test_watchdog_reclaims_a_stalled_worker():
     def sleep_fn(seconds):
         done.wait(timeout=10.0)
 
+    # the reference's heartbeat budget (tests/test_robust.py): at 0.02 s a
+    # loaded host may not start worker 1 before the watchdog fires, and a
+    # worker killed before its first chunk records no stall
     stats = PE.parallel_for(n, body, p, PP.ich(), seed=3,
                             faults=PF.FaultPlan(stalls=((1, 0, 5.0),)),
-                            watchdog_s=0.02, sleep_fn=sleep_fn)
+                            watchdog_s=0.15, sleep_fn=sleep_fn)
     assert done.is_set() and (hits.hits == 1).all()
     assert stats.stall_events == 1 and stats.deaths == 1
     assert ("watchdog_kill", 1) in stats.fault_log

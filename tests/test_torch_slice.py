@@ -207,7 +207,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.core.executor, repro_torch.robust, "
             "repro_torch.robust.faults, repro_torch.sched.api, "
             "repro_torch.core.tiling_torch, repro_torch.kernels.lpt.lpt, "
-            "repro_torch.robust.recovery; "
+            "repro_torch.robust.recovery, repro_torch.robust.journal, "
+            "repro_torch.serve.queue, repro_torch.serve.metrics, "
+            "repro_torch.serve.loadgen, repro_torch.serve.policies, "
+            "repro_torch.serve.batcher, repro_torch.models.attention, "
+            "repro_torch.configs.qwen2_1_5b; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -239,11 +243,17 @@ def test_no_port_file_imports_jax_or_the_reference():
 
 def test_host_modules_import_no_torch():
     # the numpy host side is copied as numpy: the simulator, executor,
-    # fault injection and construction import no torch, as in the reference
+    # fault injection, construction, the serving queue, metrics, load
+    # generator, policies, batcher and journal import no torch, as in the
+    # reference
     core = ROOT / "src" / "repro_torch" / "core"
     files = [core / f"{m}.py" for m in ("simulator", "executor", "policies",
                                          "welford", "workloads", "tiling")]
     files.append(ROOT / "src" / "repro_torch" / "robust" / "faults.py")
+    files.append(ROOT / "src" / "repro_torch" / "robust" / "journal.py")
+    serve = ROOT / "src" / "repro_torch" / "serve"
+    files += [serve / f"{m}.py" for m in ("queue", "metrics", "loadgen",
+                                          "policies", "batcher")]
     for f in files:
         assert "torch" not in set(_imported_roots(f)), f.name
 

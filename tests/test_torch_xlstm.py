@@ -38,6 +38,7 @@ from repro_torch.kernels.mamba_scan import mamba_scan as KS
 from repro_torch.models import model as M
 from repro_torch.models import ssm as SS
 from repro_torch.serve import Engine, EngineConfig
+from repro_torch.serve.queue import Request, RequestState
 
 SCAN_TOL = 2e-4
 TOL = 1e-4
@@ -290,23 +291,32 @@ def test_chunked_prefill_is_one_shot_bit_for_bit(lm, divisor):
 
 def test_engine_serves_ssm_past_max_seq_and_refuses_the_batcher(lm):
     """A recurrent-only pattern has no attention cache for `max_seq` to
-    bound, so a prompt longer than it is served; the per-request batcher
-    surface is not ported yet and says so."""
+    bound, so a prompt longer than it is served, through `generate` and
+    through the per-request batcher surface alike (the same tokens); that
+    surface refuses a decode before the prefill's first token."""
     _, cfg, _, model = lm
     eng = Engine(cfg, model, EngineConfig(max_seq=8), device="cpu")
-    ids, _ = eng.generate(np.ones((1, 12), np.int32), n_new=3)
+    prompt = np.ones((1, 12), np.int32)
+    ids, _ = eng.generate(prompt, n_new=3)
     assert ids.shape == (1, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        eng.start_request(None)
+    st = RequestState(request=Request(req_id=0, tokens=prompt, n_new=3))
+    with pytest.raises(ValueError, match="decode_one before prefill"):
+        eng.decode_one(st)
+    eng.start_request(st)
+    while st.remaining_prefill:
+        eng.prefill_chunk_step(st, 5)
+    while len(st.out_tokens) < 3:
+        eng.decode_one(st)
+    assert st.out_tokens == ids[0].tolist()
 
 
 def test_extend_refuses_what_it_does_not_run():
     _, zamba = reduced(get_arch("zamba2-1.2b")), get_arch("zamba2-1.2b")
     assert not M.extend_cache_specs_ok(zamba)
     assert M.extend_cache_specs_ok(get_arch("xlstm-350m"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="does not extend"):
         M.empty_extend_cache(zamba, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="does not extend"):
         M.prefill_extend(zamba, None, torch.zeros((1, 4), dtype=torch.long),
                          [], 0)
     with pytest.raises(NotImplementedError, match="later slice"):
