@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` (one nvcc per
 source, all started together), holds each against its plain PyTorch
-version on the card, and drives the port's seven main paths, each with
+version on the card, and drives the port's eight main paths, each with
 its launch counters set to 0 just before it and read just after:
 
 * SpMV (schedule -> sharded kernel -> observe/refine -> sharded kernel) on
@@ -51,7 +51,23 @@ its launch counters set to 0 just before it and read just after:
   extend shapes against its plain version (its rows == one call's rows,
   bit for bit); the continuous batcher (8 Poisson arrivals, IChAdaptive
   on a wall clock) whose every request equals the prompt served alone;
-  and olmo-1b, glm4-9b and phi3-medium-14b at full width with 2 layers.
+  and olmo-1b, glm4-9b and phi3-medium-14b at full width with 2 layers;
+* olmoe-1b-7b serving (`Engine.generate` with an incremental prefill:
+  each chunk through `prefill_extend`, 16 flash-attention and 16 expert
+  kernel launches a call, every MoE layer's expert FFN planned on the
+  host (`plan_dispatch` -> `LoopScheduler(p=SM count).build(
+  "moe-dispatch")`) and run by `ich_moe_sharded`, dropless; then 32
+  decode steps, 16 expert kernel launches each) at full width and depth
+  (16 layers, 64 experts top-8, 6.9 B float32 parameters from a seeded
+  generator) on the same prompts' shape, held to the incremental prefill
+  equalling a one-shot prefill bit for bit (logits and the whole KV
+  cache), decode against a fresh prefill, finite logits, two runs the
+  same ids; the expert kernel's rows of a token planned alone equal to
+  its rows planned among the one-shot prefill's 8,192 tokens; the expert
+  kernel at a prefill chunk's shape and flash from an offset at 16 / 16
+  heads against their plain versions; the continuous batcher over 4
+  requests; and deepseek-moe-16b at full width cut to 3 layers (its dense
+  first layer, shared experts).
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -102,9 +118,10 @@ It times every kernel beside its plain version, its bound and PyTorch
 computing the same function (cuSPARSE SpMV, `torch.cdist` argmin, MoE's
 capacity-buffer `torch.bmm` form, `scaled_dot_product_attention`; the SSD
 scan has no single PyTorch call; it is listed twice, at Zamba2's and at
-xlstm-350m's shape, and flash twice, at Zamba2's prefill and at
-qwen2-1.5b's extend shape from an offset), and prints one JSON line per
-result.
+xlstm-350m's shape, flash three times, at Zamba2's prefill and from an
+offset at qwen2-1.5b's and olmoe-1b-7b's extend shapes, and the expert
+kernel twice, at the dispatch phase's shape and at olmoe-1b-7b's serving
+shape), and prints one JSON line per result.
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs CUDA and the repository's `src/` beside it.
 
@@ -173,6 +190,12 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     # the flash kernel from a query offset at qwen2-1.5b's extend shape
     "flash_attention_offset": ("src/repro_torch/csrc/flash_attention.cu",
                                PASS + "flash_attention/flash_attention.py:95"),
+    # the expert kernel at olmoe-1b-7b's serving shape (a prefill chunk's
+    # MoE layer, dropless) and flash at its extend shape (16 / 16 heads)
+    "ich_moe_sharded_serving": ("src/repro_torch/csrc/ich_moe.cu",
+                                PASS + "ich_moe/ich_moe.py:197"),
+    "flash_attention_moe": ("src/repro_torch/csrc/flash_attention.cu",
+                            PASS + "flash_attention/flash_attention.py:95"),
     # the schedule pipeline's two kernels replace XLA code of the reference's
     # jitted pipeline, not a Pallas kernel: its segment sum and LPT loop
     "segment_fold": ("src/repro_torch/csrc/lpt.cu",
@@ -214,6 +237,15 @@ DENSE_OTHER_LAYERS, DENSE_OTHER_BATCH, DENSE_OTHER_PROMPT = 2, 2, 1024
 # the continuous batcher over qwen2-1.5b: 8 Poisson arrivals within the
 # first second, prompts uniform in [256, 2048], 16 new tokens each
 BATCHER_REQUESTS, BATCHER_NEW, BATCHER_RATE = 8, 16, 32.0
+# olmoe-1b-7b serving (src/repro/configs/olmoe_1b_7b.py, full width and
+# depth), the same batch, prompts and new tokens; the expert kernel timed
+# at a chunk of MOE_CHUNK tokens a row; its rows compared between the
+# one-shot pool and pools of MOE_ROW_POOLS tokens; the batcher over 4
+# requests; deepseek-moe-16b (src/repro/configs/deepseek_moe_16b.py) at
+# full width cut to 3 layers, 2 prompts of 1,024 tokens
+MOE_ARCH, MOE_CHUNK, MOE_ROW_POOLS = "olmoe-1b-7b", 512, (256, 4)
+MOE_BATCHER_REQUESTS = 4
+DEEPSEEK_ARCH, DEEPSEEK_LAYERS = "deepseek-moe-16b", 3
 
 
 def log(**kw) -> None:
@@ -1024,15 +1056,16 @@ def _moe_host_reference(plan, x, wi, wg, wo, sample):
     return y64, absum
 
 
-def capacity_buffer_moe(x, wi, wg, wo, plan):
+def capacity_buffer_moe(x, wi, wg, wo, plan, C=None):
     """The dense capacity-buffer form of the reference's `moe_local`: kept
     entries gathered into an (E, C, D) buffer (C = the plan's largest
-    capacity), three float32 `torch.bmm` with silu, weighted scatter-add
-    back to the tokens. Several PyTorch calls; the yardstick, never used
-    by the port."""
+    capacity unless given; a dropless plan's largest expert load fits
+    every kept entry), three float32 `torch.bmm` with silu, weighted
+    scatter-add back to the tokens. Several PyTorch calls; the yardstick,
+    never used by the port."""
     import torch
     E, D = wi.shape[0], x.shape[1]
-    C = int(plan.cap.max())
+    C = int(plan.cap.max()) if C is None else int(C)
     k = plan.keep
     at = torch_index(plan.expert[k].astype(np.int64) * C + plan.pos[k])
     tok = torch_index(plan.token[k])
@@ -1464,16 +1497,19 @@ def _rel_terms(a, b, terms) -> float:
 
 
 def _kernel_split(ms_by_name: dict) -> dict:
-    """Device milliseconds of one traced call grouped: the two kernels of
-    this slice, matrix products (cuBLAS/CUTLASS), everything else."""
-    out = {"flash_attention": 0.0, "mamba_scan": 0.0, "matmul": 0.0,
-           "other": 0.0}
+    """Device milliseconds of one traced call grouped: the LM kernels
+    (flash, the SSD scan, the expert kernel's five `moe_*` kernels),
+    matrix products (cuBLAS/CUTLASS), everything else."""
+    out = {"flash_attention": 0.0, "mamba_scan": 0.0, "ich_moe": 0.0,
+           "matmul": 0.0, "other": 0.0}
     for name, ms in ms_by_name.items():
         low = name.lower()
         if "flash_fwd_kernel" in name:
             out["flash_attention"] += ms
         elif "ssd_scan_kernel" in name:
             out["mamba_scan"] += ms
+        elif "moe_" in name:
+            out["ich_moe"] += ms
         elif "gemm" in low or "cutlass" in low or "matmul" in low:
             out["matmul"] += ms
         else:
@@ -2137,34 +2173,42 @@ def _seed_biases(params, seed: int) -> None:
 
 
 def _dense_bars(label, cfg, params, prompts, n_new, ids, n_chunks):
-    """Bars (a)-(d) of a dense `Engine.generate` run on `prompts`: (a) no
-    prefix rerun, and the incremental prefill's last logits and whole KV
-    cache == a one-shot prefill's bits; (b) one flash launch per layer in
-    every prefill_extend call and in the one-shot prefill; (c) decode at
-    S == a fresh prefill of S + 1 within DECODE_TOL; (d) finite logits.
-    Returns (record, one-shot prefill seconds, one-shot cache)."""
+    """Bars (a)-(d) of a dense or moe `Engine.generate` run on `prompts`:
+    (a) no prefix rerun, and the incremental prefill's last logits and
+    whole KV cache == a one-shot prefill's bits; (b) one flash launch per
+    layer, and one ich_moe_sharded launch per MoE layer, in every
+    prefill_extend call and in the one-shot prefill; (c) decode at S == a
+    fresh prefill of S + 1 within DECODE_TOL; (d) finite logits. Returns
+    (record, one-shot prefill seconds, one-shot cache)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.ich_moe import ich_moe as KM
     from repro_torch.models import model as M
     from repro_torch.serve import Engine, EngineConfig
     L = cfg.n_layers
+    n_moe = cfg.n_layers - cfg.moe_layer_start if cfg.moe else 0
     toks = torch.from_numpy(prompts).cuda()
     eng = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
     KF.reset_launches()
+    KM.reset_launches()
     last, inc_cache, inc_log = eng.prefill_chunked(prompts)
     torch.cuda.synchronize()
     inc_launches = KF.LAUNCHES["flash_attention"]
+    inc_moe = KM.LAUNCHES["ich_moe_sharded"]
     KF.reset_launches()
+    KM.reset_launches()
     t0 = time.perf_counter()
     one_shot, cache = M.prefill(cfg, params, {"tokens": toks})
     torch.cuda.synchronize()
     t_one_shot = time.perf_counter() - t0
     one_launches = KF.LAUNCHES["flash_attention"]
+    one_moe = KM.LAUNCHES["ich_moe_sharded"]
     check(eng.n_prefill_fallbacks == 0 and n_chunks > 0,
           f"({label} a) incremental prefill: no prefix rerun")
-    check(one_launches == L and inc_launches == L * len(inc_log),
-          f"({label} b) {L} flash launches per prefill and prefill_extend "
-          f"call")
+    check(one_launches == L and inc_launches == L * len(inc_log)
+          and one_moe == n_moe and inc_moe == n_moe * len(inc_log),
+          f"({label} b) {L} flash and {n_moe} ich_moe_sharded launches per "
+          f"prefill and prefill_extend call")
     check(torch.equal(last, one_shot) and _states_equal(inc_cache, cache),
           f"({label} a) incremental prefill's last logits and KV cache == "
           f"one-shot prefill bit for bit")
@@ -2184,6 +2228,8 @@ def _dense_bars(label, cfg, params, prompts, n_new, ids, n_chunks):
     rec = {"second_run_chunks": [c["chunk"] for c in inc_log],
            "flash_launches_one_shot": one_launches,
            "flash_launches_incremental": inc_launches,
+           "moe_launches_one_shot": one_moe,
+           "moe_launches_incremental": inc_moe,
            "one_shot_prefill_s": t_one_shot,
            "decode_vs_prefill_max_abs": err,
            "logits_max_abs": float(fresh.abs().max()),
@@ -2194,16 +2240,18 @@ def _dense_bars(label, cfg, params, prompts, n_new, ids, n_chunks):
     return rec, t_one_shot, cache
 
 
-def dense_batcher(cfg, params) -> dict:
-    """The continuous batcher over the dense model: IChAdaptive on a wall
-    clock through `EngineBackend`, 8 Poisson arrivals within the first
-    second (prompts uniform in [256, 2048], 16 new tokens each); every
+def dense_batcher(cfg, params, n_requests=BATCHER_REQUESTS) -> dict:
+    """The continuous batcher over a dense or moe model: IChAdaptive on a
+    wall clock through `EngineBackend`, `n_requests` Poisson arrivals
+    within the first second (prompts uniform in [256, 2048], 16 new
+    tokens each); every
     request's tokens must equal the same prompt served alone through
     `Engine.generate` (B = 1), and its last logits the bits of the prompt
     served alone through the per-request surface in one chunk; prefill
     chunks must interleave with decodes."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.ich_moe import ich_moe as KM
     from repro_torch.robust import ServeJournal
     from repro_torch.serve import (ContinuousBatcher, Engine, EngineBackend,
                                    EngineConfig, IChAdaptive, LengthDist,
@@ -2212,7 +2260,7 @@ def dense_batcher(cfg, params) -> dict:
     gen = OpenPoissonLoadGen(
         BATCHER_RATE, prompt_lens=LengthDist("uniform", 256, 2048),
         output_lens=LengthDist("fixed", BATCHER_NEW, BATCHER_NEW), seed=SEED)
-    arrivals = gen.arrivals(BATCHER_REQUESTS)
+    arrivals = gen.arrivals(n_requests)
     check(max(a.t for a in arrivals) < 1.0,
           "batcher: every arrival within the first second")
     engine = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
@@ -2220,16 +2268,18 @@ def dense_batcher(cfg, params) -> dict:
     b = ContinuousBatcher(IChAdaptive(), backend=EngineBackend(engine),
                           clock=WallClock(), journal=journal)
     KF.reset_launches()
+    KM.reset_launches()
     t0 = time.perf_counter()
     m = b.run(arrivals, make_request=make_request_factory(
         gen, vocab_size=cfg.vocab_size))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = KF.LAUNCHES["flash_attention"]
+    moe_launches = KM.LAUNCHES["ich_moe_sharded"]
     steps = [e for e in journal.events if e["ev"] == "step"]
     mixed = sum(1 for e in steps if e["decode"] and e["prefill"] is not None)
     done = sorted(b.queue.done, key=lambda st: st.request.req_id)
-    check(len(done) == BATCHER_REQUESTS and all(
+    check(len(done) == n_requests and all(
         len(st.out_tokens) == BATCHER_NEW for st in done),
           "batcher: every request completed")
     check(mixed > 0, "batcher: prefill chunks interleaved with decodes")
@@ -2249,11 +2299,12 @@ def dense_batcher(cfg, params) -> dict:
               f"batcher: request {st.request.req_id}'s last logits == the "
               f"prompt served alone in one chunk, bit for bit")
     summary = m.summary()
-    return {"requests": BATCHER_REQUESTS, "rate_per_s": BATCHER_RATE,
+    return {"requests": n_requests, "rate_per_s": BATCHER_RATE,
             "prompt_lens": [st.prompt_len for st in done],
             "chunks": [[c["chunk"] for c in st.chunk_log] for st in done],
             "steps": len(steps), "steps_prefill_and_decode": mixed,
-            "flash_launches": launches, "wall_s": wall,
+            "flash_launches": launches, "moe_launches": moe_launches,
+            "wall_s": wall,
             "ttft_s": {"p50": summary["ttft"]["p50"],
                        "p99": summary["ttft"]["p99"]},
             "ms_per_output_token": {
@@ -2422,6 +2473,300 @@ def phase_dense():
     # tensor cores
     return [kernel_entry("flash_attention_offset", launches=launches,
                          err=flash["max_abs_err"], ms=flash["ms"],
+                         plain_ms=flash["plain_ms"],
+                         library_ms=flash["library_ms"],
+                         bytes_=flash["bytes"], flops=flash["flops"],
+                         peak=TF32_FLOPS / 3)]
+
+
+def moe_row_invariance(cfg, p, g) -> dict:
+    """Does the expert kernel's y row of a token depend on the other
+    tokens of its plan? 8,192 tokens (the one-shot prefill's pool) routed
+    by `p`'s router and dispatched dropless through `moe_local`, against
+    the first 256 (one token block) and the first 4 (a decode step's pool)
+    with the same routing dispatched alone: their y rows must be equal bit
+    for bit, or the engine's chunk quantum cannot keep chunked prefill
+    equal to one-shot."""
+    import torch
+    from repro_torch.models import moe as MOE
+    B, S = LM_BATCH, LM_PROMPT
+    x = torch.randn((B, S, cfg.d_model), generator=g, device="cuda")
+    routing = MOE.route(p, x, cfg.experts_per_token)
+    flat = x.reshape(B * S, -1)
+    y_all, aux = MOE.moe_local(cfg, p, flat, dropless=True, routing=routing)
+    out = {"tokens": B * S, "load_min": int(aux["counts"].min()),
+           "load_max": int(aux["counts"].max())}
+    for n in MOE_ROW_POOLS:
+        y_n, aux_n = MOE.moe_local(cfg, p, flat[:n], dropless=True,
+                                   routing=tuple(r[:n] for r in routing))
+        out[str(n)] = {
+            "equal": bool(torch.equal(y_n, y_all[:n])),
+            "max_abs": float((y_n - y_all[:n]).abs().max()),
+            "experts_with_one_token": int((aux_n["counts"] == 1).sum())}
+    del x, routing, flat, y_all
+    return out
+
+
+def moe_serving_kernel(cfg, p, g, sm_count) -> dict:
+    """Row 7b: the expert kernel at the shape of one olmoe prefill_extend
+    call's MoE layer, a chunk of 4 x 512 tokens (16,384 slots at top-8):
+    N(0, 1) rows (a normed hidden state's scale) routed by `p`'s router,
+    planned dropless and lowered at p = SM count, as `moe_local` does;
+    the kernel against its plain version (MOE_TOL, cost streams equal),
+    timed beside them and the dropless capacity-buffer bmm at C = the
+    largest expert load; the host's plan and lowering timed per pool."""
+    import torch
+    from repro_torch.kernels.ich_moe import ich_moe as KM
+    from repro_torch.models import moe as MOE
+    from repro_torch.sched import LoopScheduler, plan_dispatch
+    T, D, F, E = LM_BATCH * MOE_CHUNK, cfg.d_model, cfg.moe_d_ff, \
+        cfg.n_experts
+    x = torch.randn((LM_BATCH, MOE_CHUNK, D), generator=g, device="cuda")
+    _, w_topk, e_topk = MOE.route(p, x, cfg.experts_per_token)
+    x = x.reshape(T, D)
+    plan = plan_dispatch(e_topk.cpu().numpy(), w_topk.cpu().numpy(),
+                         cap=np.full(E, T, np.int32), steal=False)
+    op = LoopScheduler(p=sm_count, cache_size=0).build("moe-dispatch", plan)
+    args = (op.vals, op.cols, op.rowid, op.blkid, x, p.wi, p.wg, p.wo, op.p,
+            op.superstep, op.slots)
+    y_k, c_k, e_k = KM.ich_moe_sharded(*args, slot_cost=op.slot_cost)
+    y_p, c_p, e_p = KM.ich_moe_sharded_plain(*args, slot_cost=op.slot_cost)
+    check(torch.allclose(y_k, y_p, rtol=MOE_TOL, atol=MOE_TOL),
+          "serving-shape MoE kernel == plain")
+    check(torch.equal(c_k, c_p) and torch.equal(e_k, e_p),
+          "serving-shape MoE cost streams == plain")
+    err = float((y_k - y_p).abs().max())
+    library, C = capacity_buffer_moe(x, p.wi, p.wg, p.wo, plan,
+                                     C=int(plan.counts.max()))
+    y_lib = library()
+    lib_err = float((y_lib - y_k).abs().max())
+    check(torch.allclose(y_lib, y_k, rtol=MOE_TOL, atol=MOE_TOL),
+          "dropless capacity-buffer bmm y agrees")
+    del y_k, c_k, e_k, y_p, c_p, e_p, y_lib
+    ms = timed_ms(lambda: KM.ich_moe_sharded(*args, slot_cost=op.slot_cost))
+    plain_ms = timed_ms(lambda: KM.ich_moe_sharded_plain(
+        *args, slot_cost=op.slot_cost))
+    library_ms = timed_ms(library)
+    by_name = device_ms_by_kernel(lambda: KM.ich_moe_sharded(
+        *args, slot_cost=op.slot_cost), expect=("moe_product",))
+    kept = int(plan.counts.sum())
+    inputs = [op.vals, op.cols, op.rowid, op.blkid, op.slot_cost, x, p.wi,
+              p.wg, p.wo, *op.slots]
+    bytes_ = sum(t.numel() * t.element_size() for t in inputs) \
+        + (T * D + op.p * (op.shards.n_steps + E)) * 4
+    flops = 6 * D * F * kept
+    # the host's part of every MoE layer call: the router's choices to the
+    # host, plan_dispatch, then schedule, shard, pack and upload
+    host = {}
+    for n in (LM_BATCH, T, LM_BATCH * LM_PROMPT):
+        xn = torch.randn((1, n, D), generator=g, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, wn, en = MOE.route(p, xn, cfg.experts_per_token)
+        en, wn = en.cpu().numpy(), wn.cpu().numpy()
+        t1 = time.perf_counter()
+        pn = plan_dispatch(en, wn, cap=np.full(E, n, np.int32), steal=False)
+        t2 = time.perf_counter()
+        LoopScheduler(p=sm_count, cache_size=0).build("moe-dispatch", pn)
+        torch.cuda.synchronize()
+        host[str(n)] = {"route_and_copy_ms": (t1 - t0) * 1e3,
+                        "plan_ms": (t2 - t1) * 1e3,
+                        "lower_pack_upload_ms": (time.perf_counter() - t2)
+                        * 1e3}
+    rec = {"tokens": T, "slots": kept, "experts": E, "d_model": D,
+           "expert_ff": F, "p": op.p, "tiles": op.n_tiles,
+           "width": op.schedule.width, "load_min": int(plan.counts.min()),
+           "load_max": int(plan.counts.max()), "library_capacity": C,
+           "library_max_abs_diff": lib_err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "device_ms": by_name,
+           "device_total_ms": sum(by_name.values()), "max_abs_err": err,
+           "bytes": bytes_, "flops": flops, "host_ms_by_pool": host,
+           **_rates(flops, sum(by_name.values()))}
+    del x, op, args, inputs, library
+    return rec
+
+
+def phase_moe_lm():
+    """olmoe-1b-7b at full width and depth (16 layers, d_model 2,048, 16
+    heads and 16 KV heads of 128, 64 experts top-8 of width 1,024; random
+    float32 weights from a seeded generator, 6.9 B parameters): first
+    `moe_row_invariance`; then the counted main path `Engine.generate` on
+    4 prompts of 2,048 tokens with 32 new tokens, its prefill incremental
+    (`prefill_extend` per chunk: one flash launch and one ich_moe_sharded
+    launch a layer; a decode step one ich_moe_sharded launch a layer);
+    bars (a)-(d) of `_dense_bars` and (e) two runs give the same ids;
+    where the prefill's and a decode step's device time goes (products,
+    flash, ich_moe, other, idle); rows 7b (`moe_serving_kernel`) and 8c
+    (`flash_offset_checks` at 16/16 heads); the continuous batcher over 4
+    requests (`dense_batcher`); then deepseek-moe-16b at full width cut
+    to 3 layers (layer 0 dense with d_ff 11,264, layers 1-2 with 2 shared
+    and 64 routed experts, top-6), bars (a)-(d) on 2 prompts of 1,024
+    tokens with 8 new."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.ich_moe import ich_moe as KM
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 end to end
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    cfg = get_arch(MOE_ARCH)
+    B, S, n_new = LM_BATCH, LM_PROMPT, LM_NEW
+    n_moe = cfg.n_layers - cfg.moe_layer_start
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int64)
+    log(phase="moe_lm_setup", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        dh=cfg.dh, experts=cfg.n_experts, top_k=cfg.experts_per_token,
+        expert_ff=cfg.moe_d_ff, vocab=cfg.padded_vocab, params=n_params,
+        weight_bytes=n_params * 4, batch=B, prompt=S, new_tokens=n_new,
+        token_block=M.TOKEN_BLOCK, p=sm_count,
+        init_s=time.perf_counter() - t0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 12)
+    log(phase="moe_row_invariance", arch=cfg.name,
+        pools=moe_row_invariance(cfg, params.layers[0].moe, g))
+    # first use of cuBLAS at these widths and of both kernels, uncounted
+    M.prefill(cfg, params, {"tokens": torch.from_numpy(
+        prompts[:, :64]).cuda()})
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    KF.reset_launches()
+    KM.reset_launches()
+    engine = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ids, stats = engine.generate(prompts, n_new=n_new)
+    torch.cuda.synchronize()
+    t_generate = time.perf_counter() - t0
+    launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
+                "ich_moe_sharded": KM.LAUNCHES["ich_moe_sharded"]}
+    chunks = stats["chunks"]
+    sizes = [c["chunk"] for c in chunks]
+    t_prefill = sum(c["dt"] for c in chunks)
+    Q = min(M.TOKEN_BLOCK, S)
+    log(phase="moe_lm_main_path", chunk_log=chunks,
+        n_prefill_fallbacks=engine.n_prefill_fallbacks, launches=launches,
+        generate_s=t_generate, time_to_first_token_s=t_prefill,
+        decode_ms_per_token=(t_generate - t_prefill) / n_new * 1e3,
+        generated_ids=ids.tolist(), distinct_ids=len(np.unique(ids)),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(engine.n_prefill_fallbacks == 0 and sum(sizes) == S,
+          "(olmoe a) incremental prefill: no prefix rerun")
+    check(all(c % Q == 0 for c in sizes[:-1]),
+          f"(olmoe a) every chunk but the last a multiple of Q = {Q}")
+    check(launches["flash_attention"] == cfg.n_layers * len(chunks)
+          and launches["ich_moe_sharded"] == n_moe * (len(chunks) + n_new),
+          f"(olmoe b) {cfg.n_layers} flash and {n_moe} ich_moe_sharded "
+          f"launches per prefill_extend call, {n_moe} ich_moe_sharded a "
+          f"decode step")
+    check(ids.shape == (B, n_new) and bool(np.all((ids >= 0)
+                                                  & (ids < cfg.vocab_size))),
+          "olmoe generated ids in the vocabulary")
+
+    # ---- bars ----
+    rec, t_one_shot, cache = _dense_bars("olmoe", cfg, params, prompts,
+                                         n_new, ids, len(chunks))
+    ids2, _ = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ)).generate(
+        prompts, n_new=n_new)
+    check(np.array_equal(ids, ids2), "(olmoe e) two runs give the same ids")
+    log(phase="moe_lm_bars", **rec)
+
+    # ---- where the prefill's and a decode step's device time goes ----
+    toks = torch.from_numpy(prompts).cuda()
+    split = _kernel_split(device_ms_by_kernel(
+        lambda: M.prefill(cfg, params, {"tokens": toks}),
+        expect=("flash_fwd_kernel", "moe_product")))
+    split.pop("mamba_scan")
+    total = sum(split.values())
+    log(phase="moe_lm_prefill_split", device_ms=split, device_total_ms=total,
+        share={k_: v_ / total for k_, v_ in split.items()},
+        one_shot_wall_ms=t_one_shot * 1e3,
+        idle_share=1.0 - total / (t_one_shot * 1e3))
+    first = torch.from_numpy(ids[:, :1].astype(np.int64)).cuda()
+    dec_cache = engine._pad_cache(cache)
+
+    def one_decode():
+        M.decode_step(cfg, params, first, dec_cache, S)
+    dec_split = _kernel_split(device_ms_by_kernel(
+        one_decode, expect=("moe_product",)))
+    dec_split.pop("mamba_scan")
+    wall = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        one_decode()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    dec_device = sum(dec_split.values())
+    dec_wall = float(np.median(wall)) * 1e3
+    log(phase="moe_lm_decode_split", device_ms=dec_split,
+        device_total_ms=dec_device, wall_ms=dec_wall,
+        idle_share=1.0 - dec_device / dec_wall)
+    del cache, dec_cache, toks
+
+    # ---- rows 7b and 8c at the serving shapes ----
+    moe_k = moe_serving_kernel(cfg, params.layers[0].moe, g, sm_count)
+    log(phase="moe_lm_expert_kernel", **moe_k)
+    flash = flash_offset_checks(cfg, g)
+    log(phase="moe_lm_flash_offset", **flash)
+
+    # ---- the continuous batcher ----
+    log(phase="moe_lm_batcher", **dense_batcher(
+        cfg, params, n_requests=MOE_BATCHER_REQUESTS))
+    del params, engine
+    torch.cuda.empty_cache()
+
+    # ---- deepseek-moe-16b, 3 layers at full width ----
+    dcfg = dataclasses.replace(get_arch(DEEPSEEK_ARCH),
+                               n_layers=DEEPSEEK_LAYERS)
+    dparams = M.init_params(dcfg, SEED, device="cuda")
+    dprompts = np.random.default_rng(SEED + 6).integers(
+        0, dcfg.vocab_size, (DENSE_OTHER_BATCH, DENSE_OTHER_PROMPT)
+    ).astype(np.int64)
+    eng = Engine(dcfg, dparams, EngineConfig(max_seq=LM_MAX_SEQ))
+    KF.reset_launches()
+    KM.reset_launches()
+    t0 = time.perf_counter()
+    dids, dstats = eng.generate(dprompts, n_new=8)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    d_moe = dcfg.n_layers - dcfg.moe_layer_start
+    dl = {"flash_attention": KF.LAUNCHES["flash_attention"],
+          "ich_moe_sharded": KM.LAUNCHES["ich_moe_sharded"]}
+    check(dl["flash_attention"] == dcfg.n_layers * len(dstats["chunks"])
+          and dl["ich_moe_sharded"] == d_moe * (len(dstats["chunks"]) + 8),
+          f"(deepseek b) {dcfg.n_layers} flash and {d_moe} ich_moe_sharded "
+          f"launches per prefill_extend call")
+    drec, _, dcache = _dense_bars("deepseek", dcfg, dparams, dprompts, 8,
+                                  dids, len(dstats["chunks"]))
+    log(phase="moe_lm_deepseek", arch=dcfg.name, layers=dcfg.n_layers,
+        segments=M.segments_of(dcfg), dense_d_ff=dcfg.dense_d_ff,
+        shared_experts=dcfg.n_shared_experts, experts=dcfg.n_experts,
+        top_k=dcfg.experts_per_token, expert_ff=dcfg.moe_d_ff,
+        params=sum(p.numel() for p in dparams.parameters()),
+        batch=DENSE_OTHER_BATCH, prompt=DENSE_OTHER_PROMPT,
+        chunks=[c["chunk"] for c in dstats["chunks"]], launches=dl,
+        generate_s=t_gen, **drec)
+    del dparams, dcache, eng
+    torch.cuda.empty_cache()
+
+    # float32 inputs: each product runs as three TF32 products on the
+    # tensor cores
+    return [kernel_entry("ich_moe_sharded_serving",
+                         launches=launches["ich_moe_sharded"],
+                         err=moe_k["max_abs_err"], ms=moe_k["ms"],
+                         plain_ms=moe_k["plain_ms"],
+                         library_ms=moe_k["library_ms"],
+                         bytes_=moe_k["bytes"], flops=moe_k["flops"],
+                         peak=TF32_FLOPS / 3),
+            kernel_entry("flash_attention_moe", launches=launches[
+                "flash_attention"], err=flash["max_abs_err"], ms=flash["ms"],
                          plain_ms=flash["plain_ms"],
                          library_ms=flash["library_ms"],
                          bytes_=flash["bytes"], flops=flash["flops"],
@@ -2848,6 +3193,7 @@ def main() -> int:
     kernels += phase_zamba2()
     kernels += phase_xlstm()
     kernels += phase_dense()
+    kernels += phase_moe_lm()
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)

@@ -1,16 +1,17 @@
 """Architecture registry of the port: the configurations whose serving
 path it runs so far (Zamba2-1.2B, hybrid; xlstm-350m, ssm; qwen2-1.5b,
-olmo-1b, glm4-9b and phi3-medium-14b, dense). `get_arch` and `reduced`
+olmo-1b, glm4-9b and phi3-medium-14b, dense; olmoe-1b-7b and
+deepseek-moe-16b, moe). `get_arch` and `reduced`
 behave as `repro.configs`'s do; other architectures join with their
 slices."""
 from .base import SHAPES, ArchConfig, ShapeSpec
-from . import (glm4_9b, olmo_1b, phi3_medium_14b, qwen2_1_5b, xlstm_350m,
-               zamba2_1_2b)
+from . import (deepseek_moe_16b, glm4_9b, olmo_1b, olmoe_1b_7b,
+               phi3_medium_14b, qwen2_1_5b, xlstm_350m, zamba2_1_2b)
 
 ARCHS: dict[str, ArchConfig] = {
     c.CONFIG.name: c.CONFIG
     for c in (zamba2_1_2b, xlstm_350m, qwen2_1_5b, olmo_1b, glm4_9b,
-              phi3_medium_14b)}
+              phi3_medium_14b, olmoe_1b_7b, deepseek_moe_16b)}
 
 
 def get_arch(name: str) -> ArchConfig:

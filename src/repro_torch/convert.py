@@ -24,9 +24,11 @@ A language model's state is its weights:
 * `lm_params_from_reference` — the reference's `init_params` tree, as
   numpy arrays (nested dicts and lists), loaded by name into the port's
   model (`embed/tok` -> `embed.tok`, `blocks/1/mamba/in_x`,
-  `shared_attn/attn/wq`, ...); a dense stack's leaves, stacked along a
-  leading layer axis (`segments/0/attn/wq` (L, d, Hq*dh)), one slice a
-  layer (`layers.3.attn.wq`).
+  `shared_attn/attn/wq`, ...); a stacked model's leaves, stacked per
+  segment along a leading layer axis (`segments/0/attn/wq` (L0, d,
+  Hq*dh), `segments/1/moe/wi` (L1, E, d, F)), one slice a layer, the
+  segments' layers one after the other (`layers.3.attn.wq`,
+  `layers.<L0 + l>.moe.wi`).
 
 Nothing here imports the reference: the caller hands the arrays over.
 """
@@ -139,23 +141,32 @@ def _flatten(tree, prefix: str = ""):
 
 
 def _unstack_segments(leaves: dict) -> dict:
-    """Segment 0's stacked leaves (`segments.0.<name>`, leading axis L) as
-    one leaf a layer (`layers.<l>.<name>`); other leaves as they are. A
-    second segment (MoE stacks) has no counterpart in the port yet and
-    keeps its name, so the name check below refuses it."""
-    out = {}
+    """Every segment's stacked leaves (`segments.<i>.<name>`, leading axis
+    L_i) as one leaf a layer (`layers.<l>.<name>`), segment i's layers
+    numbered from the sum of the earlier segments' L; other leaves as
+    they are."""
+    out, segments = {}, {}
     for name, arr in leaves.items():
-        if name.startswith("segments.0."):
-            rest = name[len("segments.0."):]
-            for layer, sl in enumerate(np.asarray(arr)):
-                out[f"layers.{layer}.{rest}"] = sl
+        if name.startswith("segments."):
+            i, rest = name[len("segments."):].split(".", 1)
+            segments.setdefault(int(i), {})[rest] = np.asarray(arr)
         else:
             out[name] = arr
+    first = 0
+    for i in sorted(segments):
+        counts = {len(arr) for arr in segments[i].values()}
+        if len(counts) != 1:
+            raise ValueError(f"segment {i}'s leaves disagree on their layer "
+                             f"count: {sorted(counts)}")
+        for rest, arr in segments[i].items():
+            for layer, sl in enumerate(arr):
+                out[f"layers.{first + layer}.{rest}"] = sl
+        first += counts.pop()
     return out
 
 
 def lm_params_from_reference(cfg, np_params, device=None):
-    """The port's model (`models.model.DenseLM` or `HybridLM`) holding
+    """The port's model (`models.model.StackedLM` or `HybridLM`) holding
     exactly the reference's weights: `np_params` is
     `repro.models.model.init_params`'s tree with numpy leaves. Raises when
     a name or a shape disagrees."""

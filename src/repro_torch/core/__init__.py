@@ -43,8 +43,8 @@ from .simulator import (
     speedup,
     worst_stealing,
 )
-from .welford import (WelfordVec, adapt_d, classify, ich_band, steal_merge,
-                      LOW, NORMAL, HIGH)
+from .welford import (Welford, WelfordVec, adapt_d, classify, ich_band,
+                      steal_merge, LOW, NORMAL, HIGH)
 from .executor import parallel_for, ExecStats
 
 __all__ = [
@@ -56,6 +56,6 @@ __all__ = [
     "shard_schedule", "shards_from_block_perm", "split_items",
     "SimParams", "SimResult", "best_time_over_grid", "eps_sensitivity",
     "replay_refined", "simulate", "speedup", "worst_stealing",
-    "WelfordVec", "adapt_d", "classify", "ich_band", "steal_merge",
+    "Welford", "WelfordVec", "adapt_d", "classify", "ich_band", "steal_merge",
     "LOW", "NORMAL", "HIGH", "parallel_for", "ExecStats",
 ]

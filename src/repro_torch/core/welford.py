@@ -1,14 +1,43 @@
-"""Running statistics used by iCh (paper §3.2, eqs. 4-8) — the port's copy
-of `repro.core.welford`: `WelfordVec`, which the measured-cost refiner
-(`sched/adaptive.py`) folds observations through, and the paper's cheap
-band (`ich_band`, `classify`, `adapt_d`, `steal_merge`), which the
-serving engine's chunked prefill, the simulator and the executor adapt
-their chunk divisors with."""
+"""Running statistics used by iCh (paper §3.2, eqs. 4-8) — the port's
+copy of `repro.core.welford`: the scalar `Welford` (running mean and
+variance, eqs. 6-7); `WelfordVec`, its per-item form, which the
+measured-cost refiner (`sched/adaptive.py`) folds observations through;
+and the paper's cheap band (`ich_band`, `classify`, `adapt_d`,
+`steal_merge`), which the serving engine's chunked prefill, the
+simulator and the executor adapt their chunk divisors with."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class Welford:
+    """Welford running mean/variance (paper eq. 6-7)."""
+
+    count: int = 0
+    mean: float = 0.0
+    m2: float = 0.0
+
+    def update(self, x: float) -> None:
+        self.count += 1
+        d = x - self.mean
+        self.mean += d / self.count
+        self.m2 += d * (x - self.mean)
+
+    def update_many(self, xs: Iterable[float]) -> None:
+        for x in xs:
+            self.update(x)
+
+    @property
+    def variance(self) -> float:
+        return self.m2 / self.count if self.count > 0 else 0.0
+
+    @property
+    def std(self) -> float:
+        return float(np.sqrt(self.variance))
 
 
 @dataclasses.dataclass

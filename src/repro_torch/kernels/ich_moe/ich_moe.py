@@ -16,15 +16,19 @@ For every live slot, in the plan's CSR order,
 `ybuf[slot] = (silu(x[tok] . wg[e]) * (x[tok] . wi[e])) . wo[e] * weight`,
 and `y[t]` is the left fold of ybuf over token t's slots in ascending slot
 order. The plain version (`ich_moe_sharded_plain`) computes each expert's
-slots in one product per weight matrix (its slots in CSR order, so its
-output does not depend on the lowering either) and the same fold and cost
+slots in products of exactly PLAIN_ROWS rows a call (its slots in CSR
+order, the last block padded with zeros) and the same fold and cost
 folds, so the cost streams agree with the kernel exactly and y to the
 rounding of the products' sums: the kernel runs both products on the
 tensor cores as three TF32 products each (the 3xTF32 split, float32-level
-accuracy; `csrc/ich_moe.cu`). A wrapper given CPU tensors runs the plain
-version; given CUDA tensors it launches `csrc/ich_moe.cu` or raises: there
-is no fallback. One call of the wrapper launches five CUDA kernels and
-counts one launch in `LAUNCHES`.
+accuracy; `csrc/ich_moe.cu`). Neither's y row of a token depends on the
+other tokens of the plan or on the lowering: the kernel computes each
+slot row on its own, and a float32 product's row can change bits with
+the call's row count (on the CPU at one row, and at 2,048 wide at some
+tens of rows) but not with the row's place in a call of a fixed count. A wrapper
+given CPU tensors runs the plain version; given CUDA tensors it launches
+`csrc/ich_moe.cu` or raises: there is no fallback. One call of the
+wrapper launches five CUDA kernels and counts one launch in `LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -39,9 +43,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._common import (check, check_shard_layout, on_cpu,
                                          raise_on, shard_tiles)
 
-__all__ = ["LAUNCHES", "MoeSlots", "ich_moe_sharded", "ich_moe_sharded_plain",
-           "moe_slots", "reset_launches", "slot_layout", "token_combine",
-           "token_slots"]
+__all__ = ["LAUNCHES", "MoeSlots", "PLAIN_ROWS", "expert_rows",
+           "ich_moe_sharded", "ich_moe_sharded_plain", "moe_slots",
+           "reset_launches", "slot_layout", "token_combine", "token_slots"]
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"ich_moe_sharded": 0}
@@ -133,6 +137,22 @@ def moe_slots(item_id: np.ndarray, sizes: np.ndarray, cols: np.ndarray,
 
 
 # --------------------------------------------------------- plain versions
+PLAIN_ROWS = 128   # rows of every product call of the plain version
+
+
+def expert_rows(xs, wi, wg, wo) -> torch.Tensor:
+    """(silu(xs . wg) * (xs . wi)) . wo of the rows xs (n, D) of one
+    expert, in calls of exactly PLAIN_ROWS rows, the last padded with
+    zeros: a row's bits depend on that row alone."""
+    n = xs.shape[0]
+    blocks = torch.nn.functional.pad(xs, (0, 0, 0, -n % PLAIN_ROWS))
+    out = []
+    for xb in blocks.split(PLAIN_ROWS):
+        g = xb @ wg
+        out.append((g / (1.0 + torch.exp(-g)) * (xb @ wi)) @ wo)
+    return torch.cat(out)[:n]
+
+
 def token_combine(ybuf: torch.Tensor, tok_ptr: torch.Tensor,
                   tok_slot: torch.Tensor, n_tokens: int) -> torch.Tensor:
     """(n_tokens, D): the left fold from +0.0, ascending slot order, of
@@ -154,8 +174,8 @@ def ich_moe_sharded_plain(vals, cols, rowid, blkid, x, wi, wg, wo, p: int,
                           superstep: int, slots: MoeSlots, *,
                           slot_cost=None):
     """Plain version of `ich_moe_sharded`: the same slots, the gated FFN of
-    each expert as one product per weight matrix over its slots in CSR
-    order, the same token fold and cost folds."""
+    each expert over its slots in CSR order (`expert_rows`), the same
+    token fold and cost folds."""
     T_pad, R, W = vals.shape
     n_tokens, D = x.shape
     E = wi.shape[0]
@@ -185,10 +205,8 @@ def ich_moe_sharded_plain(vals, cols, rowid, blkid, x, wi, wg, wo, p: int,
         if c == 0:
             continue
         sl = slice(start, start + c)
-        xs = x[tok[sl]]
-        g = xs @ wg[e]
-        a = g / (1.0 + torch.exp(-g)) * (xs @ wi[e])
-        ybuf[slot[sl]] = (a @ wo[e]) * wt[sl, None]
+        ybuf[slot[sl]] = expert_rows(x[tok[sl]], wi[e], wg[e], wo[e]) \
+            * wt[sl, None]
         start += c
     y = token_combine(ybuf, slots.tok_ptr, slots.tok_slot, n_tokens)
     if slot_cost is None:

@@ -3,7 +3,8 @@
 the SwiGLU and GELU MLPs, token embedding and the LM head (its own or the
 embedding's, tied) — the port's counterpart of `repro.models.layers`
 (learned positions come with the encoder-decoder family) — and
-`by_blocks`, which runs a token-wise function per block of tokens.
+`by_blocks`, which runs a token-wise function per block of tokens
+(`TOKEN_BLOCK` of them in the stacked families' layers).
 
 Blocks are `nn.Module`s whose parameters carry the reference's names
 (`scale`, `wi`/`wg`/`wo`, `tok`/`head`), so a reference parameter tree
@@ -97,11 +98,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 class MLP(nn.Module):
     """SwiGLU (`wi`, `wg` (d, f), `wo` (f, d)) or, with `cfg.act` "gelu",
     `wi` and `wo` around the tanh-approximated GELU (jax.nn.gelu's
-    default)."""
+    default). f is `d_ff` when given (deepseek's dense first layer:
+    `cfg.dense_d_ff`), else `cfg.d_ff`."""
 
-    def __init__(self, cfg, g: torch.Generator, device=None):
+    def __init__(self, cfg, g: torch.Generator, device=None, d_ff=None):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         self.swiglu = cfg.act == "swiglu"
         self.wi = dense_init(g, d, f, device)
         if self.swiglu:
@@ -142,6 +144,11 @@ def lm_logits(p: Embed, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------- token-wise blocks
+
+# tokens a call of a stacked layer's token-wise products holds (`by_blocks`;
+# an incremental prefill's chunk boundaries are multiples of it)
+TOKEN_BLOCK = 256
+
 
 def by_blocks(fn, block: int, *xs):
     """fn(*xs) for a token-wise fn of tensors xs (B,S,...) that returns a

@@ -1,27 +1,30 @@
 """Model assembly of the port — the counterpart of `repro.models.model`
-for three families: dense (a stack of attention layers: qwen2, OLMo,
-GLM-4, Phi-3), hybrid (Zamba2: a Mamba2 backbone with one attention block
-whose weights are shared by every "A" position) and ssm (xLSTM: mLSTM "X"
-and sLSTM "S" blocks, or Mamba2 "M").
+for four families: dense (a stack of attention layers: qwen2, OLMo,
+GLM-4, Phi-3), moe (attention layers whose FFN is a mixture of experts:
+OLMoE, DeepSeekMoE with its dense first layers), hybrid (Zamba2: a Mamba2
+backbone with one attention block whose weights are shared by every "A"
+position) and ssm (xLSTM: mLSTM "X" and sLSTM "S" blocks, or Mamba2 "M").
 
 Entry points:
-  init_params           — the model (`DenseLM` or `HybridLM`), weights
+  init_params           — the model (`StackedLM` or `HybridLM`), weights
                           from a seeded torch.Generator on the device
   prefill / decode_step — the serving paths with their caches
   cache_specs           — shapes and types of decode_step's cache
   extend_cache_specs_ok / empty_extend_cache / prefill_extend
-                        — incremental chunked prefill (dense and ssm)
+                        — incremental chunked prefill (dense, moe, ssm)
 
 Parameters carry the reference tree's names (`embed.tok`,
 `blocks.0.mamba.in_x`, `blocks.0.mlstm.wq`, `blocks.3.slstm.r`,
 `shared_attn.attn.wq`, ...): the "A" positions of `blocks` are empty, as
 the reference's `{}` entries are, and their weights live in
-`shared_attn`. A dense model keeps one module a layer (`layers.3.attn.wq`)
-where the reference stacks segment 0's leaves along a leading axis
-(`segments.0.attn.wq[3]`); `convert.lm_params_from_reference` maps one
-onto the other. Its KV cache keeps the reference's per-segment layout,
-{"k", "v"} of (L, B, S, Hkv, dh). Other families raise
-NotImplementedError: they come with later slices (ROADMAP.md).
+`shared_attn`. A stacked model (dense, moe) keeps one module a layer
+(`layers.3.attn.wq`, `layers.3.moe.wi`) where the reference stacks each
+segment's leaves along a leading axis (`segments.1.moe.wi[2]`, layer
+count of segment 0 + 2); `convert.lm_params_from_reference` maps one onto
+the other. Its KV cache keeps the reference's per-segment layout,
+{"k", "v"} of (L_segment, B, S, Hkv, dh) for each segment of
+`segments_of`. Other families raise NotImplementedError: they come with
+later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,22 +37,30 @@ from repro_torch.kernels.flash_attention.flash_attention import \
 
 from . import attention as A
 from . import layers as L
+from . import moe as MOE
 from . import ssm as SS
 
 
-# tokens a call of a dense layer's token-wise products holds (`by_blocks`;
+# tokens a call of a stacked layer's token-wise products holds (`by_blocks`;
 # an incremental prefill's chunk boundaries are multiples of it)
-TOKEN_BLOCK = 256
+TOKEN_BLOCK = L.TOKEN_BLOCK
+# families whose layers are stacked attention blocks with a per-segment
+# (L, B, S, Hkv, dh) KV cache
+STACKED = ("dense", "moe")
 
 
 def _check_family(cfg) -> None:
     """Raise for a config the port does not run yet. It runs the dense
-    family (no MoE), the hybrid family with "M" blocks and one shared "A"
-    block, and the ssm family with "M", "X" and "S" blocks; with any of
-    the three norms, SwiGLU or GELU, qkv biases or not, tied heads or not,
-    and RoPE (learned positions come with the encoder-decoder family)."""
+    family (no MoE), the moe family (its routed and shared experts, its
+    dense first layers; SwiGLU), the hybrid family with "M" blocks and
+    one shared "A" block, and the ssm family with "M", "X" and "S"
+    blocks; with any of the three norms, SwiGLU or GELU, qkv biases or
+    not, tied heads or not, and RoPE (learned positions come with the
+    encoder-decoder family)."""
     pattern = set(cfg.block_pattern)
-    if cfg.family == "dense":
+    if cfg.family == "moe":
+        ok = cfg.moe and cfg.act == "swiglu"
+    elif cfg.family == "dense":
         ok = not cfg.moe
     elif cfg.family == "hybrid":
         ok = cfg.shared_attention and pattern <= {"A", "M"}
@@ -57,14 +68,14 @@ def _check_family(cfg) -> None:
         ok = cfg.family == "ssm" and pattern <= {"M", "X", "S"}
     if not ok or cfg.rope_theta <= 0:
         raise NotImplementedError(
-            f"the port runs the dense, hybrid (Zamba2) and ssm (xLSTM) "
+            f"the port runs the dense, moe, hybrid (Zamba2) and ssm (xLSTM) "
             f"families so far; {cfg.name!r} ({cfg.family}) comes with a "
             f"later slice (ROADMAP.md)")
 
 
 def segments_of(cfg) -> list[tuple[str, int]]:
     """Homogeneous (kind, count) segments of a stacked decoder (the
-    reference's; the port runs the "dense" kind)."""
+    reference's; the port runs the "dense", "densffn" and "moe" kinds)."""
     if cfg.family in ("dense", "vlm"):
         return [("dense", cfg.n_layers)]
     if cfg.family == "moe":
@@ -79,15 +90,21 @@ def segments_of(cfg) -> list[tuple[str, int]]:
 
 
 class AttnBlock(nn.Module):
-    """An attention block: ln1, attn, ln2, mlp — every layer of a dense
-    stack, and Zamba2's shared block."""
+    """An attention block: ln1, attn, ln2 and its FFN — `mlp` for the
+    "dense" kind (every layer of a dense stack, and Zamba2's shared
+    block) and "densffn" (of width `cfg.dense_d_ff`), `moe` for the "moe"
+    kind."""
 
-    def __init__(self, cfg, g, device=None):
+    def __init__(self, cfg, g, device=None, kind: str = "dense"):
         super().__init__()
         self.ln1 = L.Norm(cfg, device)
         self.attn = A.Attention(cfg, g, device)
         self.ln2 = L.Norm(cfg, device)
-        self.mlp = L.MLP(cfg, g, device)
+        if kind == "moe":
+            self.moe = MOE.MoE(cfg, g, device)
+        else:
+            self.mlp = L.MLP(cfg, g, device, d_ff=cfg.dense_d_ff
+                             if kind == "densffn" else None)
 
 
 class MambaBlock(nn.Module):
@@ -148,9 +165,10 @@ class HybridLM(nn.Module):
         return self.blocks[i]
 
 
-class DenseLM(nn.Module):
-    """embed, layers (`cfg.n_layers` attention blocks), final_norm — the
-    reference's dense tree, segment 0's stacked leaves one module a
+class StackedLM(nn.Module):
+    """embed, layers (`cfg.n_layers` attention blocks, each of its
+    segment's kind in `segments_of` order), final_norm — the reference's
+    dense and moe trees, each segment's stacked leaves one module a
     layer."""
 
     def __init__(self, cfg, g: torch.Generator, device=None):
@@ -158,19 +176,27 @@ class DenseLM(nn.Module):
         _check_family(cfg)
         self.cfg = cfg
         self.embed = L.Embed(cfg, g, device)
-        self.layers = nn.ModuleList([AttnBlock(cfg, g, device)
-                                     for _ in range(cfg.n_layers)])
+        self.layers = nn.ModuleList([
+            AttnBlock(cfg, g, device, kind)
+            for kind, count in segments_of(cfg) for _ in range(count)])
         self.final_norm = L.Norm(cfg, device)
+
+
+def _layer_slots(cfg) -> list[tuple[int, int]]:
+    """(segment, index within the segment) of each layer of a stacked
+    model: where its keys and values lie in the per-segment cache."""
+    return [(s, j) for s, (_, count) in enumerate(segments_of(cfg))
+            for j in range(count)]
 
 
 def init_params(cfg, seed: int = 0, *, device=None) -> nn.Module:
     """The model with random weights drawn from a torch.Generator seeded
     with `seed`, on `device` (None = the card; raises without CUDA):
-    `DenseLM` for the dense family, else `HybridLM`."""
+    `StackedLM` for the dense and moe families, else `HybridLM`."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(int(seed))
-    lm = DenseLM if cfg.family == "dense" else HybridLM
+    lm = StackedLM if cfg.family in STACKED else HybridLM
     return lm(cfg, g, dev).eval()
 
 
@@ -198,20 +224,23 @@ def _apply_block_full(cfg, kind: str, p, x, *, window: int = 0):
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, *, dtype=torch.float32):
+def prefill(cfg, params, batch, cap_scales=None, *, dtype=torch.float32):
     """Process the whole prompt (`batch["tokens"]` (B, S) int); return
-    (last-token logits (B, V), cache). Dense: [{"k", "v"}] of (L, B, S,
-    Hkv, dh), the prompt run as one `prefill_extend` call from position 0
-    (its token-wise parts per block of TOKEN_BLOCK tokens). Hybrid and
-    ssm: per layer {"k", "v"} (B,S,Hkv,dh) at "A" positions, {"conv",
-    "ssm"} at "M", the (B,H,dh+1,dh) mLSTM state at "X" and {"h", "c"} at
-    "S"."""
+    (last-token logits (B, V), cache). Dense and moe: per segment
+    {"k", "v"} of (L, B, S, Hkv, dh), the prompt run as one
+    `prefill_extend` call from position 0 (its token-wise parts per block
+    of TOKEN_BLOCK tokens). Hybrid and ssm: per layer {"k", "v"}
+    (B,S,Hkv,dh) at "A" positions, {"conv", "ssm"} at "M", the
+    (B,H,dh+1,dh) mLSTM state at "X" and {"h", "c"} at "S".
+
+    `cap_scales` ((n_moe_layers, E), the reference's argument) is not
+    used: MoE layers serve dropless, as in the reference."""
     _check_family(cfg)
     tokens = batch["tokens"]
-    if cfg.family == "dense":
+    if cfg.family in STACKED:
         cache = empty_extend_cache(cfg, tokens.shape[0], tokens.shape[1],
                                    dtype, device=tokens.device)
-        return _dense_extend(cfg, params, tokens, cache, 0, dtype)
+        return _stacked_extend(cfg, params, tokens, cache, 0, dtype)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
     cache = []
     for i, kind in enumerate(cfg.block_pattern):
@@ -224,20 +253,22 @@ def prefill(cfg, params, batch, *, dtype=torch.float32):
 
 
 @torch.no_grad()
-def decode_step(cfg, params, tokens, cache, pos: int, *,
+def decode_step(cfg, params, tokens, cache, pos: int, cap_scales=None, *,
                 dtype=torch.float32):
     """One decode step. tokens (B, 1) int; pos: the current write position,
     the same across the batch. Returns (logits (B, V), new cache); the
-    attention caches are written in place."""
+    attention caches are written in place. MoE layers dispatch dropless,
+    as in prefill (`cap_scales` is not used), so decode at S continues a
+    prefill of S tokens as a fresh prefill of S + 1 would."""
     _check_family(cfg)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
-    if cfg.family == "dense":
-        ck, cv = cache[0]["k"], cache[0]["v"]
-        for i, p in enumerate(params.layers):
-            h, _, _ = A.decode_attention(cfg, p.attn, p.ln1(x), ck[i], cv[i],
+    if cfg.family in STACKED:
+        for p, (s, j) in zip(params.layers, _layer_slots(cfg)):
+            h, _, _ = A.decode_attention(cfg, p.attn, p.ln1(x),
+                                         cache[s]["k"][j], cache[s]["v"][j],
                                          pos)
             x = x + h
-            x = x + p.mlp(p.ln2(x))
+            x = x + _ffn(cfg, p, p.ln2(x))
         return L.lm_logits(params.embed, params.final_norm(x[:, -1])), cache
     new_cache = []
     for i, kind in enumerate(cfg.block_pattern):
@@ -270,7 +301,7 @@ def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.float32):
     """(shape, dtype) tree matching decode_step's cache argument."""
     _check_family(cfg)
     hkv, dh = cfg.n_kv_heads, cfg.dh
-    if cfg.family == "dense":
+    if cfg.family in STACKED:
         return [{name: ((cnt, batch, cache_len, hkv, dh), dtype)
                  for name in ("k", "v")} for _, cnt in segments_of(cfg)]
     specs = []
@@ -290,14 +321,14 @@ def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.float32):
 # ----------------------------------------------------------------------------
 
 def extend_cache_specs_ok(cfg) -> bool:
-    """True when `prefill_extend` runs this config: the dense family, whose
-    stacked (L, B, S, Hkv, dh) K/V cache grows chunk by chunk, and the ssm
-    family, whose O(1) block states (Mamba2 conv + ssm, the mLSTM matrix,
-    sLSTM h/c) thread from chunk to chunk. (The reference also extends the
-    vlm and moe stacks, which come with their slices.) An "A" block in
-    the pattern would need a windowed KV extension: the hybrid family
-    stays on the prefix rerun, as in the reference."""
-    if cfg.family == "dense":
+    """True when `prefill_extend` runs this config: the dense and moe
+    families, whose stacked (L, B, S, Hkv, dh) K/V caches grow chunk by
+    chunk, and the ssm family, whose O(1) block states (Mamba2 conv + ssm,
+    the mLSTM matrix, sLSTM h/c) thread from chunk to chunk. (The
+    reference also extends the vlm stack, which comes with its slice.) An
+    "A" block in the pattern would need a windowed KV extension: the
+    hybrid family stays on the prefix rerun, as in the reference."""
+    if cfg.family in STACKED:
         return True
     return cfg.family == "ssm" and \
         all(k in ("M", "X", "S") for k in cfg.block_pattern)
@@ -313,7 +344,7 @@ def _zeros(spec, device):
 def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
                        device=None):
     """The cache an incremental prefill of `seq` tokens starts from, zeros.
-    Dense: per segment {"k", "v"} of (L, batch, seq, Hkv, dh), sized to
+    Dense and moe: per segment {"k", "v"} of (L, batch, seq, Hkv, dh), sized to
     the PROMPT (not max_seq), as the reference sizes it, so that every
     chunk's attention runs over the same keys as a one-shot prefill's,
     the positions not written yet masked. Ssm: the block states a scan
@@ -321,10 +352,10 @@ def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
     prefill's opening steps."""
     if not extend_cache_specs_ok(cfg):
         raise NotImplementedError(
-            f"empty_extend_cache runs the dense and ssm families, not "
+            f"empty_extend_cache runs the dense, moe and ssm families, not "
             f"{cfg.family!r}: a hybrid's attention cache does not extend")
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in STACKED:
         return [_zeros(spec, dev) for spec in cache_specs(cfg, batch, seq,
                                                           dtype)]
     return [_zeros(_state_spec(cfg, kind, batch, dtype), dev)
@@ -332,26 +363,30 @@ def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
 
 
 @torch.no_grad()
-def prefill_extend(cfg, params, tokens, cache, done: int, *,
-                   dtype=torch.float32, ssm_chunk: int = None):
+def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
+                   *, dtype=torch.float32, ssm_chunk: int = None):
     """Incremental chunked prefill: run ONLY the new chunk `tokens`
     (B, C), which starts at absolute position `done`, from the cache
     (`empty_extend_cache` for the first chunk). Returns (last-token
     logits, new cache).
 
-    Dense family: each layer writes the chunk's keys and values into the
-    cache at [done, done + C) IN PLACE (the returned cache is the same
-    tensors; the reference returns updated copies) and attends over it
-    from q_offset = done in one flash call, the positions after the chunk
-    masked. Its token-wise parts (norms, q/k/v products with bias and
-    RoPE, the output product, the MLP) run per block of TOKEN_BLOCK
-    tokens (`layers.by_blocks`): a row of a product changes bits with the
-    call's row count, on the card and the CPU. With every chunk boundary
-    a multiple of min(TOKEN_BLOCK, prompt length) — the serving engine
-    keeps it — each block replays the one-shot prefill's block, the flash
-    kernel's rows do not depend on the call, and the last logits and the
-    whole cache are a one-shot `prefill`'s bits. The reference chunks at
-    any boundary; this quantum is the port's.
+    Dense and moe families: each layer writes the chunk's keys and values
+    into the cache at [done, done + C) IN PLACE (the returned cache is the
+    same tensors; the reference returns updated copies) and attends over
+    it from q_offset = done in one flash call, the positions after the
+    chunk masked. Its token-wise parts (norms, q/k/v products with bias
+    and RoPE, the output product, the MLP; a MoE layer's router and
+    shared experts) run per block of TOKEN_BLOCK tokens
+    (`layers.by_blocks`): a row of a product changes bits with the call's
+    row count, on the card and the CPU. A MoE layer's routed experts run
+    once over the chunk's tokens, dropless (`cap_scales` is not used),
+    and each token's expert rows do not depend on the other tokens
+    (`models.moe`). With every chunk boundary a multiple of
+    min(TOKEN_BLOCK, prompt length) — the serving engine keeps it — each
+    block replays the one-shot prefill's block, the flash kernel's rows do
+    not depend on the call, and the last logits and the whole cache are a
+    one-shot `prefill`'s bits. The reference chunks at any boundary; this
+    quantum is the port's.
 
     ssm family: every scan runs with scan-block length exactly
     Q = `ssm_chunk` (default cfg.ssm_chunk). With Q the one-shot prefill's
@@ -364,10 +399,10 @@ def prefill_extend(cfg, params, tokens, cache, done: int, *,
     has them.)"""
     if not extend_cache_specs_ok(cfg):
         raise NotImplementedError(
-            f"prefill_extend runs the dense and ssm families, not "
+            f"prefill_extend runs the dense, moe and ssm families, not "
             f"{cfg.family!r}: a hybrid's attention cache does not extend")
-    if cfg.family == "dense":
-        return _dense_extend(cfg, params, tokens, cache, int(done), dtype)
+    if cfg.family in STACKED:
+        return _stacked_extend(cfg, params, tokens, cache, int(done), dtype)
     Q = int(ssm_chunk or cfg.ssm_chunk)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
     new_cache = []
@@ -379,30 +414,52 @@ def prefill_extend(cfg, params, tokens, cache, done: int, *,
     return L.lm_logits(params.embed, x[:, -1]), new_cache
 
 
-def _dense_extend(cfg, params: DenseLM, tokens, cache, done: int, dtype):
-    """The dense branch of `prefill_extend` (and `prefill`, from 0)."""
+def _stacked_extend(cfg, params: StackedLM, tokens, cache, done: int,
+                    dtype):
+    """The dense and moe branch of `prefill_extend` (and `prefill`, from
+    0)."""
     B, C = tokens.shape
     x = L.embed_tokens(params.embed, tokens).to(dtype)
     pos = torch.arange(done, done + C, device=x.device)[None]
-    ck, cv = cache[0]["k"], cache[0]["v"]
-    for i, p in enumerate(params.layers):
+    for p, (s, j) in zip(params.layers, _layer_slots(cfg)):
+        ck, cv = cache[s]["k"][j], cache[s]["v"][j]
         q, k, v = L.by_blocks(
             lambda xb, pb: A.qkv_at(cfg, p.attn, p.ln1(xb), pb[0]),
             TOKEN_BLOCK, x, pos)
-        ck[i, :, done:done + C] = k.to(ck.dtype)
-        cv[i, :, done:done + C] = v.to(cv.dtype)
+        ck[:, done:done + C] = k.to(ck.dtype)
+        cv[:, done:done + C] = v.to(cv.dtype)
         # the chunk's queries against the cache, which holds every
         # position up to the chunk's last (the later ones masked)
-        o = flash_attention(q, ck[i], cv[i], causal=True,
+        o = flash_attention(q, ck, cv, causal=True,
                             q_offset=done).reshape(B, C, -1)
-        x = L.by_blocks(lambda xb, ob: _dense_out(p, xb, ob), TOKEN_BLOCK,
-                        x, o)
+        if hasattr(p, "moe"):
+            x, h = L.by_blocks(lambda xb, ob: _attn_out(p, xb, ob),
+                               TOKEN_BLOCK, x, o)
+            x = x + _ffn(cfg, p, h)
+        else:
+            x = L.by_blocks(lambda xb, ob: _dense_out(p, xb, ob),
+                            TOKEN_BLOCK, x, o)
     logits = L.lm_logits(params.embed, params.final_norm(x[:, -1]))
     return logits, cache
 
 
-def _dense_out(p: AttnBlock, x, o):
-    """The token-wise rest of a dense layer: output product, residual,
-    MLP, residual."""
+def _attn_out(p: AttnBlock, x, o):
+    """The attention output product and residual, then the FFN's input:
+    (x + o . wo, ln2 of it)."""
     x = x + o @ p.attn.wo.to(x.dtype)
-    return x + p.mlp(p.ln2(x))
+    return x, p.ln2(x)
+
+
+def _dense_out(p: AttnBlock, x, o):
+    """The token-wise rest of a layer with an MLP: output product,
+    residual, MLP, residual."""
+    x, h = _attn_out(p, x, o)
+    return x + p.mlp(h)
+
+
+def _ffn(cfg, p: AttnBlock, h):
+    """A layer's FFN on its normed input h (B, S, D): the MLP, or the MoE
+    dispatched dropless (serving)."""
+    if hasattr(p, "moe"):
+        return MOE.apply_moe(cfg, p.moe, h, dropless=True)[0]
+    return p.mlp(h)

@@ -1,0 +1,274 @@
+"""Mixture-of-Experts layer of the port — the counterpart of
+`repro.models.moe` on one device (its expert-parallel `shard_map` branch
+comes with `launch/`, ROADMAP.md queue 1).
+
+The paper's loop-scheduling problem reappears in MoE: tokens are loop
+iterations, experts are workers, and router imbalance is the irregular
+work. The reference computes the expert FFN in-graph over an (E, C_max, D)
+slot buffer; its docstring ties that layer to the scheduler, whose host
+planner `sched.moe.plan_dispatch` mirrors `dispatch_decisions` bit for
+bit. The port runs the layer THROUGH the scheduler:
+
+    router (softmax -> top-K -> renormalise, per block of TOKEN_BLOCK
+    tokens) -> `plan_dispatch` on the host -> `LoopScheduler(p=...)
+    .build("moe-dispatch", plan)` -> `ich_moe_sharded`
+
+with p the card's SM count (2 on the CPU). On the card the expert FFN is
+the hand-written `csrc/ich_moe.cu`; on the CPU the wrapper runs its plain
+version. Each call copies the router's top-K choices to the host: the
+plan is host numpy.
+
+Serving (`dropless=True`, what `models.model` runs) gives every expert
+capacity for the whole token pool and no steal round, so no token is
+dropped and a token's output does not depend on the other tokens of the
+call: the kernel computes each slot row on its own (fixed 128-row tiles,
+a fixed order over D) and folds a token's slots in ascending slot order,
+which is expert order; the plain version computes its products in calls
+of exactly PLAIN_ROWS rows. So an incremental prefill gives a one-shot
+prefill's bits. Training's mode (a capacity from `cap_scale`, the steal
+round, drops) is here too, for `moe_local` and the capacity loop
+(`ich_update_cap_scale`).
+
+`capacity`, `ich_update_cap_scale`, `_dispatch_positions` and
+`dispatch_decisions` are tensor functions held element-identical to the
+reference's (and the decisions to `plan_dispatch`'s) by the tests.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.sched.api import LoopScheduler
+from repro_torch.sched.defaults import (ICH_EPS, MOE_CAP_SCALE_MAX,
+                                        MOE_CAP_SCALE_MIN,
+                                        MOE_CAPACITY_FACTOR, MOE_CMAX_FACTOR,
+                                        MOE_MIN_CAPACITY)
+from repro_torch.sched.moe import expert_capacity, plan_dispatch
+
+from . import layers as L
+
+
+class MoE(nn.Module):
+    """`router` (d, E), `wi`/`wg` (E, d, F), `wo` (E, F, d) and, with
+    `cfg.n_shared_experts`, `shared`: the experts every token runs
+    (deepseek's), a SwiGLU `layers.MLP` of width n_shared * F (the
+    reference's shared experts are SwiGLU whatever `cfg.act`; the moe
+    family runs SwiGLU configs only, `models.model._check_family`). The
+    reference's leaf names and distributions."""
+
+    def __init__(self, cfg, g: torch.Generator, device=None):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+        self.router = L.dense_init(g, d, e, device)
+
+        def experts(shape, fan_in):
+            w = torch.randn(shape, generator=g, device=device)
+            return nn.Parameter(w * fan_in ** -0.5, requires_grad=False)
+
+        self.wi = experts((e, d, f), d)
+        self.wg = experts((e, d, f), d)
+        self.wo = experts((e, f, d), f)
+        if cfg.n_shared_experts:
+            self.shared = L.MLP(cfg, g, device,
+                                d_ff=cfg.n_shared_experts * f)
+
+
+def capacity(cfg, t_local: int, factor: float = MOE_CAPACITY_FACTOR) -> int:
+    """Base per-expert capacity for a local token pool of size t_local."""
+    return expert_capacity(t_local, cfg.n_experts, cfg.experts_per_token,
+                           factor)
+
+
+def workers(device) -> int:
+    """p of the expert dispatch's schedule: the card's SM count, 2 on the
+    CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return 2
+
+
+# ----------------------------------------------------------------------------
+# iCh balancer (paper §3.2 applied to expert load)
+# ----------------------------------------------------------------------------
+
+def ich_update_cap_scale(counts: torch.Tensor, cap_scale: torch.Tensor,
+                         eps: float = ICH_EPS,
+                         step: float = 1.5) -> torch.Tensor:
+    """Adapt the per-expert capacity scale with the paper's classification
+    (float32): experts loaded above the band mu +- eps*mu grow their scale
+    by `step`, those below shrink it, clipped to [MOE_CAP_SCALE_MIN,
+    MOE_CAP_SCALE_MAX]; the total is renormalised only when it exceeds
+    the budget E. The total is a left fold, the order XLA's CPU reduce
+    takes below 32 elements, so with fewer than 32 experts the result is
+    the reference's bits; from 32 on XLA sums in another order and a
+    renormalised scale can differ from the reference's in its last
+    bit."""
+    counts = torch.as_tensor(counts, dtype=torch.float32)
+    cap_scale = torch.as_tensor(cap_scale, dtype=torch.float32,
+                                device=counts.device)
+    mu = counts.mean()
+    delta = eps * mu
+    up = counts > mu + delta
+    down = counts < mu - delta
+    new = torch.where(up, cap_scale * step,
+                      torch.where(down, cap_scale / step, cap_scale))
+    new = torch.clamp(new, MOE_CAP_SCALE_MIN, MOE_CAP_SCALE_MAX)
+    total = torch.zeros((), dtype=torch.float32, device=new.device)
+    for v in new:
+        total = total + v
+    over = total / float(new.shape[0])
+    return torch.where(over > 1.0, new / over, new)
+
+
+# ----------------------------------------------------------------------------
+# Sort-based dispatch with capacity + one steal round
+# ----------------------------------------------------------------------------
+
+def _dispatch_positions(experts_flat: torch.Tensor,
+                        n_experts: int) -> torch.Tensor:
+    """Position of each (token, choice) entry within its expert segment:
+    stable argsort, searchsorted segment starts, scattered back."""
+    order = torch.argsort(experts_flat, stable=True)
+    es = experts_flat[order]
+    seg_start = torch.searchsorted(
+        es, torch.arange(n_experts, dtype=es.dtype, device=es.device))
+    pos_sorted = torch.arange(es.numel(), device=es.device) - seg_start[es]
+    pos = torch.empty_like(pos_sorted)
+    pos[order] = pos_sorted
+    return pos
+
+
+def dispatch_decisions(e_topk: torch.Tensor, cap_e: torch.Tensor, *,
+                       steal: bool = True,
+                       counts: Optional[torch.Tensor] = None):
+    """The capacity cut and the steal round over the flat (token, choice)
+    entries — the reference's in-graph decision pass, which
+    `sched.moe.plan_dispatch` mirrors on the host.
+
+    e_topk (T, K) router choices; cap_e (E,) per-expert capacities; counts
+    the (E,) router demand (recomputed if absent). Returns (expert, token,
+    pos, keep, stolen): final per-entry expert ids (a stolen entry points
+    at its steal target), token ids, in-segment dispatch slots, the
+    survival mask and the stolen-entry count."""
+    T, K = e_topk.shape
+    E = cap_e.shape[0]
+    dev = e_topk.device
+    cap_e = cap_e.long()
+    ef = e_topk.reshape(-1).long()
+    tf = torch.arange(T, device=dev).repeat_interleave(K)
+    pos = _dispatch_positions(ef, E)
+    keep = pos < cap_e[ef]
+    if steal:
+        if counts is None:
+            counts = torch.bincount(ef, minlength=E).float()
+        slack = torch.clamp(cap_e.float() - counts, min=0.0)
+        alt_slack = slack[e_topk.long()]                       # (T, K)
+        fallback = e_topk.long()[torch.arange(T, device=dev),
+                                 torch.argmax(alt_slack, dim=-1)]
+        ef2 = torch.where(keep, ef, fallback[tf])
+        used = torch.bincount(ef[keep], minlength=E)
+        # rank the stolen entries only: kept ones park on sentinel E + 1
+        pos2 = _dispatch_positions(torch.where(keep, E + 1, ef2), E + 2) \
+            + used[ef2]
+        keep2 = ~keep & (pos2 < cap_e[ef2])
+        ef = torch.where(keep2, ef2, ef)
+        pos = torch.where(keep2, pos2, pos)
+        stolen = keep2.sum()
+        keep = keep | keep2
+    else:
+        stolen = torch.zeros((), dtype=torch.int64, device=dev)
+    return ef, tf, pos, keep, stolen
+
+
+# ----------------------------------------------------------------------------
+# The layer
+# ----------------------------------------------------------------------------
+
+def route(p: MoE, x: torch.Tensor, k: int):
+    """Router of x (B, S, D): (probs (T, E), w_topk (T, K), e_topk (T, K)),
+    T = B*S in (b, s) order — softmax over the float32 logits, top-K,
+    weights renormalised to sum 1. Runs per block of TOKEN_BLOCK tokens
+    (`layers.by_blocks`): a product's rows change bits with the call's row
+    count, and a changed bit can change a top-K choice."""
+    def block(xb):
+        probs = torch.softmax((xb @ p.router.to(xb.dtype)).float(), dim=-1)
+        w, e = torch.topk(probs, k, dim=-1)
+        return probs, w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), e
+
+    probs, w, e = L.by_blocks(block, L.TOKEN_BLOCK, x)
+    T = x.shape[0] * x.shape[1]
+    return probs.reshape(T, -1), w.reshape(T, k), e.reshape(T, k)
+
+
+def moe_local(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
+              capacity_factor: float = MOE_CAPACITY_FACTOR,
+              steal: bool = True, dropless: bool = False, routing=None):
+    """MoE forward on a token pool x (T, D) over all experts. Returns
+    (y (T, D), aux) with the reference's aux dict: the Switch
+    load-balance loss, dropped and stolen entries, the (E,) router counts
+    and the entry count (float32 tensors on x's device).
+
+    The expert FFN runs through the scheduler: `plan_dispatch` of the
+    router's choices with per-expert capacity `cap` -> `LoopScheduler(
+    p=workers(x.device))` -> "moe-dispatch" op -> `ich_moe_sharded`.
+    `dropless` (serving) gives every expert capacity T and no steal;
+    otherwise cap = clip(round(C_base * cap_scale), MOE_MIN_CAPACITY,
+    C_max), as the reference computes it, with the steal round when
+    `steal`. `routing` is `route(p, x_bsd, K)` when the caller has x as
+    (B, S, D) (its blocks are then the caller's); by default x is routed
+    as one sequence."""
+    T, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    probs, w_topk, e_topk = (routing if routing is not None
+                             else route(p, x[None], K))
+    counts_all = torch.bincount(e_topk.reshape(-1), minlength=E).float()
+    aux_loss = E * torch.sum((counts_all / (T * K)) * probs.mean(dim=0))
+    if dropless:
+        # an expert can hold the whole pool: the cut keeps every entry
+        cap = np.full(E, T, np.int32)
+        steal = False
+    else:
+        c_base = capacity(cfg, T, capacity_factor)
+        c_max = max(c_base, int(round(getattr(
+            cfg, "moe_cmax_factor", MOE_CMAX_FACTOR) * c_base)))
+        scale = torch.as_tensor(cap_scale, dtype=torch.float32,
+                                device=x.device)
+        cap = torch.clamp(torch.round(c_base * scale), MOE_MIN_CAPACITY,
+                          c_max).int().cpu().numpy()
+    plan = plan_dispatch(e_topk.cpu().numpy(), w_topk.cpu().numpy(),
+                         cap=cap, steal=steal)
+    op = LoopScheduler(p=workers(x.device), device=x.device,
+                       cache_size=0).build("moe-dispatch", plan)
+    y = op(x.contiguous(), p.wi, p.wg, p.wo)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    aux = {"aux_loss": aux_loss,
+           "dropped": torch.tensor(float(plan.dropped), **f32),
+           "stolen": torch.tensor(float(plan.stolen), **f32),
+           "counts": counts_all,
+           "entries": torch.tensor(float(T * K), **f32)}
+    return y.to(x.dtype), aux
+
+
+def apply_moe(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
+              steal: bool = True,
+              capacity_factor: float = MOE_CAPACITY_FACTOR,
+              dropless: bool = False):
+    """MoE block on x (B, S, D) (or (B, 1, D) in decode): the routed
+    experts (`moe_local`, routed per block of TOKEN_BLOCK tokens) plus the
+    shared experts, also per block. Returns (y (B, S, D), aux).
+    `dropless` is the serving mode (`models.model`'s prefill, extend and
+    decode)."""
+    B, S, D = x.shape
+    x = x.contiguous()
+    y, aux = moe_local(cfg, p, x.reshape(B * S, D), cap_scale,
+                       capacity_factor=capacity_factor, steal=steal,
+                       dropless=dropless,
+                       routing=route(p, x, cfg.experts_per_token))
+    y = y.reshape(B, S, D)
+    if cfg.n_shared_experts:
+        y = y + L.by_blocks(p.shared, L.TOKEN_BLOCK, x)
+    return y, aux

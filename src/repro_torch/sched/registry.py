@@ -8,8 +8,9 @@ A workload is two functions:
   `Schedule`, the same raw inputs and the device the op runs on, return
   the callable kernel op.
 
-The built-in ``spmv`` is registered by `sched/kernels.py`, which is
-imported on the first lookup.
+The built-ins (``spmv``, ``bfs``, ``kmeans``, ``moe-dispatch``,
+``serve-prefill``) are registered by `sched/kernels.py`, which is imported
+on the first lookup; `unregister` refuses them.
 """
 from __future__ import annotations
 
@@ -73,3 +74,25 @@ def registered() -> tuple[str, ...]:
     _load_builtins()
     with _LOCK:
         return tuple(sorted(_REGISTRY))
+
+
+# what sched/kernels.py registers on its first import; the reference
+# refuses its first three (its `_BUILTIN_NAMES`) and the port all five,
+# which it registers the same way
+_BUILTIN_NAMES = frozenset({"spmv", "bfs", "kmeans", "moe-dispatch",
+                            "serve-prefill"})
+
+
+def unregister(name: str) -> None:
+    """Remove a workload (for tests tearing down custom entries); an
+    unknown name is a no-op.
+
+    Built-in names are refused: the kernels module registers them only on
+    its first import, so removing one would be irreversible for the
+    process. Replace a built-in with ``register(..., overwrite=True)``
+    instead."""
+    if name in _BUILTIN_NAMES:
+        raise ValueError(f"cannot unregister built-in workload {name!r}; "
+                         "use register(..., overwrite=True) to replace it")
+    with _LOCK:
+        _REGISTRY.pop(name, None)

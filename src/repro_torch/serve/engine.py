@@ -1,25 +1,29 @@
 """Serving engine of the port with iCh-adaptive chunked prefill — the
 counterpart of `repro.serve.engine` for the dense (qwen2, OLMo, GLM-4,
-Phi-3), hybrid (Zamba2) and ssm (xLSTM) families.
+Phi-3), moe (OLMoE, DeepSeekMoE), hybrid (Zamba2) and ssm (xLSTM)
+families.
 
 Prefill runs in chunks whose size is the iCh chunk: after each chunk the
 engine classifies its measured token throughput against the running mean
 band (mu +- eps*mu, paper eqs. 1-8) and adapts the divisor d as
 `adapt_d` does.
 
-* dense and ssm families: incremental. Each chunk feeds only its own
-  tokens through `models.model.prefill_extend` against the cache the last
-  chunk left — O(chunk x context) work a chunk for dense, O(chunk) for
-  ssm — with chunk boundaries on multiples of a quantum Q (`_chunk_q`),
-  so the last logits and the cache are a one-shot prefill's bits. For
-  ssm, Q = min(cfg.ssm_chunk, S), the one-shot scan-block length, as in
-  the reference. For dense, Q = min(models.model.TOKEN_BLOCK, S) = min(
-  256, S): the port runs a dense layer's token-wise products per block
-  of 256 tokens, because a row of a product changes bits with the
-  call's row count (on an H100: every qwen2-1.5b product, 256 rows
-  against 8,192; on the CPU: the vectorised exp/cos tails). This
-  quantum is the port's: the reference chunks attention families at any
-  boundary (and on some JAX builds its own bit-identity test fails).
+* dense, moe and ssm families: incremental. Each chunk feeds only its
+  own tokens through `models.model.prefill_extend` against the cache the
+  last chunk left — O(chunk x context) work a chunk for dense and moe,
+  O(chunk) for ssm — with chunk boundaries on multiples of a quantum Q
+  (`_chunk_q`), so the last logits and the cache are a one-shot
+  prefill's bits. For ssm, Q = min(cfg.ssm_chunk, S), the one-shot
+  scan-block length, as in the reference. For dense and moe, Q =
+  min(models.model.TOKEN_BLOCK, S) = min(256, S): the port runs a
+  layer's token-wise products (a MoE layer's router and shared experts
+  among them) per block of 256 tokens, because a row of a product
+  changes bits with the call's row count (on an H100: every qwen2-1.5b
+  product, 256 rows against 8,192; on the CPU: the vectorised exp/cos
+  tails). A MoE layer's routed experts run over the whole chunk, their
+  rows independent of the other tokens (`models.moe`). This quantum is
+  the port's: the reference chunks attention families at any boundary
+  (and on some JAX builds its own bit-identity test fails).
 * hybrid family: a hybrid model's attention cache does not extend
   incrementally, so each chunk re-runs the whole prefix — quadratic in the
   prompt — and every such chunk is counted in `Engine.n_prefill_fallbacks`,
@@ -30,7 +34,7 @@ Two surfaces, as in the reference: `generate(prompts, ...)`, the
 single-request path with the engine-level iCh band; and `start_request` /
 `prefill_chunk_step` / `decode_one`, the per-request primitives the
 continuous batcher (`serve/batcher.py`) drives on a `RequestState` (B = 1,
-its own cache and iCh band). A dense cache is written in place by
+its own cache and iCh band). A dense or moe cache is written in place by
 `prefill_extend` and by decode (the reference returns copies): a
 `RequestState` owns its cache, and `EngineBackend.rebuild_state` builds a
 fresh one.
@@ -65,7 +69,7 @@ class Engine:
     (`models.model.init_params`) on `device` (None = the card; raises
     without CUDA). Prefill is incremental when
     `models.model.extend_cache_specs_ok` says the config's caches extend
-    (dense, ssm), else a prefix rerun per chunk (hybrid)."""
+    (dense, moe, ssm), else a prefix rerun per chunk (hybrid)."""
 
     def __init__(self, cfg, params, ecfg: Optional[EngineConfig] = None, *,
                  device=None):
@@ -105,9 +109,10 @@ class Engine:
     def _chunk_q(self, prompt_len: int) -> Optional[int]:
         """Chunk quantum of an incremental prefill (None for a prefix
         rerun). Ssm: the one-shot prefill's scan-block length min(
-        cfg.ssm_chunk, S), so every chunk replays its scan steps. Dense:
-        min(TOKEN_BLOCK, S), so every block of token-wise products replays
-        one-shot's (bit identity, see `models.model.prefill_extend`)."""
+        cfg.ssm_chunk, S), so every chunk replays its scan steps. Dense
+        and moe: min(TOKEN_BLOCK, S), so every block of token-wise
+        products replays one-shot's (bit identity, see
+        `models.model.prefill_extend`)."""
         if not self.incremental:
             return None
         q = self.cfg.ssm_chunk if self.cfg.family == "ssm" \
@@ -163,8 +168,8 @@ class Engine:
     def start_request(self, st) -> None:
         """Allocate the request's incremental prefill cache, sized to its
         exact prompt (the bit-identity requirement). Raises ValueError for
-        a dense request whose prompt and new tokens exceed max_seq: its
-        decode would write past the cache."""
+        a dense or moe request whose prompt and new tokens exceed max_seq:
+        its decode would write past the cache."""
         if not self.incremental:
             raise NotImplementedError(
                 f"continuous batching needs prefill_extend; family "
@@ -219,13 +224,13 @@ class Engine:
     # ---------------- decode ----------------
     def _has_kv(self) -> bool:
         """Whether the config keeps an attention KV cache."""
-        return self.cfg.family == "dense" or "A" in self.cfg.block_pattern
+        return self.cfg.family in M.STACKED or "A" in self.cfg.block_pattern
 
     def _cache_len(self) -> int:
         """Positions of the decode KV cache: max_seq, or the attention
-        window when it is shorter (hybrid; a dense stack runs without one,
-        as in the reference)."""
-        w = self.cfg.attn_window if self.cfg.family != "dense" else 0
+        window when it is shorter (hybrid; a dense or moe stack runs without
+        one, as in the reference)."""
+        w = 0 if self.cfg.family in M.STACKED else self.cfg.attn_window
         return min(self.ecfg.max_seq, w) if w else self.ecfg.max_seq
 
     @torch.no_grad()
@@ -271,10 +276,10 @@ class Engine:
 
     def _pad_cache(self, cache):
         """Grow the attention caches to the decode cache length (zeros past
-        the prompt; dense: each segment's (L, B, S, Hkv, dh) along S); the
-        recurrent states pass through."""
+        the prompt; dense and moe: each segment's (L, B, S, Hkv, dh) along
+        S); the recurrent states pass through."""
         w = self._cache_len()
-        if self.cfg.family == "dense":
+        if self.cfg.family in M.STACKED:
             out = []
             for seg in cache:
                 grown = {}

@@ -25,7 +25,9 @@ flash kernel from a query offset (dh 64, 96, 128, GQA ratios 1 to 16,
 float32 and bfloat16; its rows == one call's rows bit for bit; bad
 offsets refused), a reduced qwen2-1.5b at dh 128 served on the card
 (incremental prefill == one-shot bit for bit, the batcher's tokens ==
-each request alone), and the
+each request alone), reduced olmoe-1b-7b and deepseek-moe-16b at dh 128
+served the same way through the expert kernel (and its rows of a token
+planned alone == among all), and the
 schedule
 pipeline on the card (each lowering element-identical to the numpy one,
 tile costs bit for bit: one R per branch of numpy's pairwise sum, LPT
@@ -840,6 +842,80 @@ def test_dense_incremental_prefill_on_the_card_is_one_shot(cuda):
         out, _ = alone.generate(st.request.tokens, n_new=5)
         assert st.out_tokens == out[0].tolist()
 
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "deepseek-moe-16b"])
+def test_moe_incremental_prefill_on_the_card_is_one_shot(cuda, name):
+    """A reduced MoE config widened to dh = 128 (olmoe: 3 MoE layers;
+    deepseek: its dense layer 0, then 2 MoE layers with shared experts):
+    on the card, the engine's incremental prefill (one flash launch a
+    layer and one expert kernel launch a MoE layer per chunk) gives the
+    one-shot prefill's last logits and every segment's KV cache bit for
+    bit; a token's expert rows planned alone equal its rows planned among
+    all; the one-shot logits match the CPU's plain versions within 1e-4;
+    generate gives the CPU's ids; the batcher's tokens equal each request
+    served alone."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.ich_moe import ich_moe as KM
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve import (AdmissionQueue, ContinuousBatcher, Engine,
+                                   EngineBackend, EngineConfig, Request,
+                                   RoundRobin, SimClock)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_arch(name), d_model=512, n_heads=4, n_kv_heads=4,
+                  n_layers=3, n_experts=8, moe_d_ff=256)
+    n_moe = cfg.n_layers - cfg.moe_layer_start
+    model = M.init_params(cfg, 2, device=cuda)
+    cpu_model = M.init_params(cfg, 2, device="cpu")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in
+                               model.state_dict().items()})
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 700))
+    ecfg = EngineConfig(max_seq=768, min_chunk=4)
+    KF.reset_launches()
+    KM.reset_launches()
+    eng = Engine(cfg, model, ecfg)
+    logits, cache, log = eng.prefill_chunked(prompts)
+    torch.cuda.synchronize()
+    assert len(log) > 1 and all(c["chunk"] % 256 == 0 for c in log[:-1])
+    assert KF.LAUNCHES == {"flash_attention": 3 * len(log)}
+    assert KM.LAUNCHES == {"ich_moe_sharded": n_moe * len(log)}
+    one, one_cache = M.prefill(cfg, model, {"tokens": torch.from_numpy(
+        prompts).to(cuda)})
+    assert torch.equal(logits, one)
+    assert all(torch.equal(a[n], b[n]) for a, b in zip(cache, one_cache)
+               for n in "kv")
+    p = model.layers[-1].moe
+    x = torch.randn((2, 700, cfg.d_model), device=cuda)
+    routing = MOE.route(p, x, cfg.experts_per_token)
+    y_all, _ = MOE.moe_local(cfg, p, x.reshape(1400, -1), dropless=True,
+                             routing=routing)
+    for n in (1, 3, 256):
+        y_n, _ = MOE.moe_local(cfg, p, x.reshape(1400, -1)[:n],
+                               dropless=True,
+                               routing=tuple(r[:n] for r in routing))
+        assert torch.equal(y_n, y_all[:n])
+    cpu_one, _ = M.prefill(cfg, cpu_model, {"tokens": torch.from_numpy(
+        prompts)})
+    torch.testing.assert_close(one.cpu(), cpu_one, rtol=1e-4, atol=1e-4)
+    ids, _ = Engine(cfg, model, ecfg).generate(prompts, n_new=6)
+    cpu_ids, _ = Engine(cfg, cpu_model, ecfg, device="cpu").generate(
+        prompts, n_new=6)
+    np.testing.assert_array_equal(ids, cpu_ids)
+    b = ContinuousBatcher(RoundRobin(chunk=256, min_chunk=4),
+                          queue=AdmissionQueue(max_running=4),
+                          backend=EngineBackend(Engine(cfg, model, ecfg)),
+                          clock=SimClock())
+    sts = [b.submit(Request(req_id=i, tokens=prompts[i:i + 1, :n], n_new=5,
+                            t_arrival=0.0))
+           for i, n in enumerate((700, 300))]
+    while b.step():
+        pass
+    alone = Engine(cfg, model, ecfg)
+    for st in sts:
+        out, _ = alone.generate(st.request.tokens, n_new=5)
+        assert st.out_tokens == out[0].tolist()
 
 # ---- the flat walks (two kernels over the whole card) on inputs built
 #      for their design: bit for bit against the plain versions and the

@@ -253,9 +253,10 @@ def test_engine_refuses_what_it_cannot_serve(lm):
         eng.generate(np.zeros((1, 8), np.int32), n_new=4)
     with pytest.raises(NotImplementedError, match="prefill_extend"):
         eng.start_request(None)
-    # the MoE family comes with a later slice
+    # the encoder-decoder family comes with a later slice
     with pytest.raises(NotImplementedError, match="later slice"):
-        M.init_params(dataclasses.replace(cfg, family="moe"), device="cpu")
+        M.init_params(dataclasses.replace(cfg, family="encdec"),
+                      device="cpu")
 
 
 def test_engine_deadline_sheds_decode(lm):

@@ -211,7 +211,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.serve.queue, repro_torch.serve.metrics, "
             "repro_torch.serve.loadgen, repro_torch.serve.policies, "
             "repro_torch.serve.batcher, repro_torch.models.attention, "
-            "repro_torch.configs.qwen2_1_5b; "
+            "repro_torch.configs.qwen2_1_5b, repro_torch.models.moe, "
+            "repro_torch.configs.olmoe_1b_7b, "
+            "repro_torch.configs.deepseek_moe_16b; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
