@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` (one nvcc per
 source, all started together), holds each against its plain PyTorch
-version on the card, and drives the port's eight main paths, each with
-its launch counters set to 0 just before it and read just after:
+version on the card, and drives the port's main paths, each with its
+launch counters set to 0 just before it and read just after:
 
 * SpMV (schedule -> sharded kernel -> observe/refine -> sharded kernel) on
   the paper's `wikipedia` matrix at its published size (3,566,907 rows),
@@ -67,7 +67,23 @@ its launch counters set to 0 just before it and read just after:
   kernel at a prefill chunk's shape and flash from an offset at 16 / 16
   heads against their plain versions; the continuous batcher over 4
   requests; and deepseek-moe-16b at full width cut to 3 layers (its dense
-  first layer, shared experts).
+  first layer, shared experts);
+* whisper-small serving (`prefill` with frames, then 32 greedy
+  `decode_step`s: the engine passes no frames) uncut (12 encoder and 12
+  decoder layers, d_model 768, learned positions) on 4 segments of 1,500
+  random frame rows and 192-token prompts: 36 flash launches a prefill
+  (12 non-causal encoder blocks over 1,500 ragged keys, 12 causal
+  self-attentions without RoPE, 12 non-causal cross-attentions of 192
+  queries against 1,500 keys), held to decode against a fresh prefill,
+  finite logits, two runs the same ids, and the kernel at the encoder's
+  and the cross shapes against its plain version;
+* phi-3-vision-4.2b serving uncut (32 layers, d_model 3,072, heads of
+  96, 3.8 B float32 parameters): `Engine.generate` text-only on the same
+  prompts' shape with the dense bars (incremental prefill == one-shot
+  bits), and an image prefill of 576 patch rows before 1,472 tokens,
+  decode from position 2,048 held against a prefill of one more token
+  with the same patches; the kernel at (4, 2,048, 32, 96) causal and from
+  an offset at GQA 1 against its plain version and SDPA.
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -118,8 +134,10 @@ It times every kernel beside its plain version, its bound and PyTorch
 computing the same function (cuSPARSE SpMV, `torch.cdist` argmin, MoE's
 capacity-buffer `torch.bmm` form, `scaled_dot_product_attention`; the SSD
 scan has no single PyTorch call; it is listed twice, at Zamba2's and at
-xlstm-350m's shape, flash three times, at Zamba2's prefill and from an
-offset at qwen2-1.5b's and olmoe-1b-7b's extend shapes, and the expert
+xlstm-350m's shape, flash seven times, at Zamba2's prefill, from an
+offset at qwen2-1.5b's and olmoe-1b-7b's extend shapes, at
+whisper-small's encoder and cross-attention shapes and at phi-3-vision's
+prefill and extend shapes (dh 96), and the expert
 kernel twice, at the dispatch phase's shape and at olmoe-1b-7b's serving
 shape), and prints one JSON line per result.
 Any failed check raises, so the script exits non-zero and prints no final
@@ -196,6 +214,20 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                                 PASS + "ich_moe/ich_moe.py:197"),
     "flash_attention_moe": ("src/repro_torch/csrc/flash_attention.cu",
                             PASS + "flash_attention/flash_attention.py:95"),
+    # the flash kernel at whisper-small's encoder (non-causal over 1,500
+    # ragged keys) and cross-attention shapes (192 queries, 1,500 keys),
+    # and at phi-3-vision's dh 96: one shot (causal) and from an offset
+    "flash_attention_whisper_encoder": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        PASS + "flash_attention/flash_attention.py:95"),
+    "flash_attention_whisper_cross": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        PASS + "flash_attention/flash_attention.py:95"),
+    "flash_attention_vlm": ("src/repro_torch/csrc/flash_attention.cu",
+                            PASS + "flash_attention/flash_attention.py:95"),
+    "flash_attention_vlm_offset": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        PASS + "flash_attention/flash_attention.py:95"),
     # the schedule pipeline's two kernels replace XLA code of the reference's
     # jitted pipeline, not a Pallas kernel: its segment sum and LPT loop
     "segment_fold": ("src/repro_torch/csrc/lpt.cu",
@@ -246,6 +278,18 @@ BATCHER_REQUESTS, BATCHER_NEW, BATCHER_RATE = 8, 16, 32.0
 MOE_ARCH, MOE_CHUNK, MOE_ROW_POOLS = "olmoe-1b-7b", 512, (256, 4)
 MOE_BATCHER_REQUESTS = 4
 DEEPSEEK_ARCH, DEEPSEEK_LAYERS = "deepseek-moe-16b", 3
+# whisper-small (src/repro/configs/whisper_small.py, arXiv:2212.04356)
+# uncut: the same batch of 4 segments of encoder_seq = 1,500 frame rows
+# (30 s of audio each), 192-token decoder prompts and 32 decode steps
+# within whisper's text context of 448 positions; its encoder and decoder
+# share one learned position table, which must hold the 1,500 frames
+WHISPER_ARCH, WHISPER_PROMPT, WHISPER_NEW = "whisper-small", 192, 32
+WHISPER_MAX_SEQ, WHISPER_TEXT_CONTEXT = 1500, 448
+# phi-3-vision-4.2b (src/repro/configs/phi3_vision_4_2b.py,
+# hf:microsoft/Phi-3-vision-128k-instruct) uncut: the same batch, prompts
+# and new tokens text-only; its image prefill puts num_patches = 576 patch
+# rows before 2,048 - 576 = 1,472 tokens
+VLM_ARCH = "phi-3-vision-4.2b"
 
 
 def log(**kw) -> None:
@@ -1517,6 +1561,32 @@ def _kernel_split(ms_by_name: dict) -> dict:
     return out
 
 
+def _split_log(label, fn, wall_ms, expect=()) -> dict:
+    """Where one call's device time goes (`_kernel_split`'s groups, those
+    with no time left out) against its wall time: logged as `<label>` with
+    the idle share, returned."""
+    split = {k_: v_ for k_, v_ in _kernel_split(device_ms_by_kernel(
+        fn, expect=expect)).items() if v_ > 0}
+    total = sum(split.values())
+    rec = {"device_ms": split, "device_total_ms": total,
+           "share": {k_: v_ / total for k_, v_ in split.items()},
+           "wall_ms": wall_ms, "idle_share": 1.0 - total / wall_ms}
+    log(phase=label, **rec)
+    return rec
+
+
+def _wall_ms(fn, reps: int = 5) -> float:
+    """The median wall milliseconds of fn() with a synchronize, of reps."""
+    import torch
+    wall = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    return float(np.median(wall)) * 1e3
+
+
 def _scan_work(B, S, H, N, Pd, chunk, *, shared_qk: bool):
     """Operations the scan's algebra needs on these shapes. Per chunk of
     length c (the last may be short) and c(c+1)/2 causal pairs: 2N for the
@@ -1634,18 +1704,7 @@ def phase_zamba2():
 
     def one_decode():
         M.decode_step(cfg, params, first, dec_cache, S)
-    dec_split = _kernel_split(device_ms_by_kernel(one_decode))
-    wall = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        one_decode()
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
-    dec_device = sum(dec_split.values())
-    dec_wall = float(np.median(wall)) * 1e3
-    log(phase="zamba2_decode_split", device_ms=dec_split,
-        device_total_ms=dec_device, wall_ms=dec_wall,
-        idle_share=1.0 - dec_device / dec_wall)
+    _split_log("zamba2_decode_split", one_decode, _wall_ms(one_decode))
     del cache, dec_cache, last, one_shot, d_logits, fresh, engine
 
     # ---- both kernels at the main path's shapes ----
@@ -2398,33 +2457,15 @@ def phase_dense():
 
     # ---- where the prefill's and a decode step's device time goes ----
     toks = torch.from_numpy(prompts).cuda()
-    split = _kernel_split(device_ms_by_kernel(
-        lambda: M.prefill(cfg, params, {"tokens": toks}),
-        expect=("flash_fwd_kernel",)))
-    split.pop("mamba_scan")
-    total = sum(split.values())
-    log(phase="dense_prefill_split", device_ms=split, device_total_ms=total,
-        share={k_: v_ / total for k_, v_ in split.items()},
-        one_shot_wall_ms=t_one_shot * 1e3,
-        idle_share=1.0 - total / (t_one_shot * 1e3))
+    _split_log("dense_prefill_split", lambda: M.prefill(
+        cfg, params, {"tokens": toks}), t_one_shot * 1e3,
+               expect=("flash_fwd_kernel",))
     first = torch.from_numpy(ids[:, :1].astype(np.int64)).cuda()
     dec_cache = engine._pad_cache(cache)
 
     def one_decode():
         M.decode_step(cfg, params, first, dec_cache, S)
-    dec_split = _kernel_split(device_ms_by_kernel(one_decode))
-    dec_split.pop("mamba_scan")
-    wall = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        one_decode()
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
-    dec_device = sum(dec_split.values())
-    dec_wall = float(np.median(wall)) * 1e3
-    log(phase="dense_decode_split", device_ms=dec_split,
-        device_total_ms=dec_device, wall_ms=dec_wall,
-        idle_share=1.0 - dec_device / dec_wall)
+    _split_log("dense_decode_split", one_decode, _wall_ms(one_decode))
     del cache, dec_cache, toks
 
     # ---- the flash kernel from an offset at the extend shapes ----
@@ -2680,34 +2721,16 @@ def phase_moe_lm():
 
     # ---- where the prefill's and a decode step's device time goes ----
     toks = torch.from_numpy(prompts).cuda()
-    split = _kernel_split(device_ms_by_kernel(
-        lambda: M.prefill(cfg, params, {"tokens": toks}),
-        expect=("flash_fwd_kernel", "moe_product")))
-    split.pop("mamba_scan")
-    total = sum(split.values())
-    log(phase="moe_lm_prefill_split", device_ms=split, device_total_ms=total,
-        share={k_: v_ / total for k_, v_ in split.items()},
-        one_shot_wall_ms=t_one_shot * 1e3,
-        idle_share=1.0 - total / (t_one_shot * 1e3))
+    _split_log("moe_lm_prefill_split", lambda: M.prefill(
+        cfg, params, {"tokens": toks}), t_one_shot * 1e3,
+               expect=("flash_fwd_kernel", "moe_product"))
     first = torch.from_numpy(ids[:, :1].astype(np.int64)).cuda()
     dec_cache = engine._pad_cache(cache)
 
     def one_decode():
         M.decode_step(cfg, params, first, dec_cache, S)
-    dec_split = _kernel_split(device_ms_by_kernel(
-        one_decode, expect=("moe_product",)))
-    dec_split.pop("mamba_scan")
-    wall = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        one_decode()
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
-    dec_device = sum(dec_split.values())
-    dec_wall = float(np.median(wall)) * 1e3
-    log(phase="moe_lm_decode_split", device_ms=dec_split,
-        device_total_ms=dec_device, wall_ms=dec_wall,
-        idle_share=1.0 - dec_device / dec_wall)
+    _split_log("moe_lm_decode_split", one_decode, _wall_ms(one_decode),
+               expect=("moe_product",))
     del cache, dec_cache, toks
 
     # ---- rows 7b and 8c at the serving shapes ----
@@ -2771,6 +2794,379 @@ def phase_moe_lm():
                          library_ms=flash["library_ms"],
                          bytes_=flash["bytes"], flops=flash["flops"],
                          peak=TF32_FLOPS / 3)]
+
+
+def flash_shape_record(q, k, v, *, causal: bool) -> dict:
+    """The flash kernel at one of a main path's shapes from position 0 (q
+    (B, Sq, Hq, dh), k, v (B, Skv, Hkv, dh)): against its plain version
+    within FLASH_TOL (logged also against each element's sum of |terms|),
+    two calls the same bits; timed beside the plain version and
+    scaled_dot_product_attention (`is_causal`, or no mask), with its
+    operations (the (query, key) pairs the mask keeps), its bytes (each
+    input read once, the output written once) and the rates its
+    CUDA-event time gives (a torch.profiler trace of one launch of this
+    kernel has come back empty at dh 96 and 128)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    B, Sq, Hq, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    label = f"flash q {tuple(q.shape)} k {tuple(k.shape)} causal={causal}"
+    out = KF.flash_attention(q, k, v, causal=causal)
+    plain = KF.flash_attention_plain(q, k, v, causal=causal)
+    terms = KF.flash_attention_plain(q, k, v.abs(), causal=causal)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    rel = _rel_terms(out, plain, terms)
+    check(torch.allclose(out, plain, rtol=FLASH_TOL["float32"],
+                         atol=FLASH_TOL["float32"]),
+          f"{label} == plain within {FLASH_TOL['float32']}")
+    check(torch.equal(out, KF.flash_attention(q, k, v, causal=causal)),
+          f"{label}: two calls give the same bits")
+    del plain, terms
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
+    lib_diff = float((sdpa().transpose(1, 2) - out).abs().max())
+    ms = timed_ms(lambda: KF.flash_attention(q, k, v, causal=causal))
+    plain_ms = timed_ms(lambda: KF.flash_attention_plain(q, k, v,
+                                                         causal=causal))
+    lib_ms = timed_ms(sdpa)
+    # causal from position 0 with Sq <= Skv: query i keeps keys 0..i
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    flops = 4 * dh * pairs * B * Hq           # q.k and p.v, 2 flops a MAC
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    del out, qt, kt, vt
+    return {"shape": {"q": list(q.shape), "kv": list(k.shape)},
+            "causal": causal, "max_abs_err": err, "max_rel_to_terms": rel,
+            "sdpa_max_abs_diff": lib_diff, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+            **_rates(flops, ms)}
+
+
+def flash_calls_by_shape():
+    """Replace `models.attention.flash_attention` by a shim that tallies
+    each call by (q shape, k shape, causal) in the returned dict and calls
+    the wrapper; `restore()` puts the wrapper back. The wrapper's own
+    launch counter is untouched: the tally only attributes its launches to
+    the encoder's, the decoder's self- and its cross-attention calls."""
+    from repro_torch.models import attention as A
+    inner, calls = A.flash_attention, {}
+
+    def tally(q, k, v, **kw):
+        key = (tuple(q.shape), tuple(k.shape), bool(kw.get("causal", True)))
+        calls[key] = calls.get(key, 0) + 1
+        return inner(q, k, v, **kw)
+
+    def restore():
+        A.flash_attention = inner
+    A.flash_attention = tally
+    return calls, restore
+
+
+def phase_whisper():
+    """whisper-small uncut (12 encoder and 12 decoder layers, d_model 768,
+    12 heads and 12 KV heads of 64, vocab 51,865, tied, layernorm, GELU,
+    learned positions in one table of WHISPER_MAX_SEQ rows; random
+    float32 weights from a seeded generator), served as users call it:
+    `prefill` with frames, then greedy `decode_step`s on the cache the
+    engine's `_pad_cache` grows (the engine itself takes no frames). The
+    counted main path: 4 segments of 1,500 random frame rows (30 s of
+    audio each in whisper's frontend) and 192-token decoder prompts, one
+    prefill (36 flash launches: 12 encoder blocks non-causal, 12 causal
+    self-attentions, 12 non-causal cross-attentions of 192 queries
+    against 1,500 keys), 32 decode steps (plain attention). Bars: the
+    launches, by call kind; decode at S == a fresh prefill of S + 1 within
+    DECODE_TOL; finite logits; two runs the same ids; the flash kernel at
+    the encoder's and the cross-attention's shapes == its plain version
+    within FLASH_TOL. Logs the prefill's wall and device time by group,
+    and decode's ms a token and idle share."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 end to end
+    cfg = get_arch(WHISPER_ARCH)
+    B, S, n_new, Se = LM_BATCH, WHISPER_PROMPT, WHISPER_NEW, cfg.encoder_seq
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SEED, max_seq=WHISPER_MAX_SEQ,
+                           device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 13)
+    frames = torch.randn((B, Se, cfg.d_model), generator=g, device="cuda")
+    prompts = np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int64)
+    toks = torch.from_numpy(prompts).cuda()
+    batch = {"tokens": toks, "frames": frames}
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(phase="whisper_setup", arch=cfg.name, encoder_layers=
+        cfg.encoder_layers, decoder_layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, dh=cfg.dh, d_ff=cfg.d_ff,
+        vocab=cfg.padded_vocab, max_seq=WHISPER_MAX_SEQ, params=n_params,
+        weight_bytes=n_params * 4, batch=B, frames=Se, prompt=S,
+        new_tokens=n_new, init_s=time.perf_counter() - t0)
+    check(S + n_new <= WHISPER_TEXT_CONTEXT <= WHISPER_MAX_SEQ,
+          "the prompt and new tokens fit whisper's text context")
+    # first use of cuBLAS at these widths and of the kernel, uncounted
+    M.prefill(cfg, params, {"tokens": toks[:, :8], "frames": frames})
+    torch.cuda.synchronize()
+    eng = Engine(cfg, params, EngineConfig(max_seq=WHISPER_MAX_SEQ))
+
+    def serve():
+        """prefill, then n_new greedy decode steps: (ids (B, n_new + 1),
+        prefill s, decode s, the first decode step's logits)."""
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits).all()),
+              "(whisper d) prefill logits finite")
+        cache = eng._pad_cache(cache)
+        tok = torch.argmax(logits, -1)[:, None]
+        ids, first = [tok], None
+        t0 = time.perf_counter()
+        for i in range(n_new):
+            logits, cache = M.decode_step(cfg, params, tok, cache, S + i)
+            first = logits if first is None else first
+            tok = torch.argmax(logits, -1)[:, None]
+            ids.append(tok)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits).all()),
+              "(whisper d) decode logits finite")
+        return (torch.cat(ids, 1).cpu().numpy(), t_pre, t_dec, first)
+
+    # ---- the main path, counted ----
+    calls, restore = flash_calls_by_shape()
+    KF.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ids, t_pre, t_dec, first_logits = serve()
+    finally:
+        restore()
+    launches = KF.LAUNCHES["flash_attention"]
+    H, dh = cfg.n_heads, cfg.dh
+    kinds = {"encoder": ((B, Se, H, dh), (B, Se, H, dh), False),
+             "self": ((B, S, H, dh), (B, S, H, dh), True),
+             "cross": ((B, S, H, dh), (B, Se, H, dh), False)}
+    by_kind = {name: calls.get(key, 0) for name, key in kinds.items()}
+    log(phase="whisper_main_path", launches={"flash_attention": launches},
+        flash_calls_by_kind=by_kind, prefill_s=t_pre,
+        decode_ms_per_token=t_dec / n_new * 1e3, generated_ids=ids.tolist(),
+        distinct_ids=len(np.unique(ids)),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(launches == cfg.encoder_layers + 2 * cfg.n_layers == 36
+          and by_kind == {"encoder": cfg.encoder_layers,
+                          "self": cfg.n_layers, "cross": cfg.n_layers}
+          and sum(calls.values()) == launches,
+          "(whisper b) 36 flash launches a prefill: 12 encoder, 12 self, "
+          "12 cross; none in decode")
+    check(ids.shape == (B, n_new + 1) and bool(np.all(
+        (ids >= 0) & (ids < cfg.vocab_size))),
+          "whisper generated ids in the vocabulary")
+
+    # ---- bars ----
+    first = torch.from_numpy(ids[:, :1]).cuda()
+    fresh, _ = M.prefill(cfg, params, {"tokens": torch.cat([toks, first], 1),
+                                       "frames": frames})
+    err = float((first_logits - fresh).abs().max())
+    check(torch.allclose(first_logits, fresh, rtol=DECODE_TOL,
+                         atol=DECODE_TOL),
+          f"(whisper c) decode at S == prefill of S + 1 within {DECODE_TOL}")
+    ids2, _, _, _ = serve()
+    check(np.array_equal(ids, ids2), "(whisper e) two runs give the same ids")
+    log(phase="whisper_bars", decode_vs_prefill_max_abs=err,
+        logits_max_abs=float(fresh.abs().max()), same_ids_twice=True)
+    del fresh
+
+    # ---- where the prefill's and a decode step's device time goes ----
+    pre_wall = _wall_ms(lambda: M.prefill(cfg, params, batch), reps=3)
+    _split_log("whisper_prefill_split", lambda: M.prefill(cfg, params, batch),
+               pre_wall, expect=("flash_fwd_kernel",))
+    _, cache = M.prefill(cfg, params, batch)
+    dec_cache = eng._pad_cache(cache)
+
+    def one_decode():
+        M.decode_step(cfg, params, first, dec_cache, S)
+    _split_log("whisper_decode_split", one_decode, _wall_ms(one_decode))
+    del cache, dec_cache
+
+    # ---- rows 8d and 8e: the kernel at the encoder's and cross shapes ----
+    q = torch.randn((B, Se, H, dh), generator=g, device="cuda")
+    k = torch.randn((B, Se, H, dh), generator=g, device="cuda")
+    v = torch.randn((B, Se, H, dh), generator=g, device="cuda")
+    enc = flash_shape_record(q, k, v, causal=False)
+    log(phase="whisper_flash_encoder", **enc)
+    cross = flash_shape_record(q[:, :S].contiguous(), k, v, causal=False)
+    log(phase="whisper_flash_cross", **cross)
+    del q, k, v, params, eng, frames
+    torch.cuda.empty_cache()
+    # float32 inputs: both products run as three TF32 products on the
+    # tensor cores
+    return [kernel_entry(name, launches=by_kind[kind], err=rec["max_abs_err"],
+                         ms=rec["ms"], plain_ms=rec["plain_ms"],
+                         library_ms=rec["library_ms"], bytes_=rec["bytes"],
+                         flops=rec["flops"], peak=TF32_FLOPS / 3)
+            for name, kind, rec in (
+                ("flash_attention_whisper_encoder", "encoder", enc),
+                ("flash_attention_whisper_cross", "cross", cross))]
+
+
+def phase_vlm():
+    """phi-3-vision-4.2b uncut (the phi3-mini backbone: 32 layers, d_model
+    3,072, 32 heads and 32 KV heads of 96, SwiGLU of 8,192, untied; about
+    3.8 B float32 parameters, 15.3 GB, random from a seeded generator).
+    (a) The counted main path `Engine.generate` text-only (the reference's
+    engine serves it so) on 4 prompts of 2,048 tokens with 32 new tokens,
+    incremental (one flash launch a layer per `prefill_extend` call),
+    held to `_dense_bars` (a)-(d). (b) The counted image path: `prefill`
+    of 4 x (576 patch rows from the seed + 1,472 tokens), one shot (one
+    flash launch a layer at 2,048 queries), then 32 greedy decode steps
+    from position 2,048; bars: decode at S + P == a prefill of S + 1
+    tokens with the same patches within DECODE_TOL, finite logits; where
+    its device time goes. (c) Row 8f: the kernel at (4, 2,048, 32, 96)
+    causal against its plain version and SDPA; row 8g: from an offset at
+    the extend shape (`flash_offset_checks`: GQA 1 at dh 96, row 8c's
+    question)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 end to end
+    cfg = get_arch(VLM_ARCH)
+    B, S, n_new, P = LM_BATCH, LM_PROMPT, LM_NEW, cfg.num_patches
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int64)
+    log(phase="vlm_setup", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        dh=cfg.dh, d_ff=cfg.d_ff, vocab=cfg.padded_vocab, patches=P,
+        params=n_params, weight_bytes=n_params * 4, batch=B, prompt=S,
+        new_tokens=n_new, token_block=M.TOKEN_BLOCK,
+        init_s=time.perf_counter() - t0)
+    # first use of cuBLAS at these widths and of the kernel, uncounted
+    M.prefill(cfg, params, {"tokens": torch.from_numpy(
+        prompts[:, :64]).cuda()})
+    torch.cuda.synchronize()
+
+    # ---- (a) text only through the engine, counted ----
+    KF.reset_launches()
+    engine = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ids, stats = engine.generate(prompts, n_new=n_new)
+    torch.cuda.synchronize()
+    t_generate = time.perf_counter() - t0
+    text_launches = KF.LAUNCHES["flash_attention"]
+    chunks = stats["chunks"]
+    sizes = [c["chunk"] for c in chunks]
+    t_prefill = sum(c["dt"] for c in chunks)
+    Q = min(M.TOKEN_BLOCK, S)
+    log(phase="vlm_main_path", chunk_log=chunks,
+        n_prefill_fallbacks=engine.n_prefill_fallbacks,
+        launches={"flash_attention": text_launches}, generate_s=t_generate,
+        time_to_first_token_s=t_prefill,
+        decode_ms_per_token=(t_generate - t_prefill) / n_new * 1e3,
+        generated_ids=ids.tolist(), distinct_ids=len(np.unique(ids)),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(engine.n_prefill_fallbacks == 0 and sum(sizes) == S,
+          "(vlm a) incremental prefill: no prefix rerun")
+    check(all(c % Q == 0 for c in sizes[:-1]),
+          f"(vlm a) every chunk but the last a multiple of Q = {Q}")
+    check(text_launches == cfg.n_layers * len(chunks),
+          f"(vlm b) {cfg.n_layers} flash launches per prefill_extend call")
+    check(ids.shape == (B, n_new) and bool(np.all((ids >= 0)
+                                                  & (ids < cfg.vocab_size))),
+          "vlm generated ids in the vocabulary")
+    rec, _, cache = _dense_bars("vlm", cfg, params, prompts, n_new, ids,
+                                len(chunks))
+    log(phase="vlm_bars", **rec)
+    del cache, engine
+    torch.cuda.empty_cache()
+
+    # ---- (b) an image prefill and decode from S + P, counted ----
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 14)
+    patches = torch.randn((B, P, cfg.d_model), generator=g, device="cuda")
+    itoks = torch.from_numpy(prompts[:, :S - P]).cuda()
+    image = {"tokens": itoks, "patches": patches}
+    eng = Engine(cfg, params, EngineConfig(max_seq=LM_MAX_SEQ))
+    KF.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, params, image)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), "(vlm image) prefill finite")
+    check(cache[0]["k"].shape[2] == S, "(vlm image) a cache of P + S "
+          "positions")
+    cache = eng._pad_cache(cache)
+    tok = torch.argmax(logits, -1)[:, None]
+    iids, first_logits = [tok], None
+    t0 = time.perf_counter()
+    for i in range(n_new):
+        logits, cache = M.decode_step(cfg, params, tok, cache, S + i)
+        first_logits = logits if first_logits is None else first_logits
+        tok = torch.argmax(logits, -1)[:, None]
+        iids.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    image_launches = KF.LAUNCHES["flash_attention"]
+    check(image_launches == cfg.n_layers,
+          f"(vlm image) {cfg.n_layers} flash launches in the prefill, none "
+          f"in decode")
+    check(bool(torch.isfinite(logits).all()), "(vlm image) decode finite")
+    first = iids[0]                  # the token decoded at position S
+    fresh, _ = M.prefill(cfg, params, {"tokens": torch.cat([itoks, first], 1),
+                                       "patches": patches})
+    err = float((first_logits - fresh).abs().max())
+    check(torch.allclose(first_logits, fresh, rtol=DECODE_TOL,
+                         atol=DECODE_TOL),
+          f"(vlm image) decode at S + P == prefill of S + 1 tokens with the "
+          f"same patches within {DECODE_TOL}")
+    iids = torch.cat(iids, 1).cpu().numpy()
+    log(phase="vlm_image", launches={"flash_attention": image_launches},
+        patches=P, tokens=S - P, prefill_s=t_pre,
+        decode_ms_per_token=t_dec / n_new * 1e3,
+        decode_vs_prefill_max_abs=err, generated_ids=iids.tolist(),
+        distinct_ids=len(np.unique(iids)))
+    del cache, fresh, logits, first_logits
+    pre_wall = _wall_ms(lambda: M.prefill(cfg, params, image), reps=3)
+    _split_log("vlm_prefill_split", lambda: M.prefill(cfg, params, image),
+               pre_wall, expect=("flash_fwd_kernel",))
+    _, cache = M.prefill(cfg, params, image)
+    dec_cache = eng._pad_cache(cache)
+
+    def one_decode():
+        M.decode_step(cfg, params, first, dec_cache, S)
+    _split_log("vlm_decode_split", one_decode, _wall_ms(one_decode))
+    del cache, dec_cache, params, eng, patches
+    torch.cuda.empty_cache()
+
+    # ---- (c) rows 8f and 8g ----
+    H, dh = cfg.n_heads, cfg.dh
+    q = torch.randn((B, S, H, dh), generator=g, device="cuda")
+    k = torch.randn((B, S, cfg.n_kv_heads, dh), generator=g, device="cuda")
+    v = torch.randn((B, S, cfg.n_kv_heads, dh), generator=g, device="cuda")
+    causal = flash_shape_record(q, k, v, causal=True)
+    log(phase="vlm_flash_causal", **causal)
+    del q, k, v
+    offset = flash_offset_checks(cfg, g)
+    log(phase="vlm_flash_offset", **offset)
+    torch.cuda.empty_cache()
+    return [kernel_entry(name, launches=n, err=rec["max_abs_err"],
+                         ms=rec["ms"], plain_ms=rec["plain_ms"],
+                         library_ms=rec["library_ms"], bytes_=rec["bytes"],
+                         flops=rec["flops"], peak=TF32_FLOPS / 3)
+            for name, n, rec in (
+                ("flash_attention_vlm", image_launches, causal),
+                ("flash_attention_vlm_offset", text_launches, offset))]
 
 
 def _rates(flops: int, device_ms: float) -> dict:
@@ -3194,6 +3590,8 @@ def main() -> int:
     kernels += phase_xlstm()
     kernels += phase_dense()
     kernels += phase_moe_lm()
+    kernels += phase_whisper()
+    kernels += phase_vlm()
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)

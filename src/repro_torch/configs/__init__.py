@@ -1,17 +1,19 @@
 """Architecture registry of the port: the configurations whose serving
 path it runs so far (Zamba2-1.2B, hybrid; xlstm-350m, ssm; qwen2-1.5b,
 olmo-1b, glm4-9b and phi3-medium-14b, dense; olmoe-1b-7b and
-deepseek-moe-16b, moe). `get_arch` and `reduced`
-behave as `repro.configs`'s do; other architectures join with their
-slices."""
+deepseek-moe-16b, moe; phi-3-vision-4.2b, vlm; whisper-small, encdec):
+every architecture of `repro.configs`. `get_arch` and `reduced` behave
+as `repro.configs`'s do."""
 from .base import SHAPES, ArchConfig, ShapeSpec
 from . import (deepseek_moe_16b, glm4_9b, olmo_1b, olmoe_1b_7b,
-               phi3_medium_14b, qwen2_1_5b, xlstm_350m, zamba2_1_2b)
+               phi3_medium_14b, phi3_vision_4_2b, qwen2_1_5b, whisper_small,
+               xlstm_350m, zamba2_1_2b)
 
 ARCHS: dict[str, ArchConfig] = {
     c.CONFIG.name: c.CONFIG
     for c in (zamba2_1_2b, xlstm_350m, qwen2_1_5b, olmo_1b, glm4_9b,
-              phi3_medium_14b, olmoe_1b_7b, deepseek_moe_16b)}
+              phi3_medium_14b, olmoe_1b_7b, deepseek_moe_16b,
+              phi3_vision_4_2b, whisper_small)}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -28,7 +28,11 @@ A language model's state is its weights:
   segment along a leading layer axis (`segments/0/attn/wq` (L0, d,
   Hq*dh), `segments/1/moe/wi` (L1, E, d, F)), one slice a layer, the
   segments' layers one after the other (`layers.3.attn.wq`,
-  `layers.<L0 + l>.moe.wi`).
+  `layers.<L0 + l>.moe.wi`); whisper's encoder stack the same way
+  (`enc/attn/wq` (L_enc, d, Hq*dh) -> `enc.<l>.attn.wq`), its decoder's
+  `segments/0/{lnx,xattn}` with the other decoder leaves, and its
+  learned position table `embed/pos` (max_seq, d), whose rows set the
+  port model's `max_seq`.
 
 Nothing here imports the reference: the caller hands the arrays over.
 """
@@ -140,37 +144,54 @@ def _flatten(tree, prefix: str = ""):
         yield from _flatten(sub, f"{prefix}.{key}" if prefix else str(key))
 
 
+def _unstack(stack: dict, prefix: str, first: int, label: str) -> tuple:
+    """The leaves of one stack ({name: array with a leading layer axis})
+    as one leaf a layer, `<prefix>.<first + l>.<name>`, and the stack's
+    layer count. Raises when the leaves disagree on it."""
+    counts = {len(arr) for arr in stack.values()}
+    if len(counts) != 1:
+        raise ValueError(f"{label}'s leaves disagree on their layer count: "
+                         f"{sorted(counts)}")
+    out = {f"{prefix}.{first + layer}.{rest}": sl
+           for rest, arr in stack.items() for layer, sl in enumerate(arr)}
+    return out, counts.pop()
+
+
 def _unstack_segments(leaves: dict) -> dict:
     """Every segment's stacked leaves (`segments.<i>.<name>`, leading axis
     L_i) as one leaf a layer (`layers.<l>.<name>`), segment i's layers
-    numbered from the sum of the earlier segments' L; other leaves as
-    they are."""
-    out, segments = {}, {}
+    numbered from the sum of the earlier segments' L; an encoder's
+    (`enc.<name>`, leading axis L_enc) as `enc.<l>.<name>`; other leaves
+    as they are."""
+    out, segments, enc = {}, {}, {}
     for name, arr in leaves.items():
         if name.startswith("segments."):
             i, rest = name[len("segments."):].split(".", 1)
             segments.setdefault(int(i), {})[rest] = np.asarray(arr)
+        elif name.startswith("enc."):
+            enc[name[len("enc."):]] = np.asarray(arr)
         else:
             out[name] = arr
     first = 0
     for i in sorted(segments):
-        counts = {len(arr) for arr in segments[i].values()}
-        if len(counts) != 1:
-            raise ValueError(f"segment {i}'s leaves disagree on their layer "
-                             f"count: {sorted(counts)}")
-        for rest, arr in segments[i].items():
-            for layer, sl in enumerate(arr):
-                out[f"layers.{first + layer}.{rest}"] = sl
-        first += counts.pop()
+        layers, count = _unstack(segments[i], "layers", first,
+                                 f"segment {i}")
+        out.update(layers)
+        first += count
+    if enc:
+        out.update(_unstack(enc, "enc", 0, "the encoder")[0])
     return out
 
 
 def lm_params_from_reference(cfg, np_params, device=None):
-    """The port's model (`models.model.StackedLM` or `HybridLM`) holding
-    exactly the reference's weights: `np_params` is
-    `repro.models.model.init_params`'s tree with numpy leaves. Raises when
-    a name or a shape disagrees."""
-    model = init_params(cfg, device=device)
+    """The port's model (`models.model.StackedLM`, `EncDecLM` or
+    `HybridLM`) holding exactly the reference's weights: `np_params` is
+    `repro.models.model.init_params`'s tree with numpy leaves (a learned
+    position table's rows give the model's `max_seq`). Raises when a name
+    or a shape disagrees."""
+    pos = np_params.get("embed", {}).get("pos")
+    model = init_params(cfg, max_seq=0 if pos is None else len(pos),
+                        device=device)
     theirs = _unstack_segments(dict(_flatten(np_params)))
     ours = model.state_dict()
     if set(theirs) != set(ours):

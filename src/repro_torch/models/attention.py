@@ -1,7 +1,9 @@
 """GQA attention of the port: q/k/v with the qkv biases and RoPE at given
-positions, prefill through the flash attention kernel, single-token
-decode against a KV cache, sliding windows — the port's counterpart of
-`repro.models.attention` (self-attention only).
+positions (none with learned positions, `cfg.rope_theta == 0`), prefill
+through the flash attention kernel, causal or not, single-token decode
+against a KV cache, sliding windows, and whisper's cross-attention (q
+from the decoder against keys and values of the encoder's output) — the
+port's counterpart of `repro.models.attention`.
 
 GQA is computed with grouped products: K/V are never repeated to Hq width.
 On the card `attention(...)` and the dense family's chunks
@@ -60,31 +62,72 @@ def _qkv(cfg, p: Attention, x: torch.Tensor):
 
 def qkv_at(cfg, p: Attention, x: torch.Tensor, positions: torch.Tensor):
     """q (B,S,Hq,dh), k, v (B,S,Hkv,dh) of x (B,S,d) at `positions` (S,),
-    RoPE applied to q and k: the token-wise part of attention."""
+    RoPE applied to q and k when `cfg.rope_theta > 0`: the token-wise part
+    of attention."""
     q, k, v = _qkv(cfg, p, x)
+    if cfg.rope_theta <= 0:
+        return q, k, v
     cos, sin = L.rope_freqs(positions, cfg.dh, cfg.rope_theta)
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
 
 
-def attention(cfg, p: Attention, x: torch.Tensor, *, window: int = 0):
-    """Causal self-attention over the whole sequence (prefill) through the
-    flash kernel, positions 0..S-1. Returns (out (B,S,d), (k, v)) with k/v
-    (B,S,Hkv,dh) after RoPE."""
-    q, k, v = qkv_at(cfg, p, x, torch.arange(x.shape[1], device=x.device))
+def cross_q(cfg, p: Attention, x: torch.Tensor) -> torch.Tensor:
+    """q (B,S,Hq,dh) of a cross-attention: x . wq, plus bq with
+    `cfg.qkv_bias`; no positions."""
+    q = x @ p.wq.to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(x.dtype)
+    return q.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.dh)
+
+
+def encoder_kv(cfg, p: Attention, enc_out: torch.Tensor):
+    """k, v (B,S_enc,Hkv,dh) of a cross-attention over the encoder's output
+    (B,S_enc,d): enc_out . wk and enc_out . wv, without bias, as the
+    reference builds them (`repro/models/model.py:474-477`)."""
+    B, S = enc_out.shape[:2]
+    k = enc_out @ p.wk.to(enc_out.dtype)
+    v = enc_out @ p.wv.to(enc_out.dtype)
+    return (k.reshape(B, S, cfg.n_kv_heads, cfg.dh),
+            v.reshape(B, S, cfg.n_kv_heads, cfg.dh))
+
+
+def attention(cfg, p: Attention, x: torch.Tensor, *, window: int = 0,
+              causal: bool = True, cross_kv=None):
+    """Attention over the whole sequence (prefill) through the flash
+    kernel. Self-attention (positions 0..S-1, causal or not — whisper's
+    encoder is not): returns (out (B,S,d), (k, v)) with k/v (B,S,Hkv,dh)
+    after RoPE. Cross-attention, `cross_kv=(k, v)` (`encoder_kv`): q
+    from x alone (`cross_q`) against those keys and values, with the
+    `causal` mask the caller gives (whisper's decoder: False); returns
+    (out, None)."""
+    if cross_kv is not None:
+        q, (k, v) = cross_q(cfg, p, x), cross_kv
+        kv = None
+    else:
+        q, k, v = qkv_at(cfg, p, x, torch.arange(x.shape[1],
+                                                 device=x.device))
+        kv = (k, v)
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=True, window=window)
+                          causal=causal, window=window)
     out = out.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.dh)
-    return out @ p.wo.to(x.dtype), (k, v)
+    return out @ p.wo.to(x.dtype), kv
 
 
 def decode_attention(cfg, p: Attention, x: torch.Tensor, cache_k, cache_v,
-                     pos: int, *, window: int = 0):
+                     pos: int, *, window: int = 0, cross: bool = False):
     """Single-token decode. cache_k/v (B, S_max, Hkv, dh); pos: the current
     position, the same for every row. Writes the new key and value at pos
     (pos % S_max when window > 0: a ring buffer) IN PLACE — the reference
     returns updated copies; the port saves copying the whole cache per
-    token. Returns (out, cache_k, cache_v)."""
+    token. With `cross=True` the caches are a cross-attention's keys and
+    values of the encoder's output: q alone is projected, nothing is
+    written, and every key is kept. Returns (out, cache_k, cache_v)."""
     B = x.shape[0]
+    if cross:
+        out = flash_attention_plain(cross_q(cfg, p, x), cache_k, cache_v,
+                                    causal=False)
+        out = out.reshape(B, 1, cfg.n_heads * cfg.dh) @ p.wo.to(x.dtype)
+        return out, cache_k, cache_v
     q, k1, v1 = qkv_at(cfg, p, x, torch.tensor([pos], device=x.device))
     write = pos % cache_k.shape[1] if window > 0 else pos
     cache_k[:, write] = k1[:, 0].to(cache_k.dtype)

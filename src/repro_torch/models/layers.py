@@ -1,8 +1,8 @@
 """Shared building blocks of the port's language models: the norms
 (rmsnorm, layernorm, OLMo's nonparametric LN), RoPE (split-half layout),
-the SwiGLU and GELU MLPs, token embedding and the LM head (its own or the
-embedding's, tied) — the port's counterpart of `repro.models.layers`
-(learned positions come with the encoder-decoder family) — and
+the SwiGLU and GELU MLPs, token embedding with learned positions
+(whisper) and the LM head (its own or the embedding's, tied) — the port's
+counterpart of `repro.models.layers` — and
 `by_blocks`, which runs a token-wise function per block of tokens
 (`TOKEN_BLOCK` of them in the stacked families' layers).
 
@@ -124,14 +124,20 @@ class MLP(nn.Module):
 class Embed(nn.Module):
     """Token table `tok` (padded vocab, d) and the LM head `head`
     (d, padded vocab), which a tied config (`cfg.tie_embeddings`) does not
-    have: its head is `tok` transposed."""
+    have: its head is `tok` transposed. With learned positions
+    (`cfg.rope_theta == 0`, whisper) and `max_seq > 0`, also the position
+    table `pos` (max_seq, d), drawn as `tok` is; whisper's encoder and
+    decoder share it."""
 
-    def __init__(self, cfg, g: torch.Generator, device=None):
+    def __init__(self, cfg, g: torch.Generator, device=None,
+                 max_seq: int = 0):
         super().__init__()
         self.tied = bool(cfg.tie_embeddings)
         self.tok = embed_init(g, cfg.padded_vocab, cfg.d_model, device)
         if not self.tied:
             self.head = dense_init(g, cfg.d_model, cfg.padded_vocab, device)
+        if cfg.rope_theta == 0.0 and max_seq > 0:
+            self.pos = embed_init(g, max_seq, cfg.d_model, device)
 
 
 def embed_tokens(p: Embed, tokens: torch.Tensor) -> torch.Tensor:

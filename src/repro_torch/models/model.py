@@ -1,30 +1,40 @@
 """Model assembly of the port — the counterpart of `repro.models.model`
-for four families: dense (a stack of attention layers: qwen2, OLMo,
-GLM-4, Phi-3), moe (attention layers whose FFN is a mixture of experts:
-OLMoE, DeepSeekMoE with its dense first layers), hybrid (Zamba2: a Mamba2
-backbone with one attention block whose weights are shared by every "A"
-position) and ssm (xLSTM: mLSTM "X" and sLSTM "S" blocks, or Mamba2 "M").
+for every family of `repro.configs`: dense (a stack of attention layers:
+qwen2, OLMo, GLM-4, Phi-3), vlm (phi-3-vision: the dense stack, with
+patch embeddings before the tokens), moe (attention layers whose FFN is a
+mixture of experts: OLMoE, DeepSeekMoE with its dense first layers),
+encdec (whisper: an encoder over frame embeddings, a decoder with
+cross-attention, learned positions), hybrid (Zamba2: a Mamba2 backbone
+with one attention block whose weights are shared by every "A" position)
+and ssm (xLSTM: mLSTM "X" and sLSTM "S" blocks, or Mamba2 "M").
 
 Entry points:
-  init_params           — the model (`StackedLM` or `HybridLM`), weights
-                          from a seeded torch.Generator on the device
+  init_params           — the model (`StackedLM`, `EncDecLM` or
+                          `HybridLM`), weights from a seeded
+                          torch.Generator on the device
   prefill / decode_step — the serving paths with their caches
+                          (`batch["frames"]` for encdec,
+                          `batch["patches"]` optional for vlm)
   cache_specs           — shapes and types of decode_step's cache
   extend_cache_specs_ok / empty_extend_cache / prefill_extend
-                        — incremental chunked prefill (dense, moe, ssm)
+                        — incremental chunked prefill (dense, vlm, moe,
+                          ssm)
 
 Parameters carry the reference tree's names (`embed.tok`,
 `blocks.0.mamba.in_x`, `blocks.0.mlstm.wq`, `blocks.3.slstm.r`,
 `shared_attn.attn.wq`, ...): the "A" positions of `blocks` are empty, as
 the reference's `{}` entries are, and their weights live in
-`shared_attn`. A stacked model (dense, moe) keeps one module a layer
-(`layers.3.attn.wq`, `layers.3.moe.wi`) where the reference stacks each
-segment's leaves along a leading axis (`segments.1.moe.wi[2]`, layer
-count of segment 0 + 2); `convert.lm_params_from_reference` maps one onto
-the other. Its KV cache keeps the reference's per-segment layout,
-{"k", "v"} of (L_segment, B, S, Hkv, dh) for each segment of
-`segments_of`. Other families raise NotImplementedError: they come with
-later slices (ROADMAP.md).
+`shared_attn`. A stacked model (dense, vlm, moe) keeps one module a
+layer (`layers.3.attn.wq`, `layers.3.moe.wi`) where the reference stacks
+each segment's leaves along a leading axis (`segments.1.moe.wi[2]`, layer
+count of segment 0 + 2), and so does whisper's (`enc.5.attn.wq` for the
+reference's `enc.attn.wq[5]`, `layers.5.xattn.wq`);
+`convert.lm_params_from_reference` maps one onto the other. A stacked
+model's KV cache keeps the reference's per-segment layout, {"k", "v"} of
+(L_segment, B, S, Hkv, dh) for each segment of `segments_of`; whisper's
+is {"self": [{"k", "v"} (L, B, S, Hkv, dh)], "cross": {"k", "v"}
+(L, B, S_enc, Hkv, dh)}. A config outside these families' shapes raises
+NotImplementedError (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -46,31 +56,35 @@ from . import ssm as SS
 TOKEN_BLOCK = L.TOKEN_BLOCK
 # families whose layers are stacked attention blocks with a per-segment
 # (L, B, S, Hkv, dh) KV cache
-STACKED = ("dense", "moe")
+STACKED = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg) -> None:
-    """Raise for a config the port does not run yet. It runs the dense
-    family (no MoE), the moe family (its routed and shared experts, its
-    dense first layers; SwiGLU), the hybrid family with "M" blocks and
-    one shared "A" block, and the ssm family with "M", "X" and "S"
-    blocks; with any of the three norms, SwiGLU or GELU, qkv biases or
-    not, tied heads or not, and RoPE (learned positions come with the
-    encoder-decoder family)."""
+    """Raise for a config the port does not run yet. It runs the dense and
+    vlm families (no MoE), the moe family (its routed and shared experts,
+    its dense first layers; SwiGLU), the encdec family (an encoder, no
+    MoE), the hybrid family with "M" blocks and one shared "A" block, and
+    the ssm family with "M", "X" and "S" blocks; with any of the three
+    norms, SwiGLU or GELU, qkv biases or not, tied heads or not; learned
+    positions (`rope_theta == 0`) in the encdec family, RoPE in the
+    others."""
     pattern = set(cfg.block_pattern)
     if cfg.family == "moe":
         ok = cfg.moe and cfg.act == "swiglu"
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "vlm"):
         ok = not cfg.moe
+    elif cfg.family == "encdec":
+        ok = not cfg.moe and cfg.encoder_layers > 0 and cfg.encoder_seq > 0
     elif cfg.family == "hybrid":
         ok = cfg.shared_attention and pattern <= {"A", "M"}
     else:
         ok = cfg.family == "ssm" and pattern <= {"M", "X", "S"}
-    if not ok or cfg.rope_theta <= 0:
+    if not ok or (cfg.rope_theta <= 0) != (cfg.family == "encdec"):
         raise NotImplementedError(
-            f"the port runs the dense, moe, hybrid (Zamba2) and ssm (xLSTM) "
-            f"families so far; {cfg.name!r} ({cfg.family}) comes with a "
-            f"later slice (ROADMAP.md)")
+            f"the port runs the dense, vlm, moe, encdec (whisper), hybrid "
+            f"(Zamba2) and ssm (xLSTM) families; {cfg.name!r} "
+            f"({cfg.family}) in this shape comes with a later slice "
+            f"(ROADMAP.md)")
 
 
 def segments_of(cfg) -> list[tuple[str, int]]:
@@ -105,6 +119,21 @@ class AttnBlock(nn.Module):
         else:
             self.mlp = L.MLP(cfg, g, device, d_ff=cfg.dense_d_ff
                              if kind == "densffn" else None)
+
+
+class DecBlock(nn.Module):
+    """A whisper decoder block ("dec"): ln1, attn (causal self-attention),
+    lnx, xattn (cross-attention over the encoder's output), ln2, mlp. The
+    encoder's blocks are `AttnBlock`s (ln1, attn, ln2, mlp)."""
+
+    def __init__(self, cfg, g, device=None):
+        super().__init__()
+        self.ln1 = L.Norm(cfg, device)
+        self.attn = A.Attention(cfg, g, device)
+        self.lnx = L.Norm(cfg, device)
+        self.xattn = A.Attention(cfg, g, device)
+        self.ln2 = L.Norm(cfg, device)
+        self.mlp = L.MLP(cfg, g, device)
 
 
 class MambaBlock(nn.Module):
@@ -168,7 +197,7 @@ class HybridLM(nn.Module):
 class StackedLM(nn.Module):
     """embed, layers (`cfg.n_layers` attention blocks, each of its
     segment's kind in `segments_of` order), final_norm — the reference's
-    dense and moe trees, each segment's stacked leaves one module a
+    dense, vlm and moe trees, each segment's stacked leaves one module a
     layer."""
 
     def __init__(self, cfg, g: torch.Generator, device=None):
@@ -182,6 +211,34 @@ class StackedLM(nn.Module):
         self.final_norm = L.Norm(cfg, device)
 
 
+class EncDecLM(nn.Module):
+    """embed (with the learned position table `pos` of `max_seq` rows,
+    which the encoder's frames and the decoder's tokens share), enc
+    (`cfg.encoder_layers` `AttnBlock`s), enc_norm, layers (`cfg.n_layers`
+    `DecBlock`s), final_norm — the reference's encdec tree, each stacked
+    leaf one module a layer. Raises ValueError when `max_seq <
+    cfg.encoder_seq`: the encoder's positions would run past the table
+    (the reference fails there too)."""
+
+    def __init__(self, cfg, g: torch.Generator, device=None,
+                 max_seq: int = 0):
+        super().__init__()
+        _check_family(cfg)
+        if max_seq < cfg.encoder_seq:
+            raise ValueError(
+                f"{cfg.name!r}: max_seq {max_seq} < encoder_seq "
+                f"{cfg.encoder_seq}; the encoder and the decoder share one "
+                f"learned position table of max_seq rows")
+        self.cfg = cfg
+        self.embed = L.Embed(cfg, g, device, max_seq)
+        self.enc = nn.ModuleList([AttnBlock(cfg, g, device)
+                                  for _ in range(cfg.encoder_layers)])
+        self.enc_norm = L.Norm(cfg, device)
+        self.layers = nn.ModuleList([DecBlock(cfg, g, device)
+                                     for _ in range(cfg.n_layers)])
+        self.final_norm = L.Norm(cfg, device)
+
+
 def _layer_slots(cfg) -> list[tuple[int, int]]:
     """(segment, index within the segment) of each layer of a stacked
     model: where its keys and values lie in the per-segment cache."""
@@ -189,15 +246,76 @@ def _layer_slots(cfg) -> list[tuple[int, int]]:
             for j in range(count)]
 
 
-def init_params(cfg, seed: int = 0, *, device=None) -> nn.Module:
+def init_params(cfg, seed: int = 0, *, max_seq: int = 0,
+                device=None) -> nn.Module:
     """The model with random weights drawn from a torch.Generator seeded
     with `seed`, on `device` (None = the card; raises without CUDA):
-    `StackedLM` for the dense and moe families, else `HybridLM`."""
+    `StackedLM` for the dense, vlm and moe families, `EncDecLM` for
+    encdec (its position table of `max_seq` rows; ValueError below
+    `cfg.encoder_seq`), else `HybridLM`. `max_seq` is the reference's
+    argument: only learned positions use it."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(int(seed))
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, g, dev, int(max_seq)).eval()
     lm = StackedLM if cfg.family in STACKED else HybridLM
     return lm(cfg, g, dev).eval()
+
+
+def _positions(params, start: int, n: int):
+    """Rows start..start+n-1 of the learned position table, (1, n, d)."""
+    table = params.embed.pos
+    if start + n > table.shape[0]:
+        raise ValueError(f"positions {start}..{start + n - 1} run past the "
+                         f"learned position table of {table.shape[0]} rows "
+                         f"(max_seq)")
+    return table[start:start + n][None]
+
+
+def _embed(params, tokens, start: int, dtype):
+    """Token embeddings of tokens (B, S) at positions start.., plus their
+    learned position rows when the model has a table (whisper)."""
+    x = L.embed_tokens(params.embed, tokens).to(dtype)
+    if hasattr(params.embed, "pos"):
+        x = x + _positions(params, start, x.shape[1]).to(dtype)
+    return x
+
+
+def _encode(cfg, params: EncDecLM, frames, dtype=torch.float32):
+    """Whisper's encoder over frame embeddings (B, S_enc, d): plus position
+    rows 0..S_enc-1, the non-causal blocks (flash, every key kept), the
+    encoder's norm."""
+    x = frames.to(dtype)
+    x = x + _positions(params, 0, x.shape[1]).to(dtype)
+    for p in params.enc:
+        h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=False)
+        x = x + h
+        x = x + p.mlp(p.ln2(x))
+    return params.enc_norm(x)
+
+
+def _prefill_encdec(cfg, params: EncDecLM, batch, dtype):
+    """Whisper's prefill: the encoder over `batch["frames"]`, then each
+    decoder layer's causal self-attention over the tokens and its
+    cross-attention against keys and values of the encoder's output,
+    computed once a layer and kept in the cache's "cross" part."""
+    enc_out = _encode(cfg, params, batch["frames"], dtype)
+    x = _embed(params, batch["tokens"], 0, dtype)
+    ks, vs, cks, cvs = [], [], [], []
+    for p in params.layers:
+        h, (k, v) = A.attention(cfg, p.attn, p.ln1(x), causal=True)
+        x = x + h
+        ek, ev = A.encoder_kv(cfg, p.xattn, enc_out)
+        h, _ = A.attention(cfg, p.xattn, p.lnx(x), causal=False,
+                           cross_kv=(ek, ev))
+        x = x + h
+        x = x + p.mlp(p.ln2(x))
+        ks.append(k), vs.append(v), cks.append(ek), cvs.append(ev)
+    cache = {"self": [{"k": torch.stack(ks), "v": torch.stack(vs)}],
+             "cross": {"k": torch.stack(cks), "v": torch.stack(cvs)}}
+    x = params.final_norm(x)
+    return L.lm_logits(params.embed, x[:, -1]), cache
 
 
 def _apply_recurrent(cfg, kind: str, p, x, state=None, **scan):
@@ -226,21 +344,31 @@ def _apply_block_full(cfg, kind: str, p, x, *, window: int = 0):
 @torch.no_grad()
 def prefill(cfg, params, batch, cap_scales=None, *, dtype=torch.float32):
     """Process the whole prompt (`batch["tokens"]` (B, S) int); return
-    (last-token logits (B, V), cache). Dense and moe: per segment
+    (last-token logits (B, V), cache). Dense, vlm and moe: per segment
     {"k", "v"} of (L, B, S, Hkv, dh), the prompt run as one
     `prefill_extend` call from position 0 (its token-wise parts per block
-    of TOKEN_BLOCK tokens). Hybrid and ssm: per layer {"k", "v"}
-    (B,S,Hkv,dh) at "A" positions, {"conv", "ssm"} at "M", the
+    of TOKEN_BLOCK tokens); a vlm batch with `"patches"` (B, P, d) puts
+    them before the tokens' embeddings, as the reference does, so the
+    cache holds P + S positions (RoPE 0..P+S-1) and decode continues at
+    position P + S. Encdec: `batch["frames"]` (B, S_enc, d) through the
+    encoder, the cache {"self": [{"k", "v"} (L, B, S, Hkv, dh)], "cross":
+    {"k", "v"} (L, B, S_enc, Hkv, dh)}. Hybrid and ssm: per layer {"k",
+    "v"} (B,S,Hkv,dh) at "A" positions, {"conv", "ssm"} at "M", the
     (B,H,dh+1,dh) mLSTM state at "X" and {"h", "c"} at "S".
 
     `cap_scales` ((n_moe_layers, E), the reference's argument) is not
     used: MoE layers serve dropless, as in the reference."""
     _check_family(cfg)
     tokens = batch["tokens"]
+    if cfg.family == "encdec":
+        return _prefill_encdec(cfg, params, batch, dtype)
     if cfg.family in STACKED:
-        cache = empty_extend_cache(cfg, tokens.shape[0], tokens.shape[1],
-                                   dtype, device=tokens.device)
-        return _stacked_extend(cfg, params, tokens, cache, 0, dtype)
+        x = L.embed_tokens(params.embed, tokens).to(dtype)
+        if cfg.family == "vlm" and "patches" in batch:
+            x = torch.cat([batch["patches"].to(dtype), x], dim=1)
+        cache = empty_extend_cache(cfg, x.shape[0], x.shape[1], dtype,
+                                   device=x.device)
+        return _stacked_extend(cfg, params, x, cache, 0)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
     cache = []
     for i, kind in enumerate(cfg.block_pattern):
@@ -261,7 +389,20 @@ def decode_step(cfg, params, tokens, cache, pos: int, cap_scales=None, *,
     as in prefill (`cap_scales` is not used), so decode at S continues a
     prefill of S tokens as a fresh prefill of S + 1 would."""
     _check_family(cfg)
-    x = L.embed_tokens(params.embed, tokens).to(dtype)
+    x = _embed(params, tokens, pos, dtype)
+    if cfg.family == "encdec":
+        self_kv, cross = cache["self"][0], cache["cross"]
+        for j, p in enumerate(params.layers):
+            h, _, _ = A.decode_attention(cfg, p.attn, p.ln1(x),
+                                         self_kv["k"][j], self_kv["v"][j],
+                                         pos)
+            x = x + h
+            h, _, _ = A.decode_attention(cfg, p.xattn, p.lnx(x),
+                                         cross["k"][j], cross["v"][j], pos,
+                                         cross=True)
+            x = x + h
+            x = x + p.mlp(p.ln2(x))
+        return L.lm_logits(params.embed, params.final_norm(x[:, -1])), cache
     if cfg.family in STACKED:
         for p, (s, j) in zip(params.layers, _layer_slots(cfg)):
             h, _, _ = A.decode_attention(cfg, p.attn, p.ln1(x),
@@ -301,6 +442,12 @@ def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.float32):
     """(shape, dtype) tree matching decode_step's cache argument."""
     _check_family(cfg)
     hkv, dh = cfg.n_kv_heads, cfg.dh
+    if cfg.family == "encdec":
+        n = cfg.n_layers
+        return {"self": [{name: ((n, batch, cache_len, hkv, dh), dtype)
+                          for name in ("k", "v")}],
+                "cross": {name: ((n, batch, cfg.encoder_seq, hkv, dh),
+                                 dtype) for name in ("k", "v")}}
     if cfg.family in STACKED:
         return [{name: ((cnt, batch, cache_len, hkv, dh), dtype)
                  for name in ("k", "v")} for _, cnt in segments_of(cfg)]
@@ -321,13 +468,14 @@ def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.float32):
 # ----------------------------------------------------------------------------
 
 def extend_cache_specs_ok(cfg) -> bool:
-    """True when `prefill_extend` runs this config: the dense and moe
+    """True when `prefill_extend` runs this config: the dense, vlm and moe
     families, whose stacked (L, B, S, Hkv, dh) K/V caches grow chunk by
-    chunk, and the ssm family, whose O(1) block states (Mamba2 conv + ssm,
-    the mLSTM matrix, sLSTM h/c) thread from chunk to chunk. (The
-    reference also extends the vlm stack, which comes with its slice.) An
-    "A" block in the pattern would need a windowed KV extension: the
-    hybrid family stays on the prefix rerun, as in the reference."""
+    chunk (a vlm's text tokens only: patches enter through `prefill`), and
+    the ssm family, whose O(1) block states (Mamba2 conv + ssm, the mLSTM
+    matrix, sLSTM h/c) thread from chunk to chunk. An "A" block in the
+    pattern would need a windowed KV extension: the hybrid family stays on
+    the prefix rerun, as in the reference; an encoder-decoder's cache does
+    not extend either (the reference's does not)."""
     if cfg.family in STACKED:
         return True
     return cfg.family == "ssm" and \
@@ -344,16 +492,17 @@ def _zeros(spec, device):
 def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
                        device=None):
     """The cache an incremental prefill of `seq` tokens starts from, zeros.
-    Dense and moe: per segment {"k", "v"} of (L, batch, seq, Hkv, dh), sized to
-    the PROMPT (not max_seq), as the reference sizes it, so that every
-    chunk's attention runs over the same keys as a one-shot prefill's,
-    the positions not written yet masked. Ssm: the block states a scan
-    from scratch starts from, so the first chunk replays a one-shot
-    prefill's opening steps."""
+    Dense, vlm and moe: per segment {"k", "v"} of (L, batch, seq, Hkv,
+    dh), sized to the PROMPT (not max_seq), as the reference sizes it, so
+    that every chunk's attention runs over the same keys as a one-shot
+    prefill's, the positions not written yet masked. Ssm: the block
+    states a scan from scratch starts from, so the first chunk replays a
+    one-shot prefill's opening steps."""
     if not extend_cache_specs_ok(cfg):
         raise NotImplementedError(
-            f"empty_extend_cache runs the dense, moe and ssm families, not "
-            f"{cfg.family!r}: a hybrid's attention cache does not extend")
+            f"empty_extend_cache runs the dense, vlm, moe and ssm families, "
+            f"not {cfg.family!r}: a hybrid's or an encoder-decoder's "
+            f"attention cache does not extend")
     dev = resolve_device(device)
     if cfg.family in STACKED:
         return [_zeros(spec, dev) for spec in cache_specs(cfg, batch, seq,
@@ -370,11 +519,11 @@ def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
     (`empty_extend_cache` for the first chunk). Returns (last-token
     logits, new cache).
 
-    Dense and moe families: each layer writes the chunk's keys and values
-    into the cache at [done, done + C) IN PLACE (the returned cache is the
-    same tensors; the reference returns updated copies) and attends over
-    it from q_offset = done in one flash call, the positions after the
-    chunk masked. Its token-wise parts (norms, q/k/v products with bias
+    Dense, vlm and moe families: each layer writes the chunk's keys and
+    values into the cache at [done, done + C) IN PLACE (the returned cache
+    is the same tensors; the reference returns updated copies) and attends
+    over it from q_offset = done in one flash call, the positions after
+    the chunk masked. Its token-wise parts (norms, q/k/v products with bias
     and RoPE, the output product, the MLP; a MoE layer's router and
     shared experts) run per block of TOKEN_BLOCK tokens
     (`layers.by_blocks`): a row of a product changes bits with the call's
@@ -399,10 +548,13 @@ def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
     has them.)"""
     if not extend_cache_specs_ok(cfg):
         raise NotImplementedError(
-            f"prefill_extend runs the dense, moe and ssm families, not "
-            f"{cfg.family!r}: a hybrid's attention cache does not extend")
+            f"prefill_extend runs the dense, vlm, moe and ssm families, not "
+            f"{cfg.family!r}: a hybrid's or an encoder-decoder's attention "
+            f"cache does not extend")
     if cfg.family in STACKED:
-        return _stacked_extend(cfg, params, tokens, cache, int(done), dtype)
+        return _stacked_extend(cfg, params,
+                               L.embed_tokens(params.embed, tokens).to(dtype),
+                               cache, int(done))
     Q = int(ssm_chunk or cfg.ssm_chunk)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
     new_cache = []
@@ -414,12 +566,10 @@ def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
     return L.lm_logits(params.embed, x[:, -1]), new_cache
 
 
-def _stacked_extend(cfg, params: StackedLM, tokens, cache, done: int,
-                    dtype):
-    """The dense and moe branch of `prefill_extend` (and `prefill`, from
-    0)."""
-    B, C = tokens.shape
-    x = L.embed_tokens(params.embed, tokens).to(dtype)
+def _stacked_extend(cfg, params: StackedLM, x, cache, done: int):
+    """The dense, vlm and moe branch of `prefill_extend` (and `prefill`,
+    from 0) on the chunk's embeddings x (B, C, d) at positions done.."""
+    B, C = x.shape[:2]
     pos = torch.arange(done, done + C, device=x.device)[None]
     for p, (s, j) in zip(params.layers, _layer_slots(cfg)):
         ck, cv = cache[s]["k"][j], cache[s]["v"][j]

@@ -1,14 +1,19 @@
 """Serving engine of the port with iCh-adaptive chunked prefill — the
 counterpart of `repro.serve.engine` for the dense (qwen2, OLMo, GLM-4,
-Phi-3), moe (OLMoE, DeepSeekMoE), hybrid (Zamba2) and ssm (xLSTM)
-families.
+Phi-3), vlm (phi-3-vision, text only, as the reference serves it), moe
+(OLMoE, DeepSeekMoE), hybrid (Zamba2) and ssm (xLSTM) families. An
+encdec config (whisper) is served through `models.model.prefill` with
+its frames and `decode_step`: the engine passes no frames, and the
+reference's engine cannot serve it either (its prefix rerun calls
+`prefill` without frames and raises KeyError; ROADMAP.md queue 3, caveat
+9), so `generate` and `start_request` refuse it.
 
 Prefill runs in chunks whose size is the iCh chunk: after each chunk the
 engine classifies its measured token throughput against the running mean
 band (mu +- eps*mu, paper eqs. 1-8) and adapts the divisor d as
 `adapt_d` does.
 
-* dense, moe and ssm families: incremental. Each chunk feeds only its
+* dense, vlm, moe and ssm families: incremental. Each chunk feeds only its
   own tokens through `models.model.prefill_extend` against the cache the
   last chunk left — O(chunk x context) work a chunk for dense and moe,
   O(chunk) for ssm — with chunk boundaries on multiples of a quantum Q
@@ -69,7 +74,10 @@ class Engine:
     (`models.model.init_params`) on `device` (None = the card; raises
     without CUDA). Prefill is incremental when
     `models.model.extend_cache_specs_ok` says the config's caches extend
-    (dense, moe, ssm), else a prefix rerun per chunk (hybrid)."""
+    (dense, vlm, moe, ssm), else a prefix rerun per chunk (hybrid). An
+    encdec config is refused by `generate`, `prefill_chunked` and
+    `start_request`; `_pad_cache` grows its prefill cache for
+    `decode_step`."""
 
     def __init__(self, cfg, params, ecfg: Optional[EngineConfig] = None, *,
                  device=None):
@@ -100,6 +108,14 @@ class Engine:
     def _decode(self, tok, cache, pos: int):
         return M.decode_step(self.cfg, self.params, tok, cache, pos,
                              dtype=torch.float32)
+
+    def _refuse_encdec(self) -> None:
+        if self.cfg.family == "encdec":
+            raise NotImplementedError(
+                f"{self.cfg.name!r} (encdec) is served through "
+                f"models.model.prefill with its frames and decode_step: the "
+                f"engine takes no frames, and the reference's engine cannot "
+                f"serve it either (ROADMAP.md queue 3, caveat 9)")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -135,6 +151,7 @@ class Engine:
     def prefill_chunked(self, tokens: np.ndarray):
         """tokens (B, S_prompt). Returns (last logits, cache, chunk log).
         Each chunk's time ends in a synchronize, so it is the card's."""
+        self._refuse_encdec()
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.device)
         B, S = toks.shape
@@ -169,7 +186,9 @@ class Engine:
         """Allocate the request's incremental prefill cache, sized to its
         exact prompt (the bit-identity requirement). Raises ValueError for
         a dense or moe request whose prompt and new tokens exceed max_seq:
-        its decode would write past the cache."""
+        its decode would write past the cache; NotImplementedError for an
+        encdec config (no frames) and a hybrid one (no extension)."""
+        self._refuse_encdec()
         if not self.incremental:
             raise NotImplementedError(
                 f"continuous batching needs prefill_extend; family "
@@ -248,7 +267,8 @@ class Engine:
         FIRST attn_window prefill positions of a longer prompt, so its
         decode would attend to the wrong keys (ROADMAP.md, queue 3), and a
         dense decode would write past max_seq. A recurrent-only pattern
-        has no such cache."""
+        has no such cache. Raises NotImplementedError for an encdec
+        config (`prefill_chunked` refuses it)."""
         t_start = time.perf_counter()
         B, S = np.asarray(prompts).shape
         if self._has_kv() and S + n_new > self._cache_len():
@@ -276,22 +296,15 @@ class Engine:
 
     def _pad_cache(self, cache):
         """Grow the attention caches to the decode cache length (zeros past
-        the prompt; dense and moe: each segment's (L, B, S, Hkv, dh) along
-        S); the recurrent states pass through."""
+        the prompt; dense, vlm and moe: each segment's (L, B, S, Hkv, dh)
+        along S; encdec: its self-attention cache so, its cross cache as
+        it is); the recurrent states pass through."""
         w = self._cache_len()
+        if self.cfg.family == "encdec":
+            return {"self": self._pad_segments(cache["self"], w),
+                    "cross": cache["cross"]}
         if self.cfg.family in M.STACKED:
-            out = []
-            for seg in cache:
-                grown = {}
-                for name, t in seg.items():
-                    if t.shape[2] >= w:
-                        grown[name] = t
-                        continue
-                    full = t.new_zeros((*t.shape[:2], w, *t.shape[3:]))
-                    full[:, :, :t.shape[2]] = t
-                    grown[name] = full
-                out.append(grown)
-            return out
+            return self._pad_segments(cache, w)
         out = []
         for kind, st in zip(self.cfg.block_pattern, cache):
             if kind == "A":
@@ -304,4 +317,21 @@ class Engine:
                 out.append(grown)
             else:
                 out.append(st)
+        return out
+
+    @staticmethod
+    def _pad_segments(cache, w: int):
+        """Each segment's {"k", "v"} (L, B, S, Hkv, dh) grown along S to w
+        positions, zeros past S."""
+        out = []
+        for seg in cache:
+            grown = {}
+            for name, t in seg.items():
+                if t.shape[2] >= w:
+                    grown[name] = t
+                    continue
+                full = t.new_zeros((*t.shape[:2], w, *t.shape[3:]))
+                full[:, :, :t.shape[2]] = t
+                grown[name] = full
+            out.append(grown)
         return out

@@ -27,7 +27,11 @@ offsets refused), a reduced qwen2-1.5b at dh 128 served on the card
 (incremental prefill == one-shot bit for bit, the batcher's tokens ==
 each request alone), reduced olmoe-1b-7b and deepseek-moe-16b at dh 128
 served the same way through the expert kernel (and its rows of a token
-planned alone == among all), and the
+planned alone == among all), a reduced whisper-small at dh 64 (the
+encoder's and the cross-attention's non-causal flash calls over ragged
+keys, 3 x layers launches a prefill) and a reduced phi-3-vision at dh 96
+(a patch prefill, decode from S + P, incremental == one-shot bits)
+served on the card against the CPU, and the
 schedule
 pipeline on the card (each lowering element-identical to the numpy one,
 tile costs bit for bit: one R per branch of numpy's pairwise sum, LPT
@@ -916,6 +920,121 @@ def test_moe_incremental_prefill_on_the_card_is_one_shot(cuda, name):
     for st in sts:
         out, _ = alone.generate(st.request.tokens, n_new=5)
         assert st.out_tokens == out[0].tolist()
+
+def test_whisper_serving_on_the_card_matches_the_cpu(cuda):
+    """A reduced whisper-small widened to dh = 64 (d_model 256, 4 heads, 4
+    KV heads) over 300 frames (ragged against the kernel's 64-key
+    blocks): on the card, one prefill launches the flash kernel 3 x
+    layers times (the encoder's non-causal blocks, the decoder's causal
+    self-attention without RoPE, its non-causal cross-attention of 40
+    queries against 300 keys); its logits and both caches match the CPU's
+    plain versions within 1e-4, and so do 4 greedy decode steps, with the
+    same ids."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_arch("whisper-small"), d_model=256, n_heads=4,
+                  n_kv_heads=4, encoder_seq=300)
+    model = M.init_params(cfg, 5, max_seq=320, device=cuda)
+    cpu_model = M.init_params(cfg, 5, max_seq=320, device="cpu")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in
+                               model.state_dict().items()})
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 300, cfg.d_model)).astype(np.float32))
+    KF.reset_launches()
+    logits, cache = M.prefill(cfg, model, {"tokens": tokens.to(cuda),
+                                           "frames": frames.to(cuda)})
+    torch.cuda.synchronize()
+    assert KF.LAUNCHES == {"flash_attention": cfg.encoder_layers
+                           + 2 * cfg.n_layers} == {"flash_attention": 6}
+    cpu_logits, cpu_cache = M.prefill(cfg, cpu_model, {"tokens": tokens,
+                                                       "frames": frames})
+    torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=1e-4,
+                               atol=1e-4)
+    for ours, theirs in ((cache["self"][0], cpu_cache["self"][0]),
+                         (cache["cross"], cpu_cache["cross"])):
+        for n in "kv":
+            torch.testing.assert_close(ours[n].cpu(), theirs[n], rtol=1e-4,
+                                       atol=1e-4)
+    cache = Engine(cfg, model, EngineConfig(max_seq=64))._pad_cache(cache)
+    cpu_cache = Engine(cfg, cpu_model, EngineConfig(max_seq=64),
+                       device="cpu")._pad_cache(cpu_cache)
+    for i in range(4):
+        tok = torch.argmax(cpu_logits, -1)[:, None]
+        assert torch.equal(torch.argmax(logits, -1).cpu()[:, None], tok)
+        logits, cache = M.decode_step(cfg, model, tok.to(cuda), cache,
+                                      40 + i)
+        cpu_logits, cpu_cache = M.decode_step(cfg, cpu_model, tok,
+                                              cpu_cache, 40 + i)
+        torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=1e-4,
+                                   atol=1e-4)
+    assert KF.LAUNCHES == {"flash_attention": 6}     # decode is plain
+
+
+def test_vlm_serving_on_the_card_matches_the_cpu(cuda):
+    """A reduced phi-3-vision widened to dh = 96 (d_model 384, 4 heads, 4
+    KV heads), 64 patch rows before 300 tokens: on the card the patch
+    prefill (one flash launch a layer) and decode from S + P match the
+    CPU's plain versions within 1e-4; text only, the engine's incremental
+    prefill gives the one-shot prefill's bits, and generate the CPU's
+    ids."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_arch("phi-3-vision-4.2b"), d_model=384, n_heads=4,
+                  n_kv_heads=4, num_patches=64)
+    assert cfg.dh == 96
+    model = M.init_params(cfg, 7, device=cuda)
+    cpu_model = M.init_params(cfg, 7, device="cpu")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in
+                               model.state_dict().items()})
+    rng = np.random.default_rng(8)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 302)))
+    patches = torch.from_numpy(rng.standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32))
+    KF.reset_launches()
+    logits, cache = M.prefill(cfg, model, {"tokens": tokens[:, :300].to(
+        cuda), "patches": patches.to(cuda)})
+    torch.cuda.synchronize()
+    assert KF.LAUNCHES == {"flash_attention": cfg.n_layers}
+    cpu_logits, cpu_cache = M.prefill(cfg, cpu_model, {
+        "tokens": tokens[:, :300], "patches": patches})
+    torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=1e-4,
+                               atol=1e-4)
+    for n in "kv":
+        assert cache[0][n].shape[2] == 364
+        torch.testing.assert_close(cache[0][n].cpu(), cpu_cache[0][n],
+                                   rtol=1e-4, atol=1e-4)
+    eng = Engine(cfg, model, EngineConfig(max_seq=384))
+    cpu_eng = Engine(cfg, cpu_model, EngineConfig(max_seq=384),
+                     device="cpu")
+    cache, cpu_cache = eng._pad_cache(cache), cpu_eng._pad_cache(cpu_cache)
+    for i in range(2):
+        tok = tokens[:, 300 + i:301 + i]
+        logits, cache = M.decode_step(cfg, model, tok.to(cuda), cache,
+                                      364 + i)
+        cpu_logits, cpu_cache = M.decode_step(cfg, cpu_model, tok,
+                                              cpu_cache, 364 + i)
+        torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=1e-4,
+                                   atol=1e-4)
+    prompts = tokens[:, :300].numpy()
+    last, ext, log = Engine(cfg, model, EngineConfig(
+        max_seq=384, min_chunk=4, init_divisor=3.0)).prefill_chunked(prompts)
+    assert len(log) > 1 and all(c["chunk"] % 256 == 0 for c in log[:-1])
+    one, one_cache = M.prefill(cfg, model, {"tokens": torch.from_numpy(
+        prompts).to(cuda)})
+    assert torch.equal(last, one)
+    assert all(torch.equal(ext[0][n], one_cache[0][n]) for n in "kv")
+    ids, _ = eng.generate(prompts, n_new=6)
+    cpu_ids, _ = cpu_eng.generate(prompts, n_new=6)
+    np.testing.assert_array_equal(ids, cpu_ids)
+
 
 # ---- the flat walks (two kernels over the whole card) on inputs built
 #      for their design: bit for bit against the plain versions and the

@@ -253,10 +253,19 @@ def test_engine_refuses_what_it_cannot_serve(lm):
         eng.generate(np.zeros((1, 8), np.int32), n_new=4)
     with pytest.raises(NotImplementedError, match="prefill_extend"):
         eng.start_request(None)
-    # the encoder-decoder family comes with a later slice
+    # learned positions outside the encoder-decoder family come with a
+    # later slice
     with pytest.raises(NotImplementedError, match="later slice"):
-        M.init_params(dataclasses.replace(cfg, family="encdec"),
+        M.init_params(dataclasses.replace(cfg, rope_theta=0.0),
                       device="cpu")
+    # an encoder-decoder config is served through prefill with its frames
+    # and decode_step: the engine passes no frames (ROADMAP.md queue 3,
+    # caveat 9)
+    encdec = reduced(get_arch("whisper-small"))
+    eng = Engine(encdec, M.init_params(encdec, 0, max_seq=32, device="cpu"),
+                 EngineConfig(max_seq=32), device="cpu")
+    with pytest.raises(NotImplementedError, match="caveat 9"):
+        eng.generate(np.zeros((1, 4), np.int32), n_new=2)
 
 
 def test_engine_deadline_sheds_decode(lm):

@@ -185,6 +185,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
                     device="cpu").generate(np.ones((1, 6), np.int32),
                                            n_new=2)
     assert ids.shape == (1, 2)
+    # whisper and phi-3-vision: on the card by default, the CPU on request
+    for name, kw in (("whisper-small", {"max_seq": 32}),
+                     ("phi-3-vision-4.2b", {})):
+        cfg = reduced(get_arch(name))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_params(cfg, 0, **kw)
+        model = init_params(cfg, 0, device="cpu", **kw)
+        assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -213,7 +221,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.serve.batcher, repro_torch.models.attention, "
             "repro_torch.configs.qwen2_1_5b, repro_torch.models.moe, "
             "repro_torch.configs.olmoe_1b_7b, "
-            "repro_torch.configs.deepseek_moe_16b; "
+            "repro_torch.configs.deepseek_moe_16b, "
+            "repro_torch.configs.whisper_small, "
+            "repro_torch.configs.phi3_vision_4_2b; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
