@@ -83,7 +83,18 @@ launch counters set to 0 just before it and read just after:
   bits), and an image prefill of 576 patch rows before 1,472 tokens,
   decode from position 2,048 held against a prefill of one more token
   with the same patches; the kernel at (4, 2,048, 32, 96) causal and from
-  an offset at GQA 1 against its plain version and SDPA.
+  an offset at GQA 1 against its plain version and SDPA;
+* qwen2-1.5b training at full width and depth (`init_train_state` ->
+  `make_train_step` -> 8 bfloat16 steps of 4 x 2,048 tokens from
+  `data.pipeline.Pipeline`, remat on: 56 flash forward and 28 flash
+  backward launches a step), held to finite losses that fall, finite
+  non-zero grad norms and the launch counts; the flash backward kernel
+  (three CUDA kernels a call) at that shape in float32 and bfloat16
+  against its plain version, two calls the same bits, the forward's
+  log-sum-exp against torch.logsumexp, and the serving shapes' bits
+  unchanged when the log-sum-exp is written; one float32 step at 2 layers
+  on the card against the CPU; `train()` with a failure after step 2 and
+  a resume whose losses equal an uninterrupted run's.
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -139,7 +150,8 @@ offset at qwen2-1.5b's and olmoe-1b-7b's extend shapes, at
 whisper-small's encoder and cross-attention shapes and at phi-3-vision's
 prefill and extend shapes (dh 96), and the expert
 kernel twice, at the dispatch phase's shape and at olmoe-1b-7b's serving
-shape), and prints one JSON line per result.
+shape; the flash backward kernel beside the backward of
+`scaled_dot_product_attention`), and prints one JSON line per result.
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs CUDA and the repository's `src/` beside it.
 
@@ -170,6 +182,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12           # H100 SXM float64 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM dense bfloat16 on the tensor cores
 RTOL = ATOL = 1e-5          # kernel vs plain: same adds, other reductions
 HOST_RTOL = 1e-4            # vs float64, relative to each row's sum |a*x|
 COST_RTOL = 1e-6            # float32 cost-stream sums vs float64 totals
@@ -228,6 +241,10 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "flash_attention_vlm_offset": (
         "src/repro_torch/csrc/flash_attention.cu",
         PASS + "flash_attention/flash_attention.py:95"),
+    # the flash kernel's gradient replaces XLA's automatic derivative of the
+    # reference's attention in its training loss, not a Pallas kernel
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:84"),
     # the schedule pipeline's two kernels replace XLA code of the reference's
     # jitted pipeline, not a Pallas kernel: its segment sum and LPT loop
     "segment_fold": ("src/repro_torch/csrc/lpt.cu",
@@ -290,6 +307,42 @@ WHISPER_MAX_SEQ, WHISPER_TEXT_CONTEXT = 1500, 448
 # and new tokens text-only; its image prefill puts num_patches = 576 patch
 # rows before 2,048 - 576 = 1,472 tokens
 VLM_ARCH = "phi-3-vision-4.2b"
+# training (src/repro/train/train_step.py): qwen2-1.5b at full width and
+# depth, 8 steps of 4 x 2,048 tokens in bfloat16 (TrainConfig's default
+# dtype) on the data pipeline's batches; float32 parity with the CPU and
+# train()'s failure and resume at full width cut to 2 layers, 2 x 256
+# tokens; the checkpoints go to build/ (gitignored) and are removed
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen2-1.5b", 4, 2048, 8
+TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 2, 256
+# the backward kernel against its plain version: max |diff| within this
+# share of max |plain|. float32: both sum in float32, in other orders,
+# held over the whole tensor. bfloat16: both sum the same bfloat16 inputs
+# in float32 and round dq, dk, dv to bfloat16 once, so an element may
+# differ by one bfloat16 ulp, at most 2^-7 of its own size; held per block
+# of 64 rows (queries for dq, keys for dk, dv) of each (batch, head)
+# against that block's max |plain|, since dk and dv shrink with the key's
+# position under the causal mask and a share of the whole tensor's max
+# would pass a fault on the late keys
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+BWD_BLOCK = 64
+# the bound's peak rate for the backward's type: float32 as 3xTF32 (as the
+# forward's rows), bfloat16 at the card's bfloat16 tensor-core rate
+BWD_PEAK = {"float32": TF32_FLOPS / 3, "bfloat16": BF16_FLOPS}
+LSE_TOL = 1e-5       # the forward's log-sum-exp against torch.logsumexp
+# the card's float32 step against the CPU's from the same state and batch:
+# the loss within 1e-5 and the grad norm within 1e-4 relative, each
+# gradient leaf within 1e-4 of its max |CPU gradient| (float32 sums in
+# other orders over ~330 M gradient elements, the bar of the CPU tests
+# against the reference). The whole step's parameters are not held: Adam's
+# first step moves an element by +-lr whatever its gradient's size, so an
+# element whose gradient is rounding noise may move the other way; the
+# update is held instead given identical gradients (the CPU's on both):
+# m, v and the grad norm within 1e-6 relative, a parameter within 1e-6
+# relative or 1e-6 lr (elementwise float32 on both sides; the clip factor
+# comes from a norm summed in another order)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
+UPDATE_RTOL = 1e-6
+RESUME_TOL = 1e-5    # resumed losses against an uninterrupted run's
 
 
 def log(**kw) -> None:
@@ -1542,35 +1595,43 @@ def _rel_terms(a, b, terms) -> float:
 
 def _kernel_split(ms_by_name: dict) -> dict:
     """Device milliseconds of one traced call grouped: the LM kernels
-    (flash, the SSD scan, the expert kernel's five `moe_*` kernels),
+    (flash, its backward's three `flash_bwd_*` kernels, the SSD scan, the
+    expert kernel's five `moe_*` kernels), matrix products (cuBLAS's
+    `*gemm*` and `nvjet_*` kernels, CUTLASS),
     matrix products (cuBLAS/CUTLASS), everything else."""
-    out = {"flash_attention": 0.0, "mamba_scan": 0.0, "ich_moe": 0.0,
-           "matmul": 0.0, "other": 0.0}
+    out = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
+           "mamba_scan": 0.0, "ich_moe": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms in ms_by_name.items():
         low = name.lower()
         if "flash_fwd_kernel" in name:
             out["flash_attention"] += ms
+        elif "flash_bwd_" in name:
+            out["flash_attention_bwd"] += ms
         elif "ssd_scan_kernel" in name:
             out["mamba_scan"] += ms
         elif "moe_" in name:
             out["ich_moe"] += ms
-        elif "gemm" in low or "cutlass" in low or "matmul" in low:
+        elif any(w in low for w in ("gemm", "cutlass", "matmul", "nvjet")):
             out["matmul"] += ms
         else:
             out["other"] += ms
     return out
 
 
-def _split_log(label, fn, wall_ms, expect=()) -> dict:
+def _split_log(label, fn, wall_ms, expect=(), top: int = 0) -> dict:
     """Where one call's device time goes (`_kernel_split`'s groups, those
     with no time left out) against its wall time: logged as `<label>` with
-    the idle share, returned."""
-    split = {k_: v_ for k_, v_ in _kernel_split(device_ms_by_kernel(
-        fn, expect=expect)).items() if v_ > 0}
+    the idle share (and the `top` kernels by time, when asked),
+    returned."""
+    by_name = device_ms_by_kernel(fn, expect=expect)
+    split = {k_: v_ for k_, v_ in _kernel_split(by_name).items() if v_ > 0}
     total = sum(split.values())
     rec = {"device_ms": split, "device_total_ms": total,
            "share": {k_: v_ / total for k_, v_ in split.items()},
            "wall_ms": wall_ms, "idle_share": 1.0 - total / wall_ms}
+    if top:
+        rec["top_kernels_ms"] = dict(sorted(by_name.items(),
+                                            key=lambda kv: -kv[1])[:top])
     log(phase=label, **rec)
     return rec
 
@@ -3169,6 +3230,451 @@ def phase_vlm():
                 ("flash_attention_vlm_offset", text_launches, offset))]
 
 
+def flash_backward_record(q, k, v, g) -> dict:
+    """The backward kernel at one shape, causal from position 0: the
+    forward's log-sum-exp against torch.logsumexp within LSE_TOL; dq, dk,
+    dv against `flash_attention_backward_plain` within BWD_TOL of max
+    |plain|; two calls the same bits; timed beside the plain version and
+    scaled_dot_product_attention's backward (`torch.autograd.grad` through
+    SDPA `is_causal` with GQA, its forward outside the timing), with its
+    operations (10 dh flops a kept pair: S recomputed, dP, dV, dK, dQ) and
+    bytes (q, k, v, out, dout, lse read once, dq, dk, dv written once)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    B, S, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    name = str(q.dtype).replace("torch.", "")
+    label = f"flash backward {name} q {tuple(q.shape)} k {tuple(k.shape)}"
+    out, lse = KF.flash_attention_lse(q, k, v, causal=True)
+    _, plain_lse = KF.flash_attention_lse_plain(q, k, v, causal=True)
+    lse_err = float((lse - plain_lse).abs().max())
+    check(lse_err <= LSE_TOL, f"{label}: lse within {LSE_TOL} of logsumexp")
+    dout = g.to(q.dtype)
+    grads = KB.flash_attention_backward(q, k, v, out, dout, lse)
+    plain = KB.flash_attention_backward_plain(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    errs = {n: float((a.float() - b.float()).abs().max())
+            for n, a, b in zip(("dq", "dk", "dv"), grads, plain)}
+    scale = {n: float(b.float().abs().max())
+             for n, b in zip(("dq", "dk", "dv"), plain)}
+    if name == "float32":
+        for n in errs:
+            check(errs[n] <= BWD_TOL[name] * scale[n],
+                  f"{label}: {n} within {BWD_TOL[name]} of max |plain|")
+        block_share = None
+    else:
+        block_share = {n: _block_share(a, b)
+                       for n, a, b in zip(("dq", "dk", "dv"), grads, plain)}
+        for n, share in block_share.items():
+            check(share <= BWD_TOL[name],
+                  f"{label}: {n} within {BWD_TOL[name]} of max |plain| in "
+                  f"every block of {BWD_BLOCK} rows of each head")
+    again = KB.flash_attention_backward(q, k, v, out, dout, lse)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"{label}: two calls give the same bits")
+    del plain, again, plain_lse
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv)
+    gt = dout.transpose(1, 2).contiguous()
+    lib_grads = torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)
+    lib_diff = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
+                   for a, b in zip(lib_grads, grads))
+    del lib_grads
+    ms = timed_ms(lambda: KB.flash_attention_backward(q, k, v, out, dout,
+                                                      lse))
+    plain_ms = timed_ms(lambda: KB.flash_attention_backward_plain(
+        q, k, v, out, dout, lse))
+    lib_ms = timed_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), gt, retain_graph=True))
+    pairs = S * (S + 1) // 2
+    flops = 10 * dh * pairs * B * Hq
+    # q, out, dout, dq and k, v, dk, dv once each, and the float32 lse
+    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
+        + 4 * lse.numel()
+    del ot, qt, kt, vt, gt, grads, out, lse
+    return {"dtype": name, "shape": {"q": list(q.shape), "kv": list(k.shape)},
+            "lse_max_abs_err": lse_err, "max_abs_err": max(errs.values()),
+            "max_abs_err_by_grad": errs, "max_abs_plain": scale,
+            "worst_block_share": block_share,
+            "sdpa_max_abs_diff": lib_diff, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+            "tflops_f32_work": flops / (ms * 1e-3) / 1e12}
+
+
+def _block_share(a, b) -> float:
+    """The largest max |a - b| of a block of BWD_BLOCK rows (dim 1) of one
+    (batch, head) of (B, S, H, dh) tensors, as a share of that block's
+    max |b| (a block whose b is all zero must match exactly)."""
+    import torch
+    B, S, H, dh = b.shape
+    check(S % BWD_BLOCK == 0, f"{S} rows in blocks of {BWD_BLOCK}")
+
+    def block_max(t):
+        return t.abs().reshape(B, S // BWD_BLOCK, BWD_BLOCK, H, dh).amax(
+            dim=(2, 4))
+    diff = block_max(a.float() - b.float())
+    ref = block_max(b.float())
+    share = torch.where(ref > 0, diff / ref, torch.where(
+        diff > 0, torch.inf, 0.0))
+    return float(share.max())
+
+
+def serving_bits_without_lse(cfg_dense, cfg_vlm, g) -> dict:
+    """Rows 8b and 8g's serving calls (a chunk of 512 queries from offset
+    1,536 against 2,048 keys: qwen2-1.5b's 12 / 2 heads of 128, and
+    phi-3-vision's 32 / 32 of 96) give the same bits whether or not the
+    kernel is asked for the log-sum-exp: serving (lse null) is untouched
+    by the training output."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    out = {}
+    for cfg in (cfg_dense, cfg_vlm):
+        q = torch.randn((LM_BATCH, DENSE_CHUNK, cfg.n_heads, cfg.dh),
+                        generator=g, device="cuda")
+        k = torch.randn((LM_BATCH, LM_PROMPT, cfg.n_kv_heads, cfg.dh),
+                        generator=g, device="cuda")
+        v = torch.randn_like(k)
+        off = LM_PROMPT - DENSE_CHUNK
+        served = KF.flash_attention(q, k, v, causal=True, q_offset=off)
+        with_lse, _ = KF._launch(q, k, v, causal=True, window=0,
+                                 q_offset=off, lse=True)
+        same = bool(torch.equal(served, with_lse))
+        check(same, f"{cfg.name}: flash without lse == with lse, bit for "
+                    f"bit")
+        out[cfg.name] = same
+    return out
+
+
+def _copy_state(src, dst) -> None:
+    """Every tensor of train state `src` into the same leaf of `dst`."""
+    import torch
+    from repro_torch.train import checkpoint as CKPT
+    with torch.no_grad():
+        for (n, a), (m, b) in zip(CKPT.state_leaves(src),
+                                  CKPT.state_leaves(dst)):
+            check(n == m, f"train states hold the same leaves ({n}, {m})")
+            b.copy_(a)
+
+
+def _loss_grads(cfg, state, batch) -> dict:
+    """The float32 loss's gradient of every parameter of `state`, by name
+    (the state is not changed)."""
+    import torch
+    from repro_torch.models import model as M
+    model = state["params"]
+    loss, _ = M.loss_fn(cfg, model, batch, dtype=torch.float32)
+    names = [n for n, _ in model.named_parameters()]
+    return dict(zip(names, torch.autograd.grad(loss,
+                                               list(model.parameters()))))
+
+
+def train_parity(cfg) -> dict:
+    """One float32 step of qwen2-1.5b at full width cut to
+    TRAIN_CUT_LAYERS layers on the card (the kernels) and on the CPU (the
+    plain versions) from the same state and batch: every gradient leaf,
+    the step's loss and grad norm, and the AdamW update given identical
+    gradients, within the stated tolerances."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    tcfg = TS.TrainConfig(dtype=torch.float32, opt=adamw.AdamWConfig(
+        warmup_steps=2, total_steps=TRAIN_STEPS))
+    cpu = TS.init_train_state(cut, SEED + 20, tcfg=tcfg, device="cpu")
+    card = TS.init_train_state(cut, SEED + 21, tcfg=tcfg, device="cuda")
+    _copy_state(cpu, card)
+    batch = synthetic_tokens(TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, cut.padded_vocab,
+                             0, SEED)
+    b_cpu = {k_: torch.from_numpy(v_) for k_, v_ in batch.items()}
+    b_card = {k_: v_.cuda() for k_, v_ in b_cpu.items()}
+
+    # every gradient leaf, from the same state and batch
+    t0 = time.perf_counter()
+    g_cpu = _loss_grads(cut, cpu, b_cpu)
+    cpu_grad_s = time.perf_counter() - t0
+    g_card = _loss_grads(cut, card, b_card)
+    grad_share = {}
+    for n, b in g_cpu.items():
+        diff = float((g_card[n].cpu() - b).abs().max())
+        ref = float(b.abs().max())
+        check(diff <= TRAIN_GRAD_TOL * ref,
+              f"train parity: gradient {n} within {TRAIN_GRAD_TOL} of its "
+              f"max |CPU gradient|")
+        grad_share[n] = diff / ref if ref > 0 else diff
+    del g_card
+
+    # the update given identical gradients (the CPU's on both sides)
+    upd_cpu = copy.deepcopy(cpu)
+    upd_card = TS.init_train_state(cut, SEED + 21, tcfg=tcfg, device="cuda")
+    _copy_state(cpu, upd_card)
+    p_cpu = dict(upd_cpu["params"].named_parameters())
+    p_card = dict(upd_card["params"].named_parameters())
+    _, o_cpu, m_cpu = adamw.apply_updates(p_cpu, g_cpu, upd_cpu["opt"],
+                                          tcfg.opt)
+    _, o_card, m_card = adamw.apply_updates(
+        p_card, {n: g.cuda() for n, g in g_cpu.items()}, upd_card["opt"],
+        tcfg.opt)
+    lr = float(m_cpu["lr"])
+    check(abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"]))
+          <= UPDATE_RTOL * float(m_cpu["grad_norm"]),
+          f"train parity: the update's grad norm within {UPDATE_RTOL}")
+    update_worst = 0.0
+    for n, b in p_cpu.items():
+        a = p_card[n].detach().cpu()
+        check(torch.allclose(a, b.detach(), rtol=UPDATE_RTOL,
+                             atol=UPDATE_RTOL * lr),
+              f"train parity: {n} after the update given identical "
+              f"gradients within {UPDATE_RTOL} relative or {UPDATE_RTOL} lr")
+        update_worst = max(update_worst, float((a - b.detach()).abs().max()))
+        for k_ in ("m", "v"):
+            check(torch.allclose(o_card[k_][n].cpu(), o_cpu[k_][n],
+                                 rtol=UPDATE_RTOL, atol=0.0),
+                  f"train parity: {k_} of {n} given identical gradients "
+                  f"within {UPDATE_RTOL} relative")
+    del upd_cpu, upd_card, p_cpu, p_card, o_cpu, o_card, g_cpu
+
+    # the whole step on each side, its launches on the card counted
+    KF.reset_launches()
+    KB.reset_launches()
+    card, m_card = TS.make_train_step(cut, tcfg)(card, b_card)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
+                "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"]}
+    cpu, m_cpu = TS.make_train_step(cut, tcfg)(cpu, b_cpu)
+    worst, flipped, n_el = 0.0, 0, 0
+    for (name, a), (_, b) in zip(card["params"].named_parameters(),
+                                 cpu["params"].named_parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        worst = max(worst, float(diff.max()))
+        flipped += int((diff > 1e-6 * (b.detach().abs() + lr)).sum())
+        n_el += b.numel()
+    loss = (float(m_card["loss"]), float(m_cpu["loss"]))
+    gnorm = (float(m_card["grad_norm"]), float(m_cpu["grad_norm"]))
+    check(abs(loss[0] - loss[1]) <= TRAIN_LOSS_RTOL * abs(loss[1]),
+          f"train parity: loss within {TRAIN_LOSS_RTOL} of the CPU's")
+    check(abs(gnorm[0] - gnorm[1]) <= TRAIN_GNORM_RTOL * abs(gnorm[1]),
+          f"train parity: grad norm within {TRAIN_GNORM_RTOL} of the CPU's")
+    per_layer = 2 if cut.remat else 1   # remat reruns each forward
+    check(launches == {"flash_attention": per_layer * TRAIN_CUT_LAYERS,
+                       "flash_attention_bwd": TRAIN_CUT_LAYERS},
+          f"train parity: {per_layer} flash forward and 1 backward launch "
+          f"a layer on the card")
+    return {"layers": TRAIN_CUT_LAYERS, "batch": TRAIN_CUT_BATCH,
+            "seq": TRAIN_CUT_SEQ, "loss_card_cpu": loss,
+            "grad_norm_card_cpu": gnorm, "lr": lr,
+            "grad_worst_share": max(grad_share.values()),
+            "grad_share_by_leaf": grad_share,
+            "update_max_abs_diff": update_worst,
+            "step_param_max_abs_diff": worst, "params": n_el,
+            "step_params_past_1e-6": flipped, "launches": launches,
+            "cpu_grad_s": cpu_grad_s}
+
+
+def train_resume(cfg) -> dict:
+    """`train()` at full width cut to TRAIN_CUT_LAYERS layers: 4 steps,
+    a checkpoint every 2, a failure injected after step 2 (InjectedFailure,
+    list_steps == [2]), then a resume that runs 2 more steps; its losses
+    against an uninterrupted in-memory run of the same 4 steps
+    (init_train_state -> make_train_step -> Pipeline)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import torch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import InjectedFailure, RunConfig, train
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run = RunConfig(steps=4, batch=TRAIN_CUT_BATCH, seq=TRAIN_CUT_SEQ,
+                    ckpt_dir=str(ckpt_dir), ckpt_every=2, failure_at=2,
+                    log_every=1, seed=SEED)
+    lines = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(lines):
+            try:
+                train(cut, run, device="cuda")
+                failed = False
+            except InjectedFailure:
+                failed = True
+            check(failed, "train(): the injected failure after step 2")
+            steps = CKPT.list_steps(str(ckpt_dir))
+            check(steps == [2], f"train(): list_steps == [2], got {steps}")
+            state, resumed = train(cut, dataclasses.replace(
+                run, failure_at=None), device="cuda")
+        train_s = time.perf_counter() - t0
+        check(len(resumed) == 2, "train(): the resume runs steps 2 and 3")
+        ckpt_bytes = {s_: sum(f.stat().st_size for f in
+                              (ckpt_dir / f"step_{s_}").iterdir())
+                      for s_ in CKPT.list_steps(str(ckpt_dir))}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # the same 4 steps uninterrupted, in memory, with train()'s TrainConfig
+    tcfg = TS.TrainConfig(opt=dataclasses.replace(
+        TS.TrainConfig().opt, warmup_steps=10, total_steps=run.steps))
+    mem = TS.init_train_state(cut, run.seed, max_seq=run.seq, tcfg=tcfg,
+                              device="cuda")
+    step = TS.make_train_step(cut, tcfg)
+    pipe = Pipeline(cut, run.batch, run.seq, seed=run.seed, device="cuda")
+    losses = []
+    for t in range(run.steps):
+        batch, _ = pipe.get_batch(t)
+        mem, m = step(mem, {k_: torch.from_numpy(v_).cuda()
+                            for k_, v_ in batch.items()})
+        losses.append(float(m["loss"]))
+    pipe.close()
+    diff = max(abs(a - b) for a, b in zip(resumed, losses[2:]))
+    check(diff <= RESUME_TOL, f"train(): resumed losses within {RESUME_TOL} "
+                              f"of the uninterrupted run's")
+    same_state = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        CKPT.state_leaves(state), CKPT.state_leaves(mem)))
+    del state, mem
+    return {"resumed_losses": resumed, "uninterrupted_losses": losses,
+            "max_abs_diff": diff, "bits_equal": resumed == losses[2:],
+            "final_state_bits_equal": same_state,
+            "checkpoint_bytes": ckpt_bytes, "train_s": train_s,
+            "trainer_log": lines.getvalue().splitlines()}
+
+
+def phase_train():
+    """Training (ROADMAP.md queue 1 item 5, the dense family). (1) The
+    flash backward kernel at qwen2-1.5b's training shape (q (4, 2,048, 12,
+    128), k, v (4, 2,048, 2, 128), causal), float32 and bfloat16, against
+    its plain version (`flash_backward_record`), and the serving shapes of
+    rows 8b and 8g giving the same bits with and without the log-sum-exp.
+    (2) The counted main path: qwen2-1.5b at full width and depth (1.544 B
+    float32 parameters, remat on), `init_train_state` ->
+    `make_train_step` -> TRAIN_STEPS steps of `data.pipeline.Pipeline`
+    batches of 4 x 2,048 tokens in bfloat16; bars: finite losses, the last
+    below the first, finite non-zero grad norms, 2 x 28 flash forward
+    launches (remat reruns each layer's forward) and 28 backward launches
+    a step; logged: step wall ms, tokens/s, peak memory, where a step's
+    device time goes (products, flash forward, flash backward, other) and
+    the idle share. (3) Float32 parity with the CPU at 2 layers
+    (`train_parity`). (4) `train()`'s failure and resume (`train_resume`).
+    """
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 as float32
+    cfg = get_arch(TRAIN_ARCH)
+    B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 30)
+
+    # ---- (1) the backward kernel at the training shape ----
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((B, S, cfg.n_heads, cfg.dh), generator=g,
+                        device="cuda").to(dtype)
+        k = torch.randn((B, S, cfg.n_kv_heads, cfg.dh), generator=g,
+                        device="cuda").to(dtype)
+        v = torch.randn_like(k)
+        dout = torch.randn(q.shape, generator=g, device="cuda")
+        rec = flash_backward_record(q, k, v, dout)
+        records[rec["dtype"]] = rec
+        log(phase="train_flash_backward", bound_ms=1e3 * max(
+            rec["bytes"] / HBM_BYTES_PER_S,
+            rec["flops"] / BWD_PEAK[rec["dtype"]]), **rec)
+        del q, k, v, dout
+    log(phase="train_serving_bits", same_bits=serving_bits_without_lse(
+        get_arch(DENSE_ARCH), get_arch(VLM_ARCH), g))
+    torch.cuda.empty_cache()
+
+    # ---- (2) full width and depth, bfloat16, counted ----
+    tcfg = TS.TrainConfig(opt=adamw.AdamWConfig(warmup_steps=2,
+                                                total_steps=TRAIN_STEPS))
+    t0 = time.perf_counter()
+    state = TS.init_train_state(cfg, SEED, max_seq=S, tcfg=tcfg,
+                                device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    log(phase="train_setup", arch=cfg.name, layers=L, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, dh=cfg.dh,
+        d_ff=cfg.d_ff, vocab=cfg.padded_vocab, params=n_params,
+        remat=cfg.remat, batch=B, seq=S, steps=TRAIN_STEPS,
+        train_config={"dtype": str(tcfg.dtype), "microbatch": tcfg.microbatch,
+                      "grad_compress": tcfg.grad_compress,
+                      "bf16_params": tcfg.bf16_params,
+                      "cast_params_once": tcfg.cast_params_once,
+                      "opt": dataclasses.asdict(tcfg.opt)},
+        init_s=time.perf_counter() - t0)
+    step = TS.make_train_step(cfg, tcfg)
+    pipe = Pipeline(cfg, B, S, seed=SEED, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    KF.reset_launches()
+    KB.reset_launches()
+    steps = []
+    for t in range(TRAIN_STEPS):
+        batch_np, ingest = pipe.get_batch(t)
+        f0, b0 = KF.LAUNCHES["flash_attention"], \
+            KB.LAUNCHES["flash_attention_bwd"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = {k_: torch.from_numpy(v_).cuda()
+                 for k_, v_ in batch_np.items()}
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        steps.append({"step": t, "loss": loss,
+                      "grad_norm": float(m["grad_norm"]),
+                      "lr": float(m["lr"]), "n_tokens": int(m["n_tokens"]),
+                      "wall_ms": (time.perf_counter() - t0) * 1e3,
+                      "flash_forward": KF.LAUNCHES["flash_attention"] - f0,
+                      "flash_backward": KB.LAUNCHES["flash_attention_bwd"]
+                      - b0, "ingest_steals": ingest.steals})
+    pipe.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
+                "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"]}
+    losses = [s_["loss"] for s_ in steps]
+    wall = float(np.median([s_["wall_ms"] for s_ in steps[1:]]))
+    log(phase="train_main_path", steps=steps, launches=launches,
+        step_wall_ms=wall, tokens_per_s=B * S / (wall * 1e-3),
+        peak_gb=peak_gb)
+    check(all(np.isfinite(losses)), "train: finite losses")
+    check(losses[-1] < losses[0], f"train: the loss at step {TRAIN_STEPS} "
+                                  f"below step 1's")
+    check(all(np.isfinite(s_["grad_norm"]) and s_["grad_norm"] > 0
+              for s_ in steps), "train: finite non-zero grad norms")
+    check(all(s_["flash_forward"] == 2 * L and s_["flash_backward"] == L
+              for s_ in steps),
+          f"train: {2 * L} flash forward and {L} backward launches a step")
+    _split_log("train_step_split", lambda: step(state, batch), wall,
+               expect=("flash_bwd_",), top=12)
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    # ---- (3) float32 parity with the CPU, (4) train()'s resume ----
+    log(phase="train_parity", **train_parity(cfg))
+    torch.cuda.empty_cache()
+    log(phase="train_resume", **train_resume(cfg))
+    torch.cuda.empty_cache()
+    rec = records["bfloat16"]       # the main path's type
+    return [kernel_entry("flash_attention_bwd",
+                         launches=launches["flash_attention_bwd"],
+                         err=rec["max_abs_err"], ms=rec["ms"],
+                         plain_ms=rec["plain_ms"],
+                         library_ms=rec["library_ms"], bytes_=rec["bytes"],
+                         flops=rec["flops"], peak=BWD_PEAK["bfloat16"])]
+
+
 def _rates(flops: int, device_ms: float) -> dict:
     """Achieved TFLOP/s of float32 work and of the TF32 work that runs it
     (three TF32 products a float32 one); None when the trace held no
@@ -3592,6 +4098,7 @@ def main() -> int:
     kernels += phase_moe_lm()
     kernels += phase_whisper()
     kernels += phase_vlm()
+    kernels += phase_train()
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)

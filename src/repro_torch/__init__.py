@@ -36,6 +36,19 @@ of `repro_torch.serve` for the dense and ssm families:
     engine = Engine(cfg, init_params(cfg, seed=0), EngineConfig(max_seq=4096))
     ids, stats = engine.generate(prompts, n_new=32)
 
+It trains the dense family (`repro_torch.train`): the attention gradient
+comes from a hand-written flash-attention backward kernel
+(`kernels/flash_attention/flash_attention_bwd.py`), and the loop keeps
+the reference's checkpoints, failure injection and resume:
+
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import RunConfig, train
+
+    state = TS.init_train_state(get_arch("qwen2-1.5b"), seed=0)
+    step = TS.make_train_step(get_arch("qwen2-1.5b"), TS.TrainConfig())
+    state, metrics = step(state, {"tokens": tokens, "labels": labels})
+    state, losses = train(cfg, RunConfig(steps=50, ckpt_dir="ckpt"))
+
 Entry points run on the card unless the caller passes `device="cpu"`, which
 selects each kernel's plain PyTorch version (`repro_torch.device`).
 """

@@ -32,7 +32,12 @@ A language model's state is its weights:
   (`enc/attn/wq` (L_enc, d, Hq*dh) -> `enc.<l>.attn.wq`), its decoder's
   `segments/0/{lnx,xattn}` with the other decoder leaves, and its
   learned position table `embed/pos` (max_seq, d), whose rows set the
-  port model's `max_seq`.
+  port model's `max_seq`;
+* `train_state_from_reference` — the reference's `init_train_state`
+  pytree (numpy leaves): the parameters through the same name map, the
+  AdamW moments (and bf16_params' float32 master copy) and the
+  compression residuals by the same names, the step and the MoE
+  capacity scales.
 
 Nothing here imports the reference: the caller hands the arrays over.
 """
@@ -45,6 +50,7 @@ import torch
 from repro_torch.core.tiling import WorkerShards
 from repro_torch.models.model import init_params
 from repro_torch.sched.kernels import BfsOp, KMeansOp, MoeDispatchOp, SpmvOp
+from repro_torch.train.train_step import cast_bf16
 
 
 def _shards(item_id, rows_per_tile, worker, block_perm, superstep):
@@ -183,6 +189,11 @@ def _unstack_segments(leaves: dict) -> dict:
     return out
 
 
+def _by_name(np_tree) -> dict:
+    """A parameter-shaped reference tree as {port name: array}."""
+    return _unstack_segments(dict(_flatten(np_tree)))
+
+
 def lm_params_from_reference(cfg, np_params, device=None):
     """The port's model (`models.model.StackedLM`, `EncDecLM` or
     `HybridLM`) holding exactly the reference's weights: `np_params` is
@@ -192,7 +203,7 @@ def lm_params_from_reference(cfg, np_params, device=None):
     pos = np_params.get("embed", {}).get("pos")
     model = init_params(cfg, max_seq=0 if pos is None else len(pos),
                         device=device)
-    theirs = _unstack_segments(dict(_flatten(np_params)))
+    theirs = _by_name(np_params)
     ours = model.state_dict()
     if set(theirs) != set(ours):
         raise ValueError(f"parameter names disagree: only in the reference "
@@ -207,3 +218,43 @@ def lm_params_from_reference(cfg, np_params, device=None):
         state[name] = t
     model.load_state_dict(state, strict=True)
     return model
+
+
+def train_state_from_reference(cfg, np_state, device=None) -> dict:
+    """The port's train state (`train.train_step.init_train_state`'s
+    layout) holding exactly the reference's `init_train_state(...)` tree
+    given with numpy leaves: "params" through `lm_params_from_reference`
+    (requiring grad; bfloat16 when the reference keeps a float32 master,
+    as bf16_params does), "opt" {"m", "v"[, "master"]} by the port's
+    parameter names (float32), "step" (int32), "cap_scales" and, when
+    present, "grad_err". Raises when a name or shape disagrees."""
+    model = lm_params_from_reference(cfg, np_state["params"], device=device)
+    model.requires_grad_(True)
+    dev = next(model.parameters()).device
+    names = {n: tuple(p.shape) for n, p in model.named_parameters()}
+
+    def tensors(tree) -> dict:
+        out = {}
+        for name, arr in _by_name(tree).items():
+            if names.get(name) != np.shape(arr):
+                raise ValueError(f"{name}: reference shape {np.shape(arr)}, "
+                                 f"port shape {names.get(name)}")
+            out[name] = torch.from_numpy(np.array(arr, np.float32)).to(dev)
+        if set(out) != set(names):
+            raise ValueError(f"parameter names disagree: "
+                             f"{sorted(set(out) ^ set(names))}")
+        return out
+
+    opt = np_state["opt"]
+    new_opt = {"m": tensors(opt["m"]), "v": tensors(opt["v"]),
+               "step": torch.tensor(int(np.asarray(opt["step"])),
+                                    dtype=torch.int32, device=dev)}
+    if "master" in opt:
+        new_opt["master"] = tensors(opt["master"])
+        cast_bf16(model)
+    state = {"params": model, "opt": new_opt,
+             "cap_scales": torch.from_numpy(np.array(
+                 np_state["cap_scales"], np.float32)).to(dev)}
+    if "grad_err" in np_state:
+        state["grad_err"] = tensors(np_state["grad_err"])
+    return state

@@ -16,7 +16,12 @@
 // running sum l, accumulator acc, rescaled by exp(m_old - m_new) per key
 // block); the output is acc / max(l, 1e-20) in q's type (float32 or
 // bfloat16). q, k, v, out are read and written in the reference's
-// (B, S, H, dh) layout, contiguous, dh in {64, 96, 128}.
+// (B, S, H, dh) layout, contiguous, dh in {64, 96, 128}. Given an `lse`
+// pointer (training: the backward kernel of flash_attention_bwd.cu
+// recomputes the probabilities from it), each query row's log-sum-exp
+// m + log(max(l, 1e-20)) of its scaled scores is written at
+// lse[(b * Hq + h) * Sq + i] in float32; with lse == nullptr (every
+// serving call) nothing else changes and out keeps its bits.
 //
 // What bounds it. Operations: 4 * dh multiply-adds per kept (query, key)
 // pair; at the serving shape (B = 4, S = 2048, Hq = Hkv = 32, dh = 64,
@@ -151,9 +156,10 @@ __device__ __forceinline__ void load_rows(T* dst, int ss, const T* src,
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int Sq,
-                     int Skv, int Hq, int Hkv, int causal, int window,
-                     int q_offset, float scale) {
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, int Sq, int Skv, int Hq,
+                     int Hkv, int causal, int window, int q_offset,
+                     float scale) {
   using L = Layout<T, DH>;
   constexpr bool kSplit = std::is_same<T, float>::value;
   constexpr int NT = DH / 8;   // n8 tiles of the output, k8 steps of q.k
@@ -319,6 +325,8 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = row0 + 8 * r;
     if (qi >= Sq) continue;
     const float den = fmaxf(sum, 1e-20f);
+    if (lse != nullptr && tig == 0)   // m[r] and sum are the quad's
+      lse[((int64_t)b * Hq + h) * Sq + qi] = m[r] + logf(den);
     T* orow = ob + (int64_t)qi * q_tok + 2 * tig;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -344,32 +352,32 @@ int allow_smem(int bytes) {
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-           int q_offset, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+           int window, int q_offset, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, DH>;
   const int err = allow_smem<flash_fwd_kernel<T, DH>>(Layout<T, DH>::bytes);
   if (err != 0) return err;
   const dim3 grid(B * Hq, (Sq + kBq - 1) / kBq);
   kernel<<<grid, kThreads, Layout<T, DH>::bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, Hq, Hkv,
-      causal, window, q_offset, 1.0f / sqrtf((float)DH));
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Sq, Skv, Hq,
+      Hkv, causal, window, q_offset, 1.0f / sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Skv, int Hq, int Hkv, int dh, int causal,
-              int window, int q_offset, cudaStream_t s) {
+int launch_dh(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int dh,
+              int causal, int window, int q_offset, cudaStream_t s) {
   switch (dh) {
     case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
+      return launch<T, 64>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal,
                            window, q_offset, s);
     case 96:
-      return launch<T, 96>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
+      return launch<T, 96>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal,
                            window, q_offset, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
+      return launch<T, 128>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal,
                             window, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -382,20 +390,22 @@ extern "C" {
 
 // Launch on `stream`. dtype 0 = float32, 1 = bfloat16 (q, k, v and out
 // alike); dh 64, 96 or 128; Hq % Hkv == 0; q, k, v and out 16-byte
-// aligned; q_offset >= 0 the position of query 0. Returns a CUDA error
-// code (0 = success; cudaErrorInvalidValue for a dtype or dh it was not
-// built for).
+// aligned; q_offset >= 0 the position of query 0; lse a float32
+// (B, Hq, Sq) buffer for the rows' log-sum-exp, or null. Returns a CUDA
+// error code (0 = success; cudaErrorInvalidValue for a dtype or dh it was
+// not built for).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int B, int Sq, int Skv, int Hq,
-                           int Hkv, int dh, int causal, int window,
+                           void* out, void* lse, int B, int Sq, int Skv,
+                           int Hq, int Hkv, int dh, int causal, int window,
                            int q_offset, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (dtype == 0)
-    return launch_dh<float>(q, k, v, out, B, Sq, Skv, Hq, Hkv, dh, causal,
-                            window, q_offset, s);
+    return launch_dh<float>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, dh,
+                            causal, window, q_offset, s);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, Hq, Hkv, dh,
-                                    causal, window, q_offset, s);
+    return launch_dh<__nv_bfloat16>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv,
+                                    dh, causal, window, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,6 +28,17 @@ Given CPU tensors the wrapper runs the plain version
 (`flash_attention_plain`, the scores materialised); given CUDA tensors it
 launches the kernel of `csrc/flash_attention.cu` or raises: there is no
 fallback. Each launch adds one to `LAUNCHES["flash_attention"]`.
+
+Training: `flash_attention_lse` also returns each query row's log-sum-exp
+of its scaled scores (B, Hq, Sq), float32, which the kernel writes when
+asked (serving calls do not ask, and their output keeps its bits). When
+grad mode is on and q, k or v requires grad, `flash_attention` goes
+through `FlashAttentionFn`, a `torch.autograd.Function`: its forward is
+`flash_attention_lse` (saving q, k, v, out and lse), its backward
+`flash_attention_bwd.flash_attention_backward` — on CUDA tensors the
+hand-written backward kernel (`csrc/flash_attention_bwd.cu`), on CPU
+tensors its plain version. A query offset has no gradient path (training
+runs whole sequences from position 0): it raises ValueError there.
 """
 from __future__ import annotations
 
@@ -38,8 +49,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import on_cpu, raise_on
 
-__all__ = ["LAUNCHES", "NEG_INF", "flash_attention", "flash_attention_plain",
-           "reset_launches"]
+__all__ = ["LAUNCHES", "NEG_INF", "FlashAttentionFn", "flash_attention",
+           "flash_attention_lse", "flash_attention_lse_plain",
+           "flash_attention_plain", "masked_scores", "reset_launches"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 96, 128)  # the head widths the kernel is built for
@@ -78,6 +90,20 @@ def mask(Sq: int, Skv: int, *, causal: bool, window: int, device,
     return keep
 
 
+def masked_scores(q, k, *, causal: bool, window: int,
+                  q_offset: int = 0) -> torch.Tensor:
+    """The (B, Hkv, rep, Sq, Skv) scaled scores q.k * dh^-1/2 in float32,
+    -1e30 where the masks drop a key."""
+    rep, dh = _check_shapes(q, k, k)
+    B, Sq = q.shape[:2]
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, Hkv, rep, dh)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * dh ** -0.5
+    keep = mask(Sq, Skv, causal=causal, window=window, device=q.device,
+                q_offset=q_offset)
+    return torch.where(keep, s, torch.full_like(s, NEG_INF))
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           q_offset: int = 0) -> torch.Tensor:
     """Plain version: the (B, Hkv, rep, Sq, Skv) scores materialised in
@@ -86,35 +112,35 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     q_offset = the token's position."""
     rep, dh = _check_shapes(q, k, v)
     B, Sq, Hq, _ = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    qg = q.float().reshape(B, Sq, Hkv, rep, dh)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * dh ** -0.5
-    keep = mask(Sq, Skv, causal=causal, window=window, device=q.device,
-                q_offset=q_offset)
-    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(masked_scores(q, k, causal=causal, window=window,
+                                    q_offset=q_offset), dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
     return out.reshape(B, Sq, Hq, dh).to(q.dtype)
+
+
+def flash_attention_lse_plain(q, k, v, *, causal: bool = True,
+                              window: int = 0):
+    """Plain version of `flash_attention_lse`: (`flash_attention_plain`'s
+    output, torch.logsumexp of the masked scaled scores as (B, Hq, Sq)
+    float32)."""
+    B, Sq, Hq, _ = q.shape
+    lse = torch.logsumexp(masked_scores(q, k, causal=causal, window=window),
+                          dim=-1)
+    return (flash_attention_plain(q, k, v, causal=causal, window=window),
+            lse.reshape(B, Hq, Sq))
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
+        lib.flash_attention_launch.argtypes = [ptr] * 5 + [i32] * 10 + [ptr]
         lib.flash_attention_launch.restype = i32
         lib._typed = True
     return lib
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q (B,Sq,Hq,dh); k, v (B,Skv,Hkv,dh), Hq % Hkv == 0; query i at
-    position q_offset + i. Returns (B,Sq,Hq,dh) in q's type. Any Sq, Skv
-    (ragged edges are masked in the kernel, not padded). On CUDA: float32
-    or bfloat16, one type for all three, contiguous and 16-byte aligned,
-    dh in {64, 96, 128}."""
-    window, q_offset = int(window), int(q_offset)
+def _check_call(q, k, *, causal: bool, window: int, q_offset: int) -> None:
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q_offset < 0:
@@ -131,9 +157,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"a window, or a causal mask from an offset, needs "
                          f"q_offset + Sq <= Skv, got {q_offset} + "
                          f"{q.shape[1]} > {k.shape[1]}")
-    if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
+
+
+def _launch(q, k, v, *, causal: bool, window: int, q_offset: int,
+            lse: bool):
+    """The kernel on CUDA tensors: (out, the rows' log-sum-exp (B, Hq, Sq)
+    float32 when `lse`, else None)."""
     rep, dh = _check_shapes(q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one of {list(_DTYPES)}, got "
@@ -149,13 +178,76 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     B, Sq, Hq, _ = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    rows = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+            if lse else None)
     if out.numel() == 0:
-        return out
+        return out, rows
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
-        Hq, Hkv, dh, int(bool(causal)), window, q_offset, _DTYPES[q.dtype],
-        stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        rows.data_ptr() if lse else None, B, Sq, Skv, Hq, Hkv, dh,
+        int(bool(causal)), window, q_offset, _DTYPES[q.dtype], stream)
     raise_on(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, rows
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
+    """`flash_attention` from position 0 that also returns each query
+    row's log-sum-exp of its scaled scores: (out (B,Sq,Hq,dh), lse
+    (B,Hq,Sq) float32). On CUDA one launch of the same kernel, which
+    writes lse beside out; on the CPU `flash_attention_lse_plain`. The
+    forward of training's gradient path."""
+    window = int(window)
+    _check_call(q, k, causal=causal, window=window, q_offset=0)
+    if on_cpu(q, k, v):
+        return flash_attention_lse_plain(q, k, v, causal=causal,
+                                         window=window)
+    return _launch(q, k, v, causal=causal, window=window, q_offset=0,
+                   lse=True)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient: forward `flash_attention_lse`,
+    backward `flash_attention_bwd.flash_attention_backward` from the saved
+    q, k, v, out and lse (the kernel on CUDA tensors, the plain formulas on
+    CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from .flash_attention_bwd import flash_attention_backward
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q (B,Sq,Hq,dh); k, v (B,Skv,Hkv,dh), Hq % Hkv == 0; query i at
+    position q_offset + i. Returns (B,Sq,Hq,dh) in q's type. Any Sq, Skv
+    (ragged edges are masked in the kernel, not padded). On CUDA: float32
+    or bfloat16, one type for all three, contiguous and 16-byte aligned,
+    dh in {64, 96, 128}. With grad mode on and an input that requires
+    grad it runs `FlashAttentionFn`, which takes no query offset."""
+    window, q_offset = int(window), int(q_offset)
+    _check_call(q, k, causal=causal, window=window, q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q_offset:
+            raise ValueError(f"the gradient path runs from position 0 "
+                             f"(training has no query offset), got "
+                             f"q_offset={q_offset}")
+        return FlashAttentionFn.apply(q, k, v, bool(causal), window)
+    if on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    return _launch(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                   lse=False)[0]

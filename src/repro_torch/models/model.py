@@ -12,6 +12,8 @@ Entry points:
   init_params           — the model (`StackedLM`, `EncDecLM` or
                           `HybridLM`), weights from a seeded
                           torch.Generator on the device
+  loss_fn               — the training loss of the dense family, with a
+                          gradient (the flash kernel's backward kernel)
   prefill / decode_step — the serving paths with their caches
                           (`batch["frames"]` for encdec,
                           `batch["patches"]` optional for vlm)
@@ -39,6 +41,7 @@ NotImplementedError (ROADMAP.md).
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.device import resolve_device
@@ -85,6 +88,10 @@ def _check_family(cfg) -> None:
             f"(Zamba2) and ssm (xLSTM) families; {cfg.name!r} "
             f"({cfg.family}) in this shape comes with a later slice "
             f"(ROADMAP.md)")
+
+
+def n_moe_layers(cfg) -> int:
+    return (cfg.n_layers - cfg.moe_layer_start) if cfg.moe else 0
 
 
 def segments_of(cfg) -> list[tuple[str, int]]:
@@ -237,6 +244,20 @@ class EncDecLM(nn.Module):
         self.layers = nn.ModuleList([DecBlock(cfg, g, device)
                                      for _ in range(cfg.n_layers)])
         self.final_norm = L.Norm(cfg, device)
+
+
+# the first names of parameters that the reference stacks along a leading
+# layer axis: a stacked model's layers and whisper's encoder
+STACKED_PREFIXES = ("layers", "enc")
+
+
+def reference_ndim(name: str, ndim: int) -> int:
+    """The rank of the reference leaf that the port's parameter `name` of
+    rank `ndim` comes from: one more under `STACKED_PREFIXES` (the
+    reference's `segments/<i>/...` and `enc/...` leaves carry the layer
+    axis), the same elsewhere (the name map of
+    `convert.lm_params_from_reference`)."""
+    return ndim + (name.split(".", 1)[0] in STACKED_PREFIXES)
 
 
 def _layer_slots(cfg) -> list[tuple[int, int]]:
@@ -613,3 +634,74 @@ def _ffn(cfg, p: AttnBlock, h):
     if hasattr(p, "moe"):
         return MOE.apply_moe(cfg, p.moe, h, dropless=True)[0]
     return p.mlp(h)
+
+
+# ----------------------------------------------------------------------------
+# Training loss
+# ----------------------------------------------------------------------------
+
+# the ROADMAP item (queue 1) that ports training for each family the port
+# does not train yet
+_TRAIN_LATER = {"ssm": "5(a)", "hybrid": "5(a)", "moe": "5(b)",
+                "vlm": "5(c)", "encdec": "5(c)"}
+
+
+def check_trainable(cfg) -> None:
+    """Raise NotImplementedError unless the port trains this config: the
+    dense family. The others come with ROADMAP.md queue 1 item 5's later
+    parts: (a) ssm and hybrid (the SSD scan's backward), (b) moe (capacity
+    and steal dispatch, the expert FFN's backward), (c) vlm and encdec."""
+    _check_family(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the port trains the dense family; {cfg.name!r} "
+            f"({cfg.family}) trains with ROADMAP.md queue 1 item "
+            f"{_TRAIN_LATER[cfg.family]}")
+
+
+def _train_layer(cfg, p: AttnBlock, x):
+    """A dense layer over the whole sequence (the reference's
+    `_apply_block_full` for "dense"): attention through the flash kernel
+    (its autograd Function when x requires grad), then the MLP; no
+    `by_blocks` (the reference runs whole products; the serving quantum
+    is not a training concern)."""
+    h, _ = A.attention(cfg, p.attn, p.ln1(x))
+    x = x + h
+    return x + p.mlp(p.ln2(x))
+
+
+def loss_fn(cfg, params: StackedLM, batch, cap_scales=None, *,
+            dtype=torch.bfloat16, aux_weight: float = 0.01):
+    """batch: tokens (B, S), labels (B, S) int (-1 = masked). Returns
+    (loss, metrics {"loss", "n_tokens"}), the reference's
+    (`repro/models/model.py:350-395`) for the dense family: the embedding
+    in `dtype`, every layer full-sequence (under
+    `torch.utils.checkpoint`, non-reentrant, when `cfg.remat`: the
+    counterpart of the reference's jax.checkpoint with policy "nothing",
+    so the backward reruns each layer's forward, flash included), the
+    final norm, logits in `dtype`, and the reference's cross-entropy: the
+    row max detached, (logits - max) in `dtype` then float32, the true
+    logit gathered (the reference's one-hot sum gives the same value), the
+    mean over labels >= 0. `cap_scales` and `aux_weight` serve MoE
+    training, which comes later (`check_trainable` refuses other
+    families)."""
+    check_trainable(cfg)
+    x = L.embed_tokens(params.embed, batch["tokens"]).to(dtype)
+    for p in params.layers:
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _train_layer, cfg, p, x, use_reentrant=False)
+        else:
+            x = _train_layer(cfg, p, x)
+    logits = L.lm_logits(params.embed, params.final_norm(x))
+    labels = batch["labels"]
+    valid = labels >= 0
+    lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    shifted = (logits - m).float()
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0].float()
+    true_logit = torch.gather(logits, -1, lab[..., None])[..., 0].float()
+    n_tokens = valid.sum()
+    loss = torch.sum((lse - true_logit) * valid) / torch.clamp(n_tokens,
+                                                              min=1)
+    return loss, {"loss": loss, "n_tokens": n_tokens}

@@ -1,0 +1,98 @@
+"""Training loop with checkpoint/restart and failure injection — the
+port's counterpart of `repro.train.trainer`:
+
+* auto-resume from the newest fully-published checkpoint;
+* `failure_at` injects a crash after that step (tests restart end to end);
+* the async checkpoint writer stays off the critical path;
+* the data pipeline (iCh dispatcher) prefetches the next batch while a
+  step trains.
+
+One device, no mesh: the reference's `mesh` argument (elastic restarts
+on another mesh) comes with `launch/` (ROADMAP.md queue 1 item 6). The
+dense family trains; other families raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.data.pipeline import Pipeline
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+
+from . import checkpoint as CKPT
+from . import train_step as TS
+
+
+@dataclasses.dataclass
+class RunConfig:
+    steps: int = 50
+    batch: int = 8
+    seq: int = 128
+    ckpt_dir: str = dataclasses.field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ckpt_every: int = 20
+    log_every: int = 10
+    seed: int = 0
+    failure_at: Optional[int] = None  # inject a crash AFTER this step
+
+
+class InjectedFailure(RuntimeError):
+    pass
+
+
+def train(cfg, run: RunConfig, tcfg: TS.TrainConfig = None, device=None,
+          verbose: bool = True):
+    """Returns (final state, losses of the steps this call ran). Call again
+    after a crash to resume. `device` None is the card (raises without
+    CUDA); "cpu" runs every kernel's plain version."""
+    M.check_trainable(cfg)
+    dev = resolve_device(device)
+    tcfg = tcfg or TS.TrainConfig(opt=dataclasses.replace(
+        TS.TrainConfig().opt, warmup_steps=10, total_steps=run.steps))
+    state = TS.init_train_state(cfg, run.seed, max_seq=run.seq, tcfg=tcfg,
+                                device=dev)
+    start_step = 0
+    if CKPT.list_steps(run.ckpt_dir):
+        state, start_step = CKPT.load_state(state, run.ckpt_dir)
+        if verbose:
+            print(f"[trainer] resumed from step {start_step}")
+
+    step_fn = TS.make_train_step(cfg, tcfg)
+    pipe = Pipeline(cfg, run.batch, run.seq, seed=run.seed, device=dev)
+    ckpt = CKPT.AsyncCheckpointer(run.ckpt_dir)
+
+    losses = []
+    t0 = time.time()
+    try:
+        for step in range(start_step, run.steps):
+            batch_np, ingest = pipe.get_batch(step)
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in batch_np.items()}
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            if verbose and (step % run.log_every == 0
+                            or step == run.steps - 1):
+                print(f"[trainer] step {step} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"ingest_steals {ingest.steals} "
+                      f"({time.time() - t0:.1f}s)")
+            if (step + 1) % run.ckpt_every == 0 or step == run.steps - 1:
+                ckpt.save(state, step + 1)
+            if run.failure_at is not None and step + 1 == run.failure_at:
+                ckpt.wait()
+                raise InjectedFailure(
+                    f"injected failure after step {step + 1}")
+    finally:
+        pipe.close()
+        ckpt.wait()
+        if verbose and ckpt.saves:
+            print(f"[trainer] checkpoint writes (step, bytes, seconds): "
+                  f"{ckpt.saves}")
+    return state, losses

@@ -31,7 +31,12 @@ planned alone == among all), a reduced whisper-small at dh 64 (the
 encoder's and the cross-attention's non-causal flash calls over ragged
 keys, 3 x layers launches a prefill) and a reduced phi-3-vision at dh 96
 (a patch prefill, decode from S + P, incremental == one-shot bits)
-served on the card against the CPU, and the
+served on the card against the CPU, training (the flash backward
+kernel's three launches against their plain formulas at dh 64, 96, 128,
+GQA 1 and 6, causal, non-causal and windowed, ragged, float32 and
+bfloat16, the same bits twice; the forward's bits with and without the
+log-sum-exp; the autograd Function and a reduced qwen2-1.5b train step
+at dh 128 on the card against the CPU), and the
 schedule
 pipeline on the card (each lowering element-identical to the numpy one,
 tile costs bit for bit: one R per branch of numpy's pairwise sum, LPT
@@ -1799,3 +1804,153 @@ def test_recovery_combine_bit_identical_on_the_card(cuda, dead, with_log):
     plan = plan_for(s)
     assert torch.equal(plan.combine(run_k(plan.done_shards),
                                     run_k(plan.shards)), op(pts, cent))
+
+
+# ------------------------------------------------- training (flash backward)
+def _bwd_inputs(cuda, Sq, Skv, rep, dh, dtype, seed, Hkv=2):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((2, Sq, Hkv * rep, dh), generator=g, device=cuda)
+    k = torch.randn((2, Skv, Hkv, dh), generator=g, device=cuda)
+    v = torch.randn((2, Skv, Hkv, dh), generator=g, device=cuda)
+    dout = torch.randn(q.shape, generator=g, device=cuda)
+    return [t.to(dtype) for t in (q, k, v, dout)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Sq,Skv,rep,dh,causal,window", [
+    (128, 128, 1, 64, True, 0), (200, 200, 6, 128, True, 0),
+    (77, 77, 6, 96, True, 0), (96, 150, 1, 64, False, 0),
+    (150, 96, 6, 128, False, 0), (130, 130, 6, 64, True, 32),
+    (100, 140, 1, 96, False, 32), (300, 200, 6, 128, True, 0),
+    (17, 17, 1, 128, True, 0), (1, 65, 6, 64, False, 0),
+    (65, 3, 1, 96, False, 0), (129, 129, 1, 128, False, 5)])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, Sq, Skv, rep,
+                                             dh, causal, window):
+    """dq, dk, dv of the three kernels against the plain formulas within
+    `tol` of each gradient's largest element (float32: both sum in float32,
+    in other orders; bfloat16: the same bfloat16 inputs, the outputs
+    rounded to bfloat16 — the reference's bfloat16 kernel bar), the
+    forward's log-sum-exp within 1e-5 of torch.logsumexp, one counted
+    launch a call, and the same bits from a second call (no atomics)."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    q, k, v, dout = _bwd_inputs(cuda, Sq, Skv, rep, dh, dtype,
+                                Sq + Skv + rep + dh)
+    out, lse = K.flash_attention_lse(q, k, v, causal=causal, window=window)
+    p_out, p_lse = K.flash_attention_lse_plain(q, k, v, causal=causal,
+                                               window=window)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.float(), p_out.float(), rtol=2e-2 if
+                               dtype == torch.bfloat16 else 2e-5,
+                               atol=2e-2 if dtype == torch.bfloat16 else 2e-5)
+    KB.reset_launches()
+    grads = KB.flash_attention_backward(q, k, v, out, dout, lse,
+                                        causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES == {"flash_attention_bwd": 1}
+    plain = KB.flash_attention_backward_plain(q, k, v, out, dout, lse,
+                                              causal=causal, window=window)
+    for a, b in zip(grads, plain):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()) + 1e-6, err
+    again = KB.flash_attention_backward(q, k, v, out, dout, lse,
+                                        causal=causal, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_flash_forward_bits_do_not_depend_on_the_lse(cuda):
+    """Serving calls (no log-sum-exp) give the bits of the same call that
+    writes it, at rows 8b's and 8g's extend shapes and from position 0."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        for Hq, Hkv, dh, off in ((12, 2, 128, 1536), (32, 32, 96, 1536),
+                                 (12, 2, 128, 0)):
+            Sq = 512 if off else 2048
+            q = torch.randn((1, Sq, Hq, dh), generator=g,
+                            device=cuda).to(dtype)
+            k = torch.randn((1, 2048, Hkv, dh), generator=g,
+                            device=cuda).to(dtype)
+            served = K.flash_attention(q, k, k, causal=True, q_offset=off)
+            with_lse, lse = K._launch(q, k, k, causal=True, window=0,
+                                      q_offset=off, lse=True)
+            assert torch.equal(served, with_lse)
+            assert lse.shape == (1, Hq, Sq) and bool(torch.isfinite(lse).all())
+
+
+def test_flash_function_on_the_card_matches_the_cpu(cuda):
+    """The autograd Function on CUDA tensors (the kernels) against the
+    same Function on the CPU (the plain versions) from the same inputs."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    q, k, v, dout = _bwd_inputs(cuda, 150, 150, 6, 128, torch.float32, 4)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        K.reset_launches()
+        KB.reset_launches()
+        out = K.flash_attention(*leaves, causal=True)
+        grads = torch.autograd.grad(out, leaves, dout.to(dev))
+        res[dev.type] = [out, *grads]
+        launched = (K.LAUNCHES["flash_attention"],
+                    KB.LAUNCHES["flash_attention_bwd"])
+        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(cuda, remat):
+    """One float32 step of a reduced qwen2-1.5b at dh 128 (d_model 256, 2
+    heads, 1 KV head) on the card and on the CPU from the same state and
+    batch: loss within 1e-5 and grad norm within 1e-4 relative (float32
+    sums in other orders), every parameter within 2 lr + 1e-6 |p| (Adam's
+    first step moves an element by +-lr whatever its gradient's size);
+    then three bfloat16 steps on the card with finite, falling losses."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+    cfg = reduced(get_arch("qwen2-1.5b"), d_model=256, n_heads=2,
+                  n_kv_heads=1, remat=remat)
+    tcfg = TS.TrainConfig(dtype=torch.float32, opt=adamw.AdamWConfig(
+        warmup_steps=2, total_steps=10))
+    cpu = TS.init_train_state(cfg, 0, tcfg=tcfg, device="cpu")
+    card = TS.init_train_state(cfg, 1, tcfg=tcfg, device=cuda)
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(CKPT.state_leaves(cpu),
+                                  CKPT.state_leaves(card)):
+            b.copy_(a)
+    batch = synthetic_tokens(2, 200, cfg.padded_vocab, 0, 5)
+    K.reset_launches()
+    KB.reset_launches()
+    card, mc = TS.make_train_step(cfg, tcfg)(
+        card, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == cfg.n_layers * (1 + remat)
+    assert KB.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    cpu, mp = TS.make_train_step(cfg, tcfg)(
+        cpu, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(mc["loss"]), float(mp["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(mc["grad_norm"]),
+                               float(mp["grad_norm"]), rtol=1e-4)
+    lr = float(mp["lr"])
+    for (n, a), (_, b) in zip(card["params"].named_parameters(),
+                              cpu["params"].named_parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        assert bool((diff <= 2 * lr + 1e-6 * b.detach().abs()).all()), n
+    bf = TS.TrainConfig(opt=adamw.AdamWConfig(warmup_steps=1,
+                                              total_steps=10))
+    state, step = TS.init_train_state(cfg, 2, device=cuda, tcfg=bf), \
+        TS.make_train_step(cfg, bf)
+    toks = {k: torch.from_numpy(v).to(cuda) for k, v in
+            synthetic_tokens(4, 256, cfg.padded_vocab, 1, 5).items()}
+    losses = [float(step(state, toks)[1]["loss"]) for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -223,7 +223,12 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.configs.olmoe_1b_7b, "
             "repro_torch.configs.deepseek_moe_16b, "
             "repro_torch.configs.whisper_small, "
-            "repro_torch.configs.phi3_vision_4_2b; "
+            "repro_torch.configs.phi3_vision_4_2b, "
+            "repro_torch.kernels.flash_attention.flash_attention_bwd, "
+            "repro_torch.optim.adamw, repro_torch.optim.grad_compress, "
+            "repro_torch.train.train_step, repro_torch.train.checkpoint, "
+            "repro_torch.train.trainer, repro_torch.data.pipeline, "
+            "repro_torch.sched.data_sched; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -286,7 +291,7 @@ def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
     # the real sources each name their own library
     monkeypatch.undo()
     names = ("ich_spmv", "ich_bfs", "ich_kmeans", "ich_moe",
-             "flash_attention", "mamba_scan", "lpt")
+             "flash_attention", "flash_attention_bwd", "mamba_scan", "lpt")
     paths = {_build.library_path(n) for n in names}
     assert len(paths) == len(names)
     assert sorted(names) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
