@@ -88,13 +88,15 @@ launch counters set to 0 just before it and read just after:
   `make_train_step` -> 8 bfloat16 steps of 4 x 2,048 tokens from
   `data.pipeline.Pipeline`, remat on: 56 flash forward and 28 flash
   backward launches a step), held to finite losses that fall, finite
-  non-zero grad norms and the launch counts; the flash backward kernel
-  (three CUDA kernels a call) at that shape in float32 and bfloat16
-  against its plain version, two calls the same bits, the forward's
-  log-sum-exp against torch.logsumexp, and the serving shapes' bits
-  unchanged when the log-sum-exp is written; one float32 step at 2 layers
-  on the card against the CPU; `train()` with a failure after step 2 and
-  a resume whose losses equal an uninterrupted run's.
+  non-zero grad norms and the launch counts; one more step from the same
+  state under remat_policy "dots" (its grad norm against "nothing"'s);
+  the flash backward kernel (three CUDA kernels a call, bfloat16 on the
+  tensor cores) at that shape in float32 and bfloat16 against its plain
+  version, two calls the same bits, each CUDA kernel's device time, the
+  forward's log-sum-exp against torch.logsumexp, and the serving shapes'
+  bits unchanged when the log-sum-exp is written; one float32 step at 2
+  layers on the card against the CPU; `train()` with a failure after step
+  2 and a resume whose losses equal an uninterrupted run's.
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -328,6 +330,11 @@ BWD_BLOCK = 64
 # the bound's peak rate for the backward's type: float32 as 3xTF32 (as the
 # forward's rows), bfloat16 at the card's bfloat16 tensor-core rate
 BWD_PEAK = {"float32": TF32_FLOPS / 3, "bfloat16": BF16_FLOPS}
+# a full-width step's grad norm under remat_policy "dots" against the same
+# step under "nothing" (the same products; saved or rerun)
+REMAT_NORM_RTOL = 1e-6
+# the backward's three CUDA kernels by name: D, dK/dV, dQ
+BWD_KERNELS = ("flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq")
 LSE_TOL = 1e-5       # the forward's log-sum-exp against torch.logsumexp
 # the card's float32 step against the CPU's from the same state and batch:
 # the loss within 1e-5 and the grad norm within 1e-4 relative, each
@@ -3294,6 +3301,19 @@ def flash_backward_record(q, k, v, g) -> dict:
     # q, out, dout, dq and k, v, dk, dv once each, and the float32 lse
     nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
         + 4 * lse.numel()
+    # the three CUDA kernels of one call apart, each with the operations
+    # it runs (S and dP recomputed in both tile kernels: 8 dh flops a pair
+    # in dK/dV, 6 dh in dQ)
+    by_name = device_ms_by_kernel(
+        lambda: KB.flash_attention_backward(q, k, v, out, dout, lse),
+        expect=BWD_KERNELS)
+    split = {}
+    for kern, per_pair in zip(BWD_KERNELS, (0, 8, 6)):
+        kms = sum(t for n, t in by_name.items() if kern in n)
+        work = per_pair * dh * pairs * B * Hq
+        split[kern] = {"device_ms": kms, "flops_run": work,
+                       "tflops": work / kms / 1e9 if kms > 0 and work
+                       else None}
     del ot, qt, kt, vt, gt, grads, out, lse
     return {"dtype": name, "shape": {"q": list(q.shape), "kv": list(k.shape)},
             "lse_max_abs_err": lse_err, "max_abs_err": max(errs.values()),
@@ -3301,7 +3321,9 @@ def flash_backward_record(q, k, v, g) -> dict:
             "worst_block_share": block_share,
             "sdpa_max_abs_diff": lib_diff, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
-            "tflops_f32_work": flops / (ms * 1e-3) / 1e12}
+            "tflops_needed_work": flops / (ms * 1e-3) / 1e12,
+            "kernels": split, "kernels_other_ms": sum(by_name.values())
+            - sum(r["device_ms"] for r in split.values())}
 
 
 def _block_share(a, b) -> float:
@@ -3369,6 +3391,50 @@ def _loss_grads(cfg, state, batch) -> dict:
     names = [n for n, _ in model.named_parameters()]
     return dict(zip(names, torch.autograd.grad(loss,
                                                list(model.parameters()))))
+
+
+def remat_dots_step(cfg, tcfg, state, batch) -> dict:
+    """One full-width step from `state` on `batch` under remat_policy
+    "nothing" and, from the same state, under "dots" (selective
+    checkpointing keeps the projections' outputs), each after one warm-up
+    step from that state (the caching allocator grows to the policy's
+    peak): wall ms and peak GB of each, and the grad norms within
+    REMAT_NORM_RTOL relative. `state` ends as the "dots" step leaves
+    it."""
+    import dataclasses
+    import torch
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+    # the state's copy waits in host memory, so each step's peak is its own
+    saved = [t.detach().to("cpu", copy=True)
+             for _, t in CKPT.state_leaves(state)]
+    def restore():
+        with torch.no_grad():
+            for (_, t), s_ in zip(CKPT.state_leaves(state), saved):
+                t.copy_(s_)
+
+    rec = {}
+    for policy in ("nothing", "dots"):
+        step = TS.make_train_step(dataclasses.replace(
+            cfg, remat_policy=policy), tcfg)
+        restore()
+        step(state, batch)
+        restore()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        norm = float(m["grad_norm"])
+        torch.cuda.synchronize()
+        rec[policy] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "loss": float(m["loss"]), "grad_norm": norm}
+    del saved
+    rel = abs(rec["dots"]["grad_norm"] - rec["nothing"]["grad_norm"]) \
+        / rec["nothing"]["grad_norm"]
+    check(rel <= REMAT_NORM_RTOL, f"train: the grad norm under \"dots\" "
+          f"within {REMAT_NORM_RTOL} relative of \"nothing\"'s")
+    return {**rec, "grad_norm_rel_diff": rel}
 
 
 def train_parity(cfg) -> dict:
@@ -3561,8 +3627,10 @@ def phase_train():
     launches (remat reruns each layer's forward) and 28 backward launches
     a step; logged: step wall ms, tokens/s, peak memory, where a step's
     device time goes (products, flash forward, flash backward, other) and
-    the idle share. (3) Float32 parity with the CPU at 2 layers
-    (`train_parity`). (4) `train()`'s failure and resume (`train_resume`).
+    the idle share; then one step under remat_policy "dots" beside one
+    under "nothing" from the same state and batch (`remat_dots_step`).
+    (3) Float32 parity with the CPU at 2 layers (`train_parity`). (4)
+    `train()`'s failure and resume (`train_resume`).
     """
     import dataclasses
     import torch
@@ -3658,6 +3726,7 @@ def phase_train():
           f"train: {2 * L} flash forward and {L} backward launches a step")
     _split_log("train_step_split", lambda: step(state, batch), wall,
                expect=("flash_bwd_",), top=12)
+    log(phase="train_remat_dots", **remat_dots_step(cfg, tcfg, state, batch))
     del state, step, batch
     torch.cuda.empty_cache()
 

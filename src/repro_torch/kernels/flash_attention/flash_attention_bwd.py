@@ -22,7 +22,10 @@ Given CPU tensors the wrapper runs the plain version
 (`flash_attention_backward_plain`: the formulas on the materialised
 (B, Hkv, rep, Sq, Skv) scores, not autograd); given CUDA tensors it
 launches the three kernels of `csrc/flash_attention_bwd.cu` or raises:
-there is no fallback. Each call that launches them adds one to
+there is no fallback. Bfloat16 runs its products on the tensor cores
+(bfloat16 MMAs with float32 accumulators; P and dS are rounded to
+bfloat16 before the products that take them), float32 on the CUDA cores.
+Each call that launches them adds one to
 `LAUNCHES["flash_attention_bwd"]`.
 """
 from __future__ import annotations
@@ -129,6 +132,10 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
+    # the bfloat16 kernels copy q, k, v, dout 16 bytes at a time: a view
+    # that starts off that grid is copied to a fresh (aligned) buffer
+    q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (q, k, v, dout))
     d_rows = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _lib().flash_attention_bwd_launch(

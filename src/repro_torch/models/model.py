@@ -40,6 +40,8 @@ NotImplementedError (ROADMAP.md).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.utils.checkpoint
 from torch import nn
@@ -265,6 +267,25 @@ def _layer_slots(cfg) -> list[tuple[int, int]]:
     model: where its keys and values lie in the per-segment cache."""
     return [(s, j) for s, (_, count) in enumerate(segments_of(cfg))
             for j in range(count)]
+
+
+def reference_leaves(cfg, names) -> list[list[str]]:
+    """The port's parameter `names` grouped by the reference leaf each
+    comes from, each group in that leaf's flat order (the layer axis
+    leads): `layers.<l>.<rest>` of segment s's layers form the leaf
+    `segments.<s>.<rest>`, in layer order; `enc.<l>.<rest>` form
+    `enc.<rest>`; every other name is a leaf of its own."""
+    slots = _layer_slots(cfg) if cfg.family in (*STACKED, "encdec") else []
+    groups: dict = {}
+    for name in names:
+        head, *rest = name.split(".", 2)
+        if head in STACKED_PREFIXES:
+            layer, leaf = int(rest[0]), rest[1]
+            seg = slots[layer][0] if head == "layers" else 0
+            groups.setdefault((head, seg, leaf), []).append((layer, name))
+        else:
+            groups[(name,)] = [(0, name)]
+    return [[n for _, n in sorted(g)] for g in groups.values()]
 
 
 def init_params(cfg, seed: int = 0, *, max_seq: int = 0,
@@ -646,12 +667,34 @@ _TRAIN_LATER = {"ssm": "5(a)", "hybrid": "5(a)", "moe": "5(b)",
                 "vlm": "5(c)", "encdec": "5(c)"}
 
 
+# remat_policy names (the reference's REMAT_POLICIES): "nothing" recomputes
+# a layer's whole forward in the backward; "dots" keeps the outputs of its
+# products without batch dimensions (the projections) and recomputes the
+# rest, attention's batched products (the flash Function) included
+REMAT_POLICIES = ("nothing", "dots")
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's choice for "dots": save the 2-D products'
+    outputs (every projection reaches aten.mm / addmm), recompute the
+    rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def check_trainable(cfg) -> None:
     """Raise NotImplementedError unless the port trains this config: the
     dense family. The others come with ROADMAP.md queue 1 item 5's later
     parts: (a) ssm and hybrid (the SSD scan's backward), (b) moe (capacity
-    and steal dispatch, the expert FFN's backward), (c) vlm and encdec."""
+    and steal dispatch, the expert FFN's backward), (c) vlm and encdec.
+    Raise ValueError for a `remat_policy` outside `REMAT_POLICIES` (the
+    reference falls back to "nothing" without a word)."""
     _check_family(cfg)
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} not in "
+                         f"{REMAT_POLICIES}")
     if cfg.family != "dense":
         raise NotImplementedError(
             f"the port trains the dense family; {cfg.name!r} "
@@ -677,8 +720,10 @@ def loss_fn(cfg, params: StackedLM, batch, cap_scales=None, *,
     (`repro/models/model.py:350-395`) for the dense family: the embedding
     in `dtype`, every layer full-sequence (under
     `torch.utils.checkpoint`, non-reentrant, when `cfg.remat`: the
-    counterpart of the reference's jax.checkpoint with policy "nothing",
-    so the backward reruns each layer's forward, flash included), the
+    counterpart of the reference's jax.checkpoint with
+    `cfg.remat_policy`: under "nothing" the backward reruns each layer's
+    forward, flash included; under "dots" selective checkpointing keeps
+    the projections' outputs and reruns the rest, flash included), the
     final norm, logits in `dtype`, and the reference's cross-entropy: the
     row max detached, (logits - max) in `dtype` then float32, the true
     logit gathered (the reference's one-hot sum gives the same value), the
@@ -687,10 +732,15 @@ def loss_fn(cfg, params: StackedLM, batch, cap_scales=None, *,
     families)."""
     check_trainable(cfg)
     x = L.embed_tokens(params.embed, batch["tokens"]).to(dtype)
+    context = {}
+    if cfg.remat_policy == "dots":
+        context["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
     for p in params.layers:
         if cfg.remat:
             x = torch.utils.checkpoint.checkpoint(
-                _train_layer, cfg, p, x, use_reentrant=False)
+                _train_layer, cfg, p, x, use_reentrant=False, **context)
         else:
             x = _train_layer(cfg, p, x)
     logits = L.lm_logits(params.embed, params.final_norm(x))

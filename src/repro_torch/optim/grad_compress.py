@@ -5,7 +5,11 @@ the train state and added back next step. Plain tensor code, as the
 reference's is XLA, not a Pallas kernel. `torch.round` and `jnp.round`
 both round half to even, so the int8 blocks, scales and residuals are
 element-identical to the reference's. Gradient trees are dicts keyed by
-parameter name."""
+parameter name, one tensor a layer; the reference compresses each of its
+stacked leaves (L, ...) as ONE flat array, its blocks running across
+layer boundaries, so `tree_compress` takes the groups of names that form
+one reference leaf (`models.model.reference_leaves`) and compresses each
+group's tensors concatenated in layer order."""
 from __future__ import annotations
 
 import torch
@@ -42,11 +46,24 @@ def compress_with_feedback(g: torch.Tensor, err: torch.Tensor):
     return deq.to(g.dtype), target - deq
 
 
-def tree_compress(grads: dict, err_tree: dict):
-    out = {name: compress_with_feedback(g, err_tree[name])
-           for name, g in grads.items()}
-    return ({n: o[0] for n, o in out.items()},
-            {n: o[1] for n, o in out.items()})
+def tree_compress(grads: dict, err_tree: dict, groups=()):
+    """(compressed grads, new residuals), both keyed as `grads`. Each
+    group of `groups` (lists of names) is compressed as one flat array,
+    its tensors flattened and concatenated in list order, then split back
+    (the reference's stacked leaf: `models.model.reference_leaves`); a
+    name in no group is compressed alone."""
+    grouped = {n for g in groups for n in g}
+    out = {}
+    for names in [*groups, *([n] for n in grads if n not in grouped)]:
+        gs = [grads[n] for n in names]
+        flat, res = compress_with_feedback(
+            torch.cat([g.reshape(-1) for g in gs]),
+            torch.cat([err_tree[n].reshape(-1) for n in names]))
+        sizes = [g.numel() for g in gs]
+        for n, g, d, r in zip(names, gs, flat.split(sizes),
+                              res.split(sizes)):
+            out[n] = (d.reshape(g.shape), r.reshape(g.shape))
+    return ({n: out[n][0] for n in grads}, {n: out[n][1] for n in grads})
 
 
 def init_error_state(params: dict) -> dict:

@@ -134,8 +134,8 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
             _, metrics, grads = grads_of(model, batch)
 
         if tcfg.grad_compress:
-            grads, state["grad_err"] = GC.tree_compress(grads,
-                                                        state["grad_err"])
+            grads, state["grad_err"] = GC.tree_compress(
+                grads, state["grad_err"], M.reference_leaves(cfg, grads))
         params = dict(model.named_parameters())
         opt = state["opt"]
         if tcfg.bf16_params:

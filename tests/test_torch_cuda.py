@@ -1807,11 +1807,11 @@ def test_recovery_combine_bit_identical_on_the_card(cuda, dead, with_log):
 
 
 # ------------------------------------------------- training (flash backward)
-def _bwd_inputs(cuda, Sq, Skv, rep, dh, dtype, seed, Hkv=2):
+def _bwd_inputs(cuda, Sq, Skv, rep, dh, dtype, seed, Hkv=2, B=2):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    q = torch.randn((2, Sq, Hkv * rep, dh), generator=g, device=cuda)
-    k = torch.randn((2, Skv, Hkv, dh), generator=g, device=cuda)
-    v = torch.randn((2, Skv, Hkv, dh), generator=g, device=cuda)
+    q = torch.randn((B, Sq, Hkv * rep, dh), generator=g, device=cuda)
+    k = torch.randn((B, Skv, Hkv, dh), generator=g, device=cuda)
+    v = torch.randn((B, Skv, Hkv, dh), generator=g, device=cuda)
     dout = torch.randn(q.shape, generator=g, device=cuda)
     return [t.to(dtype) for t in (q, k, v, dout)]
 
@@ -1824,19 +1824,27 @@ def _bwd_inputs(cuda, Sq, Skv, rep, dh, dtype, seed, Hkv=2):
     (150, 96, 6, 128, False, 0), (130, 130, 6, 64, True, 32),
     (100, 140, 1, 96, False, 32), (300, 200, 6, 128, True, 0),
     (17, 17, 1, 128, True, 0), (1, 65, 6, 64, False, 0),
-    (65, 3, 1, 96, False, 0), (129, 129, 1, 128, False, 5)])
+    (65, 3, 1, 96, False, 0), (129, 129, 1, 128, False, 5),
+    # the dK/dV grid pairs key blocks j and nKB - 1 - j: an odd nKB (5),
+    # one key block, and a ragged last block at B 1
+    (320, 320, 6, 128, True, 0), (40, 40, 6, 64, True, 0),
+    (2065, 2065, 6, 128, True, 0),
+    # windows that cut the walks at both ends (causal from one end, the
+    # window from the other)
+    (700, 700, 6, 128, True, 200), (333, 333, 1, 96, True, 100)])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, Sq, Skv, rep,
                                              dh, causal, window):
     """dq, dk, dv of the three kernels against the plain formulas within
     `tol` of each gradient's largest element (float32: both sum in float32,
     in other orders; bfloat16: the same bfloat16 inputs, the outputs
-    rounded to bfloat16 — the reference's bfloat16 kernel bar), the
-    forward's log-sum-exp within 1e-5 of torch.logsumexp, one counted
-    launch a call, and the same bits from a second call (no atomics)."""
+    rounded to bfloat16 — the reference's bfloat16 kernel bar; the tensor
+    cores' products also round P and dS to bfloat16), the forward's
+    log-sum-exp within 1e-5 of torch.logsumexp, one counted launch a call,
+    and the same bits from a second call (no atomics)."""
     from repro_torch.kernels.flash_attention import flash_attention as K
     from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
     q, k, v, dout = _bwd_inputs(cuda, Sq, Skv, rep, dh, dtype,
-                                Sq + Skv + rep + dh)
+                                Sq + Skv + rep + dh, B=1 if Sq > 2048 else 2)
     out, lse = K.flash_attention_lse(q, k, v, causal=causal, window=window)
     p_out, p_lse = K.flash_attention_lse_plain(q, k, v, causal=causal,
                                                window=window)
@@ -1858,6 +1866,58 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, Sq, Skv, rep,
     again = KB.flash_attention_backward(q, k, v, out, dout, lse,
                                         causal=causal, window=window)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def _block_share(a, b, rows=64) -> float:
+    """The largest max |a - b| of a block of `rows` rows (dim 1) of one
+    (batch, head) of (B, S, H, dh) tensors, as a share of that block's max
+    |b| (a block whose b is all zero must match exactly)."""
+    B, S, H, dh = b.shape
+
+    def block_max(t):
+        return t.abs().reshape(B, S // rows, rows, H, dh).amax(dim=(2, 4))
+    diff, ref = block_max(a.float() - b.float()), block_max(b.float())
+    return float(torch.where(ref > 0, diff / ref, torch.where(
+        diff > 0, torch.inf, 0.0)).max())
+
+
+def test_flash_backward_at_the_training_shape(cuda):
+    """qwen2-1.5b's training shape at B 1 (2,048 tokens, 12 / 2 heads of
+    128, causal), bfloat16: dq, dk, dv within 1e-2 of each 64-row block's
+    max |plain| per (batch, head) (one bfloat16 ulp is at most 2^-7 of
+    the block's max), and the same bits from a second call."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    q, k, v, dout = _bwd_inputs(cuda, 2048, 2048, 6, 128, torch.bfloat16,
+                                26, B=1)
+    out, lse = K.flash_attention_lse(q, k, v, causal=True)
+    grads = KB.flash_attention_backward(q, k, v, out, dout, lse)
+    plain = KB.flash_attention_backward_plain(q, k, v, out, dout, lse)
+    for a, b in zip(grads, plain):
+        assert _block_share(a, b) <= 1e-2
+    again = KB.flash_attention_backward(q, k, v, out, dout, lse)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_flash_backward_takes_views_off_the_16_byte_grid(cuda):
+    """Contiguous bfloat16 views that start one element past an aligned
+    address (the kernels copy 16 bytes at a time) give the bits of the
+    same values in aligned buffers."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    q, k, v, dout = _bwd_inputs(cuda, 130, 130, 6, 64, torch.bfloat16, 31)
+    out, lse = K.flash_attention_lse(q, k, v, causal=True)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+    aligned = KB.flash_attention_backward(q, k, v, out, dout, lse)
+    off = KB.flash_attention_backward(shifted(q), shifted(k), shifted(v),
+                                      out, shifted(dout), lse)
+    assert all(torch.equal(a, b) for a, b in zip(aligned, off))
 
 
 def test_flash_forward_bits_do_not_depend_on_the_lse(cuda):

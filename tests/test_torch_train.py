@@ -29,6 +29,7 @@ Tolerances, each stated with its reason:
   order).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_dense import CASES, _tree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_arch as ref_get_arch
 from repro.configs import reduced as ref_reduced
@@ -49,6 +51,7 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.convert import (_by_name, lm_params_from_reference,
                                  train_state_from_reference)
 from repro_torch.data import pipeline as PIPE
+from repro_torch.models import layers as L_
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.optim import grad_compress as GC
@@ -84,34 +87,119 @@ def _cfgs(name, **over):
             reduced(get_arch(base), **extra))
 
 
-def _ref_loss_and_grads(ref_cfg, tree, batch, dtype):
-    params = jax.tree.map(jnp.asarray, tree)
+def _remat(remat) -> dict:
+    """Config fields of a `remat` case: False, True (policy "nothing") or
+    a policy name."""
+    policy = remat if isinstance(remat, str) else "nothing"
+    return {"remat": bool(remat), "remat_policy": policy}
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_loss_and_grad_tree(name, remat, seed=1):
+    """The reference's float32 loss and gradient tree (numpy, stacked) of
+    case `name` on `_tree`'s weights and batch `seed`: one JAX compile a
+    case, shared by the tests of this module."""
+    ref_cfg, cfg = _cfgs(name, **_remat(remat))
+    params = jax.tree.map(jnp.asarray, _tree(ref_cfg))
     (loss, _), grads = jax.jit(jax.value_and_grad(
-        lambda p: RM.loss_fn(ref_cfg, p, _j(batch), dtype=dtype),
-        has_aux=True))(params)
-    return float(loss), _by_name(jax.tree.map(np.asarray, grads))
+        lambda p: RM.loss_fn(ref_cfg, p, _j(_batch(cfg, seed)),
+                             dtype=jnp.float32), has_aux=True))(params)
+    return float(loss), jax.tree.map(np.asarray, grads)
+
+
+def _port_loss_and_grads(name, remat, seed=1):
+    """The port's float32 loss, metrics and gradients (by name) of the
+    same case."""
+    ref_cfg, cfg = _cfgs(name, **_remat(remat))
+    model = lm_params_from_reference(cfg, _tree(ref_cfg), device="cpu")
+    model.requires_grad_(True)
+    loss, metrics = M.loss_fn(cfg, model, _t(_batch(cfg, seed)),
+                              dtype=torch.float32)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return loss, metrics, {n: g for (n, _), g in
+                           zip(model.named_parameters(), grads)}
 
 
 # every case as `reduced` gives it (remat off), and qwen2 with remat on
+# under each policy
 @pytest.mark.parametrize("name,remat", [(name, False) for name in
                                         sorted(CASES)]
-                         + [("qwen2-1.5b", True)])
+                         + [("qwen2-1.5b", True), ("qwen2-1.5b", "dots")])
 def test_loss_and_gradients_match_the_reference(name, remat):
-    ref_cfg, cfg = _cfgs(name, remat=remat)
-    tree = _tree(ref_cfg)
+    _, cfg = _cfgs(name, **_remat(remat))
     batch = _batch(cfg, seed=1)
-    model = lm_params_from_reference(cfg, tree, device="cpu")
-    model.requires_grad_(True)
-    loss, metrics = M.loss_fn(cfg, model, _t(batch), dtype=torch.float32)
-    grads = torch.autograd.grad(loss, list(model.parameters()))
-    r_loss, r_grads = _ref_loss_and_grads(ref_cfg, tree, batch, jnp.float32)
+    loss, metrics, grads = _port_loss_and_grads(name, remat)
+    r_loss, r_tree = _ref_loss_and_grad_tree(name, remat)
+    r_grads = _by_name(r_tree)
     assert int(metrics["n_tokens"]) == int((batch["labels"] >= 0).sum())
     np.testing.assert_allclose(loss.item(), r_loss, rtol=1e-5)
-    for (n, _), g in zip(model.named_parameters(), grads):
+    assert set(grads) == set(r_grads)
+    for n, g in grads.items():
         ref = r_grads[n]
         np.testing.assert_allclose(g.numpy(), ref, rtol=0,
                                    atol=1e-4 * np.abs(ref).max() + 1e-30,
                                    err_msg=n)
+
+
+# ------------------------------------------------------------ remat_policy
+def test_remat_dots_gives_the_bits_of_nothing():
+    """Under "dots" the loss and every gradient leaf equal "nothing"'s bit
+    for bit: the saved projections are the values a rerun computes."""
+    loss, _, grads = _port_loss_and_grads("qwen2-1.5b", "dots")
+    n_loss, _, n_grads = _port_loss_and_grads("qwen2-1.5b", True)
+    assert torch.equal(loss, n_loss)
+    for n, g in grads.items():
+        assert torch.equal(g, n_grads[n]), n
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts the aten.mm / aten.addmm calls dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_products(cfg, model, batch) -> int:
+    loss, _ = M.loss_fn(cfg, model, batch, dtype=torch.float32)
+    with _CountProducts() as bwd:
+        torch.autograd.grad(loss, list(model.parameters()))
+    return bwd.n
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_remat_policy_decides_which_products_the_backward_reruns(policy):
+    """The backward's count of 2-D products is that of no remat under
+    "dots" (no projection rerun) and that plus every layer's projections
+    but the last under "nothing" (the layer rerun: torch's non-reentrant
+    checkpoint stops its rerun at the last tensor the backward saved,
+    before the MLP's down projection, whose output only the residual add
+    reads)."""
+    ref_cfg, cfg = _cfgs("qwen2-1.5b", **_remat(policy))
+    model = lm_params_from_reference(cfg, _tree(ref_cfg), device="cpu")
+    model.requires_grad_(True)
+    batch = _t(_batch(cfg, seed=1))
+    x = L_.embed_tokens(model.embed, batch["tokens"]).float()
+    with torch.no_grad(), _CountProducts() as layer:
+        M._train_layer(cfg, model.layers[0], x)
+    assert layer.n == 7               # q, k, v, o, gate, up, down
+    plain = _backward_products(dataclasses.replace(cfg, remat=False), model,
+                               batch)
+    rerun = 0 if policy == "dots" else cfg.n_layers * (layer.n - 1)
+    assert _backward_products(cfg, model, batch) == plain + rerun
+
+
+def test_an_unknown_remat_policy_is_refused():
+    _, cfg = _cfgs("qwen2-1.5b", remat=True, remat_policy="offload")
+    with pytest.raises(ValueError, match="remat_policy"):
+        M.check_trainable(cfg)
+    with pytest.raises(ValueError, match="remat_policy"):
+        TS.make_train_step(cfg)
 
 
 def test_bfloat16_loss_matches_the_reference():
@@ -323,6 +411,73 @@ def test_tree_compress_is_element_identical():
                                  for k, v in grads.items()})
     assert all(not t.any() and t.dtype == torch.float32
                for t in zeros.values())
+
+
+def _compress_both(r_tree, groups_cfg, seed):
+    """The reference's `tree_compress` on stacked tree `r_tree` (numpy)
+    with a seeded residual, and the port's on the same numbers by name
+    with `reference_leaves(groups_cfg, ...)`; asserts the compressed
+    gradients and the new residuals element-identical."""
+    rng = np.random.default_rng(seed)
+    r_err = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 1e-2
+                                    * np.abs(a).max()).astype(np.float32),
+                         r_tree)
+    r_out, r_new = RGC.tree_compress(jax.tree.map(jnp.asarray, r_tree),
+                                     jax.tree.map(jnp.asarray, r_err))
+    grads = {n: torch.from_numpy(np.array(a))
+             for n, a in _by_name(r_tree).items()}
+    errs = {n: torch.from_numpy(np.array(a))
+            for n, a in _by_name(r_err).items()}
+    out, new = GC.tree_compress(grads, errs,
+                                M.reference_leaves(groups_cfg, grads))
+    for ours, ref in ((out, r_out), (new, r_new)):
+        ref = _by_name(jax.tree.map(np.asarray, ref))
+        assert set(ours) == set(ref)
+        for n, t in ours.items():
+            np.testing.assert_array_equal(t.numpy(), ref[n], err_msg=n)
+
+
+def test_tree_compress_cuts_blocks_per_reference_leaf():
+    """The reference compresses each stacked leaf (L, ...) as one flat
+    array, its int8 blocks of 256 running across layers. At reduced qwen2
+    (2 layers, d 64) the norm scales (2, 64) and the q/k/v biases are
+    not multiples of 256: on the reference's own gradients, with layer 1
+    of ln1's scale made 100x layer 0 (the case of ROADMAP's F1), the
+    port's compressed gradients and residuals equal the reference's."""
+    _, cfg = _cfgs("qwen2-1.5b")
+    _, r_tree = _ref_loss_and_grad_tree("qwen2-1.5b", False)
+    r_tree = jax.tree.map(np.copy, r_tree)
+    scale = r_tree["segments"][0]["ln1"]["scale"]
+    assert scale.shape == (2, 64)
+    scale[1] = 100 * scale[0]
+    _compress_both(r_tree, cfg, seed=5)
+
+
+def test_tree_compress_groups_layers_by_segment_and_encoder():
+    """A two-segment grouping (deepseek-moe's dense first layers, then its
+    MoE layers; synthetic leaves) and an encoder leaf: each segment's
+    layers and the encoder's are one reference leaf apiece."""
+    cfg = reduced(get_arch("deepseek-moe-16b"), n_layers=5,
+                  moe_layer_start=2)
+    assert M.segments_of(cfg) == [("densffn", 2), ("moe", 3)]
+    rng = np.random.default_rng(11)
+
+    def leaf(*shape):
+        return (rng.standard_normal(shape) * rng.uniform(0.1, 10, shape[:1])
+                .reshape(-1, *([1] * (len(shape) - 1)))).astype(np.float32)
+    r_tree = {"segments": [{"w": leaf(2, 40), "ln": {"scale": leaf(2, 7)}},
+                           {"w": leaf(3, 40), "big": leaf(3, 300)}],
+              "enc": {"wq": leaf(2, 30)},
+              "final_norm": {"scale": leaf(70)}}
+    names = _by_name(r_tree)
+    groups = M.reference_leaves(cfg, names)
+    assert sorted(map(tuple, groups)) == sorted([
+        ("layers.0.w", "layers.1.w"), ("layers.0.ln.scale",
+                                       "layers.1.ln.scale"),
+        ("layers.2.w", "layers.3.w", "layers.4.w"),
+        ("layers.2.big", "layers.3.big", "layers.4.big"),
+        ("enc.0.wq", "enc.1.wq"), ("final_norm.scale",)])
+    _compress_both(r_tree, cfg, seed=12)
 
 
 # ------------------------------------------------------------------ data
