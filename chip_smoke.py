@@ -110,7 +110,8 @@ Then two paths of the schedule layer, each counted on its own:
   the host path (schedule, shard, pack + upload) and the device path
   (CSR upload, lower, pack) timed per shape; both kernels at wikipedia's
   full size against np.bincount / `partition_tiles` and their plain
-  versions;
+  versions, the same bits twice, `lpt_assign`'s rounds and each call's
+  device time;
 * sharded recovery (`Schedule.reshard_survivors` -> the completed-prefix
   and survivor layouts through rows 2, 4 and 6 -> `combine`) for SpMV,
   a mid-depth BFS step on both graphs and K-Means, one or two workers
@@ -258,10 +259,11 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
 # paths' schedules, ops and inputs, which each phase leaves here by name
 SHAPES: dict = {}
 PIPELINE_REPS = 3           # synchronized runs a pipeline timing is the median of
-# lpt_assign's latency bound: one dependent shared-memory round trip per
-# chain, taken as 30 SM cycles (an assumption, not a measurement) at the
-# card's maximum SM clock (nvidia-smi clocks.max.sm)
-SMEM_ROUND_TRIP_CYCLES = 30
+# lpt_assign's latency bound: its rounds times the least a round can take,
+# ASSUMED (not measured) to be 300 SM cycles: two block barriers, two block
+# minima and a four-way search of four dependent shared-memory loads of ~30
+# cycles, at the card's maximum SM clock (nvidia-smi clocks.max.sm)
+LPT_ROUND_CYCLES = 300
 # Zamba2-1.2B serving (src/repro/configs/zamba2_1_2b.py, full width)
 LM_ARCH = "zamba2-1.2b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
@@ -3940,14 +3942,24 @@ def phase_pipeline(sm_count):
             device_total_s=sum(dev), speedup=sum(host) / sum(dev),
             lowering_device_ms=sum(by_name.values()),
             lpt_assign_ms=sum(v for k, v in by_name.items()
-                              if "lpt_assign_kernel" in k),
+                              if "lpt_assign_" in k),
             segment_fold_ms=sum(v for k, v in by_name.items()
                                 if "segment_fold_kernel" in k),
             device_ms=by_name, reps=PIPELINE_REPS)
 
-    # ---- both kernels at wikipedia's full size: against host numpy, their
-    #      plain versions, index_add_ and their bounds ----
-    s = w["schedule"]
+    return lpt_kernels(w["schedule"], launches)
+
+
+def lpt_kernels(s, launches) -> list:
+    """Both kernels of `csrc/lpt.cu` at the lowering of the host schedule
+    `s` (wikipedia's): against np.bincount / partition_tiles and their
+    plain versions, the same bits twice, lpt_assign's rounds, each call's
+    device time apart from the host's enqueue, timed, and their bounds.
+    `launches`: the counts of the main path's run."""
+    import torch
+    from repro_torch.core.tiling import block_chains
+    from repro_torch.kernels.lpt import lpt as L
+
     B, p, T = s.superstep, s.p, s.n_tiles
     tc = s.tile_cost()
     chain = block_chains(s.item_id, B)
@@ -3965,12 +3977,17 @@ def phase_pipeline(sm_count):
            torch.tensor([n_real]).cuda(), p)
     got_b, got_c = L.segment_fold(*fold), L.segment_fold(*chain_fold)
     got_w = L.lpt_assign(*lpt)
+    rounds = int(L.LAST_ROUNDS)
     worker = np.repeat(got_w.cpu().numpy()[chain], B)[:T]
     check(got_b.cpu().numpy().tobytes() == bcost.tobytes()
           and got_c.cpu().numpy().tobytes() == ccost.tobytes(),
           "segment_fold == np.bincount bit for bit at wikipedia")
     check(np.array_equal(worker, s.shard().worker),
           "lpt_assign == partition_tiles at wikipedia")
+    check(torch.equal(L.segment_fold(*fold), got_b)
+          and torch.equal(L.segment_fold(*chain_fold), got_c)
+          and torch.equal(L.lpt_assign(*lpt), got_w),
+          "segment_fold and lpt_assign: the same bits twice at wikipedia")
     plain_b = L.segment_fold_plain(*fold)
     check(torch.equal(got_b, plain_b)
           and torch.equal(got_c, L.segment_fold_plain(*chain_fold)),
@@ -3986,20 +4003,41 @@ def phase_pipeline(sm_count):
         chain_fold_ms=timed_ms(lambda: L.segment_fold(*chain_fold)),
         longest_chain_blocks=int(np.bincount(chain).max()),
         index_add_bits_equal=bool(torch.equal(index_add, got_b)))
+    # each call's device time: the kernel apart from any other launch (the
+    # output fill, the scratch), beside the host's microseconds to enqueue
+    split = {}
+    for label, fn, kernel in (
+            ("block_fold", lambda: L.segment_fold(*fold),
+             "segment_fold_kernel"),
+            ("chain_fold", lambda: L.segment_fold(*chain_fold),
+             "segment_fold_kernel"),
+            ("lpt_assign", lambda: L.lpt_assign(*lpt), "lpt_assign_")):
+        by_name = device_ms_by_kernel(fn, expect=(kernel,))
+        k = sum(v for name, v in by_name.items() if kernel in name)
+        split[label] = {"kernel_ms": k, "other_ms": sum(by_name.values()) - k,
+                        "host_enqueue_us": enqueue_us(fn),
+                        "device_ms": by_name}
+    log(phase="lpt_kernels_split", **split)
     plain_ms = {"segment_fold": timed_ms(lambda: L.segment_fold_plain(*fold)),
                 "lpt_assign": lpt_plain_ms}
     library_ms = {"segment_fold": timed_ms(lambda: torch.zeros_like(
         dev["ccost"]).index_add_(0, dev["blk"], dev["tc"])),
         "lpt_assign": None}
     clock_mhz = _sm_clock_mhz()
-    latency_ms = n_real * SMEM_ROUND_TRIP_CYCLES / (clock_mhz * 1e3)
-    log(phase="lpt_assign_bound", chains=n_real, workers=p,
-        round_trip_cycles=SMEM_ROUND_TRIP_CYCLES,
-        sm_clock_mhz=clock_mhz, latency_bound_ms=latency_ms,
-        ms=ms["lpt_assign"])
+    latency_ms = rounds * LPT_ROUND_CYCLES / (clock_mhz * 1e3)
+    check(-(-n_real // min(p, L.ROUND_WINDOW)) <= rounds <= n_real,
+          "lpt_assign: between one round per window and one per chain")
+    log(phase="lpt_assign_rounds", chains=n_real, workers=p, rounds=rounds,
+        chains_per_round=n_real / rounds,
+        round_cycles_assumed=LPT_ROUND_CYCLES, sm_clock_mhz=clock_mhz,
+        latency_bound_ms=latency_ms, ms=ms["lpt_assign"],
+        device_ms=split["lpt_assign"]["kernel_ms"],
+        block_fold_device_ms=split["block_fold"]["kernel_ms"],
+        chain_fold_device_ms=split["chain_fold"]["kernel_ms"])
     bytes_ = {"segment_fold": T * 16 + n_blocks * 8,
               "lpt_assign": n_blocks * 12 + n_real * 8 + 8}
-    flops = {"segment_fold": T, "lpt_assign": n_real * p}
+    # float64 adds: one a value folded, one a chain placed
+    flops = {"segment_fold": T, "lpt_assign": n_real}
     out = []
     for name in ("segment_fold", "lpt_assign"):
         entry = kernel_entry(name, launches=launches[name], err=0.0,
@@ -4009,6 +4047,7 @@ def phase_pipeline(sm_count):
                              peak=F64_FLOPS)
         if name == "lpt_assign":
             entry["latency_bound_ms"] = latency_ms
+            entry["rounds"] = rounds
         out.append(entry)
     return out
 

@@ -1638,55 +1638,108 @@ def test_device_pack_equals_numpy(cuda):
     assert torch.equal(tc.cpu(), torch.from_numpy(cols))
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_segment_fold_kernel_matches_plain(cuda, seed):
-    """One thread a run: the same bits as the plain fold and np.bincount,
-    runs of 0 to thousands of values, values across 16 decades, and
-    identical bits from two calls (no atomics)."""
-    from repro_torch.kernels.lpt import lpt as L
+def _fold_streams(seed):
+    """(values, ids, n_segments) streams for `segment_fold`: runs of 0 to
+    thousands of values across 16 decades, then runs around the kernel's
+    spans (a warp's 128 values, a CTA's 1,024): lengths 127 to 1,025 and
+    one from inside a span across many, with empty segments before the
+    first id, between runs and after the last id, and ids below 0 and at
+    or past n_segments (dropped)."""
     rng = np.random.default_rng(seed)
     runs = rng.integers(0, 12, 5000)
     runs[100] = 5000                     # one long run
     seg = np.repeat(np.arange(5000), runs)
-    values = rng.uniform(-1.0, 1.0, seg.size) * 10.0 ** rng.integers(
-        -8, 8, seg.size)
-    v, s = torch.from_numpy(values), torch.from_numpy(seg)
-    L.reset_launches()
-    got = L.segment_fold(v.to(cuda), s.to(cuda), 5003)
-    again = L.segment_fold(v.to(cuda), s.to(cuda), 5003)
-    torch.cuda.synchronize()
-    assert L.LAUNCHES["segment_fold"] == 2
-    assert torch.equal(got, again)
-    assert torch.equal(got.cpu(), L.segment_fold_plain(v, s, 5003))
-    np.testing.assert_array_equal(got.cpu().numpy(),
-                                  np.bincount(seg, weights=values,
-                                              minlength=5003))
+    yield seg, 5003
+    lengths = [127, 128, 129, 1, 1023, 1024, 1025, 3, 2500, 128]
+    ids = np.cumsum(rng.integers(1, 4, len(lengths))) + 4   # gaps, from 5
+    seg = np.repeat(ids, lengths)
+    yield seg, int(ids[-1]) + 9                              # empty tail
+    seg = np.concatenate([np.full(70, -3), np.repeat(ids, lengths),
+                          np.full(200, ids[-1] + 20)])
+    yield seg, int(ids[-1]) + 5                              # dropped ids
 
 
-@pytest.mark.parametrize("p", [1, 2, 31, 33, 132, 1000])
-def test_lpt_assign_kernel_matches_plain(cuda, p):
-    """Ties on every step (costs on a 0.1 grid, many equal), phantom
-    chains past n_real, p below, at and above one warp's 32 lanes."""
-    import heapq
+@pytest.mark.parametrize("seed", range(3))
+def test_segment_fold_kernel_matches_plain(cuda, seed):
+    """Runs folded by the thread at their head and, past a span, by the
+    whole warp: the same bits as the plain fold and np.bincount, with the
+    empty segments' zeros written by the kernel, and identical bits from
+    two calls (no atomics)."""
     from repro_torch.kernels.lpt import lpt as L
+    rng = np.random.default_rng(seed)
+    for seg, n_seg in _fold_streams(seed):
+        values = rng.uniform(-1.0, 1.0, seg.size) * 10.0 ** rng.integers(
+            -8, 8, seg.size)
+        v, s = torch.from_numpy(values), torch.from_numpy(seg)
+        L.reset_launches()
+        got = L.segment_fold(v.to(cuda), s.to(cuda), n_seg)
+        again = L.segment_fold(v.to(cuda), s.to(cuda), n_seg)
+        torch.cuda.synchronize()
+        assert L.LAUNCHES["segment_fold"] == 2
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(), L.segment_fold_plain(v, s, n_seg))
+        keep = (seg >= 0) & (seg < n_seg)
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), np.bincount(seg[keep], weights=values[keep],
+                                           minlength=n_seg))
+
+
+def _lpt_cases(p):
+    """(name, cost, order, n_real) inputs for `lpt_assign` at p workers."""
     rng = np.random.default_rng(p)
     n, n_real = 3000, 2600
     cost = np.zeros(n)
     cost[:n_real] = np.round(rng.uniform(0.0, 4.0, n_real), 1)
-    order = np.argsort(-cost + 0.0, kind="stable")
-    args = (torch.from_numpy(cost), torch.from_numpy(order),
-            torch.tensor([n_real]))
-    L.reset_launches()
-    got = L.lpt_assign(*(a.to(cuda) for a in args), p)
-    torch.cuda.synchronize()
-    assert L.LAUNCHES["lpt_assign"] == 1
-    assert torch.equal(got.cpu(), L.lpt_assign_plain(*args, p))
-    heap, want = [(0.0, w) for w in range(p)], np.full(n, -1, np.int32)
-    for c in order[order < n_real]:
-        load, w = heapq.heappop(heap)
-        want[c] = w
-        heapq.heappush(heap, (load + cost[c], w))
-    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    yield "sorted", cost, np.argsort(-cost + 0.0, kind="stable"), n_real
+    yield "unsorted", cost, np.concatenate(
+        [rng.permutation(n_real), np.arange(n_real, n)]), n_real
+    yield "phantoms-interleaved", cost, rng.permutation(n), n_real
+    mid = cost.copy()
+    order = np.argsort(-mid + 0.0, kind="stable")
+    mid[order[1000:1400]] = 0.0          # a zero-cost run in the middle
+    mid[order[1400]] = -0.0
+    yield "zero-run-middle", mid, order, n_real
+    if p == 2:                           # one chain a round, then pairs
+        half = 2.0 ** -np.arange(1500.0)
+        yield "halving", half, np.arange(1500), 1500
+    if p == 132:                         # wikipedia-like chain costs
+        zipf = np.minimum(rng.zipf(1.5, 50_000), 250) * rng.integers(
+            463, 1610, 50_000).astype(np.float64)
+        yield "zipf", zipf, np.argsort(-zipf + 0.0, kind="stable"), 50_000
+    if p > 1024:                         # a round sees 1,024 of p workers
+        many = np.round(rng.uniform(0.0, 4.0, 3 * p), 1)
+        yield "windowed", many, np.argsort(-many + 0.0, kind="stable"), 3 * p
+        yield "windowed-unsorted", many, rng.permutation(3 * p), 3 * p
+
+
+@pytest.mark.parametrize("p", [1, 2, 31, 33, 132, 1000, 1025, 4096])
+def test_lpt_assign_kernel_matches_plain(cuda, p):
+    """Ties on every step (costs on a 0.1 grid, many equal), phantom
+    chains past n_real and interleaved, an unsorted order, a zero-cost
+    run in the middle, p below, at and above one warp's 32 lanes, and
+    past the round window (1,025 and MAX_WORKERS: the 1,024-thread CTA
+    holds more keys than threads): the kernel's rounds give the plain
+    version's and heapq's workers, the same bits twice, in the rounds the
+    numpy mirror counts."""
+    from _lpt_rounds import heapq_lpt, round_lpt
+    from repro_torch.kernels.lpt import lpt as L
+    assert p <= L.MAX_WORKERS
+    for name, cost, order, n_real in _lpt_cases(p):
+        args = (torch.from_numpy(cost), torch.from_numpy(order),
+                torch.tensor([n_real]))
+        L.reset_launches()
+        got = L.lpt_assign(*(a.to(cuda) for a in args), p)
+        rounds = int(L.LAST_ROUNDS)
+        again = L.lpt_assign(*(a.to(cuda) for a in args), p)
+        torch.cuda.synchronize()
+        assert L.LAUNCHES["lpt_assign"] == 2, name
+        assert torch.equal(got, again), name
+        want, want_rounds = round_lpt(cost, order, n_real, p)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      heapq_lpt(cost, order, n_real, p))
+        np.testing.assert_array_equal(want, got.cpu().numpy())
+        assert rounds == want_rounds, (name, rounds, want_rounds)
+        assert torch.equal(got.cpu(), L.lpt_assign_plain(*args, p)), name
 
 
 def test_lpt_kernels_refuse_what_they_do_not_take(cuda):

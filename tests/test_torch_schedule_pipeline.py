@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from _hypothesis_compat import given, settings, st
+from _lpt_rounds import ROUND_WINDOW, round_lpt
 
 from repro.core import tiling as T
 from repro.core import workloads as WL
@@ -393,7 +394,92 @@ def test_lpt_assign_plain_matches_heapq(p):
                        torch.tensor([n_real]), p)
     _eq(got, _heapq_lpt(cost, order, n_real, p))
     assert (got[n_real:] == -1).all()
+    # phantom ids interleaved with the real ones, anywhere in `order`
+    mixed = rng.permutation(n)
+    got = L.lpt_assign(torch.from_numpy(cost), torch.from_numpy(mixed),
+                       torch.tensor([n_real]), p)
+    _eq(got, _heapq_lpt(cost, mixed, n_real, p))
+    assert (got[n_real:] == -1).all()
     assert L.LAUNCHES["lpt_assign"] == 0
+
+
+def _round_rule_case(n, n_real, seed, *, zeros, negative, sort):
+    """Costs on a 0.1 grid (many ties), a share of 0.0 and -0.0, and
+    negative costs when asked (sorted heaviest first, zeros then stand in
+    the middle); the order sorted or shuffled, with a zero-cost run placed
+    inside it; phantom ids (>= n_real) wherever the order puts them."""
+    rng = np.random.default_rng(seed)
+    cost = np.round(rng.uniform(-1.0 if negative else 0.0, 4.0, n), 1)
+    cost[rng.random(n) < zeros] = 0.0
+    cost[rng.random(n) < 0.05] = -0.0
+    if sort:
+        order = np.argsort(-cost + 0.0, kind="stable")
+    else:
+        order = rng.permutation(n)
+        at = int(rng.integers(0, n + 1))
+        cost[order[at:at + int(rng.integers(0, 60))]] = 0.0
+    return cost, order, n_real
+
+
+@settings(max_examples=40, deadline=None)
+@given(p=st.integers(1, L.MAX_WORKERS), n=st.integers(0, 3000),
+       real=st.floats(0.0, 1.0), seed=st.integers(0, 2 ** 32 - 1),
+       zeros=st.sampled_from([0.0, 0.2, 0.9]), negative=st.booleans(),
+       sort=st.booleans())
+def test_round_rule_matches_heapq(p, n, real, seed, zeros, negative, sort):
+    """The mirror of `lpt_assign`'s rounds (tests/_lpt_rounds.py) gives
+    heapq's assignment, in at least one round per min(p, ROUND_WINDOW)
+    real chains and at most one round per chain."""
+    cost, order, n_real = _round_rule_case(
+        n, int(real * n), seed, zeros=zeros, negative=negative, sort=sort)
+    got, rounds = round_lpt(cost, order, n_real, p)
+    np.testing.assert_array_equal(got, _heapq_lpt(cost, order, n_real, p))
+    assert -(-n_real // min(p, ROUND_WINDOW)) <= rounds <= n_real
+
+
+@pytest.mark.parametrize("case, p, n, want", [
+    ("equal", 132, 5000, 38),      # every round places min(p, left) chains
+    ("zeros", 132, 5000, 38),      # one run that leaves the load a round
+    ("zeros", 2000, 5000, 5),      # ... at most ROUND_WINDOW chains a round
+    ("equal", 2000, 5000, 5),      # p > ROUND_WINDOW: full windows
+    ("one-worker", 1, 300, 300),   # p = 1: one chain a round
+    ("halving", 2, 1000, 526),     # costs 2^-i: one a round, then pairs
+                                   # once 2^-i no longer moves the load
+])
+def test_round_rule_round_counts(case, p, n, want):
+    cost = {"equal": np.full(n, 3.0), "zeros": np.zeros(n),
+            "one-worker": np.arange(n, 0, -1.0),
+            "halving": 2.0 ** -np.arange(n)}[case]
+    order = np.argsort(-cost + 0.0, kind="stable")
+    got, rounds = round_lpt(cost, order, n, p)
+    np.testing.assert_array_equal(got, _heapq_lpt(cost, order, n, p))
+    assert rounds == want
+
+
+def test_round_rule_at_wikipedia():
+    """wikipedia's chains (the paper's matrix at its published 3,566,907
+    rows; the construction of chip_smoke.py's schedule pipeline phase) at
+    p = 132: the mirror equals the reference's partition_tiles in 430
+    rounds, the count `lpt_assign` reports on the card."""
+    from repro_torch.core.tiling import block_chains
+    from repro_torch.core.workloads import TABLE1, matrix_row_nnz
+    from repro_torch.sched import NnzCosts
+    spec = next(m for m in TABLE1 if m.name == "wikipedia")
+    row_nnz = matrix_row_nnz(spec, n=3_566_907, seed=0).astype(np.int64)
+    indptr = np.concatenate([[0], np.cumsum(row_nnz)])
+    s = LoopScheduler(p=132, device=CPU).schedule(NnzCosts(indptr))
+    B, tc = s.superstep, s.tile_cost()
+    chain = block_chains(s.item_id, B)
+    bcost = np.bincount(np.arange(tc.size) // B, weights=tc,
+                        minlength=chain.size)
+    ccost = np.bincount(chain, weights=bcost, minlength=chain.size)
+    order = np.argsort(-ccost + 0.0, kind="stable")
+    n_real = int(chain[-1]) + 1
+    got, rounds = round_lpt(ccost, order, n_real, 132)
+    worker = np.repeat(got[chain], B)[:tc.size]
+    np.testing.assert_array_equal(
+        worker, T.partition_tiles(tc, s.item_id, 132, block=B))
+    assert (n_real, rounds) == (55_856, 430)
 
 
 # ------------------------------------------ backend seam cache generations
