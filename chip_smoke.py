@@ -96,7 +96,16 @@ launch counters set to 0 just before it and read just after:
   forward's log-sum-exp against torch.logsumexp, and the serving shapes'
   bits unchanged when the log-sum-exp is written; one float32 step at 2
   layers on the card against the CPU; `train()` with a failure after step
-  2 and a resume whose losses equal an uninterrupted run's.
+  2 and a resume whose losses equal an uninterrupted run's;
+* phi-3-vision-4.2b and whisper-small training at full width and depth
+  (the same path, 6 bfloat16 steps each: 4 x (576 patch rows + 1,472
+  tokens), 32 flash forward launches twice and 32 backward launches a
+  step; 4 x (1,500 frame rows + 448 tokens), 36 and 36: 12 encoder, 12
+  self, 12 cross), held to the same bars with the launches by kind; the
+  flash backward kernel at the four shapes these steps give it (dh 96
+  causal at 2,048; dh 64 non-causal over 1,500 ragged keys, 448 queries
+  against 1,500 keys, causal at 448) against its plain version per block
+  of 64 rows; one float32 step of each at 2 layers against the CPU.
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -153,8 +162,10 @@ offset at qwen2-1.5b's and olmoe-1b-7b's extend shapes, at
 whisper-small's encoder and cross-attention shapes and at phi-3-vision's
 prefill and extend shapes (dh 96), and the expert
 kernel twice, at the dispatch phase's shape and at olmoe-1b-7b's serving
-shape; the flash backward kernel beside the backward of
-`scaled_dot_product_attention`), and prints one JSON line per result.
+shape; the flash backward kernel five times, at qwen2-1.5b's,
+phi-3-vision's and whisper-small's three training shapes, beside the
+backward of `scaled_dot_product_attention`), and prints one JSON line
+per result.
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs CUDA and the repository's `src/` beside it.
 
@@ -245,9 +256,25 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
         "src/repro_torch/csrc/flash_attention.cu",
         PASS + "flash_attention/flash_attention.py:95"),
     # the flash kernel's gradient replaces XLA's automatic derivative of the
-    # reference's attention in its training loss, not a Pallas kernel
+    # reference's attention in its training loss, not a Pallas kernel:
+    # `blockwise_attention` (:84) from 1,024 tokens on, `full_attention`
+    # (:151) below; at qwen2-1.5b's training shape, then at phi-3-vision's
+    # (dh 96) and at whisper-small's encoder (non-causal, ragged keys),
+    # cross-attention (448 queries, 1,500 keys) and decoder (448, causal)
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/models/attention.py:84"),
+    "flash_attention_bwd_vlm": (
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:84"),
+    "flash_attention_bwd_whisper_encoder": (
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:84"),
+    "flash_attention_bwd_whisper_cross": (
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:151"),
+    "flash_attention_bwd_whisper_self": (
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:151"),
     # the schedule pipeline's two kernels replace XLA code of the reference's
     # jitted pipeline, not a Pallas kernel: its segment sum and LPT loop
     "segment_fold": ("src/repro_torch/csrc/lpt.cu",
@@ -352,6 +379,18 @@ LSE_TOL = 1e-5       # the forward's log-sum-exp against torch.logsumexp
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
 UPDATE_RTOL = 1e-6
 RESUME_TOL = 1e-5    # resumed losses against an uninterrupted run's
+# training the vlm and encdec families (ROADMAP.md queue 1 item 5(c)) at
+# full width and depth, qwen2-1.5b's TrainConfig (bfloat16, float32
+# parameters, no microbatch; phi-3-vision's config asks for a microbatch
+# of 4, whose accumulation would hold ~30 GB more), remat on, TRAIN_VE_STEPS
+# steps each: phi-3-vision-4.2b on 4 x (576 patch rows + 1,472 tokens),
+# the 2,048 positions of its serving run; whisper-small on 4 x (1,500
+# frame rows + 448 tokens), its decoder's text context. Tokens and labels
+# from `data.pipeline.Pipeline`, patches and frames standard normal from
+# numpy. Float32 parity with the CPU at TRAIN_CUT_LAYERS layers (and as
+# many encoder layers), TRAIN_CUT_BATCH x TRAIN_CUT_SEQ tokens with all
+# 576 patch rows or 1,500 frame rows.
+TRAIN_VE_STEPS = 6
 
 
 def log(**kw) -> None:
@@ -2915,23 +2954,26 @@ def flash_shape_record(q, k, v, *, causal: bool) -> dict:
             **_rates(flops, ms)}
 
 
-def flash_calls_by_shape():
-    """Replace `models.attention.flash_attention` by a shim that tallies
+def flash_calls_by_shape(module=None, name: str = "flash_attention"):
+    """Replace `module.<name>` (default `models.attention.flash_attention`;
+    `flash_attention_bwd.flash_attention_backward` for the backward, which
+    the gradient Function looks up at each call) by a shim that tallies
     each call by (q shape, k shape, causal) in the returned dict and calls
     the wrapper; `restore()` puts the wrapper back. The wrapper's own
     launch counter is untouched: the tally only attributes its launches to
     the encoder's, the decoder's self- and its cross-attention calls."""
-    from repro_torch.models import attention as A
-    inner, calls = A.flash_attention, {}
+    if module is None:
+        from repro_torch.models import attention as module
+    inner, calls = getattr(module, name), {}
 
-    def tally(q, k, v, **kw):
+    def tally(q, k, *args, **kw):
         key = (tuple(q.shape), tuple(k.shape), bool(kw.get("causal", True)))
         calls[key] = calls.get(key, 0) + 1
-        return inner(q, k, v, **kw)
+        return inner(q, k, *args, **kw)
 
     def restore():
-        A.flash_attention = inner
-    A.flash_attention = tally
+        setattr(module, name, inner)
+    setattr(module, name, tally)
     return calls, restore
 
 
@@ -3239,29 +3281,49 @@ def phase_vlm():
                 ("flash_attention_vlm_offset", text_launches, offset))]
 
 
-def flash_backward_record(q, k, v, g) -> dict:
-    """The backward kernel at one shape, causal from position 0: the
-    forward's log-sum-exp against torch.logsumexp within LSE_TOL; dq, dk,
-    dv against `flash_attention_backward_plain` within BWD_TOL of max
-    |plain|; two calls the same bits; timed beside the plain version and
+def _kept_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """The (query, key) pairs a mask from position 0 keeps: query i keeps
+    keys 0..min(i, Skv - 1) when causal, all Skv keys when not."""
+    if not causal:
+        return Sq * Skv
+    n = min(Sq, Skv)
+    return n * (n + 1) // 2 + (Sq - n) * Skv
+
+
+def flash_backward_record(q, k, v, g, *, causal: bool = True) -> dict:
+    """The backward kernel at one shape from position 0, causal or not (q
+    (B, Sq, Hq, dh), k, v (B, Skv, Hkv, dh)): the forward's log-sum-exp
+    against torch.logsumexp within LSE_TOL; dq, dk, dv against
+    `flash_attention_backward_plain` within BWD_TOL of max |plain|; two
+    calls the same bits; timed beside the plain version and
     scaled_dot_product_attention's backward (`torch.autograd.grad` through
-    SDPA `is_causal` with GQA, its forward outside the timing), with its
-    operations (10 dh flops a kept pair: S recomputed, dP, dV, dK, dQ) and
-    bytes (q, k, v, out, dout, lse read once, dq, dk, dv written once)."""
+    SDPA, `is_causal` or no mask, with GQA, its forward outside the
+    timing), with its operations (10 dh flops a kept pair: S recomputed,
+    dP, dV, dK, dQ) and bytes (q, k, v, out, dout, lse read once, dq, dk,
+    dv written once)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as KF
     from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
-    B, S, Hq, dh = q.shape
-    Hkv = k.shape[2]
+    B, Sq, Hq, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     name = str(q.dtype).replace("torch.", "")
-    label = f"flash backward {name} q {tuple(q.shape)} k {tuple(k.shape)}"
-    out, lse = KF.flash_attention_lse(q, k, v, causal=True)
-    _, plain_lse = KF.flash_attention_lse_plain(q, k, v, causal=True)
+    label = (f"flash backward {name} q {tuple(q.shape)} k {tuple(k.shape)} "
+             f"causal={causal}")
+    out, lse = KF.flash_attention_lse(q, k, v, causal=causal)
+    _, plain_lse = KF.flash_attention_lse_plain(q, k, v, causal=causal)
     lse_err = float((lse - plain_lse).abs().max())
     check(lse_err <= LSE_TOL, f"{label}: lse within {LSE_TOL} of logsumexp")
     dout = g.to(q.dtype)
-    grads = KB.flash_attention_backward(q, k, v, out, dout, lse)
-    plain = KB.flash_attention_backward_plain(q, k, v, out, dout, lse)
+
+    def kernel():
+        return KB.flash_attention_backward(q, k, v, out, dout, lse,
+                                           causal=causal)
+
+    def plain_version():
+        return KB.flash_attention_backward_plain(q, k, v, out, dout, lse,
+                                                 causal=causal)
+    grads = kernel()
+    plain = plain_version()
     torch.cuda.synchronize()
     errs = {n: float((a.float() - b.float()).abs().max())
             for n, a, b in zip(("dq", "dk", "dv"), grads, plain)}
@@ -3279,26 +3341,24 @@ def flash_backward_record(q, k, v, g) -> dict:
             check(share <= BWD_TOL[name],
                   f"{label}: {n} within {BWD_TOL[name]} of max |plain| in "
                   f"every block of {BWD_BLOCK} rows of each head")
-    again = KB.flash_attention_backward(q, k, v, out, dout, lse)
+    again = kernel()
     check(all(torch.equal(a, b) for a, b in zip(grads, again)),
           f"{label}: two calls give the same bits")
     del plain, again, plain_lse
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     ot = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv)
+        qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
     gt = dout.transpose(1, 2).contiguous()
     lib_grads = torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)
     lib_diff = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
                    for a, b in zip(lib_grads, grads))
     del lib_grads
-    ms = timed_ms(lambda: KB.flash_attention_backward(q, k, v, out, dout,
-                                                      lse))
-    plain_ms = timed_ms(lambda: KB.flash_attention_backward_plain(
-        q, k, v, out, dout, lse))
+    ms = timed_ms(kernel)
+    plain_ms = timed_ms(plain_version)
     lib_ms = timed_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), gt, retain_graph=True))
-    pairs = S * (S + 1) // 2
+    pairs = _kept_pairs(Sq, Skv, causal)
     flops = 10 * dh * pairs * B * Hq
     # q, out, dout, dq and k, v, dk, dv once each, and the float32 lse
     nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
@@ -3306,9 +3366,7 @@ def flash_backward_record(q, k, v, g) -> dict:
     # the three CUDA kernels of one call apart, each with the operations
     # it runs (S and dP recomputed in both tile kernels: 8 dh flops a pair
     # in dK/dV, 6 dh in dQ)
-    by_name = device_ms_by_kernel(
-        lambda: KB.flash_attention_backward(q, k, v, out, dout, lse),
-        expect=BWD_KERNELS)
+    by_name = device_ms_by_kernel(kernel, expect=BWD_KERNELS)
     split = {}
     for kern, per_pair in zip(BWD_KERNELS, (0, 8, 6)):
         kms = sum(t for n, t in by_name.items() if kern in n)
@@ -3318,7 +3376,7 @@ def flash_backward_record(q, k, v, g) -> dict:
                        else None}
     del ot, qt, kt, vt, gt, grads, out, lse
     return {"dtype": name, "shape": {"q": list(q.shape), "kv": list(k.shape)},
-            "lse_max_abs_err": lse_err, "max_abs_err": max(errs.values()),
+            "causal": causal, "lse_max_abs_err": lse_err, "max_abs_err": max(errs.values()),
             "max_abs_err_by_grad": errs, "max_abs_plain": scale,
             "worst_block_share": block_share,
             "sdpa_max_abs_diff": lib_diff, "ms": ms, "plain_ms": plain_ms,
@@ -3331,14 +3389,16 @@ def flash_backward_record(q, k, v, g) -> dict:
 def _block_share(a, b) -> float:
     """The largest max |a - b| of a block of BWD_BLOCK rows (dim 1) of one
     (batch, head) of (B, S, H, dh) tensors, as a share of that block's
-    max |b| (a block whose b is all zero must match exactly)."""
+    max |b| (a block whose b is all zero must match exactly). A ragged
+    last block holds the rows that are left (zeros pad it)."""
     import torch
     B, S, H, dh = b.shape
-    check(S % BWD_BLOCK == 0, f"{S} rows in blocks of {BWD_BLOCK}")
+    n = -(-S // BWD_BLOCK)
 
     def block_max(t):
-        return t.abs().reshape(B, S // BWD_BLOCK, BWD_BLOCK, H, dh).amax(
-            dim=(2, 4))
+        t = torch.nn.functional.pad(t.abs(), (0, 0, 0, 0, 0,
+                                              n * BWD_BLOCK - S))
+        return t.reshape(B, n, BWD_BLOCK, H, dh).amax(dim=(2, 4))
     diff = block_max(a.float() - b.float())
     ref = block_max(b.float())
     share = torch.where(ref > 0, diff / ref, torch.where(
@@ -3439,12 +3499,34 @@ def remat_dots_step(cfg, tcfg, state, batch) -> dict:
     return {**rec, "grad_norm_rel_diff": rel}
 
 
-def train_parity(cfg) -> dict:
-    """One float32 step of qwen2-1.5b at full width cut to
-    TRAIN_CUT_LAYERS layers on the card (the kernels) and on the CPU (the
-    plain versions) from the same state and batch: every gradient leaf,
-    the step's loss and grad norm, and the AdamW update given identical
-    gradients, within the stated tolerances."""
+def attention_calls(cfg) -> int:
+    """Flash calls of one training forward: one a layer; for encdec each
+    encoder layer's, and each decoder layer's self- and cross-attention."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def family_inputs(cfg, batch: int, rows: int, rng) -> dict:
+    """The family's own inputs, float32 standard normal from numpy `rng`
+    (shaped as `repro/launch/specs.py:19-25` gives them): "patches"
+    (batch, rows, d) for a vlm, "frames" (batch, rows, d) for encdec;
+    none for other families or rows 0."""
+    key = {"vlm": "patches", "encdec": "frames"}.get(cfg.family)
+    if key is None or not rows:
+        return {}
+    return {key: rng.standard_normal((batch, rows, cfg.d_model),
+                                     dtype=np.float32)}
+
+
+def train_parity(cfg, *, rows: int = 0, max_seq: int = 0) -> dict:
+    """One float32 step of `cfg` at full width cut to TRAIN_CUT_LAYERS
+    layers (an encoder too) on the card (the kernels) and on the CPU (the
+    plain versions) from the same state and batch (TRAIN_CUT_BATCH x
+    TRAIN_CUT_SEQ tokens, and `rows` patch or frame rows for a vlm or
+    encdec; `max_seq` sizes a learned position table): every gradient
+    leaf, the step's loss and grad norm, and the AdamW update given
+    identical gradients, within the stated tolerances."""
     import copy
     import dataclasses
     import torch
@@ -3453,14 +3535,21 @@ def train_parity(cfg) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as TS
-    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    over = {"n_layers": TRAIN_CUT_LAYERS}
+    if cfg.family == "encdec":
+        over["encoder_layers"] = TRAIN_CUT_LAYERS
+    cut = dataclasses.replace(cfg, **over)
     tcfg = TS.TrainConfig(dtype=torch.float32, opt=adamw.AdamWConfig(
         warmup_steps=2, total_steps=TRAIN_STEPS))
-    cpu = TS.init_train_state(cut, SEED + 20, tcfg=tcfg, device="cpu")
-    card = TS.init_train_state(cut, SEED + 21, tcfg=tcfg, device="cuda")
+    cpu = TS.init_train_state(cut, SEED + 20, max_seq=max_seq, tcfg=tcfg,
+                              device="cpu")
+    card = TS.init_train_state(cut, SEED + 21, max_seq=max_seq, tcfg=tcfg,
+                               device="cuda")
     _copy_state(cpu, card)
     batch = synthetic_tokens(TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, cut.padded_vocab,
                              0, SEED)
+    batch.update(family_inputs(cut, TRAIN_CUT_BATCH, rows,
+                               np.random.default_rng(SEED + 22)))
     b_cpu = {k_: torch.from_numpy(v_) for k_, v_ in batch.items()}
     b_card = {k_: v_.cuda() for k_, v_ in b_cpu.items()}
 
@@ -3481,7 +3570,8 @@ def train_parity(cfg) -> dict:
 
     # the update given identical gradients (the CPU's on both sides)
     upd_cpu = copy.deepcopy(cpu)
-    upd_card = TS.init_train_state(cut, SEED + 21, tcfg=tcfg, device="cuda")
+    upd_card = TS.init_train_state(cut, SEED + 21, max_seq=max_seq,
+                                   tcfg=tcfg, device="cuda")
     _copy_state(cpu, upd_card)
     p_cpu = dict(upd_cpu["params"].named_parameters())
     p_card = dict(upd_card["params"].named_parameters())
@@ -3530,13 +3620,15 @@ def train_parity(cfg) -> dict:
           f"train parity: loss within {TRAIN_LOSS_RTOL} of the CPU's")
     check(abs(gnorm[0] - gnorm[1]) <= TRAIN_GNORM_RTOL * abs(gnorm[1]),
           f"train parity: grad norm within {TRAIN_GNORM_RTOL} of the CPU's")
-    per_layer = 2 if cut.remat else 1   # remat reruns each forward
-    check(launches == {"flash_attention": per_layer * TRAIN_CUT_LAYERS,
-                       "flash_attention_bwd": TRAIN_CUT_LAYERS},
-          f"train parity: {per_layer} flash forward and 1 backward launch "
-          f"a layer on the card")
-    return {"layers": TRAIN_CUT_LAYERS, "batch": TRAIN_CUT_BATCH,
-            "seq": TRAIN_CUT_SEQ, "loss_card_cpu": loss,
+    per_call = 2 if cut.remat else 1    # remat reruns each forward
+    n_attn = attention_calls(cut)
+    check(launches == {"flash_attention": per_call * n_attn,
+                       "flash_attention_bwd": n_attn},
+          f"train parity: {per_call} flash forward and 1 backward launch "
+          f"an attention call ({n_attn}) on the card")
+    return {"arch": cfg.name, "layers": TRAIN_CUT_LAYERS,
+            "encoder_layers": cut.encoder_layers, "batch": TRAIN_CUT_BATCH,
+            "seq": TRAIN_CUT_SEQ, "rows": rows, "loss_card_cpu": loss,
             "grad_norm_card_cpu": gnorm, "lr": lr,
             "grad_worst_share": max(grad_share.values()),
             "grad_share_by_leaf": grad_share,
@@ -3621,30 +3713,23 @@ def phase_train():
     128), k, v (4, 2,048, 2, 128), causal), float32 and bfloat16, against
     its plain version (`flash_backward_record`), and the serving shapes of
     rows 8b and 8g giving the same bits with and without the log-sum-exp.
-    (2) The counted main path: qwen2-1.5b at full width and depth (1.544 B
-    float32 parameters, remat on), `init_train_state` ->
-    `make_train_step` -> TRAIN_STEPS steps of `data.pipeline.Pipeline`
-    batches of 4 x 2,048 tokens in bfloat16; bars: finite losses, the last
-    below the first, finite non-zero grad norms, 2 x 28 flash forward
-    launches (remat reruns each layer's forward) and 28 backward launches
-    a step; logged: step wall ms, tokens/s, peak memory, where a step's
-    device time goes (products, flash forward, flash backward, other) and
-    the idle share; then one step under remat_policy "dots" beside one
-    under "nothing" from the same state and batch (`remat_dots_step`).
+    (2) The counted main path (`train_model`): qwen2-1.5b at full width
+    and depth (1.544 B float32 parameters, remat on), TRAIN_STEPS bfloat16
+    steps of 4 x 2,048 tokens; bars: finite losses, the last below the
+    first, finite non-zero grad norms, 2 x 28 flash forward launches
+    (remat reruns each layer's forward) and 28 backward launches a step;
+    logged: step wall ms, tokens/s, peak memory, where a step's device
+    time goes (products, flash forward, flash backward, other) and the
+    idle share; then one step under remat_policy "dots" beside one under
+    "nothing" from the same state and batch (`remat_dots_step`).
     (3) Float32 parity with the CPU at 2 layers (`train_parity`). (4)
     `train()`'s failure and resume (`train_resume`).
     """
-    import dataclasses
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import Pipeline
-    from repro_torch.kernels.flash_attention import flash_attention as KF
-    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
-    from repro_torch.optim import adamw
-    from repro_torch.train import train_step as TS
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 as float32
     cfg = get_arch(TRAIN_ARCH)
-    B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    B, S = TRAIN_BATCH, TRAIN_SEQ
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 30)
 
@@ -3668,68 +3753,10 @@ def phase_train():
     torch.cuda.empty_cache()
 
     # ---- (2) full width and depth, bfloat16, counted ----
-    tcfg = TS.TrainConfig(opt=adamw.AdamWConfig(warmup_steps=2,
-                                                total_steps=TRAIN_STEPS))
-    t0 = time.perf_counter()
-    state = TS.init_train_state(cfg, SEED, max_seq=S, tcfg=tcfg,
-                                device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in state["params"].parameters())
-    log(phase="train_setup", arch=cfg.name, layers=L, d_model=cfg.d_model,
-        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, dh=cfg.dh,
-        d_ff=cfg.d_ff, vocab=cfg.padded_vocab, params=n_params,
-        remat=cfg.remat, batch=B, seq=S, steps=TRAIN_STEPS,
-        train_config={"dtype": str(tcfg.dtype), "microbatch": tcfg.microbatch,
-                      "grad_compress": tcfg.grad_compress,
-                      "bf16_params": tcfg.bf16_params,
-                      "cast_params_once": tcfg.cast_params_once,
-                      "opt": dataclasses.asdict(tcfg.opt)},
-        init_s=time.perf_counter() - t0)
-    step = TS.make_train_step(cfg, tcfg)
-    pipe = Pipeline(cfg, B, S, seed=SEED, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    KF.reset_launches()
-    KB.reset_launches()
-    steps = []
-    for t in range(TRAIN_STEPS):
-        batch_np, ingest = pipe.get_batch(t)
-        f0, b0 = KF.LAUNCHES["flash_attention"], \
-            KB.LAUNCHES["flash_attention_bwd"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batch = {k_: torch.from_numpy(v_).cuda()
-                 for k_, v_ in batch_np.items()}
-        state, m = step(state, batch)
-        loss = float(m["loss"])
-        torch.cuda.synchronize()
-        steps.append({"step": t, "loss": loss,
-                      "grad_norm": float(m["grad_norm"]),
-                      "lr": float(m["lr"]), "n_tokens": int(m["n_tokens"]),
-                      "wall_ms": (time.perf_counter() - t0) * 1e3,
-                      "flash_forward": KF.LAUNCHES["flash_attention"] - f0,
-                      "flash_backward": KB.LAUNCHES["flash_attention_bwd"]
-                      - b0, "ingest_steals": ingest.steals})
-    pipe.close()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
-                "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"]}
-    losses = [s_["loss"] for s_ in steps]
-    wall = float(np.median([s_["wall_ms"] for s_ in steps[1:]]))
-    log(phase="train_main_path", steps=steps, launches=launches,
-        step_wall_ms=wall, tokens_per_s=B * S / (wall * 1e-3),
-        peak_gb=peak_gb)
-    check(all(np.isfinite(losses)), "train: finite losses")
-    check(losses[-1] < losses[0], f"train: the loss at step {TRAIN_STEPS} "
-                                  f"below step 1's")
-    check(all(np.isfinite(s_["grad_norm"]) and s_["grad_norm"] > 0
-              for s_ in steps), "train: finite non-zero grad norms")
-    check(all(s_["flash_forward"] == 2 * L and s_["flash_backward"] == L
-              for s_ in steps),
-          f"train: {2 * L} flash forward and {L} backward launches a step")
-    _split_log("train_step_split", lambda: step(state, batch), wall,
-               expect=("flash_bwd_",), top=12)
+    state, batch, tcfg, by_kind = train_model(
+        cfg, label="train", batch=B, seq=S, n_steps=TRAIN_STEPS, max_seq=S)
     log(phase="train_remat_dots", **remat_dots_step(cfg, tcfg, state, batch))
-    del state, step, batch
+    del state, batch
     torch.cuda.empty_cache()
 
     # ---- (3) float32 parity with the CPU, (4) train()'s resume ----
@@ -3738,12 +3765,249 @@ def phase_train():
     log(phase="train_resume", **train_resume(cfg))
     torch.cuda.empty_cache()
     rec = records["bfloat16"]       # the main path's type
-    return [kernel_entry("flash_attention_bwd",
-                         launches=launches["flash_attention_bwd"],
+    return [kernel_entry("flash_attention_bwd", launches=by_kind["self"],
                          err=rec["max_abs_err"], ms=rec["ms"],
                          plain_ms=rec["plain_ms"],
                          library_ms=rec["library_ms"], bytes_=rec["bytes"],
                          flops=rec["flops"], peak=BWD_PEAK["bfloat16"])]
+
+
+def train_kinds(cfg, batch: int, seq: int, rows: int) -> dict:
+    """The flash calls of a training step by kind: {kind: ((q shape, k
+    shape, causal), calls a forward)}. A vlm: its layers' causal
+    self-attention over rows + seq positions; whisper: its encoder's
+    non-causal self-attention over the rows, its decoder's causal
+    self-attention and its cross-attention against the rows."""
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    if cfg.family != "encdec":
+        n = rows + seq
+        return {"self": (((batch, n, H, dh), (batch, n, Hkv, dh), True),
+                         cfg.n_layers)}
+    enc, dec = (batch, rows, H, dh), (batch, seq, H, dh)
+    kv_enc, kv_dec = (batch, rows, Hkv, dh), (batch, seq, Hkv, dh)
+    return {"encoder": ((enc, kv_enc, False), cfg.encoder_layers),
+            "self": ((dec, kv_dec, True), cfg.n_layers),
+            "cross": ((dec, kv_enc, False), cfg.n_layers)}
+
+
+def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
+                rows: int = 0, max_seq: int = 0):
+    """The counted main path of one model's training at full width and
+    depth: `init_train_state` (from an emptied card) -> `make_train_step`
+    -> `n_steps` bfloat16 steps of `Pipeline` batches of batch x seq tokens
+    with the family's `rows` patch or frame rows (`family_inputs`), remat
+    on, TrainConfig's defaults (no microbatch). Bars: finite losses, the
+    last below the first; finite non-zero grad norms; 2 flash forward
+    launches (remat reruns each) and 1 backward launch an attention call
+    a step, by kind (`train_kinds`, tallied by shape). Logged as
+    `<label>_setup`, `<label>_main_path` (steps, step wall ms, tokens/s,
+    positions/s, peak GB), `<label>_step_split` (`_split_log`) and
+    `<label>_step_parts` (`step_parts`).
+    Returns (the state, the last batch, the TrainConfig, the backward
+    launches of the counted steps by kind); the caller frees the state."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    tcfg = TS.TrainConfig(opt=adamw.AdamWConfig(warmup_steps=2,
+                                                total_steps=n_steps))
+    t0 = time.perf_counter()
+    state = TS.init_train_state(cfg, SEED, max_seq=max_seq, tcfg=tcfg,
+                                device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    log(phase=f"{label}_setup", arch=cfg.name, family=cfg.family,
+        layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        dh=cfg.dh, d_ff=cfg.d_ff, vocab=cfg.padded_vocab, params=n_params,
+        remat=cfg.remat, remat_policy=cfg.remat_policy, batch=batch,
+        seq=seq, rows=rows, max_seq=max_seq, steps=n_steps,
+        train_config={"dtype": str(tcfg.dtype), "microbatch": tcfg.microbatch,
+                      "grad_compress": tcfg.grad_compress,
+                      "bf16_params": tcfg.bf16_params,
+                      "cast_params_once": tcfg.cast_params_once,
+                      "opt": dataclasses.asdict(tcfg.opt)},
+        allocated_gb_before=start_gb, init_s=time.perf_counter() - t0)
+    check(start_gb < 2.0, f"{label}: starts on an emptied card")
+    step = TS.make_train_step(cfg, tcfg)
+    pipe = Pipeline(cfg, batch, seq, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 40)
+    kinds = train_kinds(cfg, batch, seq, rows)
+    n_attn = attention_calls(cfg)
+    check(sum(n for _, n in kinds.values()) == n_attn,
+          f"{label}: the kinds hold every attention call")
+    fwd, restore_fwd = flash_calls_by_shape()
+    bwd, restore_bwd = flash_calls_by_shape(KB, "flash_attention_backward")
+    torch.cuda.reset_peak_memory_stats()
+    KF.reset_launches()
+    KB.reset_launches()
+    steps = []
+    try:
+        for t in range(n_steps):
+            batch_np, ingest = pipe.get_batch(t)
+            batch_np = {**batch_np, **family_inputs(cfg, batch, rows, rng)}
+            f0, b0 = KF.LAUNCHES["flash_attention"], \
+                KB.LAUNCHES["flash_attention_bwd"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dev_batch = {k_: torch.from_numpy(v_).cuda()
+                         for k_, v_ in batch_np.items()}
+            state, m = step(state, dev_batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            steps.append({"step": t, "loss": loss,
+                          "grad_norm": float(m["grad_norm"]),
+                          "lr": float(m["lr"]),
+                          "n_tokens": int(m["n_tokens"]),
+                          "wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "flash_forward": KF.LAUNCHES["flash_attention"]
+                          - f0,
+                          "flash_backward": KB.LAUNCHES["flash_attention_bwd"]
+                          - b0, "ingest_steals": ingest.steals})
+    finally:
+        restore_fwd()
+        restore_bwd()
+        pipe.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
+                "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"]}
+    fwd_by_kind = {kind: fwd.get(key, 0) for kind, (key, _) in kinds.items()}
+    bwd_by_kind = {kind: bwd.get(key, 0) for kind, (key, _) in kinds.items()}
+    losses = [s_["loss"] for s_ in steps]
+    wall = float(np.median([s_["wall_ms"] for s_ in steps[1:]]))
+    log(phase=f"{label}_main_path", steps=steps, launches=launches,
+        flash_forward_by_kind=fwd_by_kind, flash_backward_by_kind=bwd_by_kind,
+        step_wall_ms=wall, tokens_per_s=batch * seq / (wall * 1e-3),
+        positions_per_s=batch * (rows + seq) / (wall * 1e-3),
+        peak_gb=peak_gb)
+    check(all(np.isfinite(losses)), f"{label}: finite losses")
+    check(losses[-1] < losses[0], f"{label}: the loss at step {n_steps} "
+                                  f"below step 1's")
+    check(all(np.isfinite(s_["grad_norm"]) and s_["grad_norm"] > 0
+              for s_ in steps), f"{label}: finite non-zero grad norms")
+    check(all(s_["flash_forward"] == 2 * n_attn
+              and s_["flash_backward"] == n_attn for s_ in steps),
+          f"{label}: {2 * n_attn} flash forward and {n_attn} backward "
+          f"launches a step")
+    want = {kind: n * n_steps for kind, (_, n) in kinds.items()}
+    check(bwd_by_kind == want and sum(bwd.values()) == launches[
+        "flash_attention_bwd"] and fwd_by_kind == {
+            kind: 2 * n for kind, n in want.items()}
+          and sum(fwd.values()) == launches["flash_attention"],
+          f"{label}: launches by kind, forward 2 x and backward 1 x {want}")
+    _split_log(f"{label}_step_split", lambda: step(state, dev_batch), wall,
+               expect=("flash_bwd_",), top=12)
+    log(phase=f"{label}_step_parts", **step_parts(cfg, tcfg, state,
+                                                  dev_batch))
+    return state, dev_batch, tcfg, bwd_by_kind
+
+
+def step_parts(cfg, tcfg, state, batch) -> dict:
+    """Where a step's wall goes, part by part: the loss with its gradient
+    (forward, the remat reruns, backward) and AdamW's update, each run
+    alone with a synchronize (median wall ms of 3) beside its device ms
+    (torch.profiler) and the share of its wall the card idles. The
+    update's runs change `state`."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    params = dict(state["params"].named_parameters())
+
+    def loss_and_grad():
+        loss, _ = M.loss_fn(cfg, state["params"], batch, dtype=tcfg.dtype)
+        return torch.autograd.grad(loss, list(params.values()))
+
+    def part(fn) -> dict:
+        wall = _wall_ms(fn, reps=3)
+        device = sum(device_ms_by_kernel(fn).values())
+        return {"wall_ms": wall, "device_ms": device,
+                "idle_share": 1.0 - device / wall}
+    rec = {"loss_and_grad": part(loss_and_grad)}
+    grads = dict(zip(params, loss_and_grad()))
+    rec["update"] = part(lambda: adamw.apply_updates(
+        params, grads, state["opt"], tcfg.opt))
+    rec["update_tensors"] = len(grads)
+    del grads
+    return rec
+
+
+def phase_train_vlm_encdec():
+    """Training the vlm and encdec families (ROADMAP.md queue 1 item
+    5(c)). (1) The flash backward kernel in bfloat16 at the four shapes
+    the two models' steps give it (`flash_backward_record`): phi-3-vision's
+    (4, 2,048, 32, 96) causal; whisper-small's encoder (4, 1,500, 12, 64)
+    non-causal with a ragged last key block, its cross-attention of 448
+    queries against 1,500 keys and its decoder's causal 448 (an odd
+    nKB of 7). (2) phi-3-vision-4.2b at full width and depth (3.82 B
+    float32 parameters; ~61 GB of parameters, gradients and AdamW
+    moments) and (3) whisper-small uncut, each `train_model`'s counted
+    steps: 2 x 32 flash forward and 32 backward launches a step for
+    phi-3-vision, 2 x 36 and 36 (12 encoder, 12 self, 12 cross) for
+    whisper. (4) Float32 parity of each with the CPU at 2 layers
+    (`train_parity`)."""
+    import torch
+    from repro_torch.configs import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 as float32
+    vlm, whisper = get_arch(VLM_ARCH), get_arch(WHISPER_ARCH)
+    B, P, Se = TRAIN_BATCH, vlm.num_patches, whisper.encoder_seq
+    S_vlm, S_dec = TRAIN_SEQ - P, WHISPER_TEXT_CONTEXT
+    shapes = {   # row -> (model, the kind of its call)
+        "flash_attention_bwd_vlm": (vlm, S_vlm, P, "self"),
+        "flash_attention_bwd_whisper_encoder": (whisper, S_dec, Se,
+                                                "encoder"),
+        "flash_attention_bwd_whisper_cross": (whisper, S_dec, Se, "cross"),
+        "flash_attention_bwd_whisper_self": (whisper, S_dec, Se, "self"),
+    }
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 42)
+
+    # ---- (1) the backward kernel at the four shapes ----
+    records = {}
+    for row, (cfg, seq, rows, kind) in shapes.items():
+        (q_shape, k_shape, causal), _ = train_kinds(cfg, B, seq, rows)[kind]
+        q = torch.randn(q_shape, generator=g, device="cuda").bfloat16()
+        k = torch.randn(k_shape, generator=g, device="cuda").bfloat16()
+        v = torch.randn(k_shape, generator=g, device="cuda").bfloat16()
+        dout = torch.randn(q_shape, generator=g, device="cuda")
+        rec = flash_backward_record(q, k, v, dout, causal=causal)
+        records[row] = rec
+        log(phase="train_ve_flash_backward", row=row, arch=cfg.name,
+            kind=kind, bound_ms=1e3 * max(rec["bytes"] / HBM_BYTES_PER_S,
+                                          rec["flops"] / BWD_PEAK["bfloat16"]),
+            **rec)
+        del q, k, v, dout
+    torch.cuda.empty_cache()
+
+    # ---- (2), (3) full width and depth, bfloat16, counted ----
+    launches = {}
+    for label, cfg, seq, rows, max_seq in (
+            ("train_vlm", vlm, S_vlm, P, 0),
+            ("train_whisper", whisper, S_dec, Se, WHISPER_MAX_SEQ)):
+        state, batch, _, by_kind = train_model(
+            cfg, label=label, batch=B, seq=seq, n_steps=TRAIN_VE_STEPS,
+            rows=rows, max_seq=max_seq)
+        del state, batch
+        launches.update({row: by_kind[kind] for row, (c, _, _, kind)
+                         in shapes.items() if c is cfg})
+
+    # ---- (4) float32 parity with the CPU at 2 layers ----
+    log(phase="train_vlm_parity", **train_parity(vlm, rows=P))
+    torch.cuda.empty_cache()
+    log(phase="train_whisper_parity", **train_parity(
+        whisper, rows=Se, max_seq=WHISPER_MAX_SEQ))
+    torch.cuda.empty_cache()
+    return [kernel_entry(row, launches=launches[row], err=rec["max_abs_err"],
+                         ms=rec["ms"], plain_ms=rec["plain_ms"],
+                         library_ms=rec["library_ms"], bytes_=rec["bytes"],
+                         flops=rec["flops"], peak=BWD_PEAK["bfloat16"])
+            for row, rec in records.items()]
 
 
 def _rates(flops: int, device_ms: float) -> dict:
@@ -4207,6 +4471,7 @@ def main() -> int:
     kernels += phase_whisper()
     kernels += phase_vlm()
     kernels += phase_train()
+    kernels += phase_train_vlm_encdec()
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)

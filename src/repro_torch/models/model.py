@@ -12,8 +12,9 @@ Entry points:
   init_params           — the model (`StackedLM`, `EncDecLM` or
                           `HybridLM`), weights from a seeded
                           torch.Generator on the device
-  loss_fn               — the training loss of the dense family, with a
-                          gradient (the flash kernel's backward kernel)
+  loss_fn               — the training loss of the dense, vlm and encdec
+                          families, with a gradient (the flash kernel's
+                          backward kernel)
   prefill / decode_step — the serving paths with their caches
                           (`batch["frames"]` for encdec,
                           `batch["patches"]` optional for vlm)
@@ -324,17 +325,58 @@ def _embed(params, tokens, start: int, dtype):
     return x
 
 
-def _encode(cfg, params: EncDecLM, frames, dtype=torch.float32):
-    """Whisper's encoder over frame embeddings (B, S_enc, d): plus position
-    rows 0..S_enc-1, the non-causal blocks (flash, every key kept), the
-    encoder's norm."""
+def _embed_inputs(cfg, params, batch, dtype):
+    """The reference's `_embed_inputs`: (x, n_prefix). The tokens'
+    embeddings in `dtype` at positions 0.. (plus their learned position
+    rows with a table: whisper's decoder); a vlm batch with `"patches"`
+    (B, P, d) puts them, cast to `dtype`, before the tokens (n_prefix =
+    P); without them a vlm runs on text alone, as the reference's does."""
+    x = _embed(params, batch["tokens"], 0, dtype)
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = batch["patches"].to(dtype)
+        return torch.cat([patches, x], dim=1), patches.shape[1]
+    return x, 0
+
+
+def _run_layer(cfg, fn, p, *args, remat: bool = False, **kwargs):
+    """fn(cfg, p, *args, **kwargs), one layer; under
+    `torch.utils.checkpoint` (non-reentrant) when `remat`, with
+    `cfg.remat_policy`'s choice of what to save (`_remat_context`)."""
+    if not remat:
+        return fn(cfg, p, *args, **kwargs)
+    return torch.utils.checkpoint.checkpoint(
+        fn, cfg, p, *args, use_reentrant=False, **_remat_context(cfg),
+        **kwargs)
+
+
+def _encode(cfg, params: EncDecLM, frames, dtype=torch.float32, *,
+            remat: bool = False):
+    """Whisper's encoder over frame embeddings (B, S_enc, d): cast to
+    `dtype`, plus position rows 0..S_enc-1, the non-causal blocks (flash,
+    every key kept; its gradient Function when x requires grad), each
+    under `torch.utils.checkpoint` when `remat` (the reference's
+    jax.checkpoint of `_encode`'s body), the encoder's norm."""
     x = frames.to(dtype)
     x = x + _positions(params, 0, x.shape[1]).to(dtype)
     for p in params.enc:
-        h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=False)
-        x = x + h
-        x = x + p.mlp(p.ln2(x))
+        x = _run_layer(cfg, _train_layer, p, x, causal=False,
+                       remat=remat)
     return params.enc_norm(x)
+
+
+def _dec_layer(cfg, p: DecBlock, x, enc_out):
+    """A whisper decoder layer over the whole sequence: causal
+    self-attention, cross-attention against keys and values of the
+    encoder's output built here (`A.encoder_kv`, so under remat their
+    gradient reaches `enc_out` through the rerun), the MLP. Returns (x,
+    (k, v) of the self-attention, (k, v) of the cross-attention)."""
+    h, kv = A.attention(cfg, p.attn, p.ln1(x), causal=True)
+    x = x + h
+    cross_kv = A.encoder_kv(cfg, p.xattn, enc_out)
+    h, _ = A.attention(cfg, p.xattn, p.lnx(x), causal=False,
+                       cross_kv=cross_kv)
+    x = x + h
+    return x + p.mlp(p.ln2(x)), kv, cross_kv
 
 
 def _prefill_encdec(cfg, params: EncDecLM, batch, dtype):
@@ -343,16 +385,10 @@ def _prefill_encdec(cfg, params: EncDecLM, batch, dtype):
     cross-attention against keys and values of the encoder's output,
     computed once a layer and kept in the cache's "cross" part."""
     enc_out = _encode(cfg, params, batch["frames"], dtype)
-    x = _embed(params, batch["tokens"], 0, dtype)
+    x, _ = _embed_inputs(cfg, params, batch, dtype)
     ks, vs, cks, cvs = [], [], [], []
     for p in params.layers:
-        h, (k, v) = A.attention(cfg, p.attn, p.ln1(x), causal=True)
-        x = x + h
-        ek, ev = A.encoder_kv(cfg, p.xattn, enc_out)
-        h, _ = A.attention(cfg, p.xattn, p.lnx(x), causal=False,
-                           cross_kv=(ek, ev))
-        x = x + h
-        x = x + p.mlp(p.ln2(x))
+        x, (k, v), (ek, ev) = _dec_layer(cfg, p, x, enc_out)
         ks.append(k), vs.append(v), cks.append(ek), cvs.append(ev)
     cache = {"self": [{"k": torch.stack(ks), "v": torch.stack(vs)}],
              "cross": {"k": torch.stack(cks), "v": torch.stack(cvs)}}
@@ -405,9 +441,7 @@ def prefill(cfg, params, batch, cap_scales=None, *, dtype=torch.float32):
     if cfg.family == "encdec":
         return _prefill_encdec(cfg, params, batch, dtype)
     if cfg.family in STACKED:
-        x = L.embed_tokens(params.embed, tokens).to(dtype)
-        if cfg.family == "vlm" and "patches" in batch:
-            x = torch.cat([batch["patches"].to(dtype), x], dim=1)
+        x, _ = _embed_inputs(cfg, params, batch, dtype)
         cache = empty_extend_cache(cfg, x.shape[0], x.shape[1], dtype,
                                    device=x.device)
         return _stacked_extend(cfg, params, x, cache, 0)
@@ -661,10 +695,10 @@ def _ffn(cfg, p: AttnBlock, h):
 # Training loss
 # ----------------------------------------------------------------------------
 
-# the ROADMAP item (queue 1) that ports training for each family the port
-# does not train yet
-_TRAIN_LATER = {"ssm": "5(a)", "hybrid": "5(a)", "moe": "5(b)",
-                "vlm": "5(c)", "encdec": "5(c)"}
+# the families the port trains, and the ROADMAP item (queue 1) that ports
+# training for each of the others
+TRAINED = ("dense", "vlm", "encdec")
+_TRAIN_LATER = {"ssm": "5(a)", "hybrid": "5(a)", "moe": "5(b)"}
 
 
 # remat_policy names (the reference's REMAT_POLICIES): "nothing" recomputes
@@ -684,66 +718,86 @@ def _dots_policy(ctx, op, *args, **kwargs):
         CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _remat_context(cfg) -> dict:
+    """`torch.utils.checkpoint`'s keyword arguments for a layer of cfg:
+    selective checkpointing under "dots", nothing (the whole layer rerun)
+    under "nothing" and for encdec under either name: the reference
+    checkpoints whisper's encoder and decoder layers with no policy
+    (`repro/models/model.py:345, 418`; ROADMAP.md queue 3 caveat 12)."""
+    if cfg.remat_policy != "dots" or cfg.family == "encdec":
+        return {}
+    return {"context_fn": functools.partial(
+        torch.utils.checkpoint.create_selective_checkpoint_contexts,
+        _dots_policy)}
+
+
 def check_trainable(cfg) -> None:
     """Raise NotImplementedError unless the port trains this config: the
-    dense family. The others come with ROADMAP.md queue 1 item 5's later
-    parts: (a) ssm and hybrid (the SSD scan's backward), (b) moe (capacity
-    and steal dispatch, the expert FFN's backward), (c) vlm and encdec.
+    dense, vlm and encdec families. The others come with ROADMAP.md queue
+    1 item 5's later parts: (a) ssm and hybrid (the SSD scan's backward),
+    (b) moe (capacity and steal dispatch, the expert FFN's backward).
     Raise ValueError for a `remat_policy` outside `REMAT_POLICIES` (the
     reference falls back to "nothing" without a word)."""
     _check_family(cfg)
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r} not in "
                          f"{REMAT_POLICIES}")
-    if cfg.family != "dense":
+    if cfg.family not in TRAINED:
         raise NotImplementedError(
-            f"the port trains the dense family; {cfg.name!r} "
-            f"({cfg.family}) trains with ROADMAP.md queue 1 item "
-            f"{_TRAIN_LATER[cfg.family]}")
+            f"the port trains the {', '.join(TRAINED)} families; "
+            f"{cfg.name!r} ({cfg.family}) trains with ROADMAP.md queue 1 "
+            f"item {_TRAIN_LATER[cfg.family]}")
 
 
-def _train_layer(cfg, p: AttnBlock, x):
-    """A dense layer over the whole sequence (the reference's
-    `_apply_block_full` for "dense"): attention through the flash kernel
-    (its autograd Function when x requires grad), then the MLP; no
-    `by_blocks` (the reference runs whole products; the serving quantum
-    is not a training concern)."""
-    h, _ = A.attention(cfg, p.attn, p.ln1(x))
+def _train_layer(cfg, p: AttnBlock, x, causal: bool = True):
+    """An attention layer over the whole sequence (the reference's
+    `_apply_block_full` for "dense" and "enc"): attention through the
+    flash kernel (its autograd Function when x requires grad), causal or
+    not (whisper's encoder), then the MLP; no `by_blocks` (the reference
+    runs whole products; the serving quantum is not a training
+    concern)."""
+    h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=causal)
     x = x + h
     return x + p.mlp(p.ln2(x))
 
 
-def loss_fn(cfg, params: StackedLM, batch, cap_scales=None, *,
+def loss_fn(cfg, params, batch, cap_scales=None, *,
             dtype=torch.bfloat16, aux_weight: float = 0.01):
-    """batch: tokens (B, S), labels (B, S) int (-1 = masked). Returns
+    """batch: tokens (B, S), labels (B, S) int (-1 = masked); vlm:
+    optional patches (B, P, d); encdec: frames (B, S_enc, d). Returns
     (loss, metrics {"loss", "n_tokens"}), the reference's
-    (`repro/models/model.py:350-395`) for the dense family: the embedding
-    in `dtype`, every layer full-sequence (under
-    `torch.utils.checkpoint`, non-reentrant, when `cfg.remat`: the
-    counterpart of the reference's jax.checkpoint with
-    `cfg.remat_policy`: under "nothing" the backward reruns each layer's
-    forward, flash included; under "dots" selective checkpointing keeps
-    the projections' outputs and reruns the rest, flash included), the
-    final norm, logits in `dtype`, and the reference's cross-entropy: the
-    row max detached, (logits - max) in `dtype` then float32, the true
-    logit gathered (the reference's one-hot sum gives the same value), the
-    mean over labels >= 0. `cap_scales` and `aux_weight` serve MoE
-    training, which comes later (`check_trainable` refuses other
-    families)."""
+    (`repro/models/model.py:350-395`) for the dense, vlm and encdec
+    families: the inputs embedded in `dtype` (`_embed_inputs`: a vlm's
+    patches before its tokens, RoPE over positions 0..P+S-1; whisper's
+    tokens plus their position rows); for encdec the encoder over the
+    frames (`_encode`) and each decoder layer's self-attention,
+    cross-attention and MLP (`_dec_layer`), else every layer
+    full-sequence; each layer under `torch.utils.checkpoint`,
+    non-reentrant, when `cfg.remat`: the counterpart of the reference's
+    jax.checkpoint with `cfg.remat_policy` (under "nothing" the backward
+    reruns each layer's forward, flash included; under "dots" selective
+    checkpointing keeps the projections' outputs and reruns the rest,
+    flash included; encdec reruns whole layers under either name, as the
+    reference's policy-free jax.checkpoint does). Then the final norm,
+    the text positions only (`x[:, P:]` after a patch prefix), logits in
+    `dtype`, and the reference's cross-entropy: the row max detached,
+    (logits - max) in `dtype` then float32, the true logit gathered (the
+    reference's one-hot sum gives the same value), the mean over labels
+    >= 0. `cap_scales` and `aux_weight` serve MoE training, which comes
+    later (`check_trainable` refuses other families)."""
     check_trainable(cfg)
-    x = L.embed_tokens(params.embed, batch["tokens"]).to(dtype)
-    context = {}
-    if cfg.remat_policy == "dots":
-        context["context_fn"] = functools.partial(
-            torch.utils.checkpoint.create_selective_checkpoint_contexts,
-            _dots_policy)
-    for p in params.layers:
-        if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _train_layer, cfg, p, x, use_reentrant=False, **context)
-        else:
-            x = _train_layer(cfg, p, x)
-    logits = L.lm_logits(params.embed, params.final_norm(x))
+    x, n_prefix = _embed_inputs(cfg, params, batch, dtype)
+    if cfg.family == "encdec":
+        enc_out = _encode(cfg, params, batch["frames"], dtype,
+                          remat=cfg.remat)
+        for p in params.layers:
+            x = _run_layer(cfg, _dec_layer, p, x, enc_out,
+                           remat=cfg.remat)[0]
+    else:
+        for p in params.layers:
+            x = _run_layer(cfg, _train_layer, p, x, remat=cfg.remat)
+    x = params.final_norm(x)
+    logits = L.lm_logits(params.embed, x[:, n_prefix:])
     labels = batch["labels"]
     valid = labels >= 0
     lab = torch.where(valid, labels, torch.zeros_like(labels)).long()

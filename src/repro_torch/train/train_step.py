@@ -4,8 +4,8 @@ kernel on the card), an AdamW update, optional microbatch accumulation,
 int8 gradient compression with error feedback, bfloat16 parameters with a
 float32 master copy, and a one-time cast of the parameters.
 
-The train state is a dict: "params" (the model, `models.model.StackedLM`,
-its parameters requiring grad), "opt" ({"m", "v", "step"} keyed by
+The train state is a dict: "params" (the model, `models.model.StackedLM`
+or `EncDecLM`, its parameters requiring grad), "opt" ({"m", "v", "step"} keyed by
 parameter name, plus "master" with `bf16_params`), "cap_scales" ((MoE
 layers, E) float32 ones: the MoE capacity scales, which MoE training will
 update) and, with `grad_compress`, "grad_err" (the residuals). `step`
@@ -13,9 +13,9 @@ updates the state's tensors IN PLACE and returns the same dict with the
 metrics (the reference returns a new state; in place the step needs no
 second copy of the parameters and moments). The port runs eagerly: there
 is nothing to jit, and `train_state_pspecs` / `batch_pspec` come with
-`launch/` (ROADMAP.md queue 1 item 6). It trains the dense family;
-`make_train_step` refuses the others (`models.model.check_trainable`),
-MoE's capacity-scale update included.
+`launch/` (ROADMAP.md queue 1 item 6). It trains the dense, vlm and
+encdec families; `make_train_step` refuses the others
+(`models.model.check_trainable`), MoE's capacity-scale update included.
 """
 from __future__ import annotations
 
@@ -78,8 +78,11 @@ def init_train_state(cfg, seed: int = 0, max_seq: int = 0,
 def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
     """Returns step(state, batch) -> (state, metrics {"loss", "n_tokens",
     "grad_norm", "lr"}); batch: "tokens" and "labels" (B, S) tensors on
-    the state's device. Raises NotImplementedError for a family the port
-    does not train yet."""
+    the state's device, and the family's inputs as
+    `repro/launch/specs.py:19-25` shapes them: "patches" (B, P, d) for a
+    vlm (optional), "frames" (B, S_enc, d) for encdec. A microbatch split
+    cuts every entry along its batch axis. Raises NotImplementedError for
+    a family the port does not train yet."""
     M.check_trainable(cfg)
     # cast_params_once: the loss runs on a copy of the model whose float32
     # parameters are cast to tcfg.dtype (leaves of their own), and their

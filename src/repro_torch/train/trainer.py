@@ -9,7 +9,11 @@ port's counterpart of `repro.train.trainer`:
 
 One device, no mesh: the reference's `mesh` argument (elastic restarts
 on another mesh) comes with `launch/` (ROADMAP.md queue 1 item 6). The
-dense family trains; other families raise NotImplementedError.
+batches are tokens and labels, as the reference's pipeline makes them:
+the dense family trains, a vlm trains on text alone (no patches), as the
+reference's trainer runs it; encdec raises NotImplementedError (its loss
+needs frames, which the reference's trainer never feeds: ROADMAP.md
+queue 3 caveat 13), and so do the families the port does not train yet.
 """
 from __future__ import annotations
 
@@ -50,8 +54,16 @@ def train(cfg, run: RunConfig, tcfg: TS.TrainConfig = None, device=None,
           verbose: bool = True):
     """Returns (final state, losses of the steps this call ran). Call again
     after a crash to resume. `device` None is the card (raises without
-    CUDA); "cpu" runs every kernel's plain version."""
+    CUDA); "cpu" runs every kernel's plain version. Raises
+    NotImplementedError for encdec before it writes anything."""
     M.check_trainable(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"train() feeds tokens and labels only, as the reference's "
+            f"trainer does; {cfg.name!r} (encdec) needs frames of "
+            f"{cfg.encoder_seq} rows, which the reference's trainer never "
+            f"makes (ROADMAP.md queue 3 caveat 13): train it with "
+            f"make_train_step on batches that carry \"frames\"")
     dev = resolve_device(device)
     tcfg = tcfg or TS.TrainConfig(opt=dataclasses.replace(
         TS.TrainConfig().opt, warmup_steps=10, total_steps=run.steps))

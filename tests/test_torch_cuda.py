@@ -1884,7 +1884,15 @@ def _bwd_inputs(cuda, Sq, Skv, rep, dh, dtype, seed, Hkv=2, B=2):
     (2065, 2065, 6, 128, True, 0),
     # windows that cut the walks at both ends (causal from one end, the
     # window from the other)
-    (700, 700, 6, 128, True, 200), (333, 333, 1, 96, True, 100)])
+    (700, 700, 6, 128, True, 200), (333, 333, 1, 96, True, 100),
+    # the training shapes of phi-3-vision-4.2b and whisper-small at their
+    # full lengths, 2 heads: dh 96 (rows of 192 bytes) causal at 2,048;
+    # the encoder's dh 64 non-causal at 1,500 (a ragged last key block of
+    # 28 keys in the paired dK/dV grid's last CTA); the cross-attention's
+    # 448 queries against 1,500 keys; the decoder's causal 448 (nKB 7: the
+    # middle key block owned once)
+    (2048, 2048, 1, 96, True, 0), (1500, 1500, 1, 64, False, 0),
+    (448, 1500, 1, 64, False, 0), (448, 448, 1, 64, True, 0)])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, Sq, Skv, rep,
                                              dh, causal, window):
     """dq, dk, dv of the three kernels against the plain formulas within
