@@ -105,7 +105,18 @@ launch counters set to 0 just before it and read just after:
   flash backward kernel at the four shapes these steps give it (dh 96
   causal at 2,048; dh 64 non-causal over 1,500 ragged keys, 448 queries
   against 1,500 keys, causal at 448) against its plain version per block
-  of 64 rows; one float32 step of each at 2 layers against the CPU.
+  of 64 rows; one float32 step of each at 2 layers against the CPU;
+* xlstm-350m and zamba2-1.2b training at full width and depth (the same
+  path, 3 and 6 bfloat16 steps of 4 x 2,048 tokens: 2 x 18 SSD-scan
+  forward and 18 scan backward launches a step for xlstm, whose 6 sLSTM
+  blocks run their step loops by autograd; 2 x 32 and 32 for zamba2, with
+  2 x 6 and 6 flash launches for its shared attention block), held to
+  the same bars; the scan's backward kernel (six CUDA kernels a call,
+  seven with q and k shared by the heads) at both models' shapes in
+  float32 and bfloat16 against its plain version, two calls the same
+  bits; one sLSTM block's loop, forward and backward, timed apart; one
+  float32 step of each cut to ("X", "S") and ("M", "A") over 2 x 512
+  tokens against the CPU.
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -164,8 +175,10 @@ prefill and extend shapes (dh 96), and the expert
 kernel twice, at the dispatch phase's shape and at olmoe-1b-7b's serving
 shape; the flash backward kernel five times, at qwen2-1.5b's,
 phi-3-vision's and whisper-small's three training shapes, beside the
-backward of `scaled_dot_product_attention`), and prints one JSON line
-per result.
+backward of `scaled_dot_product_attention`; the scan's backward twice,
+at zamba2-1.2b's and xlstm-350m's training shapes, with no single
+PyTorch call to set beside it), and prints one JSON line per result
+(and each phase's wall seconds).
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs CUDA and the repository's `src/` beside it.
 
@@ -275,6 +288,14 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
     "flash_attention_bwd_whisper_self": (
         "src/repro_torch/csrc/flash_attention_bwd.cu",
         "src/repro/models/attention.py:151"),
+    # the SSD scan's gradient replaces XLA's automatic derivative of the
+    # reference's chunked scan in its training loss (`chunked_gated_scan`,
+    # a lax.scan of einsums), not a Pallas kernel: at zamba2-1.2b's training
+    # shape (q and k shared by the heads), then at xlstm-350m's mLSTM shape
+    "mamba_scan_bwd": ("src/repro_torch/csrc/mamba_scan_bwd.cu",
+                       "src/repro/models/ssm.py:32"),
+    "mamba_scan_bwd_xlstm": ("src/repro_torch/csrc/mamba_scan_bwd.cu",
+                             "src/repro/models/ssm.py:32"),
     # the schedule pipeline's two kernels replace XLA code of the reference's
     # jitted pipeline, not a Pallas kernel: its segment sum and LPT loop
     "segment_fold": ("src/repro_torch/csrc/lpt.cu",
@@ -391,6 +412,25 @@ RESUME_TOL = 1e-5    # resumed losses against an uninterrupted run's
 # many encoder layers), TRAIN_CUT_BATCH x TRAIN_CUT_SEQ tokens with all
 # 576 patch rows or 1,500 frame rows.
 TRAIN_VE_STEPS = 6
+# training the ssm and hybrid families (ROADMAP.md queue 1 item 5(a)) at
+# full width and depth with qwen2-1.5b's TrainConfig (bfloat16, no
+# microbatch: the configs' train_microbatch of 16 would accumulate new
+# sums), remat on, on 4 x 2,048 tokens from the pipeline: xlstm-350m (its
+# sLSTM step loop runs by autograd, seconds a step) and zamba2-1.2b.
+# Float32 parity with the CPU cuts the pattern to its first kinds, ("X",
+# "S") and ("M", "A"), at TRAIN_CUT_BATCH x TRAIN_SSM_CUT_SEQ tokens: two
+# scan chunks of 256 a block.
+TRAIN_XLSTM_STEPS, TRAIN_ZAMBA2_STEPS = 3, 6
+TRAIN_SSM_CUT_SEQ = 512
+# the scan's backward kernel against its plain version: max |diff| within
+# this share of max |plain|. float32: 3xTF32 against cuBLAS float32 sums
+# in other orders. bfloat16: both round dq, dk, dv to bfloat16 once from
+# float32 sums (one ulp is at most 2^-7 of an element); dlog_a stays
+# float32 and keeps the float32 bar
+SCAN_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+SCAN_BWD_KERNELS = ("ssd_bwd_kernel_dstates", "ssd_bwd_kernel_pass",
+                    "ssd_bwd_kernel_gdot", "ssd_bwd_kernel_pair",
+                    "ssd_bwd_kernel_dl")
 
 
 def log(**kw) -> None:
@@ -1226,16 +1266,18 @@ def capacity_buffer_moe(x, wi, wg, wo, plan, C=None):
     return run, C
 
 
-def device_ms_by_kernel(fn, expect=()) -> dict:
+def device_ms_by_kernel(fn, expect=(), warmup: bool = True) -> dict:
     """Device milliseconds per kernel name over one call of fn (after one
-    warm-up call), from torch.profiler's CUDA trace, taken up to three
+    warm-up call, unless `warmup` is False: the caller has run fn just
+    before), from torch.profiler's CUDA trace, taken up to three
     times while a trace holds no device time (one has come back empty) or
     lacks a kernel whose name holds one of `expect` (one has come back
     with only some of a call's kernels); the last trace if none held
     all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1643,12 +1685,14 @@ def _rel_terms(a, b, terms) -> float:
 
 def _kernel_split(ms_by_name: dict) -> dict:
     """Device milliseconds of one traced call grouped: the LM kernels
-    (flash, its backward's three `flash_bwd_*` kernels, the SSD scan, the
-    expert kernel's five `moe_*` kernels), matrix products (cuBLAS's
+    (flash, its backward's three `flash_bwd_*` kernels, the SSD scan, its
+    backward's `ssd_bwd_*` kernels, the expert kernel's five `moe_*`
+    kernels), matrix products (cuBLAS's
     `*gemm*` and `nvjet_*` kernels, CUTLASS),
     matrix products (cuBLAS/CUTLASS), everything else."""
     out = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
-           "mamba_scan": 0.0, "ich_moe": 0.0, "matmul": 0.0, "other": 0.0}
+           "mamba_scan": 0.0, "mamba_scan_bwd": 0.0, "ich_moe": 0.0,
+           "matmul": 0.0, "other": 0.0}
     for name, ms in ms_by_name.items():
         low = name.lower()
         if "flash_fwd_kernel" in name:
@@ -1657,6 +1701,8 @@ def _kernel_split(ms_by_name: dict) -> dict:
             out["flash_attention_bwd"] += ms
         elif "ssd_scan_kernel" in name:
             out["mamba_scan"] += ms
+        elif "ssd_bwd_kernel" in name:
+            out["mamba_scan_bwd"] += ms
         elif "moe_" in name:
             out["ich_moe"] += ms
         elif any(w in low for w in ("gemm", "cutlass", "matmul", "nvjet")):
@@ -1666,12 +1712,13 @@ def _kernel_split(ms_by_name: dict) -> dict:
     return out
 
 
-def _split_log(label, fn, wall_ms, expect=(), top: int = 0) -> dict:
+def _split_log(label, fn, wall_ms, expect=(), top: int = 0,
+               warmup: bool = True) -> dict:
     """Where one call's device time goes (`_kernel_split`'s groups, those
     with no time left out) against its wall time: logged as `<label>` with
     the idle share (and the `top` kernels by time, when asked),
-    returned."""
-    by_name = device_ms_by_kernel(fn, expect=expect)
+    returned. `warmup` as in `device_ms_by_kernel`."""
+    by_name = device_ms_by_kernel(fn, expect=expect, warmup=warmup)
     split = {k_: v_ for k_, v_ in _kernel_split(by_name).items() if v_ > 0}
     total = sum(split.values())
     rec = {"device_ms": split, "device_total_ms": total,
@@ -3501,10 +3548,20 @@ def remat_dots_step(cfg, tcfg, state, batch) -> dict:
 
 def attention_calls(cfg) -> int:
     """Flash calls of one training forward: one a layer; for encdec each
-    encoder layer's, and each decoder layer's self- and cross-attention."""
+    encoder layer's, and each decoder layer's self- and cross-attention;
+    for hybrid and ssm one an "A" position."""
     if cfg.family == "encdec":
         return cfg.encoder_layers + 2 * cfg.n_layers
+    if cfg.family in ("hybrid", "ssm"):
+        return cfg.block_pattern.count("A")
     return cfg.n_layers
+
+
+def scan_calls(cfg) -> int:
+    """SSD scan calls of one training forward: one an "M" or "X" block."""
+    if cfg.family not in ("hybrid", "ssm"):
+        return 0
+    return sum(kind in "MX" for kind in cfg.block_pattern)
 
 
 def family_inputs(cfg, batch: int, rows: int, rng) -> dict:
@@ -3519,25 +3576,31 @@ def family_inputs(cfg, batch: int, rows: int, rng) -> dict:
                                      dtype=np.float32)}
 
 
-def train_parity(cfg, *, rows: int = 0, max_seq: int = 0) -> dict:
+def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
+                 seq: int = TRAIN_CUT_SEQ, pattern=None) -> dict:
     """One float32 step of `cfg` at full width cut to TRAIN_CUT_LAYERS
-    layers (an encoder too) on the card (the kernels) and on the CPU (the
-    plain versions) from the same state and batch (TRAIN_CUT_BATCH x
-    TRAIN_CUT_SEQ tokens, and `rows` patch or frame rows for a vlm or
-    encdec; `max_seq` sizes a learned position table): every gradient
-    leaf, the step's loss and grad norm, and the AdamW update given
-    identical gradients, within the stated tolerances."""
+    layers (an encoder too; a hybrid or ssm `pattern` of blocks) on the
+    card (the kernels) and on the CPU (the plain versions) from the same
+    state and batch (TRAIN_CUT_BATCH x `seq` tokens, and `rows` patch or
+    frame rows for a vlm or encdec; `max_seq` sizes a learned position
+    table): every gradient leaf, the step's loss and grad norm, and the
+    AdamW update given identical gradients, within the stated
+    tolerances."""
     import copy
     import dataclasses
     import torch
     from repro_torch.data.pipeline import synthetic_tokens
     from repro_torch.kernels.flash_attention import flash_attention as KF
     from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KSB
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as TS
     over = {"n_layers": TRAIN_CUT_LAYERS}
     if cfg.family == "encdec":
         over["encoder_layers"] = TRAIN_CUT_LAYERS
+    if pattern is not None:
+        over.update(block_pattern=tuple(pattern), n_layers=len(pattern))
     cut = dataclasses.replace(cfg, **over)
     tcfg = TS.TrainConfig(dtype=torch.float32, opt=adamw.AdamWConfig(
         warmup_steps=2, total_steps=TRAIN_STEPS))
@@ -3546,8 +3609,7 @@ def train_parity(cfg, *, rows: int = 0, max_seq: int = 0) -> dict:
     card = TS.init_train_state(cut, SEED + 21, max_seq=max_seq, tcfg=tcfg,
                                device="cuda")
     _copy_state(cpu, card)
-    batch = synthetic_tokens(TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, cut.padded_vocab,
-                             0, SEED)
+    batch = synthetic_tokens(TRAIN_CUT_BATCH, seq, cut.padded_vocab, 0, SEED)
     batch.update(family_inputs(cut, TRAIN_CUT_BATCH, rows,
                                np.random.default_rng(SEED + 22)))
     b_cpu = {k_: torch.from_numpy(v_) for k_, v_ in batch.items()}
@@ -3600,12 +3662,14 @@ def train_parity(cfg, *, rows: int = 0, max_seq: int = 0) -> dict:
     del upd_cpu, upd_card, p_cpu, p_card, o_cpu, o_card, g_cpu
 
     # the whole step on each side, its launches on the card counted
-    KF.reset_launches()
-    KB.reset_launches()
+    for mod in (KF, KB, KS, KSB):
+        mod.reset_launches()
     card, m_card = TS.make_train_step(cut, tcfg)(card, b_card)
     torch.cuda.synchronize()
     launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
-                "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"]}
+                "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"],
+                "mamba_scan": KS.LAUNCHES["mamba_scan"],
+                "mamba_scan_bwd": KSB.LAUNCHES["mamba_scan_bwd"]}
     cpu, m_cpu = TS.make_train_step(cut, tcfg)(cpu, b_cpu)
     worst, flipped, n_el = 0.0, 0, 0
     for (name, a), (_, b) in zip(card["params"].named_parameters(),
@@ -3621,14 +3685,18 @@ def train_parity(cfg, *, rows: int = 0, max_seq: int = 0) -> dict:
     check(abs(gnorm[0] - gnorm[1]) <= TRAIN_GNORM_RTOL * abs(gnorm[1]),
           f"train parity: grad norm within {TRAIN_GNORM_RTOL} of the CPU's")
     per_call = 2 if cut.remat else 1    # remat reruns each forward
-    n_attn = attention_calls(cut)
+    n_attn, n_scan = attention_calls(cut), scan_calls(cut)
     check(launches == {"flash_attention": per_call * n_attn,
-                       "flash_attention_bwd": n_attn},
-          f"train parity: {per_call} flash forward and 1 backward launch "
-          f"an attention call ({n_attn}) on the card")
-    return {"arch": cfg.name, "layers": TRAIN_CUT_LAYERS,
+                       "flash_attention_bwd": n_attn,
+                       "mamba_scan": per_call * n_scan,
+                       "mamba_scan_bwd": n_scan},
+          f"train parity: {per_call} forward and 1 backward launch an "
+          f"attention call ({n_attn}) and a scan call ({n_scan}) on the "
+          f"card")
+    return {"arch": cfg.name, "layers": cut.n_layers,
+            "block_pattern": list(cut.block_pattern),
             "encoder_layers": cut.encoder_layers, "batch": TRAIN_CUT_BATCH,
-            "seq": TRAIN_CUT_SEQ, "rows": rows, "loss_card_cpu": loss,
+            "seq": seq, "rows": rows, "loss_card_cpu": loss,
             "grad_norm_card_cpu": gnorm, "lr": lr,
             "grad_worst_share": max(grad_share.values()),
             "grad_share_by_leaf": grad_share,
@@ -3753,7 +3821,7 @@ def phase_train():
     torch.cuda.empty_cache()
 
     # ---- (2) full width and depth, bfloat16, counted ----
-    state, batch, tcfg, by_kind = train_model(
+    state, batch, tcfg, by_kind, _ = train_model(
         cfg, label="train", batch=B, seq=S, n_steps=TRAIN_STEPS, max_seq=S)
     log(phase="train_remat_dots", **remat_dots_step(cfg, tcfg, state, batch))
     del state, batch
@@ -3777,8 +3845,13 @@ def train_kinds(cfg, batch: int, seq: int, rows: int) -> dict:
     shape, causal), calls a forward)}. A vlm: its layers' causal
     self-attention over rows + seq positions; whisper: its encoder's
     non-causal self-attention over the rows, its decoder's causal
-    self-attention and its cross-attention against the rows."""
+    self-attention and its cross-attention against the rows; hybrid and
+    ssm: the causal (windowed) attention of their "A" positions, if any."""
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    if cfg.family in ("hybrid", "ssm"):
+        n = cfg.block_pattern.count("A")
+        return {"self": (((batch, seq, H, dh), (batch, seq, Hkv, dh), True),
+                         n)} if n else {}
     if cfg.family != "encdec":
         n = rows + seq
         return {"self": (((batch, n, H, dh), (batch, n, Hkv, dh), True),
@@ -3791,7 +3864,7 @@ def train_kinds(cfg, batch: int, seq: int, rows: int) -> dict:
 
 
 def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
-                rows: int = 0, max_seq: int = 0):
+                rows: int = 0, max_seq: int = 0, parts: bool = True):
     """The counted main path of one model's training at full width and
     depth: `init_train_state` (from an emptied card) -> `make_train_step`
     -> `n_steps` bfloat16 steps of `Pipeline` batches of batch x seq tokens
@@ -3799,18 +3872,23 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
     on, TrainConfig's defaults (no microbatch). Bars: finite losses, the
     last below the first; finite non-zero grad norms; 2 flash forward
     launches (remat reruns each) and 1 backward launch an attention call
-    a step, by kind (`train_kinds`, tallied by shape). Logged as
-    `<label>_setup`, `<label>_main_path` (steps, step wall ms, tokens/s,
-    positions/s, peak GB), `<label>_step_split` (`_split_log`) and
-    `<label>_step_parts` (`step_parts`).
+    a step, by kind (`train_kinds`, tallied by shape), and likewise 2 SSD
+    scan forward and 1 backward launch an "M" or "X" block (`scan_calls`).
+    Logged as `<label>_setup`, `<label>_main_path` (steps, step wall ms,
+    tokens/s, positions/s, peak GB), `<label>_step_split` (`_split_log`)
+    and, with `parts`, `<label>_step_parts` (`step_parts`).
     Returns (the state, the last batch, the TrainConfig, the backward
-    launches of the counted steps by kind); the caller frees the state."""
+    launches of the counted steps by kind, {"split": the step split,
+    "wall_ms": the median step wall ms, "launches": the counted steps'
+    launches by wrapper}); the caller frees the state."""
     import dataclasses
     import gc
     import torch
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.kernels.flash_attention import flash_attention as KF
     from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KSB
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as TS
     gc.collect()
@@ -3840,7 +3918,7 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
     pipe = Pipeline(cfg, batch, seq, seed=SEED, device="cuda")
     rng = np.random.default_rng(SEED + 40)
     kinds = train_kinds(cfg, batch, seq, rows)
-    n_attn = attention_calls(cfg)
+    n_attn, n_scan = attention_calls(cfg), scan_calls(cfg)
     check(sum(n for _, n in kinds.values()) == n_attn,
           f"{label}: the kinds hold every attention call")
     fwd, restore_fwd = flash_calls_by_shape()
@@ -3848,6 +3926,8 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
     torch.cuda.reset_peak_memory_stats()
     KF.reset_launches()
     KB.reset_launches()
+    KS.reset_launches()
+    KSB.reset_launches()
     steps = []
     try:
         for t in range(n_steps):
@@ -3855,6 +3935,8 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
             batch_np = {**batch_np, **family_inputs(cfg, batch, rows, rng)}
             f0, b0 = KF.LAUNCHES["flash_attention"], \
                 KB.LAUNCHES["flash_attention_bwd"]
+            s0, sb0 = KS.LAUNCHES["mamba_scan"], \
+                KSB.LAUNCHES["mamba_scan_bwd"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             dev_batch = {k_: torch.from_numpy(v_).cuda()
@@ -3870,14 +3952,19 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
                           "flash_forward": KF.LAUNCHES["flash_attention"]
                           - f0,
                           "flash_backward": KB.LAUNCHES["flash_attention_bwd"]
-                          - b0, "ingest_steals": ingest.steals})
+                          - b0,
+                          "scan_forward": KS.LAUNCHES["mamba_scan"] - s0,
+                          "scan_backward": KSB.LAUNCHES["mamba_scan_bwd"]
+                          - sb0, "ingest_steals": ingest.steals})
     finally:
         restore_fwd()
         restore_bwd()
         pipe.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
-                "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"]}
+                "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"],
+                "mamba_scan": KS.LAUNCHES["mamba_scan"],
+                "mamba_scan_bwd": KSB.LAUNCHES["mamba_scan_bwd"]}
     fwd_by_kind = {kind: fwd.get(key, 0) for kind, (key, _) in kinds.items()}
     bwd_by_kind = {kind: bwd.get(key, 0) for kind, (key, _) in kinds.items()}
     losses = [s_["loss"] for s_ in steps]
@@ -3896,17 +3983,27 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
               and s_["flash_backward"] == n_attn for s_ in steps),
           f"{label}: {2 * n_attn} flash forward and {n_attn} backward "
           f"launches a step")
+    check(all(s_["scan_forward"] == 2 * n_scan
+              and s_["scan_backward"] == n_scan for s_ in steps),
+          f"{label}: {2 * n_scan} scan forward and {n_scan} backward "
+          f"launches a step")
     want = {kind: n * n_steps for kind, (_, n) in kinds.items()}
     check(bwd_by_kind == want and sum(bwd.values()) == launches[
         "flash_attention_bwd"] and fwd_by_kind == {
             kind: 2 * n for kind, n in want.items()}
           and sum(fwd.values()) == launches["flash_attention"],
           f"{label}: launches by kind, forward 2 x and backward 1 x {want}")
-    _split_log(f"{label}_step_split", lambda: step(state, dev_batch), wall,
-               expect=("flash_bwd_",), top=12)
-    log(phase=f"{label}_step_parts", **step_parts(cfg, tcfg, state,
-                                                  dev_batch))
-    return state, dev_batch, tcfg, bwd_by_kind
+    expect = (("flash_bwd_",) if n_attn else ()) \
+        + (("ssd_bwd_",) if n_scan else ())
+    # the steps above warmed the step up (a step of seconds, as xlstm's
+    # host-bound sLSTM loop makes it, is not run twice for the trace)
+    split = _split_log(f"{label}_step_split", lambda: step(state, dev_batch),
+                       wall, expect=expect, top=12, warmup=False)
+    if parts:
+        log(phase=f"{label}_step_parts", **step_parts(cfg, tcfg, state,
+                                                      dev_batch))
+    return state, dev_batch, tcfg, bwd_by_kind, {
+        "split": split, "wall_ms": wall, "launches": launches}
 
 
 def step_parts(cfg, tcfg, state, batch) -> dict:
@@ -3990,7 +4087,7 @@ def phase_train_vlm_encdec():
     for label, cfg, seq, rows, max_seq in (
             ("train_vlm", vlm, S_vlm, P, 0),
             ("train_whisper", whisper, S_dec, Se, WHISPER_MAX_SEQ)):
-        state, batch, _, by_kind = train_model(
+        state, batch, _, by_kind, _ = train_model(
             cfg, label=label, batch=B, seq=seq, n_steps=TRAIN_VE_STEPS,
             rows=rows, max_seq=max_seq)
         del state, batch
@@ -4008,6 +4105,227 @@ def phase_train_vlm_encdec():
                          library_ms=rec["library_ms"], bytes_=rec["bytes"],
                          flops=rec["flops"], peak=BWD_PEAK["bfloat16"])
             for row, rec in records.items()]
+
+
+def scan_backward_work(B, S, H, N, Pd, chunk, *, shared_qk: bool) -> int:
+    """Operations the scan's gradient needs on these shapes. Per chunk of
+    length c (the last may be short) and c(c+1)/2 causal pairs: 2N for the
+    q.k score of each pair, once per batch row when q and k are shared by
+    all heads and once per head otherwise; per head, 2Pd for each pair's
+    dy.v, 2N each for its terms of dq and dk, 2Pd for its term of dv, and
+    8 c N Pd for the four products with a chunk state (dq's, dk's and dv's
+    terms and the adjoint state)."""
+    score = per_head = 0
+    for t0 in range(0, S, chunk):
+        c = min(chunk, S - t0)
+        pairs = c * (c + 1) // 2
+        score += pairs * 2 * N
+        per_head += pairs * (4 * Pd + 4 * N) + 8 * c * N * Pd
+    return B * (score * (1 if shared_qk else H) + H * per_head)
+
+
+def scan_backward_record(B, S, H, N, Pd, *, shared: bool, dtype, g,
+                         chunk: int = 256) -> dict:
+    """The scan's backward kernel at one shape (q, k (B, S, H, N) or, shared
+    by the heads, (B, S, 1, N); v, dy (B, S, H, Pd)) from the forward
+    kernel's kept states: each gradient against
+    `mamba_scan_backward_plain` within SCAN_BWD_TOL of its max |plain|,
+    two calls the same bits, timed beside the plain version, with the
+    device time of each of its CUDA kernels, its operations
+    (`scan_backward_work`) and bytes (q, k, v, dy, the kept states and l
+    read once; dq, dk, dv and dlog_a written once)."""
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KSB
+    name = str(dtype).replace("torch.", "")
+    label = f"scan backward {name} B{B} S{S} H{H} N{N} Pd{Pd} shared={shared}"
+    hq = 1 if shared else H
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dtype)
+    q, k = randn(B, S, hq, N, scale=N ** -0.5), randn(B, S, hq, N,
+                                                      scale=N ** -0.5)
+    v, dy = randn(B, S, H, Pd), randn(B, S, H, Pd)
+    la = -torch.rand((B, S, H), generator=g, device="cuda") * 0.3
+    _, _, st, lc = KS._launch(q, k, v, la, chunk=chunk, keep=True)
+
+    def kernel():
+        return KSB.mamba_scan_backward(q, k, v, dy, st, lc, chunk=chunk)
+
+    def plain_version():
+        return KSB.mamba_scan_backward_plain(q, k, v, dy, st, lc,
+                                             chunk=chunk)
+    grads, plain = kernel(), plain_version()
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "dlog_a")
+    errs = {n: float((a.float() - b.float()).abs().max())
+            for n, a, b in zip(names, grads, plain)}
+    scale = {n: float(b.float().abs().max()) for n, b in zip(names, plain)}
+    for n in names:
+        tol = SCAN_BWD_TOL["float32" if n == "dlog_a" else name]
+        check(errs[n] <= tol * scale[n],
+              f"{label}: {n} within {tol} of max |plain|")
+    again = kernel()
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"{label}: two calls give the same bits")
+    del plain, again
+    ms = timed_ms(kernel)
+    plain_ms = timed_ms(plain_version)
+    by_name = device_ms_by_kernel(kernel, expect=SCAN_BWD_KERNELS)
+    split = {kern: sum(t for n, t in by_name.items() if kern in n)
+             for kern in SCAN_BWD_KERNELS + ("ssd_bwd_kernel_headsum",)}
+    flops = scan_backward_work(B, S, H, N, Pd, chunk, shared_qk=shared)
+    nbytes = q.element_size() * 2 * (q.numel() + k.numel() + v.numel()) \
+        + v.element_size() * dy.numel() + 4 * (st.numel() + lc.numel()
+                                              + B * S * H)
+    del q, k, v, dy, la, st, lc, grads
+    return {"dtype": name, "shape": {"B": B, "S": S, "H": H, "N": N,
+                                     "Pd": Pd, "chunk": chunk,
+                                     "shared_qk": shared},
+            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+            "max_abs_plain": scale, "ms": ms, "plain_ms": plain_ms,
+            "flops": flops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  flops / (TF32_FLOPS / 3)),
+            "kernels_ms": split, "kernels_total_ms": sum(split.values()),
+            "tflops_needed_work": flops / (ms * 1e-3) / 1e12}
+
+
+def slstm_loop_parts(cfg, batch: int, seq: int) -> dict:
+    """One sLSTM block's step loop (`ssm.slstm_recurrence`, which training
+    differentiates by autograd) at the training step's shapes, in float32
+    as the block runs it, its forward and its backward apart: wall ms
+    (with a synchronize, median of 2) and device ms by `_kernel_split`
+    group (its h r products are cuBLAS batched products)."""
+    import torch
+    from repro_torch.models import ssm as SS
+    H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+
+    def leaf(*shape):
+        return torch.rand(shape, generator=g,
+                          device="cuda").requires_grad_()
+    zs, og, ig, fg = (leaf(batch, seq, H, dh), leaf(batch, seq, H, dh),
+                      leaf(batch, seq, H), leaf(batch, seq, H))
+    r = (torch.randn((H, dh, dh), generator=g, device="cuda")
+         * dh ** -0.5).requires_grad_()
+    h0 = torch.zeros((batch, H, dh), device="cuda")
+    out = {}
+
+    def forward():
+        out["ys"] = SS.slstm_recurrence(r, zs, og, ig, fg, h0, h0)[0]
+
+    def backward():
+        torch.autograd.grad(out["ys"], (r, zs, og, ig, fg), gy,
+                            retain_graph=True)
+    rec = {"steps": seq, "batch": batch, "heads": H, "dh": dh}
+    rec["forward_wall_ms"] = _wall_ms(forward, reps=2)
+    rec["forward_device_ms"] = {k_: v_ for k_, v_ in _kernel_split(
+        device_ms_by_kernel(forward)).items() if v_ > 0}
+    gy = torch.randn(out["ys"].shape, generator=g, device="cuda")
+    rec["backward_wall_ms"] = _wall_ms(backward, reps=2)
+    rec["backward_device_ms"] = {k_: v_ for k_, v_ in _kernel_split(
+        device_ms_by_kernel(backward)).items() if v_ > 0}
+    del out["ys"]
+    return rec
+
+
+def phase_train_ssm():
+    """Training the ssm and hybrid families (ROADMAP.md queue 1 item
+    5(a)). (1) The scan's backward kernel at the two shapes the steps give
+    it, float32 and bfloat16 (`scan_backward_record`): zamba2-1.2b's
+    Mamba2 (4, 2,048, 64 heads, N = Pd = 64, B and C shared by the heads)
+    and xlstm-350m's mLSTM (4, 2,048, 4 heads, N = 512, Pd = 513).
+    (2) xlstm-350m at full width and depth (24 blocks: 18 mLSTM, 6
+    sLSTM), `train_model`'s TRAIN_XLSTM_STEPS bfloat16 steps of 4 x 2,048
+    tokens: 2 x 18 scan forward and 18 scan backward launches a step;
+    one sLSTM block's step loop timed apart, forward and backward
+    (`slstm_loop_parts`), and the step's device time split with an
+    `slstm_loop` group (the 6 blocks' loops, the forward twice under
+    remat). (3) zamba2-1.2b at full width and depth (38 blocks: 32 Mamba2,
+    the shared attention block at 6 positions), TRAIN_ZAMBA2_STEPS steps:
+    2 x 32 scan forward and 32 backward, 2 x 6 flash forward and 6
+    backward launches a step. (4) Float32 parity of each with the CPU at
+    full width cut to ("X", "S") and ("M", "A") over TRAIN_CUT_BATCH x
+    TRAIN_SSM_CUT_SEQ tokens (`train_parity`)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 as float32
+    xlstm, zamba2 = get_arch(XLSTM_ARCH), get_arch(LM_ARCH)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    d_x = xlstm.mamba_expand * xlstm.d_model // xlstm.n_heads
+    shapes = {   # row -> (model, H, N, Pd, shared)
+        "mamba_scan_bwd": (zamba2, zamba2.mamba_expand * zamba2.d_model
+                           // zamba2.ssm_head_dim, zamba2.ssm_state,
+                           zamba2.ssm_head_dim, True),
+        "mamba_scan_bwd_xlstm": (xlstm, xlstm.n_heads, d_x, d_x + 1, False),
+    }
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 44)
+
+    # ---- (1) the backward kernel at the two shapes ----
+    records = {}
+    for row, (cfg, H, N, Pd, shared) in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = scan_backward_record(B, S, H, N, Pd, shared=shared,
+                                       dtype=dtype, g=g,
+                                       chunk=cfg.ssm_chunk)
+            records[(row, rec["dtype"])] = rec
+            log(phase="train_ssm_scan_backward", row=row, arch=cfg.name,
+                **rec)
+    torch.cuda.empty_cache()
+
+    # ---- (2), (3) full width and depth, bfloat16, counted ----
+    infos = {}
+    for label, cfg, n_steps in (("train_xlstm", xlstm, TRAIN_XLSTM_STEPS),
+                                ("train_zamba2", zamba2,
+                                 TRAIN_ZAMBA2_STEPS)):
+        state, batch, _, _, info = train_model(
+            cfg, label=label, batch=B, seq=S, n_steps=n_steps,
+            parts=cfg.family == "hybrid")
+        infos[cfg.name] = info
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    loop = slstm_loop_parts(xlstm, B, S)
+    n_s = xlstm.block_pattern.count("S")
+    reruns = 2 if xlstm.remat else 1     # remat reruns each forward
+    loop_ms = {k_: n_s * (reruns * loop["forward_device_ms"].get(k_, 0.0)
+                          + loop["backward_device_ms"].get(k_, 0.0))
+               for k_ in ("matmul", "other")}
+    split = infos[xlstm.name]["split"]
+    dev = split["device_ms"]
+    by_part = {"cublas_products": dev.get("matmul", 0.0) - loop_ms["matmul"],
+               "mamba_scan": dev.get("mamba_scan", 0.0),
+               "mamba_scan_bwd": dev.get("mamba_scan_bwd", 0.0),
+               "slstm_loop": loop_ms["matmul"] + loop_ms["other"],
+               "other": dev.get("other", 0.0) - loop_ms["other"]}
+    log(phase="train_xlstm_slstm_loop", **loop, blocks=n_s,
+        forward_runs_a_step=reruns, step_device_ms_by_part=by_part,
+        step_share_by_part={k_: v_ / split["device_total_ms"]
+                            for k_, v_ in by_part.items()},
+        step_wall_ms=infos[xlstm.name]["wall_ms"],
+        step_idle_share=split["idle_share"])
+    torch.cuda.empty_cache()
+
+    # ---- (4) float32 parity with the CPU at 2 blocks ----
+    log(phase="train_xlstm_parity", **train_parity(
+        xlstm, seq=TRAIN_SSM_CUT_SEQ, pattern=("X", "S")))
+    torch.cuda.empty_cache()
+    log(phase="train_zamba2_parity", **train_parity(
+        zamba2, seq=TRAIN_SSM_CUT_SEQ, pattern=("M", "A")))
+    torch.cuda.empty_cache()
+    out = []
+    for row, (cfg, *_) in shapes.items():
+        rec = records[(row, "bfloat16")]     # the main path's type
+        out.append(kernel_entry(
+            row, launches=infos[cfg.name]["launches"]["mamba_scan_bwd"],
+            err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
+            library_ms=None, bytes_=rec["bytes"], flops=rec["flops"],
+            peak=TF32_FLOPS / 3))
+    return out
 
 
 def _rates(flops: int, device_ms: float) -> dict:
@@ -4445,6 +4763,15 @@ def phase_recovery(sm_count):
         check(count > 0, f"{name} launched on the recovery path")
 
 
+def timed_phase(fn, *args):
+    """fn(*args), logged as `phase_seconds` with its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(phase="phase_seconds", name=fn.__name__,
+        seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4452,26 +4779,20 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.device import card_identity
-    sm_count = phase_environment()
-    phase_small()
-    phase_small_bfs_kmeans()
-    phase_small_moe()
-    phase_small_lm()
-    kernels = phase_main(sm_count)
-    kernels += phase_bfs(sm_count)
-    kernels += phase_kmeans(sm_count)
-    kernels += phase_moe(sm_count)
-    sched_kernels = phase_pipeline(sm_count)
-    phase_recovery(sm_count)
+    sm_count = timed_phase(phase_environment)
+    for phase in (phase_small, phase_small_bfs_kmeans, phase_small_moe,
+                  phase_small_lm):
+        timed_phase(phase)
+    kernels = []
+    for phase in (phase_main, phase_bfs, phase_kmeans, phase_moe):
+        kernels += timed_phase(phase, sm_count)
+    sched_kernels = timed_phase(phase_pipeline, sm_count)
+    timed_phase(phase_recovery, sm_count)
     SHAPES.clear()
-    kernels += phase_zamba2()
-    kernels += phase_xlstm()
-    kernels += phase_dense()
-    kernels += phase_moe_lm()
-    kernels += phase_whisper()
-    kernels += phase_vlm()
-    kernels += phase_train()
-    kernels += phase_train_vlm_encdec()
+    for phase in (phase_zamba2, phase_xlstm, phase_dense, phase_moe_lm,
+                  phase_whisper, phase_vlm, phase_train,
+                  phase_train_vlm_encdec, phase_train_ssm):
+        kernels += timed_phase(phase)
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)

@@ -12,9 +12,9 @@ Entry points:
   init_params           — the model (`StackedLM`, `EncDecLM` or
                           `HybridLM`), weights from a seeded
                           torch.Generator on the device
-  loss_fn               — the training loss of the dense, vlm and encdec
-                          families, with a gradient (the flash kernel's
-                          backward kernel)
+  loss_fn               — the training loss of every family but moe,
+                          with a gradient (the flash kernel's and the SSD
+                          scan's backward kernels)
   prefill / decode_step — the serving paths with their caches
                           (`batch["frames"]` for encdec,
                           `batch["patches"]` optional for vlm)
@@ -697,8 +697,8 @@ def _ffn(cfg, p: AttnBlock, h):
 
 # the families the port trains, and the ROADMAP item (queue 1) that ports
 # training for each of the others
-TRAINED = ("dense", "vlm", "encdec")
-_TRAIN_LATER = {"ssm": "5(a)", "hybrid": "5(a)", "moe": "5(b)"}
+TRAINED = ("dense", "vlm", "encdec", "ssm", "hybrid")
+_TRAIN_LATER = {"moe": "5(b)"}
 
 
 # remat_policy names (the reference's REMAT_POLICIES): "nothing" recomputes
@@ -733,9 +733,9 @@ def _remat_context(cfg) -> dict:
 
 def check_trainable(cfg) -> None:
     """Raise NotImplementedError unless the port trains this config: the
-    dense, vlm and encdec families. The others come with ROADMAP.md queue
-    1 item 5's later parts: (a) ssm and hybrid (the SSD scan's backward),
-    (b) moe (capacity and steal dispatch, the expert FFN's backward).
+    dense, vlm, encdec, ssm and hybrid families. Moe comes with ROADMAP.md
+    queue 1 item 5(b) (capacity and steal dispatch, the expert FFN's
+    backward).
     Raise ValueError for a `remat_policy` outside `REMAT_POLICIES` (the
     reference falls back to "nothing" without a word)."""
     _check_family(cfg)
@@ -749,16 +749,28 @@ def check_trainable(cfg) -> None:
             f"item {_TRAIN_LATER[cfg.family]}")
 
 
-def _train_layer(cfg, p: AttnBlock, x, causal: bool = True):
+def _train_layer(cfg, p: AttnBlock, x, causal: bool = True,
+                 window: int = 0):
     """An attention layer over the whole sequence (the reference's
-    `_apply_block_full` for "dense" and "enc"): attention through the
-    flash kernel (its autograd Function when x requires grad), causal or
-    not (whisper's encoder), then the MLP; no `by_blocks` (the reference
-    runs whole products; the serving quantum is not a training
-    concern)."""
-    h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=causal)
+    `_apply_block_full` for "dense", "enc" and "A"): attention through
+    the flash kernel (its autograd Function when x requires grad), causal
+    or not (whisper's encoder), with a sliding `window` (Zamba2's shared
+    block), then the MLP; no `by_blocks` (the reference runs whole
+    products; the serving quantum is not a training concern)."""
+    h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=causal, window=window)
     x = x + h
     return x + p.mlp(p.ln2(x))
+
+
+def _train_block(cfg, p, x, kind: str):
+    """Block `kind` of a hybrid or ssm pattern over the whole sequence
+    from a zero state (the reference's `_apply_block_full`): "A" is
+    `_train_layer` with `cfg.attn_window`; "M", "X" and "S" are
+    `_apply_recurrent` (the scans through the SSD scan's autograd
+    Function, the sLSTM's loop by autograd). Returns x."""
+    if kind == "A":
+        return _train_layer(cfg, p, x, window=cfg.attn_window)
+    return _apply_recurrent(cfg, kind, p, x)[0]
 
 
 def loss_fn(cfg, params, batch, cap_scales=None, *,
@@ -766,13 +778,16 @@ def loss_fn(cfg, params, batch, cap_scales=None, *,
     """batch: tokens (B, S), labels (B, S) int (-1 = masked); vlm:
     optional patches (B, P, d); encdec: frames (B, S_enc, d). Returns
     (loss, metrics {"loss", "n_tokens"}), the reference's
-    (`repro/models/model.py:350-395`) for the dense, vlm and encdec
-    families: the inputs embedded in `dtype` (`_embed_inputs`: a vlm's
-    patches before its tokens, RoPE over positions 0..P+S-1; whisper's
-    tokens plus their position rows); for encdec the encoder over the
-    frames (`_encode`) and each decoder layer's self-attention,
-    cross-attention and MLP (`_dec_layer`), else every layer
-    full-sequence; each layer under `torch.utils.checkpoint`,
+    (`repro/models/model.py:252-287, 350-395`) for the dense, vlm,
+    encdec, ssm and hybrid families: the inputs embedded in `dtype`
+    (`_embed_inputs`: a vlm's patches before its tokens, RoPE over
+    positions 0..P+S-1; whisper's tokens plus their position rows); for
+    encdec the encoder over the frames (`_encode`) and each decoder
+    layer's self-attention, cross-attention and MLP (`_dec_layer`); for
+    ssm and hybrid `cfg.block_pattern` over `params.block(i)`
+    (`_train_block`: every "A" position runs the one shared block, whose
+    gradient sums over them); else every layer full-sequence; each layer
+    or block under `torch.utils.checkpoint`,
     non-reentrant, when `cfg.remat`: the counterpart of the reference's
     jax.checkpoint with `cfg.remat_policy` (under "nothing" the backward
     reruns each layer's forward, flash included; under "dots" selective
@@ -793,6 +808,10 @@ def loss_fn(cfg, params, batch, cap_scales=None, *,
         for p in params.layers:
             x = _run_layer(cfg, _dec_layer, p, x, enc_out,
                            remat=cfg.remat)[0]
+    elif cfg.family in ("hybrid", "ssm"):
+        for i, kind in enumerate(cfg.block_pattern):
+            x = _run_layer(cfg, _train_block, params.block(i), x, kind,
+                           remat=cfg.remat)
     else:
         for p in params.layers:
             x = _run_layer(cfg, _train_layer, p, x, remat=cfg.remat)

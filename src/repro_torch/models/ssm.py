@@ -5,15 +5,18 @@ Mamba2 and mLSTM share one recurrence, S_t = a_t S_{t-1} + k_t (x) v_t,
 y_t = q_t . S_t, run in chunked form by `chunked_gated_scan` through the
 hand-written SSD scan kernel's wrapper (`kernels/mamba_scan`): the kernel
 on the card, its plain version on the CPU, from a given state or from
-zeros. The kernel's state layout is (B, H, N, Pd); the model keeps the
-reference's (B, H, Pd, N) and transposes at the wrapper's edge. mLSTM's
+zeros, and in training (from zeros) with a gradient through the
+hand-written backward kernel (`MambaScanFn`). The kernel's state layout
+is (B, H, N, Pd); the model keeps the reference's (B, H, Pd, N) and
+transposes at the wrapper's edge. mLSTM's
 normalizer is the ones-channel of v (Pd = head width + 1), and its output
 is num / max(|den|, 1). `gated_scan_step` is the single-token recurrence
 of decode, plain PyTorch.
 
 sLSTM is sequential (its recurrent weights act on h_{t-1}): a length-S
 loop of small PyTorch operations, as the reference's `lax.scan` is — no
-Pallas kernel in the reference.
+Pallas kernel in the reference; training differentiates it by autograd
+through the loop.
 """
 from __future__ import annotations
 
@@ -32,10 +35,12 @@ from . import layers as L
 
 def chunked_gated_scan(q, k, v, log_a, state=None, chunk: int = 256, *,
                        exact_chunk: bool = False):
-    """q,k (B,S,H,N); v (B,S,H,Pd); log_a (B,S,H) (<= 0); state None or
-    (B,H,Pd,N). Returns y (B,S,H,Pd), final state (B,H,Pd,N), float32
-    state math: the SSD scan kernel on the card, its plain version on the
-    CPU.
+    """q,k (B,S,H,N), or (B,S,1,N) for every head; v (B,S,H,Pd); log_a
+    (B,S,H) (<= 0); state None or (B,H,Pd,N). Returns y (B,S,H,Pd), final
+    state (B,H,Pd,N), float32 state math: the SSD scan kernel on the card,
+    its plain version on the CPU. With grad mode on and an input requiring
+    grad (training, no state) the scan's autograd Function runs: its
+    backward is the hand-written backward kernel on the card.
 
     The scan-block length Q is min(chunk, S), or `chunk` exactly with
     `exact_chunk` (S padded up to it), as in the reference: then calls on
@@ -132,15 +137,17 @@ def apply_mamba2(cfg, p: Mamba2, x, state=None, *, chunk: int = None,
     xs = F.silu(xs)
     xh = xs.reshape(B, S, H, hd)
     log_a = -torch.exp(p.A_log)[None, None] * dt  # (B,S,H), <= 0
-    # B/C shared across heads (MQA-style), broadcast with a head stride of
-    # 0 (never materialised); dt folded into v
-    k = Bm[:, :, None, :].expand(B, S, H, N)
-    q = Cm[:, :, None, :].expand(B, S, H, N)
+    # B/C shared across heads (MQA-style): one (B,S,1,N) for every head,
+    # which the scan broadcasts with a head stride of 0 (never
+    # materialised; its gradient sums over the heads); dt folded into v
+    k = Bm[:, :, None, :]
+    q = Cm[:, :, None, :]
     v = xh * dt.to(xh.dtype)[..., None]
     ssm_prev = None if state is None else state["ssm"]
     if S == 1 and ssm_prev is not None and not exact_chunk:
-        y, ssm = gated_scan_step(q[:, 0], k[:, 0], v[:, 0], log_a[:, 0],
-                                 ssm_prev)
+        y, ssm = gated_scan_step(q[:, 0].expand(B, H, N),
+                                 k[:, 0].expand(B, H, N), v[:, 0],
+                                 log_a[:, 0], ssm_prev)
         y = y[:, None]
     else:
         y, ssm = chunked_gated_scan(q, k, v, log_a, state=ssm_prev,
@@ -311,13 +318,19 @@ def slstm_recurrence(r, zs, og, ig, fg, h, c):
     (B,S,H,dh) and the input and forget gates (B,S,H), from h, c (B,H,dh)
     with recurrent weights r (H,dh,dh): (h of every step (B,S,H,dh), last
     h, last c). One step at a time, eight small operations a step:
-    zr = tanh(z_t + h r), c = f_t c + i_t zr, h = o_t tanh(c)."""
+    zr = tanh(z_t + h r), c = f_t c + i_t zr, h = o_t tanh(c). The inputs
+    are unbound into their steps once, not indexed a step at a time: the
+    values are the same, and under autograd their gradients are stacked
+    once at the end instead of each step's being added into a zeroed
+    tensor of the whole sequence (S full-size adds a block)."""
     ys = []
-    for t in range(zs.shape[1]):
+    for z_t, o_t, i_t, f_t in zip(zs.unbind(1), og.unbind(1),
+                                  ig[..., None].unbind(1),
+                                  fg[..., None].unbind(1)):
         hr = torch.bmm(h.transpose(0, 1), r).transpose(0, 1)
-        zr = torch.tanh(zs[:, t] + hr)
-        c = fg[:, t, :, None] * c + ig[:, t, :, None] * zr
-        h = og[:, t] * torch.tanh(c)
+        zr = torch.tanh(z_t + hr)
+        c = f_t * c + i_t * zr
+        h = o_t * torch.tanh(c)
         ys.append(h)
     return torch.stack(ys, 1), h, c
 

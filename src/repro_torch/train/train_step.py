@@ -1,20 +1,22 @@
 """Training step — the port's counterpart of `repro.train.train_step`:
-the loss's gradient (`models.model.loss_fn`, the flash kernel's backward
-kernel on the card), an AdamW update, optional microbatch accumulation,
-int8 gradient compression with error feedback, bfloat16 parameters with a
-float32 master copy, and a one-time cast of the parameters.
+the loss's gradient (`models.model.loss_fn`, the flash kernel's and the
+SSD scan's backward kernels on the card), an AdamW update, optional
+microbatch accumulation, int8 gradient compression with error feedback,
+bfloat16 parameters with a float32 master copy, and a one-time cast of
+the parameters.
 
-The train state is a dict: "params" (the model, `models.model.StackedLM`
-or `EncDecLM`, its parameters requiring grad), "opt" ({"m", "v", "step"} keyed by
-parameter name, plus "master" with `bf16_params`), "cap_scales" ((MoE
+The train state is a dict: "params" (the model,
+`models.model.StackedLM`, `EncDecLM` or `HybridLM`, its parameters
+requiring grad), "opt" ({"m", "v", "step"} keyed by parameter name, plus
+"master" with `bf16_params`), "cap_scales" ((MoE
 layers, E) float32 ones: the MoE capacity scales, which MoE training will
 update) and, with `grad_compress`, "grad_err" (the residuals). `step`
 updates the state's tensors IN PLACE and returns the same dict with the
 metrics (the reference returns a new state; in place the step needs no
 second copy of the parameters and moments). The port runs eagerly: there
 is nothing to jit, and `train_state_pspecs` / `batch_pspec` come with
-`launch/` (ROADMAP.md queue 1 item 6). It trains the dense, vlm and
-encdec families; `make_train_step` refuses the others
+`launch/` (ROADMAP.md queue 1 item 6). It trains the dense, vlm,
+encdec, ssm and hybrid families; `make_train_step` refuses moe
 (`models.model.check_trainable`), MoE's capacity-scale update included.
 """
 from __future__ import annotations

@@ -36,7 +36,11 @@ kernel's three launches against their plain formulas at dh 64, 96, 128,
 GQA 1 and 6, causal, non-causal and windowed, ragged, float32 and
 bfloat16, the same bits twice; the forward's bits with and without the
 log-sum-exp; the autograd Function and a reduced qwen2-1.5b train step
-at dh 128 on the card against the CPU), and the
+at dh 128 on the card against the CPU; the SSD scan's backward kernel
+against its plain formulas, shared and per-head, N 512 with Pd 513,
+ragged chunks, float32 and bfloat16, the same bits twice; its autograd
+Function and a reduced xlstm and Zamba2's gradients on the card against
+the CPU), and the
 schedule
 pipeline on the card (each lowering element-identical to the numpy one,
 tile costs bit for bit: one R per branch of numpy's pairwise sum, LPT
@@ -446,6 +450,136 @@ def test_mamba_scan_kernel_matches_plain(cuda, S, H, N, Pd, chunk):
     yb_p, _ = K.mamba_scan_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(),
                                  la, chunk=chunk)
     torch.testing.assert_close(yb.float(), yb_p.float(), rtol=0.2, atol=0.2)
+
+
+# (S, H, N, Pd, chunk, q and k shared by the heads, dtype)
+SCAN_BWD_CASES = [
+    (100, 2, 16, 33, 32, False, torch.float32),
+    (300, 3, 64, 64, 256, True, torch.float32),     # Zamba2's kind, ragged
+    (257, 2, 512, 513, 256, False, torch.float32),  # xlstm's N and Pd
+    (40, 3, 13, 30, 16, False, torch.float32),      # off the tiles
+    (130, 4, 64, 64, 64, True, torch.bfloat16),
+    (200, 2, 512, 513, 128, False, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("S,H,N,Pd,chunk,shared,dtype", SCAN_BWD_CASES)
+def test_mamba_scan_backward_kernel_matches_plain(cuda, S, H, N, Pd, chunk,
+                                                  shared, dtype):
+    """The backward kernel against `mamba_scan_backward_plain` on the same
+    saved states: each gradient within 1e-4 of its max |plain| in float32
+    (3xTF32 and cuBLAS float32 sums in other orders); in bfloat16, where
+    both round dq, dk, dv to bfloat16 once from float32 sums, within 1e-2
+    (one bfloat16 ulp is at most 2^-7 of an element), dlog_a (float32)
+    within 1e-4. Two calls give the same bits; with q and k shared, dv and
+    dlog_a are the bits of per-head copies and dq, dk their head sums."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as K
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KB
+    g = torch.Generator(device=cuda).manual_seed(S + N + Pd)
+    hq = 1 if shared else H
+    q = torch.randn((2, S, hq, N), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, S, hq, N), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, S, H, Pd), generator=g, device=cuda).to(dtype)
+    dy = torch.randn((2, S, H, Pd), generator=g, device=cuda).to(dtype)
+    la = -torch.rand((2, S, H), generator=g, device=cuda) * 0.3
+    _, _, st, lc = K._launch(q, k, v, la, chunk=chunk, keep=True)
+    KB.reset_launches()
+    got = KB.mamba_scan_backward(q, k, v, dy, st, lc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES == {"mamba_scan_bwd": 1}
+    plain = KB.mamba_scan_backward_plain(q, k, v, dy, st, lc, chunk=chunk)
+    for name, a, b in zip(("dq", "dk", "dv", "dlog_a"), got, plain):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        tol = 1e-2 if dtype == torch.bfloat16 and name != "dlog_a" else 1e-4
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), (name, err)
+    again = KB.mamba_scan_backward(q, k, v, dy, st, lc, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if shared:
+        qh, kh = (t.expand(2, S, H, N).contiguous() for t in (q, k))
+        per_head = KB.mamba_scan_backward(qh, kh, v, dy, st, lc, chunk=chunk)
+        assert torch.equal(got[2], per_head[2])
+        assert torch.equal(got[3], per_head[3])
+        for a, b in zip(got[:2], per_head[:2]):
+            s_ = b.float().sum(2, keepdim=True)
+            tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+            assert float((a.float() - s_).abs().max()) \
+                <= tol * float(s_.abs().max())
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_mamba_scan_function_on_the_card_matches_the_cpu(cuda, shared):
+    """`mamba_scan` in grad mode on CUDA tensors runs `MambaScanFn`: one
+    forward and one backward launch, and torch.autograd.grad equal to the
+    CPU's (the plain formulas) within 1e-4 of each gradient's max; a given
+    state raises there."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as K
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KB
+    g = torch.Generator(device="cpu").manual_seed(7)
+    B, S, H, N, Pd = 2, 300, 4, 32, 33
+    hq = 1 if shared else H
+    cpu = [torch.randn((B, S, hq, N), generator=g),
+           torch.randn((B, S, hq, N), generator=g),
+           torch.randn((B, S, H, Pd), generator=g),
+           -torch.rand((B, S, H), generator=g) * 0.3]
+    dy = torch.randn((B, S, H, Pd), generator=g)
+    grads = {}
+    for dev in ("cpu", cuda):
+        xs = [t.to(dev).requires_grad_() for t in cpu]
+        K.reset_launches()
+        KB.reset_launches()
+        y, st = K.mamba_scan(*xs, chunk=128)
+        assert y.grad_fn is not None and not st.requires_grad
+        grads[str(dev)] = [t.cpu() for t in
+                           torch.autograd.grad(y, xs, dy.to(dev))]
+        on_card = torch.device(dev).type == "cuda"
+        assert K.LAUNCHES == {"mamba_scan": int(on_card)}
+        assert KB.LAUNCHES == {"mamba_scan_bwd": int(on_card)}
+        with pytest.raises(ValueError, match="zero state"):
+            K.mamba_scan(*xs, chunk=128, state=st.detach())
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("name,over", [
+    ("xlstm-350m", dict(block_pattern=("X", "S"), n_layers=2)),
+    ("zamba2-1.2b", dict(block_pattern=("M", "A", "M", "A"), n_layers=4,
+                         d_model=256, n_heads=4, attn_window=150))])
+def test_ssm_and_hybrid_gradients_on_the_card_match_the_cpu(cuda, name,
+                                                            over):
+    """A reduced xlstm ("X", "S") and a reduced Zamba2 (two "M" and the
+    shared "A" twice, dh 64, a window under the sequence) at 200 tokens
+    in chunks of 64: the float32 loss within 1e-5 relative and every
+    gradient leaf within 1e-4 of its max on the card against the CPU,
+    with remat on; the scan's forward twice (remat reruns it) and its
+    backward once a block."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.kernels.mamba_scan import mamba_scan as K
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KB
+    from repro_torch.models import model as M
+    cfg = reduced(get_arch(name), ssm_chunk=64, remat=True, **over)
+    batch = synthetic_tokens(2, 200, cfg.padded_vocab, 0, 3)
+    res = {}
+    for dev in ("cpu", cuda):
+        model = M.init_params(cfg, 0, device="cpu").to(dev)
+        model.requires_grad_(True)
+        K.reset_launches()
+        KB.reset_launches()
+        loss, _ = M.loss_fn(cfg, model, {k: torch.from_numpy(v).to(dev)
+                                         for k, v in batch.items()},
+                            dtype=torch.float32)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        res[str(dev)] = (float(loss), [t.cpu() for t in grads])
+        scans = sum(kind in "MX" for kind in cfg.block_pattern)
+        on_card = torch.device(dev).type == "cuda"
+        assert K.LAUNCHES == {"mamba_scan": 2 * scans * on_card}
+        assert KB.LAUNCHES == {"mamba_scan_bwd": scans * on_card}
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-5)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 def _scan_terms_error(y, y_ref, terms):

@@ -209,6 +209,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.kernels.flash_attention.flash_attention, "
             "repro_torch.kernels.flash_attention.ref, "
             "repro_torch.kernels.mamba_scan.mamba_scan, "
+            "repro_torch.kernels.mamba_scan.mamba_scan_bwd, "
             "repro_torch.kernels.mamba_scan.ref, repro_torch.models.model, "
             "repro_torch.serve, repro_torch.serve.engine, "
             "repro_torch.core, repro_torch.core.simulator, "
@@ -291,7 +292,8 @@ def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
     # the real sources each name their own library
     monkeypatch.undo()
     names = ("ich_spmv", "ich_bfs", "ich_kmeans", "ich_moe",
-             "flash_attention", "flash_attention_bwd", "mamba_scan", "lpt")
+             "flash_attention", "flash_attention_bwd", "mamba_scan",
+             "mamba_scan_bwd", "lpt")
     paths = {_build.library_path(n) for n in names}
     assert len(paths) == len(names)
     assert sorted(names) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))

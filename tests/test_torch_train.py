@@ -5,9 +5,10 @@ CASES), AdamW (`schedule`, `apply_updates` fed the reference's
 gradients, weight decay by the reference leaf's rank), `make_train_step`
 from the converted reference state under each TrainConfig option, int8
 gradient compression, the data pipeline and its dispatcher, the trainer
-with checkpoint, failure and resume, and the refusals of the families
-the port does not train yet (the vlm and encdec families' training in
-tests/test_torch_train_vlm_encdec.py).
+with checkpoint, failure and resume, and the refusals of the family the
+port does not train yet, moe (the vlm and encdec families' training in
+tests/test_torch_train_vlm_encdec.py, the ssm and hybrid families' in
+tests/test_torch_train_ssm.py).
 
 Tolerances, each stated with its reason:
 - loss within 1e-5 relative, every gradient within 1e-4 of its leaf's
@@ -593,8 +594,7 @@ def test_bf16_master_training_state():
 
 
 # -------------------------------------------------------------- refusals
-@pytest.mark.parametrize("name", ["olmoe-1b-7b", "deepseek-moe-16b",
-                                  "xlstm-350m", "zamba2-1.2b"])
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "deepseek-moe-16b"])
 def test_families_not_trained_yet_are_refused(name, tmp_path):
     cfg = reduced(get_arch(name))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
