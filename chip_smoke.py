@@ -114,7 +114,9 @@ launch counters set to 0 just before it and read just after:
   the same bars; the scan's backward kernel (six CUDA kernels a call,
   seven with q and k shared by the heads) at both models' shapes in
   float32 and bfloat16 against its plain version, two calls the same
-  bits; one sLSTM block's loop, forward and backward, timed apart; one
+  bits, each CUDA kernel's registers, shared memory and CTAs an SM, and
+  the scan's forward as training runs it at the same shapes; one sLSTM
+  block's loop, forward and backward, timed apart; one
   float32 step of each cut to ("X", "S") and ("M", "A") over 2 x 512
   tokens against the CPU.
 
@@ -175,9 +177,10 @@ prefill and extend shapes (dh 96), and the expert
 kernel twice, at the dispatch phase's shape and at olmoe-1b-7b's serving
 shape; the flash backward kernel five times, at qwen2-1.5b's,
 phi-3-vision's and whisper-small's three training shapes, beside the
-backward of `scaled_dot_product_attention`; the scan's backward twice,
-at zamba2-1.2b's and xlstm-350m's training shapes, with no single
-PyTorch call to set beside it), and prints one JSON line per result
+backward of `scaled_dot_product_attention`; the scan's backward and its
+forward (as training runs it, keeping the chunk states) twice each, at
+zamba2-1.2b's and xlstm-350m's training shapes in bfloat16, with no
+single PyTorch call to set beside them), and prints one JSON line per result
 (and each phase's wall seconds).
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs CUDA and the repository's `src/` beside it.
@@ -296,6 +299,12 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                        "src/repro/models/ssm.py:32"),
     "mamba_scan_bwd_xlstm": ("src/repro_torch/csrc/mamba_scan_bwd.cu",
                              "src/repro/models/ssm.py:32"),
+    # the scan's forward in bfloat16 as training runs it (keeping each
+    # chunk's state for the backward), at the same two shapes
+    "mamba_scan_train": ("src/repro_torch/csrc/mamba_scan.cu",
+                         PASS + "mamba_scan/mamba_scan.py:83"),
+    "mamba_scan_train_xlstm": ("src/repro_torch/csrc/mamba_scan.cu",
+                               PASS + "mamba_scan/mamba_scan.py:83"),
     # the schedule pipeline's two kernels replace XLA code of the reference's
     # jitted pipeline, not a Pallas kernel: its segment sum and LPT loop
     "segment_fold": ("src/repro_torch/csrc/lpt.cu",
@@ -428,9 +437,15 @@ TRAIN_SSM_CUT_SEQ = 512
 # float32 sums (one ulp is at most 2^-7 of an element); dlog_a stays
 # float32 and keeps the float32 bar
 SCAN_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-SCAN_BWD_KERNELS = ("ssd_bwd_kernel_dstates", "ssd_bwd_kernel_pass",
-                    "ssd_bwd_kernel_gdot", "ssd_bwd_kernel_pair",
-                    "ssd_bwd_kernel_dl")
+# the CUDA kernels of the scan's backward by input type (and the head sum
+# with q and k shared): bfloat16 runs its own dstates and pair kernels
+SCAN_BWD_KERNELS = {
+    "float32": ("ssd_bwd_kernel_dstates", "ssd_bwd_kernel_pass",
+                "ssd_bwd_kernel_gdot", "ssd_bwd_kernel_pair",
+                "ssd_bwd_kernel_dl"),
+    "bfloat16": ("ssd_bwd_kernel_dstates_bf16", "ssd_bwd_kernel_pass",
+                 "ssd_bwd_kernel_gdot", "ssd_bwd_kernel_pair_bf16",
+                 "ssd_bwd_kernel_dl")}
 
 
 def log(**kw) -> None:
@@ -4124,6 +4139,62 @@ def scan_backward_work(B, S, H, N, Pd, chunk, *, shared_qk: bool) -> int:
     return B * (score * (1 if shared_qk else H) + H * per_head)
 
 
+def scan_backward_bf16_work(B, S, H, N, Pd, chunk) -> int:
+    """Operations of the bfloat16 products the backward's bfloat16 kernels
+    run on these shapes (csrc/mamba_scan_bwd.cu): per head and causal pair
+    one product for each score (dy.v in dq's and dk's kernels, q.k in dv's:
+    2Pd + 2Pd + 2N) and two for each pair term (P k, P q, P dy: 2 x (2N +
+    2N + 2Pd)), and per head and step two for each product with a chunk
+    state and for the adjoint state (2 x 8 N Pd)."""
+    work = 0
+    for t0 in range(0, S, chunk):
+        c = min(chunk, S - t0)
+        pairs = c * (c + 1) // 2
+        work += pairs * (8 * Pd + 10 * N) + 16 * c * N * Pd
+    return B * H * work
+
+
+def scan_forward_record(q, k, v, la, chunk: int) -> dict:
+    """The scan's forward as training runs it (`mamba_scan._launch` with
+    `keep=True`: the five kernels keeping each chunk's state and l) at one
+    shape, against `_plain_chunks` (y and the kept states within
+    SCAN_BWD_TOL of their max |plain| in bfloat16, 2e-4 in float32), timed
+    beside it, with its operations (`_scan_work`) and bytes (q, k, v,
+    log_a read once; y, the kept states and l written once): `bound_ms`
+    with the operations in 3xTF32 at 495 TFLOP/s, the units the kernels
+    run them on, and `bound_bf16_ms` at 989 TFLOP/s, the card's rate for
+    bfloat16 inputs."""
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    B, S, H, Pd = v.shape
+    N, shared = q.shape[3], q.shape[2] != H
+    out = KS._launch(q, k, v, la, chunk=chunk, keep=True)
+    plain = KS._plain_chunks(q, k, v, la, chunk, None)
+    tol = SCAN_BWD_TOL["bfloat16"] if v.dtype == torch.bfloat16 else 2e-4
+    err = 0.0
+    for i in (0, 2):   # y and the kept states (from a zero state)
+        e_ = float((out[i].float() - plain[i].float()).abs().max())
+        check(e_ <= tol * float(plain[i].float().abs().max()),
+              f"scan forward B{B} S{S} H{H} N{N} Pd{Pd}: output {i} within "
+              f"{tol} of max |plain|")
+        err = max(err, e_)
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                 + out[0].numel()) \
+        + 4 * (la.numel() + out[2].numel() + out[3].numel())
+    flops = _scan_work(B, S, H, N, Pd, chunk, shared_qk=shared)
+    del out, plain
+    return {"max_abs_err": err,
+            "ms": timed_ms(lambda: KS._launch(q, k, v, la, chunk=chunk,
+                                              keep=True)),
+            "plain_ms": timed_ms(lambda: KS._plain_chunks(q, k, v, la, chunk,
+                                                          None)),
+            "flops": flops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  flops / (TF32_FLOPS / 3)),
+            "bound_bf16_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                       flops / BF16_FLOPS)}
+
+
 def scan_backward_record(B, S, H, N, Pd, *, shared: bool, dtype, g,
                          chunk: int = 256) -> dict:
     """The scan's backward kernel at one shape (q, k (B, S, H, N) or, shared
@@ -4131,9 +4202,16 @@ def scan_backward_record(B, S, H, N, Pd, *, shared: bool, dtype, g,
     kernel's kept states: each gradient against
     `mamba_scan_backward_plain` within SCAN_BWD_TOL of its max |plain|,
     two calls the same bits, timed beside the plain version, with the
-    device time of each of its CUDA kernels, its operations
-    (`scan_backward_work`) and bytes (q, k, v, dy, the kept states and l
-    read once; dq, dk, dv and dlog_a written once)."""
+    device time of each of its CUDA kernels (and of the wrapper's padding
+    copies), each kernel's registers, shared memory and CTAs an SM
+    (`kernel_occupancy`), its operations (`scan_backward_work`) and bytes
+    (q, k, v, dy, the kept states and l read once; dq, dk, dv and dlog_a
+    written once): `bound_ms` with the operations in 3xTF32 at 495
+    TFLOP/s; in bfloat16 also `bound_bf16_ms`, the bfloat16 products the
+    kernels run (`scan_backward_bf16_work`) at 989 TFLOP/s beside the
+    bytes. The forward as training runs it at the same shape goes under
+    "forward" (`scan_forward_record`, bfloat16 only: the type training
+    runs)."""
     import torch
     from repro_torch.kernels.mamba_scan import mamba_scan as KS
     from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KSB
@@ -4148,6 +4226,8 @@ def scan_backward_record(B, S, H, N, Pd, *, shared: bool, dtype, g,
                                                       scale=N ** -0.5)
     v, dy = randn(B, S, H, Pd), randn(B, S, H, Pd)
     la = -torch.rand((B, S, H), generator=g, device="cuda") * 0.3
+    forward = scan_forward_record(q, k, v, la, chunk) \
+        if dtype == torch.bfloat16 else None
     _, _, st, lc = KS._launch(q, k, v, la, chunk=chunk, keep=True)
 
     def kernel():
@@ -4172,24 +4252,39 @@ def scan_backward_record(B, S, H, N, Pd, *, shared: bool, dtype, g,
     del plain, again
     ms = timed_ms(kernel)
     plain_ms = timed_ms(plain_version)
-    by_name = device_ms_by_kernel(kernel, expect=SCAN_BWD_KERNELS)
+    kernels = SCAN_BWD_KERNELS[name]
+    by_name = device_ms_by_kernel(kernel, expect=kernels)
     split = {kern: sum(t for n, t in by_name.items() if kern in n)
-             for kern in SCAN_BWD_KERNELS + ("ssd_bwd_kernel_headsum",)}
+             for kern in kernels + ("ssd_bwd_kernel_headsum",)}
+    padding_ms = sum(t for n, t in by_name.items() if "ssd_bwd_" not in n)
+    occupancy = KSB.kernel_occupancy(B, S, H, N, Pd, chunk=chunk,
+                                     shared=shared, dtype=dtype)
+    check(all(o["ctas_per_sm"] >= 1 for o in occupancy.values()),
+          f"{label}: every kernel fits an SM")
     flops = scan_backward_work(B, S, H, N, Pd, chunk, shared_qk=shared)
     nbytes = q.element_size() * 2 * (q.numel() + k.numel() + v.numel()) \
         + v.element_size() * dy.numel() + 4 * (st.numel() + lc.numel()
                                               + B * S * H)
     del q, k, v, dy, la, st, lc, grads
-    return {"dtype": name, "shape": {"B": B, "S": S, "H": H, "N": N,
-                                     "Pd": Pd, "chunk": chunk,
-                                     "shared_qk": shared},
-            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
-            "max_abs_plain": scale, "ms": ms, "plain_ms": plain_ms,
-            "flops": flops, "bytes": nbytes,
-            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                  flops / (TF32_FLOPS / 3)),
-            "kernels_ms": split, "kernels_total_ms": sum(split.values()),
-            "tflops_needed_work": flops / (ms * 1e-3) / 1e12}
+    rec = {"dtype": name, "shape": {"B": B, "S": S, "H": H, "N": N,
+                                    "Pd": Pd, "chunk": chunk,
+                                    "shared_qk": shared},
+           "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+           "max_abs_plain": scale, "ms": ms, "plain_ms": plain_ms,
+           "flops": flops, "bytes": nbytes,
+           "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                 flops / (TF32_FLOPS / 3)),
+           "bytes_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+           "kernels_ms": split, "kernels_total_ms": sum(split.values()),
+           "padding_ms": padding_ms, "occupancy": occupancy,
+           "tflops_needed_work": flops / (ms * 1e-3) / 1e12}
+    if dtype == torch.bfloat16:
+        rec["forward"] = forward
+        bf16_flops = scan_backward_bf16_work(B, S, H, N, Pd, chunk)
+        rec["bf16_flops"] = bf16_flops
+        rec["bound_bf16_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                         bf16_flops / BF16_FLOPS)
+    return rec
 
 
 def slstm_loop_parts(cfg, batch: int, seq: int) -> dict:
@@ -4234,7 +4329,8 @@ def slstm_loop_parts(cfg, batch: int, seq: int) -> dict:
 def phase_train_ssm():
     """Training the ssm and hybrid families (ROADMAP.md queue 1 item
     5(a)). (1) The scan's backward kernel at the two shapes the steps give
-    it, float32 and bfloat16 (`scan_backward_record`): zamba2-1.2b's
+    it, float32 and bfloat16 (`scan_backward_record`, with the forward's
+    record at the same shape): zamba2-1.2b's
     Mamba2 (4, 2,048, 64 heads, N = Pd = 64, B and C shared by the heads)
     and xlstm-350m's mLSTM (4, 2,048, 4 heads, N = 512, Pd = 513).
     (2) xlstm-350m at full width and depth (24 blocks: 18 mLSTM, 6
@@ -4297,11 +4393,19 @@ def phase_train_ssm():
                for k_ in ("matmul", "other")}
     split = infos[xlstm.name]["split"]
     dev = split["device_ms"]
+    # the backward wrapper's padding copies (Pd 513 -> 520) run as generic
+    # kernels that the split counts under "other": a step's share is its
+    # backward launches (the counted steps' over their number) times one
+    # call's padding_ms at the same shape
+    pad_ms = infos[xlstm.name]["launches"]["mamba_scan_bwd"] \
+        // TRAIN_XLSTM_STEPS * records[
+            ("mamba_scan_bwd_xlstm", "bfloat16")]["padding_ms"]
     by_part = {"cublas_products": dev.get("matmul", 0.0) - loop_ms["matmul"],
                "mamba_scan": dev.get("mamba_scan", 0.0),
                "mamba_scan_bwd": dev.get("mamba_scan_bwd", 0.0),
+               "mamba_scan_bwd_padding": pad_ms,
                "slstm_loop": loop_ms["matmul"] + loop_ms["other"],
-               "other": dev.get("other", 0.0) - loop_ms["other"]}
+               "other": dev.get("other", 0.0) - loop_ms["other"] - pad_ms}
     log(phase="train_xlstm_slstm_loop", **loop, blocks=n_s,
         forward_runs_a_step=reruns, step_device_ms_by_part=by_part,
         step_share_by_part={k_: v_ / split["device_total_ms"]
@@ -4317,14 +4421,25 @@ def phase_train_ssm():
     log(phase="train_zamba2_parity", **train_parity(
         zamba2, seq=TRAIN_SSM_CUT_SEQ, pattern=("M", "A")))
     torch.cuda.empty_cache()
+    # the `kernels` rows at the bfloat16 rate, the main path's type: the
+    # backward with the bfloat16 products its kernels run (the 3xTF32
+    # bound stays in its record, `bound_ms`), the forward with its
+    # operations (it runs them in 3xTF32: `bound_ms` of its record)
     out = []
     for row, (cfg, *_) in shapes.items():
-        rec = records[(row, "bfloat16")]     # the main path's type
+        rec = records[(row, "bfloat16")]
         out.append(kernel_entry(
             row, launches=infos[cfg.name]["launches"]["mamba_scan_bwd"],
             err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
-            library_ms=None, bytes_=rec["bytes"], flops=rec["flops"],
-            peak=TF32_FLOPS / 3))
+            library_ms=None, bytes_=rec["bytes"], flops=rec["bf16_flops"],
+            peak=BF16_FLOPS))
+        fwd = rec["forward"]
+        out.append(kernel_entry(
+            row.replace("mamba_scan_bwd", "mamba_scan_train"),
+            launches=infos[cfg.name]["launches"]["mamba_scan"],
+            err=fwd["max_abs_err"], ms=fwd["ms"], plain_ms=fwd["plain_ms"],
+            library_ms=None, bytes_=fwd["bytes"], flops=fwd["flops"],
+            peak=BF16_FLOPS))
     return out
 
 

@@ -1,6 +1,6 @@
 // Bfloat16 products on Hopper's tensor cores through mma.sync, with
 // fragments loaded from shared memory by ldmatrix; used by
-// flash_attention_bwd.cu.
+// flash_attention_bwd.cu and mamba_scan_bwd.cu.
 //
 // Fragments of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, with
 // gid = lane / 4 and tig = lane % 4. Each 32-bit register of A and B holds
@@ -29,6 +29,8 @@
 //             its rows and k along a row (B = tile^T: K for q k^T).
 //   load_bt:  B of two n8 tiles from a tile stored with k as its rows and
 //             n along a row (.trans: dO for P^T dO, q for dS^T q).
+//   load_at:  A (16 x 16) from a tile stored with k as its rows and m
+//             along a row (.trans: q^T of the scan's q (x) dy sums).
 // Tiles in shared memory have rows of dh + 8 bfloat16 values (36, 52 and
 // 68 words for dh 64, 96, 128: 4, 20 and 4 mod 32), so the eight 16-byte
 // row pieces of one matrix fall in eight distinct groups of four banks.
@@ -117,6 +119,43 @@ __device__ __forceinline__ void a_from_c(uint32_t* a, const float* c0,
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// A fragment of rows m0..m0+15, k0..k0+15 from a tile whose row k holds
+// A[m][k] along m
+__device__ __forceinline__ void load_at(uint32_t* a, const __nv_bfloat16* t,
+                                        int stride, int k0, int m0,
+                                        int lane) {
+  ldsm_x4_trans(a, t + (k0 + (lane & 7) + 8 * (lane >> 4)) * stride + m0 +
+                       8 * ((lane >> 3) & 1));
+}
+
+// the two bfloat16 values of an operand register, the low half first
+__device__ __forceinline__ float2 unpack_bf16(uint32_t r) {
+  return make_float2(__uint_as_float(r << 16),
+                     __uint_as_float(r & 0xffff0000u));
+}
+
+// A float32 pair split in two bfloat16 pairs: hi = bf16(x), lo = bf16(x -
+// hi), each rounded to nearest even. hi + lo carries ~16 bits of x where
+// hi alone carries 8, so a product with an exact bfloat16 operand b runs
+// as lo . b then hi . b into one float32 accumulator (2^-16 of a term, as
+// against 2^-8 for hi alone).
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t* hi,
+                                           uint32_t* lo) {
+  *hi = pack_bf16(x, y);
+  const float2 h = unpack_bf16(*hi);
+  *lo = pack_bf16(__fsub_rn(x, h.x), __fsub_rn(y, h.y));
+}
+
+// a_from_c with the split: the hi and lo A fragments of c0 and c1
+__device__ __forceinline__ void split_a_from_c(uint32_t* hi, uint32_t* lo,
+                                               const float* c0,
+                                               const float* c1) {
+  split_bf16(c0[0], c0[1], &hi[0], &lo[0]);
+  split_bf16(c0[2], c0[3], &hi[1], &lo[1]);
+  split_bf16(c1[0], c1[1], &hi[2], &lo[2]);
+  split_bf16(c1[2], c1[3], &hi[3], &lo[3]);
 }
 
 }  // namespace ich

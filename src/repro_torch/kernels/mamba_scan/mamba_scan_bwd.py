@@ -27,7 +27,13 @@ Given CPU tensors the wrapper runs the plain version
 (`mamba_scan_backward_plain`: the formulas chunk by chunk in eager
 PyTorch, not autograd); given CUDA tensors it launches the kernels of
 `csrc/mamba_scan_bwd.cu` or raises: there is no fallback. Each call that
-launches them adds one to `LAUNCHES["mamba_scan_bwd"]`.
+launches them adds one to `LAUNCHES["mamba_scan_bwd"]`. In bfloat16 the
+kernels copy every tile by 16-byte cp.async, so where N or Pd is not a
+multiple of 8 (xlstm's Pd = 513) the wrapper pads q, k, v, dy and the
+kept states with zeros to the next multiple (520) and hands back views
+of the padded gradients; Zamba2's inputs are taken as they are.
+`kernel_occupancy` reports what each of a call's CUDA kernels holds on
+the card.
 """
 from __future__ import annotations
 
@@ -40,10 +46,15 @@ from repro_torch.kernels._common import on_cpu, raise_on
 
 from .mamba_scan import _DTYPES, MAX_STATE, _by_heads
 
-__all__ = ["LAUNCHES", "MAX_CHUNK", "mamba_scan_backward",
-           "mamba_scan_backward_plain", "reset_launches"]
+__all__ = ["KERNEL_SLOTS", "LAUNCHES", "MAX_CHUNK", "kernel_occupancy",
+           "mamba_scan_backward", "mamba_scan_backward_plain",
+           "reset_launches"]
 
 MAX_CHUNK = 256   # chunk lengths the backward kernel takes
+# the CUDA kernels of a call, in launch order (the head sum only with q and
+# k shared), as `mamba_scan_bwd_occupancy` reports them
+KERNEL_SLOTS = ("dstates", "pass", "gdot", "pair_dq", "pair_dk", "pair_dv",
+                "dl", "headsum")
 
 # wrapper calls that launched the kernels since the last reset_launches()
 LAUNCHES = {"mamba_scan_bwd": 0}
@@ -138,8 +149,47 @@ def _lib() -> ctypes.CDLL:
         lib.mamba_scan_bwd_launch.argtypes = [ptr] * 16 + [i32] * 7 \
             + [i64] * 6 + [i32, ptr]
         lib.mamba_scan_bwd_launch.restype = i32
+        lib.mamba_scan_bwd_occupancy.argtypes = [i32] * 8 + [ptr]
+        lib.mamba_scan_bwd_occupancy.restype = i32
         lib._typed = True
     return lib
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _rows16(t, width: int):
+    """t (*, W) with rows as the bfloat16 kernels copy them: `width` (a
+    multiple of 8, >= W) values at 16-byte-aligned starts, zeros past W;
+    t itself when it already is, else a padded contiguous copy."""
+    if t.shape[-1] == width and t.stride(-1) == 1 \
+            and all(s % 8 == 0 for s in t.stride()[:-1]) \
+            and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((*t.shape[:-1], width))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def kernel_occupancy(B: int, S: int, H: int, N: int, Pd: int, *,
+                     chunk: int, shared: bool, dtype) -> dict:
+    """What each CUDA kernel of a `mamba_scan_backward` call at these
+    shapes holds on the current card (`cudaFuncGetAttributes`,
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`): KERNEL_SLOTS name ->
+    {registers, smem_bytes (static and dynamic, a CTA), threads,
+    ctas_per_sm, local_bytes (spills, a thread)}; the head sum only with q
+    and k shared. In bfloat16 at the padded widths the call runs."""
+    if dtype == torch.bfloat16:
+        N, Pd = _round8(N), _round8(Pd)
+    out = (ctypes.c_int * (5 * len(KERNEL_SLOTS)))()
+    raise_on(_lib().mamba_scan_bwd_occupancy(
+        B, S, H, N, Pd, int(chunk), int(shared), _DTYPES[dtype], out),
+        "mamba_scan_bwd")
+    keys = ("registers", "smem_bytes", "threads", "ctas_per_sm",
+            "local_bytes")
+    return {name: dict(zip(keys, out[5 * i:5 * i + 5]))
+            for i, name in enumerate(KERNEL_SLOTS) if out[5 * i] >= 0}
 
 
 def mamba_scan_backward(q, k, v, dy, st, lc, *, chunk: int):
@@ -167,31 +217,59 @@ def mamba_scan_backward(q, k, v, dy, st, lc, *, chunk: int):
     for name, t in (("v", v), ("dy", dy), ("st", st), ("lc", lc)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if v.numel() == 0 or q.numel() == 0:
+        return (torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v),
+                torch.zeros((B, S, H), dtype=torch.float32, device=v.device))
     q, k = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k))
+    return _launch(q, k, v, dy, st, lc, chunk)
+
+
+def _launch(q, k, v, dy, st, lc, chunk: int):
+    """The kernels' call on checked tensors: in bfloat16 the operands
+    first padded to the rows the kernels copy (`_rows16`), the gradients
+    cut back to their inputs' widths."""
+    if q.dtype != torch.bfloat16:
+        return _call(q, k, v, dy, st, lc, chunk)
+    N, Pd = q.shape[3], v.shape[3]
+    Np, Pp = _round8(N), _round8(Pd)
+    q, k = _rows16(q, Np), _rows16(k, Np)
+    v, dy = _rows16(v, Pp), _rows16(dy, Pp)
+    if (Np, Pp) != (N, Pd):
+        st = torch.nn.functional.pad(st, (0, Pp - Pd, 0, Np - N))
+    elif st.data_ptr() % 16:
+        st = st.clone()
+    dq, dk, dv, dla = _call(q, k, v, dy, st, lc, chunk)
+    return dq[..., :N], dk[..., :N], dv[..., :Pd], dla
+
+
+def _call(q, k, v, dy, st, lc, chunk: int):
+    B, S, H, Pd = v.shape
+    N = q.shape[3]
     shared = q.shape[2] != H
     dq, dk = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
               for t in (q, k))
     dv = torch.empty_like(v)
     dla = torch.empty((B, S, H), dtype=torch.float32, device=v.device)
-    if v.numel() == 0 or q.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_(), dla.zero_()
     nc = -(-S // chunk)
-    # scratch, written before it is read, on the caller's stream: the
-    # adjoint states, the rows' q.dq and k.dk, <G_c, S_c>, and with shared
-    # q and k the per-head float32 dq and dk
-    f32 = dict(dtype=torch.float32, device=v.device)
-    g = torch.empty((B, H, nc, N, Pd), **f32)
-    rows = torch.empty((2, B, S, H), **f32)
-    gs = torch.empty((B, H, nc), **f32)
-    parts = torch.empty((2, B, S, H, N), **f32) if shared else None
+    # float32 scratch in one allocation, written before it is read, on the
+    # caller's stream: the adjoint states g (B, H, nc, N, Pd) first (the
+    # bfloat16 path copies it by 16 bytes), then the rows' q.dq and k.dk
+    # (B, S, H) each, <G_c, S_c> (B, H, nc), and with shared q and k the
+    # per-head dq and dk (B, S, H, N) each
+    sizes = (B * H * nc * N * Pd, B * S * H, B * S * H, B * H * nc) \
+        + ((B * S * H * N,) * 2 if shared else ())
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=v.device)
+    ptrs, at = [], scratch.data_ptr()
+    for n in sizes:
+        ptrs.append(at)
+        at += 4 * n
+    g, qdq, kdk, gs, *parts = ptrs
     stream = torch.cuda.current_stream(v.device).cuda_stream
     code = _lib().mamba_scan_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dy.data_ptr(),
         st.data_ptr(), lc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dla.data_ptr(), g.data_ptr(), rows[0].data_ptr(),
-        rows[1].data_ptr(), gs.data_ptr(),
-        parts[0].data_ptr() if shared else None,
-        parts[1].data_ptr() if shared else None,
+        dv.data_ptr(), dla.data_ptr(), g, qdq, kdk, gs,
+        *(parts or (None, None)),
         B, S, H, N, Pd, chunk, int(shared), *q.stride()[:3], *k.stride()[:3],
         _DTYPES[v.dtype], stream)
     raise_on(code, "mamba_scan_bwd")

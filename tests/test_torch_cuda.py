@@ -38,7 +38,10 @@ bfloat16, the same bits twice; the forward's bits with and without the
 log-sum-exp; the autograd Function and a reduced qwen2-1.5b train step
 at dh 128 on the card against the CPU; the SSD scan's backward kernel
 against its plain formulas, shared and per-head, N 512 with Pd 513,
-ragged chunks, float32 and bfloat16, the same bits twice; its autograd
+ragged chunks, float32 and bfloat16 (Zamba2's chunk of 256, rows of 513
+that the wrapper pads, widths off the tiles, Pd wide enough that a pair
+kernel streams its a), the same bits twice, every kernel of a call at
+both training shapes fitting an SM; its autograd
 Function and a reduced xlstm and Zamba2's gradients on the card against
 the CPU), and the
 schedule
@@ -460,6 +463,11 @@ SCAN_BWD_CASES = [
     (40, 3, 13, 30, 16, False, torch.float32),      # off the tiles
     (130, 4, 64, 64, 64, True, torch.bfloat16),
     (200, 2, 512, 513, 128, False, torch.bfloat16),
+    (300, 3, 64, 64, 256, True, torch.bfloat16),    # Zamba2's kind, ragged
+    (300, 2, 512, 513, 256, False, torch.bfloat16),  # rows of 513 padded
+    (40, 3, 13, 30, 16, False, torch.bfloat16),     # off the tiles
+    (200, 2, 128, 700, 128, False, torch.bfloat16),  # a streamed, wide
+    (150, 3, 64, 1400, 64, True, torch.bfloat16),   # a streamed, narrow
 ]
 
 
@@ -505,6 +513,25 @@ def test_mamba_scan_backward_kernel_matches_plain(cuda, S, H, N, Pd, chunk,
             tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
             assert float((a.float() - s_).abs().max()) \
                 <= tol * float(s_.abs().max())
+
+
+def test_mamba_scan_backward_kernels_fit_an_sm(cuda):
+    """Every CUDA kernel of a backward call at zamba2-1.2b's and
+    xlstm-350m's training shapes, bfloat16 and float32, reports at least
+    one CTA an SM (`kernel_occupancy`: a shared-memory or register request
+    the card refuses reports 0), the three pair kernels among them; so do
+    widths whose bfloat16 pair kernels stream a (Pd past 672, or past
+    1,360 with N <= 64)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KB
+    for H, N, Pd, shared in ((64, 64, 64, True), (4, 512, 513, False),
+                             (4, 512, 1025, False), (64, 64, 2048, True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            occ = KB.kernel_occupancy(4, 2048, H, N, Pd, chunk=256,
+                                      shared=shared, dtype=dtype)
+            assert {"pair_dq", "pair_dk", "pair_dv"} <= set(occ)
+            assert ("headsum" in occ) == shared
+            for name, o in occ.items():
+                assert o["ctas_per_sm"] >= 1, (H, N, Pd, dtype, name, o)
 
 
 @pytest.mark.parametrize("shared", [False, True])

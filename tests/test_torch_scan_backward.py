@@ -11,6 +11,13 @@ Cases: several chunks, a ragged last chunk, q and k shared by the heads
 decays. Tolerance: every gradient within 1e-4 of its largest reference
 element (float32 on both sides in other summation orders; the float64
 oracle has no clip, and a clipped decay is below exp(-60) of its term).
+
+The bfloat16 kernels' arithmetic: `tests/_scan_bwd_bf16.py` mirrors their
+rounding of float32 operands (split in two bfloat16 values, or rounded
+once) on bfloat16 inputs at a Zamba2-like shape (q and k shared, N = Pd =
+64) and an xlstm-like one (N 128, Pd 129), both with a ragged last chunk:
+the split holds every gradient within 1e-4 of `mamba_scan_backward_plain`
+'s max, and one rounding puts dlog_a past that bar.
 """
 import jax
 import jax.numpy as jnp
@@ -18,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _scan_bwd_bf16 import mirror_backward
 from repro.models.ssm import chunked_gated_scan as ref_scan
 from repro_torch.kernels.mamba_scan import mamba_scan as K
 from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KB
@@ -162,3 +170,58 @@ def test_backward_refuses_bad_shapes():
         KB.mamba_scan_backward(q, k, v, dy[..., :1], st, lc, chunk=chunk)
     with pytest.raises(ValueError, match="all on CUDA"):
         KB.mamba_scan_backward(q, k, v, dy, st.to("meta"), lc, chunk=chunk)
+
+
+# name -> (B, S, H, N, Pd, chunk, q and k shared) for the bfloat16 mirror
+BF16_CASES = {
+    "zamba2-like": (1, 300, 4, 64, 64, 128, True),
+    "xlstm-like": (1, 300, 2, 128, 129, 128, False),
+}
+
+
+def _bf16_case(case):
+    """bfloat16 inputs from a numpy seed, the forward's kept states and l,
+    the mirror's float32 gradients split and rounded once, and the plain
+    version's on the same values in float32."""
+    B, S, H, N, Pd, chunk, shared = BF16_CASES[case]
+    rng = np.random.default_rng(len(case))
+    hq = 1 if shared else H
+
+    def bf16(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).bfloat16()
+    q, k = bf16(B, S, hq, N, scale=N ** -0.5), bf16(B, S, hq, N,
+                                                    scale=N ** -0.5)
+    v, dy = bf16(B, S, H, Pd), bf16(B, S, H, Pd)
+    la = torch.from_numpy(-rng.uniform(0.0, 0.3, (B, S, H)).astype(
+        np.float32))
+    _, _, st, lc = K._plain_chunks(q, k, v, la, chunk, None)
+    plain = KB.mamba_scan_backward_plain(q.float(), k.float(), v.float(),
+                                         dy.float(), st, lc, chunk=chunk)
+    return ({split: mirror_backward(q, k, v, dy, st, lc, chunk=chunk,
+                                    split=split) for split in (True, False)},
+            plain)
+
+
+def _share_of_max(a, b):
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_bf16_split_mirror_holds_the_float32_bars(case):
+    """The kernels' split (hi + lo) of every float32 operand keeps dq, dk,
+    dv and dlog_a within 1e-4 of the plain version's max."""
+    mirrors, plain = _bf16_case(case)
+    for name, a, b in zip(("dq", "dk", "dv", "dlog_a"), mirrors[True],
+                          plain):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert _share_of_max(a, b) <= TOL, (case, name, _share_of_max(a, b))
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_bf16_single_rounding_misses_the_dlog_a_bar(case):
+    """Rounding each float32 operand once to bfloat16 puts dlog_a (a
+    reverse sum of q.dq - k.dk, which cancels) past 1e-4 of its max: why
+    the kernels split."""
+    mirrors, plain = _bf16_case(case)
+    assert _share_of_max(mirrors[False][3], plain[3]) > TOL
