@@ -118,7 +118,21 @@ launch counters set to 0 just before it and read just after:
   the scan's forward as training runs it at the same shapes; one sLSTM
   block's loop, forward and backward, timed apart; one
   float32 step of each cut to ("X", "S") and ("M", "A") over 2 x 512
-  tokens against the CPU.
+  tokens against the CPU;
+* olmoe-1b-7b training at full width cut to 10 of its 16 layers (the
+  same path, 5 bfloat16 steps of 4 x 2,048 tokens from capacity scales
+  of ones: every MoE layer planned at capacity with the steal round, 2 x
+  10 expert kernel and 10 expert backward launches a step, the balancer
+  updating the scales after each), held to the same bars and to entries
+  dropped and stolen; the expert kernel and its backward
+  (`csrc/ich_moe_bwd.cu`, six CUDA kernels a call) at that training
+  shape, under drawn capacity scales, against their plain versions, two
+  calls the same bits,
+  the backward the same bits at p = 132 and p = 2, each CUDA kernel's
+  device time; one float32 step of olmoe-1b-7b and of deepseek-moe-16b
+  (its dense first layer and one MoE layer with shared experts) at 2
+  layers over 2 x 256 tokens against the CPU, the new capacity scales
+  equal.
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -180,7 +194,10 @@ phi-3-vision's and whisper-small's three training shapes, beside the
 backward of `scaled_dot_product_attention`; the scan's backward and its
 forward (as training runs it, keeping the chunk states) twice each, at
 zamba2-1.2b's and xlstm-350m's training shapes in bfloat16, with no
-single PyTorch call to set beside them), and prints one JSON line per result
+single PyTorch call to set beside them; the expert kernel a third time
+and its backward at olmoe-1b-7b's training shape, beside the
+capacity-buffer `bmm` form and its autograd backward), and prints one
+JSON line per result
 (and each phase's wall seconds).
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs CUDA and the repository's `src/` beside it.
@@ -307,6 +324,15 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel it replaces)
                                PASS + "mamba_scan/mamba_scan.py:83"),
     # the schedule pipeline's two kernels replace XLA code of the reference's
     # jitted pipeline, not a Pallas kernel: its segment sum and LPT loop
+    # the expert kernel at olmoe-1b-7b's training shape (8,192 tokens at
+    # capacity with the steal round), and the expert FFN's gradient, which
+    # replaces XLA's derivative of the reference's expert einsums inside its
+    # training loss (`moe_local`'s slot-buffer products), not a Pallas
+    # kernel
+    "ich_moe_sharded_train": ("src/repro_torch/csrc/ich_moe.cu",
+                              PASS + "ich_moe/ich_moe.py:197"),
+    "ich_moe_bwd": ("src/repro_torch/csrc/ich_moe_bwd.cu",
+                    "src/repro/models/moe.py:258"),
     "segment_fold": ("src/repro_torch/csrc/lpt.cu",
                      "src/repro/core/tiling_jax.py:198"),
     "lpt_assign": ("src/repro_torch/csrc/lpt.cu",
@@ -431,6 +457,30 @@ TRAIN_VE_STEPS = 6
 # scan chunks of 256 a block.
 TRAIN_XLSTM_STEPS, TRAIN_ZAMBA2_STEPS = 3, 6
 TRAIN_SSM_CUT_SEQ = 512
+# training the moe family (ROADMAP.md queue 1 item 5(b)): olmoe-1b-7b at
+# full width (d_model 2,048, 64 experts top-8 of width 1,024) cut in depth
+# to TRAIN_MOE_LAYERS of its 16 layers (a layer's 403 M expert parameters
+# take 16 bytes each with their gradient and moments, ~6.7 GB a layer with
+# its attention: 16 layers would need ~108 GB; 10 is the most that leaves
+# 10 GB of the card free at the step's peak, 11.8 GB on an H100 80GB
+# HBM3 at 700 W, where 11 would leave ~5), qwen2-1.5b's
+# TrainConfig (bfloat16 loss, float32 parameters), a warm-up step and
+# TRAIN_MOE_STEPS - 1 more of 4 x 2,048 tokens from `init_train_state`'s
+# capacity scales (ones, as the reference starts), which the balancer
+# updates every step. The expert FFN's backward kernel against its plain
+# version at that shape within MOE_BWD_TOL of each output's max |plain|,
+# on a plan of N(0, 1) rows under capacity scales drawn in
+# TRAIN_MOE_CAP_RANGE from a seed: such a router spreads its 65,536
+# entries near-uniformly (1,024 +- 32 an expert against a capacity of
+# 1,280 at scale 1), so at scales around 1 the steal round places every
+# overflowing entry and nothing is dropped; the drawn scales (mean 0.75)
+# make the record drop as well as steal. Float32 parity with the CPU at
+# TRAIN_CUT_LAYERS layers for olmoe-1b-7b and deepseek-moe-16b (its dense
+# first layer, then one MoE layer with shared experts) from the same drawn
+# scales, so that the cut binds at 2 x 256 tokens.
+TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = 10, 5
+TRAIN_MOE_CAP_RANGE = (0.25, 1.25)
+MOE_BWD_TOL = 1e-4
 # the scan's backward kernel against its plain version: max |diff| within
 # this share of max |plain|. float32: 3xTF32 against cuBLAS float32 sums
 # in other orders. bfloat16: both round dq, dk, dv to bfloat16 once from
@@ -1702,12 +1752,12 @@ def _kernel_split(ms_by_name: dict) -> dict:
     """Device milliseconds of one traced call grouped: the LM kernels
     (flash, its backward's three `flash_bwd_*` kernels, the SSD scan, its
     backward's `ssd_bwd_*` kernels, the expert kernel's five `moe_*`
-    kernels), matrix products (cuBLAS's
+    kernels, its backward's six `moe_bwd_*`), matrix products (cuBLAS's
     `*gemm*` and `nvjet_*` kernels, CUTLASS),
     matrix products (cuBLAS/CUTLASS), everything else."""
     out = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
            "mamba_scan": 0.0, "mamba_scan_bwd": 0.0, "ich_moe": 0.0,
-           "matmul": 0.0, "other": 0.0}
+           "ich_moe_bwd": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms in ms_by_name.items():
         low = name.lower()
         if "flash_fwd_kernel" in name:
@@ -1718,6 +1768,8 @@ def _kernel_split(ms_by_name: dict) -> dict:
             out["mamba_scan"] += ms
         elif "ssd_bwd_kernel" in name:
             out["mamba_scan_bwd"] += ms
+        elif "moe_bwd_" in name:
+            out["ich_moe_bwd"] += ms
         elif "moe_" in name:
             out["ich_moe"] += ms
         elif any(w in low for w in ("gemm", "cutlass", "matmul", "nvjet")):
@@ -3506,12 +3558,13 @@ def _copy_state(src, dst) -> None:
 
 
 def _loss_grads(cfg, state, batch) -> dict:
-    """The float32 loss's gradient of every parameter of `state`, by name
-    (the state is not changed)."""
+    """The float32 loss's gradient of every parameter of `state`, by name,
+    under the state's MoE capacity scales (the state is not changed)."""
     import torch
     from repro_torch.models import model as M
     model = state["params"]
-    loss, _ = M.loss_fn(cfg, model, batch, dtype=torch.float32)
+    loss, _ = M.loss_fn(cfg, model, batch, state["cap_scales"],
+                        dtype=torch.float32)
     names = [n for n, _ in model.named_parameters()]
     return dict(zip(names, torch.autograd.grad(loss,
                                                list(model.parameters()))))
@@ -3591,61 +3644,16 @@ def family_inputs(cfg, batch: int, rows: int, rng) -> dict:
                                      dtype=np.float32)}
 
 
-def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
-                 seq: int = TRAIN_CUT_SEQ, pattern=None) -> dict:
-    """One float32 step of `cfg` at full width cut to TRAIN_CUT_LAYERS
-    layers (an encoder too; a hybrid or ssm `pattern` of blocks) on the
-    card (the kernels) and on the CPU (the plain versions) from the same
-    state and batch (TRAIN_CUT_BATCH x `seq` tokens, and `rows` patch or
-    frame rows for a vlm or encdec; `max_seq` sizes a learned position
-    table): every gradient leaf, the step's loss and grad norm, and the
-    AdamW update given identical gradients, within the stated
-    tolerances."""
+def _update_parity(cut, tcfg, cpu, g_cpu, max_seq) -> float:
+    """AdamW given identical gradients (the CPU's `g_cpu` on both sides)
+    from the CPU's state `cpu` and the same state on the card: the grad
+    norm, every parameter and both moments within UPDATE_RTOL (a
+    parameter also within UPDATE_RTOL lr). Returns the largest parameter
+    difference."""
     import copy
-    import dataclasses
     import torch
-    from repro_torch.data.pipeline import synthetic_tokens
-    from repro_torch.kernels.flash_attention import flash_attention as KF
-    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
-    from repro_torch.kernels.mamba_scan import mamba_scan as KS
-    from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KSB
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as TS
-    over = {"n_layers": TRAIN_CUT_LAYERS}
-    if cfg.family == "encdec":
-        over["encoder_layers"] = TRAIN_CUT_LAYERS
-    if pattern is not None:
-        over.update(block_pattern=tuple(pattern), n_layers=len(pattern))
-    cut = dataclasses.replace(cfg, **over)
-    tcfg = TS.TrainConfig(dtype=torch.float32, opt=adamw.AdamWConfig(
-        warmup_steps=2, total_steps=TRAIN_STEPS))
-    cpu = TS.init_train_state(cut, SEED + 20, max_seq=max_seq, tcfg=tcfg,
-                              device="cpu")
-    card = TS.init_train_state(cut, SEED + 21, max_seq=max_seq, tcfg=tcfg,
-                               device="cuda")
-    _copy_state(cpu, card)
-    batch = synthetic_tokens(TRAIN_CUT_BATCH, seq, cut.padded_vocab, 0, SEED)
-    batch.update(family_inputs(cut, TRAIN_CUT_BATCH, rows,
-                               np.random.default_rng(SEED + 22)))
-    b_cpu = {k_: torch.from_numpy(v_) for k_, v_ in batch.items()}
-    b_card = {k_: v_.cuda() for k_, v_ in b_cpu.items()}
-
-    # every gradient leaf, from the same state and batch
-    t0 = time.perf_counter()
-    g_cpu = _loss_grads(cut, cpu, b_cpu)
-    cpu_grad_s = time.perf_counter() - t0
-    g_card = _loss_grads(cut, card, b_card)
-    grad_share = {}
-    for n, b in g_cpu.items():
-        diff = float((g_card[n].cpu() - b).abs().max())
-        ref = float(b.abs().max())
-        check(diff <= TRAIN_GRAD_TOL * ref,
-              f"train parity: gradient {n} within {TRAIN_GRAD_TOL} of its "
-              f"max |CPU gradient|")
-        grad_share[n] = diff / ref if ref > 0 else diff
-    del g_card
-
-    # the update given identical gradients (the CPU's on both sides)
     upd_cpu = copy.deepcopy(cpu)
     upd_card = TS.init_train_state(cut, SEED + 21, max_seq=max_seq,
                                    tcfg=tcfg, device="cuda")
@@ -3674,18 +3682,97 @@ def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
                                  rtol=UPDATE_RTOL, atol=0.0),
                   f"train parity: {k_} of {n} given identical gradients "
                   f"within {UPDATE_RTOL} relative")
-    del upd_cpu, upd_card, p_cpu, p_card, o_cpu, o_card, g_cpu
+    del upd_cpu, upd_card, p_cpu, p_card, o_cpu, o_card
+    return update_worst
+
+
+def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
+                 seq: int = TRAIN_CUT_SEQ, pattern=None,
+                 cap_scales=None, update: bool = True) -> dict:
+    """One float32 step of `cfg` at full width cut to TRAIN_CUT_LAYERS
+    layers (an encoder too; a hybrid or ssm `pattern` of blocks) on the
+    card (the kernels) and on the CPU (the plain versions) from the same
+    state and batch (TRAIN_CUT_BATCH x `seq` tokens, and `rows` patch or
+    frame rows for a vlm or encdec; `max_seq` sizes a learned position
+    table; a moe model's capacity scales from `cap_scales`, when given):
+    every gradient leaf (the largest deviation logged per leaf and per
+    leaf group, the layer index left out), the step's loss and grad norm,
+    and, with `update`, the AdamW update given identical gradients, within
+    the stated tolerances; for moe also the dropped and stolen entries and
+    the new capacity scales equal."""
+    import dataclasses
+    import torch
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.kernels.ich_moe import ich_moe as KM
+    from repro_torch.kernels.ich_moe import ich_moe_bwd as KMB
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KSB
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    over = {"n_layers": TRAIN_CUT_LAYERS}
+    if cfg.family == "encdec":
+        over["encoder_layers"] = TRAIN_CUT_LAYERS
+    if pattern is not None:
+        over.update(block_pattern=tuple(pattern), n_layers=len(pattern))
+    cut = dataclasses.replace(cfg, **over)
+    tcfg = TS.TrainConfig(dtype=torch.float32, opt=adamw.AdamWConfig(
+        warmup_steps=2, total_steps=TRAIN_STEPS))
+    cpu = TS.init_train_state(cut, SEED + 20, max_seq=max_seq, tcfg=tcfg,
+                              device="cpu")
+    if cap_scales is not None:
+        cpu["cap_scales"].copy_(torch.from_numpy(
+            cap_scales[:M.n_moe_layers(cut)]))
+    card = TS.init_train_state(cut, SEED + 21, max_seq=max_seq, tcfg=tcfg,
+                               device="cuda")
+    _copy_state(cpu, card)
+    batch = synthetic_tokens(TRAIN_CUT_BATCH, seq, cut.padded_vocab, 0, SEED)
+    batch.update(family_inputs(cut, TRAIN_CUT_BATCH, rows,
+                               np.random.default_rng(SEED + 22)))
+    b_cpu = {k_: torch.from_numpy(v_) for k_, v_ in batch.items()}
+    b_card = {k_: v_.cuda() for k_, v_ in b_cpu.items()}
+
+    # every gradient leaf, from the same state and batch
+    t0 = time.perf_counter()
+    g_cpu = _loss_grads(cut, cpu, b_cpu)
+    cpu_grad_s = time.perf_counter() - t0
+    g_card = _loss_grads(cut, card, b_card)
+    grad_share = {}
+    for n, b in g_cpu.items():
+        diff = float((g_card[n].cpu() - b).abs().max())
+        ref = float(b.abs().max())
+        check(diff <= TRAIN_GRAD_TOL * ref,
+              f"train parity: gradient {n} within {TRAIN_GRAD_TOL} of its "
+              f"max |CPU gradient|")
+        grad_share[n] = diff / ref if ref > 0 else diff
+    del g_card
+    by_group = {}
+    for n, share in grad_share.items():
+        parts = n.split(".")
+        group = ".".join(parts[2:]) if parts[0] in M.STACKED_PREFIXES else n
+        by_group[group] = max(by_group.get(group, 0.0), share)
+
+    # the update given identical gradients (the CPU's on both sides)
+    update_worst = _update_parity(cut, tcfg, cpu, g_cpu, max_seq) \
+        if update else None
+    del g_cpu
+
 
     # the whole step on each side, its launches on the card counted
-    for mod in (KF, KB, KS, KSB):
+    for mod in (KF, KB, KS, KSB, KM, KMB):
         mod.reset_launches()
     card, m_card = TS.make_train_step(cut, tcfg)(card, b_card)
     torch.cuda.synchronize()
     launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
                 "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"],
                 "mamba_scan": KS.LAUNCHES["mamba_scan"],
-                "mamba_scan_bwd": KSB.LAUNCHES["mamba_scan_bwd"]}
+                "mamba_scan_bwd": KSB.LAUNCHES["mamba_scan_bwd"],
+                "ich_moe_sharded": KM.LAUNCHES["ich_moe_sharded"],
+                "ich_moe_bwd": KMB.LAUNCHES["ich_moe_bwd"]}
     cpu, m_cpu = TS.make_train_step(cut, tcfg)(cpu, b_cpu)
+    lr = float(m_cpu["lr"])
     worst, flipped, n_el = 0.0, 0, 0
     for (name, a), (_, b) in zip(card["params"].named_parameters(),
                                  cpu["params"].named_parameters()):
@@ -3701,20 +3788,33 @@ def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
           f"train parity: grad norm within {TRAIN_GNORM_RTOL} of the CPU's")
     per_call = 2 if cut.remat else 1    # remat reruns each forward
     n_attn, n_scan = attention_calls(cut), scan_calls(cut)
+    n_moe = M.n_moe_layers(cut)
     check(launches == {"flash_attention": per_call * n_attn,
                        "flash_attention_bwd": n_attn,
                        "mamba_scan": per_call * n_scan,
-                       "mamba_scan_bwd": n_scan},
+                       "mamba_scan_bwd": n_scan,
+                       "ich_moe_sharded": per_call * n_moe,
+                       "ich_moe_bwd": n_moe},
           f"train parity: {per_call} forward and 1 backward launch an "
-          f"attention call ({n_attn}) and a scan call ({n_scan}) on the "
-          f"card")
+          f"attention call ({n_attn}), a scan call ({n_scan}) and a MoE "
+          f"layer ({n_moe}) on the card")
+    moe = {}
+    if n_moe:
+        moe = {k_: (float(m_card[k_]), float(m_cpu[k_]))
+               for k_ in ("aux_loss", "dropped", "stolen")}
+        check(moe["dropped"][0] == moe["dropped"][1]
+              and moe["stolen"][0] == moe["stolen"][1],
+              "train parity: the card drops and steals the CPU's entries")
+        check(torch.equal(card["cap_scales"].cpu(), cpu["cap_scales"]),
+              "train parity: the new capacity scales equal the CPU's")
     return {"arch": cfg.name, "layers": cut.n_layers,
             "block_pattern": list(cut.block_pattern),
             "encoder_layers": cut.encoder_layers, "batch": TRAIN_CUT_BATCH,
             "seq": seq, "rows": rows, "loss_card_cpu": loss,
             "grad_norm_card_cpu": gnorm, "lr": lr,
             "grad_worst_share": max(grad_share.values()),
-            "grad_share_by_leaf": grad_share,
+            "grad_share_by_group": by_group,
+            "grad_share_by_leaf": grad_share, "moe_card_cpu": moe,
             "update_max_abs_diff": update_worst,
             "step_param_max_abs_diff": worst, "params": n_el,
             "step_params_past_1e-6": flipped, "launches": launches,
@@ -3888,22 +3988,29 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
     last below the first; finite non-zero grad norms; 2 flash forward
     launches (remat reruns each) and 1 backward launch an attention call
     a step, by kind (`train_kinds`, tallied by shape), and likewise 2 SSD
-    scan forward and 1 backward launch an "M" or "X" block (`scan_calls`).
-    Logged as `<label>_setup`, `<label>_main_path` (steps, step wall ms,
-    tokens/s, positions/s, peak GB), `<label>_step_split` (`_split_log`)
-    and, with `parts`, `<label>_step_parts` (`step_parts`).
+    scan forward and 1 backward launch an "M" or "X" block (`scan_calls`)
+    and 2 expert kernel and 1 expert backward launch a MoE layer; a moe
+    model's step logs its aux loss, dropped and stolen entries and how many experts' scales
+    the balancer moved. Logged as `<label>_setup`, `<label>_main_path`
+    (steps, step wall ms, tokens/s, positions/s, peak GB),
+    `<label>_step_split` (`_split_log`) and, with `parts`,
+    `<label>_step_parts` (`step_parts`).
     Returns (the state, the last batch, the TrainConfig, the backward
     launches of the counted steps by kind, {"split": the step split,
     "wall_ms": the median step wall ms, "launches": the counted steps'
-    launches by wrapper}); the caller frees the state."""
+    launches by wrapper, "steps": each step's record, "peak_gb"}); the
+    caller frees the state."""
     import dataclasses
     import gc
     import torch
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.kernels.flash_attention import flash_attention as KF
     from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.kernels.ich_moe import ich_moe as KM
+    from repro_torch.kernels.ich_moe import ich_moe_bwd as KMB
     from repro_torch.kernels.mamba_scan import mamba_scan as KS
     from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KSB
+    from repro_torch.models import model as M
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as TS
     gc.collect()
@@ -3916,10 +4023,13 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
                                 device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in state["params"].parameters())
+    n_moe = M.n_moe_layers(cfg)
     log(phase=f"{label}_setup", arch=cfg.name, family=cfg.family,
         layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
         dh=cfg.dh, d_ff=cfg.d_ff, vocab=cfg.padded_vocab, params=n_params,
+        moe_layers=n_moe, experts=cfg.n_experts,
+        top_k=cfg.experts_per_token, expert_ff=cfg.moe_d_ff,
         remat=cfg.remat, remat_policy=cfg.remat_policy, batch=batch,
         seq=seq, rows=rows, max_seq=max_seq, steps=n_steps,
         train_config={"dtype": str(tcfg.dtype), "microbatch": tcfg.microbatch,
@@ -3943,6 +4053,8 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
     KB.reset_launches()
     KS.reset_launches()
     KSB.reset_launches()
+    KM.reset_launches()
+    KMB.reset_launches()
     steps = []
     try:
         for t in range(n_steps):
@@ -3952,6 +4064,9 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
                 KB.LAUNCHES["flash_attention_bwd"]
             s0, sb0 = KS.LAUNCHES["mamba_scan"], \
                 KSB.LAUNCHES["mamba_scan_bwd"]
+            m0, mb0 = KM.LAUNCHES["ich_moe_sharded"], \
+                KMB.LAUNCHES["ich_moe_bwd"]
+            caps_before = state["cap_scales"].clone()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             dev_batch = {k_: torch.from_numpy(v_).cuda()
@@ -3970,7 +4085,17 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
                           - b0,
                           "scan_forward": KS.LAUNCHES["mamba_scan"] - s0,
                           "scan_backward": KSB.LAUNCHES["mamba_scan_bwd"]
-                          - sb0, "ingest_steals": ingest.steals})
+                          - sb0,
+                          "moe_forward": KM.LAUNCHES["ich_moe_sharded"] - m0,
+                          "moe_backward": KMB.LAUNCHES["ich_moe_bwd"] - mb0,
+                          "ingest_steals": ingest.steals})
+            if n_moe:
+                steps[-1].update(
+                    {k_: float(m[k_]) for k_ in M.AUX_SUMS},
+                    cap_scales_moved=int((state["cap_scales"]
+                                          != caps_before).sum()),
+                    cap_scales_min=float(state["cap_scales"].min()),
+                    cap_scales_max=float(state["cap_scales"].max()))
     finally:
         restore_fwd()
         restore_bwd()
@@ -3979,7 +4104,9 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
     launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
                 "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"],
                 "mamba_scan": KS.LAUNCHES["mamba_scan"],
-                "mamba_scan_bwd": KSB.LAUNCHES["mamba_scan_bwd"]}
+                "mamba_scan_bwd": KSB.LAUNCHES["mamba_scan_bwd"],
+                "ich_moe_sharded": KM.LAUNCHES["ich_moe_sharded"],
+                "ich_moe_bwd": KMB.LAUNCHES["ich_moe_bwd"]}
     fwd_by_kind = {kind: fwd.get(key, 0) for kind, (key, _) in kinds.items()}
     bwd_by_kind = {kind: bwd.get(key, 0) for kind, (key, _) in kinds.items()}
     losses = [s_["loss"] for s_ in steps]
@@ -4002,6 +4129,10 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
               and s_["scan_backward"] == n_scan for s_ in steps),
           f"{label}: {2 * n_scan} scan forward and {n_scan} backward "
           f"launches a step")
+    check(all(s_["moe_forward"] == 2 * n_moe
+              and s_["moe_backward"] == n_moe for s_ in steps),
+          f"{label}: {2 * n_moe} expert kernel and {n_moe} expert backward "
+          f"launches a step")
     want = {kind: n * n_steps for kind, (_, n) in kinds.items()}
     check(bwd_by_kind == want and sum(bwd.values()) == launches[
         "flash_attention_bwd"] and fwd_by_kind == {
@@ -4009,7 +4140,8 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
           and sum(fwd.values()) == launches["flash_attention"],
           f"{label}: launches by kind, forward 2 x and backward 1 x {want}")
     expect = (("flash_bwd_",) if n_attn else ()) \
-        + (("ssd_bwd_",) if n_scan else ())
+        + (("ssd_bwd_",) if n_scan else ()) \
+        + (("moe_bwd_",) if n_moe else ())
     # the steps above warmed the step up (a step of seconds, as xlstm's
     # host-bound sLSTM loop makes it, is not run twice for the trace)
     split = _split_log(f"{label}_step_split", lambda: step(state, dev_batch),
@@ -4018,7 +4150,8 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
         log(phase=f"{label}_step_parts", **step_parts(cfg, tcfg, state,
                                                       dev_batch))
     return state, dev_batch, tcfg, bwd_by_kind, {
-        "split": split, "wall_ms": wall, "launches": launches}
+        "split": split, "wall_ms": wall, "launches": launches,
+        "steps": steps, "peak_gb": peak_gb}
 
 
 def step_parts(cfg, tcfg, state, batch) -> dict:
@@ -4441,6 +4574,261 @@ def phase_train_ssm():
             library_ms=None, bytes_=fwd["bytes"], flops=fwd["flops"],
             peak=BF16_FLOPS))
     return out
+
+
+def capacity_buffer_backward(x, wi, wg, wo, plan, dy):
+    """The yardstick of the expert FFN's backward: autograd of
+    `capacity_buffer_moe`'s form (kept entries gathered into an (E, C, D)
+    buffer, C the plan's largest capacity, three float32 `torch.bmm`, the
+    weighted scatter-add back), its forward built once. Returns (run,
+    grads): run() computes the gradients of x, wi, wg, wo and the kept
+    entries' weights given dy, keeping the graph; grads is its first
+    result."""
+    import torch
+    E, D = wi.shape[0], x.shape[1]
+    C = int(plan.cap.max())
+    k = plan.keep
+    at = torch_index(plan.expert[k].astype(np.int64) * C + plan.pos[k])
+    tok = torch_index(plan.token[k])
+    leaves = [t.detach().requires_grad_(True) for t in (
+        x, wi, wg, wo, torch.from_numpy(plan.weight[k]).cuda())]
+    xl, wil, wgl, wol, wtl = leaves
+    buf = torch.zeros((E * C, D), device="cuda").index_put(
+        (at,), xl[tok]).view(E, C, D)
+    a = torch.nn.functional.silu(torch.bmm(buf, wgl)) * torch.bmm(buf, wil)
+    yb = torch.bmm(a, wol).view(E * C, D)
+    y = torch.zeros_like(xl).index_add(0, tok, yb[at] * wtl[:, None])
+
+    def run():
+        return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    return run, run()
+
+
+def moe_backward_record(cfg, cap_scale, g, sm_count) -> tuple:
+    """Rows 7c and `ich_moe_bwd`: the expert kernel and its backward at
+    olmoe-1b-7b's training shape, one MoE layer of a step of TRAIN_BATCH
+    x TRAIN_SEQ tokens: N(0, 1) rows routed by a full-width layer's router
+    (seeded), planned at capacity under `cap_scale` (E,) with the steal
+    round and lowered at p = SM count, as `moe_local` does in training.
+    The forward against its plain version (MOE_TOL, cost streams equal),
+    timed beside it and the capacity-buffer bmm. The backward
+    (`ich_moe_backward` over the plan's CSR, the forward's token -> slots
+    index, a N(0, 1) dy) against its plain version, each output within
+    MOE_BWD_TOL of its max |plain|; two calls the same bits; through
+    `MoeExpertsFn` over the lowerings at p = SM count and p = 2 the same
+    bits (y and every gradient); timed beside the plain version and the
+    capacity-buffer form's autograd backward, with the device time of
+    each of its six CUDA kernels. Returns (forward record, backward
+    record)."""
+    import torch
+    from repro_torch.kernels.ich_moe import ich_moe as KM
+    from repro_torch.kernels.ich_moe import ich_moe_bwd as KMB
+    from repro_torch.models import moe as MOE
+    from repro_torch.sched import LoopScheduler, plan_dispatch
+    T, D, F = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.moe_d_ff
+    E, K = cfg.n_experts, cfg.experts_per_token
+    p = MOE.MoE(cfg, g, "cuda")
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, D), generator=g, device="cuda")
+    _, w_topk, e_topk = MOE.route(p, x, K)
+    x = x.reshape(T, D)
+    plan = plan_dispatch(e_topk.cpu().numpy(), w_topk.cpu().numpy(),
+                         cap_scale=cap_scale)
+    check(plan.dropped > 0 and plan.stolen > 0,
+          "training-shape plan: entries dropped and stolen")
+    ops = {q: LoopScheduler(p=q, cache_size=0).build("moe-dispatch", plan)
+           for q in (sm_count, 2)}
+    op = ops[sm_count]
+    kept = int(plan.counts.sum())
+    shape = {"tokens": T, "experts": E, "top_k": K, "d_model": D,
+             "expert_ff": F, "kept": kept, "dropped": plan.dropped,
+             "stolen": plan.stolen, "cap_min": int(plan.cap.min()),
+             "cap_max": int(plan.cap.max()),
+             "load_max": int(plan.counts.max()), "p": op.p,
+             "tiles": op.n_tiles, "width": op.schedule.width}
+
+    # ---- row 7c: the forward ----
+    fargs = (op.vals, op.cols, op.rowid, op.blkid, x, p.wi, p.wg, p.wo,
+             op.p, op.superstep, op.slots)
+    y_k, c_k, e_k = KM.ich_moe_sharded(*fargs, slot_cost=op.slot_cost)
+    y_p, c_p, e_p = KM.ich_moe_sharded_plain(*fargs, slot_cost=op.slot_cost)
+    check(torch.allclose(y_k, y_p, rtol=MOE_TOL, atol=MOE_TOL),
+          "training-shape MoE kernel == plain")
+    check(torch.equal(c_k, c_p) and torch.equal(e_k, e_p),
+          "training-shape MoE cost streams == plain")
+    f_err = float((y_k - y_p).abs().max())
+    library, C = capacity_buffer_moe(x, p.wi, p.wg, p.wo, plan)
+    check(torch.allclose(library(), y_k, rtol=MOE_TOL, atol=MOE_TOL),
+          "training-shape capacity-buffer bmm y agrees")
+    del y_k, c_k, e_k, y_p, c_p, e_p
+    f_bytes = sum(t.numel() * t.element_size() for t in (
+        op.vals, op.cols, op.rowid, op.blkid, op.slot_cost, x, p.wi, p.wg,
+        p.wo, *op.slots)) + (T * D + op.p * (op.shards.n_steps + E)) * 4
+    fwd = {**shape, "max_abs_err": f_err, "library_capacity": C,
+           "ms": timed_ms(lambda: KM.ich_moe_sharded(
+               *fargs, slot_cost=op.slot_cost)),
+           "plain_ms": timed_ms(lambda: KM.ich_moe_sharded_plain(
+               *fargs, slot_cost=op.slot_cost)),
+           "library_ms": timed_ms(library), "flops": 6 * D * F * kept,
+           "bytes": f_bytes}
+    fwd["bound_ms"] = 1e3 * max(fwd["bytes"] / HBM_BYTES_PER_S,
+                                fwd["flops"] / (TF32_FLOPS / 3))
+    del library
+
+    # ---- the backward ----
+    indptr, entry = plan.csr_entries()
+    entry_t = torch_index(entry)
+    indptr_t = torch.from_numpy(indptr.astype(np.int32)).cuda()
+    dy = torch.randn((T, D), generator=g, device="cuda")
+    args = (x, dy, p.wi, p.wg, p.wo, indptr_t, (entry_t // K).int(),
+            w_topk.reshape(-1)[entry_t].contiguous(), op.slots.tok_ptr,
+            op.slots.tok_slot)
+    names = ("dx", "dwi", "dwg", "dwo", "dw")
+    got = KMB.ich_moe_backward(*args)
+    plain = KMB.ich_moe_backward_plain(*args)
+    errs = {n: float((a - b).abs().max()) for n, a, b in
+            zip(names, got, plain)}
+    scale = {n: float(b.abs().max()) for n, b in zip(names, plain)}
+    for n in names:
+        check(errs[n] <= MOE_BWD_TOL * scale[n],
+              f"expert backward: {n} within {MOE_BWD_TOL} of max |plain|")
+    del plain
+    again = KMB.ich_moe_backward(*args)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "expert backward: two calls give the same bits")
+    del again
+    for n in ("dwi", "dwg", "dwo"):
+        dead = plan.counts == 0
+        check(not dead.any() or not bool(
+            got[names.index(n)][torch_index(np.flatnonzero(dead))].any()),
+            f"expert backward: {n} zero for an expert with no kept slot")
+
+    def through(op_):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, w_topk, p.wi, p.wg, p.wo)]
+        y = MOE.MoeExpertsFn.apply(*leaves, op_, entry_t, indptr_t)
+        return [y.detach(), *torch.autograd.grad(y, leaves, dy)]
+    lowered = through(ops[sm_count])
+    check(all(torch.equal(a, b) for a, b in zip(lowered, through(ops[2]))),
+          f"expert backward: the same bits at p = {sm_count} and p = 2")
+    check(torch.equal(lowered[1], got[0]),
+          "expert backward: the Function's dx is the kernel's")
+    del lowered
+    run, lib = capacity_buffer_backward(x, p.wi, p.wg, p.wo, plan, dy)
+    lib_diff = {n: float((a - b).abs().max()) / scale[n] for n, a, b in
+                zip(("dx", "dwi", "dwg", "dwo"), got, lib)}
+    check(max(lib_diff.values()) <= MOE_BWD_TOL,
+          "capacity-buffer backward agrees")
+    del lib, got
+    ms = timed_ms(lambda: KMB.ich_moe_backward(*args))
+    plain_ms = timed_ms(lambda: KMB.ich_moe_backward_plain(*args))
+    library_ms = timed_ms(run)
+    del run
+    by_name = device_ms_by_kernel(lambda: KMB.ich_moe_backward(*args),
+                                  expect=("moe_bwd_dweights",))
+    flops = KMB.backward_flops(kept, D, F)
+    nbytes = 4 * (3 * T * D + 6 * E * D * F + 2 * kept) \
+        + sum(t.numel() * t.element_size() for t in args[5:7] + args[8:])
+    bwd = {**shape, "max_abs_err": max(errs.values()),
+           "max_abs_err_by_output": errs, "max_abs_plain": scale,
+           "library_rel_diff": lib_diff, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "device_ms": by_name,
+           "device_total_ms": sum(by_name.values()), "flops": flops,
+           "bytes": nbytes,
+           "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                 flops / (TF32_FLOPS / 3)),
+           "float32_cuda_core_ms": 1e3 * flops / F32_FLOPS,
+           "tflops": flops / (ms * 1e-3) / 1e12}
+    del x, dy, args, p, ops, op, fargs
+    return fwd, bwd
+
+
+def phase_train_moe():
+    """Training the moe family (ROADMAP.md queue 1 item 5(b)). (1) The
+    expert kernel (row 7c) and its backward at olmoe-1b-7b's training
+    shape (`moe_backward_record`): 8,192 tokens, 64 experts top-8, D
+    2,048, F 1,024, at capacity with the steal round under the first MoE
+    layer's drawn capacity scales. (2) olmoe-1b-7b at full width cut to
+    TRAIN_MOE_LAYERS layers (`train_model`): TRAIN_MOE_STEPS bfloat16
+    steps of 4 x 2,048 tokens from the state's capacity scales of ones,
+    2 expert kernel and 1 expert backward launch a MoE layer a step
+    (remat reruns the forward), entries dropped and stolen in at least
+    one step. (3) Float32 parity with the CPU at
+    TRAIN_CUT_LAYERS layers for olmoe-1b-7b (two MoE layers) and
+    deepseek-moe-16b (its dense first layer, then one MoE layer with
+    shared experts), each from the same drawn scales (`train_parity`,
+    without its AdamW part)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 as float32
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    olmoe = get_arch(MOE_ARCH)
+    cut = dataclasses.replace(olmoe, n_layers=TRAIN_MOE_LAYERS)
+    caps = np.random.default_rng(SEED + 50).uniform(
+        *TRAIN_MOE_CAP_RANGE, (M.n_moe_layers(cut), cut.n_experts)
+    ).astype(np.float32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 51)
+
+    # ---- (1) the expert kernel and its backward at the training shape ----
+    t0 = time.perf_counter()
+    fwd, bwd = moe_backward_record(olmoe, caps[0], g, sm_count)
+    log(phase="train_moe_ffn_forward", **fwd)
+    log(phase="train_moe_ffn_backward", **bwd,
+        seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (2) olmoe-1b-7b at full width, bfloat16, counted ----
+    t0 = time.perf_counter()
+    state, batch, _, _, info = train_model(
+        cut, label="train_olmoe", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        n_steps=TRAIN_MOE_STEPS, parts=False)
+    steps = info["steps"]
+    check(any(s_["dropped"] > 0 for s_ in steps)
+          and any(s_["stolen"] > 0 for s_ in steps),
+          "train_olmoe: entries dropped and stolen in a step")
+    split = info["split"]
+    log(phase="train_olmoe_summary", layers=cut.n_layers,
+        step_wall_ms=info["wall_ms"],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (info["wall_ms"] * 1e-3),
+        traced_step_device_ms=split["device_total_ms"],
+        traced_step_idle_share=split["idle_share"],
+        peak_gb=info["peak_gb"],
+        free_gb_at_peak=torch.cuda.get_device_properties(0).total_memory
+        / 1e9 - info["peak_gb"],
+        per_step=[{k_: s_[k_] for k_ in (
+            "step", "wall_ms", "loss", "aux_loss", "dropped", "stolen",
+            "entries", "cap_scales_moved", "moe_forward", "moe_backward")}
+            for s_ in steps], seconds=time.perf_counter() - t0)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (3) float32 parity with the CPU at 2 layers (AdamW given
+    # identical gradients is held by phase_train's parity: not again) ----
+    for label, arch in (("train_olmoe_parity", olmoe),
+                        ("train_deepseek_parity", get_arch(DEEPSEEK_ARCH))):
+        t0 = time.perf_counter()
+        rec = train_parity(arch, cap_scales=caps, update=False)
+        log(phase=label, **rec, seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    # both rows at the 3xTF32 rate: float32-level products, as rows 7-9
+    # (the backward runs on the float32 CUDA cores: `float32_cuda_core_ms`
+    # of its record)
+    peak = TF32_FLOPS / 3
+    return [kernel_entry(
+        "ich_moe_sharded_train",
+        launches=info["launches"]["ich_moe_sharded"], err=fwd["max_abs_err"],
+        ms=fwd["ms"], plain_ms=fwd["plain_ms"], library_ms=fwd["library_ms"],
+        bytes_=fwd["bytes"], flops=fwd["flops"], peak=peak),
+        kernel_entry(
+        "ich_moe_bwd", launches=info["launches"]["ich_moe_bwd"],
+        err=bwd["max_abs_err"], ms=bwd["ms"], plain_ms=bwd["plain_ms"],
+        library_ms=bwd["library_ms"], bytes_=bwd["bytes"],
+        flops=bwd["flops"], peak=peak)]
 
 
 def _rates(flops: int, device_ms: float) -> dict:
@@ -4906,7 +5294,8 @@ def main() -> int:
     SHAPES.clear()
     for phase in (phase_zamba2, phase_xlstm, phase_dense, phase_moe_lm,
                   phase_whisper, phase_vlm, phase_train,
-                  phase_train_vlm_encdec, phase_train_ssm):
+                  phase_train_vlm_encdec, phase_train_ssm,
+                  phase_train_moe):
         kernels += timed_phase(phase)
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
-"""Oracles for the iCh-scheduled MoE dispatch kernel, independent of the
-schedule: the plan's expert-major CSR applied expert by expert."""
+"""Oracles for the iCh-scheduled MoE dispatch kernel and its backward,
+independent of the schedule: the plan's expert-major CSR applied expert
+by expert, and its gradient by autograd."""
 from __future__ import annotations
 
 import torch
@@ -26,3 +27,17 @@ def moe_dispatch_ref(indptr, tok, w, x, wi, wg, wo) -> torch.Tensor:
 def expert_loads_ref(indptr) -> torch.Tensor:
     """Per-expert kept token counts straight off the CSR layout, int64."""
     return torch.diff(torch.as_tensor(indptr)).to(torch.int64)
+
+
+def moe_dispatch_backward_ref(indptr, tok, w, x, wi, wg, wo, dy):
+    """The gradient of `moe_dispatch_ref` by autograd, given y's gradient
+    dy: (dx, dwi, dwg, dwo, dw) with dw the combine weights' gradient in
+    CSR order — the oracle of the expert FFN's backward
+    (`ich_moe_bwd.ich_moe_backward`)."""
+    leaves = [t.detach().to(torch.float32).requires_grad_(True)
+              for t in (x, wi, wg, wo, torch.as_tensor(w))]
+    y = moe_dispatch_ref(indptr, tok, leaves[4], *leaves[:4])
+    dx, dwi, dwg, dwo, dw = torch.autograd.grad(y, leaves, dy,
+                                                allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for g, t in zip((dx, dwi, dwg, dwo, dw), leaves))

@@ -12,9 +12,10 @@ Entry points:
   init_params           — the model (`StackedLM`, `EncDecLM` or
                           `HybridLM`), weights from a seeded
                           torch.Generator on the device
-  loss_fn               — the training loss of every family but moe,
-                          with a gradient (the flash kernel's and the SSD
-                          scan's backward kernels)
+  loss_fn               — the training loss of every family, with a
+                          gradient (the backward kernels of flash
+                          attention, the SSD scan and the MoE expert
+                          FFN)
   prefill / decode_step — the serving paths with their caches
                           (`batch["frames"]` for encdec,
                           `batch["patches"]` optional for vlm)
@@ -695,10 +696,8 @@ def _ffn(cfg, p: AttnBlock, h):
 # Training loss
 # ----------------------------------------------------------------------------
 
-# the families the port trains, and the ROADMAP item (queue 1) that ports
-# training for each of the others
-TRAINED = ("dense", "vlm", "encdec", "ssm", "hybrid")
-_TRAIN_LATER = {"moe": "5(b)"}
+# the MoE aux values that `loss_fn` sums over the MoE layers
+AUX_SUMS = ("aux_loss", "dropped", "stolen", "entries")
 
 
 # remat_policy names (the reference's REMAT_POLICIES): "nothing" recomputes
@@ -733,20 +732,14 @@ def _remat_context(cfg) -> dict:
 
 def check_trainable(cfg) -> None:
     """Raise NotImplementedError unless the port trains this config: the
-    dense, vlm, encdec, ssm and hybrid families. Moe comes with ROADMAP.md
-    queue 1 item 5(b) (capacity and steal dispatch, the expert FFN's
-    backward).
+    port trains every config it runs (`_check_family`; moe with its
+    capacity and steal dispatch and the expert FFN's backward kernel).
     Raise ValueError for a `remat_policy` outside `REMAT_POLICIES` (the
     reference falls back to "nothing" without a word)."""
     _check_family(cfg)
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r} not in "
                          f"{REMAT_POLICIES}")
-    if cfg.family not in TRAINED:
-        raise NotImplementedError(
-            f"the port trains the {', '.join(TRAINED)} families; "
-            f"{cfg.name!r} ({cfg.family}) trains with ROADMAP.md queue 1 "
-            f"item {_TRAIN_LATER[cfg.family]}")
 
 
 def _train_layer(cfg, p: AttnBlock, x, causal: bool = True,
@@ -760,6 +753,42 @@ def _train_layer(cfg, p: AttnBlock, x, causal: bool = True,
     h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=causal, window=window)
     x = x + h
     return x + p.mlp(p.ln2(x))
+
+
+def _train_moe_layer(cfg, p: AttnBlock, x, cap_scale):
+    """A "moe" layer over the whole sequence (the reference's
+    `_apply_block_full` for "moe"): causal attention through the flash
+    kernel, then the routed experts at capacity with the steal round
+    (`MOE.apply_moe`, dropless=False) under the layer's `cap_scale` (E,),
+    and the shared experts. Returns (x, the layer's aux dict)."""
+    h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=True)
+    x = x + h
+    h, aux = MOE.apply_moe(cfg, p.moe, p.ln2(x), cap_scale, dropless=False)
+    return x + h, aux
+
+
+def _train_moe_stack(cfg, params: StackedLM, x, cap_scales, remat: bool):
+    """A moe stack's layers over the whole sequence: "densffn" layers by
+    `_train_layer`, "moe" layers by `_train_moe_layer` with their row of
+    `cap_scales` (n_moe_layers, E) (ones when None), each under
+    `_run_layer`. Returns (x, the aux values of `AUX_SUMS` summed over
+    the MoE layers in layer order from float32 zeros, the router counts
+    stacked (n_moe_layers, E)), as the reference's `_run_segments`."""
+    if cap_scales is None:
+        cap_scales = torch.ones((n_moe_layers(cfg), cfg.n_experts),
+                                dtype=torch.float32, device=x.device)
+    sums = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+            for k in AUX_SUMS}
+    counts = []
+    for p in params.layers:
+        if not hasattr(p, "moe"):
+            x = _run_layer(cfg, _train_layer, p, x, remat=remat)
+            continue
+        x, aux = _run_layer(cfg, _train_moe_layer, p, x,
+                            cap_scales[len(counts)], remat=remat)
+        sums = {k: sums[k] + aux[k] for k in AUX_SUMS}
+        counts.append(aux["counts"])
+    return x, sums, torch.stack(counts)
 
 
 def _train_block(cfg, p, x, kind: str):
@@ -778,15 +807,16 @@ def loss_fn(cfg, params, batch, cap_scales=None, *,
     """batch: tokens (B, S), labels (B, S) int (-1 = masked); vlm:
     optional patches (B, P, d); encdec: frames (B, S_enc, d). Returns
     (loss, metrics {"loss", "n_tokens"}), the reference's
-    (`repro/models/model.py:252-287, 350-395`) for the dense, vlm,
-    encdec, ssm and hybrid families: the inputs embedded in `dtype`
+    (`repro/models/model.py:252-318, 350-395`) for every family: the
+    inputs embedded in `dtype`
     (`_embed_inputs`: a vlm's patches before its tokens, RoPE over
     positions 0..P+S-1; whisper's tokens plus their position rows); for
     encdec the encoder over the frames (`_encode`) and each decoder
     layer's self-attention, cross-attention and MLP (`_dec_layer`); for
     ssm and hybrid `cfg.block_pattern` over `params.block(i)`
     (`_train_block`: every "A" position runs the one shared block, whose
-    gradient sums over them); else every layer full-sequence; each layer
+    gradient sums over them); for moe its layers with their aux values
+    (`_train_moe_stack`); else every layer full-sequence; each layer
     or block under `torch.utils.checkpoint`,
     non-reentrant, when `cfg.remat`: the counterpart of the reference's
     jax.checkpoint with `cfg.remat_policy` (under "nothing" the backward
@@ -798,8 +828,13 @@ def loss_fn(cfg, params, batch, cap_scales=None, *,
     `dtype`, and the reference's cross-entropy: the row max detached,
     (logits - max) in `dtype` then float32, the true logit gathered (the
     reference's one-hot sum gives the same value), the mean over labels
-    >= 0. `cap_scales` and `aux_weight` serve MoE training, which comes
-    later (`check_trainable` refuses other families)."""
+    >= 0. For moe (`_train_moe_stack`) each MoE layer dispatches at
+    capacity under its row of `cap_scales` (n_moe_layers, E), and the
+    loss adds `aux_weight` times the summed aux loss; the metrics add the
+    sums of `AUX_SUMS` and "counts" (n_moe_layers, E), the router counts
+    that `ich_update_cap_scale` reads, and "loss" stays the
+    cross-entropy, as the reference's do. A config the port does not
+    train raises NotImplementedError (`check_trainable`)."""
     check_trainable(cfg)
     x, n_prefix = _embed_inputs(cfg, params, batch, dtype)
     if cfg.family == "encdec":
@@ -812,6 +847,9 @@ def loss_fn(cfg, params, batch, cap_scales=None, *,
         for i, kind in enumerate(cfg.block_pattern):
             x = _run_layer(cfg, _train_block, params.block(i), x, kind,
                            remat=cfg.remat)
+    elif cfg.family == "moe":
+        x, aux, counts = _train_moe_stack(cfg, params, x, cap_scales,
+                                          cfg.remat)
     else:
         for p in params.layers:
             x = _run_layer(cfg, _train_layer, p, x, remat=cfg.remat)
@@ -827,4 +865,9 @@ def loss_fn(cfg, params, batch, cap_scales=None, *,
     n_tokens = valid.sum()
     loss = torch.sum((lse - true_logit) * valid) / torch.clamp(n_tokens,
                                                               min=1)
-    return loss, {"loss": loss, "n_tokens": n_tokens}
+    metrics = {"loss": loss, "n_tokens": n_tokens}
+    if cfg.family == "moe":
+        loss = loss + aux_weight * aux["aux_loss"]
+        metrics.update(aux)
+        metrics["counts"] = counts
+    return loss, metrics

@@ -5,29 +5,49 @@ comes with `launch/`, ROADMAP.md queue 1).
 The paper's loop-scheduling problem reappears in MoE: tokens are loop
 iterations, experts are workers, and router imbalance is the irregular
 work. The reference computes the expert FFN in-graph over an (E, C_max, D)
-slot buffer; its docstring ties that layer to the scheduler, whose host
-planner `sched.moe.plan_dispatch` mirrors `dispatch_decisions` bit for
-bit. The port runs the layer THROUGH the scheduler:
+slot buffer and trains it by XLA's derivative of those einsums; its host
+planner `sched.moe.plan_dispatch` mirrors its `dispatch_decisions` bit
+for bit. The port runs the layer THROUGH the scheduler:
 
     router (softmax -> top-K -> renormalise, per block of TOKEN_BLOCK
     tokens) -> `plan_dispatch` on the host -> `LoopScheduler(p=...)
-    .build("moe-dispatch", plan)` -> `ich_moe_sharded`
+    .build("moe-dispatch", plan)` -> `MoeExpertsFn`: forward
+    `ich_moe_sharded`, backward `ich_moe_backward`
 
 with p the card's SM count (2 on the CPU). On the card the expert FFN is
-the hand-written `csrc/ich_moe.cu`; on the CPU the wrapper runs its plain
-version. Each call copies the router's top-K choices to the host: the
-plan is host numpy.
+the hand-written `csrc/ich_moe.cu` and its gradient `csrc/ich_moe_bwd.cu`;
+on the CPU the wrappers run their plain versions. Each call copies the
+router's top-K choices to the host: the plan is host numpy.
 
-Serving (`dropless=True`, what `models.model` runs) gives every expert
-capacity for the whole token pool and no steal round, so no token is
-dropped and a token's output does not depend on the other tokens of the
-call: the kernel computes each slot row on its own (fixed 128-row tiles,
-a fixed order over D) and folds a token's slots in ascending slot order,
-which is expert order; the plain version computes its products in calls
-of exactly PLAIN_ROWS rows. So an incremental prefill gives a one-shot
-prefill's bits. Training's mode (a capacity from `cap_scale`, the steal
-round, drops) is here too, for `moe_local` and the capacity loop
-(`ich_update_cap_scale`).
+Training (`dropless=False`, `models.model.loss_fn`) gives expert e the
+capacity clip(round(C_base * cap_scale[e]), MOE_MIN_CAPACITY, C_max)
+with the steal round: capacity is the chunk size, the steal round is
+work-stealing, and `cap_scale`, the paper's d_i, is reclassified every
+step from the router's counts by `ich_update_cap_scale`
+(`train.train_step`). `MoeExpertsFn` is the autograd Function around the
+scheduled FFN. Its forward runs the op over the plan's packed combine
+weights (the host copy of the router's renormalised top-K weights, the
+same values) and keeps the op (its pack and `MoeSlots`), the plan's slot
+-> (token, choice) entry map and x (not the up products: the backward
+recomputes them). Its backward launches the
+backward kernel over the plan's CSR and the forward's token -> slots
+index and returns dx, dwi, dwg, dwo and the (T, K) weights' gradient:
+each kept entry's, zero for a dropped one (a dropped entry reaches the
+router only through the renormalisation's denominator, by autograd
+outside the Function): the router's gradient through the combine is
+this return value, whatever tensor fed the forward's kernel. Under remat
+the layer's rerun plans again, which gives the same plan; the backward
+plans nothing and uses the ctx. Without a gradient to take (serving) the
+layer calls the op directly and uploads no entry map.
+
+Serving (`dropless=True`, `models.model`'s prefill, extend and decode)
+gives every expert capacity for the whole token pool and no steal round,
+so no token is dropped and a token's output does not depend on the other
+tokens of the call: the kernel computes each slot row on its own (fixed
+128-row tiles, a fixed order over D) and folds a token's slots in
+ascending slot order, which is expert order; the plain version computes
+its products in calls of exactly PLAIN_ROWS rows. So an incremental
+prefill gives a one-shot prefill's bits.
 
 `capacity`, `ich_update_cap_scale`, `_dispatch_positions` and
 `dispatch_decisions` are tensor functions held element-identical to the
@@ -41,6 +61,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.kernels.ich_moe.ich_moe_bwd import ich_moe_backward
 from repro_torch.sched.api import LoopScheduler
 from repro_torch.sched.defaults import (ICH_EPS, MOE_CAP_SCALE_MAX,
                                         MOE_CAP_SCALE_MIN,
@@ -100,13 +121,13 @@ def ich_update_cap_scale(counts: torch.Tensor, cap_scale: torch.Tensor,
                          step: float = 1.5) -> torch.Tensor:
     """Adapt the per-expert capacity scale with the paper's classification
     (float32): experts loaded above the band mu +- eps*mu grow their scale
-    by `step`, those below shrink it, clipped to [MOE_CAP_SCALE_MIN,
-    MOE_CAP_SCALE_MAX]; the total is renormalised only when it exceeds
-    the budget E. The total is a left fold, the order XLA's CPU reduce
-    takes below 32 elements, so with fewer than 32 experts the result is
-    the reference's bits; from 32 on XLA sums in another order and a
-    renormalised scale can differ from the reference's in its last
-    bit."""
+    by `step`, those below shrink it (times 1 / step), clipped to
+    [MOE_CAP_SCALE_MIN, MOE_CAP_SCALE_MAX]; the total is renormalised
+    only when it exceeds the budget E. The total is a left fold, the
+    order XLA's CPU reduce takes below 32 elements, so with fewer than 32
+    experts the result is the bits of the reference as its jitted train
+    step runs it; from 32 on XLA sums in another order and a renormalised
+    scale can differ from the reference's in its last bit."""
     counts = torch.as_tensor(counts, dtype=torch.float32)
     cap_scale = torch.as_tensor(cap_scale, dtype=torch.float32,
                                 device=counts.device)
@@ -114,8 +135,10 @@ def ich_update_cap_scale(counts: torch.Tensor, cap_scale: torch.Tensor,
     delta = eps * mu
     up = counts > mu + delta
     down = counts < mu - delta
+    # XLA folds the reference's `cap_scale / step` into a product with the
+    # float32 reciprocal of step: the same product here gives its bits
     new = torch.where(up, cap_scale * step,
-                      torch.where(down, cap_scale / step, cap_scale))
+                      torch.where(down, cap_scale * (1.0 / step), cap_scale))
     new = torch.clamp(new, MOE_CAP_SCALE_MIN, MOE_CAP_SCALE_MAX)
     total = torch.zeros((), dtype=torch.float32, device=new.device)
     for v in new:
@@ -185,6 +208,50 @@ def dispatch_decisions(e_topk: torch.Tensor, cap_e: torch.Tensor, *,
 
 
 # ----------------------------------------------------------------------------
+# The scheduled expert FFN with its gradient
+# ----------------------------------------------------------------------------
+
+class MoeExpertsFn(torch.autograd.Function):
+    """y (T, D) = the expert FFN of a "moe-dispatch" `op` over its plan,
+    each kept entry weighted by its router weight: x (T, D), w_topk (T,
+    K) the renormalised top-K weights, wi/wg (E, D, F), wo (E, F, D);
+    `entry` (n_slots,) int64 the (token, choice) entry t*K + k of each
+    slot of the plan's CSR and `indptr` (E+1,) int32 its expert offsets,
+    on x's device. The kernels take float32 only, so the Function casts
+    its inputs to float32 and y back to x's dtype (in bfloat16 training
+    the products run in float32; the reference runs them in x's dtype).
+    Forward: `ich_moe_sharded` through the op over the plan's packed
+    combine weights, which are w_topk's values. Backward: `ich_moe_backward` (`csrc/ich_moe_bwd.cu` on
+    the card) with g and h recomputed from the kept x; the gradients of
+    x, w_topk (zero for dropped entries) and the three weights, each in
+    its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w_topk, wi, wg, wo, op, entry, indptr):
+        y = op(x.float().contiguous(), wi.float(), wg.float(), wo.float())
+        ctx.op = op
+        ctx.save_for_backward(x, w_topk, wi, wg, wo, entry, indptr)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_topk, wi, wg, wo, entry, indptr = ctx.saved_tensors
+        slots = ctx.op.slots
+        K = w_topk.shape[1]
+        dx, dwi, dwg, dwo, dw = ich_moe_backward(
+            x.float().contiguous(), dy.float().contiguous(), wi.float(),
+            wg.float(), wo.float(), indptr, (entry // K).int(),
+            w_topk.float().reshape(-1)[entry].contiguous(), slots.tok_ptr,
+            slots.tok_slot)
+        # entries are unique: a plain scatter, no accumulation
+        dw_topk = torch.zeros(w_topk.numel(), dtype=torch.float32,
+                              device=dw.device).index_put_((entry,), dw)
+        return (dx.to(x.dtype), dw_topk.view(w_topk.shape).to(w_topk.dtype),
+                dwi.to(wi.dtype), dwg.to(wg.dtype), dwo.to(wo.dtype), None,
+                None, None)
+
+
+# ----------------------------------------------------------------------------
 # The layer
 # ----------------------------------------------------------------------------
 
@@ -214,7 +281,11 @@ def moe_local(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
 
     The expert FFN runs through the scheduler: `plan_dispatch` of the
     router's choices with per-expert capacity `cap` -> `LoopScheduler(
-    p=workers(x.device))` -> "moe-dispatch" op -> `ich_moe_sharded`.
+    p=workers(x.device))` -> "moe-dispatch" op -> `MoeExpertsFn`
+    (`ich_moe_sharded`; its backward `ich_moe_backward`) when a gradient
+    is to be taken, else the op alone: y is x's dtype, and differentiable
+    in x, the router (through the combine weights and the aux loss) and
+    the experts.
     `dropless` (serving) gives every expert capacity T and no steal;
     otherwise cap = clip(round(C_base * cap_scale), MOE_MIN_CAPACITY,
     C_max), as the reference computes it, with the steal round when
@@ -239,18 +310,27 @@ def moe_local(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
                                 device=x.device)
         cap = torch.clamp(torch.round(c_base * scale), MOE_MIN_CAPACITY,
                           c_max).int().cpu().numpy()
-    plan = plan_dispatch(e_topk.cpu().numpy(), w_topk.cpu().numpy(),
-                         cap=cap, steal=steal)
+    plan = plan_dispatch(e_topk.cpu().numpy(),
+                         w_topk.detach().cpu().numpy(), cap=cap, steal=steal)
     op = LoopScheduler(p=workers(x.device), device=x.device,
                        cache_size=0).build("moe-dispatch", plan)
-    y = op(x.contiguous(), p.wi, p.wg, p.wo)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_topk, p.wi, p.wg, p.wo)):
+        indptr, entry = plan.csr_entries()
+        y = MoeExpertsFn.apply(
+            x, w_topk, p.wi, p.wg, p.wo, op,
+            torch.from_numpy(entry).to(x.device),
+            torch.from_numpy(indptr.astype(np.int32)).to(x.device))
+    else:
+        y = op(x.float().contiguous(), p.wi.float(), p.wg.float(),
+               p.wo.float()).to(x.dtype)
     f32 = dict(dtype=torch.float32, device=x.device)
     aux = {"aux_loss": aux_loss,
            "dropped": torch.tensor(float(plan.dropped), **f32),
            "stolen": torch.tensor(float(plan.stolen), **f32),
            "counts": counts_all,
            "entries": torch.tensor(float(T * K), **f32)}
-    return y.to(x.dtype), aux
+    return y, aux
 
 
 def apply_moe(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,

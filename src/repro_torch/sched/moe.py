@@ -88,15 +88,20 @@ class DispatchPlan:
         keeps occupy [0, used_e) and stolen entries are ranked from
         used_e up — so scattering by `indptr[expert] + pos` is a
         permutation of the kept entries, no gaps."""
+        indptr, entry = self.csr_entries()
+        return indptr, self.token[entry], self.weight[entry]
+
+    def csr_entries(self):
+        """(indptr (E+1,), entry (n_slots,) int64): the flat (token,
+        choice) entry t*K + k that each slot of `csr()` holds, at
+        `indptr[expert] + pos` — the map by which a gradient of the CSR's
+        combine weights goes back to the router's (T, K) weights."""
         indptr = np.zeros(self.n_experts + 1, np.int64)
         np.cumsum(self.counts, out=indptr[1:])
-        tok = np.zeros(int(indptr[-1]), np.int32)
-        w = np.zeros(int(indptr[-1]), np.float32)
-        k = self.keep
-        at = indptr[self.expert[k]] + self.pos[k]
-        tok[at] = self.token[k]
-        w[at] = self.weight[k]
-        return indptr, tok, w
+        kept = np.flatnonzero(self.keep)
+        entry = np.zeros(int(indptr[-1]), np.int64)
+        entry[indptr[self.expert[kept]] + self.pos[kept]] = kept
+        return indptr, entry
 
 
 def plan_dispatch(e_topk: np.ndarray, weights: np.ndarray = None, *,

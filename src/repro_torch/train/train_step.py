@@ -1,6 +1,7 @@
 """Training step — the port's counterpart of `repro.train.train_step`:
-the loss's gradient (`models.model.loss_fn`, the flash kernel's and the
-SSD scan's backward kernels on the card), an AdamW update, optional
+the loss's gradient (`models.model.loss_fn`, the backward kernels of
+flash attention, the SSD scan and the MoE expert FFN on the card), an
+AdamW update, the MoE capacity scales' update, optional
 microbatch accumulation, int8 gradient compression with error feedback,
 bfloat16 parameters with a float32 master copy, and a one-time cast of
 the parameters.
@@ -9,15 +10,17 @@ The train state is a dict: "params" (the model,
 `models.model.StackedLM`, `EncDecLM` or `HybridLM`, its parameters
 requiring grad), "opt" ({"m", "v", "step"} keyed by parameter name, plus
 "master" with `bf16_params`), "cap_scales" ((MoE
-layers, E) float32 ones: the MoE capacity scales, which MoE training will
-update) and, with `grad_compress`, "grad_err" (the residuals). `step`
+layers, E) float32, ones at first: the MoE capacity scales, the paper's
+d_i) and, with `grad_compress`, "grad_err" (the residuals). `step`
 updates the state's tensors IN PLACE and returns the same dict with the
 metrics (the reference returns a new state; in place the step needs no
 second copy of the parameters and moments). The port runs eagerly: there
 is nothing to jit, and `train_state_pspecs` / `batch_pspec` come with
-`launch/` (ROADMAP.md queue 1 item 6). It trains the dense, vlm,
-encdec, ssm and hybrid families; `make_train_step` refuses moe
-(`models.model.check_trainable`), MoE's capacity-scale update included.
+`launch/` (ROADMAP.md queue 1 item 6). It trains every family. For moe
+the loss takes the state's "cap_scales", and after the update each MoE
+layer's row becomes `ich_update_cap_scale` of that layer's router counts
+(in place; under a microbatch split the last microbatch's counts, as the
+reference takes `m[-1]` of its scanned metrics).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
 from repro_torch.optim import adamw
 from repro_torch.optim import grad_compress as GC
 from repro_torch.sched.defaults import ICH_EPS
@@ -79,12 +83,13 @@ def init_train_state(cfg, seed: int = 0, max_seq: int = 0,
 
 def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
     """Returns step(state, batch) -> (state, metrics {"loss", "n_tokens",
-    "grad_norm", "lr"}); batch: "tokens" and "labels" (B, S) tensors on
+    "grad_norm", "lr"}, for moe also "aux_loss", "dropped", "stolen" and
+    "entries"); batch: "tokens" and "labels" (B, S) tensors on
     the state's device, and the family's inputs as
     `repro/launch/specs.py:19-25` shapes them: "patches" (B, P, d) for a
     vlm (optional), "frames" (B, S_enc, d) for encdec. A microbatch split
     cuts every entry along its batch axis. Raises NotImplementedError for
-    a family the port does not train yet."""
+    a config the port does not train (`models.model.check_trainable`)."""
     M.check_trainable(cfg)
     # cast_params_once: the loss runs on a copy of the model whose float32
     # parameters are cast to tcfg.dtype (leaves of their own), and their
@@ -107,9 +112,10 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
                 c.copy_(p)
         return shadow["model"]
 
-    def grads_of(model, batch):
+    def grads_of(model, batch, cap_scales):
         run = loss_model(model)
-        loss, metrics = M.loss_fn(cfg, run, batch, dtype=tcfg.dtype)
+        loss, metrics = M.loss_fn(cfg, run, batch, cap_scales,
+                                  dtype=tcfg.dtype)
         names = [n for n, _ in model.named_parameters()]
         grads = torch.autograd.grad(loss, list(run.parameters()))
         grads = {n: g.to(p.dtype) for n, g, p in
@@ -130,13 +136,14 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
             for i in range(mb):
                 micro = {k: v.reshape(mb, b // mb, *v.shape[1:])[i]
                          for k, v in batch.items()}
-                loss, metrics, g = grads_of(model, micro)
+                loss, metrics, g = grads_of(model, micro,
+                                            state["cap_scales"])
                 grads = {n: grads[n] + g[n] for n in grads}
                 loss_sum = loss_sum + loss
             grads = {n: g / mb for n, g in grads.items()}
             metrics["loss"] = loss_sum / mb
         else:
-            _, metrics, grads = grads_of(model, batch)
+            _, metrics, grads = grads_of(model, batch, state["cap_scales"])
 
         if tcfg.grad_compress:
             grads, state["grad_err"] = GC.tree_compress(
@@ -156,6 +163,13 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
                                                           tcfg.opt)
         state["opt"] = new_opt
         metrics.update(opt_metrics)
+        if cfg.family == "moe":
+            counts = metrics.pop("counts")          # (n_moe_layers, E)
+            caps = state["cap_scales"]
+            with torch.no_grad():
+                for layer in range(caps.shape[0]):
+                    caps[layer] = MOE.ich_update_cap_scale(
+                        counts[layer], caps[layer], eps=tcfg.ich_eps)
         return state, metrics
 
     return step

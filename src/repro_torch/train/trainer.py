@@ -10,11 +10,11 @@ port's counterpart of `repro.train.trainer`:
 One device, no mesh: the reference's `mesh` argument (elastic restarts
 on another mesh) comes with `launch/` (ROADMAP.md queue 1 item 6). The
 batches are tokens and labels, as the reference's pipeline makes them:
-the dense, ssm and hybrid families train, a vlm trains on text alone (no
+the dense, moe, ssm and hybrid families train (moe with its capacity
+scales, which the checkpoints carry), a vlm trains on text alone (no
 patches), as the reference's trainer runs it; encdec raises
 NotImplementedError (its loss needs frames, which the reference's trainer
-never feeds: ROADMAP.md queue 3 caveat 13), and so does moe, which the
-port does not train yet.
+never feeds: ROADMAP.md queue 3 caveat 13).
 """
 from __future__ import annotations
 

@@ -43,7 +43,10 @@ that the wrapper pads, widths off the tiles, Pd wide enough that a pair
 kernel streams its a), the same bits twice, every kernel of a call at
 both training shapes fitting an SM; its autograd
 Function and a reduced xlstm and Zamba2's gradients on the card against
-the CPU), and the
+the CPU; the MoE expert FFN's backward kernel against its plain version
+with dropped and stolen entries, the same bits twice, its autograd
+Function over several lowerings and against the CPU, and a reduced
+deepseek-moe-16b train step on the card against the CPU), and the
 schedule
 pipeline on the card (each lowering element-identical to the numpy one,
 tile costs bit for bit: one R per branch of numpy's pairwise sum, LPT
@@ -2236,3 +2239,142 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, remat):
             synthetic_tokens(4, 256, cfg.padded_vocab, 1, 5).items()}
     losses = [float(step(state, toks)[1]["loss"]) for _ in range(3)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def _moe_bwd_inputs(cuda, T, E, K, D, F, seed):
+    """A skewed router over E - 1 experts (the last one never chosen),
+    capacities drawn so that entries are dropped and stolen, and seeded
+    float32 tensors on the card: (plan, x, dy, wi, wg, wo, the CSR's
+    device arrays (indptr, tok, w, tok_ptr, tok_slot))."""
+    from repro_torch.core.workloads import moe_router
+    from repro_torch.kernels.ich_moe.ich_moe import token_slots
+    from repro_torch.sched import plan_dispatch
+    e_topk, w = moe_router(T, E - 1, K, seed=seed, skew=1.2)
+    rng = np.random.default_rng(seed)
+    plan = plan_dispatch(e_topk, w, cap=np.round(
+        rng.uniform(0.3, 2.0, E) * T * K / E).astype(np.int32))
+    indptr, tok, wt = plan.csr()
+    tok_ptr, tok_slot = token_slots(tok, T)
+
+    def put(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(cuda)
+    x, dy = put(rng.standard_normal((T, D))), put(rng.standard_normal((T, D)))
+    wi = put(rng.standard_normal((E, D, F)) * D ** -0.5)
+    wg = put(rng.standard_normal((E, D, F)) * D ** -0.5)
+    wo = put(rng.standard_normal((E, F, D)) * F ** -0.5)
+    csr = (put(indptr, np.int32), put(tok, np.int32), put(wt),
+           put(tok_ptr, np.int32), put(tok_slot, np.int32))
+    return plan, x, dy, wi, wg, wo, csr
+
+
+@pytest.mark.parametrize("T,E,K,D,F", [
+    (40, 4, 2, 7, 5),          # widths off every tile and off 4
+    (700, 6, 2, 136, 132),     # experts over 128 slots, two column tiles
+    (2048, 64, 8, 256, 128),   # OLMoE's routing at a reduced width
+])
+def test_moe_backward_kernel_matches_plain(cuda, T, E, K, D, F):
+    """The six kernels of `csrc/ich_moe_bwd.cu` against the plain version
+    (torch products, the same token fold): every output within 1e-4 of
+    its largest value (float32 sums in other orders), the same bits on
+    two calls, one launch counted, exact zeros for the expert with no
+    kept slot; dropped and stolen entries in every case."""
+    from repro_torch.kernels.ich_moe import ich_moe_bwd as KB
+    plan, x, dy, wi, wg, wo, csr = _moe_bwd_inputs(cuda, T, E, K, D, F, 4)
+    assert plan.dropped > 0 and plan.stolen > 0 and plan.counts[-1] == 0
+    KB.reset_launches()
+    got = KB.ich_moe_backward(x, dy, wi, wg, wo, *csr)
+    again = KB.ich_moe_backward(x, dy, wi, wg, wo, *csr)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES == {"ich_moe_bwd": 2}
+    plain = KB.ich_moe_backward_plain(x, dy, wi, wg, wo, *csr)
+    for name, a, b, c in zip(("dx", "dwi", "dwg", "dwo", "dw"), got, plain,
+                             again):
+        assert torch.equal(a, c), name
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale, name
+    for g in got[1:4]:
+        assert torch.equal(g[-1], torch.zeros_like(g[-1]))
+
+
+def test_moe_backward_function_on_the_card(cuda):
+    """`models.moe.MoeExpertsFn` on the card: its gradients of x, the
+    top-K weights and the experts are one set of bits over p in {1, 2,
+    132} and two calls, and match the same Function on the CPU within
+    1e-4 of each gradient's largest value; the forward and the backward
+    kernels launch once a call."""
+    from repro_torch.kernels.ich_moe import ich_moe as KM
+    from repro_torch.kernels.ich_moe import ich_moe_bwd as KB
+    from repro_torch.models import moe as MOE
+    from repro_torch.sched import LoopScheduler
+    plan, x, dy, wi, wg, wo, _ = _moe_bwd_inputs(cuda, 500, 8, 2, 64, 96, 6)
+    w_topk = torch.from_numpy(plan.weight.reshape(-1, 2).copy())
+    indptr, entry = plan.csr_entries()
+
+    def grads(dev, p):
+        op = LoopScheduler(p=p, superstep=4, rows_per_tile=2, cache_size=0,
+                           device=dev).build("moe-dispatch", plan, width=64)
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (x, w_topk, wi, wg, wo)]
+        y = MOE.MoeExpertsFn.apply(
+            *leaves, op, torch.from_numpy(entry).to(dev),
+            torch.from_numpy(indptr.astype(np.int32)).to(dev))
+        return [y.detach()] + list(torch.autograd.grad(y, leaves,
+                                                       dy.to(dev)))
+    KM.reset_launches()
+    KB.reset_launches()
+    first = grads(cuda, 1)
+    torch.cuda.synchronize()
+    assert (KM.LAUNCHES["ich_moe_sharded"], KB.LAUNCHES["ich_moe_bwd"]) \
+        == (1, 1)
+    for p in (1, 2, 132):
+        assert all(torch.equal(a, b) for a, b in zip(grads(cuda, p), first))
+    for a, b in zip(first, grads(torch.device("cpu"), 2)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+
+
+def test_moe_train_step_on_the_card_matches_the_cpu(cuda):
+    """One float32 step of a reduced deepseek-moe-16b at dh 128 (d_model
+    256, 2 heads; its dense first layer, then 2 MoE layers of 8 experts
+    top-2 with shared experts; drawn capacity scales) on the card and on
+    the CPU from the same state and batch: loss within 1e-5 and grad norm
+    within 1e-4 relative, the new capacity scales equal, dropped and
+    stolen entries equal and above 0, 2 forward and 1 backward expert
+    launches a MoE layer under remat."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.kernels.ich_moe import ich_moe as KM
+    from repro_torch.kernels.ich_moe import ich_moe_bwd as KB
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+    cfg = reduced(get_arch("deepseek-moe-16b"), d_model=256, n_heads=2,
+                  n_kv_heads=1, n_layers=3, n_experts=8, experts_per_token=2,
+                  remat=True)
+    tcfg = TS.TrainConfig(dtype=torch.float32, opt=adamw.AdamWConfig(
+        warmup_steps=2, total_steps=10))
+    cpu = TS.init_train_state(cfg, 0, tcfg=tcfg, device="cpu")
+    cpu["cap_scales"].copy_(torch.from_numpy(np.random.default_rng(3).uniform(
+        0.3, 2.0, tuple(cpu["cap_scales"].shape)).astype(np.float32)))
+    card = TS.init_train_state(cfg, 1, tcfg=tcfg, device=cuda)
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(CKPT.state_leaves(cpu),
+                                  CKPT.state_leaves(card)):
+            b.copy_(a)
+    batch = synthetic_tokens(2, 200, cfg.padded_vocab, 0, 5)
+    KM.reset_launches()
+    KB.reset_launches()
+    card, mc = TS.make_train_step(cfg, tcfg)(
+        card, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert KM.LAUNCHES["ich_moe_sharded"] == 2 * 2
+    assert KB.LAUNCHES["ich_moe_bwd"] == 2
+    cpu, mp = TS.make_train_step(cfg, tcfg)(
+        cpu, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(mc["loss"]), float(mp["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(mc["grad_norm"]),
+                               float(mp["grad_norm"]), rtol=1e-4)
+    for key in ("dropped", "stolen"):
+        assert float(mc[key]) == float(mp[key]) > 0, key
+    assert torch.equal(card["cap_scales"].cpu(), cpu["cap_scales"])

@@ -160,7 +160,11 @@ def test_dispatch_decisions_match_reference_and_planner(T, E, K_, cap, seed,
                                     (31, 4)])
 def test_ich_update_cap_scale_matches_the_reference(E, seed):
     """Element-identical over several rounds, through the renormalisation
-    (the scale total above the budget E) and the clip."""
+    (the scale total above the budget E) and the clip, to the reference
+    compiled as its train step runs it (under jit XLA folds `cap_scale /
+    step` into a product with step's float32 reciprocal; eager JAX
+    divides)."""
+    update = jax.jit(RMOE.ich_update_cap_scale)
     rng = np.random.default_rng(seed)
     scale = np.ones(E, np.float32)
     ref = jnp.asarray(scale)
@@ -173,7 +177,7 @@ def test_ich_update_cap_scale_matches_the_reference(E, seed):
                for _ in range(6)]
     for counts in rounds:
         scale = MOE.ich_update_cap_scale(_t(counts), _t(scale)).numpy()
-        ref = RMOE.ich_update_cap_scale(jnp.asarray(counts), ref)
+        ref = update(jnp.asarray(counts), ref)
         np.testing.assert_array_equal(scale, np.asarray(ref))
         if counts is rounds[0]:
             assert np.isclose(scale.sum(), E, rtol=1e-6) and scale[0] < 1.5

@@ -204,6 +204,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.kernels.ich_kmeans.ich_kmeans, "
             "repro_torch.kernels.ich_kmeans.ref, "
             "repro_torch.kernels.ich_moe.ich_moe, "
+            "repro_torch.kernels.ich_moe.ich_moe_bwd, "
             "repro_torch.kernels.ich_moe.ref, repro_torch.sched.moe, "
             "repro_torch.core.workloads, repro_torch.configs, "
             "repro_torch.kernels.flash_attention.flash_attention, "
@@ -291,7 +292,7 @@ def test_library_name_covers_shared_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") not in (first, second)
     # the real sources each name their own library
     monkeypatch.undo()
-    names = ("ich_spmv", "ich_bfs", "ich_kmeans", "ich_moe",
+    names = ("ich_spmv", "ich_bfs", "ich_kmeans", "ich_moe", "ich_moe_bwd",
              "flash_attention", "flash_attention_bwd", "mamba_scan",
              "mamba_scan_bwd", "lpt")
     paths = {_build.library_path(n) for n in names}
