@@ -125,11 +125,13 @@ launch counters set to 0 just before it and read just after:
   10 expert kernel and 10 expert backward launches a step, the balancer
   updating the scales after each), held to the same bars and to entries
   dropped and stolen; the expert kernel and its backward
-  (`csrc/ich_moe_bwd.cu`, six CUDA kernels a call) at that training
+  (`csrc/ich_moe_bwd.cu`, six launches of five CUDA kernels a call,
+  bfloat16 tensor-core passes over split float32 operands) at that training
   shape, under drawn capacity scales, against their plain versions, two
   calls the same bits,
-  the backward the same bits at p = 132 and p = 2, each CUDA kernel's
-  device time; one float32 step of olmoe-1b-7b and of deepseek-moe-16b
+  the backward the same bits at p = 132 and p = 2, and given x and dy
+  in bfloat16 (fewer passes) the same bits as given their float32
+  casts, each CUDA kernel's device time; one float32 step of olmoe-1b-7b and of deepseek-moe-16b
   (its dense first layer and one MoE layer with shared experts) at 2
   layers over 2 x 256 tokens against the CPU, the new capacity scales
   equal.
@@ -210,6 +212,7 @@ path and their times.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1752,7 +1755,7 @@ def _kernel_split(ms_by_name: dict) -> dict:
     """Device milliseconds of one traced call grouped: the LM kernels
     (flash, its backward's three `flash_bwd_*` kernels, the SSD scan, its
     backward's `ssd_bwd_*` kernels, the expert kernel's five `moe_*`
-    kernels, its backward's six `moe_bwd_*`), matrix products (cuBLAS's
+    kernels, its backward's five `moe_bwd_*`), matrix products (cuBLAS's
     `*gemm*` and `nvjet_*` kernels, CUTLASS),
     matrix products (cuBLAS/CUTLASS), everything else."""
     out = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
@@ -4618,8 +4621,17 @@ def moe_backward_record(cfg, cap_scale, g, sm_count) -> tuple:
     `MoeExpertsFn` over the lowerings at p = SM count and p = 2 the same
     bits (y and every gradient); timed beside the plain version and the
     capacity-buffer form's autograd backward, with the device time of
-    each of its six CUDA kernels. Returns (forward record, backward
-    record)."""
+    each of its CUDA kernels (`device_ms_by_kernel`: the fused up and v
+    product, dx_s, the two weight-gradient launches, the token fold, the
+    dw fold), the bound of its three bfloat16 passes (`bound_split_ms`)
+    beside the 3xTF32 `bound_ms`, and the TFLOP/s of the split products
+    (all three passes: x and dy are float32 here) of the call and of
+    each product kernel. Then (`bf16`) x and dy rounded to bfloat16, as
+    training gives them: the call with them in bfloat16 (the kernels
+    leave out the passes of their zero lo parts) the same bits as the
+    call with their float32 casts (every pass), within MOE_BWD_TOL of the
+    plain version, both timed and traced by kernel. Returns (forward
+    record, backward record)."""
     import torch
     from repro_torch.kernels.ich_moe import ich_moe as KM
     from repro_torch.kernels.ich_moe import ich_moe_bwd as KMB
@@ -4723,21 +4735,61 @@ def moe_backward_record(cfg, cap_scale, g, sm_count) -> tuple:
     plain_ms = timed_ms(lambda: KMB.ich_moe_backward_plain(*args))
     library_ms = timed_ms(run)
     del run
+    expect = ("moe_bwd_upv", "moe_bwd_dweights")
     by_name = device_ms_by_kernel(lambda: KMB.ich_moe_backward(*args),
-                                  expect=("moe_bwd_dweights",))
+                                  expect=expect)
     flops = KMB.backward_flops(kept, D, F)
+
+    # ---- bfloat16 x and dy: the passes of their lo parts left out ----
+    args_b = (x.bfloat16(), dy.bfloat16(), *args[2:])
+    args_f = (args_b[0].float(), args_b[1].float(), *args[2:])
+    skip = KMB.ich_moe_backward(*args_b)
+    full = KMB.ich_moe_backward(*args_f)
+    check(all(torch.equal(a, b) for a, b in zip(skip, full)),
+          "expert backward: bfloat16 x and dy, the same bits as every pass")
+    del full
+    plain = KMB.ich_moe_backward_plain(*args_f)
+    errs_b = {n: float((a - b).abs().max()) / float(b.abs().max())
+              for n, a, b in zip(names, skip, plain)}
+    check(max(errs_b.values()) <= MOE_BWD_TOL,
+          f"expert backward, bfloat16 x and dy: within {MOE_BWD_TOL} of "
+          "max |plain|")
+    del skip, plain
+    # the passes run: x's and dy's products (up, v, dwi, dwg, dwo: 12 of
+    # the 16 D F a slot) two, dx's three
+    bf16 = {"rel_err_by_output": errs_b,
+            "ms": timed_ms(lambda: KMB.ich_moe_backward(*args_b)),
+            "full_passes_ms": timed_ms(lambda: KMB.ich_moe_backward(*args_f)),
+            "device_ms_by_kernel": _moe_bwd_kernels(device_ms_by_kernel(
+                lambda: KMB.ich_moe_backward(*args_b), expect=expect)),
+            "full_passes_device_ms_by_kernel": _moe_bwd_kernels(
+                device_ms_by_kernel(lambda: KMB.ich_moe_backward(*args_f),
+                                    expect=expect)),
+            "bound_split_ms": 1e3 * (2 * 12 + 3 * 4) / 16 * flops
+            / BF16_FLOPS}
+    del args_b, args_f
+    by_kernel = _moe_bwd_kernels(by_name)
+    # each float32 product runs as three bfloat16 passes; the kernels'
+    # share of the 16 D F a slot: up and v 6, dx 4, dwi + dwg 4, dwo 2
+    split = {"upv": 6, "dx": 4, "dweights_in": 4, "dweights_out": 2}
+    split_tflops = {k_: 3 * n * D * F * kept / (by_kernel[k_] * 1e-3) / 1e12
+                    for k_, n in split.items() if by_kernel[k_] > 0}
     nbytes = 4 * (3 * T * D + 6 * E * D * F + 2 * kept) \
         + sum(t.numel() * t.element_size() for t in args[5:7] + args[8:])
     bwd = {**shape, "max_abs_err": max(errs.values()),
            "max_abs_err_by_output": errs, "max_abs_plain": scale,
            "library_rel_diff": lib_diff, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "device_ms": by_name,
+           "device_ms_by_kernel": by_kernel,
            "device_total_ms": sum(by_name.values()), "flops": flops,
            "bytes": nbytes,
            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                  flops / (TF32_FLOPS / 3)),
+           "bound_split_ms": 1e3 * 3 * flops / BF16_FLOPS,
            "float32_cuda_core_ms": 1e3 * flops / F32_FLOPS,
-           "tflops": flops / (ms * 1e-3) / 1e12}
+           "tflops": flops / (ms * 1e-3) / 1e12,
+           "split_tflops": 3 * flops / (ms * 1e-3) / 1e12,
+           "split_tflops_by_kernel": split_tflops, "bf16": bf16}
     del x, dy, args, p, ops, op, fargs
     return fwd, bwd
 
@@ -4815,20 +4867,39 @@ def phase_train_moe():
         rec = train_parity(arch, cap_scales=caps, update=False)
         log(phase=label, **rec, seconds=time.perf_counter() - t0)
         torch.cuda.empty_cache()
-    # both rows at the 3xTF32 rate: float32-level products, as rows 7-9
-    # (the backward runs on the float32 CUDA cores: `float32_cuda_core_ms`
-    # of its record)
-    peak = TF32_FLOPS / 3
+    # the forward at the 3xTF32 rate it runs, as rows 7-9; the backward
+    # with the three bfloat16 passes its kernels run on float32 x and dy
+    # (the 3xTF32 bound stays in its record, `bound_ms`, and beside)
     return [kernel_entry(
         "ich_moe_sharded_train",
         launches=info["launches"]["ich_moe_sharded"], err=fwd["max_abs_err"],
         ms=fwd["ms"], plain_ms=fwd["plain_ms"], library_ms=fwd["library_ms"],
-        bytes_=fwd["bytes"], flops=fwd["flops"], peak=peak),
+        bytes_=fwd["bytes"], flops=fwd["flops"], peak=TF32_FLOPS / 3),
         kernel_entry(
         "ich_moe_bwd", launches=info["launches"]["ich_moe_bwd"],
         err=bwd["max_abs_err"], ms=bwd["ms"], plain_ms=bwd["plain_ms"],
         library_ms=bwd["library_ms"], bytes_=bwd["bytes"],
-        flops=bwd["flops"], peak=peak)]
+        flops=3 * bwd["flops"], peak=BF16_FLOPS)
+        | {"bound_3xtf32_ms": bwd["bound_ms"]}]
+
+
+def _moe_bwd_kernels(ms_by_name: dict) -> dict:
+    """Device milliseconds of one traced `ich_moe_backward` call by
+    kernel of csrc/ich_moe_bwd.cu: the weight-gradient kernel's two
+    launches apart (template argument 0: dwi and dwg, 1: dwo)."""
+    out = {"upv": 0.0, "dx": 0.0, "dweights_in": 0.0, "dweights_out": 0.0,
+           "combine": 0.0, "dw": 0.0}
+    for name, ms in ms_by_name.items():
+        if "moe_bwd_dweights" in name:
+            role = re.search(r"moe_bwd_dweights<[^>]*?(\d)>", name)
+            out["dweights_out" if role and role.group(1) == "1"
+                else "dweights_in"] += ms
+        else:
+            for k_ in ("upv", "dx", "combine", "dw"):
+                if f"moe_bwd_{k_}" in name:
+                    out[k_] += ms
+                    break
+    return out
 
 
 def _rates(flops: int, device_ms: float) -> dict:

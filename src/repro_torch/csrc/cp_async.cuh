@@ -1,9 +1,10 @@
 // Asynchronous copies from global to shared memory (cp.async, sm_80 on),
-// used by mamba_scan_bwd.cu's rings of tiles. A copy with ok == false
-// reads nothing and writes zeros (src-size 0), so a tile's edge needs no
-// other path. Copies join a group at cp_commit; cp_wait<N> returns once at
-// most N of this thread's groups are still in flight, and a __syncthreads
-// after it makes every thread's landed copies visible to the whole CTA.
+// used by the rings of tiles of mamba_scan_bwd.cu and ich_moe_bwd.cu. A
+// copy with ok == false reads nothing and writes zeros (src-size 0), so a
+// tile's edge needs no other path. Copies join a group at cp_commit;
+// cp_wait<N> returns once at most N of this thread's groups are still in
+// flight, and a __syncthreads after it makes every thread's landed copies
+// visible to the whole CTA.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,6 +1,7 @@
 // Bfloat16 products on Hopper's tensor cores through mma.sync, with
 // fragments loaded from shared memory by ldmatrix; used by
-// flash_attention_bwd.cu and mamba_scan_bwd.cu.
+// flash_attention_bwd.cu, mamba_scan_bwd.cu and ich_moe_bwd.cu (which
+// reads its fragments from float32 tiles and splits them itself).
 //
 // Fragments of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, with
 // gid = lane / 4 and tig = lane % 4. Each 32-bit register of A and B holds

@@ -23,9 +23,15 @@ kept slot gets exact zeros.
 
 Given CPU tensors the wrapper runs the plain version
 (`ich_moe_backward_plain`: the formulas expert by expert with torch
-products, the same token fold); given CUDA tensors it launches the six
-kernels of `csrc/ich_moe_bwd.cu` or raises: there is no fallback. Each
-call that launches them adds one to `LAUNCHES["ich_moe_bwd"]`.
+products, the same token fold); given CUDA tensors it launches the five
+kernels of `csrc/ich_moe_bwd.cu` (six launches: the weight-gradient kernel
+runs once for dwi and dwg, once for dwo) or raises: there is no fallback.
+Their products run on the bfloat16 tensor cores with each float32 operand
+split in two bfloat16 parts (three passes a product). x and dy may
+also come both in bfloat16 (bfloat16 training): the wrapper casts them
+to float32, whose lo parts are then zeros, and the kernels leave out the
+passes that multiply them, which adds the same exact zeros. Each call
+that launches the kernels adds one to `LAUNCHES["ich_moe_bwd"]`.
 """
 from __future__ import annotations
 
@@ -101,7 +107,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ich_moe_bwd")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ich_moe_bwd_launch.argtypes = [ptr] * 20 + [i32] * 5 + [ptr]
+        lib.ich_moe_bwd_launch.argtypes = [ptr] * 20 + [i32] * 6 + [ptr]
         lib.ich_moe_bwd_launch.restype = i32
         lib._typed = True
     return lib
@@ -109,10 +115,15 @@ def _lib() -> ctypes.CDLL:
 
 def ich_moe_backward(x, dy, wi, wg, wo, indptr, tok, w, tok_ptr, tok_slot):
     """The gradient of the expert FFN (module docstring): x, dy (n_tokens,
-    D), wi/wg (E, D, F), wo (E, F, D), w (n_slots,) float32; indptr
-    (E+1,), tok (n_slots,), tok_ptr (n_tokens+1,), tok_slot (n_slots,)
-    int32. Returns (dx (n_tokens, D), dwi, dwg, dwo, dw (n_slots,)),
-    float32."""
+    D) float32 or both bfloat16, wi/wg (E, D, F), wo (E, F, D), w
+    (n_slots,) float32; indptr (E+1,), tok (n_slots,), tok_ptr
+    (n_tokens+1,), tok_slot (n_slots,) int32. Returns (dx (n_tokens, D),
+    dwi, dwg, dwo, dw (n_slots,)), float32: for bfloat16 x and dy, the
+    values of their float32 casts' gradient, with fewer passes on the
+    card."""
+    exact = x.dtype == dy.dtype == torch.bfloat16
+    if exact:
+        x, dy = x.float(), dy.float()
     if on_cpu(x, dy, wi, wg, wo, indptr, tok, w, tok_ptr, tok_slot):
         return ich_moe_backward_plain(x, dy, wi, wg, wo, indptr, tok, w,
                                       tok_ptr, tok_slot)
@@ -136,7 +147,9 @@ def ich_moe_backward(x, dy, wi, wg, wo, indptr, tok, w, tok_ptr, tok_slot):
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    gbuf, hbuf, abuf, pbuf = (empty(n_slots, F) for _ in range(4))
+    # dh, dg, w a; dw's partial sums of each 64-column tile; dx_s
+    dhbuf, dgbuf, wabuf = (empty(n_slots, F) for _ in range(3))
+    dwpart = empty(-(-F // 64), n_slots)
     dxs = empty(n_slots, D)
     dx, dw = empty(n_tokens, D), empty(n_slots)
     dwi, dwg, dwo = empty(E, D, F), empty(E, D, F), empty(E, F, D)
@@ -144,10 +157,11 @@ def ich_moe_backward(x, dy, wi, wg, wo, indptr, tok, w, tok_ptr, tok_slot):
     code = _lib().ich_moe_bwd_launch(
         x.data_ptr(), dy.data_ptr(), wi.data_ptr(), wg.data_ptr(),
         wo.data_ptr(), indptr.data_ptr(), tok.data_ptr(), w.data_ptr(),
-        tok_ptr.data_ptr(), tok_slot.data_ptr(), gbuf.data_ptr(),
-        hbuf.data_ptr(), abuf.data_ptr(), pbuf.data_ptr(), dxs.data_ptr(),
-        dx.data_ptr(), dwi.data_ptr(), dwg.data_ptr(), dwo.data_ptr(),
-        dw.data_ptr(), n_tokens, n_slots, D, F, E, stream)
+        tok_ptr.data_ptr(), tok_slot.data_ptr(), dhbuf.data_ptr(),
+        dgbuf.data_ptr(), wabuf.data_ptr(), dwpart.data_ptr(),
+        dxs.data_ptr(), dx.data_ptr(), dwi.data_ptr(), dwg.data_ptr(),
+        dwo.data_ptr(), dw.data_ptr(), n_tokens, n_slots, D, F, E,
+        int(exact), stream)
     raise_on(code, "ich_moe_bwd")
     LAUNCHES["ich_moe_bwd"] += 1
     return dx, dwi, dwg, dwo, dw

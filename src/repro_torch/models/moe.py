@@ -224,7 +224,9 @@ class MoeExpertsFn(torch.autograd.Function):
     combine weights, which are w_topk's values. Backward: `ich_moe_backward` (`csrc/ich_moe_bwd.cu` on
     the card) with g and h recomputed from the kept x; the gradients of
     x, w_topk (zero for dropped entries) and the three weights, each in
-    its input's dtype."""
+    its input's dtype. When x (so dy too) is bfloat16, both go to the
+    backward as they are, and its kernels leave out the passes that
+    multiply the zero lo parts of their float32 casts."""
 
     @staticmethod
     def forward(ctx, x, w_topk, wi, wg, wo, op, entry, indptr):
@@ -238,9 +240,11 @@ class MoeExpertsFn(torch.autograd.Function):
         x, w_topk, wi, wg, wo, entry, indptr = ctx.saved_tensors
         slots = ctx.op.slots
         K = w_topk.shape[1]
+        xk, dyk = (x, dy) if x.dtype == dy.dtype == torch.bfloat16 \
+            else (x.float(), dy.float())
         dx, dwi, dwg, dwo, dw = ich_moe_backward(
-            x.float().contiguous(), dy.float().contiguous(), wi.float(),
-            wg.float(), wo.float(), indptr, (entry // K).int(),
+            xk.contiguous(), dyk.contiguous(), wi.float(), wg.float(),
+            wo.float(), indptr, (entry // K).int(),
             w_topk.float().reshape(-1)[entry].contiguous(), slots.tok_ptr,
             slots.tok_slot)
         # entries are unique: a plain scatter, no accumulation

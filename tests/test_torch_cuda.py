@@ -2241,15 +2241,17 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, remat):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
-def _moe_bwd_inputs(cuda, T, E, K, D, F, seed):
-    """A skewed router over E - 1 experts (the last one never chosen),
-    capacities drawn so that entries are dropped and stolen, and seeded
-    float32 tensors on the card: (plan, x, dy, wi, wg, wo, the CSR's
-    device arrays (indptr, tok, w, tok_ptr, tok_slot))."""
+def _moe_bwd_inputs(cuda, T, E, K, D, F, seed, empty=None):
+    """A skewed router over E - 1 experts (expert `empty`, by default the
+    last, never chosen), capacities drawn so that entries are dropped and
+    stolen, and seeded float32 tensors on the card: (plan, x, dy, wi, wg,
+    wo, the CSR's device arrays (indptr, tok, w, tok_ptr, tok_slot))."""
     from repro_torch.core.workloads import moe_router
     from repro_torch.kernels.ich_moe.ich_moe import token_slots
     from repro_torch.sched import plan_dispatch
     e_topk, w = moe_router(T, E - 1, K, seed=seed, skew=1.2)
+    if empty is not None:
+        e_topk = np.where(e_topk >= empty, e_topk + 1, e_topk)
     rng = np.random.default_rng(seed)
     plan = plan_dispatch(e_topk, w, cap=np.round(
         rng.uniform(0.3, 2.0, E) * T * K / E).astype(np.int32))
@@ -2267,20 +2269,42 @@ def _moe_bwd_inputs(cuda, T, E, K, D, F, seed):
     return plan, x, dy, wi, wg, wo, csr
 
 
-@pytest.mark.parametrize("T,E,K,D,F", [
-    (40, 4, 2, 7, 5),          # widths off every tile and off 4
-    (700, 6, 2, 136, 132),     # experts over 128 slots, two column tiles
-    (2048, 64, 8, 256, 128),   # OLMoE's routing at a reduced width
+@pytest.mark.parametrize("T,E,K,D,F,misalign,empty", [
+    # widths off every tile and off 4
+    pytest.param(40, 4, 2, 7, 5, False, None, id="40-4-2-7-5"),
+    # experts over 128 slots, two column tiles
+    pytest.param(700, 6, 2, 136, 132, False, None, id="700-6-2-136-132"),
+    # OLMoE's routing at a reduced width
+    pytest.param(2048, 64, 8, 256, 128, False, None, id="2048-64-8-256-128"),
+    # x and dy as views one float in: the 4-byte ring at widths % 4 == 0
+    pytest.param(700, 6, 2, 136, 132, True, None, id="misaligned"),
+    # the empty expert between full ones
+    pytest.param(700, 5, 2, 136, 132, False, 2, id="empty-between"),
+    # experts of 262-1,142 slots: up to 9 row tiles and 36 ring stages
+    # of slots in the weight gradients, 17 of depth in the up and dx
+    # products, ragged column tiles
+    pytest.param(1500, 5, 2, 520, 260, False, None, id="deep"),
 ])
-def test_moe_backward_kernel_matches_plain(cuda, T, E, K, D, F):
-    """The six kernels of `csrc/ich_moe_bwd.cu` against the plain version
+def test_moe_backward_kernel_matches_plain(cuda, T, E, K, D, F, misalign,
+                                           empty):
+    """The kernels of `csrc/ich_moe_bwd.cu` against the plain version
     (torch products, the same token fold): every output within 1e-4 of
     its largest value (float32 sums in other orders), the same bits on
     two calls, one launch counted, exact zeros for the expert with no
     kept slot; dropped and stolen entries in every case."""
     from repro_torch.kernels.ich_moe import ich_moe_bwd as KB
-    plan, x, dy, wi, wg, wo, csr = _moe_bwd_inputs(cuda, T, E, K, D, F, 4)
-    assert plan.dropped > 0 and plan.stolen > 0 and plan.counts[-1] == 0
+    plan, x, dy, wi, wg, wo, csr = _moe_bwd_inputs(cuda, T, E, K, D, F, 4,
+                                                   empty)
+    dead = E - 1 if empty is None else empty
+    assert plan.dropped > 0 and plan.stolen > 0 and plan.counts[dead] == 0
+    if empty is not None:
+        assert plan.counts[:dead].all() and plan.counts[dead + 1:].all()
+    if misalign:
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, device=cuda)
+            return buf[1:].view(t.shape).copy_(t)
+        x, dy = shifted(x), shifted(dy)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
     KB.reset_launches()
     got = KB.ich_moe_backward(x, dy, wi, wg, wo, *csr)
     again = KB.ich_moe_backward(x, dy, wi, wg, wo, *csr)
@@ -2293,7 +2317,50 @@ def test_moe_backward_kernel_matches_plain(cuda, T, E, K, D, F):
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 1e-4 * scale, name
     for g in got[1:4]:
-        assert torch.equal(g[-1], torch.zeros_like(g[-1]))
+        assert torch.equal(g[dead], torch.zeros_like(g[dead]))
+
+
+@pytest.mark.parametrize("T,E,K,D,F", [
+    pytest.param(700, 6, 2, 136, 132, id="700-6-2-136-132"),
+    pytest.param(40, 4, 2, 7, 5, id="40-4-2-7-5"),
+    # experts of up to 1,142 slots: 9 row tiles, 36 ring stages of slots
+    pytest.param(1500, 5, 2, 520, 260, id="deep"),
+])
+def test_moe_backward_bf16_skip_matches_full_passes(cuda, monkeypatch, T, E,
+                                                    K, D, F):
+    """bfloat16 x and dy through `models.moe.MoeExpertsFn` (p = 132): the
+    Function hands them to the backward in bfloat16, its kernels leave out
+    the passes of their zero lo parts, and every gradient equals the one
+    of all three passes (the same call given their float32 casts); on the
+    16-byte ring and on the 4-byte one."""
+    from repro_torch.kernels.ich_moe import ich_moe_bwd as KB
+    from repro_torch.models import moe as MOE
+    from repro_torch.sched import LoopScheduler
+    plan, x, dy, wi, wg, wo, _ = _moe_bwd_inputs(cuda, T, E, K, D, F, 7)
+    w_topk = torch.from_numpy(plan.weight.reshape(-1, K).copy()).to(cuda)
+    indptr, entry = plan.csr_entries()
+    op = LoopScheduler(p=132, superstep=4, rows_per_tile=2, cache_size=0,
+                       device=cuda).build("moe-dispatch", plan, width=64)
+    dtypes = []
+
+    def grads(full):
+        def backward(x_, dy_, *rest):
+            dtypes.append((x_.dtype, dy_.dtype))
+            if full:
+                x_, dy_ = x_.float(), dy_.float()
+            return KB.ich_moe_backward(x_, dy_, *rest)
+        monkeypatch.setattr(MOE, "ich_moe_backward", backward)
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x.bfloat16(), w_topk, wi, wg, wo)]
+        y = MOE.MoeExpertsFn.apply(
+            *leaves, op, torch.from_numpy(entry).to(cuda),
+            torch.from_numpy(indptr.astype(np.int32)).to(cuda))
+        return torch.autograd.grad(y, leaves, dy.bfloat16())
+    skip, full = grads(False), grads(True)
+    assert dtypes == [(torch.bfloat16, torch.bfloat16)] * 2
+    for name, a, b in zip(("dx", "dw_topk", "dwi", "dwg", "dwo"), skip,
+                          full):
+        assert torch.equal(a, b), name
 
 
 def test_moe_backward_function_on_the_card(cuda):
