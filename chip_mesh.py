@@ -1,0 +1,359 @@
+#!/usr/bin/env python3
+"""Training over a torch.distributed mesh across the cards of one host.
+
+    python3 chip_mesh.py                       # one NCCL rank a card (4)
+    python3 chip_mesh.py --device cpu --tiny   # rehearsal: 4 gloo ranks
+
+`chip_smoke.py` drives the mesh path on one card (a 1 x 1 NCCL mesh, and
+expert parallelism rank by rank in one process); this script runs it
+with one rank a card, R = the cards of the host, each rank a process
+(spawned, a `file://` store under build/: no port), on olmoe-1b-7b at
+full width (64 experts top-8, D 2,048, F 1,024), tokens from the
+pipeline's corpus (`synthetic_tokens`), capacity scales drawn in
+[0.25, 1.25]:
+
+* parity: cut to 2 layers, one float32 step on a (1, R) ("data",
+  "model") mesh (each rank E/R experts) against the unmeshed step on
+  rank 0's card from the same state and 4 x 2,048 tokens: the loss
+  within 1e-5 relative, every gradient leaf and every new parameter
+  (whole leaves gathered) within 1e-4 of the leaf's largest unmeshed
+  value, the dropped and stolen entries and the new scales exactly;
+* data parallel: the same cut, one bfloat16 step on a (2, R/2) mesh:
+  every replicated leaf and the scales the same bits on every rank;
+* depth: olmoe-1b-7b at its 16 layers on a (1, R) mesh, DEPTH_STEPS
+  bfloat16 steps of 4 x 2,048 tokens: finite losses, the median and
+  range of the steps' walls after the first (which warms the cards
+  up), one more step traced on every rank (torch.profiler: device ms
+  by kernel group, the collectives apart, and the idle share of its
+  wall), each rank's train state bytes and peak device memory (one
+  card holds 10 of the 16 layers unsharded); then COMPRESS_STEPS steps
+  with `grad_compress` from a fresh state: finite losses and the peak.
+
+Rank 0 prints one JSON line a result, each with the card's name and
+power limit; the last line is {"ok": true, ...}. Any failed check
+raises, and the script exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import shutil
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+ARCH, SEED, CAP_RANGE = "olmoe-1b-7b", 0, (0.25, 1.25)
+BATCH, SEQ, CUT_LAYERS, DEPTH_STEPS, COMPRESS_STEPS = 4, 2048, 2, 6, 2
+# kernel name fragment -> group of a traced step's device time
+KERNEL_GROUPS = (("nccl", "collectives"), ("moe_bwd_", "ich_moe_bwd"),
+                 ("moe_", "ich_moe"), ("flash_bwd_", "flash_attention_bwd"),
+                 ("flash_fwd", "flash_attention"), ("gemm", "matmul"),
+                 ("nvjet", "matmul"), ("cutlass", "matmul"))
+LOSS_RTOL, LEAF_TOL = 1e-5, 1e-4
+
+
+def log(**kw) -> None:
+    print(json.dumps(kw), flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def _setup(args):
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import model as M
+    cfg = get_arch(ARCH)
+    batch, seq = BATCH, SEQ
+    if args.tiny:
+        cfg = reduced(cfg, n_experts=8, experts_per_token=2, d_model=256)
+        batch, seq = 4, 64
+    caps = np.random.default_rng(SEED + 70).uniform(
+        *CAP_RANGE, (M.n_moe_layers(cfg), cfg.n_experts)).astype(np.float32)
+    return cfg, batch, seq, torch.from_numpy(caps)
+
+
+def _state(cfg, tcfg, caps, dev, dist=None):
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+    st = TS.init_train_state(cfg, SEED, tcfg=tcfg, device=dev, dist=dist)
+    st["cap_scales"].copy_(caps[:M.n_moe_layers(cfg)])
+    return st
+
+
+def _batch(cfg, batch, seq, dev, dist=None, step=0):
+    import torch
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.train import train_step as TS
+    b = synthetic_tokens(batch, seq, cfg.padded_vocab, step, SEED)
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in TS.batch_shard(b, dist).items()}
+
+
+def _share(a, b) -> float:
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / scale if scale else \
+        float(a.abs().max())
+
+
+def parity(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
+    import torch
+    from repro_torch.models.moe import DistContext
+    from repro_torch.train import train_step as TS
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    dist = DistContext(mesh)
+    tcfg = TS.TrainConfig(dtype=torch.float32)
+    t0 = time.perf_counter()
+    st = _state(cut, tcfg, caps, dev, dist)
+    step = TS.make_train_step(cut, tcfg, dist)
+    b = _batch(cut, batch, seq, dev, dist)
+    _, grads = step.loss_and_grads(st, b)
+    st, m = step(st, b)
+    whole_g = {n: dist.unshard(g, n) for n, g in grads.items()}
+    whole_p = {n: dist.unshard(p.detach(), n)
+               for n, p in st["params"].named_parameters()}
+    del grads
+    if rank != 0:
+        return
+    ref = _state(cut, tcfg, caps, dev)
+    ref_step = TS.make_train_step(cut, tcfg)
+    rb = _batch(cut, batch, seq, dev)
+    _, r_grads = ref_step.loss_and_grads(ref, rb)
+    g_share = {n: _share(whole_g[n], g) for n, g in r_grads.items()}
+    del r_grads, whole_g
+    ref, rm = ref_step(ref, rb)
+    p_share = {n: _share(whole_p[n], p.detach())
+               for n, p in ref["params"].named_parameters()}
+    loss = (float(m["loss"]), float(rm["loss"]))
+    log(phase="mesh_parity", mesh=list(mesh.mesh.shape), layers=CUT_LAYERS,
+        tokens=batch * seq, loss_meshed_unmeshed=loss,
+        grad_worst_share=max(g_share.values()),
+        param_worst_share=max(p_share.values()),
+        dropped=(float(m["dropped"]), float(rm["dropped"])),
+        stolen=(float(m["stolen"]), float(rm["stolen"])),
+        card=card, seconds=time.perf_counter() - t0)
+    check(abs(loss[0] - loss[1]) <= LOSS_RTOL * abs(loss[1]),
+          "mesh parity: loss")
+    check(max(g_share.values()) <= LEAF_TOL, "mesh parity: gradients")
+    check(max(p_share.values()) <= LEAF_TOL, "mesh parity: parameters")
+    check(float(m["dropped"]) == float(rm["dropped"])
+          and float(m["stolen"]) == float(rm["stolen"])
+          and torch.equal(st["cap_scales"], ref["cap_scales"]),
+          "mesh parity: dropped, stolen and the new scales")
+
+
+def data_parallel(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch import collectives as C
+    from repro_torch.models import moe as MOE
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    dist = MOE.DistContext(mesh)
+    tcfg = TS.TrainConfig()
+    t0 = time.perf_counter()
+    st = _state(cut, tcfg, caps, dev, dist)
+    st, m = TS.make_train_step(cut, tcfg, dist)(
+        st, _batch(cut, batch, seq, dev, dist))
+    differ = []
+    world = tdist.group.WORLD
+    for n, t in CKPT.state_leaves(st):
+        if MOE.expert_spec(n):
+            continue
+        first = t.detach().clone()
+        tdist.broadcast(first, 0, group=world)
+        gap = C.all_reduce((t.detach().float() - first.float()).abs().max()
+                           .reshape(1), world)
+        if float(gap) != 0.0:
+            differ.append(n)
+    if rank == 0:
+        log(phase="mesh_data_parallel", mesh=list(mesh.mesh.shape),
+            loss=float(m["loss"]), dropped=float(m["dropped"]),
+            replicated_leaves_differ=differ, card=card,
+            seconds=time.perf_counter() - t0)
+    check(not differ and np.isfinite(float(m["loss"])),
+          "mesh data parallel: replicated leaves the same bits on every "
+          "rank, a finite loss")
+
+
+def _traced(fn, dev):
+    """fn() once, and on the card its device ms by `KERNEL_GROUPS`
+    (torch.profiler's CUDA trace; {} when the trace holds no device
+    time) with the wall ms: (fn's result, split, wall ms)."""
+    import torch
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), {}, (time.perf_counter() - t0) * 1e3
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the trace can miss the first kernel it sees: a short spin
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    split = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total <= 0 or "spin_kernel" in ev.key:
+            continue
+        group = next((g for k, g in KERNEL_GROUPS if k in ev.key.lower()),
+                     "other")
+        split[group] = split.get(group, 0.0) + ev.device_time_total / 1e3
+    return out, split, wall
+
+
+def _peak(dev) -> float:
+    import torch
+    return torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+
+
+def _fresh(dev) -> None:
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.models.moe import DistContext
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+    dist = DistContext(mesh)
+    tcfg = TS.TrainConfig()
+    _fresh(dev)
+    t0 = time.perf_counter()
+    st = _state(cfg, tcfg, caps, dev, dist)
+    state_gb = sum(t.numel() * t.element_size()
+                   for _, t in CKPT.state_leaves(st)) / 1e9
+    init_s = time.perf_counter() - t0
+    step = TS.make_train_step(cfg, tcfg, dist)
+    losses, walls = [], []
+    for s in range(DEPTH_STEPS):
+        b = _batch(cfg, batch, seq, dev, dist, step=s)
+        t1 = time.perf_counter()
+        st, m = step(st, b)
+        losses.append(float(m["loss"]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        walls.append((time.perf_counter() - t1) * 1e3)
+    b = _batch(cfg, batch, seq, dev, dist, step=DEPTH_STEPS)
+    (st, m), split, traced_wall = _traced(lambda: step(st, b), dev)
+    losses.append(float(m["loss"]))
+    device_ms = sum(split.values())
+    mine = {"state_gb": state_gb, "peak_gb": _peak(dev),
+            "traced_step": {"wall_ms": traced_wall, "device_ms": split,
+                            "device_total_ms": device_ms,
+                            "idle_share": 1.0 - device_ms / traced_wall
+                            if split else None}}
+    del st, step, b, m
+    _fresh(dev)
+    ctcfg = TS.TrainConfig(grad_compress=True)
+    st = _state(cfg, ctcfg, caps, dev, dist)
+    step = TS.make_train_step(cfg, ctcfg, dist)
+    compress_losses = []
+    for s in range(COMPRESS_STEPS):
+        st, m = step(st, _batch(cfg, batch, seq, dev, dist, step=s))
+        compress_losses.append(float(m["loss"]))
+    mine["grad_compress_peak_gb"] = _peak(dev)
+    del st, step, m
+    _fresh(dev)
+    per_rank = [None] * tdist.get_world_size()
+    tdist.all_gather_object(per_rank, mine)
+    after = walls[1:]
+    if rank == 0:
+        log(phase="mesh_depth", mesh=list(mesh.mesh.shape),
+            layers=cfg.n_layers, tokens=batch * seq, losses=losses,
+            step_wall_ms=walls, median_wall_ms=float(np.median(after)),
+            wall_range_ms=[min(after), max(after)],
+            tokens_per_s=batch * seq / (float(np.median(after)) * 1e-3),
+            init_s=init_s, grad_compress_losses=compress_losses,
+            per_rank=per_rank, card=card,
+            seconds=time.perf_counter() - t0)
+    check(all(np.isfinite(losses + compress_losses)),
+          "mesh depth: finite losses, with and without grad_compress")
+
+
+def _rank(rank, world, store, args, out) -> None:
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1 if args.device == "cpu" else 2)
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    import torch.distributed as tdist
+    dev = init_process_group(f"file://{store}", rank=rank, world_size=world,
+                             device=args.device)
+    card = "cpu"
+    if dev.type == "cuda":
+        from repro_torch.device import card_identity
+        card = card_identity().splitlines()[0]
+    cfg, batch, seq, caps = _setup(args)
+    try:
+        for fn, shape in ((parity, (1, world)),
+                          (data_parallel, (2, world // 2)),
+                          (depth, (1, world))):
+            mesh = make_mesh(shape, ("data", "model"), args.device)
+            fn(mesh, cfg, batch, seq, caps, dev, rank, card)
+            tdist.barrier()
+        if rank == 0:
+            Path(out).write_text("ok")
+    finally:
+        tdist.destroy_process_group()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default=None,
+                    help='"cpu" for gloo ranks (default: one card a rank)')
+    ap.add_argument("--tiny", action="store_true",
+                    help="reduced olmoe (8 experts, d_model 256), 4 x 64 "
+                         "tokens: a rehearsal size")
+    args = ap.parse_args()
+    import torch
+    import torch.multiprocessing as mp
+    if args.device != "cpu" and not torch.cuda.is_available():
+        print("chip_mesh: CUDA is not available", file=sys.stderr)
+        return 1
+    world = 4 if args.device == "cpu" else torch.cuda.device_count()
+    if world < 2 or world % 2:
+        print(f"chip_mesh: needs an even number of ranks, has {world}",
+              file=sys.stderr)
+        return 1
+    tmp = ROOT / "build" / "chip_mesh"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    out = tmp / "ok"
+    t0 = time.perf_counter()
+    if args.device != "cpu":     # once, before the ranks load the kernels
+        sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch.kernels import _build
+        log(phase="build", sources=_build.build_all(),
+            seconds=time.perf_counter() - t0)
+    mp.start_processes(_rank, args=(world, str(tmp / "store"), args,
+                                    str(out)),
+                       nprocs=world, start_method="spawn")
+    check(out.exists(), "every phase ran")
+    log(phase="chip_mesh_seconds", ranks=world,
+        seconds=time.perf_counter() - t0)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "cpu" if args.device == "cpu" else "gpu",
+        "kind": "cpu" if args.device == "cpu"
+        else torch.cuda.get_device_name(0),
+        "count": world}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

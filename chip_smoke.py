@@ -107,7 +107,7 @@ launch counters set to 0 just before it and read just after:
   against 1,500 keys, causal at 448) against its plain version per block
   of 64 rows; one float32 step of each at 2 layers against the CPU;
 * xlstm-350m and zamba2-1.2b training at full width and depth (the same
-  path, 3 and 6 bfloat16 steps of 4 x 2,048 tokens: 2 x 18 SSD-scan
+  path, 2 and 6 bfloat16 steps of 4 x 2,048 tokens: 2 x 18 SSD-scan
   forward and 18 scan backward launches a step for xlstm, whose 6 sLSTM
   blocks run their step loops by autograd; 2 x 32 and 32 for zamba2, with
   2 x 6 and 6 flash launches for its shared attention block), held to
@@ -133,8 +133,19 @@ launch counters set to 0 just before it and read just after:
   in bfloat16 (fewer passes) the same bits as given their float32
   casts, each CUDA kernel's device time; one float32 step of olmoe-1b-7b and of deepseek-moe-16b
   (its dense first layer and one MoE layer with shared experts) at 2
-  layers over 2 x 256 tokens against the CPU, the new capacity scales
-  equal.
+  layers over 2 x 128 and 2 x 256 tokens against the CPU, the new
+  capacity scales equal;
+* olmoe-1b-7b training over a torch.distributed mesh at full width cut
+  to 2 layers (`phase_train_mesh`): `make_smoke_mesh()` (1 x 1 ("data",
+  "model"), NCCL) and `make_train_step` with its `DistContext`, 3
+  bfloat16 steps of 4 x 2,048 tokens under drawn capacity scales, equal
+  to the unmeshed step's bit for bit (metrics, every state leaf, the
+  scales), each path's launches counted from its own steps; expert
+  parallelism rank by rank in one process at 2 and 4 model ranks
+  (`moe_local` over each rank's experts, summed) against one rank,
+  outputs and gradients (the expert kernel and its backward once a rank,
+  counted for each number of ranks apart); and `python -m repro_torch.launch.train` / `launch.serve` at
+  their tiny preset, exit 0.
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -212,6 +223,7 @@ path and their times.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -458,7 +470,7 @@ TRAIN_VE_STEPS = 6
 # Float32 parity with the CPU cuts the pattern to its first kinds, ("X",
 # "S") and ("M", "A"), at TRAIN_CUT_BATCH x TRAIN_SSM_CUT_SEQ tokens: two
 # scan chunks of 256 a block.
-TRAIN_XLSTM_STEPS, TRAIN_ZAMBA2_STEPS = 3, 6
+TRAIN_XLSTM_STEPS, TRAIN_ZAMBA2_STEPS = 2, 6
 TRAIN_SSM_CUT_SEQ = 512
 # training the moe family (ROADMAP.md queue 1 item 5(b)): olmoe-1b-7b at
 # full width (d_model 2,048, 64 experts top-8 of width 1,024) cut in depth
@@ -480,10 +492,21 @@ TRAIN_SSM_CUT_SEQ = 512
 # make the record drop as well as steal. Float32 parity with the CPU at
 # TRAIN_CUT_LAYERS layers for olmoe-1b-7b and deepseek-moe-16b (its dense
 # first layer, then one MoE layer with shared experts) from the same drawn
-# scales, so that the cut binds at 2 x 256 tokens.
+# scales, so that the cut binds: olmoe's at 2 x TRAIN_OLMOE_PARITY_SEQ
+# tokens (fewer than the other parities: it cuts its CPU step's time),
+# deepseek's at 2 x TRAIN_CUT_SEQ (its time is the CPU's state, not its
+# tokens).
 TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = 10, 5
 TRAIN_MOE_CAP_RANGE = (0.25, 1.25)
+TRAIN_OLMOE_PARITY_SEQ = 128
 MOE_BWD_TOL = 1e-4
+# training over a torch.distributed mesh (`phase_train_mesh`): olmoe-1b-7b
+# at full width cut to TRAIN_MESH_LAYERS layers, TRAIN_MESH_STEPS bfloat16
+# steps of TRAIN_BATCH x TRAIN_SEQ tokens on a 1 x 1 NCCL mesh against the
+# unmeshed step (bit for bit), and expert parallelism rank by rank in one
+# process at TRAIN_MESH_TP model ranks against one rank
+TRAIN_MESH_LAYERS, TRAIN_MESH_STEPS, TRAIN_MESH_TP = 2, 3, (2, 4)
+EP_Y_TOL, EP_GRAD_TOL = 1e-5, 1e-4   # of max |y| and of each gradient's max
 # the scan's backward kernel against its plain version: max |diff| within
 # this share of max |plain|. float32: 3xTF32 against cuBLAS float32 sums
 # in other orders. bfloat16: both round dq, dk, dv to bfloat16 once from
@@ -4861,10 +4884,12 @@ def phase_train_moe():
 
     # ---- (3) float32 parity with the CPU at 2 layers (AdamW given
     # identical gradients is held by phase_train's parity: not again) ----
-    for label, arch in (("train_olmoe_parity", olmoe),
-                        ("train_deepseek_parity", get_arch(DEEPSEEK_ARCH))):
+    for label, arch, seq in (
+            ("train_olmoe_parity", olmoe, TRAIN_OLMOE_PARITY_SEQ),
+            ("train_deepseek_parity", get_arch(DEEPSEEK_ARCH),
+             TRAIN_CUT_SEQ)):
         t0 = time.perf_counter()
-        rec = train_parity(arch, cap_scales=caps, update=False)
+        rec = train_parity(arch, cap_scales=caps, update=False, seq=seq)
         log(phase=label, **rec, seconds=time.perf_counter() - t0)
         torch.cuda.empty_cache()
     # the forward at the 3xTF32 rate it runs, as rows 7-9; the backward
@@ -4881,6 +4906,272 @@ def phase_train_moe():
         library_ms=bwd["library_ms"], bytes_=bwd["bytes"],
         flops=3 * bwd["flops"], peak=BF16_FLOPS)
         | {"bound_3xtf32_ms": bwd["bound_ms"]}]
+
+
+def _state_differs(a, b) -> list:
+    """The names of the leaves of train states a and b whose bits
+    differ."""
+    import torch
+    from repro_torch.train import checkpoint as CKPT
+    return [n for (n, x), (_, y) in zip(CKPT.state_leaves(a),
+                                        CKPT.state_leaves(b))
+            if not torch.equal(x, y)]
+
+
+def mesh_step_bits(cfg, caps, dist) -> dict:
+    """(i) `make_train_step(cfg, tcfg, dist)` over a one-rank mesh against
+    `make_train_step(cfg, tcfg)`: TRAIN_MESH_STEPS bfloat16 steps of the
+    same `Pipeline` batches from the same state (seed, `caps`): every
+    metric, every state leaf (parameters, moments, step) and the capacity
+    scales the same bits. Each path's kernel launches are counted from
+    its own steps alone (reset just before each step, read just after).
+    Then each path's step once more, traced (`_split_log`, against the
+    median wall of the steps after the first, which warms the card up).
+    Logs each step's wall ms and the ms its kernels run on the card."""
+    import gc
+    import torch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.kernels.ich_moe import ich_moe as KM
+    from repro_torch.kernels.ich_moe import ich_moe_bwd as KMB
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    kernels = (KF, KB, KM, KMB)
+    tcfg = TS.TrainConfig(opt=adamw.AdamWConfig(
+        warmup_steps=2, total_steps=TRAIN_MESH_STEPS))
+    runs = {}
+    for label, d in (("unmeshed", None), ("meshed", dist)):
+        state = TS.init_train_state(cfg, SEED, tcfg=tcfg, device="cuda",
+                                    dist=d)
+        state["cap_scales"].copy_(torch.from_numpy(caps))
+        runs[label] = {"state": state, "dist": d,
+                       "step": TS.make_train_step(cfg, tcfg, d),
+                       "metrics": [], "wall_ms": [], "launches": {}}
+    pipe = Pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device="cuda")
+    try:
+        for t in range(TRAIN_MESH_STEPS):
+            batch_np, _ = pipe.get_batch(t)
+            for run in runs.values():
+                batch = {k_: torch.from_numpy(v_) for k_, v_ in
+                         TS.batch_shard(batch_np, run["dist"]).items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = {k_: v_.cuda() for k_, v_ in batch.items()}
+                # each path's launches counted from its own steps alone
+                for mod in kernels:
+                    mod.reset_launches()
+                run["state"], m = run["step"](run["state"], batch)
+                torch.cuda.synchronize()
+                run["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+                for mod in kernels:
+                    for k_, v_ in mod.LAUNCHES.items():
+                        run["launches"][k_] = run["launches"].get(k_, 0) + v_
+                run["metrics"].append(m)
+                run["batch"] = batch
+    finally:
+        pipe.close()
+    launches = {k_: r["launches"] for k_, r in runs.items()}
+    a, b = runs["unmeshed"], runs["meshed"]
+    metrics_differ = [f"{k_} step {t}" for t in range(TRAIN_MESH_STEPS)
+                      for k_ in a["metrics"][t]
+                      if not torch.equal(a["metrics"][t][k_],
+                                         b["metrics"][t][k_])]
+    leaves_differ = _state_differs(a["state"], b["state"])
+    n_moe = TRAIN_MESH_LAYERS
+    rec = {"layers": cfg.n_layers, "steps": TRAIN_MESH_STEPS,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "losses": {k_: [float(m["loss"]) for m in r["metrics"]]
+                      for k_, r in runs.items()},
+           "dropped": [float(m["dropped"]) for m in a["metrics"]],
+           "stolen": [float(m["stolen"]) for m in a["metrics"]],
+           "metrics_differ": metrics_differ, "leaves_differ": leaves_differ,
+           "launches": launches}
+    check(not metrics_differ and not leaves_differ,
+          "train_mesh: the one-rank meshed step gives the unmeshed step's "
+          "bits (metrics, every leaf, the capacity scales)")
+    # remat runs a layer's forward twice, its backward once
+    want = {"flash_attention": 2 * n_moe * TRAIN_MESH_STEPS,
+            "flash_attention_bwd": n_moe * TRAIN_MESH_STEPS,
+            "ich_moe_sharded": 2 * n_moe * TRAIN_MESH_STEPS,
+            "ich_moe_bwd": n_moe * TRAIN_MESH_STEPS}
+    for label, got in launches.items():
+        check(got == want, f"train_mesh: the {label} path's steps launch "
+              "flash and the expert kernel twice and each backward once a "
+              "layer a step")
+    check(any(d_ > 0 for d_ in rec["dropped"])
+          and any(s_ > 0 for s_ in rec["stolen"]),
+          "train_mesh: entries dropped and stolen in a step")
+    for label, run in runs.items():
+        rec[f"{label}_step_wall_ms"] = run["wall_ms"]
+        split = _split_log(
+            f"train_mesh_{label}_step_split",
+            lambda run=run: run["step"](run["state"], run["batch"]),
+            float(np.median(run["wall_ms"][1:])), expect=("moe_bwd_",))
+        rec[f"{label}_step_device_ms"] = split["device_total_ms"]
+        rec[f"{label}_step_idle_share"] = split["idle_share"]
+    del runs, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ep_rank_by_rank(cfg, cap_scale, g) -> dict:
+    """(ii) Expert parallelism rank by rank in one process at full width:
+    TRAIN_BATCH x TRAIN_SEQ float32 tokens routed once over all E experts
+    at capacity with the steal round (`cap_scale`), then for each tp of
+    TRAIN_MESH_TP the sum over r of `moe_local(..., n_local_experts=E/tp,
+    local_expert_offset=r E/tp)` with those experts' weights (what model
+    rank r computes) against tp = 1 within EP_Y_TOL of max |y|, and the
+    gradients of x, the combine weights and the experts (`MoeExpertsFn`,
+    the backward kernel) summed and stacked the same way within
+    EP_GRAD_TOL of each one's max. The expert kernel and its backward
+    launch once for every rank, counted for each tp apart."""
+    import torch
+    from repro_torch.kernels.ich_moe import ich_moe as KM
+    from repro_torch.kernels.ich_moe import ich_moe_bwd as KMB
+    from repro_torch.models import moe as MOE
+    E, K, D = cfg.n_experts, cfg.experts_per_token, cfg.d_model
+    p = MOE.MoE(cfg, g, "cuda")
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, D), generator=g, device="cuda")
+    probs, w_topk, e_topk = MOE.route(p, x, K)
+    x = x.reshape(-1, D)
+    dy = torch.randn(x.shape, generator=g, device="cuda")
+    cap = torch.from_numpy(cap_scale).cuda()
+
+    def ranks(tp):
+        e_loc = E // tp
+        ys, grads = [], []
+        for r in range(tp):
+            cut = slice(r * e_loc, (r + 1) * e_loc)
+            leaves = [x.clone().requires_grad_(),
+                      w_topk.detach().clone().requires_grad_(),
+                      *(w[cut].clone().requires_grad_()
+                        for w in (p.wi, p.wg, p.wo))]
+            y, _ = MOE.moe_local(cfg, p, leaves[0], cap,
+                                 routing=(probs, leaves[1], e_topk),
+                                 n_local_experts=e_loc,
+                                 local_expert_offset=r * e_loc,
+                                 experts=tuple(leaves[2:]))
+            ys.append(y.detach())
+            grads.append(torch.autograd.grad(y, leaves, dy))
+        return (sum(ys[1:], ys[0]),
+                {"x": sum(g_[0] for g_ in grads),
+                 "w_topk": sum(g_[1] for g_ in grads),
+                 **{n: torch.cat([g_[i] for g_ in grads])
+                    for i, n in ((2, "wi"), (3, "wg"), (4, "wo"))}})
+
+    def counted(tp):
+        # launches counted from this tp's ranks alone
+        KM.reset_launches()
+        KMB.reset_launches()
+        out = ranks(tp)
+        launches = {"ich_moe_sharded": KM.LAUNCHES["ich_moe_sharded"],
+                    "ich_moe_bwd": KMB.LAUNCHES["ich_moe_bwd"]}
+        rec["launches"][f"tp{tp}"] = launches
+        check(launches == {"ich_moe_sharded": tp, "ich_moe_bwd": tp},
+              f"ep rank by rank: at tp {tp} the expert kernel and its "
+              "backward launch once a rank")
+        return out
+
+    rec = {"tokens": x.shape[0], "experts": E, "top_k": K, "d_model": D,
+           "expert_ff": cfg.moe_d_ff, "launches": {}}
+    y1, g1 = counted(1)
+    for tp in TRAIN_MESH_TP:
+        y, grads = counted(tp)
+        y_share = float((y - y1).abs().max() / y1.abs().max())
+        g_share = {n: float((grads[n] - g1[n]).abs().max()
+                            / g1[n].abs().max()) for n in g1}
+        rec[f"tp{tp}"] = {"y_share": y_share, "grad_share": g_share}
+        check(y_share <= EP_Y_TOL,
+              f"ep rank by rank: y at tp {tp} within {EP_Y_TOL} of max |y|")
+        check(all(v_ <= EP_GRAD_TOL for v_ in g_share.values()),
+              f"ep rank by rank: gradients at tp {tp} within {EP_GRAD_TOL}")
+    return rec
+
+
+def launcher_runs() -> dict:
+    """(iii) The command-line launchers on the card: `python -m
+    repro_torch.launch.train --arch olmoe-1b-7b --preset tiny --steps 2`
+    (checkpoints under build/) and `launch.serve --arch qwen2-1.5b
+    --preset tiny`, each in a process of its own: exit 0, the last line
+    as the reference prints it."""
+    import shutil
+    import subprocess
+    root = Path(__file__).resolve().parent
+    ckpt = root / "build" / "launch_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    out = {}
+    for name, args in (
+            ("train", ["--arch", "olmoe-1b-7b", "--preset", "tiny",
+                       "--steps", "2", "--ckpt-dir", str(ckpt)]),
+            ("serve", ["--arch", "qwen2-1.5b", "--preset", "tiny"])):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.launch.{name}", *args],
+            capture_output=True, text=True, timeout=600, env=env,
+            cwd=str(root))
+        lines = r.stdout.strip().splitlines()
+        out[name] = {"rc": r.returncode, "last_line": lines[-1] if lines
+                     else "", "seconds": time.perf_counter() - t0}
+        if r.returncode != 0:
+            print(r.stderr[-4000:], file=sys.stderr)
+        check(r.returncode == 0 and lines
+              and lines[-1].startswith(f"[{name}]"),
+              f"launch.{name} exits 0 on the card with its line")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
+def phase_train_mesh():
+    """Training over a torch.distributed mesh (ROADMAP.md queue 1 item
+    6a) at olmoe-1b-7b's full width (D 2,048, 64 experts top-8, F 1,024)
+    cut to TRAIN_MESH_LAYERS layers, bfloat16, capacity scales drawn in
+    TRAIN_MOE_CAP_RANGE: (i) `make_smoke_mesh()` (a 1 x 1 ("data",
+    "model") mesh over the card, NCCL) and `make_train_step` with its
+    `DistContext` for TRAIN_MESH_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens against the unmeshed step, bit for bit (`mesh_step_bits`);
+    (ii) expert parallelism rank by rank in one process
+    (`ep_rank_by_rank`); (iii) the launchers (`launcher_runs`). Several
+    cards are not driven here: one card holds one NCCL rank."""
+    import dataclasses
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_arch
+    from repro_torch.device import card_identity
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import DistContext
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 as float32
+    cfg = dataclasses.replace(get_arch(MOE_ARCH),
+                              n_layers=TRAIN_MESH_LAYERS)
+    caps = np.random.default_rng(SEED + 60).uniform(
+        *TRAIN_MOE_CAP_RANGE, (M.n_moe_layers(cfg), cfg.n_experts)
+    ).astype(np.float32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 61)
+    t0 = time.perf_counter()
+    mesh = make_smoke_mesh()
+    try:
+        dist = DistContext(mesh)
+        log(phase="train_mesh_setup", mesh=list(mesh.mesh.shape),
+            axes=list(mesh.mesh_dim_names), backend=tdist.get_backend(),
+            card=card_identity(), seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        log(phase="train_mesh_bits", **mesh_step_bits(cfg, caps, dist),
+            card=card_identity(), seconds=time.perf_counter() - t0)
+    finally:
+        tdist.destroy_process_group()
+    t0 = time.perf_counter()
+    log(phase="train_mesh_ep_rank_by_rank",
+        **ep_rank_by_rank(cfg, caps[0], g), seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(phase="train_mesh_launchers", **launcher_runs(),
+        seconds=time.perf_counter() - t0)
+    return []
 
 
 def _moe_bwd_kernels(ms_by_name: dict) -> dict:
@@ -5366,7 +5657,7 @@ def main() -> int:
     for phase in (phase_zamba2, phase_xlstm, phase_dense, phase_moe_lm,
                   phase_whisper, phase_vlm, phase_train,
                   phase_train_vlm_encdec, phase_train_ssm,
-                  phase_train_moe):
+                  phase_train_moe, phase_train_mesh):
         kernels += timed_phase(phase)
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -50,7 +50,7 @@ import torch
 from repro_torch.core.tiling import WorkerShards
 from repro_torch.models.model import init_params
 from repro_torch.sched.kernels import BfsOp, KMeansOp, MoeDispatchOp, SpmvOp
-from repro_torch.train.train_step import cast_bf16
+from repro_torch.train.train_step import cast_bf16, shard_state
 
 
 def _shards(item_id, rows_per_tile, worker, block_perm, superstep):
@@ -220,14 +220,17 @@ def lm_params_from_reference(cfg, np_params, device=None):
     return model
 
 
-def train_state_from_reference(cfg, np_state, device=None) -> dict:
+def train_state_from_reference(cfg, np_state, device=None,
+                               dist=None) -> dict:
     """The port's train state (`train.train_step.init_train_state`'s
     layout) holding exactly the reference's `init_train_state(...)` tree
     given with numpy leaves: "params" through `lm_params_from_reference`
     (requiring grad; bfloat16 when the reference keeps a float32 master,
     as bf16_params does), "opt" {"m", "v"[, "master"]} by the port's
     parameter names (float32), "step" (int32), "cap_scales" and, when
-    present, "grad_err". Raises when a name or shape disagrees."""
+    present, "grad_err". With `dist` (`models.moe.DistContext`) the
+    calling rank's shards (`train.train_step.shard_state`). Raises when a
+    name or shape disagrees."""
     model = lm_params_from_reference(cfg, np_state["params"], device=device)
     model.requires_grad_(True)
     dev = next(model.parameters()).device
@@ -257,4 +260,4 @@ def train_state_from_reference(cfg, np_state, device=None) -> dict:
                  np_state["cap_scales"], np.float32)).to(dev)}
     if "grad_err" in np_state:
         state["grad_err"] = tensors(np_state["grad_err"])
-    return state
+    return state if dist is None else shard_state(state, dist)

@@ -1,0 +1,120 @@
+"""Differentiable collectives of the expert-parallel MoE block — what the
+reference's `shard_map` transposes for it (`repro/models/moe.py:287-328`).
+
+Each is a `torch.autograd.Function` over a `ProcessGroup`. Their
+backwards are chosen by which side is replicated, so that the gradient
+each rank holds is its share of the global loss's gradient:
+
+* `to_model`: forward identity, backward all-reduce (sum). For a tensor
+  replicated over the group (x and the router weights entering the
+  experts: every "model" rank holds them, each adds only its own
+  experts' part of their gradient).
+* `from_model`: forward all-reduce (sum), backward identity. For the
+  partial outputs of the ranks' experts.
+* `gather_data(t, dim)`: forward all-gather along `dim`, backward
+  reduce-scatter (sum). For expert weights stored in shards over
+  "data" (FSDP) and gathered whole inside the block.
+* `mean_over`: forward all-reduce divided by the group's size, backward
+  the gradient divided by it: a scalar averaged over the batch ranks
+  (the aux loss), each rank's gradient then summed over them by the
+  train step.
+
+On a one-rank group each is a copy: the same bits as no collective.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+# all_gather_single / reduce_scatter_single replace the *_tensor names in
+# newer PyTorch; both take (output, input, group=)
+_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of t over the group's ranks (a new tensor)."""
+    t = t.contiguous().clone()
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's shards of t concatenated along `dim`, in rank order."""
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    _gather(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice along `dim` of the sum of t over the group."""
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    _reduce_scatter(out, src, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = dist.get_world_size(group)
+        return all_reduce(x, group) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _ToModel.apply(x, group)
+
+
+def from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _FromModel.apply(x, group)
+
+
+def gather_data(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _GatherData.apply(t, dim, group)
+
+
+def mean_over(x: torch.Tensor, group) -> torch.Tensor:
+    return _MeanOver.apply(x, group)

@@ -52,6 +52,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention
 
+from repro_torch.launch import collectives as C
+
 from . import attention as A
 from . import layers as L
 from . import moe as MOE
@@ -299,7 +301,8 @@ def init_params(cfg, seed: int = 0, *, max_seq: int = 0,
     `cfg.encoder_seq`), else `HybridLM`. `max_seq` is the reference's
     argument: only learned positions use it."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev)
+    # the meta device (shapes only) draws from no generator of its own
+    g = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     g.manual_seed(int(seed))
     if cfg.family == "encdec":
         return EncDecLM(cfg, g, dev, int(max_seq)).eval()
@@ -421,7 +424,8 @@ def _apply_block_full(cfg, kind: str, p, x, *, window: int = 0):
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, cap_scales=None, *, dtype=torch.float32):
+def prefill(cfg, params, batch, cap_scales=None, *, dist=None,
+            dtype=torch.float32):
     """Process the whole prompt (`batch["tokens"]` (B, S) int); return
     (last-token logits (B, V), cache). Dense, vlm and moe: per segment
     {"k", "v"} of (L, B, S, Hkv, dh), the prompt run as one
@@ -436,7 +440,9 @@ def prefill(cfg, params, batch, cap_scales=None, *, dtype=torch.float32):
     (B,H,dh+1,dh) mLSTM state at "X" and {"h", "c"} at "S".
 
     `cap_scales` ((n_moe_layers, E), the reference's argument) is not
-    used: MoE layers serve dropless, as in the reference."""
+    used: MoE layers serve dropless, as in the reference. With `dist`
+    (`models.moe.DistContext`) the batch is this rank's rows and the MoE
+    layers run expert-parallel over the mesh."""
     _check_family(cfg)
     tokens = batch["tokens"]
     if cfg.family == "encdec":
@@ -445,7 +451,7 @@ def prefill(cfg, params, batch, cap_scales=None, *, dtype=torch.float32):
         x, _ = _embed_inputs(cfg, params, batch, dtype)
         cache = empty_extend_cache(cfg, x.shape[0], x.shape[1], dtype,
                                    device=x.device)
-        return _stacked_extend(cfg, params, x, cache, 0)
+        return _stacked_extend(cfg, params, x, cache, 0, dist)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
     cache = []
     for i, kind in enumerate(cfg.block_pattern):
@@ -459,12 +465,13 @@ def prefill(cfg, params, batch, cap_scales=None, *, dtype=torch.float32):
 
 @torch.no_grad()
 def decode_step(cfg, params, tokens, cache, pos: int, cap_scales=None, *,
-                dtype=torch.float32):
+                dist=None, dtype=torch.float32):
     """One decode step. tokens (B, 1) int; pos: the current write position,
     the same across the batch. Returns (logits (B, V), new cache); the
     attention caches are written in place. MoE layers dispatch dropless,
     as in prefill (`cap_scales` is not used), so decode at S continues a
-    prefill of S tokens as a fresh prefill of S + 1 would."""
+    prefill of S tokens as a fresh prefill of S + 1 would. `dist` as in
+    `prefill`."""
     _check_family(cfg)
     x = _embed(params, tokens, pos, dtype)
     if cfg.family == "encdec":
@@ -486,7 +493,7 @@ def decode_step(cfg, params, tokens, cache, pos: int, cap_scales=None, *,
                                          cache[s]["k"][j], cache[s]["v"][j],
                                          pos)
             x = x + h
-            x = x + _ffn(cfg, p, p.ln2(x))
+            x = x + _ffn(cfg, p, p.ln2(x), dist)
         return L.lm_logits(params.embed, params.final_norm(x[:, -1])), cache
     new_cache = []
     for i, kind in enumerate(cfg.block_pattern):
@@ -590,7 +597,7 @@ def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
 
 @torch.no_grad()
 def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
-                   *, dtype=torch.float32, ssm_chunk: int = None):
+                   *, dist=None, dtype=torch.float32, ssm_chunk: int = None):
     """Incremental chunked prefill: run ONLY the new chunk `tokens`
     (B, C), which starts at absolute position `done`, from the cache
     (`empty_extend_cache` for the first chunk). Returns (last-token
@@ -622,7 +629,7 @@ def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
     their token-wise products per block of Q tokens (`layers.by_blocks`),
     so the last logits and the final states are its bits. ("M" blocks run
     theirs per call, as Zamba2's prefill does: no ssm config of the repo
-    has them.)"""
+    has them.) `dist` as in `prefill`."""
     if not extend_cache_specs_ok(cfg):
         raise NotImplementedError(
             f"prefill_extend runs the dense, vlm, moe and ssm families, not "
@@ -631,7 +638,7 @@ def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
     if cfg.family in STACKED:
         return _stacked_extend(cfg, params,
                                L.embed_tokens(params.embed, tokens).to(dtype),
-                               cache, int(done))
+                               cache, int(done), dist)
     Q = int(ssm_chunk or cfg.ssm_chunk)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
     new_cache = []
@@ -643,7 +650,8 @@ def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
     return L.lm_logits(params.embed, x[:, -1]), new_cache
 
 
-def _stacked_extend(cfg, params: StackedLM, x, cache, done: int):
+def _stacked_extend(cfg, params: StackedLM, x, cache, done: int,
+                    dist=None):
     """The dense, vlm and moe branch of `prefill_extend` (and `prefill`,
     from 0) on the chunk's embeddings x (B, C, d) at positions done.."""
     B, C = x.shape[:2]
@@ -662,7 +670,7 @@ def _stacked_extend(cfg, params: StackedLM, x, cache, done: int):
         if hasattr(p, "moe"):
             x, h = L.by_blocks(lambda xb, ob: _attn_out(p, xb, ob),
                                TOKEN_BLOCK, x, o)
-            x = x + _ffn(cfg, p, h)
+            x = x + _ffn(cfg, p, h, dist)
         else:
             x = L.by_blocks(lambda xb, ob: _dense_out(p, xb, ob),
                             TOKEN_BLOCK, x, o)
@@ -684,11 +692,11 @@ def _dense_out(p: AttnBlock, x, o):
     return x + p.mlp(h)
 
 
-def _ffn(cfg, p: AttnBlock, h):
+def _ffn(cfg, p: AttnBlock, h, dist=None):
     """A layer's FFN on its normed input h (B, S, D): the MLP, or the MoE
-    dispatched dropless (serving)."""
+    dispatched dropless (serving), expert-parallel with `dist`."""
     if hasattr(p, "moe"):
-        return MOE.apply_moe(cfg, p.moe, h, dropless=True)[0]
+        return MOE.apply_moe(cfg, p.moe, h, dist=dist, dropless=True)[0]
     return p.mlp(h)
 
 
@@ -730,13 +738,16 @@ def _remat_context(cfg) -> dict:
         _dots_policy)}
 
 
-def check_trainable(cfg) -> None:
+def check_trainable(cfg, dist=None) -> None:
     """Raise NotImplementedError unless the port trains this config: the
     port trains every config it runs (`_check_family`; moe with its
     capacity and steal dispatch and the expert FFN's backward kernel).
     Raise ValueError for a `remat_policy` outside `REMAT_POLICIES` (the
-    reference falls back to "nothing" without a word)."""
+    reference falls back to "nothing" without a word), and for a mesh
+    `dist` that the config's experts cannot split over
+    (`models.moe.check_mesh`)."""
     _check_family(cfg)
+    MOE.check_mesh(cfg, dist)
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r} not in "
                          f"{REMAT_POLICIES}")
@@ -755,25 +766,29 @@ def _train_layer(cfg, p: AttnBlock, x, causal: bool = True,
     return x + p.mlp(p.ln2(x))
 
 
-def _train_moe_layer(cfg, p: AttnBlock, x, cap_scale):
+def _train_moe_layer(cfg, p: AttnBlock, x, cap_scale, dist=None):
     """A "moe" layer over the whole sequence (the reference's
     `_apply_block_full` for "moe"): causal attention through the flash
     kernel, then the routed experts at capacity with the steal round
     (`MOE.apply_moe`, dropless=False) under the layer's `cap_scale` (E,),
-    and the shared experts. Returns (x, the layer's aux dict)."""
+    and the shared experts; expert-parallel with `dist`. Returns (x, the
+    layer's aux dict)."""
     h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=True)
     x = x + h
-    h, aux = MOE.apply_moe(cfg, p.moe, p.ln2(x), cap_scale, dropless=False)
+    h, aux = MOE.apply_moe(cfg, p.moe, p.ln2(x), cap_scale, dist=dist,
+                           dropless=False)
     return x + h, aux
 
 
-def _train_moe_stack(cfg, params: StackedLM, x, cap_scales, remat: bool):
+def _train_moe_stack(cfg, params: StackedLM, x, cap_scales, remat: bool,
+                     dist=None):
     """A moe stack's layers over the whole sequence: "densffn" layers by
     `_train_layer`, "moe" layers by `_train_moe_layer` with their row of
     `cap_scales` (n_moe_layers, E) (ones when None), each under
     `_run_layer`. Returns (x, the aux values of `AUX_SUMS` summed over
     the MoE layers in layer order from float32 zeros, the router counts
-    stacked (n_moe_layers, E)), as the reference's `_run_segments`."""
+    stacked (n_moe_layers, E)), as the reference's `_run_segments`; with
+    `dist` each MoE layer's aux values are replicated over the mesh."""
     if cap_scales is None:
         cap_scales = torch.ones((n_moe_layers(cfg), cfg.n_experts),
                                 dtype=torch.float32, device=x.device)
@@ -785,7 +800,7 @@ def _train_moe_stack(cfg, params: StackedLM, x, cap_scales, remat: bool):
             x = _run_layer(cfg, _train_layer, p, x, remat=remat)
             continue
         x, aux = _run_layer(cfg, _train_moe_layer, p, x,
-                            cap_scales[len(counts)], remat=remat)
+                            cap_scales[len(counts)], dist, remat=remat)
         sums = {k: sums[k] + aux[k] for k in AUX_SUMS}
         counts.append(aux["counts"])
     return x, sums, torch.stack(counts)
@@ -802,7 +817,7 @@ def _train_block(cfg, p, x, kind: str):
     return _apply_recurrent(cfg, kind, p, x)[0]
 
 
-def loss_fn(cfg, params, batch, cap_scales=None, *,
+def loss_fn(cfg, params, batch, cap_scales=None, *, dist=None,
             dtype=torch.bfloat16, aux_weight: float = 0.01):
     """batch: tokens (B, S), labels (B, S) int (-1 = masked); vlm:
     optional patches (B, P, d); encdec: frames (B, S_enc, d). Returns
@@ -834,8 +849,19 @@ def loss_fn(cfg, params, batch, cap_scales=None, *,
     sums of `AUX_SUMS` and "counts" (n_moe_layers, E), the router counts
     that `ich_update_cap_scale` reads, and "loss" stays the
     cross-entropy, as the reference's do. A config the port does not
-    train raises NotImplementedError (`check_trainable`)."""
-    check_trainable(cfg)
+    train raises NotImplementedError (`check_trainable`).
+
+    With `dist` (`models.moe.DistContext`) the batch is this rank's rows
+    (`train.train_step.batch_shard`) and the MoE layers run
+    expert-parallel. The cross-entropy stays the reference's global mean:
+    this rank's sum over its valid labels divided by the count of valid
+    labels over the batch axes (one all-reduce) is this rank's share, and
+    the returned loss has the global loss's value (the shares summed) and
+    the share's gradient, which the train step sums over the batch ranks;
+    the aux loss enters as its mean over them (`models.moe.
+    replicate_aux`). The metrics are global: "n_tokens" the global count,
+    the aux values replicated."""
+    check_trainable(cfg, dist)
     x, n_prefix = _embed_inputs(cfg, params, batch, dtype)
     if cfg.family == "encdec":
         enc_out = _encode(cfg, params, batch["frames"], dtype,
@@ -849,7 +875,7 @@ def loss_fn(cfg, params, batch, cap_scales=None, *,
                            remat=cfg.remat)
     elif cfg.family == "moe":
         x, aux, counts = _train_moe_stack(cfg, params, x, cap_scales,
-                                          cfg.remat)
+                                          cfg.remat, dist)
     else:
         for p in params.layers:
             x = _run_layer(cfg, _train_layer, p, x, remat=cfg.remat)
@@ -863,8 +889,14 @@ def loss_fn(cfg, params, batch, cap_scales=None, *,
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0].float()
     true_logit = torch.gather(logits, -1, lab[..., None])[..., 0].float()
     n_tokens = valid.sum()
+    if dist is not None:
+        n_tokens = C.all_reduce(n_tokens, dist.group(dist.batch_axes))
     loss = torch.sum((lse - true_logit) * valid) / torch.clamp(n_tokens,
                                                               min=1)
+    if dist is not None:    # the shares' sum as value, this share's gradient
+        loss = loss + (C.all_reduce(loss.detach(),
+                                    dist.group(dist.batch_axes))
+                       - loss.detach())
     metrics = {"loss": loss, "n_tokens": n_tokens}
     if cfg.family == "moe":
         loss = loss + aux_weight * aux["aux_loss"]

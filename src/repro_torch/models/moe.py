@@ -1,6 +1,6 @@
 """Mixture-of-Experts layer of the port — the counterpart of
-`repro.models.moe` on one device (its expert-parallel `shard_map` branch
-comes with `launch/`, ROADMAP.md queue 1).
+`repro.models.moe`, on one device or expert-parallel over a mesh
+(`DistContext`, below).
 
 The paper's loop-scheduling problem reappears in MoE: tokens are loop
 iterations, experts are workers, and router imbalance is the irregular
@@ -49,19 +49,39 @@ ascending slot order, which is expert order; the plain version computes
 its products in calls of exactly PLAIN_ROWS rows. So an incremental
 prefill gives a one-shot prefill's bits.
 
+Distribution (`apply_moe(..., dist=DistContext(mesh))`, the
+reference's `shard_map` branch): tokens stay split over the batch axes and
+replicated over "model"; model rank r keeps experts [r E/tp, (r+1) E/tp)
+(`moe_local(..., n_local_experts=, local_expert_offset=)`: the router,
+the capacity cut and the steal round run over all E experts on the local
+token pool, and only the local experts' slots are computed) and their
+partial outputs are summed over "model". Expert weights are also stored in
+shards over "data" (wi and wg split along D, wo along its last D: the
+reference's `moe_pspec`) and gathered whole inside the block. The aux
+outputs are replicated: counts summed over the batch axes, the other
+values averaged over them (model ranks hold equal values, so this is the
+reference's average over every axis). The collectives' backwards
+(`launch/collectives.py`) make each rank's gradient its share of the
+global loss's: replicated leaves' shares are summed over the batch axes
+by the train step, expert shards' over "data" by the gather's backward.
+
 `capacity`, `ich_update_cap_scale`, `_dispatch_positions` and
 `dispatch_decisions` are tensor functions held element-identical to the
 reference's (and the decisions to `plan_dispatch`'s) by the tests.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 from torch import nn
 
 from repro_torch.kernels.ich_moe.ich_moe_bwd import ich_moe_backward
+from repro_torch.launch import collectives as C
 from repro_torch.sched.api import LoopScheduler
 from repro_torch.sched.defaults import (ICH_EPS, MOE_CAP_SCALE_MAX,
                                         MOE_CAP_SCALE_MIN,
@@ -95,6 +115,172 @@ class MoE(nn.Module):
         if cfg.n_shared_experts:
             self.shared = L.MLP(cfg, g, device,
                                 d_ff=cfg.n_shared_experts * f)
+
+
+# ----------------------------------------------------------------------------
+# Layout on a mesh
+# ----------------------------------------------------------------------------
+
+# the reference's `moe_pspec` for the routed experts: each dimension's role,
+# "tp" (split over the model axis), "fsdp" (over the data axis) or None;
+# every other leaf (the router, the shared experts) is replicated
+EXPERT_SPECS = {"wi": ("tp", "fsdp", None), "wg": ("tp", "fsdp", None),
+                "wo": ("tp", None, "fsdp")}
+
+
+def expert_spec(name: str) -> Optional[tuple]:
+    """The roles of a leaf's dimensions when `name` (`layers.3.moe.wi`,
+    `opt.m.layers.3.moe.wo`, ...) is a routed expert weight, else None."""
+    parts = name.split(".")
+    if len(parts) >= 2 and parts[-2] == "moe":
+        return EXPERT_SPECS.get(parts[-1])
+    return None
+
+
+def local_shape(name: str, shape, sizes: dict) -> tuple:
+    """The shape of leaf `name` on one rank, `sizes` {"tp": n, "fsdp": n}
+    the ranks each role splits over (a whole-leaf shape for a
+    replicated leaf)."""
+    spec = expert_spec(name)
+    if spec is None:
+        return tuple(shape)
+    return tuple(n // sizes.get(r, 1) if r else n
+                 for n, r in zip(shape, spec))
+
+
+def _rank_groups(mesh, axes: tuple):
+    """This rank's process group over `axes` of the mesh (the ranks that
+    differ only in those coordinates). Every rank creates every such
+    group, in one order."""
+    names = mesh.mesh_dim_names
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    dims = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in dims]
+    ranks = mesh.mesh.permute(*rest, *dims).reshape(
+        -1, math.prod(mesh.mesh.shape[i] for i in dims))
+    me = tdist.get_rank()
+    mine = None
+    for row in ranks.tolist():
+        g = tdist.new_group(row)
+        if me in row:
+            mine = g
+    return mine
+
+
+@dataclasses.dataclass(frozen=True)
+class DistContext:
+    """How a model step is laid out on the mesh (`launch/mesh.py`): the
+    batch split over `batch_axes`, the routed experts over `tp_axis`
+    and, along D, over `fsdp_axis` (None: experts whole on each model
+    rank). Builds its process groups when made: every rank of the mesh
+    makes it, at the same point."""
+    mesh: object
+    batch_axes: tuple = ("data",)
+    tp_axis: str = "model"
+    fsdp_axis: Optional[str] = "data"
+    groups: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+
+    def __post_init__(self):
+        names = self.mesh.mesh_dim_names
+        fsdp = (self.fsdp_axis,) if self.fsdp_axis else ()
+        wanted = (self.batch_axes, (self.tp_axis,), fsdp,
+                  (self.tp_axis, *fsdp),
+                  tuple(a for a in self.batch_axes if a not in fsdp))
+        for axes in wanted:
+            axes = tuple(a for a in names if a in axes)
+            if axes and axes not in self.groups:
+                self.groups[axes] = _rank_groups(self.mesh, axes)
+
+    def _key(self, axes) -> tuple:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self.mesh.mesh_dim_names if a in axes)
+
+    def group(self, axes):
+        """The process group over `axes` (an axis name or several), None
+        for no axis."""
+        key = self._key(axes)
+        return self.groups[key] if key else None
+
+    def size(self, axes) -> int:
+        names = self.mesh.mesh_dim_names
+        return math.prod(self.mesh.mesh.shape[names.index(a)]
+                         for a in self._key(axes))
+
+    def index(self, axes) -> int:
+        """This rank's coordinate over `axes` (row-major)."""
+        g = self.group(axes)
+        return 0 if g is None else tdist.get_rank(g)
+
+    @property
+    def tp(self) -> int:
+        return self.size(self.tp_axis)
+
+    @property
+    def dp(self) -> int:
+        """Ranks the batch is split over."""
+        return self.size(self.batch_axes)
+
+    def _axis(self, role: str):
+        return {"tp": self.tp_axis, "fsdp": self.fsdp_axis}[role]
+
+    def sizes(self) -> dict:
+        """{"tp": ranks the experts split over, "fsdp": ranks D splits
+        over}, the argument of `local_shape`."""
+        return {r: self.size(self._axis(r)) if self._axis(r) else 1
+                for r in ("tp", "fsdp")}
+
+    def shard(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's shard of the whole leaf `name` (a copy), or t
+        itself when the leaf is replicated."""
+        spec = expert_spec(name)
+        if spec is None:
+            return t
+        for dim, role in enumerate(spec):
+            axis = role and self._axis(role)
+            if axis:
+                n = t.shape[dim] // self.size(axis)
+                t = t.narrow(dim, self.index(axis) * n, n)
+        return t.contiguous().clone()
+
+    def unshard(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The whole leaf `name` from every rank's shard t (collective:
+        every rank calls it), or t itself when the leaf is replicated."""
+        spec = expert_spec(name)
+        if spec is None:
+            return t
+        for dim, role in enumerate(spec):
+            axis = role and self._axis(role)
+            if axis:
+                t = C.all_gather(t, dim, self.group(axis))
+        return t
+
+
+def check_mesh(cfg, dist: Optional[DistContext]) -> None:
+    """Raise ValueError for a mesh the config's experts cannot split
+    over: E not a multiple of the model ranks or D of the data ranks."""
+    if dist is None or cfg.family != "moe":
+        return
+    sizes = dist.sizes()
+    if cfg.n_experts % sizes["tp"]:
+        raise ValueError(f"{cfg.n_experts} experts do not split over "
+                         f"{sizes['tp']} {dist.tp_axis!r} ranks")
+    if cfg.d_model % sizes["fsdp"]:
+        raise ValueError(f"d_model {cfg.d_model} does not split over "
+                         f"{sizes['fsdp']} {dist.fsdp_axis!r} ranks")
+
+
+def shard_experts(model: nn.Module, dist: DistContext) -> None:
+    """Replace every MoE layer's wi, wg and wo by this rank's shards, in
+    place (the old whole tensors are freed)."""
+    for module in model.modules():
+        if isinstance(module, MoE):
+            for leaf in EXPERT_SPECS:
+                old = getattr(module, leaf)
+                setattr(module, leaf, nn.Parameter(
+                    dist.shard(old.data, f"moe.{leaf}"),
+                    requires_grad=old.requires_grad))
 
 
 def capacity(cfg, t_local: int, factor: float = MOE_CAPACITY_FACTOR) -> int:
@@ -275,16 +461,40 @@ def route(p: MoE, x: torch.Tensor, k: int):
     return probs.reshape(T, -1), w.reshape(T, k), e.reshape(T, k)
 
 
+def local_plan(plan, offset: int, n: int):
+    """The plan's entries on experts [offset, offset + n), renumbered from
+    0: the dispatch a model rank computes (its kept slots are the whole
+    plan's slots of those experts, in the same order). The aux values
+    (dropped, stolen) stay the whole plan's."""
+    if offset == 0 and n == plan.n_experts:
+        return plan
+    rel = plan.expert.astype(np.int64) - offset
+    mine = plan.keep & (rel >= 0) & (rel < n)
+    cut = slice(offset, offset + n)
+    return dataclasses.replace(
+        plan, n_experts=n, expert=np.where(mine, rel, 0).astype(np.int32),
+        keep=mine, cap=plan.cap[cut], counts=plan.counts[cut],
+        router_counts=plan.router_counts[cut])
+
+
 def moe_local(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
               capacity_factor: float = MOE_CAPACITY_FACTOR,
-              steal: bool = True, dropless: bool = False, routing=None):
-    """MoE forward on a token pool x (T, D) over all experts. Returns
-    (y (T, D), aux) with the reference's aux dict: the Switch
-    load-balance loss, dropped and stolen entries, the (E,) router counts
-    and the entry count (float32 tensors on x's device).
+              steal: bool = True, dropless: bool = False, routing=None,
+              n_local_experts: Optional[int] = None,
+              local_expert_offset: int = 0, experts=None):
+    """MoE forward on a token pool x (T, D). Returns (y (T, D), aux) with
+    the reference's aux dict: the Switch load-balance loss, dropped and
+    stolen entries, the (E,) router counts and the entry count (float32
+    tensors on x's device).
 
-    The expert FFN runs through the scheduler: `plan_dispatch` of the
-    router's choices with per-expert capacity `cap` -> `LoopScheduler(
+    The router, the capacity cut and the steal round run over all E
+    experts; only entries on experts [local_expert_offset,
+    local_expert_offset + n_local_experts) (default: all) are computed,
+    with `experts` = (wi, wg, wo) of those experts (default p's), so y is
+    their part of the output (expert parallelism: the reference's
+    `moe_local` under `shard_map`). The expert FFN runs through the
+    scheduler: `plan_dispatch` of the router's choices with per-expert
+    capacity `cap` -> the local experts' `local_plan` -> `LoopScheduler(
     p=workers(x.device))` -> "moe-dispatch" op -> `MoeExpertsFn`
     (`ich_moe_sharded`; its backward `ich_moe_backward`) when a gradient
     is to be taken, else the op alone: y is x's dtype, and differentiable
@@ -298,6 +508,7 @@ def moe_local(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
     as one sequence."""
     T, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
+    wi, wg, wo = experts if experts is not None else (p.wi, p.wg, p.wo)
     probs, w_topk, e_topk = (routing if routing is not None
                              else route(p, x[None], K))
     counts_all = torch.bincount(e_topk.reshape(-1), minlength=E).float()
@@ -316,18 +527,19 @@ def moe_local(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
                           c_max).int().cpu().numpy()
     plan = plan_dispatch(e_topk.cpu().numpy(),
                          w_topk.detach().cpu().numpy(), cap=cap, steal=steal)
+    mine = local_plan(plan, local_expert_offset, n_local_experts or E)
     op = LoopScheduler(p=workers(x.device), device=x.device,
-                       cache_size=0).build("moe-dispatch", plan)
+                       cache_size=0).build("moe-dispatch", mine)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w_topk, p.wi, p.wg, p.wo)):
-        indptr, entry = plan.csr_entries()
+            t.requires_grad for t in (x, w_topk, wi, wg, wo)):
+        indptr, entry = mine.csr_entries()
         y = MoeExpertsFn.apply(
-            x, w_topk, p.wi, p.wg, p.wo, op,
+            x, w_topk, wi, wg, wo, op,
             torch.from_numpy(entry).to(x.device),
             torch.from_numpy(indptr.astype(np.int32)).to(x.device))
     else:
-        y = op(x.float().contiguous(), p.wi.float(), p.wg.float(),
-               p.wo.float()).to(x.dtype)
+        y = op(x.float().contiguous(), wi.float(), wg.float(),
+               wo.float()).to(x.dtype)
     f32 = dict(dtype=torch.float32, device=x.device)
     aux = {"aux_loss": aux_loss,
            "dropped": torch.tensor(float(plan.dropped), **f32),
@@ -337,21 +549,69 @@ def moe_local(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
     return y, aux
 
 
+def _moe_parallel(cfg, p: MoE, x2, cap_scale, routing, dist: DistContext,
+                  **kw):
+    """The expert-parallel routed experts on this rank's tokens x2 (T, D):
+    the reference's `shard_map` block. Returns (y (T, D) summed over the
+    model ranks, aux replicated)."""
+    e_loc = cfg.n_experts // dist.tp
+    wi, wg, wo = p.wi, p.wg, p.wo
+    if dist.fsdp_axis:
+        g = dist.group(dist.fsdp_axis)
+        wi, wg, wo = (C.gather_data(wi, 1, g), C.gather_data(wg, 1, g),
+                      C.gather_data(wo, 2, g))
+    model = dist.group(dist.tp_axis)
+    probs, w_topk, e_topk = routing
+    # x and the combine weights are replicated over "model" and each rank
+    # adds only its experts' part of their gradient: summed in backward
+    y, aux = moe_local(
+        cfg, p, C.to_model(x2, model), cap_scale,
+        routing=(probs, C.to_model(w_topk, model), e_topk),
+        n_local_experts=e_loc,
+        local_expert_offset=dist.index(dist.tp_axis) * e_loc,
+        experts=(wi, wg, wo), **kw)
+    return C.from_model(y, model), replicate_aux(aux, dist)
+
+
+def replicate_aux(aux: dict, dist: DistContext) -> dict:
+    """The aux values of one rank made equal on all: counts summed over
+    the batch axes, the other values averaged over them (the aux loss
+    differentiably, `collectives.mean_over`)."""
+    batch = dist.group(dist.batch_axes)
+    n = dist.dp
+    E = aux["counts"].shape[0]
+    packed = C.all_reduce(torch.cat([
+        aux["counts"], torch.stack([aux[k] for k in
+                                    ("dropped", "stolen", "entries")])]),
+        batch)
+    return {"aux_loss": C.mean_over(aux["aux_loss"], batch),
+            "counts": packed[:E],
+            **{k: v / n for k, v in zip(("dropped", "stolen", "entries"),
+                                        packed[E:])}}
+
+
 def apply_moe(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
-              steal: bool = True,
+              dist: Optional[DistContext] = None, steal: bool = True,
               capacity_factor: float = MOE_CAPACITY_FACTOR,
               dropless: bool = False):
     """MoE block on x (B, S, D) (or (B, 1, D) in decode): the routed
     experts (`moe_local`, routed per block of TOKEN_BLOCK tokens) plus the
     shared experts, also per block. Returns (y (B, S, D), aux).
     `dropless` is the serving mode (`models.model`'s prefill, extend and
-    decode)."""
+    decode). With `dist` x is this rank's batch rows and p's expert
+    weights this rank's shards (`shard_experts`): the routed experts run
+    expert-parallel (`_moe_parallel`) and aux is replicated."""
     B, S, D = x.shape
     x = x.contiguous()
-    y, aux = moe_local(cfg, p, x.reshape(B * S, D), cap_scale,
-                       capacity_factor=capacity_factor, steal=steal,
-                       dropless=dropless,
-                       routing=route(p, x, cfg.experts_per_token))
+    kw = dict(capacity_factor=capacity_factor, steal=steal,
+              dropless=dropless)
+    routing = route(p, x, cfg.experts_per_token)
+    if dist is None:
+        y, aux = moe_local(cfg, p, x.reshape(B * S, D), cap_scale,
+                           routing=routing, **kw)
+    else:
+        y, aux = _moe_parallel(cfg, p, x.reshape(B * S, D), cap_scale,
+                               routing, dist, **kw)
     y = y.reshape(B, S, D)
     if cfg.n_shared_experts:
         y = y + L.by_blocks(p.shared, L.TOKEN_BLOCK, x)

@@ -77,12 +77,16 @@ def decays(name: str, p: torch.Tensor) -> bool:
 
 
 @torch.no_grad()
-def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
+def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
+                  gnorm: torch.Tensor = None):
     """One AdamW step. Writes the new parameters into `params`' tensors and
     the new moments into state["m"] and state["v"]; returns (params, new
-    state, {"grad_norm", "lr"})."""
+    state, {"grad_norm", "lr"}). `gnorm` is the clipping norm when the
+    caller has it (on a mesh: the whole tree's, of which `grads` holds
+    this rank's shards), else `global_norm(grads)`."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(cfg, step)

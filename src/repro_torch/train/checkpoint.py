@@ -15,6 +15,13 @@ Tensors go to numpy on save (bfloat16, which numpy lacks, as its raw
 16 bits; the manifest says "bfloat16") and onto the like-state's devices
 on load: `load_state` writes the saved values INTO the like-state's
 tensors (the model's parameters, the moments) and returns it.
+
+On a mesh (`dist`, a `models.moe.DistContext`) the checkpoint holds whole
+leaves, as on one device: every rank gathers the expert shards
+(`DistContext.unshard`), rank 0 writes, and the ranks meet at a barrier
+once the write is published. Loading on any mesh, or on one device,
+cuts each whole leaf to the loading rank's shard: the reference's
+mesh-agnostic checkpoint, and a restart may use another mesh.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 from torch import nn
 
 
@@ -50,10 +58,27 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _host(state) -> list:
-    """[(name, array, dtype name)] of the state, copied to the host."""
-    return [(n, _to_numpy(t), str(t.dtype).replace("torch.", ""))
-            for n, t in state_leaves(state)]
+def _writes(dist) -> bool:
+    """Whether this rank writes checkpoints: rank 0, or the one process."""
+    return dist is None or tdist.get_rank() == 0
+
+
+def _host(state, dist=None) -> list:
+    """[(name, array, dtype name)] of the state's whole leaves, copied to
+    the host; on a mesh gathered by every rank (collective) and kept by
+    the writing rank alone (others get [])."""
+    out = []
+    for n, t in state_leaves(state):
+        if dist is not None:
+            t = dist.unshard(t.detach(), n)
+        if _writes(dist):
+            out.append((n, _to_numpy(t), str(t.dtype).replace("torch.", "")))
+    return out
+
+
+def _barrier(dist) -> None:
+    if dist is not None:
+        tdist.barrier()
 
 
 def _write(leaves: list, ckpt_dir: str, step: int) -> str:
@@ -80,17 +105,25 @@ def _write(leaves: list, ckpt_dir: str, step: int) -> str:
     return str(final)
 
 
-def save_state(state, ckpt_dir: str, step: int) -> str:
-    """Synchronous atomic save. Returns the published directory."""
-    return _write(_host(state), ckpt_dir, step)
+def save_state(state, ckpt_dir: str, step: int, dist=None) -> str:
+    """Synchronous atomic save (on a mesh: every rank calls it). Returns
+    the published directory."""
+    leaves = _host(state, dist)
+    final = str(pathlib.Path(ckpt_dir) / f"step_{step}")
+    if _writes(dist):
+        final = _write(leaves, ckpt_dir, step)
+    _barrier(dist)
+    return final
 
 
 class AsyncCheckpointer:
-    """Fire-and-forget checkpoint writer (one in flight at a time)."""
+    """Fire-and-forget checkpoint writer (one in flight at a time). On a
+    mesh every rank calls `save` and `wait`; rank 0 writes."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, dist=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.dist = dist
         self._thread: threading.Thread | None = None
         # (step, bytes, seconds) of each save: the host copy and the write
         self.saves: list[tuple[int, int, float]] = []
@@ -98,7 +131,10 @@ class AsyncCheckpointer:
     def save(self, state, step: int):
         self.wait()
         t0 = time.perf_counter()
-        leaves = _host(state)  # snapshot off the device, on this thread
+        # snapshot off the device, on this thread
+        leaves = _host(state, self.dist)
+        if not _writes(self.dist):
+            return
 
         def _run():
             _write(leaves, self.ckpt_dir, step)
@@ -110,9 +146,12 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self):
+        """Until the save in flight is published (on a mesh: on every
+        rank)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier(self.dist)
 
     def _gc(self):
         steps = sorted(list_steps(self.ckpt_dir))
@@ -133,10 +172,13 @@ def list_steps(ckpt_dir: str) -> list[int]:
 
 
 @torch.no_grad()
-def load_state(like_state, ckpt_dir: str, step: int | None = None):
+def load_state(like_state, ckpt_dir: str, step: int | None = None,
+               dist=None):
     """Restore the newest (or `step`'s) checkpoint into `like_state`'s
-    tensors, on their devices; returns (like_state, step). Raises when
-    the names, shapes or types disagree."""
+    tensors, on their devices; returns (like_state, step). With `dist`
+    the like-state holds this rank's shards and each whole leaf is cut to
+    them (`DistContext.shard`). Raises when the names, shapes or types
+    disagree."""
     steps = list_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -155,6 +197,8 @@ def load_state(like_state, ckpt_dir: str, step: int | None = None):
             a = data[f"a{i}"]
             src = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
                    if dtype == "bfloat16" else torch.from_numpy(a))
+            if dist is not None:
+                src = dist.shard(src, name)
             if src.dtype != t.dtype or tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: saved {src.dtype} "
                                  f"{tuple(src.shape)}, like-state {t.dtype} "

@@ -15,22 +15,42 @@ d_i) and, with `grad_compress`, "grad_err" (the residuals). `step`
 updates the state's tensors IN PLACE and returns the same dict with the
 metrics (the reference returns a new state; in place the step needs no
 second copy of the parameters and moments). The port runs eagerly: there
-is nothing to jit, and `train_state_pspecs` / `batch_pspec` come with
-`launch/` (ROADMAP.md queue 1 item 6). It trains every family. For moe
+is nothing to jit. It trains every family. For moe
 the loss takes the state's "cap_scales", and after the update each MoE
 layer's row becomes `ich_update_cap_scale` of that layer's router counts
 (in place; under a microbatch split the last microbatch's counts, as the
 reference takes `m[-1]` of its scanned metrics).
+
+On a mesh (`make_train_step(cfg, tcfg, dist)`, `dist` a
+`models.moe.DistContext`: the reference's jitted step with its
+`DistContext`) every rank runs the step on its rows of the batch
+(`batch_shard`: the reference's `batch_pspec`): data parallel for every
+family, and the moe family's routed experts expert-parallel over
+"model" and stored in shards over "data" (the train state holds this
+rank's shards of them: `init_train_state(..., dist=)`, `shard_state`).
+Replicated leaves' gradients are summed over the batch axes; expert
+shards' gradients arrive summed over "data" from the gather's backward.
+The clipping norm is global (each replicated leaf counted once, the
+expert shards' squares summed over their ranks), AdamW steps every shard
+with it, gradient compression cuts its blocks from whole reference
+leaves (`compress_grads`: a shard made of whole blocks is compressed
+where it lies, any other leaf is gathered, one at a time), and the
+capacity scales update from the global router counts. Only the replicated gradients'
+reductions read the ranks' data; what the reference's `train_state_
+pspecs` lays out beyond that (tensor parallelism of dense layers) is not
+ported (ROADMAP.md queue 1 item 6b).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import collectives as C
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.optim import adamw
@@ -59,13 +79,20 @@ def cast_bf16(model) -> None:
 
 
 def init_train_state(cfg, seed: int = 0, max_seq: int = 0,
-                     tcfg: TrainConfig = TrainConfig(), device=None) -> dict:
+                     tcfg: TrainConfig = TrainConfig(), device=None,
+                     dist=None) -> dict:
     """The train state of a fresh model from `seed` on `device` (None =
     the card; raises without CUDA): parameters requiring grad, zero
     moments at step 0, the master copy and bfloat16 parameters with
-    `bf16_params`, zero residuals with `grad_compress`."""
+    `bf16_params`, zero residuals with `grad_compress`. With `dist` the
+    expert weights and everything kept beside them are this rank's
+    shards (the whole model is drawn first, so every mesh starts from
+    the same weights)."""
     dev = resolve_device(device)
     model = M.init_params(cfg, seed, max_seq=max_seq, device=dev)
+    if dist is not None:
+        M.check_trainable(cfg, dist)
+        MOE.shard_experts(model, dist)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     opt = adamw.init_state(params)
@@ -81,7 +108,101 @@ def init_train_state(cfg, seed: int = 0, max_seq: int = 0,
     return state
 
 
-def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
+def shard_state(state: dict, dist) -> dict:
+    """A whole train state cut to this rank's shards, in place: the
+    model's expert weights (`models.moe.shard_experts`) and their
+    moments, master copies and residuals."""
+    MOE.shard_experts(state["params"], dist)
+    opt = state["opt"]
+    for tree in (opt["m"], opt["v"], opt.get("master"),
+                 state.get("grad_err")):
+        for name in tree or ():
+            tree[name] = dist.shard(tree[name], name)
+    return state
+
+
+def batch_shard(batch: dict, dist, microbatch: int = 0) -> dict:
+    """This rank's rows of a global batch (every entry split along its
+    batch axis over the batch ranks: the reference's `batch_pspec`). With
+    a `microbatch` split of m, the rows of each of the reference's m
+    microbatches (global rows [i B/m, (i+1) B/m)) are split over the
+    ranks in turn, so this rank's m pieces of B/(m n) rows follow one
+    another. Raises ValueError when B does not divide."""
+    if dist is None:
+        return batch
+    n, r, m = dist.dp, dist.index(dist.batch_axes), max(microbatch, 1)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % (n * m):
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+                             f"split into {m} microbatches over {n} ranks")
+        rows = v.reshape(m, n, v.shape[0] // (m * n), *v.shape[1:])[:, r]
+        out[k] = rows.reshape(-1, *v.shape[1:])
+    return out
+
+
+def _global_norm(grads: dict, dist) -> torch.Tensor:
+    """`adamw.global_norm` of the whole gradient tree on a mesh: each
+    leaf's float32 sum of squares, the expert shards' summed over the
+    ranks they split over (one all-reduce), folded in leaf order."""
+    sq = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()}
+    sharded = [n for n in grads if MOE.expert_spec(n)]
+    if sharded:
+        fsdp = (dist.fsdp_axis,) if dist.fsdp_axis else ()
+        total = C.all_reduce(torch.stack([sq[n] for n in sharded]),
+                             dist.group((dist.tp_axis, *fsdp)))
+        sq.update(zip(sharded, total))
+    total = 0
+    for v in sq.values():
+        total = total + v
+    return torch.sqrt(total)
+
+
+def _whole_blocks(name: str, local_shape, dist) -> bool:
+    """Whether this rank's shard of leaf `name` is made of whole int8
+    blocks of the whole leaf's flat order: the shard is runs of
+    local[j] x (the sizes after j) contiguous elements, j its last split
+    dimension, each starting at a multiple of that length."""
+    spec = MOE.expert_spec(name)
+    sizes = dist.sizes()
+    split = [d for d, r in enumerate(spec or ()) if r and sizes[r] > 1]
+    return not split or \
+        math.prod(local_shape[split[-1]:]) % GC.BLOCK == 0
+
+
+def compress_grads(cfg, grads: dict, err: dict, dist=None):
+    """`grad_compress`: (compressed gradients, new residuals), the int8
+    blocks cut from the reference's leaves (`models.model.
+    reference_leaves`). On a mesh, one reference leaf at a time: where
+    every shard of it is whole blocks (`_whole_blocks`: olmoe-1b-7b's
+    experts on up to 8 data ranks) this rank compresses its shards as
+    they are, the same blocks as the whole leaf's; else the leaf is
+    gathered, compressed whole and cut again, and the whole copy freed
+    before the next leaf. The entries of `grads` and `err` are taken
+    out as each leaf is done."""
+    groups = M.reference_leaves(cfg, grads)
+    if dist is None:
+        return GC.tree_compress(grads, err, groups)
+    out_g, out_e = {}, {}
+    for names in groups:
+        g = {n: grads.pop(n) for n in names}
+        e = {n: err.pop(n) for n in names}
+        if all(_whole_blocks(n, g[n].shape, dist) for n in names):
+            new_g, new_e = GC.tree_compress(g, e, [names])
+        else:
+            new_g, new_e = (
+                {n: dist.shard(t, n) for n, t in tree.items()}
+                for tree in GC.tree_compress(
+                    {n: dist.unshard(t, n) for n, t in g.items()},
+                    {n: dist.unshard(t, n) for n, t in e.items()},
+                    [names]))
+        del g, e
+        out_g.update(new_g)
+        out_e.update(new_e)
+    return out_g, out_e
+
+
+def make_train_step(cfg, tcfg: TrainConfig = TrainConfig(), dist=None):
     """Returns step(state, batch) -> (state, metrics {"loss", "n_tokens",
     "grad_norm", "lr"}, for moe also "aux_loss", "dropped", "stolen" and
     "entries"); batch: "tokens" and "labels" (B, S) tensors on
@@ -89,8 +210,13 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
     `repro/launch/specs.py:19-25` shapes them: "patches" (B, P, d) for a
     vlm (optional), "frames" (B, S_enc, d) for encdec. A microbatch split
     cuts every entry along its batch axis. Raises NotImplementedError for
-    a config the port does not train (`models.model.check_trainable`)."""
-    M.check_trainable(cfg)
+    a config the port does not train, ValueError for a mesh it cannot
+    split over (`models.model.check_trainable`). With `dist` the state is
+    this rank's (`init_train_state(..., dist=)`) and the batch its rows
+    (`batch_shard`). `step.loss_and_grads(state, batch)` -> (metrics,
+    gradients) is the step's gradient part alone (summed over the
+    ranks)."""
+    M.check_trainable(cfg, dist)
     # cast_params_once: the loss runs on a copy of the model whose float32
     # parameters are cast to tcfg.dtype (leaves of their own), and their
     # gradients are cast back: the chain rule through the reference's
@@ -114,7 +240,7 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
 
     def grads_of(model, batch, cap_scales):
         run = loss_model(model)
-        loss, metrics = M.loss_fn(cfg, run, batch, cap_scales,
+        loss, metrics = M.loss_fn(cfg, run, batch, cap_scales, dist=dist,
                                   dtype=tcfg.dtype)
         names = [n for n, _ in model.named_parameters()]
         grads = torch.autograd.grad(loss, list(run.parameters()))
@@ -123,11 +249,27 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, grads
 
-    def step(state, batch):
+    def sync(grads):
+        # replicated leaves: each batch rank holds its share; expert
+        # shards arrive summed over "data" and need the rest of the
+        # batch axes (a pod axis) only
+        fsdp = (dist.fsdp_axis,) if dist.fsdp_axis else ()
+        rest = dist.group([a for a in dist.batch_axes if a not in fsdp])
+        out = {}
+        for n, g in grads.items():
+            group = rest if MOE.expert_spec(n) else \
+                dist.group(dist.batch_axes)
+            out[n] = g if group is None else C.all_reduce(g, group)
+        return out
+
+    def loss_and_grads(state, batch):
         model = state["params"]
         if tcfg.microbatch > 1:
             mb = tcfg.microbatch
             b = batch["tokens"].shape[0]
+            if b % mb:
+                raise ValueError(f"{b} rows do not split into {mb} "
+                                 f"microbatches")
             grads = {n: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device)
                      for n, p in model.named_parameters()}
@@ -144,23 +286,28 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
             metrics["loss"] = loss_sum / mb
         else:
             _, metrics, grads = grads_of(model, batch, state["cap_scales"])
+        return metrics, grads if dist is None else sync(grads)
 
+    def step(state, batch):
+        model = state["params"]
+        metrics, grads = loss_and_grads(state, batch)
         if tcfg.grad_compress:
-            grads, state["grad_err"] = GC.tree_compress(
-                grads, state["grad_err"], M.reference_leaves(cfg, grads))
+            grads, state["grad_err"] = compress_grads(
+                cfg, grads, state["grad_err"], dist)
+        gnorm = None if dist is None else _global_norm(grads, dist)
         params = dict(model.named_parameters())
         opt = state["opt"]
         if tcfg.bf16_params:
             master = opt["master"]
             _, new_opt, opt_metrics = adamw.apply_updates(
-                master, grads, opt, tcfg.opt)
+                master, grads, opt, tcfg.opt, gnorm=gnorm)
             new_opt["master"] = master
             with torch.no_grad():
                 for n, p in params.items():
                     p.copy_(master[n].to(p.dtype))
         else:
-            _, new_opt, opt_metrics = adamw.apply_updates(params, grads, opt,
-                                                          tcfg.opt)
+            _, new_opt, opt_metrics = adamw.apply_updates(
+                params, grads, opt, tcfg.opt, gnorm=gnorm)
         state["opt"] = new_opt
         metrics.update(opt_metrics)
         if cfg.family == "moe":
@@ -172,4 +319,5 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig()):
                         counts[layer], caps[layer], eps=tcfg.ich_eps)
         return state, metrics
 
+    step.loss_and_grads = loss_and_grads
     return step

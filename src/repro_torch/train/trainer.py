@@ -7,8 +7,14 @@ port's counterpart of `repro.train.trainer`:
 * the data pipeline (iCh dispatcher) prefetches the next batch while a
   step trains.
 
-One device, no mesh: the reference's `mesh` argument (elastic restarts
-on another mesh) comes with `launch/` (ROADMAP.md queue 1 item 6). The
+On a mesh (`train(..., mesh=)`, a `DeviceMesh` of `launch/mesh.py`
+with more than one rank; every rank calls `train`) the step runs
+data parallel, moe's routed experts expert-parallel
+(`train_step.make_train_step(cfg, tcfg, dist)`): each rank takes its
+rows of the pipeline's global batch, checkpoints hold whole leaves
+(written by rank 0) and load onto any mesh, so a restart may use
+another mesh (elastic), and rank 0 prints the logs. A one-rank mesh is
+no mesh, as in the reference. The
 batches are tokens and labels, as the reference's pipeline makes them:
 the dense, moe, ssm and hybrid families train (moe with its capacity
 scales, which the checkpoints carry), a vlm trains on text alone (no
@@ -25,10 +31,13 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as tdist
 
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import batch_axes_of, mesh_size
 from repro_torch.models import model as M
+from repro_torch.models.moe import DistContext
 
 from . import checkpoint as CKPT
 from . import train_step as TS
@@ -52,12 +61,17 @@ class InjectedFailure(RuntimeError):
 
 
 def train(cfg, run: RunConfig, tcfg: TS.TrainConfig = None, device=None,
-          verbose: bool = True):
+          mesh=None, verbose: bool = True):
     """Returns (final state, losses of the steps this call ran). Call again
     after a crash to resume. `device` None is the card (raises without
-    CUDA); "cpu" runs every kernel's plain version. Raises
-    NotImplementedError for encdec before it writes anything."""
-    M.check_trainable(cfg)
+    CUDA), or the mesh's device type when a `mesh` is given (this rank's
+    card, or the CPU); "cpu" runs every kernel's plain version. Raises
+    NotImplementedError for encdec before it writes anything, ValueError
+    for a mesh the config or the batch cannot split over."""
+    dist = None
+    if mesh is not None and mesh_size(mesh) > 1:
+        dist = DistContext(mesh, batch_axes=batch_axes_of(mesh))
+    M.check_trainable(cfg, dist)
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"train() feeds tokens and labels only, as the reference's "
@@ -65,28 +79,33 @@ def train(cfg, run: RunConfig, tcfg: TS.TrainConfig = None, device=None,
             f"{cfg.encoder_seq} rows, which the reference's trainer never "
             f"makes (ROADMAP.md queue 3 caveat 13): train it with "
             f"make_train_step on batches that carry \"frames\"")
+    if device is None and mesh is not None:
+        device = "cpu" if mesh.device_type == "cpu" else torch.device(
+            "cuda", torch.cuda.current_device())
     dev = resolve_device(device)
+    verbose = verbose and (dist is None or tdist.get_rank() == 0)
     tcfg = tcfg or TS.TrainConfig(opt=dataclasses.replace(
         TS.TrainConfig().opt, warmup_steps=10, total_steps=run.steps))
     state = TS.init_train_state(cfg, run.seed, max_seq=run.seq, tcfg=tcfg,
-                                device=dev)
+                                device=dev, dist=dist)
     start_step = 0
     if CKPT.list_steps(run.ckpt_dir):
-        state, start_step = CKPT.load_state(state, run.ckpt_dir)
+        state, start_step = CKPT.load_state(state, run.ckpt_dir, dist=dist)
         if verbose:
             print(f"[trainer] resumed from step {start_step}")
 
-    step_fn = TS.make_train_step(cfg, tcfg)
+    step_fn = TS.make_train_step(cfg, tcfg, dist)
     pipe = Pipeline(cfg, run.batch, run.seq, seed=run.seed, device=dev)
-    ckpt = CKPT.AsyncCheckpointer(run.ckpt_dir)
+    ckpt = CKPT.AsyncCheckpointer(run.ckpt_dir, dist=dist)
 
     losses = []
     t0 = time.time()
     try:
         for step in range(start_step, run.steps):
             batch_np, ingest = pipe.get_batch(step)
-            batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in batch_np.items()}
+            batch = {k: v.to(dev) for k, v in TS.batch_shard(
+                {k: torch.from_numpy(v) for k, v in batch_np.items()},
+                dist, tcfg.microbatch).items()}
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
             losses.append(loss)

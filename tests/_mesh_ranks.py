@@ -1,0 +1,324 @@
+"""Spawned gloo ranks for the mesh tests (`tests/test_torch_mesh_*.py`).
+
+`start(tmp_path, shape, tasks)` starts prod(shape) processes on the
+CPU, each a rank of a ("data", "model") mesh of `shape` (a default
+process group from a `file://` store under tmp_path: no port), which run
+the tasks [(name, kwargs)] in order; its `result()` waits for them and
+returns rank 0's results, one per task (`run` does both). Several
+meshes' ranks may run at once. The tasks gather what they return (whole expert leaves,
+every rank's rows), so rank 0 holds the whole answer. This module
+imports no JAX: ranks start faster without it."""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import itertools
+import math
+
+import numpy as np
+import torch
+import torch.distributed as tdist
+
+from repro_torch.configs import get_arch, reduced
+from repro_torch.convert import train_state_from_reference
+from repro_torch.launch import collectives as C
+from repro_torch.launch.mesh import (init_process_group, make_mesh,
+                                    make_smoke_mesh)
+from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
+from repro_torch.optim import grad_compress as GC
+from repro_torch.train import checkpoint as CKPT
+from repro_torch.train import train_step as TS
+from repro_torch.train.trainer import InjectedFailure, RunConfig, train
+
+_SPAWNS = itertools.count()
+
+
+class start:
+    def __init__(self, tmp_path, shape, tasks):
+        n = math.prod(shape)
+        k = next(_SPAWNS)
+        self.out = tmp_path / f"rank0-{k}.pt"
+        # the tasks go by file: arguments larger than a pipe's buffer
+        # would hold the parent until each child has imported torch
+        src = tmp_path / f"tasks-{k}.pt"
+        torch.save(tasks, src)
+        self.ctx = torch.multiprocessing.start_processes(
+            _rank_main, args=(n, str(tmp_path / f"store-{k}"),
+                              tuple(shape), str(src), str(self.out)),
+            nprocs=n, start_method="spawn", join=False)
+
+    def result(self):
+        while not self.ctx.join():   # raises a rank's exception
+            pass
+        return torch.load(self.out, weights_only=False)
+
+
+def run(tmp_path, shape, tasks):
+    return start(tmp_path, shape, tasks).result()
+
+
+def _rank_main(rank, n, store, shape, src, out):
+    torch.set_num_threads(1)
+    tasks = torch.load(src, weights_only=False)
+    init_process_group(f"file://{store}", rank=rank, world_size=n,
+                       device="cpu")
+    try:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        results = [TASKS[name](mesh, **kw) for name, kw in tasks]
+        if rank == 0:
+            torch.save(results, out)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _cfg(arch, over):
+    return reduced(get_arch(arch), **over)
+
+
+def _t(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def _rows(dist, t):
+    """Every batch rank's rows of t, in order (whole on every rank)."""
+    return C.all_gather(t.detach().contiguous(), 0,
+                        dist.group(dist.batch_axes))
+
+
+def _zeros(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zeros(v) for v in tree)
+    return np.zeros_like(tree)
+
+
+def _whole(dist, tree):
+    return {n: dist.unshard(t.detach(), n).float().numpy()
+            for n, t in tree.items()}
+
+
+# ------------------------------------------------------------------ tasks
+def ep(mesh, *, arch, over, weights, x, r, cap, aux_weight):
+    """The expert-parallel MoE block at capacity (with the steal round)
+    and dropless: y, the gradients of sum(y * r) + aux_weight * aux loss
+    (x's rows, the router's summed over the batch ranks, whole expert
+    leaves), the aux values, and the local expert shapes."""
+    cfg = _cfg(arch, over)
+    dist = MOE.DistContext(mesh)
+    out = {"tp": dist.tp, "dp": dist.dp}
+    for dropless in (False, True):
+        moe = MOE.MoE(cfg, torch.Generator().manual_seed(0), "cpu")
+        with torch.no_grad():
+            for name, w in weights.items():
+                getattr(moe, name).copy_(torch.from_numpy(w))
+        MOE.shard_experts(moe, dist)
+        moe.requires_grad_(True)
+        xl = TS.batch_shard({"x": torch.from_numpy(x)}, dist)["x"]
+        rl = TS.batch_shard({"r": torch.from_numpy(r)}, dist)["r"]
+        xl.requires_grad_(True)
+        y, aux = MOE.apply_moe(cfg, moe, xl, torch.from_numpy(cap),
+                               dist=dist, dropless=dropless)
+        loss = (y * rl).sum() + aux_weight * aux["aux_loss"]
+        leaves = [xl, moe.router, moe.wi, moe.wg, moe.wo]
+        gx, grt, gwi, gwg, gwo = torch.autograd.grad(loss, leaves)
+        out[dropless] = {
+            "shapes": {n: tuple(getattr(moe, n).shape)
+                       for n in ("wi", "wg", "wo")},
+            "y": _rows(dist, y).numpy(), "dx": _rows(dist, gx).numpy(),
+            "router": C.all_reduce(grt, dist.group(dist.batch_axes)).numpy(),
+            **_whole(dist, {"moe.wi": gwi, "moe.wg": gwg, "moe.wo": gwo}),
+            **{k: v.detach().numpy() for k, v in aux.items()}}
+    return out
+
+
+def serve(mesh, *, arch, over, tokens):
+    """Prefill and one decode step of the whole model on this rank's rows
+    with the experts split over the mesh, against the same calls without
+    a mesh: the largest relative differences of the logits."""
+    cfg = _cfg(arch, over)
+    dist = MOE.DistContext(mesh)
+    model = M.init_params(cfg, 0, device="cpu")
+    whole = copy.deepcopy(model)
+    MOE.shard_experts(model, dist)
+    rows = TS.batch_shard({"tokens": torch.from_numpy(tokens)},
+                          dist)["tokens"]
+    l0, c0 = M.prefill(cfg, whole, {"tokens": rows})
+    l1, c1 = M.prefill(cfg, model, {"tokens": rows}, dist=dist)
+    nxt = torch.argmax(l0, -1)[:, None]
+    d0, _ = M.decode_step(cfg, whole, nxt, _pad_cache(cfg, c0), rows.shape[1])
+    d1, _ = M.decode_step(cfg, model, nxt, _pad_cache(cfg, c1), rows.shape[1],
+                          dist=dist)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    return {"prefill": rel(l1, l0), "decode": rel(d1, d0)}
+
+
+def _pad_cache(cfg, cache):
+    """The prefill's cache with one more position for a decode step."""
+    return [{k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1))
+             for k, v in seg.items()} for seg in cache]
+
+
+def step(mesh, *, arch, over, state, batches, options, with_grads=True):
+    """make_train_step on the mesh from the reference's state: the first
+    batch's gradients (`step.loss_and_grads`), then a step a batch, each
+    with its metrics, whole parameters (and master copies) and capacity
+    scales."""
+    cfg = _cfg(arch, over)
+    dist = MOE.DistContext(mesh)
+    tcfg = TS.TrainConfig(dtype=torch.float32, **options)
+    state = dict(state, opt=dict(state["opt"]))
+    if tcfg.bf16_params:    # as the reference's init: params become master
+        state["opt"]["master"] = state["params"]
+    if tcfg.grad_compress:
+        state["grad_err"] = _zeros(state["params"])
+    st = train_state_from_reference(cfg, state, device="cpu", dist=dist)
+    fn = TS.make_train_step(cfg, tcfg, dist)
+    out = {"steps": []}
+    for i, batch in enumerate(batches):
+        local = TS.batch_shard(_t(batch), dist, tcfg.microbatch)
+        if i == 0 and with_grads:
+            metrics, grads = fn.loss_and_grads(st, local)
+            out["grads"] = _whole(dist, grads)
+            out["grad_metrics"] = {k: v.numpy() for k, v in metrics.items()}
+        st, metrics = fn(st, local)
+        out["steps"].append({
+            "metrics": {k: v.detach().numpy() for k, v in metrics.items()},
+            "params": _whole(dist, dict(st["params"].named_parameters())),
+            "master": _whole(dist, st["opt"].get("master", {})),
+            "cap_scales": st["cap_scales"].numpy().copy()})
+    return out
+
+
+def compress(mesh, *, arch, cases, seed):
+    """`compress_grads` on the mesh against `tree_compress` of the whole
+    trees, for each case {label: config override}: gradients and
+    residuals drawn whole from `seed`, this rank's shards compressed and
+    gathered again. The names whose bits differ, and the all-gathers the
+    compression made."""
+    dist = MOE.DistContext(mesh)
+    out = {}
+    for label, over in cases.items():
+        cfg = _cfg(arch, over)
+        g = torch.Generator().manual_seed(seed)
+        grads, err = {}, {}
+        for n, p in M.init_params(cfg, 0, device="meta").named_parameters():
+            grads[n] = torch.randn(p.shape, generator=g)
+            err[n] = torch.randn(p.shape, generator=g) * 1e-3
+        want = GC.tree_compress(grads, err, M.reference_leaves(cfg, grads))
+        gathers, gather = [], C.all_gather
+
+        def counted(*a, **kw):
+            gathers.append(1)
+            return gather(*a, **kw)
+        C.all_gather = counted
+        try:
+            got = TS.compress_grads(
+                cfg, {n: dist.shard(t, n) for n, t in grads.items()},
+                {n: dist.shard(t, n) for n, t in err.items()}, dist)
+        finally:
+            C.all_gather = gather
+        out[label] = {"gathers": len(gathers), "differ": [
+            f"{kind} {n}" for kind, w, t in zip(("grad", "err"), want, got)
+            for n in w if not torch.equal(dist.unshard(t[n], n), w[n])]}
+    return out
+
+
+def dense(mesh, *, arch, over, batch, seed):
+    """A dense model's step from `init_train_state(seed)` on this rank's
+    rows: the step's loss and the whole new parameters."""
+    cfg = _cfg(arch, over)
+    dist = MOE.DistContext(mesh)
+    tcfg = TS.TrainConfig(dtype=torch.float32)
+    st = TS.init_train_state(cfg, seed, tcfg=tcfg, device="cpu", dist=dist)
+    st, metrics = TS.make_train_step(cfg, tcfg, dist)(
+        st, TS.batch_shard(_t(batch), dist))
+    return {"loss": float(metrics["loss"]),
+            "params": _whole(dist, dict(st["params"].named_parameters()))}
+
+
+def save(mesh, *, arch, over, batch, seed, ckpt_dir):
+    """One step from `init_train_state(seed)`, then a checkpoint: the
+    state's whole leaves as saved."""
+    cfg = _cfg(arch, over)
+    dist = MOE.DistContext(mesh)
+    tcfg = TS.TrainConfig(dtype=torch.float32)
+    st = TS.init_train_state(cfg, seed, tcfg=tcfg, device="cpu", dist=dist)
+    st, _ = TS.make_train_step(cfg, tcfg, dist)(
+        st, TS.batch_shard(_t(batch), dist))
+    CKPT.save_state(st, ckpt_dir, 1, dist=dist)
+    return {n: dist.unshard(t.detach(), n).numpy()
+            for n, t in CKPT.state_leaves(st)}
+
+
+def load(mesh, *, arch, over, seed, ckpt_dir):
+    """A fresh state from another seed with the checkpoint loaded into its
+    shards: whole leaves, and the local expert shapes."""
+    cfg = _cfg(arch, over)
+    dist = MOE.DistContext(mesh)
+    st = TS.init_train_state(cfg, seed, device="cpu", dist=dist,
+                             tcfg=TS.TrainConfig(dtype=torch.float32))
+    st, at = CKPT.load_state(st, ckpt_dir, dist=dist)
+    return {"step": at,
+            "shapes": {n: tuple(t.shape) for n, t in CKPT.state_leaves(st)},
+            "leaves": {n: dist.unshard(t.detach(), n).numpy()
+                       for n, t in CKPT.state_leaves(st)}}
+
+
+def trainer(mesh, *, arch, over, ckpt_dir, steps, batch, seq):
+    """train() on the mesh with a failure after step 2 and a resume, and
+    an uninterrupted run: both runs' losses, and whether the two final
+    states hold the same bits."""
+    cfg = _cfg(arch, over)
+    run = RunConfig(steps=steps, batch=batch, seq=seq, ckpt_dir=ckpt_dir,
+                    ckpt_every=2, failure_at=2, log_every=100)
+    failed = False
+    try:
+        train(cfg, run, mesh=mesh, verbose=False)
+    except InjectedFailure:
+        failed = True
+    listed = CKPT.list_steps(ckpt_dir)
+    state, resumed = train(cfg, dataclasses.replace(run, failure_at=None),
+                           mesh=mesh, verbose=False)
+    fresh_state, fresh = train(cfg, dataclasses.replace(
+        run, failure_at=None, ckpt_dir=ckpt_dir + "-fresh"), mesh=mesh,
+        verbose=False)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        CKPT.state_leaves(state), CKPT.state_leaves(fresh_state)))
+    return {"failed": failed, "listed": listed, "resumed": resumed,
+            "fresh": fresh, "same_state": same}
+
+
+def one_rank(mesh, *, arch, over, batches, seed, caps):
+    """On a one-rank group: `make_smoke_mesh("cpu")`'s 1 x 1 mesh, and
+    `make_train_step` with its DistContext against dist=None, a step a
+    batch from the same state: the names of the metrics and state leaves
+    whose bits differ (none expected)."""
+    cfg = _cfg(arch, over)
+    dist = MOE.DistContext(make_smoke_mesh("cpu"))
+    tcfg = TS.TrainConfig(dtype=torch.float32)
+    states = []
+    for d in (None, dist):
+        st = TS.init_train_state(cfg, seed, tcfg=tcfg, device="cpu", dist=d)
+        st["cap_scales"].copy_(torch.from_numpy(caps))
+        states.append([st, TS.make_train_step(cfg, tcfg, d)])
+    differ = []
+    for i, batch in enumerate(batches):
+        out = []
+        for pair, d in zip(states, (None, dist)):
+            pair[0], metrics = pair[1](pair[0],
+                                       TS.batch_shard(_t(batch), d))
+            out.append(metrics)
+        differ += [f"{k} step {i}" for k in out[0]
+                   if not torch.equal(out[0][k], out[1][k])]
+        differ += [f"{n} step {i}" for (n, a), (_, b) in zip(
+            CKPT.state_leaves(states[0][0]), CKPT.state_leaves(states[1][0]))
+            if not torch.equal(a, b)]
+    return differ
+
+
+TASKS = {f.__name__: f for f in (ep, serve, step, compress, dense, save,
+                                 load, trainer, one_rank)}
