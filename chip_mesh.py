@@ -25,9 +25,25 @@ pipeline's corpus (`synthetic_tokens`), capacity scales drawn in
   range of the steps' walls after the first (which warms the cards
   up), one more step traced on every rank (torch.profiler: device ms
   by kernel group, the collectives apart, and the idle share of its
-  wall), each rank's train state bytes and peak device memory (one
+  wall), each rank's train state bytes and peak device memory over the
+  steps (and over the state's init, the whole model drawn first; one
   card holds 10 of the 16 layers unsharded); then COMPRESS_STEPS steps
-  with `grad_compress` from a fresh state: finite losses and the peak.
+  with `grad_compress` from a fresh state: finite losses and the peak;
+* dense parity: glm4-9b (32 heads, 2 KV heads: each rank's query heads
+  read one whole KV head) cut to 2 layers, one float32 step on a (1, R)
+  mesh (attention heads, MLP columns and rows and the vocabulary split
+  over "model") against the unmeshed step on rank 0's card: the loss
+  within 1e-6 relative, every gradient leaf and new parameter within
+  1e-5 of the leaf's largest unmeshed value;
+* dense depth: glm4-9b at its 40 layers on a (1, R) mesh (a model whose
+  float32 train state does not fit one card), DEPTH_STEPS bfloat16 steps
+  of 4 x 2,048 tokens: the median and range of the steps after the
+  first, one traced step (the collectives' share of the card's time),
+  each rank's state bytes and peak;
+* the dry run's prediction (`launch/dryrun.py`, one rank of the (1, R)
+  mesh under fake tensors, traced in this process before the ranks
+  start): argument + temp bytes for the glm4-9b and olmoe-1b-7b depth
+  steps, beside each one's measured peak.
 
 Rank 0 prints one JSON line a result, each with the card's name and
 power limit; the last line is {"ok": true, ...}. Any failed check
@@ -54,6 +70,9 @@ KERNEL_GROUPS = (("nccl", "collectives"), ("moe_bwd_", "ich_moe_bwd"),
                  ("flash_fwd", "flash_attention"), ("gemm", "matmul"),
                  ("nvjet", "matmul"), ("cutlass", "matmul"))
 LOSS_RTOL, LEAF_TOL = 1e-5, 1e-4
+PEAKS = {}      # each depth step's peak a rank (GB), by arch
+DENSE_ARCH = "glm4-9b"
+DENSE_LOSS_RTOL, DENSE_LEAF_TOL = 1e-6, 1e-5
 
 
 def log(**kw) -> None:
@@ -63,6 +82,14 @@ def log(**kw) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def _dense_cfg(args):
+    from repro_torch.configs import get_arch, reduced
+    cfg = get_arch(DENSE_ARCH)
+    if args.tiny:       # 4 heads, 2 KV heads (whole on each of 4 ranks)
+        cfg = reduced(cfg, d_model=256)
+    return cfg
 
 
 def _setup(args):
@@ -104,7 +131,8 @@ def _share(a, b) -> float:
 
 def parity(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
     import torch
-    from repro_torch.models.moe import DistContext
+    from repro_torch.launch.mesh import DistContext
+    from repro_torch.models import layers as L
     from repro_torch.train import train_step as TS
     cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
     dist = DistContext(mesh)
@@ -115,8 +143,9 @@ def parity(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
     b = _batch(cut, batch, seq, dev, dist)
     _, grads = step.loss_and_grads(st, b)
     st, m = step(st, b)
-    whole_g = {n: dist.unshard(g, n) for n, g in grads.items()}
-    whole_p = {n: dist.unshard(p.detach(), n)
+    placed = L.placements(st["params"])
+    whole_g = {n: dist.unshard(g, placed.get(n)) for n, g in grads.items()}
+    whole_p = {n: dist.unshard(p.detach(), placed.get(n))
                for n, p in st["params"].named_parameters()}
     del grads
     if rank != 0:
@@ -152,11 +181,12 @@ def data_parallel(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
     import torch
     import torch.distributed as tdist
     from repro_torch.launch import collectives as C
-    from repro_torch.models import moe as MOE
+    from repro_torch.launch.mesh import DistContext
+    from repro_torch.models import layers as L
     from repro_torch.train import checkpoint as CKPT
     from repro_torch.train import train_step as TS
     cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
-    dist = MOE.DistContext(mesh)
+    dist = DistContext(mesh)
     tcfg = TS.TrainConfig()
     t0 = time.perf_counter()
     st = _state(cut, tcfg, caps, dev, dist)
@@ -164,8 +194,9 @@ def data_parallel(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
         st, _batch(cut, batch, seq, dev, dist))
     differ = []
     world = tdist.group.WORLD
+    placed = L.placements(st)
     for n, t in CKPT.state_leaves(st):
-        if MOE.expert_spec(n):
+        if L.leaf_axes(placed, n):
             continue
         first = t.detach().clone()
         tdist.broadcast(first, 0, group=world)
@@ -229,7 +260,7 @@ def _fresh(dev) -> None:
 def depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
     import torch
     import torch.distributed as tdist
-    from repro_torch.models.moe import DistContext
+    from repro_torch.launch.mesh import DistContext
     from repro_torch.train import checkpoint as CKPT
     from repro_torch.train import train_step as TS
     dist = DistContext(mesh)
@@ -240,6 +271,8 @@ def depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
     state_gb = sum(t.numel() * t.element_size()
                    for _, t in CKPT.state_leaves(st)) / 1e9
     init_s = time.perf_counter() - t0
+    init_peak_gb = _peak(dev)       # the whole model drawn, then cut
+    _fresh(dev)
     step = TS.make_train_step(cfg, tcfg, dist)
     losses, walls = [], []
     for s in range(DEPTH_STEPS):
@@ -255,6 +288,7 @@ def depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
     losses.append(float(m["loss"]))
     device_ms = sum(split.values())
     mine = {"state_gb": state_gb, "peak_gb": _peak(dev),
+            "init_peak_gb": init_peak_gb,
             "traced_step": {"wall_ms": traced_wall, "device_ms": split,
                             "device_total_ms": device_ms,
                             "idle_share": 1.0 - device_ms / traced_wall
@@ -274,6 +308,7 @@ def depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
     per_rank = [None] * tdist.get_world_size()
     tdist.all_gather_object(per_rank, mine)
     after = walls[1:]
+    PEAKS[cfg.name] = max(r["peak_gb"] for r in per_rank)
     if rank == 0:
         log(phase="mesh_depth", mesh=list(mesh.mesh.shape),
             layers=cfg.n_layers, tokens=batch * seq, losses=losses,
@@ -285,6 +320,147 @@ def depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
             seconds=time.perf_counter() - t0)
     check(all(np.isfinite(losses + compress_losses)),
           "mesh depth: finite losses, with and without grad_compress")
+
+
+def dense_parity(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
+    """glm4-9b at 2 layers, float32: the (1, R) step with the dense
+    layers split over "model" against the unmeshed step."""
+    import torch
+    from repro_torch.launch.mesh import DistContext
+    from repro_torch.models import layers as L
+    from repro_torch.train import train_step as TS
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    dist = DistContext(mesh)
+    tcfg = TS.TrainConfig(dtype=torch.float32)
+    t0 = time.perf_counter()
+    st = TS.init_train_state(cut, SEED, tcfg=tcfg, device=dev, dist=dist)
+    step = TS.make_train_step(cut, tcfg, dist)
+    b = _batch(cut, batch, seq, dev, dist)
+    _, grads = step.loss_and_grads(st, b)
+    st, m = step(st, b)
+    placed = L.placements(st["params"])
+    whole_g = {n: dist.unshard(g, placed.get(n)) for n, g in grads.items()}
+    whole_p = {n: dist.unshard(p.detach(), placed.get(n))
+               for n, p in st["params"].named_parameters()}
+    split = sorted({n.split(".")[-2] + "." + n.split(".")[-1]
+                    for n in placed})
+    shapes = {n: list(p.shape) for n, p in st["params"].named_parameters()
+              if n.startswith("layers.0.") or n.startswith("embed.")}
+    del grads, st
+    if rank != 0:
+        return
+    ref = TS.init_train_state(cut, SEED, tcfg=tcfg, device=dev)
+    ref_step = TS.make_train_step(cut, tcfg)
+    rb = _batch(cut, batch, seq, dev)
+    _, r_grads = ref_step.loss_and_grads(ref, rb)
+    g_share = {n: _share(whole_g[n], g) for n, g in r_grads.items()}
+    del r_grads, whole_g
+    ref, rm = ref_step(ref, rb)
+    p_share = {n: _share(whole_p[n], p.detach())
+               for n, p in ref["params"].named_parameters()}
+    loss = (float(m["loss"]), float(rm["loss"]))
+    worst_g = max(g_share, key=g_share.get)
+    log(phase="mesh_dense_parity", arch=cfg.name, mesh=list(mesh.mesh.shape),
+        layers=CUT_LAYERS, tokens=batch * seq, loss_meshed_unmeshed=loss,
+        grad_worst_share=g_share[worst_g], grad_worst_leaf=worst_g,
+        param_worst_share=max(p_share.values()), split_leaves=split,
+        local_shapes_rank0=shapes, card=card,
+        seconds=time.perf_counter() - t0)
+    check(abs(loss[0] - loss[1]) <= DENSE_LOSS_RTOL * abs(loss[1]),
+          "dense parity: loss")
+    check(g_share[worst_g] <= DENSE_LEAF_TOL, "dense parity: gradients")
+    check(max(p_share.values()) <= DENSE_LEAF_TOL, "dense parity: parameters")
+
+
+def dense_depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
+    """glm4-9b at its full depth on (1, R), bfloat16 (`depth`'s measures,
+    without the compressed run)."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import DistContext
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+    dist = DistContext(mesh)
+    tcfg = TS.TrainConfig()
+    _fresh(dev)
+    t0 = time.perf_counter()
+    st = TS.init_train_state(cfg, SEED, tcfg=tcfg, device=dev, dist=dist)
+    state_gb = sum(t.numel() * t.element_size()
+                   for _, t in CKPT.state_leaves(st)) / 1e9
+    init_s = time.perf_counter() - t0
+    _fresh(dev)
+    step = TS.make_train_step(cfg, tcfg, dist)
+    losses, walls = [], []
+    for s in range(DEPTH_STEPS):
+        b = _batch(cfg, batch, seq, dev, dist, step=s)
+        t1 = time.perf_counter()
+        st, m = step(st, b)
+        losses.append(float(m["loss"]))
+        _sync(dev)
+        walls.append((time.perf_counter() - t1) * 1e3)
+    b = _batch(cfg, batch, seq, dev, dist, step=DEPTH_STEPS)
+    (st, m), split, traced_wall = _traced(lambda: step(st, b), dev)
+    losses.append(float(m["loss"]))
+    device_ms = sum(split.values())
+    mine = {"state_gb": state_gb, "peak_gb": _peak(dev),
+            "traced_step": {"wall_ms": traced_wall, "device_ms": split,
+                            "device_total_ms": device_ms,
+                            "collectives_share": split.get(
+                                "collectives", 0.0) / device_ms
+                            if device_ms else None,
+                            "idle_share": 1.0 - device_ms / traced_wall
+                            if split else None}}
+    del st, step, b, m
+    _fresh(dev)
+    per_rank = [None] * tdist.get_world_size()
+    tdist.all_gather_object(per_rank, mine)
+    PEAKS[cfg.name] = max(r["peak_gb"] for r in per_rank)
+    after = walls[1:]
+    if rank == 0:
+        log(phase="mesh_dense_depth", arch=cfg.name,
+            mesh=list(mesh.mesh.shape), layers=cfg.n_layers,
+            tokens=batch * seq, losses=losses, step_wall_ms=walls,
+            median_wall_ms=float(np.median(after)),
+            wall_range_ms=[min(after), max(after)],
+            tokens_per_s=batch * seq / (float(np.median(after)) * 1e-3),
+            init_s=init_s, per_rank=per_rank, card=card,
+            seconds=time.perf_counter() - t0)
+    check(all(np.isfinite(losses)), "dense depth: finite losses")
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dryrun_predictions(args, world) -> dict:
+    """The dry run's argument + temp bytes for one rank of the (1, world)
+    depth steps (glm4-9b, olmoe-1b-7b: `depth`'s and `dense_depth`'s
+    configs, batch and TrainConfig), traced here under fake tensors over
+    a fake process group (no device)."""
+    import torch.distributed as tdist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.train import train_step as TS
+    moe_cfg, batch, seq, _ = _setup(args)
+    shape = ShapeSpec("mesh_depth", seq, batch, "train")
+    out = {}
+    for cfg in (_dense_cfg(args), moe_cfg):
+        t0 = time.perf_counter()
+        try:
+            rec = dryrun.trace_step(cfg, shape, fake_mesh(
+                (1, world), ("data", "model")), tcfg=TS.TrainConfig())
+        finally:
+            tdist.destroy_process_group()
+        m = rec["memory"]
+        out[cfg.name] = {
+            "predicted_gb": (m["argument_bytes"] + m["temp_bytes"]) / 1e9,
+            "argument_gb": m["argument_bytes"] / 1e9,
+            "temp_gb": m["temp_bytes"] / 1e9, "flops": rec["cost"]["flops"],
+            "collective_wire_gb": rec["collective_wire_bytes"] / 1e9,
+            "seconds": time.perf_counter() - t0}
+    return out
 
 
 def _rank(rank, world, store, args, out) -> None:
@@ -301,14 +477,17 @@ def _rank(rank, world, store, args, out) -> None:
         card = card_identity().splitlines()[0]
     cfg, batch, seq, caps = _setup(args)
     try:
-        for fn, shape in ((parity, (1, world)),
-                          (data_parallel, (2, world // 2)),
-                          (depth, (1, world))):
+        dense = _dense_cfg(args)
+        for fn, shape, c in ((parity, (1, world), cfg),
+                             (data_parallel, (2, world // 2), cfg),
+                             (depth, (1, world), cfg),
+                             (dense_parity, (1, world), dense),
+                             (dense_depth, (1, world), dense)):
             mesh = make_mesh(shape, ("data", "model"), args.device)
-            fn(mesh, cfg, batch, seq, caps, dev, rank, card)
+            fn(mesh, c, batch, seq, caps, dev, rank, card)
             tdist.barrier()
         if rank == 0:
-            Path(out).write_text("ok")
+            Path(out).write_text(json.dumps(PEAKS))
     finally:
         tdist.destroy_process_group()
 
@@ -341,10 +520,22 @@ def main() -> int:
         from repro_torch.kernels import _build
         log(phase="build", sources=_build.build_all(),
             seconds=time.perf_counter() - t0)
+    sys.path.insert(0, str(ROOT / "src"))
+    t1 = time.perf_counter()
+    predicted = dryrun_predictions(args, world)
+    log(phase="dryrun_predictions", ranks=world, predicted=predicted,
+        seconds=time.perf_counter() - t1)
     mp.start_processes(_rank, args=(world, str(tmp / "store"), args,
                                     str(out)),
                        nprocs=world, start_method="spawn")
     check(out.exists(), "every phase ran")
+    measured = json.loads(out.read_text())
+    log(phase="dryrun_vs_measured", mesh=[1, world], by_arch={
+        name: {"predicted_gb": p["predicted_gb"],
+               "measured_peak_gb": measured.get(name),
+               "rel_gap": p["predicted_gb"] / measured[name] - 1.0
+               if measured.get(name) else None}
+        for name, p in predicted.items()})
     log(phase="chip_mesh_seconds", ranks=world,
         seconds=time.perf_counter() - t0)
     print(json.dumps({"ok": True, "device": {

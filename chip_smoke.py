@@ -146,6 +146,17 @@ launch counters set to 0 just before it and read just after:
   outputs and gradients (the expert kernel and its backward once a rank,
   counted for each number of ranks apart); and `python -m repro_torch.launch.train` / `launch.serve` at
   their tiny preset, exit 0.
+* the tensor parallelism of dense layers and the dry run
+  (`phase_tp_dryrun`) at qwen2-1.5b's full width: rank by rank in one
+  process at 2 and 4 model ranks (each rank's query heads through the
+  flash kernel and its MLP columns, 2 layers, 4 x 2,048 float32 tokens)
+  against the unmeshed layers, outputs and gradients, flash and its
+  backward launched tp times a layer; the full placements over the 1 x 1
+  NCCL mesh, 2 bfloat16 steps, the unmeshed bits; the dry run's predicted
+  argument + temp bytes of the training main path against its measured
+  peak within 20 %; and the dry run's and the roofline's command lines
+  (olmo-1b decode_32k, olmoe-1b-7b train_4k on the 32 x 8 production
+  mesh), exit 0 with OK.
 
 Then two paths of the schedule layer, each counted on its own:
 
@@ -507,6 +518,18 @@ MOE_BWD_TOL = 1e-4
 # process at TRAIN_MESH_TP model ranks against one rank
 TRAIN_MESH_LAYERS, TRAIN_MESH_STEPS, TRAIN_MESH_TP = 2, 3, (2, 4)
 EP_Y_TOL, EP_GRAD_TOL = 1e-5, 1e-4   # of max |y| and of each gradient's max
+# the tensor parallelism of dense layers and the dry run
+# (`phase_tp_dryrun`): TRAIN_ARCH at full width cut to TP_LAYERS layers,
+# rank by rank at TP_RANKS model ranks (float32: y within TP_Y_TOL of
+# max |y|, each gradient within TP_GRAD_TOL of its max), TP_BITS_STEPS
+# steps over the 1 x 1 NCCL mesh, the dry run's argument + temp bytes
+# within TP_DRYRUN_RTOL of the measured peak of `phase_train`'s main path,
+# and the command line at TP_DRYRUN_CELLS on the 32 x 8 production mesh
+TP_LAYERS, TP_RANKS, TP_BITS_STEPS = 2, (2, 4), 2
+TP_Y_TOL, TP_GRAD_TOL, TP_DRYRUN_RTOL = 1e-5, 1e-4, 0.20
+TP_DRYRUN_CELLS = (("olmo-1b", "decode_32k"), ("olmoe-1b-7b", "train_4k"))
+# numbers one phase measures and a later one reads
+MEASURED = {}
 # the scan's backward kernel against its plain version: max |diff| within
 # this share of max |plain|. float32: 3xTF32 against cuBLAS float32 sums
 # in other orders. bfloat16: both round dq, dk, dv to bfloat16 once from
@@ -524,8 +547,13 @@ SCAN_BWD_KERNELS = {
                  "ssd_bwd_kernel_dl")}
 
 
+T_START = time.perf_counter()
+
+
 def log(**kw) -> None:
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with the script's wall seconds so far ("t")."""
+    print(json.dumps({**kw, "t": round(time.perf_counter() - T_START, 2)}),
+          flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -3962,8 +3990,10 @@ def phase_train():
     torch.cuda.empty_cache()
 
     # ---- (2) full width and depth, bfloat16, counted ----
-    state, batch, tcfg, by_kind, _ = train_model(
+    state, batch, tcfg, by_kind, extra = train_model(
         cfg, label="train", batch=B, seq=S, n_steps=TRAIN_STEPS, max_seq=S)
+    MEASURED["train_main_path"] = {"peak_gb": extra["peak_gb"],
+                                   "tcfg": tcfg}
     log(phase="train_remat_dots", **remat_dots_step(cfg, tcfg, state, batch))
     del state, batch
     torch.cuda.empty_cache()
@@ -5143,7 +5173,7 @@ def phase_train_mesh():
     from repro_torch.device import card_identity
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.models import model as M
-    from repro_torch.models.moe import DistContext
+    from repro_torch.launch.mesh import DistContext
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 as float32
     cfg = dataclasses.replace(get_arch(MOE_ARCH),
                               n_layers=TRAIN_MESH_LAYERS)
@@ -5170,6 +5200,361 @@ def phase_train_mesh():
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     log(phase="train_mesh_launchers", **launcher_runs(),
+        seconds=time.perf_counter() - t0)
+    return []
+
+
+def tp_rank_views(dist, tp: int) -> list:
+    """`dist` (a `DistContext` over the 1 x 1 NCCL mesh) seen as each rank
+    r < tp of a model axis `tp` ranks wide: `size` counts tp ranks over
+    it, `index` gives r, and its group stays the one-rank group, whose
+    collectives return their input. So the port's tensor-parallel code
+    runs one rank at a time on the card, each rank's `from_model` and
+    all-reduces leaving its partial result, which the caller sums over
+    the ranks."""
+    import dataclasses
+    from repro_torch.launch.mesh import DistContext
+
+    @dataclasses.dataclass(frozen=True)
+    class RankView(DistContext):
+        ranks: int = 1
+        rank: int = 0
+
+        def size(self, axes) -> int:
+            n = super().size(axes)
+            return n * self.ranks if self.tp_axis in self._key(axes) else n
+
+        def index(self, axes) -> int:
+            if self._key(axes) == (self.tp_axis,):
+                return self.rank
+            return super().index(axes)
+
+    return [RankView(dist.mesh, groups=dict(dist.groups), ranks=tp, rank=r)
+            for r in range(tp)]
+
+
+def tp_rank_by_rank(cfg, g, dist) -> dict:
+    """(i) Tensor parallelism rank by rank in one process at `cfg`'s full
+    width, TP_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ float32 tokens,
+    through the port's own tensor-parallel code: for each tp of TP_RANKS
+    and each rank r (`tp_rank_views`), the layers and the token table are
+    cut to r's shards by `layers.shard_module` at the placements'
+    axes (`attention_pspec`, `mlp_pspec`, `embeddings_pspec`), and
+    `layers.embed_tokens`, `attention.attention` (r's query heads through
+    the flash kernel, whole KV heads mapped by `kv_for` where they do not
+    divide tp), `MLP.forward`, `layers.lm_logits` (r's vocabulary slice)
+    and `model._ce` run with r's view. The ranks' partial outputs are
+    summed as `from_model` sums them; the CE's per-rank log-sum-exp and
+    label logit are merged as `_ce` merges them over "model". Against the
+    unmeshed modules: the embeddings, each layer's output and the CE
+    within TP_Y_TOL of their max, every gradient (a split leaf's shards
+    against `DistContext.shard` of the whole gradient, a leaf whole on
+    every rank summed over the ranks) within TP_GRAD_TOL of its max;
+    flash and flash backward launch tp times a layer."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cut = dataclasses.replace(cfg, n_layers=TP_LAYERS)
+    H, Hkv, F = cut.n_heads, cut.n_kv_heads, cut.d_ff
+    layers = [M.AttnBlock(cut, g, "cuda") for _ in range(TP_LAYERS)]
+    embed = L.Embed(cut, g, "cuda")
+    for p in layers:            # the qkv biases drawn, not zeros
+        for leaf in ("bq", "bk", "bv"):
+            if hasattr(p.attn, leaf):
+                getattr(p.attn, leaf).copy_(0.1 * torch.randn(
+                    getattr(p.attn, leaf).shape, generator=g, device="cuda"))
+    modules = [embed] + layers
+    for m in modules:
+        m.requires_grad_(True)
+    tokens = torch.randint(0, cut.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=g, device="cuda")
+    dys = [torch.randn((TRAIN_BATCH, TRAIN_SEQ, cut.d_model), generator=g,
+                       device="cuda") for _ in range(TP_LAYERS)]
+    labels = tokens[0].roll(-1)     # the CE on the first row's tokens
+
+    def ce_loss(lse, true):
+        return (lse - true).mean()
+
+    def whole():
+        x = L.embed_tokens(embed, tokens)
+        outs = [x]
+        for p in layers:
+            x = M._train_layer(cut, p, x)
+            outs.append(x)
+        lse, true = M._ce(L.lm_logits(embed, x[0]), labels, None, None)
+        return outs, (lse, true)
+
+    def pspecs(tp):
+        return {"embed": L.embeddings_pspec(cut), "attn":
+                A.attention_pspec(cut, tp), "mlp": L.mlp_pspec(cut)}
+
+    def ranks(tp):
+        views = tp_rank_views(dist, tp)
+        specs = pspecs(tp)
+        shards = []
+        for view in views:
+            e, ls = copy.deepcopy(embed), copy.deepcopy(layers)
+            L.shard_module(e, view, {k: view.effective(a)
+                                     for k, a in specs["embed"].items()})
+            for p in ls:
+                for part in ("attn", "mlp"):
+                    L.shard_module(getattr(p, part), view, {
+                        k: view.effective(a)
+                        for k, a in specs[part].items()})
+            shards.append((view, e, ls))
+        KF.reset_launches()
+        KB.reset_launches()
+        x = sum(L.embed_tokens(e, tokens, v) for v, e, _ in shards)
+        outs = [x]
+        for i, p in enumerate(layers):
+            h = p.ln1(x)
+            x = x + sum(A.attention(cut, ls[i].attn, h, dist=v)[0]
+                        for v, _, ls in shards)
+            h = p.ln2(x)
+            x = x + sum(ls[i].mlp(h, v) for v, _, ls in shards)
+            outs.append(x)
+        parts = [M._ce(L.lm_logits(e, x[0], v, whole=False), labels,
+                       L.head_group(e, v), v) for v, e, _ in shards]
+        lse = torch.logsumexp(torch.stack([a for a, _ in parts]), dim=0)
+        true = sum(b for _, b in parts)
+        launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
+                    "flash_attention_bwd": 0}
+        loss = ce_loss(lse, true) + sum(
+            (y * dy).sum() for y, dy in zip(outs[1:], dys))
+        loss.backward()
+        launches["flash_attention_bwd"] = KB.LAUNCHES["flash_attention_bwd"]
+        return outs, (lse, true), shards, launches
+
+    def share(a, b):
+        return float((a - b).detach().abs().max() / b.detach().abs().max())
+
+    outs_w, ce_w = whole()
+    (ce_loss(*ce_w) + sum((y * dy).sum() for y, dy in
+                          zip(outs_w[1:], dys))).backward()
+    rec = {"arch": cfg.name, "layers": TP_LAYERS, "d_model": cut.d_model,
+           "heads": H, "kv_heads": Hkv, "d_ff": F, "vocab": cut.padded_vocab,
+           "tokens": TRAIN_BATCH * TRAIN_SEQ, "ce_tokens": TRAIN_SEQ}
+    for tp in TP_RANKS:
+        outs, ce, shards, launches = ranks(tp)
+        y_share = max(share(y, w) for y, w in zip(outs, outs_w))
+        ce_share = max(share(a, b) for a, b in zip(ce, ce_w))
+        worst, split = 0.0, set()
+        for k, m in enumerate(modules):
+            for name, whole_p in m.named_parameters():
+                if not isinstance(m, L.Embed) and \
+                        name.split(".")[0] not in ("attn", "mlp"):
+                    continue        # the norms run once, on the sums
+                want = whole_p.grad
+                got = [(v, L.placements(([e] + ls)[k]).get(name),
+                        ([e] + ls)[k].get_parameter(name).grad)
+                       for v, e, ls in shards]
+                if got[0][1]:       # split: each rank's shard
+                    split.add(name.split(".")[-1])
+                    for v, axes, gr in got:
+                        worst = max(worst, float(
+                            (gr - v.shard(want, axes)).abs().max()
+                            / want.abs().max()))
+                else:               # whole on every rank: partial sums
+                    worst = max(worst, share(sum(gr for _, _, gr in got),
+                                             want))
+        rec[f"tp{tp}"] = {"y_share": y_share, "ce_share": ce_share,
+                          "grad_worst_share": worst, "launches": launches,
+                          "split_leaves": sorted(split),
+                          "kv_heads_local": Hkv % tp == 0}
+        check(y_share <= TP_Y_TOL,
+              f"tp rank by rank: y at tp {tp} within {TP_Y_TOL} of max |y|")
+        check(ce_share <= TP_Y_TOL,
+              f"tp rank by rank: the CE at tp {tp} within {TP_Y_TOL}")
+        check(worst <= TP_GRAD_TOL,
+              f"tp rank by rank: gradients at tp {tp} within {TP_GRAD_TOL}")
+        check(launches == {"flash_attention": tp * TP_LAYERS,
+                           "flash_attention_bwd": tp * TP_LAYERS},
+              f"tp rank by rank: flash and its backward launch {tp} times "
+              f"a layer")
+        check({"wq", "wo", "wi", "tok"} <= split,
+              f"tp rank by rank: the heads, MLP and vocabulary split at "
+              f"tp {tp}")
+        del outs, ce, shards
+    return rec
+
+
+def tp_mesh_bits(cfg, dist) -> dict:
+    """(ii) `make_train_step` through the meshed code paths with `dist`
+    (a `DistContext` over `make_smoke_mesh()`'s 1 x 1 NCCL mesh: every
+    axis one rank wide, so the placements split no leaf and the
+    collectives run over one rank) against the unmeshed step,
+    TP_BITS_STEPS bfloat16 steps of TRAIN_BATCH x TRAIN_SEQ tokens at
+    TP_LAYERS layers from one seed: every metric and state leaf the same
+    bits."""
+    import dataclasses
+    import torch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_step as TS
+    cut = dataclasses.replace(cfg, n_layers=TP_LAYERS)
+    tcfg = TS.TrainConfig(opt=adamw.AdamWConfig(
+        warmup_steps=2, total_steps=TP_BITS_STEPS))
+    pipe = Pipeline(cut, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device="cuda")
+    runs = []
+    for d in (None, dist):
+        st = TS.init_train_state(cut, SEED, tcfg=tcfg, device="cuda", dist=d)
+        runs.append([st, TS.make_train_step(cut, tcfg, d), []])
+    differ = []
+    for t in range(TP_BITS_STEPS):
+        batch_np, _ = pipe.get_batch(t)
+        for run in runs:
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in batch_np.items()}
+            run[0], m = run[1](run[0], batch)
+            run[2].append(m)
+        differ += [f"{k} step {t}" for k in runs[0][2][t]
+                   if not torch.equal(runs[0][2][t][k], runs[1][2][t][k])]
+    differ += [n for (n, a), (_, b) in zip(
+        CKPT.state_leaves(runs[0][0]), CKPT.state_leaves(runs[1][0]))
+        if not torch.equal(a, b)]
+    split = sorted(L.placements(runs[1][0]["params"]))
+    rec = {"steps": TP_BITS_STEPS, "layers": TP_LAYERS,
+           "losses": [float(m["loss"]) for m in runs[0][2]],
+           "differ": differ, "split_leaves": split}
+    check(not differ, "tp mesh bits: the 1 x 1 mesh's steps give the "
+                      "unmeshed bits")
+    check(not split, "tp mesh bits: a 1 x 1 mesh splits no leaf")
+    return rec
+
+
+def tp_dryrun_prediction(cfg) -> dict:
+    """(iii) The dry run's prediction for `phase_train`'s main path
+    (qwen2-1.5b at full depth, TRAIN_BATCH x TRAIN_SEQ, bfloat16, remat
+    "nothing", its TrainConfig) on a 1 x 1 fake mesh: argument + temp
+    bytes against that step's measured peak (`MEASURED`), within
+    TP_DRYRUN_RTOL."""
+    import torch.distributed as tdist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    measured = MEASURED["train_main_path"]
+    shape = ShapeSpec("train_main_path", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    try:
+        rec = dryrun.trace_step(cfg, shape, fake_mesh((1, 1),
+                                                      ("data", "model")),
+                                tcfg=measured["tcfg"])
+    finally:
+        tdist.destroy_process_group()
+    m = rec["memory"]
+    predicted = (m["argument_bytes"] + m["temp_bytes"]) / 1e9
+    out = {"predicted_gb": predicted, "measured_peak_gb":
+           measured["peak_gb"], "argument_gb": m["argument_bytes"] / 1e9,
+           "temp_gb": m["temp_bytes"] / 1e9, "flops": rec["cost"]["flops"],
+           "kernel_flops": rec["kernel_flops"], "trace_s": rec["trace_s"],
+           "seconds": time.perf_counter() - t0}
+    out["rel_gap"] = predicted / measured["peak_gb"] - 1.0
+    check(abs(out["rel_gap"]) <= TP_DRYRUN_RTOL,
+          f"tp dry run: predicted bytes within {TP_DRYRUN_RTOL} of the "
+          f"measured peak")
+    return out
+
+
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
+
+
+def start_dryrun_cli():
+    """(iv) The dry run's command line at TP_DRYRUN_CELLS, started as
+    processes of their own (they run on no device, so `main` starts them
+    first, beside the kernels' build): ({cell: process}, env)."""
+    import shutil
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    procs = {}
+    for arch, shape in TP_DRYRUN_CELLS:
+        procs[f"{arch}:{shape}"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(DRYRUN_OUT)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return procs, env
+
+
+def dryrun_cli_results(procs, env) -> dict:
+    """(iv) The dry-run processes' records (each exits 0 with OK), then
+    `python -m repro_torch.launch.roofline` over them (its table)."""
+    out_dir = DRYRUN_OUT
+    out = {}
+    for key, p in procs.items():
+        stdout, stderr = p.communicate(timeout=600)
+        arch, shape = key.split(":")
+        rec = json.loads((Path(out_dir) / f"{arch}_{shape}_32x8.json")
+                         .read_text())
+        out[key] = {"rc": p.returncode, "status": rec["status"],
+                    "memory": rec.get("memory"), "flops":
+                    rec.get("cost", {}).get("flops"),
+                    "collective_wire_bytes": rec.get("collective_wire_bytes"),
+                    "trace_s": rec.get("trace_s")}
+        check(p.returncode == 0 and rec["status"] == "OK",
+              f"tp dry run: {key} exits 0 with OK ({stderr[-500:]})")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline",
+                        "--dir", str(out_dir), "--csv",
+                        str(Path(out_dir) / "roofline.csv")], env=env,
+                       capture_output=True, text=True, timeout=120)
+    lines = r.stdout.strip().splitlines()
+    out["roofline"] = lines
+    check(r.returncode == 0 and lines[0].startswith("arch,shape,status")
+          and len(lines) == 1 + len(procs),
+          "tp dry run: the roofline prints its table")
+    return out
+
+
+def phase_tp_dryrun(cli=None):
+    """The compile-only half of `launch/` and the tensor parallelism of
+    dense layers (ROADMAP.md queue 1 item 6b), at qwen2-1.5b's full width,
+    over `make_smoke_mesh()`'s 1 x 1 NCCL mesh: (i) the port's
+    tensor-parallel layers rank by rank in one process
+    (`tp_rank_by_rank`); (ii) the meshed train step, which splits no leaf
+    on that mesh, gives the unmeshed bits (`tp_mesh_bits`); (iii) the dry
+    run's prediction for `phase_train`'s main path against its measured
+    peak (`tp_dryrun_prediction`); (iv)
+    `python -m repro_torch.launch.dryrun` at TP_DRYRUN_CELLS (`cli`, the
+    processes `start_dryrun_cli` started; started here when None) and
+    `python -m repro_torch.launch.roofline` (`dryrun_cli_results`). Every
+    number beside the card's name and power limit."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_arch
+    from repro_torch.device import card_identity
+    from repro_torch.launch.mesh import DistContext, make_smoke_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 as float32
+    cfg = get_arch(TRAIN_ARCH)
+    card = card_identity()
+    t0 = time.perf_counter()
+    procs, env = cli or start_dryrun_cli()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 80)
+    mesh = make_smoke_mesh()
+    try:
+        dist = DistContext(mesh)
+        t1 = time.perf_counter()
+        log(phase="tp_rank_by_rank", **tp_rank_by_rank(cfg, g, dist),
+            card=card, seconds=time.perf_counter() - t1)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        log(phase="tp_mesh_bits", **tp_mesh_bits(cfg, dist), card=card,
+            seconds=time.perf_counter() - t1)
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(phase="tp_dryrun_prediction", **tp_dryrun_prediction(cfg),
+        card=card)
+    t1 = time.perf_counter()
+    log(phase="tp_dryrun_cli", **dryrun_cli_results(procs, env),
+        card=card, seconds=time.perf_counter() - t1)
+    log(phase="tp_dryrun_phase", card=card,
         seconds=time.perf_counter() - t0)
     return []
 
@@ -5644,6 +6029,21 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.device import card_identity
+    # the dry run's processes run on the host beside the kernels' build
+    cli = start_dryrun_cli()
+    try:
+        return _phases(card_identity, cli)
+    finally:
+        for proc in cli[0].values():    # none outlives the script
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _phases(card_identity, cli) -> int:
+    """Every phase in order, the kernels line, the card's line, the last
+    line."""
+    import torch
     sm_count = timed_phase(phase_environment)
     for phase in (phase_small, phase_small_bfs_kmeans, phase_small_moe,
                   phase_small_lm):
@@ -5659,6 +6059,7 @@ def main() -> int:
                   phase_train_vlm_encdec, phase_train_ssm,
                   phase_train_moe, phase_train_mesh):
         kernels += timed_phase(phase)
+    kernels += timed_phase(phase_tp_dryrun, cli)
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)

@@ -228,8 +228,9 @@ def train_state_from_reference(cfg, np_state, device=None,
     (requiring grad; bfloat16 when the reference keeps a float32 master,
     as bf16_params does), "opt" {"m", "v"[, "master"]} by the port's
     parameter names (float32), "step" (int32), "cap_scales" and, when
-    present, "grad_err". With `dist` (`models.moe.DistContext`) the
-    calling rank's shards (`train.train_step.shard_state`). Raises when a
+    present, "grad_err". With `dist` (`launch.mesh.DistContext`) the
+    calling rank's shards of every leaf's placement
+    (`train.train_step.shard_state`). Raises when a
     name or shape disagrees."""
     model = lm_params_from_reference(cfg, np_state["params"], device=device)
     model.requires_grad_(True)
@@ -260,4 +261,6 @@ def train_state_from_reference(cfg, np_state, device=None,
                  np_state["cap_scales"], np.float32)).to(dev)}
     if "grad_err" in np_state:
         state["grad_err"] = tensors(np_state["grad_err"])
-    return state if dist is None else shard_state(state, dist)
+    if dist is None:
+        return state
+    return shard_state(cfg, state, dist)

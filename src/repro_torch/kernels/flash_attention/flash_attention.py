@@ -27,7 +27,9 @@ and a block past a row's position adds exactly nothing to it).
 Given CPU tensors the wrapper runs the plain version
 (`flash_attention_plain`, the scores materialised); given CUDA tensors it
 launches the kernel of `csrc/flash_attention.cu` or raises: there is no
-fallback. Each launch adds one to `LAUNCHES["flash_attention"]`.
+fallback. Each launch adds one to `LAUNCHES["flash_attention"]`. Given
+fake or meta tensors (the dry run) it calls the shape-only op
+`kernels.shape_only.flash_fwd`, which launches nothing.
 
 Training: `flash_attention_lse` also returns each query row's log-sum-exp
 of its scaled scores (B, Hq, Sq), float32, which the kernel writes when
@@ -48,6 +50,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import on_cpu, raise_on
+from repro_torch.kernels.shape_only import shape_only
 
 __all__ = ["LAUNCHES", "NEG_INF", "FlashAttentionFn", "flash_attention",
            "flash_attention_lse", "flash_attention_lse_plain",
@@ -200,6 +203,9 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
     forward of training's gradient path."""
     window = int(window)
     _check_call(q, k, causal=causal, window=window, q_offset=0)
+    if shape_only(q, k, v):
+        return torch.ops.repro_torch.flash_fwd(q, k, v, bool(causal), window,
+                                               0)
     if on_cpu(q, k, v):
         return flash_attention_lse_plain(q, k, v, causal=causal,
                                          window=window)
@@ -246,6 +252,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              f"(training has no query offset), got "
                              f"q_offset={q_offset}")
         return FlashAttentionFn.apply(q, k, v, bool(causal), window)
+    if shape_only(q, k, v):
+        return torch.ops.repro_torch.flash_fwd(q, k, v, bool(causal), window,
+                                               q_offset)[0]
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)

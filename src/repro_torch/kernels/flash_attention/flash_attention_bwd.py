@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import on_cpu, raise_on
+from repro_torch.kernels.shape_only import shape_only
 
 from .flash_attention import (_DTYPES, HEAD_DIMS, _check_call,
                               _check_shapes, masked_scores)
@@ -111,6 +112,9 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True,
     float32 and contiguous."""
     window, q_offset = int(window), int(q_offset)
     _check(q, k, v, out, dout, lse, window, q_offset, causal)
+    if shape_only(q, k, v, out, dout, lse):
+        return torch.ops.repro_torch.flash_bwd(q, k, v, out, dout, lse,
+                                               bool(causal), window)
     if on_cpu(q, k, v, out, dout, lse):
         return flash_attention_backward_plain(q, k, v, out, dout, lse,
                                               causal=causal, window=window)

@@ -39,12 +39,28 @@ model's KV cache keeps the reference's per-segment layout, {"k", "v"} of
 is {"self": [{"k", "v"} (L, B, S, Hkv, dh)], "cross": {"k", "v"}
 (L, B, S_enc, Hkv, dh)}. A config outside these families' shapes raises
 NotImplementedError (ROADMAP.md).
+
+Placements: `param_pspecs(cfg, tp, max_seq)` maps every parameter name
+to the reference's PartitionSpec of its leaf (`repro/models/model.py:
+161-182`; a stacked leaf loses its leading None) and `cache_pspecs` does
+the same for the cache (`:785-827`). On a mesh (`dist`, a
+`launch.mesh.DistContext`) the dense, vlm and moe families run the whole
+layout (`shard_model` cuts each parameter to this rank's shard, and each
+module records its leaves' axes, which the layers read): FSDP over
+"data" (weights gathered whole inside the layer), attention heads, MLP columns and
+rows, the vocabulary and the routed experts over "model", a KV cache
+split by heads or, where the KV heads do not divide tp, by sequence.
+The encdec, ssm and hybrid families keep whole weights on a mesh (data
+parallel) and raise NotImplementedError at tp > 1: their layouts are
+ROADMAP.md item 6c.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
+import torch.distributed as tdist
 import torch.utils.checkpoint
 from torch import nn
 
@@ -292,6 +308,249 @@ def reference_leaves(cfg, names) -> list[list[str]]:
     return [[n for _, n in sorted(g)] for g in groups.values()]
 
 
+# ----------------------------------------------------------------------------
+# Placements
+# ----------------------------------------------------------------------------
+
+def _block_pspec(cfg, kind: str, tp: int) -> dict:
+    """The placement tree of one block of `kind` (the reference's
+    `_block_pspec`), keyed by the port's module names."""
+    n = L.norm_pspec(cfg)
+    if kind in ("dense", "densffn", "moe", "enc", "A"):
+        p = {"ln1": n, "attn": A.attention_pspec(cfg, tp), "ln2": n}
+        if kind == "moe":
+            p["moe"] = MOE.moe_pspec(cfg)
+        else:
+            p["mlp"] = L.mlp_pspec(cfg)
+        return p
+    if kind == "dec":
+        return {"ln1": n, "attn": A.attention_pspec(cfg, tp), "lnx": n,
+                "xattn": A.attention_pspec(cfg, tp), "ln2": n,
+                "mlp": L.mlp_pspec(cfg)}
+    if kind == "M":
+        return {"ln1": n, "mamba": SS.mamba2_pspec(cfg, tp)}
+    if kind == "X":
+        return {"ln1": n, "mlstm": SS.mlstm_pspec(cfg, tp)}
+    return {"ln1": n, "slstm": SS.slstm_pspec(cfg, tp)}
+
+
+def _pspec_tree(cfg, tp: int, max_seq: int) -> dict:
+    tree = {"embed": L.embeddings_pspec(cfg, max_seq),
+            "final_norm": L.norm_pspec(cfg)}
+    if cfg.family in ("hybrid", "ssm"):
+        tree["blocks"] = {str(i): _block_pspec(cfg, kind, tp)
+                          for i, kind in enumerate(cfg.block_pattern)
+                          if kind != "A"}
+        tree["shared_attn"] = _block_pspec(cfg, "A", tp)
+    elif cfg.family == "encdec":
+        tree["enc"] = {str(i): _block_pspec(cfg, "enc", tp)
+                       for i in range(cfg.encoder_layers)}
+        tree["enc_norm"] = L.norm_pspec(cfg)
+        tree["layers"] = {str(i): _block_pspec(cfg, "dec", tp)
+                          for i in range(cfg.n_layers)}
+    else:
+        kinds = [kind for kind, count in segments_of(cfg)
+                 for _ in range(count)]
+        tree["layers"] = {str(i): _block_pspec(cfg, kind, tp)
+                          for i, kind in enumerate(kinds)}
+    return tree
+
+
+@functools.lru_cache(maxsize=64)
+def _param_shapes(cfg, max_seq: int) -> tuple:
+    """((name, shape), ...) of `init_params(cfg, max_seq=max_seq)`'s
+    parameters, from the meta device (an encdec model's table of
+    positions is drawn at `cfg.encoder_seq` rows at least and left out
+    when max_seq is 0, as the reference's tree has no "pos" then)."""
+    rows = max(max_seq, cfg.encoder_seq) if cfg.family == "encdec" \
+        else max_seq
+    model = init_params(cfg, max_seq=rows, device="meta")
+    return tuple((n, tuple(p.shape)) for n, p in model.named_parameters()
+                 if max_seq or n != "embed.pos")
+
+
+def param_leaves(cfg, tp: int = 16, max_seq: int = 0) -> dict:
+    """{parameter name: (whole shape, placement)} of the model
+    `init_params(cfg, max_seq=max_seq)` builds."""
+    tree = _pspec_tree(cfg, tp, max_seq)
+    out = {}
+    for name, shape in _param_shapes(cfg, max_seq):
+        node = tree
+        for part in name.split("."):
+            node = node[part]
+        out[name] = (shape, node)
+    return out
+
+
+def param_pspecs(cfg, tp: int = 16, max_seq: int = 0) -> dict:
+    """{parameter name: placement}: for each dimension the axis it splits
+    over ("data", "model") or None — the reference's `param_pspecs` tree
+    at `tp` model ranks, leaf for leaf (its stacked leaves without their
+    leading None)."""
+    return {n: axes for n, (_, axes) in param_leaves(cfg, tp,
+                                                     max_seq).items()}
+
+
+def serve_pspec(axes: tuple, shape: tuple, tp: int) -> tuple:
+    """The reference's optimised-serving placement of one leaf
+    (`repro/launch/dryrun.py:72-87`): "data" dropped; a leaf that "model"
+    does not split stays whole under 32 MiB of float32, else "model" goes
+    on its largest dimension that tp divides."""
+    names = tuple(None if a == "data" else a for a in axes)
+    if "model" in names or not shape:
+        return names
+    if math.prod(shape) * 4 < 32 * 2 ** 20:
+        return names
+    names = list(names) + [None] * (len(shape) - len(names))
+    for d in sorted(range(len(shape)), key=lambda d: -shape[d]):
+        if shape[d] % tp == 0:
+            names[d] = "model"
+            break
+    return tuple(names)
+
+
+def serve_pspecs(cfg, tp: int, max_seq: int = 0) -> dict:
+    """{parameter name: placement} under `serve_pspec`, applied to each
+    reference leaf as the reference holds it (a layer's leaf stacked over
+    its segment's layers), the layer axis then dropped."""
+    counts = [count for _, count in segments_of(cfg)] \
+        if cfg.family in (*STACKED, "encdec") else []
+    slots = _layer_slots(cfg) if counts else []
+    out = {}
+    for name, (shape, axes) in param_leaves(cfg, tp, max_seq).items():
+        head, *rest = name.split(".", 2)
+        if head not in STACKED_PREFIXES:
+            out[name] = serve_pspec(axes, shape, tp)
+            continue
+        n = cfg.encoder_layers if head == "enc" else \
+            counts[slots[int(rest[0])][0]]
+        full = serve_pspec((None, *axes), (n, *shape), tp)
+        if full[0] is not None:
+            raise ValueError(f"{name}: the serving rule splits the layer "
+                             f"axis, which the port does not")
+        out[name] = full[1:]
+    return out
+
+
+def _axis_sizes(mesh) -> dict:
+    """{axis name: ranks} of a DeviceMesh, or the mapping itself."""
+    if isinstance(mesh, dict):
+        return mesh
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def _div(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+def axes_entry(axes) -> object:
+    """A placement's entry for several axes: their tuple, or the one
+    name (as a PartitionSpec normalises it)."""
+    axes = tuple(axes)
+    return axes[0] if len(axes) == 1 else axes
+
+
+def cache_pspecs(cfg, batch: int, mesh, batch_axes=("data",)):
+    """The cache's placement tree, in `cache_specs`' structure (the
+    reference's `cache_pspecs`): the batch over the batch axes when they
+    divide it, KV heads over "model" when they divide tp, else the KV
+    sequence over "model"; Mamba2 and mLSTM heads over "model" when they
+    divide. `mesh` is a DeviceMesh or {axis: ranks}."""
+    sizes = _axis_sizes(mesh)
+    dp = math.prod(sizes[a] for a in batch_axes)
+    tp = sizes["model"]
+    b_ax = axes_entry(batch_axes) if _div(batch, dp) else None
+
+    def kv(stacked: bool):
+        lead = (None,) if stacked else ()
+        if _div(cfg.n_kv_heads, tp):
+            return (*lead, b_ax, None, "model", None)
+        return (*lead, b_ax, "model", None, None)
+
+    if cfg.family in ("hybrid", "ssm"):
+        d_in = cfg.mamba_expand * cfg.d_model
+        m_ax = "model" if _div(d_in // cfg.ssm_head_dim, tp) else None
+        x_ax = "model" if _div(cfg.n_heads, tp) else None
+        out = []
+        for kind in cfg.block_pattern:
+            if kind == "A":
+                out.append({"k": kv(False), "v": kv(False)})
+            elif kind == "M":
+                out.append({"conv": (b_ax, None,
+                                     m_ax if _div(d_in, tp) else None),
+                            "ssm": (b_ax, m_ax, None, None)})
+            elif kind == "X":
+                out.append((b_ax, x_ax, None, None))
+            else:
+                out.append({"h": (b_ax, x_ax, None), "c": (b_ax, x_ax, None)})
+        return out
+    if cfg.family == "encdec":
+        cross = (None, b_ax, None, None, None)
+        return {"self": [{"k": kv(True), "v": kv(True)}],
+                "cross": {"k": cross, "v": cross}}
+    return [{"k": kv(True), "v": kv(True)} for _ in segments_of(cfg)]
+
+
+def kv_layout(cfg, dist) -> str:
+    """How a stacked model's KV cache splits over the model ranks here:
+    "heads" (the KV heads divide tp), "seq" (they do not: the sequence is
+    split) or "" (one model rank, or no mesh)."""
+    if dist is None or dist.tp == 1:
+        return ""
+    return "heads" if cfg.n_kv_heads % dist.tp == 0 else "seq"
+
+
+def check_mesh(cfg, dist) -> None:
+    """Raise for a mesh this config cannot run on: NotImplementedError
+    for an encdec, ssm or hybrid model over more than one model rank
+    (their tensor-parallel layouts are ROADMAP.md item 6c), ValueError
+    for a dimension that a placement splits over ranks that do not
+    divide it."""
+    if dist is None:
+        return
+    check_tp_family(cfg, dist)
+    if cfg.family not in STACKED:
+        return
+    sizes = dist.sizes()
+    split = {"model": sizes["tp"], "data": sizes["fsdp"]}
+    for name, (shape, axes) in param_leaves(cfg, sizes["tp"]).items():
+        for dim, (n, axis) in enumerate(zip(shape, axes)):
+            if axis and n % split[axis]:
+                raise ValueError(
+                    f"{name}: dimension {dim} of {n} does not split over "
+                    f"{split[axis]} {axis!r} ranks")
+
+
+def check_tp_family(cfg, dist) -> None:
+    """Raise NotImplementedError for an encdec, ssm or hybrid model over
+    more than one model rank (their tensor-parallel layouts are
+    ROADMAP.md item 6c)."""
+    if dist is not None and cfg.family not in STACKED and dist.tp > 1:
+        raise NotImplementedError(
+            f"{cfg.name!r} ({cfg.family}) over {dist.tp} model ranks: the "
+            f"tensor-parallel layouts of mamba2, mLSTM, sLSTM and encdec "
+            f"are ROADMAP.md item 6c")
+
+
+def shard_model(model: nn.Module, cfg, dist, pspecs: dict = None) -> None:
+    """Cut every parameter of the model to this rank's shard of its
+    placement, in place, each module recording its leaves' split axes
+    (`layers.shard_module`; `layers.placements` reads them back).
+    `pspecs` {name: logical axes}: `param_pspecs` for the dense, vlm and
+    moe families (checked first: `check_mesh`), nothing split for the
+    others."""
+    MOE.check_mesh(cfg, dist)
+    check_mesh(cfg, dist)
+    if pspecs is None:
+        pspecs = param_pspecs(cfg, dist.tp) if cfg.family in STACKED \
+            else {}
+    for mod_name, module in model.named_modules():
+        prefix = f"{mod_name}." if mod_name else ""
+        L.shard_module(module, dist, {
+            leaf: dist.effective(pspecs.get(prefix + leaf))
+            for leaf, _ in module.named_parameters(recurse=False)})
+
+
 def init_params(cfg, seed: int = 0, *, max_seq: int = 0,
                 device=None) -> nn.Module:
     """The model with random weights drawn from a torch.Generator seeded
@@ -320,22 +579,23 @@ def _positions(params, start: int, n: int):
     return table[start:start + n][None]
 
 
-def _embed(params, tokens, start: int, dtype):
+def _embed(params, tokens, start: int, dtype, dist=None):
     """Token embeddings of tokens (B, S) at positions start.., plus their
-    learned position rows when the model has a table (whisper)."""
-    x = L.embed_tokens(params.embed, tokens).to(dtype)
+    learned position rows when the model has a table (whisper);
+    vocab-parallel with `dist` where the table is split."""
+    x = L.embed_tokens(params.embed, tokens, dist).to(dtype)
     if hasattr(params.embed, "pos"):
         x = x + _positions(params, start, x.shape[1]).to(dtype)
     return x
 
 
-def _embed_inputs(cfg, params, batch, dtype):
+def _embed_inputs(cfg, params, batch, dtype, dist=None):
     """The reference's `_embed_inputs`: (x, n_prefix). The tokens'
     embeddings in `dtype` at positions 0.. (plus their learned position
     rows with a table: whisper's decoder); a vlm batch with `"patches"`
     (B, P, d) puts them, cast to `dtype`, before the tokens (n_prefix =
     P); without them a vlm runs on text alone, as the reference's does."""
-    x = _embed(params, batch["tokens"], 0, dtype)
+    x = _embed(params, batch["tokens"], 0, dtype, dist)
     if cfg.family == "vlm" and "patches" in batch:
         patches = batch["patches"].to(dtype)
         return torch.cat([patches, x], dim=1), patches.shape[1]
@@ -441,16 +701,20 @@ def prefill(cfg, params, batch, cap_scales=None, *, dist=None,
 
     `cap_scales` ((n_moe_layers, E), the reference's argument) is not
     used: MoE layers serve dropless, as in the reference. With `dist`
-    (`models.moe.DistContext`) the batch is this rank's rows and the MoE
-    layers run expert-parallel over the mesh."""
+    (`launch.mesh.DistContext`) the batch is this rank's rows and the MoE
+    layers run expert-parallel over the mesh; a dense, vlm or moe model
+    (`shard_model`) runs its whole layout and writes the cache in its
+    placement (`cache_pspecs`: this rank's KV heads, or its 1/tp of the
+    positions, which then must divide), the logits whole."""
     _check_family(cfg)
+    check_tp_family(cfg, dist)
     tokens = batch["tokens"]
     if cfg.family == "encdec":
         return _prefill_encdec(cfg, params, batch, dtype)
     if cfg.family in STACKED:
-        x, _ = _embed_inputs(cfg, params, batch, dtype)
+        x, _ = _embed_inputs(cfg, params, batch, dtype, dist)
         cache = empty_extend_cache(cfg, x.shape[0], x.shape[1], dtype,
-                                   device=x.device)
+                                   device=x.device, dist=dist)
         return _stacked_extend(cfg, params, x, cache, 0, dist)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
     cache = []
@@ -471,9 +735,12 @@ def decode_step(cfg, params, tokens, cache, pos: int, cap_scales=None, *,
     attention caches are written in place. MoE layers dispatch dropless,
     as in prefill (`cap_scales` is not used), so decode at S continues a
     prefill of S tokens as a fresh prefill of S + 1 would. `dist` as in
-    `prefill`."""
+    `prefill`: the cache is this rank's (`cache_pspecs`); over a cache
+    split by sequence, attention is `attention.decode_attention_seqsharded`.
+    """
     _check_family(cfg)
-    x = _embed(params, tokens, pos, dtype)
+    check_tp_family(cfg, dist)
+    x = _embed(params, tokens, pos, dtype, dist)
     if cfg.family == "encdec":
         self_kv, cross = cache["self"][0], cache["cross"]
         for j, p in enumerate(params.layers):
@@ -488,13 +755,19 @@ def decode_step(cfg, params, tokens, cache, pos: int, cap_scales=None, *,
             x = x + p.mlp(p.ln2(x))
         return L.lm_logits(params.embed, params.final_norm(x[:, -1])), cache
     if cfg.family in STACKED:
+        seq = kv_layout(cfg, dist) == "seq"
         for p, (s, j) in zip(params.layers, _layer_slots(cfg)):
-            h, _, _ = A.decode_attention(cfg, p.attn, p.ln1(x),
-                                         cache[s]["k"][j], cache[s]["v"][j],
-                                         pos)
+            ck, cv = cache[s]["k"][j], cache[s]["v"][j]
+            if seq:
+                h, _, _ = A.decode_attention_seqsharded(
+                    cfg, p.attn, p.ln1(x), ck, cv, pos, dist)
+            else:
+                h, _, _ = A.decode_attention(cfg, p.attn, p.ln1(x), ck, cv,
+                                             pos, dist=dist)
             x = x + h
             x = x + _ffn(cfg, p, p.ln2(x), dist)
-        return L.lm_logits(params.embed, params.final_norm(x[:, -1])), cache
+        return L.lm_logits(params.embed, params.final_norm(x[:, -1]),
+                           dist), cache
     new_cache = []
     for i, kind in enumerate(cfg.block_pattern):
         p, st = params.block(i), cache[i]
@@ -573,15 +846,32 @@ def _zeros(spec, device):
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
+def local_cache_specs(cfg, batch: int, cache_len: int, dtype, dist):
+    """`cache_specs` of a stacked model as this rank holds it (`batch` its
+    rows): its Hkv/tp KV heads, or its cache_len/tp positions."""
+    layout = kv_layout(cfg, dist)
+    if layout == "seq" and cache_len % dist.tp:
+        raise ValueError(f"a cache of {cache_len} positions does not split "
+                         f"over {dist.tp} model ranks")
+    specs = cache_specs(cfg, batch, cache_len, dtype)
+    cut = {"heads": 3, "seq": 2}.get(layout)
+    if cut is None:
+        return specs
+    return [{n: (tuple(d // dist.tp if i == cut else d
+                       for i, d in enumerate(shape)), dt)
+             for n, (shape, dt) in seg.items()} for seg in specs]
+
+
 def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
-                       device=None):
+                       device=None, dist=None):
     """The cache an incremental prefill of `seq` tokens starts from, zeros.
     Dense, vlm and moe: per segment {"k", "v"} of (L, batch, seq, Hkv,
     dh), sized to the PROMPT (not max_seq), as the reference sizes it, so
     that every chunk's attention runs over the same keys as a one-shot
     prefill's, the positions not written yet masked. Ssm: the block
     states a scan from scratch starts from, so the first chunk replays a
-    one-shot prefill's opening steps."""
+    one-shot prefill's opening steps. With `dist`, this rank's part
+    (`local_cache_specs`)."""
     if not extend_cache_specs_ok(cfg):
         raise NotImplementedError(
             f"empty_extend_cache runs the dense, vlm, moe and ssm families, "
@@ -589,8 +879,8 @@ def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
             f"attention cache does not extend")
     dev = resolve_device(device)
     if cfg.family in STACKED:
-        return [_zeros(spec, dev) for spec in cache_specs(cfg, batch, seq,
-                                                          dtype)]
+        return [_zeros(spec, dev) for spec in
+                local_cache_specs(cfg, batch, seq, dtype, dist)]
     return [_zeros(_state_spec(cfg, kind, batch, dtype), dev)
             for kind in cfg.block_pattern]
 
@@ -635,9 +925,11 @@ def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
             f"prefill_extend runs the dense, vlm, moe and ssm families, not "
             f"{cfg.family!r}: a hybrid's or an encoder-decoder's attention "
             f"cache does not extend")
+    check_tp_family(cfg, dist)
     if cfg.family in STACKED:
         return _stacked_extend(cfg, params,
-                               L.embed_tokens(params.embed, tokens).to(dtype),
+                               L.embed_tokens(params.embed, tokens,
+                                              dist).to(dtype),
                                cache, int(done), dist)
     Q = int(ssm_chunk or cfg.ssm_chunk)
     x = L.embed_tokens(params.embed, tokens).to(dtype)
@@ -653,43 +945,71 @@ def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
 def _stacked_extend(cfg, params: StackedLM, x, cache, done: int,
                     dist=None):
     """The dense, vlm and moe branch of `prefill_extend` (and `prefill`,
-    from 0) on the chunk's embeddings x (B, C, d) at positions done.."""
+    from 0) on the chunk's embeddings x (B, C, d) at positions done..
+    With `dist`, this rank's heads and cache (`local_cache_specs`); over
+    a cache split by sequence only a whole prompt from position 0 runs
+    (the rank computes every position's keys, attends over them and
+    keeps its slice): a later chunk raises NotImplementedError."""
     B, C = x.shape[:2]
     pos = torch.arange(done, done + C, device=x.device)[None]
+    seq = kv_layout(cfg, dist) == "seq"
     for p, (s, j) in zip(params.layers, _layer_slots(cfg)):
-        ck, cv = cache[s]["k"][j], cache[s]["v"][j]
-        q, k, v = L.by_blocks(
-            lambda xb, pb: A.qkv_at(cfg, p.attn, p.ln1(xb), pb[0]),
-            TOKEN_BLOCK, x, pos)
+        with L.gathered(dist, p):
+            x = _extend_layer(cfg, p, x, cache[s]["k"][j], cache[s]["v"][j],
+                              pos, done, seq, dist)
+    logits = L.lm_logits(params.embed, params.final_norm(x[:, -1]), dist)
+    return logits, cache
+
+
+def _extend_layer(cfg, p: AttnBlock, x, ck, cv, pos, done: int, seq: bool,
+                  dist):
+    """One layer of `_stacked_extend`: writes its keys and values into the
+    layer's cache ck, cv and returns x."""
+    B, C = x.shape[:2]
+    q, k, v = L.by_blocks(
+        lambda xb, pb: A.qkv_at(cfg, p.attn, p.ln1(xb), pb[0], dist),
+        TOKEN_BLOCK, x, pos)
+    if seq:
+        n = ck.shape[1]
+        if done or C != n * dist.tp:
+            raise NotImplementedError(
+                "a cache split by sequence is written by one prefill "
+                "of the whole prompt from position 0")
+        r = dist.index(dist.tp_axis)
+        ck.copy_(k[:, r * n:(r + 1) * n].to(ck.dtype))
+        cv.copy_(v[:, r * n:(r + 1) * n].to(cv.dtype))
+        ks, vs = A.kv_for(cfg, q, k, v, dist)
+        o = flash_attention(q, ks, vs, causal=True)
+    else:
         ck[:, done:done + C] = k.to(ck.dtype)
         cv[:, done:done + C] = v.to(cv.dtype)
         # the chunk's queries against the cache, which holds every
         # position up to the chunk's last (the later ones masked)
-        o = flash_attention(q, ck, cv, causal=True,
-                            q_offset=done).reshape(B, C, -1)
-        if hasattr(p, "moe"):
-            x, h = L.by_blocks(lambda xb, ob: _attn_out(p, xb, ob),
-                               TOKEN_BLOCK, x, o)
-            x = x + _ffn(cfg, p, h, dist)
-        else:
-            x = L.by_blocks(lambda xb, ob: _dense_out(p, xb, ob),
-                            TOKEN_BLOCK, x, o)
-    logits = L.lm_logits(params.embed, params.final_norm(x[:, -1]))
-    return logits, cache
+        ks, vs = A.kv_for(cfg, q, ck, cv, dist)
+        o = flash_attention(q, ks, vs, causal=True, q_offset=done)
+    o = o.reshape(B, C, -1)
+    if hasattr(p, "moe"):
+        x, h = L.by_blocks(lambda xb, ob: _attn_out(p, xb, ob, dist),
+                           TOKEN_BLOCK, x, o)
+        x = x + _ffn(cfg, p, h, dist)
+    else:
+        x = L.by_blocks(lambda xb, ob: _dense_out(p, xb, ob, dist),
+                        TOKEN_BLOCK, x, o)
+    return x
 
 
-def _attn_out(p: AttnBlock, x, o):
+def _attn_out(p: AttnBlock, x, o, dist=None):
     """The attention output product and residual, then the FFN's input:
     (x + o . wo, ln2 of it)."""
-    x = x + o @ p.attn.wo.to(x.dtype)
+    x = x + A.out_proj(p.attn, o, dist)
     return x, p.ln2(x)
 
 
-def _dense_out(p: AttnBlock, x, o):
+def _dense_out(p: AttnBlock, x, o, dist=None):
     """The token-wise rest of a layer with an MLP: output product,
     residual, MLP, residual."""
-    x, h = _attn_out(p, x, o)
-    return x + p.mlp(h)
+    x, h = _attn_out(p, x, o, dist)
+    return x + p.mlp(h, dist)
 
 
 def _ffn(cfg, p: AttnBlock, h, dist=None):
@@ -697,12 +1017,35 @@ def _ffn(cfg, p: AttnBlock, h, dist=None):
     dispatched dropless (serving), expert-parallel with `dist`."""
     if hasattr(p, "moe"):
         return MOE.apply_moe(cfg, p.moe, h, dist=dist, dropless=True)[0]
-    return p.mlp(h)
+    return p.mlp(h, dist)
 
 
 # ----------------------------------------------------------------------------
 # Training loss
 # ----------------------------------------------------------------------------
+
+def _ce(logits, lab, group, dist):
+    """(log-sum-exp of each row's logits, its label's logit), float32: the
+    row max detached, (logits - max) in the logits' type then float32
+    (the reference's CE, `repro/models/model.py:382-388`). With the
+    vocabulary split over `group` (logits (..., V/tp)): the max is
+    all-reduced, the sums of exponentials and the label's logit (zero on
+    the ranks that do not hold it) summed by `from_model`; nothing of
+    size tokens x vocabulary is gathered."""
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    if group is not None:
+        m = C.all_reduce(m, group, op=tdist.ReduceOp.MAX)
+    shifted = (logits - m).float()
+    sums = torch.sum(torch.exp(shifted), dim=-1)
+    if group is None:
+        true = torch.gather(logits, -1, lab[..., None])[..., 0].float()
+        return torch.log(sums) + m[..., 0].float(), true
+    ids, keep = L.vocab_ids(lab, logits.shape[-1], dist)
+    true = torch.where(keep, torch.gather(logits, -1, ids[..., None])[..., 0],
+                       logits.new_zeros(())).float()
+    return (torch.log(C.from_model(sums, group)) + m[..., 0].float(),
+            C.from_model(true, group))
+
 
 # the MoE aux values that `loss_fn` sums over the MoE layers
 AUX_SUMS = ("aux_loss", "dropped", "stolen", "entries")
@@ -745,25 +1088,30 @@ def check_trainable(cfg, dist=None) -> None:
     Raise ValueError for a `remat_policy` outside `REMAT_POLICIES` (the
     reference falls back to "nothing" without a word), and for a mesh
     `dist` that the config's experts cannot split over
-    (`models.moe.check_mesh`)."""
+    (`models.moe.check_mesh`) or that a placement cannot split over
+    (`check_mesh`: NotImplementedError for an encdec, ssm or hybrid model
+    over more than one model rank, ROADMAP.md item 6c)."""
     _check_family(cfg)
     MOE.check_mesh(cfg, dist)
+    check_mesh(cfg, dist)
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r} not in "
                          f"{REMAT_POLICIES}")
 
 
 def _train_layer(cfg, p: AttnBlock, x, causal: bool = True,
-                 window: int = 0):
+                 window: int = 0, dist=None):
     """An attention layer over the whole sequence (the reference's
     `_apply_block_full` for "dense", "enc" and "A"): attention through
     the flash kernel (its autograd Function when x requires grad), causal
     or not (whisper's encoder), with a sliding `window` (Zamba2's shared
     block), then the MLP; no `by_blocks` (the reference runs whole
-    products; the serving quantum is not a training concern)."""
-    h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=causal, window=window)
+    products; the serving quantum is not a training concern);
+    tensor-parallel with `dist` where the module is placed."""
+    h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=causal, window=window,
+                       dist=dist)
     x = x + h
-    return x + p.mlp(p.ln2(x))
+    return x + p.mlp(p.ln2(x), dist)
 
 
 def _train_moe_layer(cfg, p: AttnBlock, x, cap_scale, dist=None):
@@ -773,7 +1121,7 @@ def _train_moe_layer(cfg, p: AttnBlock, x, cap_scale, dist=None):
     (`MOE.apply_moe`, dropless=False) under the layer's `cap_scale` (E,),
     and the shared experts; expert-parallel with `dist`. Returns (x, the
     layer's aux dict)."""
-    h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=True)
+    h, _ = A.attention(cfg, p.attn, p.ln1(x), causal=True, dist=dist)
     x = x + h
     h, aux = MOE.apply_moe(cfg, p.moe, p.ln2(x), cap_scale, dist=dist,
                            dropless=False)
@@ -797,7 +1145,7 @@ def _train_moe_stack(cfg, params: StackedLM, x, cap_scales, remat: bool,
     counts = []
     for p in params.layers:
         if not hasattr(p, "moe"):
-            x = _run_layer(cfg, _train_layer, p, x, remat=remat)
+            x = _run_layer(cfg, _train_layer, p, x, remat=remat, dist=dist)
             continue
         x, aux = _run_layer(cfg, _train_moe_layer, p, x,
                             cap_scales[len(counts)], dist, remat=remat)
@@ -851,7 +1199,7 @@ def loss_fn(cfg, params, batch, cap_scales=None, *, dist=None,
     cross-entropy, as the reference's do. A config the port does not
     train raises NotImplementedError (`check_trainable`).
 
-    With `dist` (`models.moe.DistContext`) the batch is this rank's rows
+    With `dist` (`launch.mesh.DistContext`) the batch is this rank's rows
     (`train.train_step.batch_shard`) and the MoE layers run
     expert-parallel. The cross-entropy stays the reference's global mean:
     this rank's sum over its valid labels divided by the count of valid
@@ -860,9 +1208,13 @@ def loss_fn(cfg, params, batch, cap_scales=None, *, dist=None,
     the share's gradient, which the train step sums over the batch ranks;
     the aux loss enters as its mean over them (`models.moe.
     replicate_aux`). The metrics are global: "n_tokens" the global count,
-    the aux values replicated."""
+    the aux values replicated. A dense, vlm or moe model (`shard_model`)
+    runs tensor-parallel over "model": every model rank computes the same
+    loss, its weights' gradients complete through the collectives'
+    backwards. With the vocabulary split the logits stay split
+    (B, S, V/tp) and the cross-entropy is vocab-parallel (`_ce`)."""
     check_trainable(cfg, dist)
-    x, n_prefix = _embed_inputs(cfg, params, batch, dtype)
+    x, n_prefix = _embed_inputs(cfg, params, batch, dtype, dist)
     if cfg.family == "encdec":
         enc_out = _encode(cfg, params, batch["frames"], dtype,
                           remat=cfg.remat)
@@ -878,16 +1230,15 @@ def loss_fn(cfg, params, batch, cap_scales=None, *, dist=None,
                                           cfg.remat, dist)
     else:
         for p in params.layers:
-            x = _run_layer(cfg, _train_layer, p, x, remat=cfg.remat)
+            x = _run_layer(cfg, _train_layer, p, x, remat=cfg.remat,
+                           dist=dist)
     x = params.final_norm(x)
-    logits = L.lm_logits(params.embed, x[:, n_prefix:])
+    logits = L.lm_logits(params.embed, x[:, n_prefix:], dist, whole=False)
     labels = batch["labels"]
     valid = labels >= 0
     lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    m = torch.amax(logits, dim=-1, keepdim=True).detach()
-    shifted = (logits - m).float()
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0].float()
-    true_logit = torch.gather(logits, -1, lab[..., None])[..., 0].float()
+    lse, true_logit = _ce(logits, lab, L.head_group(params.embed, dist),
+                          dist)
     n_tokens = valid.sum()
     if dist is not None:
         n_tokens = C.all_reduce(n_tokens, dist.group(dist.batch_axes))

@@ -1,6 +1,6 @@
 """Mixture-of-Experts layer of the port — the counterpart of
 `repro.models.moe`, on one device or expert-parallel over a mesh
-(`DistContext`, below).
+(`launch.mesh.DistContext`).
 
 The paper's loop-scheduling problem reappears in MoE: tokens are loop
 iterations, experts are workers, and router imbalance is the irregular
@@ -72,16 +72,17 @@ reference's (and the decisions to `plan_dispatch`'s) by the tests.
 from __future__ import annotations
 
 import dataclasses
-import math
+import types
 from typing import Optional
 
 import numpy as np
 import torch
-import torch.distributed as tdist
 from torch import nn
 
 from repro_torch.kernels.ich_moe.ich_moe_bwd import ich_moe_backward
+from repro_torch.kernels.shape_only import shape_only
 from repro_torch.launch import collectives as C
+from repro_torch.launch.mesh import DistContext
 from repro_torch.sched.api import LoopScheduler
 from repro_torch.sched.defaults import (ICH_EPS, MOE_CAP_SCALE_MAX,
                                         MOE_CAP_SCALE_MIN,
@@ -121,140 +122,35 @@ class MoE(nn.Module):
 # Layout on a mesh
 # ----------------------------------------------------------------------------
 
-# the reference's `moe_pspec` for the routed experts: each dimension's role,
-# "tp" (split over the model axis), "fsdp" (over the data axis) or None;
-# every other leaf (the router, the shared experts) is replicated
-EXPERT_SPECS = {"wi": ("tp", "fsdp", None), "wg": ("tp", "fsdp", None),
-                "wo": ("tp", None, "fsdp")}
+def moe_pspec(cfg) -> dict:
+    """The routed experts over "model" (expert parallelism) and along D
+    over "data", the router replicated, the shared experts as an MLP
+    (`repro/models/moe.py:89-99`)."""
+    p = {"router": (None, None), "wi": ("model", "data", None),
+         "wg": ("model", "data", None), "wo": ("model", None, "data")}
+    if cfg.n_shared_experts:
+        p["shared"] = {"wi": ("data", "model"), "wg": ("data", "model"),
+                       "wo": ("model", "data")}
+    return p
 
 
-def expert_spec(name: str) -> Optional[tuple]:
-    """The roles of a leaf's dimensions when `name` (`layers.3.moe.wi`,
-    `opt.m.layers.3.moe.wo`, ...) is a routed expert weight, else None."""
-    parts = name.split(".")
-    if len(parts) >= 2 and parts[-2] == "moe":
-        return EXPERT_SPECS.get(parts[-1])
-    return None
+_EXPERT_AXES = {k: v for k, v in moe_pspec(
+    types.SimpleNamespace(n_shared_experts=0)).items() if k != "router"}
 
 
 def local_shape(name: str, shape, sizes: dict) -> tuple:
-    """The shape of leaf `name` on one rank, `sizes` {"tp": n, "fsdp": n}
-    the ranks each role splits over (a whole-leaf shape for a
-    replicated leaf)."""
-    spec = expert_spec(name)
-    if spec is None:
+    """The shape on one rank of leaf `name` (`layers.3.moe.wi`,
+    `opt.v.layers.1.moe.wg`, ...) under the routed experts' placement
+    (`moe_pspec`), `sizes` {"tp": model ranks, "fsdp": data ranks}; a
+    leaf that is not a routed expert weight keeps its shape. The whole
+    layout of a model is `models.model.param_pspecs`."""
+    parts = name.split(".")
+    axes = _EXPERT_AXES.get(parts[-1]) if len(parts) >= 2 and \
+        parts[-2] == "moe" else None
+    if axes is None:
         return tuple(shape)
-    return tuple(n // sizes.get(r, 1) if r else n
-                 for n, r in zip(shape, spec))
-
-
-def _rank_groups(mesh, axes: tuple):
-    """This rank's process group over `axes` of the mesh (the ranks that
-    differ only in those coordinates). Every rank creates every such
-    group, in one order."""
-    names = mesh.mesh_dim_names
-    if len(axes) == 1:
-        return mesh.get_group(axes[0])
-    dims = [names.index(a) for a in axes]
-    rest = [i for i in range(len(names)) if i not in dims]
-    ranks = mesh.mesh.permute(*rest, *dims).reshape(
-        -1, math.prod(mesh.mesh.shape[i] for i in dims))
-    me = tdist.get_rank()
-    mine = None
-    for row in ranks.tolist():
-        g = tdist.new_group(row)
-        if me in row:
-            mine = g
-    return mine
-
-
-@dataclasses.dataclass(frozen=True)
-class DistContext:
-    """How a model step is laid out on the mesh (`launch/mesh.py`): the
-    batch split over `batch_axes`, the routed experts over `tp_axis`
-    and, along D, over `fsdp_axis` (None: experts whole on each model
-    rank). Builds its process groups when made: every rank of the mesh
-    makes it, at the same point."""
-    mesh: object
-    batch_axes: tuple = ("data",)
-    tp_axis: str = "model"
-    fsdp_axis: Optional[str] = "data"
-    groups: dict = dataclasses.field(default_factory=dict, compare=False,
-                                     repr=False)
-
-    def __post_init__(self):
-        names = self.mesh.mesh_dim_names
-        fsdp = (self.fsdp_axis,) if self.fsdp_axis else ()
-        wanted = (self.batch_axes, (self.tp_axis,), fsdp,
-                  (self.tp_axis, *fsdp),
-                  tuple(a for a in self.batch_axes if a not in fsdp))
-        for axes in wanted:
-            axes = tuple(a for a in names if a in axes)
-            if axes and axes not in self.groups:
-                self.groups[axes] = _rank_groups(self.mesh, axes)
-
-    def _key(self, axes) -> tuple:
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        return tuple(a for a in self.mesh.mesh_dim_names if a in axes)
-
-    def group(self, axes):
-        """The process group over `axes` (an axis name or several), None
-        for no axis."""
-        key = self._key(axes)
-        return self.groups[key] if key else None
-
-    def size(self, axes) -> int:
-        names = self.mesh.mesh_dim_names
-        return math.prod(self.mesh.mesh.shape[names.index(a)]
-                         for a in self._key(axes))
-
-    def index(self, axes) -> int:
-        """This rank's coordinate over `axes` (row-major)."""
-        g = self.group(axes)
-        return 0 if g is None else tdist.get_rank(g)
-
-    @property
-    def tp(self) -> int:
-        return self.size(self.tp_axis)
-
-    @property
-    def dp(self) -> int:
-        """Ranks the batch is split over."""
-        return self.size(self.batch_axes)
-
-    def _axis(self, role: str):
-        return {"tp": self.tp_axis, "fsdp": self.fsdp_axis}[role]
-
-    def sizes(self) -> dict:
-        """{"tp": ranks the experts split over, "fsdp": ranks D splits
-        over}, the argument of `local_shape`."""
-        return {r: self.size(self._axis(r)) if self._axis(r) else 1
-                for r in ("tp", "fsdp")}
-
-    def shard(self, t: torch.Tensor, name: str) -> torch.Tensor:
-        """This rank's shard of the whole leaf `name` (a copy), or t
-        itself when the leaf is replicated."""
-        spec = expert_spec(name)
-        if spec is None:
-            return t
-        for dim, role in enumerate(spec):
-            axis = role and self._axis(role)
-            if axis:
-                n = t.shape[dim] // self.size(axis)
-                t = t.narrow(dim, self.index(axis) * n, n)
-        return t.contiguous().clone()
-
-    def unshard(self, t: torch.Tensor, name: str) -> torch.Tensor:
-        """The whole leaf `name` from every rank's shard t (collective:
-        every rank calls it), or t itself when the leaf is replicated."""
-        spec = expert_spec(name)
-        if spec is None:
-            return t
-        for dim, role in enumerate(spec):
-            axis = role and self._axis(role)
-            if axis:
-                t = C.all_gather(t, dim, self.group(axis))
-        return t
+    split = {"model": sizes.get("tp", 1), "data": sizes.get("fsdp", 1)}
+    return tuple(n // split[a] if a else n for n, a in zip(shape, axes))
 
 
 def check_mesh(cfg, dist: Optional[DistContext]) -> None:
@@ -269,18 +165,6 @@ def check_mesh(cfg, dist: Optional[DistContext]) -> None:
     if cfg.d_model % sizes["fsdp"]:
         raise ValueError(f"d_model {cfg.d_model} does not split over "
                          f"{sizes['fsdp']} {dist.fsdp_axis!r} ranks")
-
-
-def shard_experts(model: nn.Module, dist: DistContext) -> None:
-    """Replace every MoE layer's wi, wg and wo by this rank's shards, in
-    place (the old whole tensors are freed)."""
-    for module in model.modules():
-        if isinstance(module, MoE):
-            for leaf in EXPERT_SPECS:
-                old = getattr(module, leaf)
-                setattr(module, leaf, nn.Parameter(
-                    dist.shard(old.data, f"moe.{leaf}"),
-                    requires_grad=old.requires_grad))
 
 
 def capacity(cfg, t_local: int, factor: float = MOE_CAPACITY_FACTOR) -> int:
@@ -441,6 +325,46 @@ class MoeExpertsFn(torch.autograd.Function):
                 None, None)
 
 
+class MoeShapeFn(torch.autograd.Function):
+    """The expert FFN at shapes alone (fake or meta tensors: the dry run):
+    `n` computed slots, forward the shape-only op `moe_fwd`, backward
+    `moe_bwd` (`kernels.shape_only`), which count the kernels' own
+    operations and launch nothing."""
+
+    @staticmethod
+    def forward(ctx, x, w_topk, wi, wg, wo, n):
+        ctx.save_for_backward(x, w_topk, wi, wg, wo)
+        ctx.n = n
+        return torch.ops.repro_torch.moe_fwd(x, wi, wg, wo, n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_topk, wi, wg, wo = ctx.saved_tensors
+        grads = torch.ops.repro_torch.moe_bwd(x, dy, w_topk, wi, wg, wo,
+                                               ctx.n)
+        return (*grads, None)
+
+
+def capacity_full_slots(cfg, T: int, n_local: int, *, dropless: bool,
+                        capacity_factor: float = MOE_CAPACITY_FACTOR) -> int:
+    """Slots a rank computes under the "capacity-full" plan, the one the
+    dry run takes since fake tensors hold no router choices: every local
+    expert filled to its capacity (C_max in training, the whole pool T
+    dropless), the worst case and what the reference's XLA buffers
+    reserve, but never more than the pool's T K entries."""
+    cap = T if dropless else capacity_limits(cfg, T, capacity_factor)[1]
+    return min(T * cfg.experts_per_token, n_local * cap)
+
+
+def capacity_limits(cfg, T: int,
+                    capacity_factor: float = MOE_CAPACITY_FACTOR) -> tuple:
+    """(C_base, C_max) of a pool of T tokens: the base capacity and the
+    largest a scale may give (`moe_cmax_factor` times the base)."""
+    c_base = capacity(cfg, T, capacity_factor)
+    return c_base, max(c_base, int(round(getattr(
+        cfg, "moe_cmax_factor", MOE_CMAX_FACTOR) * c_base)))
+
+
 # ----------------------------------------------------------------------------
 # The layer
 # ----------------------------------------------------------------------------
@@ -511,6 +435,10 @@ def moe_local(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
     wi, wg, wo = experts if experts is not None else (p.wi, p.wg, p.wo)
     probs, w_topk, e_topk = (routing if routing is not None
                              else route(p, x[None], K))
+    if shape_only(x, w_topk):
+        return _moe_shapes(cfg, x, probs, w_topk, e_topk, (wi, wg, wo),
+                           n_local_experts or E, dropless=dropless,
+                           capacity_factor=capacity_factor)
     counts_all = torch.bincount(e_topk.reshape(-1), minlength=E).float()
     aux_loss = E * torch.sum((counts_all / (T * K)) * probs.mean(dim=0))
     if dropless:
@@ -518,9 +446,7 @@ def moe_local(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
         cap = np.full(E, T, np.int32)
         steal = False
     else:
-        c_base = capacity(cfg, T, capacity_factor)
-        c_max = max(c_base, int(round(getattr(
-            cfg, "moe_cmax_factor", MOE_CMAX_FACTOR) * c_base)))
+        c_base, c_max = capacity_limits(cfg, T, capacity_factor)
         scale = torch.as_tensor(cap_scale, dtype=torch.float32,
                                 device=x.device)
         cap = torch.clamp(torch.round(c_base * scale), MOE_MIN_CAPACITY,
@@ -549,17 +475,36 @@ def moe_local(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
     return y, aux
 
 
+def _moe_shapes(cfg, x, probs, w_topk, e_topk, experts, n_local: int, *,
+                dropless: bool, capacity_factor: float):
+    """`moe_local` at shapes alone (the dry run): the aux loss from the
+    router as usual (counts by a scatter, not `bincount`, whose size
+    would depend on values), the experts through `MoeShapeFn` at
+    `capacity_full_slots`; dropped and stolen are zeros."""
+    T = x.shape[0]
+    E, K = cfg.n_experts, cfg.experts_per_token
+    counts_all = torch.zeros(E, dtype=torch.float32, device=x.device)
+    counts_all = counts_all.scatter_add(
+        0, e_topk.reshape(-1).long(),
+        torch.ones(T * K, dtype=torch.float32, device=x.device))
+    aux_loss = E * torch.sum((counts_all / (T * K)) * probs.mean(dim=0))
+    n = capacity_full_slots(cfg, T, n_local, dropless=dropless,
+                            capacity_factor=capacity_factor)
+    y = MoeShapeFn.apply(x, w_topk, *experts, n)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y, {"aux_loss": aux_loss, "dropped": zero, "stolen": zero,
+               "counts": counts_all, "entries": zero + float(T * K)}
+
+
 def _moe_parallel(cfg, p: MoE, x2, cap_scale, routing, dist: DistContext,
                   **kw):
     """The expert-parallel routed experts on this rank's tokens x2 (T, D):
     the reference's `shard_map` block. Returns (y (T, D) summed over the
     model ranks, aux replicated)."""
     e_loc = cfg.n_experts // dist.tp
-    wi, wg, wo = p.wi, p.wg, p.wo
-    if dist.fsdp_axis:
-        g = dist.group(dist.fsdp_axis)
-        wi, wg, wo = (C.gather_data(wi, 1, g), C.gather_data(wg, 1, g),
-                      C.gather_data(wo, 2, g))
+    # expert shards gathered whole along D over "data" (backward:
+    # reduce-scatter), the expert dimension kept local
+    wi, wg, wo = (L.weight(p, leaf, dist, (0,)) for leaf in ("wi", "wg", "wo"))
     model = dist.group(dist.tp_axis)
     probs, w_topk, e_topk = routing
     # x and the combine weights are replicated over "model" and each rank
@@ -599,8 +544,9 @@ def apply_moe(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
     shared experts, also per block. Returns (y (B, S, D), aux).
     `dropless` is the serving mode (`models.model`'s prefill, extend and
     decode). With `dist` x is this rank's batch rows and p's expert
-    weights this rank's shards (`shard_experts`): the routed experts run
-    expert-parallel (`_moe_parallel`) and aux is replicated."""
+    weights this rank's shards (`models.model.shard_model`): the routed
+    experts run expert-parallel (`_moe_parallel`), the shared experts
+    tensor-parallel (`layers.MLP`), and aux is replicated."""
     B, S, D = x.shape
     x = x.contiguous()
     kw = dict(capacity_factor=capacity_factor, steal=steal,
@@ -614,5 +560,5 @@ def apply_moe(cfg, p: MoE, x: torch.Tensor, cap_scale=None, *,
                                routing, dist, **kw)
     y = y.reshape(B, S, D)
     if cfg.n_shared_experts:
-        y = y + L.by_blocks(p.shared, L.TOKEN_BLOCK, x)
+        y = y + L.by_blocks(lambda xb: p.shared(xb, dist), L.TOKEN_BLOCK, x)
     return y, aux

@@ -87,6 +87,20 @@ def causal_conv(x, w, conv_state=None):
 # Mamba2 block (zamba2)
 # ----------------------------------------------------------------------------
 
+def mamba2_pspec(cfg, tp: int = 16) -> dict:
+    """The reference's placement (`repro/models/ssm.py:142-154`): d_in
+    and its heads over "model" where both divide tp. The port does not
+    run it split yet (ROADMAP.md item 6c): the tree only."""
+    d_in = cfg.mamba_expand * cfg.d_model
+    H = d_in // cfg.ssm_head_dim
+    m = "model" if (d_in % tp == 0 and H % tp == 0) else None
+    return {"in_z": ("data", m), "in_x": ("data", m),
+            "in_B": ("data", None), "in_C": ("data", None),
+            "in_dt": ("data", m), "conv_x": (None, m),
+            "A_log": (m,), "D": (m,), "dt_bias": (m,), "norm": (m,),
+            "out": (m, "data")}
+
+
 class Mamba2(nn.Module):
     """The reference's Mamba2 parameters by name: `in_z`, `in_x` (d, d_in),
     `in_B`, `in_C` (d, N), `in_dt` (d, H), `conv_x` (K, d_in), `A_log`,
@@ -175,6 +189,15 @@ def mamba2_state_spec(cfg, batch: int, dtype=torch.float32) -> dict:
 # mLSTM block (xlstm)
 # ----------------------------------------------------------------------------
 
+def mlstm_pspec(cfg, tp: int = 16) -> dict:
+    """The reference's placement (`repro/models/ssm.py:233-241`); the tree
+    only (item 6c)."""
+    m = "model" if cfg.n_heads % tp == 0 else None
+    return {"up_z": ("data", m), "up_x": ("data", m), "wq": (m, None),
+            "wk": (m, None), "wv": (m, None), "w_i": (m, None),
+            "w_f": (m, None), "down": (m, "data")}
+
+
 class MLSTM(nn.Module):
     """The reference's mLSTM parameters by name: `up_z`, `up_x` (d, d_in),
     `wq`, `wk`, `wv` (d_in, d_in), `w_i`, `w_f` (d_in, H), `down`
@@ -256,6 +279,14 @@ def mlstm_state_spec(cfg, batch: int) -> tuple:
 # ----------------------------------------------------------------------------
 # sLSTM block (xlstm) — sequential
 # ----------------------------------------------------------------------------
+
+def slstm_pspec(cfg, tp: int = 16) -> dict:
+    """The reference's placement (`repro/models/ssm.py:298-301`); the tree
+    only (item 6c)."""
+    return {"wz": ("data", None), "wi": ("data", None), "wf": ("data", None),
+            "wo": ("data", None), "r": (None, None, None),
+            "down": ("data", None)}
+
 
 class SLSTM(nn.Module):
     """The reference's sLSTM parameters by name: `wz`, `wo` (d, d), `wi`,

@@ -63,6 +63,12 @@ def init_state(params: dict) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def opt_pspecs(param_pspecs: dict) -> dict:
+    """The optimizer state's placement: each moment as its parameter,
+    the step replicated (`repro/optim/adamw.py:41-44`)."""
+    return {"m": dict(param_pspecs), "v": dict(param_pspecs), "step": ()}
+
+
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum over leaves of their float32 sums of squares."""
     total = 0

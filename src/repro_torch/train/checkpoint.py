@@ -16,9 +16,9 @@ Tensors go to numpy on save (bfloat16, which numpy lacks, as its raw
 on load: `load_state` writes the saved values INTO the like-state's
 tensors (the model's parameters, the moments) and returns it.
 
-On a mesh (`dist`, a `models.moe.DistContext`) the checkpoint holds whole
-leaves, as on one device: every rank gathers the expert shards
-(`DistContext.unshard`), rank 0 writes, and the ranks meet at a barrier
+On a mesh (`dist`, a `launch.mesh.DistContext`) the checkpoint holds whole
+leaves, as on one device: every rank gathers its shards (`DistContext.
+unshard` at each leaf's axes as its module records them), rank 0 writes, and the ranks meet at a barrier
 once the write is published. Loading on any mesh, or on one device,
 cuts each whole leaf to the loading rank's shard: the reference's
 mesh-agnostic checkpoint, and a restart may use another mesh.
@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 from torch import nn
+
+from repro_torch.models import layers as L
 
 
 def state_leaves(state, prefix: str = ""):
@@ -68,9 +70,10 @@ def _host(state, dist=None) -> list:
     the host; on a mesh gathered by every rank (collective) and kept by
     the writing rank alone (others get [])."""
     out = []
+    placed = L.placements(state)
     for n, t in state_leaves(state):
         if dist is not None:
-            t = dist.unshard(t.detach(), n)
+            t = dist.unshard(t.detach(), L.leaf_axes(placed, n))
         if _writes(dist):
             out.append((n, _to_numpy(t), str(t.dtype).replace("torch.", "")))
     return out
@@ -186,6 +189,7 @@ def load_state(like_state, ckpt_dir: str, step: int | None = None,
     d = pathlib.Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((d / "manifest.json").read_text())
     leaves = list(state_leaves(like_state))
+    placed = L.placements(like_state)
     names = [n for n, _ in leaves]
     if manifest["names"] != names:
         raise ValueError(f"checkpoint step {step} holds another state: "
@@ -198,7 +202,7 @@ def load_state(like_state, ckpt_dir: str, step: int | None = None,
             src = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
                    if dtype == "bfloat16" else torch.from_numpy(a))
             if dist is not None:
-                src = dist.shard(src, name)
+                src = dist.shard(src, L.leaf_axes(placed, name))
             if src.dtype != t.dtype or tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: saved {src.dtype} "
                                  f"{tuple(src.shape)}, like-state {t.dtype} "

@@ -22,23 +22,28 @@ layer's row becomes `ich_update_cap_scale` of that layer's router counts
 reference takes `m[-1]` of its scanned metrics).
 
 On a mesh (`make_train_step(cfg, tcfg, dist)`, `dist` a
-`models.moe.DistContext`: the reference's jitted step with its
-`DistContext`) every rank runs the step on its rows of the batch
-(`batch_shard`: the reference's `batch_pspec`): data parallel for every
-family, and the moe family's routed experts expert-parallel over
-"model" and stored in shards over "data" (the train state holds this
-rank's shards of them: `init_train_state(..., dist=)`, `shard_state`).
-Replicated leaves' gradients are summed over the batch axes; expert
-shards' gradients arrive summed over "data" from the gather's backward.
-The clipping norm is global (each replicated leaf counted once, the
-expert shards' squares summed over their ranks), AdamW steps every shard
-with it, gradient compression cuts its blocks from whole reference
-leaves (`compress_grads`: a shard made of whole blocks is compressed
-where it lies, any other leaf is gathered, one at a time), and the
-capacity scales update from the global router counts. Only the replicated gradients'
-reductions read the ranks' data; what the reference's `train_state_
-pspecs` lays out beyond that (tensor parallelism of dense layers) is not
-ported (ROADMAP.md queue 1 item 6b).
+`launch.mesh.DistContext`: the reference's jitted step with its
+`DistContext` and the in_shardings of `train_state_pspecs`) every rank
+runs the step on its rows of the batch (`batch_shard`: the reference's
+`batch_pspec`) and holds its shards of the train state
+(`init_train_state(..., dist=)`, `shard_state`): for the dense, vlm and
+moe families every leaf in its placement (`models.model.param_pspecs`:
+FSDP over "data", tensor parallelism of attention, MLP and vocabulary
+and expert parallelism over "model"); the encdec, ssm and hybrid
+families data parallel with whole weights (their layouts are ROADMAP.md
+item 6c). The gradient sync follows each leaf's placement (as its module records
+it: `models.layers.placements`): a leaf
+replicated over "data" is summed over the batch axes; a "data"-sharded
+leaf arrives summed over "data" from `gather_data`'s backward (and is
+summed over a pod axis); nothing is summed over "model" here (the
+partial gradients of whole KV weights beside split heads are summed
+inside the layer). The clipping norm is global (each element counted
+once: the squares of split leaves summed over the ranks they split
+over), AdamW steps every shard with it, gradient compression cuts its
+blocks from whole reference leaves (`compress_grads`: a shard made of
+whole blocks is compressed where it lies, any other leaf is gathered,
+one at a time), and the capacity scales update from the global router
+counts.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.launch import collectives as C
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.optim import adamw
@@ -84,15 +90,15 @@ def init_train_state(cfg, seed: int = 0, max_seq: int = 0,
     """The train state of a fresh model from `seed` on `device` (None =
     the card; raises without CUDA): parameters requiring grad, zero
     moments at step 0, the master copy and bfloat16 parameters with
-    `bf16_params`, zero residuals with `grad_compress`. With `dist` the
-    expert weights and everything kept beside them are this rank's
-    shards (the whole model is drawn first, so every mesh starts from
+    `bf16_params`, zero residuals with `grad_compress`. With `dist` every
+    leaf and everything kept beside it is this rank's shard of its
+    placement (the whole model is drawn first, so every mesh starts from
     the same weights)."""
     dev = resolve_device(device)
     model = M.init_params(cfg, seed, max_seq=max_seq, device=dev)
     if dist is not None:
         M.check_trainable(cfg, dist)
-        MOE.shard_experts(model, dist)
+        M.shard_model(model, cfg, dist)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     opt = adamw.init_state(params)
@@ -108,16 +114,44 @@ def init_train_state(cfg, seed: int = 0, max_seq: int = 0,
     return state
 
 
-def shard_state(state: dict, dist) -> dict:
-    """A whole train state cut to this rank's shards, in place: the
-    model's expert weights (`models.moe.shard_experts`) and their
-    moments, master copies and residuals."""
-    MOE.shard_experts(state["params"], dist)
+def train_state_pspecs(cfg, tp: int = 16, max_seq: int = 0,
+                       tcfg: TrainConfig = TrainConfig()) -> dict:
+    """The train state's placement (`repro/train/train_step.py:56-69`):
+    "params" `models.model.param_pspecs`, "opt" `adamw.opt_pspecs` (plus
+    "master" as the parameters with `bf16_params`), "cap_scales"
+    replicated, "grad_err" as the parameters with `grad_compress`."""
+    pp = M.param_pspecs(cfg, tp, max_seq)
+    op = adamw.opt_pspecs(pp)
+    if tcfg.bf16_params:
+        op["master"] = dict(pp)
+    ps = {"params": pp, "opt": op, "cap_scales": (None, None)}
+    if tcfg.grad_compress:
+        ps["grad_err"] = dict(pp)
+    return ps
+
+
+def batch_pspec(cfg, batch_axes=("data",)) -> dict:
+    """The batch's placement: rows over the batch axes
+    (`repro/train/train_step.py:72-79`)."""
+    b = M.axes_entry(batch_axes)
+    spec = {"tokens": (b, None), "labels": (b, None)}
+    if cfg.family in ("encdec", "vlm"):
+        spec["frames" if cfg.family == "encdec" else "patches"] = \
+            (b, None, None)
+    return spec
+
+
+def shard_state(cfg, state: dict, dist) -> dict:
+    """A whole train state cut to this rank's shards of cfg's placements
+    on `dist`, in place: the model (`models.model.shard_model`) and its
+    moments, master copies and residuals, each as its parameter."""
+    M.shard_model(state["params"], cfg, dist)
+    placed = L.placements(state["params"])
     opt = state["opt"]
     for tree in (opt["m"], opt["v"], opt.get("master"),
                  state.get("grad_err")):
         for name in tree or ():
-            tree[name] = dist.shard(tree[name], name)
+            tree[name] = dist.shard(tree[name], L.leaf_axes(placed, name))
     return state
 
 
@@ -141,36 +175,40 @@ def batch_shard(batch: dict, dist, microbatch: int = 0) -> dict:
     return out
 
 
-def _global_norm(grads: dict, dist) -> torch.Tensor:
+def _global_norm(grads: dict, dist, placed: dict) -> torch.Tensor:
     """`adamw.global_norm` of the whole gradient tree on a mesh: each
-    leaf's float32 sum of squares, the expert shards' summed over the
-    ranks they split over (one all-reduce), folded in leaf order."""
+    leaf's float32 sum of squares, a split leaf's (`placed`:
+    `layers.placements`) summed over the ranks it splits over (one
+    all-reduce for each set of axes), folded in leaf order: every element
+    counted once."""
     sq = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()}
-    sharded = [n for n in grads if MOE.expert_spec(n)]
-    if sharded:
-        fsdp = (dist.fsdp_axis,) if dist.fsdp_axis else ()
-        total = C.all_reduce(torch.stack([sq[n] for n in sharded]),
-                             dist.group((dist.tp_axis, *fsdp)))
-        sq.update(zip(sharded, total))
+    by_axes = {}
+    for n in grads:
+        axes = tuple(a for a in placed.get(n) or () if a)
+        if axes:
+            by_axes.setdefault(tuple(sorted(set(axes))), []).append(n)
+    for axes, names in by_axes.items():
+        total = C.all_reduce(torch.stack([sq[n] for n in names]),
+                             dist.group(axes))
+        sq.update(zip(names, total))
     total = 0
     for v in sq.values():
         total = total + v
     return torch.sqrt(total)
 
 
-def _whole_blocks(name: str, local_shape, dist) -> bool:
-    """Whether this rank's shard of leaf `name` is made of whole int8
-    blocks of the whole leaf's flat order: the shard is runs of
-    local[j] x (the sizes after j) contiguous elements, j its last split
-    dimension, each starting at a multiple of that length."""
-    spec = MOE.expert_spec(name)
-    sizes = dist.sizes()
-    split = [d for d, r in enumerate(spec or ()) if r and sizes[r] > 1]
+def _whole_blocks(axes, local_shape) -> bool:
+    """Whether this rank's shard of a leaf placed at `axes` is made of
+    whole int8 blocks of the whole leaf's flat order: the shard is runs
+    of local[j] x (the sizes after j) contiguous elements, j its last
+    split dimension, each starting at a multiple of that length."""
+    split = [d for d, a in enumerate(axes or ()) if a]
     return not split or \
         math.prod(local_shape[split[-1]:]) % GC.BLOCK == 0
 
 
-def compress_grads(cfg, grads: dict, err: dict, dist=None):
+def compress_grads(cfg, grads: dict, err: dict, dist=None,
+                   placed: dict = None):
     """`grad_compress`: (compressed gradients, new residuals), the int8
     blocks cut from the reference's leaves (`models.model.
     reference_leaves`). On a mesh, one reference leaf at a time: where
@@ -178,8 +216,9 @@ def compress_grads(cfg, grads: dict, err: dict, dist=None):
     experts on up to 8 data ranks) this rank compresses its shards as
     they are, the same blocks as the whole leaf's; else the leaf is
     gathered, compressed whole and cut again, and the whole copy freed
-    before the next leaf. The entries of `grads` and `err` are taken
-    out as each leaf is done."""
+    before the next leaf. `placed` is the model's `layers.placements`.
+    The entries of `grads` and `err` are taken out as each leaf is
+    done."""
     groups = M.reference_leaves(cfg, grads)
     if dist is None:
         return GC.tree_compress(grads, err, groups)
@@ -187,14 +226,15 @@ def compress_grads(cfg, grads: dict, err: dict, dist=None):
     for names in groups:
         g = {n: grads.pop(n) for n in names}
         e = {n: err.pop(n) for n in names}
-        if all(_whole_blocks(n, g[n].shape, dist) for n in names):
+        axes = {n: placed.get(n) for n in names}
+        if all(_whole_blocks(axes[n], g[n].shape) for n in names):
             new_g, new_e = GC.tree_compress(g, e, [names])
         else:
             new_g, new_e = (
-                {n: dist.shard(t, n) for n, t in tree.items()}
+                {n: dist.shard(t, axes[n]) for n, t in tree.items()}
                 for tree in GC.tree_compress(
-                    {n: dist.unshard(t, n) for n, t in g.items()},
-                    {n: dist.unshard(t, n) for n, t in e.items()},
+                    {n: dist.unshard(t, axes[n]) for n, t in g.items()},
+                    {n: dist.unshard(t, axes[n]) for n, t in e.items()},
                     [names]))
         del g, e
         out_g.update(new_g)
@@ -249,16 +289,16 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig(), dist=None):
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, grads
 
-    def sync(grads):
-        # replicated leaves: each batch rank holds its share; expert
-        # shards arrive summed over "data" and need the rest of the
-        # batch axes (a pod axis) only
+    def sync(grads, placed):
+        # a leaf replicated over "data": each batch rank holds its share;
+        # a "data"-sharded one arrives summed over "data" and needs the
+        # rest of the batch axes (a pod axis) only
         fsdp = (dist.fsdp_axis,) if dist.fsdp_axis else ()
         rest = dist.group([a for a in dist.batch_axes if a not in fsdp])
         out = {}
         for n, g in grads.items():
-            group = rest if MOE.expert_spec(n) else \
-                dist.group(dist.batch_axes)
+            group = rest if dist.fsdp_axis in (placed.get(n) or ()) \
+                else dist.group(dist.batch_axes)
             out[n] = g if group is None else C.all_reduce(g, group)
         return out
 
@@ -286,15 +326,17 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig(), dist=None):
             metrics["loss"] = loss_sum / mb
         else:
             _, metrics, grads = grads_of(model, batch, state["cap_scales"])
-        return metrics, grads if dist is None else sync(grads)
+        return metrics, grads if dist is None else \
+            sync(grads, L.placements(model))
 
     def step(state, batch):
         model = state["params"]
         metrics, grads = loss_and_grads(state, batch)
+        placed = None if dist is None else L.placements(model)
         if tcfg.grad_compress:
             grads, state["grad_err"] = compress_grads(
-                cfg, grads, state["grad_err"], dist)
-        gnorm = None if dist is None else _global_norm(grads, dist)
+                cfg, grads, state["grad_err"], dist, placed)
+        gnorm = None if dist is None else _global_norm(grads, dist, placed)
         params = dict(model.named_parameters())
         opt = state["opt"]
         if tcfg.bf16_params:

@@ -37,7 +37,7 @@ from repro_torch.data.pipeline import Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import batch_axes_of, mesh_size
 from repro_torch.models import model as M
-from repro_torch.models.moe import DistContext
+from repro_torch.launch.mesh import DistContext
 
 from . import checkpoint as CKPT
 from . import train_step as TS

@@ -22,8 +22,9 @@ import torch.distributed as tdist
 from repro_torch.configs import get_arch, reduced
 from repro_torch.convert import train_state_from_reference
 from repro_torch.launch import collectives as C
-from repro_torch.launch.mesh import (init_process_group, make_mesh,
-                                    make_smoke_mesh)
+from repro_torch.launch.mesh import (DistContext, init_process_group,
+                                     make_mesh, make_smoke_mesh)
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.optim import grad_compress as GC
@@ -94,9 +95,11 @@ def _zeros(tree):
     return np.zeros_like(tree)
 
 
-def _whole(dist, tree):
-    return {n: dist.unshard(t.detach(), n).float().numpy()
-            for n, t in tree.items()}
+def _whole(dist, tree, placed):
+    """Every leaf of `tree` gathered whole, at its axes in `placed`
+    (`layers.placements`)."""
+    return {n: dist.unshard(t.detach(), L.leaf_axes(placed, n))
+            .float().numpy() for n, t in tree.items()}
 
 
 # ------------------------------------------------------------------ tasks
@@ -106,14 +109,16 @@ def ep(mesh, *, arch, over, weights, x, r, cap, aux_weight):
     (x's rows, the router's summed over the batch ranks, whole expert
     leaves), the aux values, and the local expert shapes."""
     cfg = _cfg(arch, over)
-    dist = MOE.DistContext(mesh)
+    dist = DistContext(mesh)
     out = {"tp": dist.tp, "dp": dist.dp}
     for dropless in (False, True):
         moe = MOE.MoE(cfg, torch.Generator().manual_seed(0), "cpu")
         with torch.no_grad():
             for name, w in weights.items():
                 getattr(moe, name).copy_(torch.from_numpy(w))
-        MOE.shard_experts(moe, dist)
+        L.shard_module(moe, dist, {
+            leaf: dist.effective(axes)
+            for leaf, axes in MOE.moe_pspec(cfg).items()})
         moe.requires_grad_(True)
         xl = TS.batch_shard({"x": torch.from_numpy(x)}, dist)["x"]
         rl = TS.batch_shard({"r": torch.from_numpy(r)}, dist)["r"]
@@ -128,7 +133,9 @@ def ep(mesh, *, arch, over, weights, x, r, cap, aux_weight):
                        for n in ("wi", "wg", "wo")},
             "y": _rows(dist, y).numpy(), "dx": _rows(dist, gx).numpy(),
             "router": C.all_reduce(grt, dist.group(dist.batch_axes)).numpy(),
-            **_whole(dist, {"moe.wi": gwi, "moe.wg": gwg, "moe.wo": gwo}),
+            **{f"moe.{n}": dist.unshard(g, moe.placement.get(n))
+               .float().numpy()
+               for n, g in (("wi", gwi), ("wg", gwg), ("wo", gwo))},
             **{k: v.detach().numpy() for k, v in aux.items()}}
     return out
 
@@ -138,10 +145,10 @@ def serve(mesh, *, arch, over, tokens):
     with the experts split over the mesh, against the same calls without
     a mesh: the largest relative differences of the logits."""
     cfg = _cfg(arch, over)
-    dist = MOE.DistContext(mesh)
+    dist = DistContext(mesh)
     model = M.init_params(cfg, 0, device="cpu")
     whole = copy.deepcopy(model)
-    MOE.shard_experts(model, dist)
+    M.shard_model(model, cfg, dist)
     rows = TS.batch_shard({"tokens": torch.from_numpy(tokens)},
                           dist)["tokens"]
     l0, c0 = M.prefill(cfg, whole, {"tokens": rows})
@@ -168,7 +175,7 @@ def step(mesh, *, arch, over, state, batches, options, with_grads=True):
     with its metrics, whole parameters (and master copies) and capacity
     scales."""
     cfg = _cfg(arch, over)
-    dist = MOE.DistContext(mesh)
+    dist = DistContext(mesh)
     tcfg = TS.TrainConfig(dtype=torch.float32, **options)
     state = dict(state, opt=dict(state["opt"]))
     if tcfg.bf16_params:    # as the reference's init: params become master
@@ -177,18 +184,20 @@ def step(mesh, *, arch, over, state, batches, options, with_grads=True):
         state["grad_err"] = _zeros(state["params"])
     st = train_state_from_reference(cfg, state, device="cpu", dist=dist)
     fn = TS.make_train_step(cfg, tcfg, dist)
+    placed = L.placements(st["params"])
     out = {"steps": []}
     for i, batch in enumerate(batches):
         local = TS.batch_shard(_t(batch), dist, tcfg.microbatch)
         if i == 0 and with_grads:
             metrics, grads = fn.loss_and_grads(st, local)
-            out["grads"] = _whole(dist, grads)
+            out["grads"] = _whole(dist, grads, placed)
             out["grad_metrics"] = {k: v.numpy() for k, v in metrics.items()}
         st, metrics = fn(st, local)
         out["steps"].append({
             "metrics": {k: v.detach().numpy() for k, v in metrics.items()},
-            "params": _whole(dist, dict(st["params"].named_parameters())),
-            "master": _whole(dist, st["opt"].get("master", {})),
+            "params": _whole(dist, dict(st["params"].named_parameters()),
+                             placed),
+            "master": _whole(dist, st["opt"].get("master", {}), placed),
             "cap_scales": st["cap_scales"].numpy().copy()})
     return out
 
@@ -199,10 +208,12 @@ def compress(mesh, *, arch, cases, seed):
     residuals drawn whole from `seed`, this rank's shards compressed and
     gathered again. The names whose bits differ, and the all-gathers the
     compression made."""
-    dist = MOE.DistContext(mesh)
+    dist = DistContext(mesh)
     out = {}
     for label, over in cases.items():
         cfg = _cfg(arch, over)
+        placed = {n: dist.effective(a)
+                  for n, a in M.param_pspecs(cfg, dist.tp).items()}
         g = torch.Generator().manual_seed(seed)
         grads, err = {}, {}
         for n, p in M.init_params(cfg, 0, device="meta").named_parameters():
@@ -217,13 +228,15 @@ def compress(mesh, *, arch, cases, seed):
         C.all_gather = counted
         try:
             got = TS.compress_grads(
-                cfg, {n: dist.shard(t, n) for n, t in grads.items()},
-                {n: dist.shard(t, n) for n, t in err.items()}, dist)
+                cfg, {n: dist.shard(t, placed[n]) for n, t in grads.items()},
+                {n: dist.shard(t, placed[n]) for n, t in err.items()}, dist,
+                placed)
         finally:
             C.all_gather = gather
         out[label] = {"gathers": len(gathers), "differ": [
             f"{kind} {n}" for kind, w, t in zip(("grad", "err"), want, got)
-            for n in w if not torch.equal(dist.unshard(t[n], n), w[n])]}
+            for n in w
+            if not torch.equal(dist.unshard(t[n], placed[n]), w[n])]}
     return out
 
 
@@ -231,26 +244,28 @@ def dense(mesh, *, arch, over, batch, seed):
     """A dense model's step from `init_train_state(seed)` on this rank's
     rows: the step's loss and the whole new parameters."""
     cfg = _cfg(arch, over)
-    dist = MOE.DistContext(mesh)
+    dist = DistContext(mesh)
     tcfg = TS.TrainConfig(dtype=torch.float32)
     st = TS.init_train_state(cfg, seed, tcfg=tcfg, device="cpu", dist=dist)
     st, metrics = TS.make_train_step(cfg, tcfg, dist)(
         st, TS.batch_shard(_t(batch), dist))
     return {"loss": float(metrics["loss"]),
-            "params": _whole(dist, dict(st["params"].named_parameters()))}
+            "params": _whole(dist, dict(st["params"].named_parameters()),
+                             L.placements(st["params"]))}
 
 
 def save(mesh, *, arch, over, batch, seed, ckpt_dir):
     """One step from `init_train_state(seed)`, then a checkpoint: the
     state's whole leaves as saved."""
     cfg = _cfg(arch, over)
-    dist = MOE.DistContext(mesh)
+    dist = DistContext(mesh)
     tcfg = TS.TrainConfig(dtype=torch.float32)
     st = TS.init_train_state(cfg, seed, tcfg=tcfg, device="cpu", dist=dist)
     st, _ = TS.make_train_step(cfg, tcfg, dist)(
         st, TS.batch_shard(_t(batch), dist))
     CKPT.save_state(st, ckpt_dir, 1, dist=dist)
-    return {n: dist.unshard(t.detach(), n).numpy()
+    placed = L.placements(st)
+    return {n: dist.unshard(t.detach(), L.leaf_axes(placed, n)).numpy()
             for n, t in CKPT.state_leaves(st)}
 
 
@@ -258,14 +273,15 @@ def load(mesh, *, arch, over, seed, ckpt_dir):
     """A fresh state from another seed with the checkpoint loaded into its
     shards: whole leaves, and the local expert shapes."""
     cfg = _cfg(arch, over)
-    dist = MOE.DistContext(mesh)
+    dist = DistContext(mesh)
     st = TS.init_train_state(cfg, seed, device="cpu", dist=dist,
                              tcfg=TS.TrainConfig(dtype=torch.float32))
     st, at = CKPT.load_state(st, ckpt_dir, dist=dist)
+    placed = L.placements(st)
     return {"step": at,
             "shapes": {n: tuple(t.shape) for n, t in CKPT.state_leaves(st)},
-            "leaves": {n: dist.unshard(t.detach(), n).numpy()
-                       for n, t in CKPT.state_leaves(st)}}
+            "leaves": {n: dist.unshard(t.detach(), L.leaf_axes(placed, n))
+                       .numpy() for n, t in CKPT.state_leaves(st)}}
 
 
 def trainer(mesh, *, arch, over, ckpt_dir, steps, batch, seq):
@@ -298,7 +314,7 @@ def one_rank(mesh, *, arch, over, batches, seed, caps):
     batch from the same state: the names of the metrics and state leaves
     whose bits differ (none expected)."""
     cfg = _cfg(arch, over)
-    dist = MOE.DistContext(make_smoke_mesh("cpu"))
+    dist = DistContext(make_smoke_mesh("cpu"))
     tcfg = TS.TrainConfig(dtype=torch.float32)
     states = []
     for d in (None, dist):
@@ -320,5 +336,62 @@ def one_rank(mesh, *, arch, over, batches, seed, caps):
     return differ
 
 
+def tp_grads(mesh, *, arch, over, batch, seed):
+    """The whole layout (`shard_model`: FSDP, tensor and expert
+    parallelism) from `init_train_state(seed)`: the loss and whole
+    gradients of `loss_and_grads` on this rank's rows, float32, and the
+    prefill's last-token logits of every batch rank's rows."""
+    cfg = _cfg(arch, over)
+    dist = DistContext(mesh)
+    tcfg = TS.TrainConfig(dtype=torch.float32)
+    st = TS.init_train_state(cfg, seed, tcfg=tcfg, device="cpu", dist=dist)
+    local = TS.batch_shard(_t(batch), dist)
+    metrics, grads = TS.make_train_step(cfg, tcfg, dist).loss_and_grads(
+        st, local)
+    logits, _ = M.prefill(cfg, st["params"], {"tokens": local["tokens"]},
+                          dist=dist)
+    return {"loss": float(metrics["loss"]),
+            "grads": _whole(dist, grads, L.placements(st["params"])),
+            "logits": _rows(dist, logits).numpy(),
+            "shapes": {n: tuple(p.shape) for n, p in
+                       st["params"].named_parameters()}}
+
+
+def seq_decode(mesh, *, arch, over, tokens, seed, cache_len):
+    """Decode over a KV cache split by sequence (the KV heads do not
+    divide the model ranks): the unmeshed prefill's cache of every row,
+    padded to `cache_len` positions and cut to this rank's rows and
+    positions, then one `decode_step` with the mesh; and the meshed
+    prefill's own cache against the unmeshed one's slice. The logits
+    (every batch rank's rows) and the cache's largest difference relative
+    to its largest value."""
+    cfg = _cfg(arch, over)
+    dist = DistContext(mesh)
+    whole = M.init_params(cfg, seed, device="cpu")
+    model = copy.deepcopy(whole)
+    M.shard_model(model, cfg, dist)
+    assert M.kv_layout(cfg, dist) == "seq"
+    toks = torch.from_numpy(tokens)
+    rows = TS.batch_shard({"tokens": toks}, dist)["tokens"]
+    S = rows.shape[1]
+    _, c_whole = M.prefill(cfg, whole, {"tokens": rows})
+    l_mesh, c_mesh = M.prefill(cfg, model, {"tokens": rows}, dist=dist)
+    r, tp = dist.index(dist.tp_axis), dist.tp
+    n = S // tp
+    cache_err = max(float((c_mesh[s][kv] - c_whole[s][kv][
+        :, :, r * n:(r + 1) * n]).abs().max() / c_whole[s][kv].abs().max())
+        for s in range(len(c_whole)) for kv in ("k", "v"))
+    m = cache_len // tp
+    local = [{kv: torch.nn.functional.pad(
+        t, (0, 0, 0, 0, 0, cache_len - S))[:, :, r * m:(r + 1) * m]
+        .contiguous() for kv, t in seg.items()} for seg in c_whole]
+    nxt = torch.argmax(l_mesh, -1)[:, None]
+    d_mesh, _ = M.decode_step(cfg, model, nxt, local, S, dist=dist)
+    return {"prefill_logits": _rows(dist, l_mesh).numpy(),
+            "decode_logits": _rows(dist, d_mesh).numpy(),
+            "next": _rows(dist, nxt).numpy(), "cache_err": cache_err}
+
+
 TASKS = {f.__name__: f for f in (ep, serve, step, compress, dense, save,
-                                 load, trainer, one_rank)}
+                                 load, trainer, one_rank, tp_grads,
+                                 seq_decode)}

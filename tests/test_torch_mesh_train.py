@@ -53,9 +53,11 @@ OVER = dict(n_experts=8, experts_per_token=2)
 DENSE = "qwen2-1.5b"
 B, S = 4, 48
 OPTIONS = {"microbatch": 2, "grad_compress": True}
-# at (2, 2) a shard of wo is runs of D / 2 elements: 32 straddle the
-# int8 blocks of 256 (wo is gathered), 256 do not (nothing is)
-COMPRESS_CASES = {"straddling": OVER, "aligned": dict(OVER, d_model=512)}
+# at (2, 2) a shard of wo is runs of D / 2 elements, and one of wk or wv
+# (KV heads over "model") runs of Hkv dh / 2: 32 straddle the int8 blocks
+# of 256 (the leaf is gathered), 256 do not (nothing is)
+COMPRESS_CASES = {"straddling": OVER,
+                  "aligned": dict(OVER, d_model=512, n_kv_heads=4)}
 # the reference's jobs, in two processes that run at once
 REF_JOBS = [[((2, 2), {}, True), ((2, 2), OPTIONS, False)],
             [((1, 2), {}, True), ((2, 1), {}, True)]]
