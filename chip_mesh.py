@@ -3,6 +3,7 @@
 
     python3 chip_mesh.py                       # one NCCL rank a card (4)
     python3 chip_mesh.py --device cpu --tiny   # rehearsal: 4 gloo ranks
+    python3 chip_mesh.py --witness             # one card: the witness alone
 
 `chip_smoke.py` drives the mesh path on one card (a 1 x 1 NCCL mesh, and
 expert parallelism rank by rank in one process); this script runs it
@@ -40,19 +41,46 @@ pipeline's corpus (`synthetic_tokens`), capacity scales drawn in
   of 4 x 2,048 tokens: the median and range of the steps after the
   first, one traced step (the collectives' share of the card's time),
   each rank's state bytes and peak;
+* recurrent parity: zamba2-1.2b cut to its first 6 blocks (MMMMMA: d_in
+  and the Mamba2 heads split, the shared attention block's heads),
+  xlstm-350m cut to 4 (XXXS: the mLSTM's heads split, the sLSTM
+  replicated) and whisper-small cut to 2 encoder and 2 decoder layers
+  (its 1,500 frames and 448 tokens a row), one float32 step each on a
+  (1, R) mesh against the unmeshed step on rank 0's card: the loss
+  within 1e-5 relative, every gradient leaf and new parameter within
+  1e-4 of the leaf's largest unmeshed value or within the rounding
+  witness below;
+* the rounding witness of the recurrent parity (on rank 0's card): the
+  unmeshed float32 step again from the same state with every parameter
+  moved by one ulp in a random direction, the distance of its gradients
+  and new parameters from the unmeshed step's, leaf by leaf: how far
+  float32 rounding alone moves each leaf at the parity's size and path.
+  A leaf the mesh moves by more than LEAF_TOL passes if it moves by no
+  more than WITNESS_FACTOR times the witness (the issue's fixed bar,
+  met or not, is logged beside it), and a parameter also within
+  ZERO_START_FLOOR lr (a leaf that starts at zero, such as a norm's bias
+  or dt_bias, moves by about lr sign(g) in AdamW's first step, so its
+  share of its own max is a share of lr: the floor
+  `tests/test_torch_mesh_tp.py` holds the meshed steps to);
+* recurrent depth: zamba2-1.2b at its 38 blocks on a (1, R) mesh,
+  DEPTH_STEPS bfloat16 steps of 4 x 2,048 tokens (`dense_depth`'s
+  measures);
 * the dry run's prediction (`launch/dryrun.py`, one rank of the (1, R)
   mesh under fake tensors, traced in this process before the ranks
-  start): argument + temp bytes for the glm4-9b and olmoe-1b-7b depth
-  steps, beside each one's measured peak.
+  start): argument + temp bytes for the glm4-9b, olmoe-1b-7b and
+  zamba2-1.2b depth steps, beside each one's measured peak.
 
 Rank 0 prints one JSON line a result, each with the card's name and
-power limit; the last line is {"ok": true, ...}. Any failed check
-raises, and the script exits non-zero.
+power limit; the last line is {"ok": true, ...}. A failed check is
+logged at once ("check_failed"); every rank runs on to the end (a rank
+that stops frees the others within RANK_TIMEOUT_S), then raises, and the
+script exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import shutil
 import sys
@@ -71,17 +99,36 @@ KERNEL_GROUPS = (("nccl", "collectives"), ("moe_bwd_", "ich_moe_bwd"),
                  ("nvjet", "matmul"), ("cutlass", "matmul"))
 LOSS_RTOL, LEAF_TOL = 1e-5, 1e-4
 PEAKS = {}      # each depth step's peak a rank (GB), by arch
+RANK_TIMEOUT_S = 300    # a collective's wait for the other ranks
 DENSE_ARCH = "glm4-9b"
 DENSE_LOSS_RTOL, DENSE_LEAF_TOL = 1e-6, 1e-5
+# (arch, blocks or layers kept) of the recurrent and encoder-decoder
+# parity; whisper's rows: its 1,500 frames and a 448-token text context
+RECURRENT_CUTS = (("zamba2-1.2b", 6), ("xlstm-350m", 4),
+                  ("whisper-small", 2))
+RECURRENT_ARCH, WHISPER_SEQ = "zamba2-1.2b", 448
+# the recurrent parity's rounding witness: a leaf within WITNESS_FACTOR
+# times the distance a one-ulp nudge of the parameters moves it (a fault
+# of the layout, a partial sum missed or doubled or a slice misplaced,
+# moves a leaf by a share of its max near 1), or a parameter within
+# ZERO_START_FLOOR lr
+WITNESS_FACTOR, ZERO_START_FLOOR = 10.0, 1e-3
 
 
 def log(**kw) -> None:
     print(json.dumps(kw), flush=True)
 
 
+FAILED = []     # this rank's failed checks; raised after the last phase
+
+
 def check(ok: bool, what: str) -> None:
+    """Record a failed check (logged at once); every rank goes on to the
+    end, so no rank waits in a collective for one that has stopped, and
+    `_rank` raises after the last phase."""
     if not ok:
-        raise RuntimeError(f"check failed: {what}")
+        FAILED.append(what)
+        log(phase="check_failed", what=what)
 
 
 def _dense_cfg(args):
@@ -90,6 +137,29 @@ def _dense_cfg(args):
     if args.tiny:       # 4 heads, 2 KV heads (whole on each of 4 ranks)
         cfg = reduced(cfg, d_model=256)
     return cfg
+
+
+def _recurrent_cfgs(args):
+    """The recurrent parity's configs: each of RECURRENT_CUTS cut to its
+    first blocks (layers, and as many encoder layers); with `--tiny` the
+    reduced configs (Zamba2 with heads of 16 and its shared block once)."""
+    from repro_torch.configs import get_arch, reduced
+    out = []
+    for name, n in RECURRENT_CUTS:
+        cfg = get_arch(name)
+        over = {"n_layers": n}
+        if cfg.block_pattern:
+            over["block_pattern"] = cfg.block_pattern[:n]
+        if cfg.family == "encdec":
+            over["encoder_layers"] = n
+        if args.tiny:
+            extra = {"ssm_head_dim": 16, "attn_window": 24,
+                     "ssm_chunk": 16} if cfg.family == "hybrid" else {}
+            cfg = reduced(cfg, **over, **extra)
+        else:
+            cfg = dataclasses.replace(cfg, **over)
+        out.append(cfg)
+    return out
 
 
 def _setup(args):
@@ -115,10 +185,15 @@ def _state(cfg, tcfg, caps, dev, dist=None):
 
 
 def _batch(cfg, batch, seq, dev, dist=None, step=0):
+    """Tokens from the pipeline's corpus, and an encdec model's frames
+    (standard normal from numpy, seeded), this rank's rows."""
     import torch
     from repro_torch.data.pipeline import synthetic_tokens
     from repro_torch.train import train_step as TS
     b = synthetic_tokens(batch, seq, cfg.padded_vocab, step, SEED)
+    if cfg.family == "encdec":
+        b["frames"] = np.random.default_rng(SEED + step).standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
     return {k: torch.from_numpy(v).to(dev)
             for k, v in TS.batch_shard(b, dist).items()}
 
@@ -322,18 +397,48 @@ def depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
           "mesh depth: finite losses, with and without grad_compress")
 
 
-def dense_parity(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
-    """glm4-9b at 2 layers, float32: the (1, R) step with the dense
-    layers split over "model" against the unmeshed step."""
+def _nudged_step(cut, tcfg, max_seq, dev, batch):
+    """The unmeshed float32 step from the parity's state with every
+    parameter moved by one ulp in a random direction (seeded): its
+    gradients and new parameters, by name."""
+    import torch
+    from repro_torch.train import train_step as TS
+    st = TS.init_train_state(cut, SEED, max_seq, tcfg=tcfg, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 90)
+    inf = float("inf")
+    with torch.no_grad():
+        for p in st["params"].parameters():
+            up = torch.rand(p.shape, generator=g, device=dev) < 0.5
+            p.copy_(torch.nextafter(p, torch.where(
+                up, torch.full_like(p, inf), torch.full_like(p, -inf))))
+    step = TS.make_train_step(cut, tcfg)
+    metrics, grads = step.loss_and_grads(st, batch)
+    st, _ = step.apply(st, metrics, grads)
+    return grads, {n: p.detach()
+                   for n, p in st["params"].named_parameters()}
+
+
+def dense_parity(mesh, cfg, batch, seq, caps, dev, rank, card, *,
+                 cut=None, label="mesh_dense_parity",
+                 loss_rtol=DENSE_LOSS_RTOL, leaf_tol=DENSE_LEAF_TOL,
+                 witness: bool = False) -> None:
+    """glm4-9b at 2 layers (or the config `cut`), float32: the (1, R) step
+    with its layers split over "model" against the unmeshed step. With
+    `witness`, a leaf beyond `leaf_tol` passes within WITNESS_FACTOR
+    times the rounding witness (`_nudged_step`), a parameter also within
+    ZERO_START_FLOOR lr."""
     import torch
     from repro_torch.launch.mesh import DistContext
     from repro_torch.models import layers as L
     from repro_torch.train import train_step as TS
-    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    cut = cut or dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    max_seq = max(cut.encoder_seq, seq) if cut.family == "encdec" else 0
     dist = DistContext(mesh)
     tcfg = TS.TrainConfig(dtype=torch.float32)
     t0 = time.perf_counter()
-    st = TS.init_train_state(cut, SEED, tcfg=tcfg, device=dev, dist=dist)
+    st = TS.init_train_state(cut, SEED, max_seq, tcfg=tcfg, device=dev,
+                             dist=dist)
     step = TS.make_train_step(cut, tcfg, dist)
     b = _batch(cut, batch, seq, dev, dist)
     _, grads = step.loss_and_grads(st, b)
@@ -349,32 +454,91 @@ def dense_parity(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
     del grads, st
     if rank != 0:
         return
-    ref = TS.init_train_state(cut, SEED, tcfg=tcfg, device=dev)
+    ref = TS.init_train_state(cut, SEED, max_seq, tcfg=tcfg, device=dev)
     ref_step = TS.make_train_step(cut, tcfg)
     rb = _batch(cut, batch, seq, dev)
-    _, r_grads = ref_step.loss_and_grads(ref, rb)
+    r_metrics, r_grads = ref_step.loss_and_grads(ref, rb)
     g_share = {n: _share(whole_g[n], g) for n, g in r_grads.items()}
-    del r_grads, whole_g
-    ref, rm = ref_step(ref, rb)
-    p_share = {n: _share(whole_p[n], p.detach())
-               for n, p in ref["params"].named_parameters()}
+    del whole_g
+    ref, rm = ref_step.apply(ref, r_metrics, r_grads)
+    r_params = {n: p.detach() for n, p in ref["params"].named_parameters()}
+    p_share = {n: _share(whole_p[n], p) for n, p in r_params.items()}
+    p_abs = {n: float((whole_p[n] - p).abs().max())
+             for n, p in r_params.items()}
     loss = (float(m["loss"]), float(rm["loss"]))
+    lr = float(rm["lr"])
     worst_g = max(g_share, key=g_share.get)
-    log(phase="mesh_dense_parity", arch=cfg.name, mesh=list(mesh.mesh.shape),
-        layers=CUT_LAYERS, tokens=batch * seq, loss_meshed_unmeshed=loss,
+    worst_p = max(p_share, key=p_share.get)
+    rec = {}
+    g_bar = p_bar = {n: leaf_tol for n in g_share}
+    if witness:
+        w_grads, w_params = _nudged_step(cut, tcfg, max_seq, dev, rb)
+        w_g = {n: _share(w_grads[n], g) for n, g in r_grads.items()}
+        w_p = {n: _share(w_params[n], p) for n, p in r_params.items()}
+        del w_grads, w_params
+        g_bar = {n: max(leaf_tol, WITNESS_FACTOR * w_g[n]) for n in w_g}
+        p_bar = {n: max(leaf_tol, WITNESS_FACTOR * w_p[n]) for n in w_p}
+        ratio = {n: g_share[n] / w_g[n] if w_g[n] else float("inf")
+                 for n in g_share if g_share[n] > leaf_tol}
+        p_ratio = {n: p_share[n] / w_p[n] if w_p[n] else float("inf")
+                   for n in p_share if p_share[n] > leaf_tol}
+        rec = {"witness_grad_worst_share": max(w_g.values()),
+               "witness_grad_worst_leaf": max(w_g, key=w_g.get),
+               "witness_param_worst_share": max(w_p.values()),
+               "witness_param_worst_leaf": max(w_p, key=w_p.get),
+               "witness_at_worst_grad_leaf": w_g[worst_g],
+               "witness_at_worst_param_leaf": w_p[worst_p],
+               "grad_leaves_past_leaf_tol": len(ratio),
+               "grad_worst_ratio_to_witness": max(ratio.values(),
+                                                  default=None),
+               "param_leaves_past_leaf_tol": len(p_ratio),
+               "param_worst_ratio_to_witness": max(p_ratio.values(),
+                                                   default=None),
+               "witness_factor": WITNESS_FACTOR,
+               "zero_start_floor_lr": ZERO_START_FLOOR,
+               "issue_bar_met": g_share[worst_g] <= leaf_tol
+               and p_share[worst_p] <= leaf_tol}
+    del r_grads
+    bad_g = sorted(n for n in g_share if g_share[n] > g_bar[n])
+    bad_p = sorted(n for n in p_share if p_share[n] > p_bar[n]
+                   and not (witness and p_abs[n] <= ZERO_START_FLOOR * lr))
+    log(phase=label, arch=cfg.name, mesh=list(mesh.mesh.shape),
+        layers=cut.n_layers, block_pattern=list(cut.block_pattern),
+        encoder_layers=cut.encoder_layers, tokens=batch * seq,
+        loss_meshed_unmeshed=loss, lr=lr,
         grad_worst_share=g_share[worst_g], grad_worst_leaf=worst_g,
-        param_worst_share=max(p_share.values()), split_leaves=split,
+        param_worst_share=p_share[worst_p], param_worst_leaf=worst_p,
+        param_worst_abs=p_abs[worst_p], **rec,
+        grad_leaves_failed=bad_g, param_leaves_failed=bad_p,
+        split_leaves=split,
         local_shapes_rank0=shapes, card=card,
         seconds=time.perf_counter() - t0)
-    check(abs(loss[0] - loss[1]) <= DENSE_LOSS_RTOL * abs(loss[1]),
-          "dense parity: loss")
-    check(g_share[worst_g] <= DENSE_LEAF_TOL, "dense parity: gradients")
-    check(max(p_share.values()) <= DENSE_LEAF_TOL, "dense parity: parameters")
+    check(abs(loss[0] - loss[1]) <= loss_rtol * abs(loss[1]),
+          f"{label}: {cfg.name} loss")
+    check(not bad_g, f"{label}: {cfg.name} gradients")
+    check(not bad_p, f"{label}: {cfg.name} parameters")
 
 
-def dense_depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
-    """glm4-9b at its full depth on (1, R), bfloat16 (`depth`'s measures,
-    without the compressed run)."""
+def recurrent_parity(mesh, cfg, batch, seq, caps, dev, rank, card, *,
+                     args=None) -> None:
+    """Each of `_recurrent_cfgs` (zamba2-1.2b at 6 blocks, xlstm-350m at
+    4, whisper-small at 2 + 2 layers), float32: the (1, R) step against
+    the unmeshed step (`dense_parity`'s measures) within LOSS_RTOL, and
+    LEAF_TOL or the rounding witness."""
+    import torch.distributed as tdist
+    for cut in _recurrent_cfgs(args):
+        rows = min(seq, WHISPER_SEQ) if cut.family == "encdec" else seq
+        dense_parity(mesh, cut, batch, rows, caps, dev, rank, card, cut=cut,
+                     label="mesh_recurrent_parity", loss_rtol=LOSS_RTOL,
+                     leaf_tol=LEAF_TOL, witness=True)
+        tdist.barrier()
+        _fresh(dev)
+
+
+def dense_depth(mesh, cfg, batch, seq, caps, dev, rank, card, *,
+                label="mesh_dense_depth") -> None:
+    """glm4-9b (or zamba2-1.2b) at its full depth on (1, R), bfloat16
+    (`depth`'s measures, without the compressed run)."""
     import torch.distributed as tdist
     from repro_torch.launch.mesh import DistContext
     from repro_torch.train import checkpoint as CKPT
@@ -416,7 +580,7 @@ def dense_depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
     PEAKS[cfg.name] = max(r["peak_gb"] for r in per_rank)
     after = walls[1:]
     if rank == 0:
-        log(phase="mesh_dense_depth", arch=cfg.name,
+        log(phase=label, arch=cfg.name,
             mesh=list(mesh.mesh.shape), layers=cfg.n_layers,
             tokens=batch * seq, losses=losses, step_wall_ms=walls,
             median_wall_ms=float(np.median(after)),
@@ -424,7 +588,13 @@ def dense_depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
             tokens_per_s=batch * seq / (float(np.median(after)) * 1e-3),
             init_s=init_s, per_rank=per_rank, card=card,
             seconds=time.perf_counter() - t0)
-    check(all(np.isfinite(losses)), "dense depth: finite losses")
+    check(all(np.isfinite(losses)), f"{label}: finite losses")
+
+
+def recurrent_depth(mesh, cfg, batch, seq, caps, dev, rank, card) -> None:
+    """zamba2-1.2b at its 38 blocks on (1, R), bfloat16 (`dense_depth`)."""
+    dense_depth(mesh, cfg, batch, seq, caps, dev, rank, card,
+                label="mesh_recurrent_depth")
 
 
 def _sync(dev) -> None:
@@ -446,7 +616,7 @@ def dryrun_predictions(args, world) -> dict:
     moe_cfg, batch, seq, _ = _setup(args)
     shape = ShapeSpec("mesh_depth", seq, batch, "train")
     out = {}
-    for cfg in (_dense_cfg(args), moe_cfg):
+    for cfg in (_dense_cfg(args), moe_cfg, _recurrent_depth_cfg(args)):
         t0 = time.perf_counter()
         try:
             rec = dryrun.trace_step(cfg, shape, fake_mesh(
@@ -463,14 +633,74 @@ def dryrun_predictions(args, world) -> dict:
     return out
 
 
+def _recurrent_depth_cfg(args):
+    from repro_torch.configs import get_arch, reduced
+    cfg = get_arch(RECURRENT_ARCH)
+    if args.tiny:
+        cfg = reduced(cfg, ssm_head_dim=16, block_pattern=("M", "M", "A"),
+                      n_layers=3, attn_window=24, ssm_chunk=16)
+    return cfg
+
+
+# the leaves M2's (1, 4) parity missed 1e-4 at (zamba2's, whisper's)
+WATCH = ("blocks.2.mamba.out", "blocks.1.mamba.dt_bias", "layers.0.ln1.bias")
+
+
+def witness_alone(args) -> None:
+    """`--witness`: on one device, no mesh, each recurrent parity config's
+    unmeshed float32 step and its rounding witness (`_nudged_step`) at
+    the parity's batch and rows: how far float32 rounding alone moves
+    each leaf at the parity's size and path, logged beside the leaves in
+    WATCH."""
+    import torch
+    from repro_torch.train import train_step as TS
+    dev = torch.device("cpu" if args.device == "cpu" else "cuda")
+    card = "cpu"
+    if dev.type == "cuda":
+        from repro_torch.device import card_identity
+        card = card_identity().splitlines()[0]
+    _, batch, seq, _ = _setup(args)
+    tcfg = TS.TrainConfig(dtype=torch.float32)
+    for cut in _recurrent_cfgs(args):
+        t0 = time.perf_counter()
+        rows = min(seq, WHISPER_SEQ) if cut.family == "encdec" else seq
+        max_seq = max(cut.encoder_seq, rows) if cut.family == "encdec" \
+            else 0
+        st = TS.init_train_state(cut, SEED, max_seq, tcfg=tcfg, device=dev)
+        step = TS.make_train_step(cut, tcfg)
+        b = _batch(cut, batch, rows, dev)
+        metrics, grads = step.loss_and_grads(st, b)
+        st, m = step.apply(st, metrics, grads)
+        params = {n: p.detach() for n, p in st["params"].named_parameters()}
+        w_grads, w_params = _nudged_step(cut, tcfg, max_seq, dev, b)
+        g = {n: _share(w_grads[n], x) for n, x in grads.items()}
+        p = {n: _share(w_params[n], x) for n, x in params.items()}
+        p_abs = {n: float((w_params[n] - x).abs().max())
+                 for n, x in params.items()}
+        top = sorted(g, key=g.get, reverse=True)[:5]
+        top_p = sorted(p, key=p.get, reverse=True)[:5]
+        log(phase="witness_alone", arch=cut.name,
+            layers=cut.n_layers, tokens=batch * rows, lr=float(m["lr"]),
+            grad_top=[[n, g[n]] for n in top],
+            param_top=[[n, p[n], p_abs[n]] for n in top_p],
+            watched={n: {"grad_share": g[n], "param_share": p[n],
+                         "param_abs": p_abs[n]}
+                     for n in WATCH if n in g},
+            card=card, seconds=time.perf_counter() - t0)
+        del st, step, grads, w_grads, w_params, params
+
+
 def _rank(rank, world, store, args, out) -> None:
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(1 if args.device == "cpu" else 2)
     from repro_torch.launch.mesh import init_process_group, make_mesh
     import torch.distributed as tdist
+    # a rank that fails frees the others within RANK_TIMEOUT_S
     dev = init_process_group(f"file://{store}", rank=rank, world_size=world,
-                             device=args.device)
+                             device=args.device,
+                             timeout=datetime.timedelta(
+                                 seconds=RANK_TIMEOUT_S))
     card = "cpu"
     if dev.type == "cuda":
         from repro_torch.device import card_identity
@@ -482,10 +712,17 @@ def _rank(rank, world, store, args, out) -> None:
                              (data_parallel, (2, world // 2), cfg),
                              (depth, (1, world), cfg),
                              (dense_parity, (1, world), dense),
-                             (dense_depth, (1, world), dense)):
+                             (dense_depth, (1, world), dense),
+                             (recurrent_parity, (1, world), None),
+                             (recurrent_depth, (1, world),
+                              _recurrent_depth_cfg(args))):
             mesh = make_mesh(shape, ("data", "model"), args.device)
-            fn(mesh, c, batch, seq, caps, dev, rank, card)
+            kw = {"args": args} if fn is recurrent_parity else {}
+            fn(mesh, c, batch, seq, caps, dev, rank, card, **kw)
             tdist.barrier()
+        tdist.barrier()
+        if FAILED:
+            raise RuntimeError(f"check failed on rank {rank}: {FAILED}")
         if rank == 0:
             Path(out).write_text(json.dumps(PEAKS))
     finally:
@@ -499,12 +736,23 @@ def main() -> int:
     ap.add_argument("--tiny", action="store_true",
                     help="reduced olmoe (8 experts, d_model 256), 4 x 64 "
                          "tokens: a rehearsal size")
+    ap.add_argument("--witness", action="store_true",
+                    help="the recurrent parity's rounding witness alone, "
+                         "on one device, no mesh")
     args = ap.parse_args()
     import torch
     import torch.multiprocessing as mp
     if args.device != "cpu" and not torch.cuda.is_available():
         print("chip_mesh: CUDA is not available", file=sys.stderr)
         return 1
+    if args.witness:
+        sys.path.insert(0, str(ROOT / "src"))
+        if args.device != "cpu":
+            from repro_torch.kernels import _build
+            _build.build_all()
+        witness_alone(args)
+        print(json.dumps({"ok": not FAILED, "witness": True}), flush=True)
+        return 0
     world = 4 if args.device == "cpu" else torch.cuda.device_count()
     if world < 2 or world % 2:
         print(f"chip_mesh: needs an even number of ranks, has {world}",
@@ -528,7 +776,8 @@ def main() -> int:
     mp.start_processes(_rank, args=(world, str(tmp / "store"), args,
                                     str(out)),
                        nprocs=world, start_method="spawn")
-    check(out.exists(), "every phase ran")
+    if not out.exists():
+        raise RuntimeError("check failed: every phase ran")
     measured = json.loads(out.read_text())
     log(phase="dryrun_vs_measured", mesh=[1, world], by_arch={
         name: {"predicted_gb": p["predicted_gb"],

@@ -483,6 +483,11 @@ TRAIN_VE_STEPS = 6
 # scan chunks of 256 a block.
 TRAIN_XLSTM_STEPS, TRAIN_ZAMBA2_STEPS = 2, 6
 TRAIN_SSM_CUT_SEQ = 512
+# xlstm's step split is traced on its last batch's first
+# TRAIN_XLSTM_TRACE_SEQ tokens a row: the profiler records the sLSTM
+# loop's tens of thousands of small kernels a step, and a full step's
+# trace took 99-119 s of host time
+TRAIN_XLSTM_TRACE_SEQ = 512
 # training the moe family (ROADMAP.md queue 1 item 5(b)): olmoe-1b-7b at
 # full width (d_model 2,048, 64 experts top-8 of width 1,024) cut in depth
 # to TRAIN_MOE_LAYERS of its 16 layers (a layer's 403 M expert parameters
@@ -527,7 +532,18 @@ EP_Y_TOL, EP_GRAD_TOL = 1e-5, 1e-4   # of max |y| and of each gradient's max
 # and the command line at TP_DRYRUN_CELLS on the 32 x 8 production mesh
 TP_LAYERS, TP_RANKS, TP_BITS_STEPS = 2, (2, 4), 2
 TP_Y_TOL, TP_GRAD_TOL, TP_DRYRUN_RTOL = 1e-5, 1e-4, 0.20
-TP_DRYRUN_CELLS = (("olmo-1b", "decode_32k"), ("olmoe-1b-7b", "train_4k"))
+TP_DRYRUN_CELLS = (("olmo-1b", "decode_32k"), ("olmoe-1b-7b", "train_4k"),
+                   ("zamba2-1.2b", "train_4k"))
+# the tensor parallelism of the recurrent and encoder-decoder families
+# (`phase_tp_recurrent`): one block of each kind at full width, float32,
+# TP_REC_BATCH x TP_REC_SEQ tokens (whisper's encoder on its 1,500
+# frames), rank by rank at TP_RANKS with the model axis's collectives
+# replayed across the ranks for at most TP_REC_PASSES passes; the bars of
+# the dense layers (TP_Y_TOL, TP_GRAD_TOL)
+TP_REC_BATCH, TP_REC_SEQ, TP_REC_PASSES = 2, 512, 12
+# the replay's passes for `tp_rank_by_rank`'s whole stack (its chain of
+# collectives is longer than one block's)
+TP_RBR_PASSES = 24
 # numbers one phase measures and a later one reads
 MEASURED = {}
 # the scan's backward kernel against its plain version: max |diff| within
@@ -3600,15 +3616,18 @@ def serving_bits_without_lse(cfg_dense, cfg_vlm, g) -> dict:
     return out
 
 
-def _copy_state(src, dst) -> None:
-    """Every tensor of train state `src` into the same leaf of `dst`."""
+def _state_copy(state, device):
+    """A copy of train state `state` on `device` (the same bits): its
+    model deep-copied and moved, every other tensor copied."""
+    import copy
     import torch
-    from repro_torch.train import checkpoint as CKPT
-    with torch.no_grad():
-        for (n, a), (m, b) in zip(CKPT.state_leaves(src),
-                                  CKPT.state_leaves(dst)):
-            check(n == m, f"train states hold the same leaves ({n}, {m})")
-            b.copy_(a)
+    if isinstance(state, torch.nn.Module):
+        return copy.deepcopy(state).to(device)
+    if isinstance(state, dict):
+        return {k_: _state_copy(v_, device) for k_, v_ in state.items()}
+    if isinstance(state, torch.Tensor):
+        return state.detach().to(device, copy=True)
+    return copy.deepcopy(state)
 
 
 def _loss_grads(cfg, state, batch) -> dict:
@@ -3698,46 +3717,40 @@ def family_inputs(cfg, batch: int, rows: int, rng) -> dict:
                                      dtype=np.float32)}
 
 
-def _update_parity(cut, tcfg, cpu, g_cpu, max_seq) -> float:
-    """AdamW given identical gradients (the CPU's `g_cpu` on both sides)
-    from the CPU's state `cpu` and the same state on the card: the grad
-    norm, every parameter and both moments within UPDATE_RTOL (a
-    parameter also within UPDATE_RTOL lr). Returns the largest parameter
-    difference."""
-    import copy
+def _update_parity(tcfg, cpu, card, step_cpu, m_grad_cpu, g_cpu):
+    """AdamW given identical gradients (the CPU's `g_cpu` on both sides):
+    the CPU's step (`step_cpu.apply` on its state `cpu`, in place) and
+    AdamW on a copy of the same state on the card (`card`, left as it
+    is), compared on the card: the grad norm, every parameter and both
+    moments within UPDATE_RTOL (a parameter also within UPDATE_RTOL lr).
+    Returns (the largest parameter difference, the CPU's stepped state,
+    its metrics)."""
     import torch
     from repro_torch.optim import adamw
-    from repro_torch.train import train_step as TS
-    upd_cpu = copy.deepcopy(cpu)
-    upd_card = TS.init_train_state(cut, SEED + 21, max_seq=max_seq,
-                                   tcfg=tcfg, device="cuda")
-    _copy_state(cpu, upd_card)
-    p_cpu = dict(upd_cpu["params"].named_parameters())
+    upd_card = _state_copy(card, "cuda")
     p_card = dict(upd_card["params"].named_parameters())
-    _, o_cpu, m_cpu = adamw.apply_updates(p_cpu, g_cpu, upd_cpu["opt"],
-                                          tcfg.opt)
     _, o_card, m_card = adamw.apply_updates(
         p_card, {n: g.cuda() for n, g in g_cpu.items()}, upd_card["opt"],
         tcfg.opt)
+    cpu, m_cpu = step_cpu.apply(cpu, m_grad_cpu, g_cpu)
     lr = float(m_cpu["lr"])
     check(abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"]))
           <= UPDATE_RTOL * float(m_cpu["grad_norm"]),
           f"train parity: the update's grad norm within {UPDATE_RTOL}")
     update_worst = 0.0
-    for n, b in p_cpu.items():
-        a = p_card[n].detach().cpu()
-        check(torch.allclose(a, b.detach(), rtol=UPDATE_RTOL,
-                             atol=UPDATE_RTOL * lr),
+    for n, p in cpu["params"].named_parameters():
+        a, b = p_card[n].detach(), p.detach().cuda()
+        check(torch.allclose(a, b, rtol=UPDATE_RTOL, atol=UPDATE_RTOL * lr),
               f"train parity: {n} after the update given identical "
               f"gradients within {UPDATE_RTOL} relative or {UPDATE_RTOL} lr")
-        update_worst = max(update_worst, float((a - b.detach()).abs().max()))
+        update_worst = max(update_worst, float((a - b).abs().max()))
         for k_ in ("m", "v"):
-            check(torch.allclose(o_card[k_][n].cpu(), o_cpu[k_][n],
+            check(torch.allclose(o_card[k_][n], cpu["opt"][k_][n].cuda(),
                                  rtol=UPDATE_RTOL, atol=0.0),
                   f"train parity: {k_} of {n} given identical gradients "
                   f"within {UPDATE_RTOL} relative")
-    del upd_cpu, upd_card, p_cpu, p_card, o_cpu, o_card
-    return update_worst
+    del upd_card, p_card, o_card
+    return update_worst, cpu, m_cpu
 
 
 def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
@@ -3753,7 +3766,13 @@ def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
     leaf group, the layer index left out), the step's loss and grad norm,
     and, with `update`, the AdamW update given identical gradients, within
     the stated tolerances; for moe also the dropped and stolen entries and
-    the new capacity scales equal."""
+    the new capacity scales equal. The state is drawn on the host and
+    copied to the card; the CPU's step is AdamW of the CPU's gradient, on
+    the CPU with `update` (`_update_parity`), else on a copy of the
+    card's state (AdamW on both devices is held by phase_train's parity;
+    the capacity scales still updated on the CPU from the CPU's counts);
+    leaves are compared on the card. `seconds_by_part`: where its wall
+    time went (the card synchronised at each boundary)."""
     import dataclasses
     import torch
     from repro_torch.data.pipeline import synthetic_tokens
@@ -3774,33 +3793,45 @@ def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
     cut = dataclasses.replace(cfg, **over)
     tcfg = TS.TrainConfig(dtype=torch.float32, opt=adamw.AdamWConfig(
         warmup_steps=2, total_steps=TRAIN_STEPS))
+    part_s, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        part_s[name] = part_s.get(name, 0.0) + now - t_lap[0]
+        t_lap[0] = now
+
     cpu = TS.init_train_state(cut, SEED + 20, max_seq=max_seq, tcfg=tcfg,
                               device="cpu")
     if cap_scales is not None:
         cpu["cap_scales"].copy_(torch.from_numpy(
             cap_scales[:M.n_moe_layers(cut)]))
-    card = TS.init_train_state(cut, SEED + 21, max_seq=max_seq, tcfg=tcfg,
-                               device="cuda")
-    _copy_state(cpu, card)
+    lap("cpu_state")
+    card = _state_copy(cpu, "cuda")
+    lap("card_state")
     batch = synthetic_tokens(TRAIN_CUT_BATCH, seq, cut.padded_vocab, 0, SEED)
     batch.update(family_inputs(cut, TRAIN_CUT_BATCH, rows,
                                np.random.default_rng(SEED + 22)))
     b_cpu = {k_: torch.from_numpy(v_) for k_, v_ in batch.items()}
     b_card = {k_: v_.cuda() for k_, v_ in b_cpu.items()}
 
-    # every gradient leaf, from the same state and batch
-    t0 = time.perf_counter()
-    g_cpu = _loss_grads(cut, cpu, b_cpu)
-    cpu_grad_s = time.perf_counter() - t0
+    # every gradient leaf, from the same state and batch: the CPU's one
+    # gradient of this parity, which its step below reuses
+    step_cpu = TS.make_train_step(cut, tcfg)
+    lap("batch")
+    m_grad_cpu, g_cpu = step_cpu.loss_and_grads(cpu, b_cpu)
+    lap("cpu_grad")
     g_card = _loss_grads(cut, card, b_card)
+    lap("card_grad")
     grad_share = {}
     for n, b in g_cpu.items():
-        diff = float((g_card[n].cpu() - b).abs().max())
-        ref = float(b.abs().max())
-        check(diff <= TRAIN_GRAD_TOL * ref,
+        b = b.cuda()
+        diff = float((g_card[n] - b).abs().max())
+        top = float(b.abs().max())
+        check(diff <= TRAIN_GRAD_TOL * top,
               f"train parity: gradient {n} within {TRAIN_GRAD_TOL} of its "
-              f"max |CPU gradient|")
-        grad_share[n] = diff / ref if ref > 0 else diff
+              f"max |CPU gradient| ({diff:.3g} of {top:.3g})")
+        grad_share[n] = diff / top if top > 0 else diff
     del g_card
     by_group = {}
     for n, share in grad_share.items():
@@ -3808,32 +3839,41 @@ def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
         group = ".".join(parts[2:]) if parts[0] in M.STACKED_PREFIXES else n
         by_group[group] = max(by_group.get(group, 0.0), share)
 
-    # the update given identical gradients (the CPU's on both sides)
-    update_worst = _update_parity(cut, tcfg, cpu, g_cpu, max_seq) \
-        if update else None
+    # the CPU's step, AdamW of the CPU's gradient: on the CPU, held against
+    # the card's AdamW given identical gradients, with `update`; else on a
+    # copy of the card's state
+    update_worst = None
+    if update:
+        update_worst, ref, m_cpu = _update_parity(tcfg, cpu, card, step_cpu,
+                                                  m_grad_cpu, g_cpu)
+    else:
+        ref = dict(_state_copy(card, "cuda"), cap_scales=cpu["cap_scales"])
+        ref, m_cpu = step_cpu.apply(ref, m_grad_cpu,
+                                    {n: g.cuda() for n, g in g_cpu.items()})
     del g_cpu
+    lap("cpu_step")
 
-
-    # the whole step on each side, its launches on the card counted
+    # the card's whole step, its launches counted
     for mod in (KF, KB, KS, KSB, KM, KMB):
         mod.reset_launches()
     card, m_card = TS.make_train_step(cut, tcfg)(card, b_card)
-    torch.cuda.synchronize()
+    lap("card_step")
     launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
                 "flash_attention_bwd": KB.LAUNCHES["flash_attention_bwd"],
                 "mamba_scan": KS.LAUNCHES["mamba_scan"],
                 "mamba_scan_bwd": KSB.LAUNCHES["mamba_scan_bwd"],
                 "ich_moe_sharded": KM.LAUNCHES["ich_moe_sharded"],
                 "ich_moe_bwd": KMB.LAUNCHES["ich_moe_bwd"]}
-    cpu, m_cpu = TS.make_train_step(cut, tcfg)(cpu, b_cpu)
     lr = float(m_cpu["lr"])
     worst, flipped, n_el = 0.0, 0, 0
     for (name, a), (_, b) in zip(card["params"].named_parameters(),
-                                 cpu["params"].named_parameters()):
-        diff = (a.detach().cpu() - b.detach()).abs()
+                                 ref["params"].named_parameters()):
+        b = b.detach().cuda()
+        diff = (a.detach() - b).abs()
         worst = max(worst, float(diff.max()))
-        flipped += int((diff > 1e-6 * (b.detach().abs() + lr)).sum())
+        flipped += int((diff > 1e-6 * (b.abs() + lr)).sum())
         n_el += b.numel()
+    lap("step_compare")
     loss = (float(m_card["loss"]), float(m_cpu["loss"]))
     gnorm = (float(m_card["grad_norm"]), float(m_cpu["grad_norm"]))
     check(abs(loss[0] - loss[1]) <= TRAIN_LOSS_RTOL * abs(loss[1]),
@@ -3859,7 +3899,7 @@ def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
         check(moe["dropped"][0] == moe["dropped"][1]
               and moe["stolen"][0] == moe["stolen"][1],
               "train parity: the card drops and steals the CPU's entries")
-        check(torch.equal(card["cap_scales"].cpu(), cpu["cap_scales"]),
+        check(torch.equal(card["cap_scales"].cpu(), ref["cap_scales"]),
               "train parity: the new capacity scales equal the CPU's")
     return {"arch": cfg.name, "layers": cut.n_layers,
             "block_pattern": list(cut.block_pattern),
@@ -3872,7 +3912,7 @@ def train_parity(cfg, *, rows: int = 0, max_seq: int = 0,
             "update_max_abs_diff": update_worst,
             "step_param_max_abs_diff": worst, "params": n_el,
             "step_params_past_1e-6": flipped, "launches": launches,
-            "cpu_grad_s": cpu_grad_s}
+            "cpu_grad_s": part_s["cpu_grad"], "seconds_by_part": part_s}
 
 
 def train_resume(cfg) -> dict:
@@ -4035,7 +4075,8 @@ def train_kinds(cfg, batch: int, seq: int, rows: int) -> dict:
 
 
 def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
-                rows: int = 0, max_seq: int = 0, parts: bool = True):
+                rows: int = 0, max_seq: int = 0, parts: bool = True,
+                trace_seq: int = 0):
     """The counted main path of one model's training at full width and
     depth: `init_train_state` (from an emptied card) -> `make_train_step`
     -> `n_steps` bfloat16 steps of `Pipeline` batches of batch x seq tokens
@@ -4049,12 +4090,15 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
     model's step logs its aux loss, dropped and stolen entries and how many experts' scales
     the balancer moved. Logged as `<label>_setup`, `<label>_main_path`
     (steps, step wall ms, tokens/s, positions/s, peak GB),
-    `<label>_step_split` (`_split_log`) and, with `parts`,
-    `<label>_step_parts` (`step_parts`).
+    `<label>_step_split` (`_split_log`: one step traced, on the last
+    batch's first `trace_seq` tokens when given, after an untimed and a
+    timed step at that length, whose wall the split holds its device time
+    against) and, with `parts`, `<label>_step_parts` (`step_parts`).
     Returns (the state, the last batch, the TrainConfig, the backward
     launches of the counted steps by kind, {"split": the step split,
     "wall_ms": the median step wall ms, "launches": the counted steps'
-    launches by wrapper, "steps": each step's record, "peak_gb"}); the
+    launches by wrapper, "steps": each step's record, "peak_gb",
+    "split_seq": the traced step's tokens a row, "split_wall_ms"}); the
     caller frees the state."""
     import dataclasses
     import gc
@@ -4199,15 +4243,24 @@ def train_model(cfg, *, label: str, batch: int, seq: int, n_steps: int,
         + (("ssd_bwd_",) if n_scan else ()) \
         + (("moe_bwd_",) if n_moe else ())
     # the steps above warmed the step up (a step of seconds, as xlstm's
-    # host-bound sLSTM loop makes it, is not run twice for the trace)
-    split = _split_log(f"{label}_step_split", lambda: step(state, dev_batch),
-                       wall, expect=expect, top=12, warmup=False)
+    # host-bound sLSTM loop makes it, is not run twice for the trace); a
+    # shorter traced step is warmed and timed at its own length first
+    traced, split_wall = dev_batch, wall
+    if trace_seq:
+        traced = {k_: v_[:, :trace_seq] if k_ in ("tokens", "labels")
+                  else v_ for k_, v_ in dev_batch.items()}
+        step(state, traced)
+        split_wall = _wall_ms(lambda: step(state, traced), reps=1)
+    split = _split_log(f"{label}_step_split", lambda: step(state, traced),
+                       split_wall, expect=expect, top=12, warmup=False)
+    split["seq"] = trace_seq or seq
     if parts:
         log(phase=f"{label}_step_parts", **step_parts(cfg, tcfg, state,
                                                       dev_batch))
     return state, dev_batch, tcfg, bwd_by_kind, {
         "split": split, "wall_ms": wall, "launches": launches,
-        "steps": steps, "peak_gb": peak_gb}
+        "steps": steps, "peak_gb": peak_gb, "split_seq": trace_seq or seq,
+        "split_wall_ms": split_wall}
 
 
 def step_parts(cfg, tcfg, state, batch) -> dict:
@@ -4526,9 +4579,9 @@ def phase_train_ssm():
     sLSTM), `train_model`'s TRAIN_XLSTM_STEPS bfloat16 steps of 4 x 2,048
     tokens: 2 x 18 scan forward and 18 scan backward launches a step;
     one sLSTM block's step loop timed apart, forward and backward
-    (`slstm_loop_parts`), and the step's device time split with an
-    `slstm_loop` group (the 6 blocks' loops, the forward twice under
-    remat). (3) zamba2-1.2b at full width and depth (38 blocks: 32 Mamba2,
+    (`slstm_loop_parts`), and the device time of a step on
+    TRAIN_XLSTM_TRACE_SEQ tokens a row split with an `slstm_loop` group
+    (the 6 blocks' loops, the forward twice under remat). (3) zamba2-1.2b at full width and depth (38 blocks: 32 Mamba2,
     the shared attention block at 6 positions), TRAIN_ZAMBA2_STEPS steps:
     2 x 32 scan forward and 32 backward, 2 x 6 flash forward and 6
     backward launches a step. (4) Float32 parity of each with the CPU at
@@ -4564,17 +4617,21 @@ def phase_train_ssm():
 
     # ---- (2), (3) full width and depth, bfloat16, counted ----
     infos = {}
-    for label, cfg, n_steps in (("train_xlstm", xlstm, TRAIN_XLSTM_STEPS),
-                                ("train_zamba2", zamba2,
-                                 TRAIN_ZAMBA2_STEPS)):
+    for label, cfg, n_steps, trace in (
+            ("train_xlstm", xlstm, TRAIN_XLSTM_STEPS, TRAIN_XLSTM_TRACE_SEQ),
+            ("train_zamba2", zamba2, TRAIN_ZAMBA2_STEPS, 0)):
         state, batch, _, _, info = train_model(
             cfg, label=label, batch=B, seq=S, n_steps=n_steps,
-            parts=cfg.family == "hybrid")
+            parts=cfg.family == "hybrid", trace_seq=trace)
         infos[cfg.name] = info
         del state, batch
         gc.collect()
         torch.cuda.empty_cache()
-    loop = slstm_loop_parts(xlstm, B, S)
+    MEASURED["train_zamba2"] = {"peak_gb": infos[zamba2.name]["peak_gb"],
+                                "batch": B, "seq": S}
+    # the loop at the traced step's length (its split's)
+    S_split = infos[xlstm.name]["split_seq"]
+    loop = slstm_loop_parts(xlstm, B, S_split)
     n_s = xlstm.block_pattern.count("S")
     reruns = 2 if xlstm.remat else 1     # remat reruns each forward
     loop_ms = {k_: n_s * (reruns * loop["forward_device_ms"].get(k_, 0.0)
@@ -4585,10 +4642,12 @@ def phase_train_ssm():
     # the backward wrapper's padding copies (Pd 513 -> 520) run as generic
     # kernels that the split counts under "other": a step's share is its
     # backward launches (the counted steps' over their number) times one
-    # call's padding_ms at the same shape
+    # call's padding_ms at the step's shape, scaled to the traced step's
+    # length (the copies are linear in the tokens)
     pad_ms = infos[xlstm.name]["launches"]["mamba_scan_bwd"] \
         // TRAIN_XLSTM_STEPS * records[
-            ("mamba_scan_bwd_xlstm", "bfloat16")]["padding_ms"]
+            ("mamba_scan_bwd_xlstm", "bfloat16")]["padding_ms"] \
+        * S_split / S
     by_part = {"cublas_products": dev.get("matmul", 0.0) - loop_ms["matmul"],
                "mamba_scan": dev.get("mamba_scan", 0.0),
                "mamba_scan_bwd": dev.get("mamba_scan_bwd", 0.0),
@@ -4600,6 +4659,8 @@ def phase_train_ssm():
         step_share_by_part={k_: v_ / split["device_total_ms"]
                             for k_, v_ in by_part.items()},
         step_wall_ms=infos[xlstm.name]["wall_ms"],
+        traced_step_seq=S_split,
+        traced_step_wall_ms=infos[xlstm.name]["split_wall_ms"],
         step_idle_share=split["idle_share"])
     torch.cuda.empty_cache()
 
@@ -5233,24 +5294,25 @@ def tp_rank_views(dist, tp: int) -> list:
             for r in range(tp)]
 
 
-def tp_rank_by_rank(cfg, g, dist) -> dict:
+def tp_rank_by_rank(cfg, g, dist, device="cuda") -> dict:
     """(i) Tensor parallelism rank by rank in one process at `cfg`'s full
     width, TP_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ float32 tokens,
     through the port's own tensor-parallel code: for each tp of TP_RANKS
     and each rank r (`tp_rank_views`), the layers and the token table are
     cut to r's shards by `layers.shard_module` at the placements'
     axes (`attention_pspec`, `mlp_pspec`, `embeddings_pspec`), and
-    `layers.embed_tokens`, `attention.attention` (r's query heads through
+    `layers.embed_tokens`, `model._train_layer` (r's query heads through
     the flash kernel, whole KV heads mapped by `kv_for` where they do not
-    divide tp), `MLP.forward`, `layers.lm_logits` (r's vocabulary slice)
-    and `model._ce` run with r's view. The ranks' partial outputs are
-    summed as `from_model` sums them; the CE's per-rank log-sum-exp and
-    label logit are merged as `_ce` merges them over "model". Against the
-    unmeshed modules: the embeddings, each layer's output and the CE
-    within TP_Y_TOL of their max, every gradient (a split leaf's shards
-    against `DistContext.shard` of the whole gradient, a leaf whole on
-    every rank summed over the ranks) within TP_GRAD_TOL of its max;
-    flash and flash backward launch tp times a layer."""
+    divide tp, r's MLP columns and rows), `layers.lm_logits` (r's
+    vocabulary slice) and `model._ce` run with r's view, the model axis's
+    collectives replayed across the ranks (`ReplayedModelAxis`): the
+    partial outputs summed by `from_model`, the CE's log-sum-exp merged
+    by `_ce`, the gradients summed by `to_model`. Against the unmeshed
+    modules: the embeddings, each layer's output and the CE within
+    TP_Y_TOL of their max on every rank, every gradient (a split leaf's
+    shards against `DistContext.shard` of the whole gradient, a whole
+    leaf against the whole gradient) within TP_GRAD_TOL of its max;
+    flash and flash backward launch once a layer on each rank."""
     import copy
     import dataclasses
     import torch
@@ -5261,33 +5323,37 @@ def tp_rank_by_rank(cfg, g, dist) -> dict:
     from repro_torch.models import model as M
     cut = dataclasses.replace(cfg, n_layers=TP_LAYERS)
     H, Hkv, F = cut.n_heads, cut.n_kv_heads, cut.d_ff
-    layers = [M.AttnBlock(cut, g, "cuda") for _ in range(TP_LAYERS)]
-    embed = L.Embed(cut, g, "cuda")
+    layers = [M.AttnBlock(cut, g, device) for _ in range(TP_LAYERS)]
+    embed = L.Embed(cut, g, device)
     for p in layers:            # the qkv biases drawn, not zeros
         for leaf in ("bq", "bk", "bv"):
             if hasattr(p.attn, leaf):
                 getattr(p.attn, leaf).copy_(0.1 * torch.randn(
-                    getattr(p.attn, leaf).shape, generator=g, device="cuda"))
+                    getattr(p.attn, leaf).shape, generator=g, device=device))
     modules = [embed] + layers
     for m in modules:
         m.requires_grad_(True)
     tokens = torch.randint(0, cut.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
-                           generator=g, device="cuda")
+                           generator=g, device=device)
     dys = [torch.randn((TRAIN_BATCH, TRAIN_SEQ, cut.d_model), generator=g,
-                       device="cuda") for _ in range(TP_LAYERS)]
+                       device=device) for _ in range(TP_LAYERS)]
     labels = tokens[0].roll(-1)     # the CE on the first row's tokens
 
-    def ce_loss(lse, true):
-        return (lse - true).mean()
-
-    def whole():
-        x = L.embed_tokens(embed, tokens)
+    def forward(e, ls, view):
+        """The outputs, the CE's (lse, label logit) and the loss of the
+        embedding and `ls` (whole with view None, else r's shards)."""
+        x = L.embed_tokens(e, tokens, view)
         outs = [x]
-        for p in layers:
-            x = M._train_layer(cut, p, x)
+        for p in ls:
+            x = M._train_layer(cut, p, x, dist=view)
             outs.append(x)
-        lse, true = M._ce(L.lm_logits(embed, x[0]), labels, None, None)
-        return outs, (lse, true)
+        logits = L.lm_logits(e, x[0], view, whole=False) if view else \
+            L.lm_logits(e, x[0])
+        ce = M._ce(logits, labels, L.head_group(e, view) if view else None,
+                   view)
+        loss = (ce[0] - ce[1]).mean() + sum(
+            (y * dy).sum() for y, dy in zip(outs[1:], dys))
+        return outs, ce, loss
 
     def pspecs(tp):
         return {"embed": L.embeddings_pspec(cut), "attn":
@@ -5306,65 +5372,53 @@ def tp_rank_by_rank(cfg, g, dist) -> dict:
                     L.shard_module(getattr(p, part), view, {
                         k: view.effective(a)
                         for k, a in specs[part].items()})
-            shards.append((view, e, ls))
-        KF.reset_launches()
-        KB.reset_launches()
-        x = sum(L.embed_tokens(e, tokens, v) for v, e, _ in shards)
-        outs = [x]
-        for i, p in enumerate(layers):
-            h = p.ln1(x)
-            x = x + sum(A.attention(cut, ls[i].attn, h, dist=v)[0]
-                        for v, _, ls in shards)
-            h = p.ln2(x)
-            x = x + sum(ls[i].mlp(h, v) for v, _, ls in shards)
-            outs.append(x)
-        parts = [M._ce(L.lm_logits(e, x[0], v, whole=False), labels,
-                       L.head_group(e, v), v) for v, e, _ in shards]
-        lse = torch.logsumexp(torch.stack([a for a, _ in parts]), dim=0)
-        true = sum(b for _, b in parts)
-        launches = {"flash_attention": KF.LAUNCHES["flash_attention"],
-                    "flash_attention_bwd": 0}
-        loss = ce_loss(lse, true) + sum(
-            (y * dy).sum() for y, dy in zip(outs[1:], dys))
-        loss.backward()
-        launches["flash_attention_bwd"] = KB.LAUNCHES["flash_attention_bwd"]
-        return outs, (lse, true), shards, launches
+            shards.append((view, [e] + ls))
+
+        def rank(r):
+            view, mods = shards[r]
+            KF.reset_launches()
+            KB.reset_launches()
+            outs, ce, loss = forward(mods[0], mods[1:], view)
+            names = [(k, n) for k, m in enumerate(mods)
+                     for n, _ in m.named_parameters()]
+            grads = torch.autograd.grad(loss, [
+                mods[k].get_parameter(n) for k, n in names])
+            return ([y.detach() for y in outs],
+                    tuple(t.detach() for t in ce), dict(zip(names, grads)),
+                    {"flash_attention": KF.LAUNCHES["flash_attention"],
+                     "flash_attention_bwd":
+                     KB.LAUNCHES["flash_attention_bwd"]})
+        with ReplayedModelAxis(views[0].group(views[0].tp_axis), tp) as rp:
+            outs, passes = rp.run(rank, TP_RBR_PASSES)
+        return outs, shards, passes
 
     def share(a, b):
         return float((a - b).detach().abs().max() / b.detach().abs().max())
 
-    outs_w, ce_w = whole()
-    (ce_loss(*ce_w) + sum((y * dy).sum() for y, dy in
-                          zip(outs_w[1:], dys))).backward()
+    outs_w, ce_w, loss_w = forward(embed, layers, None)
+    loss_w.backward()
     rec = {"arch": cfg.name, "layers": TP_LAYERS, "d_model": cut.d_model,
            "heads": H, "kv_heads": Hkv, "d_ff": F, "vocab": cut.padded_vocab,
            "tokens": TRAIN_BATCH * TRAIN_SEQ, "ce_tokens": TRAIN_SEQ}
     for tp in TP_RANKS:
-        outs, ce, shards, launches = ranks(tp)
-        y_share = max(share(y, w) for y, w in zip(outs, outs_w))
-        ce_share = max(share(a, b) for a, b in zip(ce, ce_w))
+        outs, shards, passes = ranks(tp)
+        y_share = max(share(y, w) for o in outs
+                      for y, w in zip(o[0], outs_w))
+        ce_share = max(share(a, b) for o in outs for a, b in zip(o[1], ce_w))
         worst, split = 0.0, set()
-        for k, m in enumerate(modules):
-            for name, whole_p in m.named_parameters():
-                if not isinstance(m, L.Embed) and \
-                        name.split(".")[0] not in ("attn", "mlp"):
-                    continue        # the norms run once, on the sums
-                want = whole_p.grad
-                got = [(v, L.placements(([e] + ls)[k]).get(name),
-                        ([e] + ls)[k].get_parameter(name).grad)
-                       for v, e, ls in shards]
-                if got[0][1]:       # split: each rank's shard
+        for (view, mods), (_, _, grads, _) in zip(shards, outs):
+            for (k, name), gr in grads.items():
+                want = modules[k].get_parameter(name).grad
+                axes = L.placements(mods[k]).get(name)
+                if axes:            # split: this rank's shard
                     split.add(name.split(".")[-1])
-                    for v, axes, gr in got:
-                        worst = max(worst, float(
-                            (gr - v.shard(want, axes)).abs().max()
-                            / want.abs().max()))
-                else:               # whole on every rank: partial sums
-                    worst = max(worst, share(sum(gr for _, _, gr in got),
-                                             want))
+                    want = view.shard(want, axes)
+                worst = max(worst, share(gr, want))
+        launches = {n: sum(o[3][n] for o in outs)
+                    for n in ("flash_attention", "flash_attention_bwd")}
         rec[f"tp{tp}"] = {"y_share": y_share, "ce_share": ce_share,
                           "grad_worst_share": worst, "launches": launches,
-                          "split_leaves": sorted(split),
+                          "passes": passes, "split_leaves": sorted(split),
                           "kv_heads_local": Hkv % tp == 0}
         check(y_share <= TP_Y_TOL,
               f"tp rank by rank: y at tp {tp} within {TP_Y_TOL} of max |y|")
@@ -5379,7 +5433,7 @@ def tp_rank_by_rank(cfg, g, dist) -> dict:
         check({"wq", "wo", "wi", "tok"} <= split,
               f"tp rank by rank: the heads, MLP and vocabulary split at "
               f"tp {tp}")
-        del outs, ce, shards
+        del outs, shards
     return rec
 
 
@@ -5522,8 +5576,10 @@ def phase_tp_dryrun(cli=None):
     peak (`tp_dryrun_prediction`); (iv)
     `python -m repro_torch.launch.dryrun` at TP_DRYRUN_CELLS (`cli`, the
     processes `start_dryrun_cli` started; started here when None) and
-    `python -m repro_torch.launch.roofline` (`dryrun_cli_results`). Every
-    number beside the card's name and power limit."""
+    `python -m repro_torch.launch.roofline` (`dryrun_cli_results`), the
+    zamba2-1.2b train cell's prediction a rank logged beside
+    `phase_train_ssm`'s measured one-card peak. Every number beside the
+    card's name and power limit."""
     import torch
     import torch.distributed as tdist
     from repro_torch.configs import get_arch
@@ -5552,10 +5608,372 @@ def phase_tp_dryrun(cli=None):
     log(phase="tp_dryrun_prediction", **tp_dryrun_prediction(cfg),
         card=card)
     t1 = time.perf_counter()
-    log(phase="tp_dryrun_cli", **dryrun_cli_results(procs, env),
-        card=card, seconds=time.perf_counter() - t1)
+    cli_rec = dryrun_cli_results(procs, env)
+    log(phase="tp_dryrun_cli", **cli_rec, card=card,
+        seconds=time.perf_counter() - t1)
+    # zamba2-1.2b's train cell: one rank of the 32 x 8 mesh (its 8 rows of
+    # 4,096 tokens, the model axis 8 wide) beside the one-card step
+    # `phase_train_ssm` measured (4 x 2,048 tokens, the whole model)
+    mem = cli_rec["zamba2-1.2b:train_4k"]["memory"]
+    log(phase="tp_dryrun_zamba2_train", predicted_gb=(
+        mem["argument_bytes"] + mem["temp_bytes"]) / 1e9,
+        argument_gb=mem["argument_bytes"] / 1e9,
+        temp_gb=mem["temp_bytes"] / 1e9,
+        measured_one_card=MEASURED.get("train_zamba2"), card=card)
     log(phase="tp_dryrun_phase", card=card,
         seconds=time.perf_counter() - t0)
+    return []
+
+
+class ReplayedModelAxis:
+    """The model axis's collectives of `tp_rank_views`' ranks, run one
+    rank at a time in this process. Inside it `collectives.all_reduce`,
+    `all_gather` and `reduce_scatter` over `group` (the views' one-rank
+    model group; any other group is left to the real ones) record each
+    rank's input of its k-th call and return what the ranks' inputs of
+    the k-th call in the previous pass combine to (the sum or max, the
+    concatenation, this rank's slice of the sum); in a first pass a
+    rank's own input stands in for each. `run(fn)` runs fn(r) for every
+    rank r, a pass at a time, until a pass's inputs equal the previous
+    pass's bit for bit: every result that pass used was then the exact
+    collective over the ranks, computed from the same inputs."""
+
+    def __init__(self, group, tp: int):
+        self.group, self.tp = group, tp
+        self.prev, self.cur, self.rank, self.k = None, {}, 0, 0
+
+    def __enter__(self):
+        from repro_torch.launch import collectives as C
+        self._C = C
+        self._orig = (C.all_reduce, C.all_gather, C.reduce_scatter)
+        ar, ag, rs = self._orig
+
+        def all_reduce(t, group, op=None):
+            if group is not self.group:
+                return ar(t, group, op)
+            import torch.distributed as tdist
+            ins = self._inputs(t)
+            import torch
+            if op == tdist.ReduceOp.MAX:
+                return torch.stack(ins).amax(0)
+            return torch.stack(ins).sum(0)
+
+        def all_gather(t, dim, group):
+            if group is not self.group:
+                return ag(t, dim, group)
+            import torch
+            return torch.cat(self._inputs(t), dim=dim)
+
+        def reduce_scatter(t, dim, group):
+            if group is not self.group:
+                return rs(t, dim, group)
+            import torch
+            n = t.shape[dim] // self.tp
+            total = torch.stack(self._inputs(t)).sum(0)
+            return total.narrow(dim, self.rank * n, n).contiguous()
+        C.all_reduce, C.all_gather, C.reduce_scatter = \
+            all_reduce, all_gather, reduce_scatter
+        return self
+
+    def __exit__(self, *exc):
+        C = self._C
+        C.all_reduce, C.all_gather, C.reduce_scatter = self._orig
+
+    def _inputs(self, t):
+        k, self.k = self.k, self.k + 1
+        t = t.detach()
+        self.cur.setdefault(k, [None] * self.tp)[self.rank] = t.clone()
+        prev = (self.prev or {}).get(k)
+        if prev is None or any(p is None or p.shape != t.shape
+                               for p in prev):
+            return [t] * self.tp
+        return prev
+
+    def run(self, fn, passes: int):
+        """[fn(r) of each rank r] of the first pass whose collective inputs
+        repeat the previous pass's; (outputs, passes run)."""
+        import torch
+        for n in range(1, passes + 1):
+            self.cur, outs = {}, []
+            for r in range(self.tp):
+                self.rank, self.k = r, 0
+                outs.append(fn(r))
+            same = self.prev is not None and self.prev.keys() == \
+                self.cur.keys() and all(
+                    torch.equal(a, b) for k in self.cur
+                    for a, b in zip(self.cur[k], self.prev[k]))
+            self.prev = self.cur
+            if same:
+                return outs, n
+        check(False, f"tp recurrent: the collectives' inputs repeat within "
+                     f"{passes} passes")
+        return outs, passes
+
+
+def shard_tree(module, view, tree: dict) -> None:
+    """`layers.shard_module` on every submodule of `module` at its entry of
+    the nested placement tree (`models.model._block_pspec`), as `view`
+    splits it."""
+    from repro_torch.models import layers as L
+    for name, sub in module.named_modules():
+        node = tree
+        for part in filter(None, name.split(".")):
+            node = node.get(part, {}) if isinstance(node, dict) else {}
+        if not isinstance(node, dict):
+            continue
+        L.shard_module(sub, view, {
+            leaf: view.effective(node.get(leaf))
+            for leaf, _ in sub.named_parameters(recurse=False)
+            if isinstance(node.get(leaf), tuple)})
+
+
+def _cut_cache(view, entry, axes):
+    """A block's whole cache entry (a tensor or a dict of them) cut to the
+    view's slice of every dimension its placement `axes` puts on "model"."""
+    if isinstance(entry, dict):
+        return {k_: _cut_cache(view, entry[k_], axes[k_]) for k_ in entry}
+    return view.shard(entry, tuple(view.tp_axis if a == "model" else None
+                                   for a in axes))
+
+
+def _clone(entry):
+    if isinstance(entry, dict):
+        return {k_: _clone(v_) for k_, v_ in entry.items()}
+    return entry.clone()
+
+
+def _rel(a, b) -> float:
+    return float((a - b).detach().abs().max() / b.detach().abs().max())
+
+
+def tp_recurrent_block(cfg, kind: str, dist, tps, *, batch: int, seq: int,
+                       frames: int = 0, device="cuda", g=None) -> dict:
+    """One block of `kind` ("M", "A", "X", "S"; whisper's "enc" or "dec")
+    at `cfg`'s width, float32, whole and rank by rank at each tp of `tps`
+    (`tp_rank_views` of `dist`, the collectives replayed across the ranks:
+    `ReplayedModelAxis`), through the port's own `shard_module` (the
+    block's `models.model._block_pspec`) and `dist=` paths: the block's
+    output and every gradient (of sum(y * dy): each parameter's, x's, and
+    for "dec" the encoder output's) against the whole block's, then one
+    decode step from the rank's slice of the whole prefill's cache
+    (`cache_pspecs`' placement; a whisper decoder's cross cache whole):
+    its output and new cache. Each rank's launches of the scan and flash
+    (and their backwards) in the training pass."""
+    import copy
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as KF
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as KB
+    from repro_torch.kernels.mamba_scan import mamba_scan as KS
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd as KSB
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    mods = (KF, KB, KS, KSB)
+    names = ("flash_attention", "flash_attention_bwd", "mamba_scan",
+             "mamba_scan_bwd")
+    block = {"M": M.MambaBlock, "X": M.MLSTMBlock, "S": M.SLSTMBlock,
+             "A": M.AttnBlock, "enc": M.AttnBlock,
+             "dec": M.DecBlock}[kind](cfg, g, device)
+    block.requires_grad_(True)
+    D = cfg.d_model
+    x = torch.randn((batch, seq, D), generator=g, device=device)
+    dy = torch.randn((batch, seq, D), generator=g, device=device)
+    enc = torch.randn((batch, frames, D), generator=g, device=device) \
+        if kind == "dec" else None
+    x1 = torch.randn((batch, 1, D), generator=g, device=device)
+
+    def forward(p, d, xin, ein):
+        if kind in "MXS":
+            return M._apply_recurrent(cfg, kind, p, xin, dist=d)[0]
+        if kind == "A":
+            return M._train_layer(cfg, p, xin, window=cfg.attn_window,
+                                  dist=d)
+        if kind == "enc":
+            return M._train_layer(cfg, p, xin, causal=False, dist=d)
+        return M._dec_layer(cfg, p, xin, ein, d)[0]
+
+    def grads(p, d):
+        xin = x.clone().requires_grad_(True)
+        ein = None if enc is None else enc.clone().requires_grad_(True)
+        y = forward(p, d, xin, ein)
+        leaves = [xin] + ([ein] if ein is not None else []) \
+            + list(p.parameters())
+        gs = torch.autograd.grad((y * dy).sum(), leaves)
+        named = ["x"] + (["enc_out"] if ein is not None else []) \
+            + [n for n, _ in p.named_parameters()]
+        return y.detach(), dict(zip(named, gs))
+
+    def cache_of(p):
+        """The whole prefill's cache entry of the block (no gradient),
+        with the decode step's position: an attention cache padded by 8
+        slots (its ring, or its linear cache) for the step."""
+        with torch.no_grad():
+            if kind in "MXS":
+                return M._apply_recurrent(cfg, kind, p, x)[1]
+            if kind == "A":
+                kv = M._apply_block_full(cfg, "A", p, x,
+                                         window=cfg.attn_window)[1]
+                return {k_: torch.nn.functional.pad(v_, (0, 0, 0, 0, 0, 8))
+                        for k_, v_ in kv.items()}
+            if kind == "dec":
+                _, (k_, v_), (ek, ev) = M._dec_layer(cfg, p, x, enc)
+                pad = (0, 0, 0, 0, 0, 8)
+                return {"k": torch.nn.functional.pad(k_, pad),
+                        "v": torch.nn.functional.pad(v_, pad),
+                        "ck": ek, "cv": ev}
+            return None
+
+    def decode(p, d, entry):
+        with torch.no_grad():
+            if kind in "MXS":
+                return M._apply_recurrent(cfg, kind, p, x1, state=entry,
+                                          dist=d)
+            if kind == "A":
+                return M._shared_attn_step(cfg, p, x1, entry, seq, d)
+            y = M._dec_layer_step(cfg, p, x1, entry["k"], entry["v"],
+                                  entry["ck"], entry["cv"], seq, d)
+            return y, {k_: entry[k_] for k_ in ("k", "v")}
+
+    def cache_axes():
+        """The placement of the block's cache entry (`cache_pspecs` of a
+        pattern holding it; the stacked self cache without its layer
+        axis)."""
+        sizes = {"data": 1, "model": tp}
+        if kind == "dec":
+            self_ax = M.cache_pspecs(cfg, batch, sizes)["self"][0]["k"][1:]
+            return {"k": self_ax, "v": self_ax,
+                    "ck": (None,) * 4, "cv": (None,) * 4}
+        pattern = ("M", "A") if kind == "A" else (kind,)
+        import dataclasses
+        one = dataclasses.replace(cfg, block_pattern=pattern,
+                                  n_layers=len(pattern))
+        return M.cache_pspecs(one, batch, sizes)[pattern.index(kind)]
+
+    y_w, g_w = grads(block, None)
+    entry = cache_of(block)
+    dec_w = decode(block, None, _clone(entry)) if entry is not None \
+        else None
+    rec = {"kind": kind, "batch": batch, "seq": seq, "frames": frames}
+    for tp in tps:
+        views = tp_rank_views(dist, tp)
+        spec = M._block_pspec(cfg, "dec" if kind == "dec" else
+                              "A" if kind == "enc" else kind, tp)
+        ranks = []
+        for view in views:
+            p = copy.deepcopy(block)
+            shard_tree(p, view, spec)
+            ranks.append(p)
+        split = sorted({f"{n}.{leaf}" for n, sub in ranks[0].named_modules()
+                        for leaf in getattr(sub, "placement", {})})
+
+        def train(r):
+            for m in mods:
+                m.reset_launches()
+            y, gs = grads(ranks[r], views[r])
+            return y, gs, {n: m.LAUNCHES[n] for m, n in zip(mods, names)}
+        with ReplayedModelAxis(views[0].group(views[0].tp_axis), tp) as rp:
+            outs, passes = rp.run(train, TP_REC_PASSES)
+        y_share = max(_rel(y, y_w) for y, _, _ in outs)
+        worst = {}
+        for r, (_, gs, _) in enumerate(outs):
+            for n, gr in gs.items():
+                sub, _, leaf = n.rpartition(".")
+                axes = L.placement(ranks[r].get_submodule(sub), leaf) \
+                    if n not in ("x", "enc_out") else None
+                want = views[r].shard(g_w[n], axes) if axes else g_w[n]
+                worst[n] = max(worst.get(n, 0.0), _rel(gr, want))
+        launches = [l_ for _, _, l_ in outs]
+        t_rec = {"passes": passes, "y_share": y_share,
+                 "grad_worst_share": max(worst.values()),
+                 "grad_worst_leaf": max(worst, key=worst.get),
+                 "split_leaves": split, "launches_by_rank": launches}
+        check(y_share <= TP_Y_TOL, f"tp recurrent: {cfg.name} {kind} y at "
+                                   f"tp {tp} within {TP_Y_TOL} of max |y|")
+        check(t_rec["grad_worst_share"] <= TP_GRAD_TOL,
+              f"tp recurrent: {cfg.name} {kind} gradients at tp {tp} within "
+              f"{TP_GRAD_TOL} of their max")
+        if entry is not None:
+            axes = cache_axes()
+
+            def step(r):
+                return decode(ranks[r], views[r],
+                              _cut_cache(views[r], _clone(entry), axes))
+            with ReplayedModelAxis(views[0].group(views[0].tp_axis),
+                                   tp) as rp:
+                d_outs, d_passes = rp.run(step, TP_REC_PASSES)
+            d_y = max(_rel(y, dec_w[0]) for y, _ in d_outs)
+            d_state = 0.0
+            for r, (_, st) in enumerate(d_outs):
+                want = _cut_cache(views[r], dec_w[1], axes)
+                flat = st if isinstance(st, dict) else {"state": st}
+                ref = want if isinstance(want, dict) else {"state": want}
+                for k_ in flat:
+                    d_state = max(d_state, _rel(flat[k_], ref[k_]))
+            t_rec.update(decode_y_share=d_y, decode_state_share=d_state,
+                         decode_passes=d_passes)
+            check(d_y <= TP_Y_TOL and d_state <= TP_Y_TOL,
+                  f"tp recurrent: {cfg.name} {kind} decode at tp {tp} "
+                  f"within {TP_Y_TOL}")
+        rec[f"tp{tp}"] = t_rec
+        del ranks, outs
+    return rec
+
+
+def phase_tp_recurrent():
+    """The tensor parallelism of the recurrent and encoder-decoder
+    families (ROADMAP.md queue 1 item 6c) at full width, float32 with
+    TF32 off, over a view of `make_smoke_mesh()`'s 1 x 1 NCCL mesh, rank
+    by rank at TP_RANKS model ranks (`tp_recurrent_block`): zamba2-1.2b's
+    Mamba2 block ("M": d_in and its 64 heads split, B and C whole, the
+    gated norm's squares summed over the ranks) and its shared attention
+    block ("A", window 4,096); xlstm-350m's mLSTM ("X": the head
+    projections' partial sums reduce-scattered onto the ranks' heads) and
+    sLSTM ("S": replicated, its h/c state cut by heads) blocks;
+    whisper-small's encoder layer over its 1,500 frames and a decoder
+    layer (self- and cross-attention, 12 heads over 2 and 4 ranks). Each
+    on TP_REC_BATCH x TP_REC_SEQ tokens: y within TP_Y_TOL of max |y|,
+    every gradient within TP_GRAD_TOL of its max, one decode step over
+    the rank's cache within TP_Y_TOL; the scan and flash run on each
+    rank's heads once (and their backwards once) a block and rank.
+    Every number beside the card's name and power limit."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_arch
+    from repro_torch.device import card_identity
+    from repro_torch.launch.mesh import DistContext, make_smoke_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 as float32
+    card = card_identity()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 90)
+    mesh = make_smoke_mesh()
+    # a block's launches a rank: (scan, scan backward, flash, its backward)
+    expect = {"M": (1, 1, 0, 0), "X": (1, 1, 0, 0), "S": (0, 0, 0, 0),
+              "A": (0, 0, 1, 1), "enc": (0, 0, 1, 1), "dec": (0, 0, 2, 2)}
+    try:
+        dist = DistContext(mesh)
+        for arch, kinds in ((LM_ARCH, ("M", "A")), (XLSTM_ARCH, ("X", "S")),
+                            (WHISPER_ARCH, ("enc", "dec"))):
+            cfg = get_arch(arch)
+            for kind in kinds:
+                t0 = time.perf_counter()
+                frames = cfg.encoder_seq if cfg.family == "encdec" else 0
+                seq = frames if kind == "enc" else TP_REC_SEQ
+                rec = tp_recurrent_block(cfg, kind, dist, TP_RANKS,
+                                         batch=TP_REC_BATCH, seq=seq,
+                                         frames=frames, g=g)
+                for tp in TP_RANKS:
+                    s, sb, f, fb = expect[kind]
+                    want = {"flash_attention": f, "flash_attention_bwd": fb,
+                            "mamba_scan": s, "mamba_scan_bwd": sb}
+                    check(all(l_ == want for l_ in
+                              rec[f"tp{tp}"]["launches_by_rank"]),
+                          f"tp recurrent: {arch} {kind} launches {want} on "
+                          f"each of {tp} ranks")
+                log(phase="tp_recurrent", arch=arch, **rec, card=card,
+                    seconds=time.perf_counter() - t0)
+                torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
     return []
 
 
@@ -6060,6 +6478,7 @@ def _phases(card_identity, cli) -> int:
                   phase_train_moe, phase_train_mesh):
         kernels += timed_phase(phase)
     kernels += timed_phase(phase_tp_dryrun, cli)
+    kernels += timed_phase(phase_tp_recurrent)
     kernels += sched_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_identity(), flush=True)

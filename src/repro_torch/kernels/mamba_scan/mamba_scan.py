@@ -26,7 +26,9 @@ Each call adds one to `LAUNCHES["mamba_scan"]`, however many CUDA kernels
 it runs.
 
 q and k may also come as (B, S, 1, N), one for every head of v (Zamba2's
-C and B): the wrapper expands them with a head stride of 0.
+C and B): the wrapper expands them with a head stride of 0. Given fake or
+meta tensors (the dry run) it calls `kernels.shape_only.scan_fwd`, which
+launches nothing and counts nothing in LAUNCHES.
 
 Training: when grad mode is on and q, k, v or log_a requires grad,
 `mamba_scan` goes through `MambaScanFn`, a `torch.autograd.Function`, from
@@ -46,6 +48,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import on_cpu, raise_on
+from repro_torch.kernels.shape_only import shape_only
 
 __all__ = ["LAUNCHES", "MAX_CHUNK", "MAX_STATE", "MambaScanFn",
            "mamba_scan", "mamba_scan_plain", "reset_launches"]
@@ -237,7 +240,10 @@ class MambaScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, log_a, chunk: int):
-        if on_cpu(q, k, v, log_a):
+        if all(shape_only(t) for t in (q, k, v, log_a)):
+            y, final, st, lc = torch.ops.repro_torch.scan_fwd(
+                q, k, v, log_a, chunk, None)
+        elif on_cpu(q, k, v, log_a):
             y, final, st, lc = _plain_chunks(q, k, v, log_a, chunk, None)
         else:
             y, final, st, lc = _launch(q, k, v, log_a, chunk=chunk,
@@ -277,6 +283,10 @@ def mamba_scan(q, k, v, log_a, *, chunk: int = 128, state=None):
             raise ValueError("the gradient path runs from a zero state "
                              "(training has none), got a state")
         return MambaScanFn.apply(q, k, v, log_a, chunk)
+    if all(shape_only(t) for t in (q, k, v, log_a)):
+        _check_shapes(q, k, v, log_a, chunk)
+        return tuple(torch.ops.repro_torch.scan_fwd(
+            q, k, v, log_a, chunk, state)[:2])
     if on_cpu(q, k, v, log_a, state):
         return mamba_scan_plain(q, k, v, log_a, chunk=chunk, state=state)
     return _launch(q, k, v, log_a, chunk=chunk, state=state)

@@ -26,8 +26,10 @@ float32.
 Given CPU tensors the wrapper runs the plain version
 (`mamba_scan_backward_plain`: the formulas chunk by chunk in eager
 PyTorch, not autograd); given CUDA tensors it launches the kernels of
-`csrc/mamba_scan_bwd.cu` or raises: there is no fallback. Each call that
-launches them adds one to `LAUNCHES["mamba_scan_bwd"]`. In bfloat16 the
+`csrc/mamba_scan_bwd.cu` or raises: there is no fallback; given fake or
+meta tensors (the dry run) `kernels.shape_only.scan_bwd`, which launches
+nothing. Each call that launches them adds one to
+`LAUNCHES["mamba_scan_bwd"]`. In bfloat16 the
 kernels copy every tile by 16-byte cp.async, so where N or Pd is not a
 multiple of 8 (xlstm's Pd = 513) the wrapper pads q, k, v, dy and the
 kept states with zeros to the next multiple (520) and hands back views
@@ -43,6 +45,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import on_cpu, raise_on
+from repro_torch.kernels.shape_only import shape_only
 
 from .mamba_scan import _DTYPES, MAX_STATE, _by_heads
 
@@ -201,6 +204,9 @@ def mamba_scan_backward(q, k, v, dy, st, lc, *, chunk: int):
     contiguous."""
     chunk = int(chunk)
     _check(q, k, v, dy, st, lc, chunk)
+    if all(shape_only(t) for t in (q, k, v, dy, st, lc)):
+        return tuple(torch.ops.repro_torch.scan_bwd(q, k, v, dy, st, lc,
+                                                    chunk))
     if on_cpu(q, k, v, dy, st, lc):
         return mamba_scan_backward_plain(q, k, v, dy, st, lc, chunk=chunk)
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, dy)):

@@ -23,6 +23,15 @@ each rank holds is its share of the global loss's gradient:
 * `gather_whole(t, dim)`: forward all-gather, backward this rank's slice
   of the gradient. For a weight split over "model" that a serving layout
   uses whole on every rank.
+* `psum(x)`: forward all-reduce (sum), backward all-reduce (sum). For a
+  statistic each rank adds its part to and then uses whole (the sum of
+  squares of Mamba2's gated RMSNorm over its d_in split across "model"):
+  every rank's use of the sum sends back a gradient, and each part needs
+  them all.
+* `scatter_sum(t, dim)`: forward reduce-scatter (sum) along `dim`,
+  backward all-gather. For partial sums of every output column that each
+  rank then keeps only its slice of (mLSTM's q, k, v and gates from
+  row-split weights, scattered onto the rank's heads).
 
 On a one-rank group each returns its input: the same bits as no
 collective, and no copy.
@@ -160,6 +169,28 @@ class _GatherWhole(torch.autograd.Function):
         return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
 class _MeanOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -185,6 +216,14 @@ def gather_data(t: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def gather_whole(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _GatherWhole.apply(t, dim, group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    return _Psum.apply(x, group)
+
+
+def scatter_sum(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _ScatterSum.apply(t, dim, group)
 
 
 def mean_over(x: torch.Tensor, group) -> torch.Tensor:

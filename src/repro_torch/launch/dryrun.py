@@ -28,8 +28,8 @@ do for its compiled step:
   trace_s               — the wall seconds of the traced step.
 
 Status: OK; SKIP (the reference's rule: a full-attention arch at
-long_500k); NOT_PORTED (an encdec, ssm or hybrid model over more than one
-model rank: ROADMAP.md item 6c, raised by the port, not faked); FAIL.
+long_500k); NOT_PORTED (a NotImplementedError the port raises, not
+faked; no cell of the production meshes raises one); FAIL.
 A MoE layer takes the "capacity-full" plan (`models.moe.
 capacity_full_slots`): fake tensors hold no router choices. The process
 exits 1 only on FAIL. The reference's `--save-hlo` has no counterpart
@@ -147,16 +147,39 @@ def _serve_opt(cfg, model, dist) -> None:
     TS.cast_bf16(model)
 
 
+def reference_microbatch(cfg, train_opt: bool = False) -> int:
+    """The train cell's microbatch count in the reference's dry run: the
+    config's, doubled with `train_opt`."""
+    return max(1, cfg.train_microbatch) * (2 if train_opt else 1)
+
+
+def rank_microbatch(cfg, shape, dist, train_opt: bool = False,
+                    microbatch: int = 0) -> int:
+    """The microbatch count a rank runs in the train cell: `microbatch`
+    when given, else the reference's (`reference_microbatch`). Only where
+    that count exceeds the rank's rows (its microbatches would hold fewer
+    rows than there are batch ranks, which GSPMD pads and the port's ranks
+    cannot split: xlstm-350m and zamba2-1.2b at train_4k, 16 microbatches
+    of 256 rows over 32 data ranks, caveat 15) does a rank run one row a
+    microbatch, its row count of them: a departure from the reference's
+    program that `trace_step` records with its wire."""
+    if microbatch:
+        return microbatch
+    mb = reference_microbatch(cfg, train_opt)
+    rows = max(1, shape.global_batch // dist.dp)
+    return rows if mb > rows else mb
+
+
 def build_step(cfg, shape, mesh, *, serve_opt: bool = False,
                train_opt: bool = False, ssm_chunk: int = 0, dist=None,
-               tcfg=None):
+               tcfg=None, microbatch: int = 0):
     """(cfg, fn, args, donated): fn(*args) runs this rank's step on `mesh`
     (any mesh: the production one, or a small one) with inputs `args`
     built on the meta device (`launch/specs.py`); `donated` are the
     arguments the step updates in place. Call under FakeTensorMode, with
     `dist` (the mesh's `DistContext`) made outside it. `tcfg` replaces
     the train cell's TrainConfig (the reference's: the config's
-    microbatch, bfloat16)."""
+    microbatch, bfloat16); `microbatch` its count alone."""
     if ssm_chunk:
         cfg = dataclasses.replace(cfg, ssm_chunk=ssm_chunk)
     dist = dist or DistContext(mesh, batch_axes=batch_axes_of(mesh))
@@ -165,13 +188,12 @@ def build_step(cfg, shape, mesh, *, serve_opt: bool = False,
         if train_opt:
             cfg = dataclasses.replace(cfg, moe_cmax_factor=1.25,
                                       remat_policy="dots")
-        mb = max(1, cfg.train_microbatch) * (2 if train_opt else 1)
+        mb = rank_microbatch(cfg, shape, dist, train_opt, microbatch)
         tcfg = tcfg or TS.TrainConfig(microbatch=mb, bf16_params=train_opt,
                                       dtype=dt)
         inputs = specs.input_specs(cfg, shape, dist, tcfg)
         step = TS.make_train_step(cfg, tcfg, dist)
         return cfg, step, (inputs["state"], inputs["batch"]), (0,)
-    M.check_tp_family(cfg, dist)
     if serve_opt:
         model = M.init_params(cfg, max_seq=shape.seq_len, device=specs.META)
         _serve_opt(cfg, model, dist)
@@ -229,9 +251,51 @@ def trace_step(cfg, shape, mesh, **step_kwargs) -> dict:
         "collective_operand_bytes": st.total_operand_bytes,
         "collective_wire_bytes": st.total_wire_bytes,
     }
+    if shape.kind == "train":
+        tcfg = step_kwargs.get("tcfg")
+        opt = step_kwargs.get("train_opt", False)
+        mb = tcfg.microbatch if tcfg else rank_microbatch(
+            cfg, shape, dist, opt, step_kwargs.get("microbatch", 0))
+        rec["microbatch"] = mb
+        ref_mb = reference_microbatch(cfg, opt)
+        if not tcfg and not step_kwargs.get("microbatch") and mb < ref_mb:
+            rec["microbatch_departure"] = _departure(
+                cfg, shape, mesh, rec, mb, ref_mb, step_kwargs)
     if cfg.moe:
         rec["moe_plan"] = "capacity-full"
+    if "S" in cfg.block_pattern:
+        rec["slstm_loop"] = ("one shape-only op a block (kernels/"
+                             "shape_only.py slstm_fwd, slstm_bwd): S steps "
+                             "of 2 B H dh^2 operations forward and 4 B H "
+                             "dh^2 backward, and a (B, S, 3, H, dh) float32 "
+                             "tensor for what autograd keeps a step")
     return rec
+
+
+def _departure(cfg, shape, mesh, rec, mb: int, ref_mb: int,
+               step_kwargs) -> dict:
+    """What a cell that runs `mb` microbatches where the reference runs
+    `ref_mb` (`rank_microbatch`) leaves out: each microbatch gathers the
+    FSDP leaves and reduce-scatters their gradients, so the reference's
+    program moves (ref_mb - mb) microbatches' more wire. A microbatch's
+    wire comes from a second trace at mb // 2 microbatches (the rest of
+    the step's wire is the same in both)."""
+    per = None
+    if mb > 1:
+        half = trace_step(cfg, shape, mesh, microbatch=mb // 2,
+                          **step_kwargs)
+        per = (rec["collective_wire_bytes"]
+               - half["collective_wire_bytes"]) / (mb - mb // 2)
+    return {"reference_microbatch": ref_mb, "traced_microbatch": mb,
+            "wire_bytes_a_microbatch": per,
+            "reference_wire_bytes": None if per is None else
+            rec["collective_wire_bytes"] + (ref_mb - mb) * per,
+            "note": f"the reference's {ref_mb} microbatches hold fewer rows "
+                    f"than there are batch ranks (GSPMD pads them); this "
+                    f"rank runs its rows as {mb} microbatches of one row: "
+                    f"collective_wire_bytes counts {mb} microbatches' "
+                    f"FSDP gathers and gradient reduce-scatters, "
+                    f"reference_wire_bytes {ref_mb} (caveat 15)"}
 
 
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool = False,

@@ -34,13 +34,16 @@ def _backend(dev: torch.device) -> str:
 
 
 def init_process_group(init_method: str = None, *, rank: int = None,
-                       world_size: int = None, device=None) -> torch.device:
+                       world_size: int = None, device=None,
+                       timeout=None) -> torch.device:
     """Start the default process group and return this rank's device.
     `init_method` "file://<path>" (a store file that the ranks share; give
     `rank` and `world_size`) or None: torchrun's environment ("env://",
     RANK and WORLD_SIZE from it). On CUDA each rank takes the card of its
     LOCAL_RANK (its rank when that is unset). Raises without CUDA unless
-    `device` names the CPU."""
+    `device` names the CPU. `timeout` (a `datetime.timedelta`; PyTorch's
+    default when None): how long a collective waits for the other ranks
+    before this rank fails."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         local = int(os.environ.get("LOCAL_RANK", rank or 0))
@@ -49,6 +52,8 @@ def init_process_group(init_method: str = None, *, rank: int = None,
         torch.cuda.set_device(dev)
     kw = {} if init_method is None else {"rank": rank,
                                           "world_size": world_size}
+    if timeout is not None:
+        kw["timeout"] = timeout
     dist.init_process_group(_backend(dev), init_method=init_method or
                             "env://", **kw)
     return dev

@@ -62,10 +62,7 @@ def decode_input_specs(cfg: ArchConfig, shape: ShapeSpec,
     """(tokens (B, 1), this rank's cache, pos): pos is the last position
     (S - 1), so the step attends over the whole cache."""
     B = _rows(shape.global_batch, dist)
-    specs = M.local_cache_specs(cfg, B, shape.seq_len, dtype, dist) \
-        if cfg.family in M.STACKED else \
-        M.cache_specs(cfg, B, shape.seq_len, dtype)
-    cache = _tree(specs)
+    cache = _tree(M.local_cache_specs(cfg, B, shape.seq_len, dtype, dist))
     return _empty((B, 1), torch.int32), cache, shape.seq_len - 1
 
 

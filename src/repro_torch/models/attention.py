@@ -24,8 +24,11 @@ wo is summed by `from_model`. Where the KV heads do not divide, the rank
 holds wk/wv whole (their gradient then partial: `to_model` on the
 weights sums it over "model") and maps its query heads to the KV heads
 they read (`kv_for`). Where the query heads do not divide, every rank
-computes every head (FSDP only). Decode over a cache whose sequence is
-split over "model" is `decode_attention_seqsharded`.
+computes every head (FSDP only). A cross-attention splits the same way
+(`cross_q`, `encoder_kv`); its decode reads the whole cross cache every
+model rank holds through `kv_for`. Decode over a cache whose sequence is
+split over "model" is `decode_attention_seqsharded` (a windowed ring
+cache by slot).
 """
 from __future__ import annotations
 
@@ -81,6 +84,16 @@ def head_group(p: Attention, dist):
 
 def _qkv(cfg, p: Attention, x: torch.Tensor, dist=None):
     B, S = x.shape[:2]
+    q = _project(cfg, p, x, ("q", "k", "v"), dist)
+    return tuple(t.reshape(B, S, -1, cfg.dh) for t in q)
+
+
+def _project(cfg, p: Attention, x: torch.Tensor, which, dist=None,
+             bias: bool = True):
+    """x . w<n> (+ b<n> with `cfg.qkv_bias` and `bias`) for each n of
+    `which`, flat (B, S, heads * dh): with `dist` this rank's query heads
+    where wq's columns are split (x through `to_model`), its KV heads where
+    wk's are, else whole ones."""
     group = head_group(p, dist)
     kv_local = L.model_group(p, "wk", 1, dist) is not None
     xin = x if group is None else C.to_model(x, group)
@@ -93,15 +106,10 @@ def _qkv(cfg, p: Attention, x: torch.Tensor, dist=None):
             t = C.to_model(t, group)
         return t.to(x.dtype)
 
-    q = xin @ w("wq", (1,))
-    k = xin @ w("wk", (1,))
-    v = xin @ w("wv", (1,))
-    if cfg.qkv_bias:
-        q = q + w("bq", (0,))
-        k = k + w("bk", (0,))
-        v = v + w("bv", (0,))
-    return (q.reshape(B, S, -1, cfg.dh), k.reshape(B, S, -1, cfg.dh),
-            v.reshape(B, S, -1, cfg.dh))
+    out = [xin @ w(f"w{n}", (1,)) for n in which]
+    if cfg.qkv_bias and bias:
+        out = [t + w(f"b{n}", (0,)) for t, n in zip(out, which)]
+    return out
 
 
 def kv_for(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dist):
@@ -149,24 +157,22 @@ def qkv_at(cfg, p: Attention, x: torch.Tensor, positions: torch.Tensor,
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
 
 
-def cross_q(cfg, p: Attention, x: torch.Tensor) -> torch.Tensor:
+def cross_q(cfg, p: Attention, x: torch.Tensor, dist=None) -> torch.Tensor:
     """q (B,S,Hq,dh) of a cross-attention: x . wq, plus bq with
-    `cfg.qkv_bias`; no positions."""
-    q = x @ p.wq.to(x.dtype)
-    if cfg.qkv_bias:
-        q = q + p.bq.to(x.dtype)
-    return q.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.dh)
+    `cfg.qkv_bias`; no positions. With `dist` this rank's query heads
+    where they are split."""
+    q, = _project(cfg, p, x, ("q",), dist)
+    return q.reshape(x.shape[0], x.shape[1], -1, cfg.dh)
 
 
-def encoder_kv(cfg, p: Attention, enc_out: torch.Tensor):
+def encoder_kv(cfg, p: Attention, enc_out: torch.Tensor, dist=None):
     """k, v (B,S_enc,Hkv,dh) of a cross-attention over the encoder's output
     (B,S_enc,d): enc_out . wk and enc_out . wv, without bias, as the
-    reference builds them (`repro/models/model.py:474-477`)."""
+    reference builds them (`repro/models/model.py:474-477`). With `dist`
+    the KV heads this rank holds (`_qkv`'s rule)."""
     B, S = enc_out.shape[:2]
-    k = enc_out @ p.wk.to(enc_out.dtype)
-    v = enc_out @ p.wv.to(enc_out.dtype)
-    return (k.reshape(B, S, cfg.n_kv_heads, cfg.dh),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.dh))
+    k, v = _project(cfg, p, enc_out, ("k", "v"), dist, bias=False)
+    return (k.reshape(B, S, -1, cfg.dh), v.reshape(B, S, -1, cfg.dh))
 
 
 def attention(cfg, p: Attention, x: torch.Tensor, *, window: int = 0,
@@ -180,7 +186,7 @@ def attention(cfg, p: Attention, x: torch.Tensor, *, window: int = 0,
     (out, None). With `dist`, this rank's heads (`qkv_at`); k/v are the
     heads it holds."""
     if cross_kv is not None:
-        q, (k, v) = cross_q(cfg, p, x), cross_kv
+        q, (k, v) = cross_q(cfg, p, x, dist), cross_kv
         kv = None
     else:
         q, k, v = qkv_at(cfg, p, x, torch.arange(x.shape[1],
@@ -203,14 +209,15 @@ def decode_attention(cfg, p: Attention, x: torch.Tensor, cache_k, cache_v,
     token. With `cross=True` the caches are a cross-attention's keys and
     values of the encoder's output: q alone is projected, nothing is
     written, and every key is kept. Returns (out, cache_k, cache_v).
-    With `dist`, the heads this rank holds (the cache holds the same KV
-    heads)."""
+    With `dist`, the query heads this rank holds against the KV heads of
+    the cache (this rank's, or whole ones mapped by `kv_for`: the cross
+    cache is whole on every model rank)."""
     B = x.shape[0]
     if cross:
-        out = flash_attention_plain(cross_q(cfg, p, x), cache_k, cache_v,
-                                    causal=False)
-        out = out.reshape(B, 1, cfg.n_heads * cfg.dh) @ p.wo.to(x.dtype)
-        return out, cache_k, cache_v
+        q = cross_q(cfg, p, x, dist)
+        ks, vs = kv_for(cfg, q, cache_k, cache_v, dist)
+        out = flash_attention_plain(q, ks, vs, causal=False)
+        return out_proj(p, out.reshape(B, 1, -1), dist), cache_k, cache_v
     q, k1, v1 = qkv_at(cfg, p, x, torch.tensor([pos], device=x.device),
                        dist)
     write = pos % cache_k.shape[1] if window > 0 else pos
@@ -252,13 +259,17 @@ def decode_attention_seqsharded(cfg, p: Attention, x: torch.Tensor, cache_k,
     position pos only, each rank computes its partial softmax (m, l, acc)
     over its 1/tp of the context, and the ranks merge their stats
     (all-gathers of B x Hq x (dh + 2) values, never of the cache). cache_k
-    /v (B, S/tp, Hkv, dh), this rank's positions [r S/tp, (r+1) S/tp).
-    Returns (out, cache_k, cache_v), the cache written in place."""
+    /v (B, S/tp, Hkv, dh), this rank's slots [r S/tp, (r+1) S/tp). With
+    `window` > 0 the cache is a ring, as `decode_attention`'s: position
+    pos goes to slot pos % S on the rank that holds it, and every slot
+    written so far is kept. Returns (out, cache_k, cache_v), the cache
+    written in place."""
     B = x.shape[0]
     group = dist.group(dist.tp_axis)
     q, k1, v1 = whole_qkv(cfg, p, x, pos, dist)
     r, s_loc = dist.index(dist.tp_axis), cache_k.shape[1]
-    local = pos - r * s_loc
+    slot = pos % (s_loc * dist.tp) if window > 0 else pos
+    local = slot - r * s_loc
     if 0 <= local < s_loc:
         cache_k[:, local] = k1[:, 0].to(cache_k.dtype)
         cache_v[:, local] = v1[:, 0].to(cache_v.dtype)
@@ -266,10 +277,7 @@ def decode_attention_seqsharded(cfg, p: Attention, x: torch.Tensor, cache_k,
     qg = q.float().reshape(B, hkv, cfg.n_heads // hkv, cfg.dh)
     s = torch.einsum("bgrd,bkgd->bgrk", qg, cache_k.float()) * cfg.dh ** -0.5
     k_pos = r * s_loc + torch.arange(s_loc, device=x.device)
-    keep = k_pos <= pos
-    if window > 0:
-        keep = keep & (k_pos > pos - window)
-    s = torch.where(keep, s, NEG_INF)
+    s = torch.where(k_pos <= pos, s, NEG_INF)
     m = s.amax(dim=-1)                                    # (B, G, rep)
     pexp = torch.exp(s - m[..., None])
     l = pexp.sum(dim=-1)

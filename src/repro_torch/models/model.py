@@ -44,15 +44,18 @@ Placements: `param_pspecs(cfg, tp, max_seq)` maps every parameter name
 to the reference's PartitionSpec of its leaf (`repro/models/model.py:
 161-182`; a stacked leaf loses its leading None) and `cache_pspecs` does
 the same for the cache (`:785-827`). On a mesh (`dist`, a
-`launch.mesh.DistContext`) the dense, vlm and moe families run the whole
-layout (`shard_model` cuts each parameter to this rank's shard, and each
-module records its leaves' axes, which the layers read): FSDP over
-"data" (weights gathered whole inside the layer), attention heads, MLP columns and
-rows, the vocabulary and the routed experts over "model", a KV cache
-split by heads or, where the KV heads do not divide tp, by sequence.
-The encdec, ssm and hybrid families keep whole weights on a mesh (data
-parallel) and raise NotImplementedError at tp > 1: their layouts are
-ROADMAP.md item 6c.
+`launch.mesh.DistContext`) every family runs the whole layout
+(`shard_model` cuts each parameter to this rank's shard, and each module
+records its leaves' axes, which the layers read): FSDP over "data"
+(weights gathered whole inside the layer), attention heads, MLP columns
+and rows, the vocabulary and the routed experts over "model"; Mamba2's
+and mLSTM's channels and heads (`models.ssm`); whisper's encoder and
+decoder attention and MLPs, its cross-attention cache whole on every
+model rank; every cache in its `cache_pspecs` placement (`local_cache_
+specs`): a KV cache split by heads or, where the KV heads do not divide
+tp, by sequence (Zamba2's windowed ring by slot), the conv state by
+channel, the SSM and mLSTM states by heads, the sLSTM's h/c by heads
+where the mLSTM's rule splits them.
 """
 from __future__ import annotations
 
@@ -501,15 +504,10 @@ def kv_layout(cfg, dist) -> str:
 
 
 def check_mesh(cfg, dist) -> None:
-    """Raise for a mesh this config cannot run on: NotImplementedError
-    for an encdec, ssm or hybrid model over more than one model rank
-    (their tensor-parallel layouts are ROADMAP.md item 6c), ValueError
-    for a dimension that a placement splits over ranks that do not
-    divide it."""
+    """Raise ValueError for a mesh this config cannot run on: a dimension
+    that a placement splits over ranks that do not divide it (every
+    family's leaves)."""
     if dist is None:
-        return
-    check_tp_family(cfg, dist)
-    if cfg.family not in STACKED:
         return
     sizes = dist.sizes()
     split = {"model": sizes["tp"], "data": sizes["fsdp"]}
@@ -521,29 +519,18 @@ def check_mesh(cfg, dist) -> None:
                     f"{split[axis]} {axis!r} ranks")
 
 
-def check_tp_family(cfg, dist) -> None:
-    """Raise NotImplementedError for an encdec, ssm or hybrid model over
-    more than one model rank (their tensor-parallel layouts are
-    ROADMAP.md item 6c)."""
-    if dist is not None and cfg.family not in STACKED and dist.tp > 1:
-        raise NotImplementedError(
-            f"{cfg.name!r} ({cfg.family}) over {dist.tp} model ranks: the "
-            f"tensor-parallel layouts of mamba2, mLSTM, sLSTM and encdec "
-            f"are ROADMAP.md item 6c")
-
-
 def shard_model(model: nn.Module, cfg, dist, pspecs: dict = None) -> None:
     """Cut every parameter of the model to this rank's shard of its
     placement, in place, each module recording its leaves' split axes
     (`layers.shard_module`; `layers.placements` reads them back).
-    `pspecs` {name: logical axes}: `param_pspecs` for the dense, vlm and
-    moe families (checked first: `check_mesh`), nothing split for the
-    others."""
+    `pspecs` {name: logical axes}: `param_pspecs` at the model's own
+    position table (checked first: `check_mesh`) when None."""
     MOE.check_mesh(cfg, dist)
     check_mesh(cfg, dist)
     if pspecs is None:
-        pspecs = param_pspecs(cfg, dist.tp) if cfg.family in STACKED \
-            else {}
+        pos = getattr(getattr(model, "embed", None), "pos", None)
+        pspecs = param_pspecs(cfg, dist.tp,
+                              0 if pos is None else pos.shape[0])
     for mod_name, module in model.named_modules():
         prefix = f"{mod_name}." if mod_name else ""
         L.shard_module(module, dist, {
@@ -569,9 +556,10 @@ def init_params(cfg, seed: int = 0, *, max_seq: int = 0,
     return lm(cfg, g, dev).eval()
 
 
-def _positions(params, start: int, n: int):
-    """Rows start..start+n-1 of the learned position table, (1, n, d)."""
-    table = params.embed.pos
+def _positions(params, start: int, n: int, dist=None):
+    """Rows start..start+n-1 of the learned position table, (1, n, d)
+    (gathered over "data" with `dist`)."""
+    table = L.weight(params.embed, "pos", dist)
     if start + n > table.shape[0]:
         raise ValueError(f"positions {start}..{start + n - 1} run past the "
                          f"learned position table of {table.shape[0]} rows "
@@ -585,7 +573,7 @@ def _embed(params, tokens, start: int, dtype, dist=None):
     vocab-parallel with `dist` where the table is split."""
     x = L.embed_tokens(params.embed, tokens, dist).to(dtype)
     if hasattr(params.embed, "pos"):
-        x = x + _positions(params, start, x.shape[1]).to(dtype)
+        x = x + _positions(params, start, x.shape[1], dist).to(dtype)
     return x
 
 
@@ -614,73 +602,123 @@ def _run_layer(cfg, fn, p, *args, remat: bool = False, **kwargs):
 
 
 def _encode(cfg, params: EncDecLM, frames, dtype=torch.float32, *,
-            remat: bool = False):
+            remat: bool = False, dist=None):
     """Whisper's encoder over frame embeddings (B, S_enc, d): cast to
     `dtype`, plus position rows 0..S_enc-1, the non-causal blocks (flash,
     every key kept; its gradient Function when x requires grad), each
     under `torch.utils.checkpoint` when `remat` (the reference's
-    jax.checkpoint of `_encode`'s body), the encoder's norm."""
+    jax.checkpoint of `_encode`'s body), the encoder's norm;
+    tensor-parallel with `dist` where the layers are placed."""
     x = frames.to(dtype)
-    x = x + _positions(params, 0, x.shape[1]).to(dtype)
+    x = x + _positions(params, 0, x.shape[1], dist).to(dtype)
     for p in params.enc:
         x = _run_layer(cfg, _train_layer, p, x, causal=False,
-                       remat=remat)
+                       remat=remat, dist=dist)
     return params.enc_norm(x)
 
 
-def _dec_layer(cfg, p: DecBlock, x, enc_out):
+def _dec_layer(cfg, p: DecBlock, x, enc_out, dist=None):
     """A whisper decoder layer over the whole sequence: causal
     self-attention, cross-attention against keys and values of the
     encoder's output built here (`A.encoder_kv`, so under remat their
     gradient reaches `enc_out` through the rerun), the MLP. Returns (x,
-    (k, v) of the self-attention, (k, v) of the cross-attention)."""
-    h, kv = A.attention(cfg, p.attn, p.ln1(x), causal=True)
+    (k, v) of the self-attention, (k, v) of the cross-attention): with
+    `dist` the KV heads this rank holds."""
+    h, kv = A.attention(cfg, p.attn, p.ln1(x), causal=True, dist=dist)
     x = x + h
-    cross_kv = A.encoder_kv(cfg, p.xattn, enc_out)
+    cross_kv = A.encoder_kv(cfg, p.xattn, enc_out, dist)
     h, _ = A.attention(cfg, p.xattn, p.lnx(x), causal=False,
-                       cross_kv=cross_kv)
+                       cross_kv=cross_kv, dist=dist)
     x = x + h
-    return x + p.mlp(p.ln2(x)), kv, cross_kv
+    return x + p.mlp(p.ln2(x), dist), kv, cross_kv
 
 
-def _prefill_encdec(cfg, params: EncDecLM, batch, dtype):
+def _cache_kv(cfg, k, v, dist):
+    """A prefill's self-attention keys and values (B, S, Hkv', dh) as its
+    cache holds them on this rank: as computed (whole, or this rank's
+    heads where they split), or this rank's 1/tp of the positions where
+    the cache is split by sequence (`kv_layout` "seq"; S must divide)."""
+    if kv_layout(cfg, dist) != "seq":
+        return k, v
+    S = k.shape[1]
+    if S % dist.tp:
+        raise ValueError(f"a cache of {S} positions does not split over "
+                         f"{dist.tp} model ranks")
+    n = S // dist.tp
+    r = dist.index(dist.tp_axis)
+    return k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n]
+
+
+def _prefill_encdec(cfg, params: EncDecLM, batch, dtype, dist=None):
     """Whisper's prefill: the encoder over `batch["frames"]`, then each
     decoder layer's causal self-attention over the tokens and its
     cross-attention against keys and values of the encoder's output,
-    computed once a layer and kept in the cache's "cross" part."""
-    enc_out = _encode(cfg, params, batch["frames"], dtype)
-    x, _ = _embed_inputs(cfg, params, batch, dtype)
+    computed once a layer and kept in the cache's "cross" part. With
+    `dist` the self part in its `cache_pspecs` placement (`_cache_kv`)
+    and the cross part whole on every model rank (gathered where this
+    rank computed its heads only)."""
+    enc_out = _encode(cfg, params, batch["frames"], dtype, dist=dist)
+    x, _ = _embed_inputs(cfg, params, batch, dtype, dist)
     ks, vs, cks, cvs = [], [], [], []
     for p in params.layers:
-        x, (k, v), (ek, ev) = _dec_layer(cfg, p, x, enc_out)
+        x, kv, (ek, ev) = _dec_layer(cfg, p, x, enc_out, dist)
+        k, v = _cache_kv(cfg, *kv, dist)
+        if ek.shape[2] != cfg.n_kv_heads:
+            group = dist.group(dist.tp_axis)
+            ek, ev = (C.all_gather(t, 2, group) for t in (ek, ev))
         ks.append(k), vs.append(v), cks.append(ek), cvs.append(ev)
     cache = {"self": [{"k": torch.stack(ks), "v": torch.stack(vs)}],
              "cross": {"k": torch.stack(cks), "v": torch.stack(cvs)}}
     x = params.final_norm(x)
-    return L.lm_logits(params.embed, x[:, -1]), cache
+    return L.lm_logits(params.embed, x[:, -1], dist), cache
 
 
-def _apply_recurrent(cfg, kind: str, p, x, state=None, **scan):
+def _dec_layer_step(cfg, p: DecBlock, x, self_k, self_v, cross_k, cross_v,
+                    pos: int, dist=None):
+    """One decode step of a whisper decoder layer: self-attention over
+    its cache (written at pos in place; over a sequence-split cache
+    `decode_attention_seqsharded`), cross-attention over the encoder's
+    keys and values, the MLP."""
+    if kv_layout(cfg, dist) == "seq":
+        h, _, _ = A.decode_attention_seqsharded(cfg, p.attn, p.ln1(x),
+                                                self_k, self_v, pos, dist)
+    else:
+        h, _, _ = A.decode_attention(cfg, p.attn, p.ln1(x), self_k, self_v,
+                                     pos, dist=dist)
+    x = x + h
+    h, _, _ = A.decode_attention(cfg, p.xattn, p.lnx(x), cross_k, cross_v,
+                                 pos, cross=True, dist=dist)
+    x = x + h
+    return x + p.mlp(p.ln2(x), dist)
+
+
+def _apply_recurrent(cfg, kind: str, p, x, state=None, dist=None, **scan):
     """One "M", "X" or "S" block on x from `state`: (x, new state).
-    `scan` (chunk, exact_chunk) goes to the chunked scans."""
+    `scan` (chunk, exact_chunk) goes to the chunked scans; with `dist`
+    the block's layout on the mesh (`models.ssm`)."""
     xin = p.ln1(x)
     if kind == "M":
-        h, st = SS.apply_mamba2(cfg, p.mamba, xin, state=state, **scan)
+        h, st = SS.apply_mamba2(cfg, p.mamba, xin, state=state, dist=dist,
+                                **scan)
     elif kind == "X":
-        h, st = SS.apply_mlstm(cfg, p.mlstm, xin, state=state, **scan)
+        h, st = SS.apply_mlstm(cfg, p.mlstm, xin, state=state, dist=dist,
+                               **scan)
     else:
-        h, st = SS.apply_slstm(cfg, p.slstm, xin, state=state, **scan)
+        h, st = SS.apply_slstm(cfg, p.slstm, xin, state=state, dist=dist,
+                               **scan)
     return x + h, st
 
 
-def _apply_block_full(cfg, kind: str, p, x, *, window: int = 0):
-    """Full-sequence block (prefill). Returns (x, cache entry)."""
+def _apply_block_full(cfg, kind: str, p, x, *, window: int = 0, dist=None):
+    """Full-sequence block (prefill). Returns (x, cache entry), with
+    `dist` in the cache's placement (`_cache_kv`)."""
     if kind == "A":
-        h, (k, v) = A.attention(cfg, p.attn, p.ln1(x), window=window)
+        h, kv = A.attention(cfg, p.attn, p.ln1(x), window=window, dist=dist)
         x = x + h
-        x = x + p.mlp(p.ln2(x))
+        x = x + p.mlp(p.ln2(x), dist)
+        k, v = _cache_kv(cfg, *kv, dist)
         return x, {"k": k, "v": v}
-    return _apply_recurrent(cfg, kind, p, x)
+    return _apply_recurrent(cfg, kind, p, x, dist=dist)
 
 
 @torch.no_grad()
@@ -702,29 +740,31 @@ def prefill(cfg, params, batch, cap_scales=None, *, dist=None,
     `cap_scales` ((n_moe_layers, E), the reference's argument) is not
     used: MoE layers serve dropless, as in the reference. With `dist`
     (`launch.mesh.DistContext`) the batch is this rank's rows and the MoE
-    layers run expert-parallel over the mesh; a dense, vlm or moe model
-    (`shard_model`) runs its whole layout and writes the cache in its
+    layers run expert-parallel over the mesh; a model cut by
+    `shard_model` runs its whole layout and writes the cache in its
     placement (`cache_pspecs`: this rank's KV heads, or its 1/tp of the
-    positions, which then must divide), the logits whole."""
+    positions, which then must divide; this rank's channels and heads of
+    the recurrent states; whisper's cross part whole), the logits whole."""
     _check_family(cfg)
-    check_tp_family(cfg, dist)
     tokens = batch["tokens"]
     if cfg.family == "encdec":
-        return _prefill_encdec(cfg, params, batch, dtype)
+        return _prefill_encdec(cfg, params, batch, dtype, dist)
     if cfg.family in STACKED:
         x, _ = _embed_inputs(cfg, params, batch, dtype, dist)
         cache = empty_extend_cache(cfg, x.shape[0], x.shape[1], dtype,
                                    device=x.device, dist=dist)
         return _stacked_extend(cfg, params, x, cache, 0, dist)
-    x = L.embed_tokens(params.embed, tokens).to(dtype)
+    x = L.embed_tokens(params.embed, tokens, dist).to(dtype)
     cache = []
     for i, kind in enumerate(cfg.block_pattern):
         window = cfg.attn_window if kind == "A" else 0
-        x, st = _apply_block_full(cfg, kind, params.block(i), x,
-                                  window=window)
+        p = params.block(i)
+        with L.gathered(dist, p):
+            x, st = _apply_block_full(cfg, kind, p, x, window=window,
+                                      dist=dist)
         cache.append(st)
     x = params.final_norm(x)
-    return L.lm_logits(params.embed, x[:, -1]), cache
+    return L.lm_logits(params.embed, x[:, -1], dist), cache
 
 
 @torch.no_grad()
@@ -736,24 +776,20 @@ def decode_step(cfg, params, tokens, cache, pos: int, cap_scales=None, *,
     as in prefill (`cap_scales` is not used), so decode at S continues a
     prefill of S tokens as a fresh prefill of S + 1 would. `dist` as in
     `prefill`: the cache is this rank's (`cache_pspecs`); over a cache
-    split by sequence, attention is `attention.decode_attention_seqsharded`.
+    split by sequence, attention is `attention.decode_attention_seqsharded`
+    (a ring by slot for Zamba2's windowed block).
     """
     _check_family(cfg)
-    check_tp_family(cfg, dist)
     x = _embed(params, tokens, pos, dtype, dist)
     if cfg.family == "encdec":
         self_kv, cross = cache["self"][0], cache["cross"]
         for j, p in enumerate(params.layers):
-            h, _, _ = A.decode_attention(cfg, p.attn, p.ln1(x),
-                                         self_kv["k"][j], self_kv["v"][j],
-                                         pos)
-            x = x + h
-            h, _, _ = A.decode_attention(cfg, p.xattn, p.lnx(x),
-                                         cross["k"][j], cross["v"][j], pos,
-                                         cross=True)
-            x = x + h
-            x = x + p.mlp(p.ln2(x))
-        return L.lm_logits(params.embed, params.final_norm(x[:, -1])), cache
+            with L.gathered(dist, p):
+                x = _dec_layer_step(cfg, p, x, self_kv["k"][j],
+                                    self_kv["v"][j], cross["k"][j],
+                                    cross["v"][j], pos, dist)
+        return L.lm_logits(params.embed, params.final_norm(x[:, -1]),
+                           dist), cache
     if cfg.family in STACKED:
         seq = kv_layout(cfg, dist) == "seq"
         for p, (s, j) in zip(params.layers, _layer_slots(cfg)):
@@ -771,18 +807,32 @@ def decode_step(cfg, params, tokens, cache, pos: int, cap_scales=None, *,
     new_cache = []
     for i, kind in enumerate(cfg.block_pattern):
         p, st = params.block(i), cache[i]
-        if kind == "A":
-            h, ck, cv = A.decode_attention(cfg, p.attn, p.ln1(x), st["k"],
-                                           st["v"], pos,
-                                           window=cfg.attn_window)
-            x = x + h
-            x = x + p.mlp(p.ln2(x))
-            new_cache.append({"k": ck, "v": cv})
-        else:
-            x, ns = _apply_recurrent(cfg, kind, p, x, state=st)
-            new_cache.append(ns)
+        with L.gathered(dist, p):
+            if kind == "A":
+                x, ns = _shared_attn_step(cfg, p, x, st, pos, dist)
+            else:
+                x, ns = _apply_recurrent(cfg, kind, p, x, state=st,
+                                         dist=dist)
+        new_cache.append(ns)
     x = params.final_norm(x)
-    return L.lm_logits(params.embed, x[:, -1]), new_cache
+    return L.lm_logits(params.embed, x[:, -1], dist), new_cache
+
+
+def _shared_attn_step(cfg, p: AttnBlock, x, st, pos: int, dist=None):
+    """One decode step of a hybrid's "A" block at position `pos` over its
+    windowed ring cache st {"k", "v"} (written in place; over a cache
+    split by sequence `decode_attention_seqsharded`), then the MLP: (x,
+    the cache entry)."""
+    if kv_layout(cfg, dist) == "seq":
+        h, ck, cv = A.decode_attention_seqsharded(
+            cfg, p.attn, p.ln1(x), st["k"], st["v"], pos, dist,
+            window=cfg.attn_window)
+    else:
+        h, ck, cv = A.decode_attention(cfg, p.attn, p.ln1(x), st["k"],
+                                       st["v"], pos, window=cfg.attn_window,
+                                       dist=dist)
+    x = x + h
+    return x + p.mlp(p.ln2(x), dist), {"k": ck, "v": cv}
 
 
 def _state_spec(cfg, kind: str, batch: int, dtype=torch.float32):
@@ -847,19 +897,33 @@ def _zeros(spec, device):
 
 
 def local_cache_specs(cfg, batch: int, cache_len: int, dtype, dist):
-    """`cache_specs` of a stacked model as this rank holds it (`batch` its
-    rows): its Hkv/tp KV heads, or its cache_len/tp positions."""
-    layout = kv_layout(cfg, dist)
-    if layout == "seq" and cache_len % dist.tp:
-        raise ValueError(f"a cache of {cache_len} positions does not split "
-                         f"over {dist.tp} model ranks")
-    specs = cache_specs(cfg, batch, cache_len, dtype)
-    cut = {"heads": 3, "seq": 2}.get(layout)
-    if cut is None:
+    """`cache_specs` as this rank holds it (`batch` its rows): every
+    dimension that `cache_pspecs` puts on "model" cut to 1/tp (KV heads,
+    or positions; Mamba2's conv channels and SSM heads, the mLSTM's and
+    sLSTM's heads). ValueError where tp does not divide a cut one."""
+    return _local_specs(cfg, cache_specs(cfg, batch, cache_len, dtype),
+                        batch, dist)
+
+
+def _local_specs(cfg, specs, batch: int, dist):
+    if dist is None or dist.tp == 1:
         return specs
-    return [{n: (tuple(d // dist.tp if i == cut else d
-                       for i, d in enumerate(shape)), dt)
-             for n, (shape, dt) in seg.items()} for seg in specs]
+    axes = cache_pspecs(cfg, batch, {"data": 1, "model": dist.tp})
+    return _cut_model(specs, axes, dist.tp)
+
+
+def _cut_model(spec, axes, tp: int):
+    if isinstance(spec, dict):
+        return {k: _cut_model(spec[k], axes[k], tp) for k in spec}
+    if isinstance(spec, list):
+        return [_cut_model(s, a, tp) for s, a in zip(spec, axes)]
+    shape, dt = spec
+    for n, a in zip(shape, axes):
+        if a == "model" and n % tp:
+            raise ValueError(f"a cache dimension of {n} does not split "
+                             f"over {tp} model ranks")
+    return (tuple(n // tp if a == "model" else n
+                  for n, a in zip(shape, axes)), dt)
 
 
 def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
@@ -878,11 +942,11 @@ def empty_extend_cache(cfg, batch: int, seq: int, dtype=torch.float32, *,
             f"not {cfg.family!r}: a hybrid's or an encoder-decoder's "
             f"attention cache does not extend")
     dev = resolve_device(device)
-    if cfg.family in STACKED:
-        return [_zeros(spec, dev) for spec in
-                local_cache_specs(cfg, batch, seq, dtype, dist)]
-    return [_zeros(_state_spec(cfg, kind, batch, dtype), dev)
-            for kind in cfg.block_pattern]
+    specs = cache_specs(cfg, batch, seq, dtype) if cfg.family in STACKED \
+        else [_state_spec(cfg, kind, batch, dtype)
+              for kind in cfg.block_pattern]
+    return [_zeros(spec, dev)
+            for spec in _local_specs(cfg, specs, batch, dist)]
 
 
 @torch.no_grad()
@@ -925,21 +989,22 @@ def prefill_extend(cfg, params, tokens, cache, done: int, cap_scales=None,
             f"prefill_extend runs the dense, vlm, moe and ssm families, not "
             f"{cfg.family!r}: a hybrid's or an encoder-decoder's attention "
             f"cache does not extend")
-    check_tp_family(cfg, dist)
     if cfg.family in STACKED:
         return _stacked_extend(cfg, params,
                                L.embed_tokens(params.embed, tokens,
                                               dist).to(dtype),
                                cache, int(done), dist)
     Q = int(ssm_chunk or cfg.ssm_chunk)
-    x = L.embed_tokens(params.embed, tokens).to(dtype)
+    x = L.embed_tokens(params.embed, tokens, dist).to(dtype)
     new_cache = []
     for i, kind in enumerate(cfg.block_pattern):
-        x, ns = _apply_recurrent(cfg, kind, params.blocks[i], x,
-                                 state=cache[i], chunk=Q, exact_chunk=True)
+        with L.gathered(dist, params.blocks[i]):
+            x, ns = _apply_recurrent(cfg, kind, params.blocks[i], x,
+                                     state=cache[i], dist=dist, chunk=Q,
+                                     exact_chunk=True)
         new_cache.append(ns)
     x = params.final_norm(x)
-    return L.lm_logits(params.embed, x[:, -1]), new_cache
+    return L.lm_logits(params.embed, x[:, -1], dist), new_cache
 
 
 def _stacked_extend(cfg, params: StackedLM, x, cache, done: int,
@@ -1089,8 +1154,7 @@ def check_trainable(cfg, dist=None) -> None:
     reference falls back to "nothing" without a word), and for a mesh
     `dist` that the config's experts cannot split over
     (`models.moe.check_mesh`) or that a placement cannot split over
-    (`check_mesh`: NotImplementedError for an encdec, ssm or hybrid model
-    over more than one model rank, ROADMAP.md item 6c)."""
+    (`check_mesh`)."""
     _check_family(cfg)
     MOE.check_mesh(cfg, dist)
     check_mesh(cfg, dist)
@@ -1154,15 +1218,16 @@ def _train_moe_stack(cfg, params: StackedLM, x, cap_scales, remat: bool,
     return x, sums, torch.stack(counts)
 
 
-def _train_block(cfg, p, x, kind: str):
+def _train_block(cfg, p, x, kind: str, dist=None):
     """Block `kind` of a hybrid or ssm pattern over the whole sequence
     from a zero state (the reference's `_apply_block_full`): "A" is
     `_train_layer` with `cfg.attn_window`; "M", "X" and "S" are
     `_apply_recurrent` (the scans through the SSD scan's autograd
-    Function, the sLSTM's loop by autograd). Returns x."""
+    Function, the sLSTM's loop by autograd); with `dist` each in its
+    layout on the mesh. Returns x."""
     if kind == "A":
-        return _train_layer(cfg, p, x, window=cfg.attn_window)
-    return _apply_recurrent(cfg, kind, p, x)[0]
+        return _train_layer(cfg, p, x, window=cfg.attn_window, dist=dist)
+    return _apply_recurrent(cfg, kind, p, x, dist=dist)[0]
 
 
 def loss_fn(cfg, params, batch, cap_scales=None, *, dist=None,
@@ -1208,23 +1273,24 @@ def loss_fn(cfg, params, batch, cap_scales=None, *, dist=None,
     the share's gradient, which the train step sums over the batch ranks;
     the aux loss enters as its mean over them (`models.moe.
     replicate_aux`). The metrics are global: "n_tokens" the global count,
-    the aux values replicated. A dense, vlm or moe model (`shard_model`)
-    runs tensor-parallel over "model": every model rank computes the same
-    loss, its weights' gradients complete through the collectives'
-    backwards. With the vocabulary split the logits stay split
+    the aux values replicated. A model cut by `shard_model` runs
+    tensor-parallel over "model" (every family: `models.ssm` for the
+    recurrent blocks, whisper's encoder and decoder through `attention`
+    and `MLP`): every model rank computes the same loss, its weights'
+    gradients complete through the collectives' backwards. With the vocabulary split the logits stay split
     (B, S, V/tp) and the cross-entropy is vocab-parallel (`_ce`)."""
     check_trainable(cfg, dist)
     x, n_prefix = _embed_inputs(cfg, params, batch, dtype, dist)
     if cfg.family == "encdec":
         enc_out = _encode(cfg, params, batch["frames"], dtype,
-                          remat=cfg.remat)
+                          remat=cfg.remat, dist=dist)
         for p in params.layers:
-            x = _run_layer(cfg, _dec_layer, p, x, enc_out,
+            x = _run_layer(cfg, _dec_layer, p, x, enc_out, dist,
                            remat=cfg.remat)[0]
     elif cfg.family in ("hybrid", "ssm"):
         for i, kind in enumerate(cfg.block_pattern):
             x = _run_layer(cfg, _train_block, params.block(i), x, kind,
-                           remat=cfg.remat)
+                           dist, remat=cfg.remat)
     elif cfg.family == "moe":
         x, aux, counts = _train_moe_stack(cfg, params, x, cap_scales,
                                           cfg.remat, dist)

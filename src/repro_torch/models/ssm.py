@@ -17,6 +17,28 @@ sLSTM is sequential (its recurrent weights act on h_{t-1}): a length-S
 loop of small PyTorch operations, as the reference's `lax.scan` is — no
 Pallas kernel in the reference; training differentiates it by autograd
 through the loop.
+
+On a mesh (`dist`, the placements of `mamba2_pspec`, `mlstm_pspec` and
+`slstm_pspec` recorded by `layers.shard_module`) every weight is
+gathered over "data" inside the block (FSDP), and "model" splits:
+* Mamba2, where d_in and its heads divide the model ranks: in_z, in_x and
+  in_dt column-parallel behind `to_model`, the depthwise conv and the
+  conv state by channel, A_log, D, dt_bias, norm and the SSM state by
+  head; in_B and in_C stay whole, shared by every head (their gradient on
+  a rank covers its heads only: `to_model` on the weights sums it); the
+  scan kernel runs on the rank's H/tp heads; the gated RMSNorm's mean over
+  the whole d_in sums the ranks' squares (`psum`); out row-parallel into
+  `from_model`.
+* mLSTM, where its heads divide the model ranks: up_z and up_x
+  column-parallel, so xm arrives split over d_in; wq, wk, wv, w_i and
+  w_f are split by their rows, so xm's slice times the rank's rows is a
+  partial sum of every head, reduce-scattered onto the rank's heads
+  (`scatter_sum`, one call for the five); the scan kernel on those heads;
+  down row-parallel. Elsewhere every model rank computes every head.
+* sLSTM: FSDP only; every model rank runs the same loop. Its h/c state
+  is cut by heads where the cache placement cuts it (the mLSTM's rule,
+  `models.model.cache_pspecs`): a call from a state gathers it whole and
+  the rank keeps its heads of the new one.
 """
 from __future__ import annotations
 
@@ -25,6 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan
+from repro_torch.kernels.shape_only import shape_only
+from repro_torch.launch import collectives as C
 
 from . import layers as L
 
@@ -89,8 +113,7 @@ def causal_conv(x, w, conv_state=None):
 
 def mamba2_pspec(cfg, tp: int = 16) -> dict:
     """The reference's placement (`repro/models/ssm.py:142-154`): d_in
-    and its heads over "model" where both divide tp. The port does not
-    run it split yet (ROADMAP.md item 6c): the tree only."""
+    and its heads over "model" where both divide tp."""
     d_in = cfg.mamba_expand * cfg.d_model
     H = d_in // cfg.ssm_head_dim
     m = "model" if (d_in % tp == 0 and H % tp == 0) else None
@@ -128,29 +151,45 @@ class Mamba2(nn.Module):
 
 
 def apply_mamba2(cfg, p: Mamba2, x, state=None, *, chunk: int = None,
-                 exact_chunk: bool = False):
+                 exact_chunk: bool = False, dist=None):
     """x (B,S,D). state: None (prefill from scratch) or a dict with
     'conv' (B,K-1,d_in) and 'ssm' (B,H,hd,N) (decode, incremental
     prefill). Returns (out, {"conv", "ssm"}).
 
     A single decode token from a state runs `gated_scan_step`; every other
     call runs `chunked_gated_scan` from the state (or zeros) with
-    chunk = min(cfg.ssm_chunk, S), exactly `chunk` with `exact_chunk`."""
+    chunk = min(cfg.ssm_chunk, S), exactly `chunk` with `exact_chunk`.
+    With `dist` this rank's channels and heads where "model" splits them
+    (the states too), as the module docstring sets out."""
     B, S, D = x.shape
     d_in = cfg.mamba_expand * D
     N, hd = cfg.ssm_state, cfg.ssm_head_dim
-    H = d_in // hd
     chunk = chunk or getattr(cfg, "ssm_chunk", 256)
-    z = x @ p.in_z.to(x.dtype)
-    xs = x @ p.in_x.to(x.dtype)
-    Bm = x @ p.in_B.to(x.dtype)
-    Cm = x @ p.in_C.to(x.dtype)
-    dt = F.softplus((x @ p.in_dt.to(x.dtype)).float() + p.dt_bias)  # (B,S,H)
-    xs, conv_state = causal_conv(xs, p.conv_x.to(x.dtype),
+    group = L.model_group(p, "in_x", 1, dist)
+    cols, rows = ((1,), (0,)) if group is not None else ((), ())
+    xin = x if group is None else C.to_model(x, group)
+
+    def w(leaf, local=()):
+        return L.weight(p, leaf, dist, local)
+
+    def shared(leaf):
+        # whole B/C projections beside a slice of the heads: each rank adds
+        # only its heads' part of their gradient
+        t = w(leaf)
+        return t if group is None else C.to_model(t, group)
+
+    z = xin @ w("in_z", cols).to(x.dtype)
+    xs = xin @ w("in_x", cols).to(x.dtype)
+    Bm = xin @ shared("in_B").to(x.dtype)
+    Cm = xin @ shared("in_C").to(x.dtype)
+    dt = F.softplus((xin @ w("in_dt", cols).to(x.dtype)).float()
+                    + w("dt_bias", rows))                          # (B,S,H)
+    xs, conv_state = causal_conv(xs, w("conv_x", cols).to(x.dtype),
                                  None if state is None else state["conv"])
     xs = F.silu(xs)
+    H = dt.shape[-1]
     xh = xs.reshape(B, S, H, hd)
-    log_a = -torch.exp(p.A_log)[None, None] * dt  # (B,S,H), <= 0
+    log_a = -torch.exp(w("A_log", rows))[None, None] * dt  # (B,S,H), <= 0
     # B/C shared across heads (MQA-style): one (B,S,1,N) for every head,
     # which the scan broadcasts with a head stride of 0 (never
     # materialised; its gradient sums over the heads); dt folded into v
@@ -166,12 +205,16 @@ def apply_mamba2(cfg, p: Mamba2, x, state=None, *, chunk: int = None,
     else:
         y, ssm = chunked_gated_scan(q, k, v, log_a, state=ssm_prev,
                                     chunk=chunk, exact_chunk=exact_chunk)
-    y = y + xh * p.D[None, None, :, None]
-    y = y.reshape(B, S, d_in) * F.silu(z)
+    y = y + xh * w("D", rows)[None, None, :, None]
+    y = y.reshape(B, S, H * hd) * F.silu(z)
     yf = y.float()
-    y = (yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + 1e-6)
-         * p.norm).to(x.dtype)
-    out = y @ p.out.to(x.dtype)
+    if group is None:
+        ms = torch.mean(yf * yf, -1, keepdim=True)
+    else:   # the mean over the whole d_in: every rank's squares summed
+        ms = C.psum(torch.sum(yf * yf, -1, keepdim=True), group) / d_in
+    y = (yf * torch.rsqrt(ms + 1e-6) * w("norm", rows)).to(x.dtype)
+    out = y @ w("out", rows).to(x.dtype)
+    out = out if group is None else C.from_model(out, group)
     return out, {"conv": conv_state, "ssm": ssm}
 
 
@@ -190,8 +233,9 @@ def mamba2_state_spec(cfg, batch: int, dtype=torch.float32) -> dict:
 # ----------------------------------------------------------------------------
 
 def mlstm_pspec(cfg, tp: int = 16) -> dict:
-    """The reference's placement (`repro/models/ssm.py:233-241`); the tree
-    only (item 6c)."""
+    """The reference's placement (`repro/models/ssm.py:233-241`): d_in
+    over "model" (up_z, up_x by column, the head projections by row)
+    where the heads divide tp."""
     m = "model" if cfg.n_heads % tp == 0 else None
     return {"up_z": ("data", m), "up_x": ("data", m), "wq": (m, None),
             "wk": (m, None), "wv": (m, None), "w_i": (m, None),
@@ -218,47 +262,87 @@ class MLSTM(nn.Module):
         self.down = L.dense_init(g, d_in, d, device)
 
 
-def _mlstm_tokens(p: MLSTM, x, H: int, dh: int):
+_MLSTM_HEADS = ("wq", "wk", "wv", "w_i", "w_f")
+
+
+def mlstm_weights(p: MLSTM, dist=None, group=None) -> dict:
+    """The mLSTM's weights as this rank computes with them, gathered over
+    "data" once a call (the token-wise parts run per block of tokens):
+    up_z and up_x by their columns and the head projections and down by
+    their rows where a model `group` splits them, else whole."""
+    cols, rows = ((1,), (0,)) if group is not None else ((), ())
+    w = {n: L.weight(p, n, dist, cols) for n in ("up_z", "up_x")}
+    w.update({n: L.weight(p, n, dist, rows) for n in (*_MLSTM_HEADS,
+                                                      "down")})
+    return w
+
+
+def _mlstm_tokens(w: dict, x, H: int, dh: int, tp: int = 1, group=None):
     """The token-wise part of an mLSTM block ahead of its scan, on x
-    (B,T,D): silu(z), q, k * i, v with the ones channel, log f."""
+    (B,T,D) with the weights `w` (`mlstm_weights`): silu(z), q, k * i, v
+    with the ones channel, log f. With a model `group` (the heads split
+    over its tp ranks; x has passed `to_model`) this rank's H/tp heads:
+    the head projections' partial sums of every head reduce-scattered
+    onto them."""
     B, T, _ = x.shape
-    z = x @ p.up_z.to(x.dtype)
-    xm = x @ p.up_x.to(x.dtype)
-    q = (xm @ p.wq.to(x.dtype)).reshape(B, T, H, dh) * (dh ** -0.5)
-    k = (xm @ p.wk.to(x.dtype)).reshape(B, T, H, dh) * (dh ** -0.5)
-    v = (xm @ p.wv.to(x.dtype)).reshape(B, T, H, dh)
-    ig = torch.sigmoid((xm @ p.w_i.to(x.dtype)).float())
-    fg = torch.sigmoid((xm @ p.w_f.to(x.dtype)).float() + 1.0)
+    z = x @ w["up_z"].to(x.dtype)
+    xm = x @ w["up_x"].to(x.dtype)
+    qkv = [xm @ w[n].to(x.dtype) for n in _MLSTM_HEADS]
+    if group is not None:
+        qkv = _scatter_heads(qkv, group, tp)
+        H = H // tp
+    q = qkv[0].reshape(B, T, H, dh) * (dh ** -0.5)
+    k = qkv[1].reshape(B, T, H, dh) * (dh ** -0.5)
+    v = qkv[2].reshape(B, T, H, dh)
+    ig = torch.sigmoid(qkv[3].float())
+    fg = torch.sigmoid(qkv[4].float() + 1.0)
     kk = k * ig.to(k.dtype)[..., None]
     v1 = torch.cat([v, v.new_ones((B, T, H, 1))], dim=-1)
     return F.silu(z), q, kk, v1, torch.log(fg + 1e-9)
 
 
-def _mlstm_out(p: MLSTM, y1, gz, dh: int):
+def _scatter_heads(parts, group, tp: int):
+    """Partial sums (B,T,n_j) of every head, each this rank's slice
+    n_j/tp of their sum over `group` (its heads), in one reduce-scatter."""
+    B, T = parts[0].shape[:2]
+    widths = [t.shape[-1] // tp for t in parts]
+    both = torch.cat([t.reshape(B, T, tp, n) for t, n in zip(parts, widths)],
+                     dim=-1)
+    mine = C.scatter_sum(both, 2, group)[:, :, 0]
+    return list(torch.split(mine, widths, dim=-1))
+
+
+def _mlstm_out(w: dict, y1, gz, dh: int):
     """The token-wise part of an mLSTM block after its scan: y1 (B,T,H,Pd)
-    -> num / max(|den|, 1) * silu(z) @ down."""
+    -> num / max(|den|, 1) * silu(z) @ down (this rank's part of it where
+    down's rows are split)."""
     B, T = y1.shape[:2]
     num, den = y1[..., :dh], y1[..., dh:]
     y = num / torch.clamp(torch.abs(den), min=1.0)
-    return (y.reshape(B, T, -1) * gz) @ p.down.to(gz.dtype)
+    return (y.reshape(B, T, -1) * gz) @ w["down"].to(gz.dtype)
 
 
 def apply_mlstm(cfg, p: MLSTM, x, state=None, *, chunk: int = None,
-                exact_chunk: bool = False):
+                exact_chunk: bool = False, dist=None):
     """x (B,S,D) -> (y, state). state: None or (B,H,dh+1,dh) float32 (the
     normalizer folded in as the extra v channel). A single decode token
     from a state runs `gated_scan_step`; every other call
     `chunked_gated_scan` at N = dh, Pd = dh + 1 (`exact_chunk` as in
     `apply_mamba2`). The token-wise parts before and after the scan run
     `layers.by_blocks` of the scan's Q, so an incremental prefill gives
-    the bits of a one-shot one."""
+    the bits of a one-shot one. With `dist` this rank's heads where
+    "model" splits them (the state too)."""
     B, S, D = x.shape
     H = cfg.n_heads
     dh = cfg.mamba_expand * D // H
     chunk = chunk or cfg.ssm_chunk
     Q = scan_block(chunk, S, exact_chunk)
+    group = L.model_group(p, "up_x", 1, dist)
+    w = mlstm_weights(p, dist, group)
+    tp = 1 if group is None else dist.tp
+    xin = x if group is None else C.to_model(x, group)
     gz, q, kk, v1, log_a = L.by_blocks(
-        lambda xb: _mlstm_tokens(p, xb, H, dh), Q, x)
+        lambda xb: _mlstm_tokens(w, xb, H, dh, tp, group), Q, xin)
     if S == 1 and state is not None and not exact_chunk:
         y1, st = gated_scan_step(q[:, 0], kk[:, 0], v1[:, 0], log_a[:, 0],
                                  state)
@@ -266,8 +350,8 @@ def apply_mlstm(cfg, p: MLSTM, x, state=None, *, chunk: int = None,
     else:
         y1, st = chunked_gated_scan(q, kk, v1, log_a, state=state,
                                     chunk=chunk, exact_chunk=exact_chunk)
-    return L.by_blocks(lambda yb, gb: _mlstm_out(p, yb, gb, dh), Q, y1,
-                       gz), st
+    out = L.by_blocks(lambda yb, gb: _mlstm_out(w, yb, gb, dh), Q, y1, gz)
+    return (out if group is None else C.from_model(out, group)), st
 
 
 def mlstm_state_spec(cfg, batch: int) -> tuple:
@@ -281,8 +365,8 @@ def mlstm_state_spec(cfg, batch: int) -> tuple:
 # ----------------------------------------------------------------------------
 
 def slstm_pspec(cfg, tp: int = 16) -> dict:
-    """The reference's placement (`repro/models/ssm.py:298-301`); the tree
-    only (item 6c)."""
+    """The reference's placement (`repro/models/ssm.py:298-301`): FSDP
+    only, replicated on "model"."""
     return {"wz": ("data", None), "wi": ("data", None), "wf": ("data", None),
             "wo": ("data", None), "r": (None, None, None),
             "down": ("data", None)}
@@ -307,40 +391,62 @@ class SLSTM(nn.Module):
         self.down = L.dense_init(g, d, d, device)
 
 
-def _slstm_tokens(p: SLSTM, x, H: int, dh: int):
-    """The token-wise part of an sLSTM block on x (B,T,D), float32: z and
-    the output gate sigmoid(o) (B,T,H,dh), the input and forget gates
-    sigmoid(i), sigmoid(f + 1) (B,T,H)."""
+def _slstm_tokens(w: dict, x, H: int, dh: int):
+    """The token-wise part of an sLSTM block on x (B,T,D) with its weights
+    `w`, float32: z and the output gate sigmoid(o) (B,T,H,dh), the input
+    and forget gates sigmoid(i), sigmoid(f + 1) (B,T,H)."""
     B, T, _ = x.shape
-    return ((x @ p.wz.to(x.dtype)).reshape(B, T, H, dh).float(),
-            torch.sigmoid((x @ p.wo.to(x.dtype)).reshape(B, T, H, dh)
+    return ((x @ w["wz"].to(x.dtype)).reshape(B, T, H, dh).float(),
+            torch.sigmoid((x @ w["wo"].to(x.dtype)).reshape(B, T, H, dh)
                           .float()),
-            torch.sigmoid((x @ p.wi.to(x.dtype)).float()),
-            torch.sigmoid((x @ p.wf.to(x.dtype)).float() + 1.0))
+            torch.sigmoid((x @ w["wi"].to(x.dtype)).float()),
+            torch.sigmoid((x @ w["wf"].to(x.dtype)).float() + 1.0))
+
+
+def slstm_state_group(cfg, dist):
+    """The model group when the sLSTM's h/c state is cut by heads over it
+    (the cache placement's rule: the heads divide the model ranks), else
+    None."""
+    if dist is None or dist.tp == 1 or cfg.n_heads % dist.tp:
+        return None
+    return dist.group(dist.tp_axis)
 
 
 def apply_slstm(cfg, p: SLSTM, x, state=None, *, chunk: int = None,
-                exact_chunk: bool = False):
+                exact_chunk: bool = False, dist=None):
     """x (B,S,D). state: None (zeros) or {"h", "c"} (B,H,dh) float32.
     Returns (out, {"h", "c"}). The recurrence runs one step at a time, a
     few small operations a step, as the reference's `lax.scan` does; every
     step has the same shapes. The token-wise parts before and after it
     run `layers.by_blocks` of the scan-block length (`chunk`,
     `exact_chunk` as in `apply_mlstm`), so calls split on its multiples
-    give the bits of one call."""
+    give the bits of one call. With `dist` every model rank runs the whole
+    block (FSDP weights gathered); the state is this rank's heads where
+    `slstm_state_group` cuts it."""
     B, S, D = x.shape
     H = cfg.n_heads
     dh = D // H
     Q = scan_block(chunk or cfg.ssm_chunk, S, exact_chunk)
-    zs, og, ig, fg = L.by_blocks(lambda xb: _slstm_tokens(p, xb, H, dh), Q, x)
+    # whole weights, gathered over "data" once a call
+    w = {n: L.weight(p, n, dist) for n in ("wz", "wo", "wi", "wf", "r",
+                                            "down")}
+    zs, og, ig, fg = L.by_blocks(lambda xb: _slstm_tokens(w, xb, H, dh), Q,
+                                 x)
+    group = slstm_state_group(cfg, dist)
     if state is None:
         h = x.new_zeros((B, H, dh), dtype=torch.float32)
         c = torch.zeros_like(h)
-    else:
+    elif group is None:
         h, c = state["h"], state["c"]
-    ys, h, c = slstm_recurrence(p.r, zs, og, ig, fg, h, c)
+    else:
+        h, c = (C.all_gather(state[n], 1, group) for n in ("h", "c"))
+    ys, h, c = slstm_recurrence(w["r"], zs, og, ig, fg, h, c)
     out = L.by_blocks(lambda yb: yb.reshape(B, yb.shape[1], D).to(x.dtype)
-                      @ p.down.to(x.dtype), Q, ys)
+                      @ w["down"].to(x.dtype), Q, ys)
+    if group is not None:
+        n = H // dist.tp
+        h, c = (t.narrow(1, dist.index(dist.tp_axis) * n, n).contiguous()
+                for t in (h, c))
     return out, {"h": h, "c": c}
 
 
@@ -353,7 +459,13 @@ def slstm_recurrence(r, zs, og, ig, fg, h, c):
     are unbound into their steps once, not indexed a step at a time: the
     values are the same, and under autograd their gradients are stacked
     once at the end instead of each step's being added into a zeroed
-    tensor of the whole sequence (S full-size adds a block)."""
+    tensor of the whole sequence (S full-size adds a block). Given fake
+    or meta tensors (the dry run) the loop is one shape-only op
+    (`SlstmShapeFn`)."""
+    if shape_only(zs):
+        keep = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, zs, og, ig, fg, h, c))
+        return SlstmShapeFn.apply(r, zs, og, ig, fg, h, c, keep)
     ys = []
     for z_t, o_t, i_t, f_t in zip(zs.unbind(1), og.unbind(1),
                                   ig[..., None].unbind(1),
@@ -364,6 +476,26 @@ def slstm_recurrence(r, zs, og, ig, fg, h, c):
         h = o_t * torch.tanh(c)
         ys.append(h)
     return torch.stack(ys, 1), h, c
+
+
+class SlstmShapeFn(torch.autograd.Function):
+    """The sLSTM loop under fake tensors: `kernels.shape_only.slstm_fwd`
+    (the S steps' outputs, operations and, in grad mode, what autograd
+    keeps of each step) and its backward `slstm_bwd`, each one op."""
+
+    @staticmethod
+    def forward(ctx, r, zs, og, ig, fg, h, c, keep: bool):
+        ys, h, c, saved = torch.ops.repro_torch.slstm_fwd(
+            r, zs, og, ig, fg, h, c, keep)
+        ctx.save_for_backward(r, zs, saved)
+        return ys, h, c
+
+    @staticmethod
+    def backward(ctx, dys, dh, dc):
+        r, zs, saved = ctx.saved_tensors
+        dr, dz, do, di, df, dh0, dc0 = torch.ops.repro_torch.slstm_bwd(
+            r, zs, saved, dys.contiguous(), dh.contiguous(), dc.contiguous())
+        return dr, dz, do, di, df, dh0, dc0, None
 
 
 def slstm_state_spec(cfg, batch: int) -> dict:

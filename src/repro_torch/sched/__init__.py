@@ -57,6 +57,25 @@ _LAZY = {
     "get": "registry",
     "register": "registry",
     "registered": "registry",
+    # shard dispatch (sched/data_sched.py)
+    "ShardDispatcher": "data_sched",
+    # the policy family and the simulator's knobs, re-exported as the
+    # reference's facade does (the objects live in repro_torch.core)
+    "Policy": "_core",
+    "assigned": "_core",
+    "binlpt": "_core",
+    "dynamic": "_core",
+    "guided": "_core",
+    "ich": "_core",
+    "paper_policy_grid": "_core",
+    "pretiled": "_core",
+    "static": "_core",
+    "stealing": "_core",
+    "taskloop": "_core",
+    "SimParams": "_core",
+    "SimResult": "_core",
+    "TileSchedule": "_core",
+    "WorkerShards": "_core",
 }
 
 __all__ = ["ICH_EPS", "MAX_WIDTH", "MIN_WIDTH", "ROWS_PER_TILE", "SUPERSTEP",
@@ -67,6 +86,11 @@ def __getattr__(name):
     mod = _LAZY.get(name)
     if mod is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    if mod == "_core":
+        from repro_torch.core import policies, simulator, tiling
+        for m in (policies, simulator, tiling):
+            if hasattr(m, name):
+                return getattr(m, name)
     import importlib
     return getattr(importlib.import_module(f".{mod}", __name__), name)
 

@@ -26,18 +26,18 @@ On a mesh (`make_train_step(cfg, tcfg, dist)`, `dist` a
 `DistContext` and the in_shardings of `train_state_pspecs`) every rank
 runs the step on its rows of the batch (`batch_shard`: the reference's
 `batch_pspec`) and holds its shards of the train state
-(`init_train_state(..., dist=)`, `shard_state`): for the dense, vlm and
-moe families every leaf in its placement (`models.model.param_pspecs`:
-FSDP over "data", tensor parallelism of attention, MLP and vocabulary
-and expert parallelism over "model"); the encdec, ssm and hybrid
-families data parallel with whole weights (their layouts are ROADMAP.md
-item 6c). The gradient sync follows each leaf's placement (as its module records
-it: `models.layers.placements`): a leaf
+(`init_train_state(..., dist=)`, `shard_state`): every leaf in its
+placement (`models.model.param_pspecs`: FSDP over "data"; tensor
+parallelism of attention, MLP, vocabulary, Mamba2 and mLSTM and expert
+parallelism over "model"; the leaves "model" does not split, such as
+the sLSTM's, replicated on it). The gradient sync follows each leaf's
+placement (as its module records it: `models.layers.placements`): a leaf
 replicated over "data" is summed over the batch axes; a "data"-sharded
 leaf arrives summed over "data" from `gather_data`'s backward (and is
 summed over a pod axis); nothing is summed over "model" here (the
 partial gradients of whole KV weights beside split heads are summed
-inside the layer). The clipping norm is global (each element counted
+inside the layer, and a leaf replicated on "model" holds its whole
+gradient on every model rank already). The clipping norm is global (each element counted
 once: the squares of split leaves summed over the ranks they split
 over), AdamW steps every shard with it, gradient compression cuts its
 blocks from whole reference leaves (`compress_grads`: a shard made of
@@ -255,7 +255,9 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig(), dist=None):
     this rank's (`init_train_state(..., dist=)`) and the batch its rows
     (`batch_shard`). `step.loss_and_grads(state, batch)` -> (metrics,
     gradients) is the step's gradient part alone (summed over the
-    ranks)."""
+    ranks), and `step.apply(state, metrics, gradients)` the rest of it
+    (compression, AdamW, the capacity scales): step(state, batch) is
+    apply(state, *loss_and_grads(state, batch))."""
     M.check_trainable(cfg, dist)
     # cast_params_once: the loss runs on a copy of the model whose float32
     # parameters are cast to tcfg.dtype (leaves of their own), and their
@@ -329,9 +331,8 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig(), dist=None):
         return metrics, grads if dist is None else \
             sync(grads, L.placements(model))
 
-    def step(state, batch):
+    def apply(state, metrics, grads):
         model = state["params"]
-        metrics, grads = loss_and_grads(state, batch)
         placed = None if dist is None else L.placements(model)
         if tcfg.grad_compress:
             grads, state["grad_err"] = compress_grads(
@@ -361,5 +362,9 @@ def make_train_step(cfg, tcfg: TrainConfig = TrainConfig(), dist=None):
                         counts[layer], caps[layer], eps=tcfg.ich_eps)
         return state, metrics
 
+    def step(state, batch):
+        return apply(state, *loss_and_grads(state, batch))
+
     step.loss_and_grads = loss_and_grads
+    step.apply = apply
     return step

@@ -97,9 +97,10 @@ def _zeros(tree):
 
 def _whole(dist, tree, placed):
     """Every leaf of `tree` gathered whole, at its axes in `placed`
-    (`layers.placements`)."""
+    (`layers.placements`): copies (a whole leaf is the live tensor, which
+    a later step updates in place)."""
     return {n: dist.unshard(t.detach(), L.leaf_axes(placed, n))
-            .float().numpy() for n, t in tree.items()}
+            .float().numpy().copy() for n, t in tree.items()}
 
 
 # ------------------------------------------------------------------ tasks
@@ -336,27 +337,6 @@ def one_rank(mesh, *, arch, over, batches, seed, caps):
     return differ
 
 
-def tp_grads(mesh, *, arch, over, batch, seed):
-    """The whole layout (`shard_model`: FSDP, tensor and expert
-    parallelism) from `init_train_state(seed)`: the loss and whole
-    gradients of `loss_and_grads` on this rank's rows, float32, and the
-    prefill's last-token logits of every batch rank's rows."""
-    cfg = _cfg(arch, over)
-    dist = DistContext(mesh)
-    tcfg = TS.TrainConfig(dtype=torch.float32)
-    st = TS.init_train_state(cfg, seed, tcfg=tcfg, device="cpu", dist=dist)
-    local = TS.batch_shard(_t(batch), dist)
-    metrics, grads = TS.make_train_step(cfg, tcfg, dist).loss_and_grads(
-        st, local)
-    logits, _ = M.prefill(cfg, st["params"], {"tokens": local["tokens"]},
-                          dist=dist)
-    return {"loss": float(metrics["loss"]),
-            "grads": _whole(dist, grads, L.placements(st["params"])),
-            "logits": _rows(dist, logits).numpy(),
-            "shapes": {n: tuple(p.shape) for n, p in
-                       st["params"].named_parameters()}}
-
-
 def seq_decode(mesh, *, arch, over, tokens, seed, cache_len):
     """Decode over a KV cache split by sequence (the KV heads do not
     divide the model ranks): the unmeshed prefill's cache of every row,
@@ -392,6 +372,130 @@ def seq_decode(mesh, *, arch, over, tokens, seed, cache_len):
             "next": _rows(dist, nxt).numpy(), "cache_err": cache_err}
 
 
+def cut_cache(cfg, cache, dist, batch: int):
+    """A whole cache (this rank's rows) cut to this rank's slices of every
+    dimension that `cache_pspecs` puts on "model"."""
+    axes = M.cache_pspecs(cfg, batch, {"data": 1, "model": dist.tp})
+
+    def cut(t, a):
+        if isinstance(t, dict):
+            return {k: cut(t[k], a[k]) for k in t}
+        if isinstance(t, list):
+            return [cut(x, y) for x, y in zip(t, a)]
+        return dist.shard(t, tuple(dist.tp_axis if x == "model" else None
+                                   for x in a))
+    return cut(cache, axes)
+
+
+def pad_cache(cfg, cache, n: int):
+    """A prefill's cache with n more positions for decode steps: every
+    self-attention cache (Zamba2's "A" ring, whisper's "self" part, a
+    stacked model's segments) padded along its sequence."""
+    def pad(t, dim):
+        widths = [0, 0] * (t.ndim - dim - 1) + [0, n]
+        return torch.nn.functional.pad(t, widths)
+    if cfg.family == "encdec":
+        return {"self": [{k: pad(v, 2) for k, v in cache["self"][0].items()}],
+                "cross": cache["cross"]}
+    if cfg.family in M.STACKED:
+        return [{k: pad(v, 2) for k, v in seg.items()} for seg in cache]
+    return [{k: pad(v, 1) for k, v in st.items()}
+            if kind == "A" else st
+            for kind, st in zip(cfg.block_pattern, cache)]
+
+
+def family_inputs(cfg, batch: dict) -> dict:
+    """The prefill's inputs of a batch: its tokens, and whisper's
+    frames."""
+    return {k: v for k, v in batch.items() if k in ("tokens", "frames")}
+
+
+def tp_family(mesh, *, arch, over, batch, seed, max_seq, pad):
+    """Any family's whole layout from `init_train_state(seed, max_seq)`:
+    the loss and whole gradients of `loss_and_grads` on this rank's rows,
+    float32; the prefill's last logits and its cache against the
+    unmeshed prefill's cache cut to this rank (largest difference relative
+    to each leaf's largest value); then one `decode_step` over the
+    unmeshed cache padded by `pad` positions and cut to this rank. Every
+    batch rank's rows of the logits."""
+    cfg = _cfg(arch, over)
+    dist = DistContext(mesh)
+    tcfg = TS.TrainConfig(dtype=torch.float32)
+    st = TS.init_train_state(cfg, seed, max_seq, tcfg=tcfg, device="cpu",
+                             dist=dist)
+    local = TS.batch_shard(_t(batch), dist)
+    metrics, grads = TS.make_train_step(cfg, tcfg, dist).loss_and_grads(
+        st, local)
+    whole = M.init_params(cfg, seed, max_seq=max_seq, device="cpu")
+    inputs = family_inputs(cfg, local)
+    B, S = inputs["tokens"].shape
+    logits, c_mesh = M.prefill(cfg, st["params"], inputs, dist=dist)
+    _, c_whole = M.prefill(cfg, whole, inputs)
+    mine = cut_cache(cfg, c_whole, dist, B)
+    errs = [float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+            for a, b in zip(_flat(c_mesh), _flat(mine))]
+    nxt = torch.argmax(logits, -1)[:, None]
+    d, _ = M.decode_step(cfg, st["params"], nxt,
+                         cut_cache(cfg, pad_cache(cfg, c_whole, pad), dist,
+                                   B), S, dist=dist)
+    return {"loss": float(metrics["loss"]),
+            "grads": _whole(dist, grads, L.placements(st["params"])),
+            "logits": _rows(dist, logits).numpy(),
+            "decode": _rows(dist, d).numpy(), "next": _rows(dist, nxt).numpy(),
+            "cache_err": max(errs), "n_cache": len(errs),
+            "shapes": {n: tuple(p.shape) for n, p in
+                       st["params"].named_parameters()}}
+
+
+def ring_cache(cfg, cache, ring: int):
+    """A hybrid prefill's cache with each "A" entry cut to a ring of `ring`
+    slots, as serving holds it (`cache_specs`: min(cache_len, window)
+    slots): slot j holds the last position p with p % ring == j."""
+    def cut(t):
+        S = t.shape[1]
+        return t[:, [S - 1 - (S - 1 - j) % ring for j in range(ring)]]
+    return [{k: cut(v) for k, v in st.items()} if kind == "A" else st
+            for kind, st in zip(cfg.block_pattern, cache)]
+
+
+def ring_decode(mesh, *, arch, over, tokens, seed, steps):
+    """A hybrid's decode steps past the end of its windowed ring (each
+    "A" cache `attn_window` slots, split by sequence where the KV heads
+    do not divide the model ranks): the unmeshed prefill's cache of this
+    rank's rows cut to the ring, then `steps` `decode_step`s from
+    position S on, whole on this rank and with the mesh over the ring cut
+    to this rank; each step's logits of both (every batch rank's rows),
+    the tokens fed the unmeshed greedy ones."""
+    cfg = _cfg(arch, over)
+    dist = DistContext(mesh)
+    whole = M.init_params(cfg, seed, device="cpu")
+    model = copy.deepcopy(whole)
+    M.shard_model(model, cfg, dist)
+    rows = TS.batch_shard({"tokens": torch.from_numpy(tokens)},
+                          dist)["tokens"]
+    B, S = rows.shape
+    logits, cache = M.prefill(cfg, whole, {"tokens": rows})
+    c_whole = ring_cache(cfg, cache, cfg.attn_window)
+    c_mesh = cut_cache(cfg, copy.deepcopy(c_whole), dist, B)
+    got, want = [], []
+    for i in range(steps):
+        nxt = torch.argmax(logits, -1)[:, None]
+        logits, c_whole = M.decode_step(cfg, whole, nxt, c_whole, S + i)
+        d, c_mesh = M.decode_step(cfg, model, nxt, c_mesh, S + i, dist=dist)
+        want.append(_rows(dist, logits).numpy())
+        got.append(_rows(dist, d).numpy())
+    return {"meshed": got, "unmeshed": want,
+            "layout": M.kv_layout(cfg, dist), "ring": cfg.attn_window}
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _flat(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _flat(x)]
+    return [tree]
+
+
 TASKS = {f.__name__: f for f in (ep, serve, step, compress, dense, save,
-                                 load, trainer, one_rank, tp_grads,
-                                 seq_decode)}
+                                 load, trainer, one_rank, seq_decode,
+                                 tp_family, ring_decode)}

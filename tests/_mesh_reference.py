@@ -6,7 +6,9 @@
 (the flag must be set before JAX is imported, so this cannot run inside
 a test process). IN.pkl holds {"arch", "over", "state" (the reference's
 train state with numpy leaves), "batches", "jobs": [(shape, options,
-with_grads)]}; for each job the script builds `jax.make_mesh(shape,
+with_grads)], optionally "max_seq" (the state's position table, 64 by
+default)}, or {"cases": [such dicts]} to run several in one process (OUT
+then holds a list of results a case); for each job the script builds `jax.make_mesh(shape,
 ("data", "model"))` with Auto axes, `DistContext(mesh, batch_axes=
 batch_axes_of(mesh))` and `make_train_step(cfg, tcfg, dist)`, and writes
 the gradients of the first batch's loss (`jax.value_and_grad` of
@@ -44,7 +46,8 @@ def _shardings(mesh, tree):
                         is_leaf=lambda x: isinstance(x, P))
 
 
-def run_job(cfg, state, batches, shape, options, with_grads):
+def run_job(cfg, state, batches, shape, options, with_grads,
+            max_seq=64):
     mesh = jax.make_mesh(shape, ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2,
                          devices=jax.devices()[:int(np.prod(shape))])
@@ -54,7 +57,8 @@ def run_job(cfg, state, batches, shape, options, with_grads):
     tcfg = TS.TrainConfig(dtype=jnp.float32, **options)
     shard = {}
     if in_sharded:
-        st = _shardings(mesh, TS.train_state_pspecs(cfg, shape[1], 64, tcfg))
+        st = _shardings(mesh, TS.train_state_pspecs(cfg, shape[1], max_seq,
+                                                     tcfg))
         shard = {"state": st, "batch": _shardings(
             mesh, TS.batch_pspec(cfg, batch_axes_of(mesh)))}
     state = jax.tree.map(jnp.asarray, state)
@@ -87,15 +91,21 @@ def run_job(cfg, state, batches, shape, options, with_grads):
     return out
 
 
-def main(src, dst):
-    with open(src, "rb") as f:
-        job = pickle.load(f)
+def run_case(job):
     cfg = reduced(get_arch(job["arch"]), **job["over"])
     batches = [{k: jnp.asarray(v) for k, v in b.items()}
                for b in job["batches"]]
-    results = [run_job(cfg, job["state"], batches, tuple(shape), options,
-                       with_grads)
-               for shape, options, with_grads in job["jobs"]]
+    return [run_job(cfg, job["state"], batches, tuple(shape), options,
+                    with_grads, job.get("max_seq", 64))
+            for shape, options, with_grads in job["jobs"]]
+
+
+def main(src, dst):
+    with open(src, "rb") as f:
+        job = pickle.load(f)
+    # one case, or {"cases": [...]}: several in this one process
+    results = [run_case(j) for j in job["cases"]] if "cases" in job \
+        else run_case(job)
     with open(dst, "wb") as f:
         pickle.dump(results, f)
 

@@ -7,8 +7,16 @@ position as the placements cut them (`param_pspecs`, `cache_pspecs`);
 olmoe-1b-7b x train_4k on a (1, 4) fake mesh holds in its arguments the
 parameters and both AdamW moments of its placements (float32, 12 bytes a
 local element), takes the capacity-full MoE plan and counts the kernels'
-own operations; an ssm cell records NOT_PORTED, naming ROADMAP.md item
-6c. A step on real tensors never takes the capacity-full plan."""
+own operations; an ssm cell (xlstm-350m x decode_32k) runs OK on the
+production mesh with its arguments exactly the rank's parameters,
+tokens, recurrent states (`cache_pspecs`: the mLSTM's and sLSTM's heads
+whole at tp 8, which 4 heads do not divide) and position. On a (1, 4) fake
+mesh a train step of zamba2-1.2b cut to its first 6 blocks and of
+xlstm-350m cut to 4 counts the SSD scan's shape-only ops at each rank's
+H/4 heads (the kernels' own formulas) and the sLSTM loop as one op of S
+steps. A step on real tensors never takes the capacity-full plan. A
+rank runs the reference's microbatch count unless it exceeds the rank's
+rows (then one row a microbatch)."""
 import json
 import math
 import os
@@ -35,6 +43,25 @@ print(json.dumps(rec))
 """
 
 
+REC_SCRIPT = """
+import dataclasses, json
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_mesh
+from repro_torch.train.train_step import TrainConfig
+shape = ShapeSpec("train_small", 512, 4, "train")
+out = {}
+for name, n in (("zamba2-1.2b", 6), ("xlstm-350m", 4)):
+    cfg = get_arch(name)
+    cfg = dataclasses.replace(cfg, n_layers=n,
+                              block_pattern=cfg.block_pattern[:n])
+    out[name] = dryrun.trace_step(cfg, shape, fake_mesh((1, 4), (
+        "data", "model")), tcfg=TrainConfig())
+print(json.dumps(out))
+"""
+
+
 def _env():
     return dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
@@ -51,9 +78,10 @@ def cells(tmp_path_factory):
              arch, "--shape", shape, "--out", str(tmp)], env=_env(),
             cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
-    procs["moe"] = subprocess.Popen(
-        [sys.executable, "-c", MOE_SCRIPT], env=_env(), cwd=str(ROOT),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for key, script in (("moe", MOE_SCRIPT), ("recurrent", REC_SCRIPT)):
+        procs[key] = subprocess.Popen(
+            [sys.executable, "-c", script], env=_env(), cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     out = {}
     for key, p in procs.items():
         stdout, stderr = p.communicate(timeout=300)
@@ -116,11 +144,60 @@ def test_olmoe_train_cell_on_a_1x4_mesh_holds_its_placed_state(cells):
 
 
 def test_an_ssm_cell_is_not_ported(cells):
+    # the name predates the ssm layouts: the cell now runs, and its
+    # arguments are the rank's shards
     rc, stdout, stderr = cells["xlstm-350m"]
     assert rc == 0, stderr[-3000:]
     rec = json.loads((cells["dir"] / "xlstm-350m_decode_32k_32x8.json")
                      .read_text())
-    assert rec["status"] == "NOT_PORTED" and "item 6c" in rec["reason"]
+    assert rec["status"] == "OK" and rec["mesh"] == "32x8", rec
+    cfg, shape = get_arch("xlstm-350m"), SHAPES["decode_32k"]
+    split = {"data": 32, "model": 8, None: 1}
+    params = sum(4 * math.prod(d // split[a] for d, a in zip(s, axes))
+                 for s, axes in M.param_leaves(cfg, 8).values())
+    B = shape.global_batch // 32
+    cache = 0
+    axes = M.cache_pspecs(cfg, shape.global_batch, {"data": 32, "model": 8})
+    for spec, ax in zip(M.cache_specs(cfg, shape.global_batch,
+                                      shape.seq_len), axes):
+        leaves = [(spec, ax)] if isinstance(spec, tuple) else \
+            [(spec[k], ax[k]) for k in spec]
+        for (dims, dt), a in leaves:
+            assert "model" not in a      # 4 heads do not divide 8 ranks
+            cache += torch.empty((), dtype=dt).element_size() * math.prod(
+                d // split[x] for d, x in zip(dims, a))
+    assert rec["memory"]["argument_bytes"] == params + 4 * B + cache + 4
+    assert rec["slstm_loop"].startswith("one shape-only op")
+
+
+def test_recurrent_train_steps_count_their_kernels_at_the_ranks_heads(
+        cells):
+    from repro_torch.kernels.shape_only import (scan_backward_flops,
+                                                scan_forward_flops)
+    rc, stdout, stderr = cells["recurrent"]
+    assert rc == 0, stderr[-3000:]
+    recs = json.loads(stdout.strip().splitlines()[-1])
+    B, S = 4, 512
+    zamba = recs["zamba2-1.2b"]
+    cfg = get_arch("zamba2-1.2b")
+    H = cfg.mamba_expand * cfg.d_model // cfg.ssm_head_dim // 4
+    args = (B, S, H, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk, True)
+    k = zamba["kernel_flops"]
+    # 5 "M" blocks, forward twice under remat, backward once
+    assert k["repro_torch.scan_fwd"] == 2 * 5 * scan_forward_flops(*args)
+    assert k["repro_torch.scan_bwd"] == 5 * scan_backward_flops(*args)
+    assert {"repro_torch.flash_fwd", "repro_torch.flash_bwd"} <= set(k)
+    assert zamba["collectives_by_axis"]["model"]["wire_bytes"] > 0
+    xl = recs["xlstm-350m"]
+    cfg = get_arch("xlstm-350m")
+    dh = cfg.d_model // cfg.n_heads
+    k = xl["kernel_flops"]
+    assert k["repro_torch.slstm_fwd"] == 2 * 2 * S * B * cfg.n_heads * dh ** 2
+    assert k["repro_torch.slstm_bwd"] == 4 * S * B * cfg.n_heads * dh ** 2
+    d_mlstm = cfg.mamba_expand * cfg.d_model // cfg.n_heads
+    assert k["repro_torch.scan_fwd"] == 2 * 3 * scan_forward_flops(
+        B, S, 1, d_mlstm, d_mlstm + 1, min(cfg.ssm_chunk, S), False)
+    assert "slstm_loop" in xl and "microbatch" in xl
 
 
 def test_a_real_step_never_takes_the_capacity_full_plan(monkeypatch):
@@ -135,3 +212,23 @@ def test_a_real_step_never_takes_the_capacity_full_plan(monkeypatch):
     y.sum().backward()
     assert not taken and torch.isfinite(y).all()
     assert float(aux["entries"]) == 2 * 16 * 2
+
+
+@pytest.mark.parametrize("arch, dp, train_opt, want", [
+    ("zamba2-1.2b", 32, False, 8), ("xlstm-350m", 32, False, 8),
+    ("phi3-medium-14b", 32, True, 8), ("phi3-medium-14b", 32, False, 8),
+    ("glm4-9b", 32, False, 4), ("xlstm-350m", 1, False, 16),
+    ("deepseek-moe-16b", 32, True, 4)])
+def test_a_rank_departs_from_the_reference_microbatches_only_past_its_rows(
+        arch, dp, train_opt, want):
+    # 256 rows over dp batch ranks: the reference's count stands unless it
+    # exceeds the rank's rows (then one row a microbatch, caveat 15)
+    import types
+    from repro_torch.launch import dryrun
+    cfg, shape = get_arch(arch), SHAPES["train_4k"]
+    dist = types.SimpleNamespace(dp=dp)
+    assert dryrun.rank_microbatch(cfg, shape, dist, train_opt) == want
+    ref = dryrun.reference_microbatch(cfg, train_opt)
+    assert ref == cfg.train_microbatch * (2 if train_opt else 1)
+    assert (want < ref) == (ref > shape.global_batch // dp)
+    assert dryrun.rank_microbatch(cfg, shape, dist, train_opt, 2) == 2

@@ -183,10 +183,32 @@ class _Sizes:
 @pytest.mark.parametrize("name, dp, tp, error, what", [
     ("qwen2-1.5b", 1, 3, ValueError, "does not split over 3 'model'"),
     ("glm4-9b", 3, 1, ValueError, "does not split over 3 'data'"),
-    ("zamba2-1.2b", 1, 2, NotImplementedError, "item 6c"),
-    ("whisper-small", 2, 2, NotImplementedError, "item 6c"),
-    ("xlstm-350m", 1, 4, NotImplementedError, "item 6c")])
+    ("zamba2-1.2b", 3, 2, ValueError, "does not split over 3 'data'"),
+    ("whisper-small", 5, 2, ValueError, "does not split over 5 'data'"),
+    ("xlstm-350m", 3, 4, ValueError, "does not split over 3 'data'")])
 def test_a_mesh_a_config_cannot_split_raises(name, dp, tp, error, what):
     with pytest.raises(error, match=what):
         M.check_mesh(get_arch(name), _Sizes(dp, tp))
     M.check_mesh(get_arch(name), _Sizes(1, 1))
+
+
+@pytest.mark.parametrize("name, dp, tp", [
+    ("zamba2-1.2b", 1, 2), ("zamba2-1.2b", 32, 8),
+    ("whisper-small", 2, 2), ("whisper-small", 32, 8),
+    ("xlstm-350m", 1, 4), ("xlstm-350m", 32, 8)])
+def test_every_family_runs_on_a_mesh_its_placements_split(name, dp, tp):
+    cfg = get_arch(name)
+    M.check_mesh(cfg, _Sizes(dp, tp))
+    M.check_trainable(cfg)
+    # the recurrent leaves "model" splits where the reference's rule does
+    places = M.param_pspecs(cfg, tp)
+    split = {n for n, axes in places.items() if "model" in axes}
+    if cfg.family == "hybrid":
+        assert "blocks.0.mamba.in_x" in split
+        assert "blocks.0.mamba.in_B" not in split
+    if cfg.family == "ssm":
+        assert ("blocks.0.mlstm.wq" in split) == (cfg.n_heads % tp == 0)
+        assert not any(".slstm." in n for n in split)
+    if cfg.family == "encdec":
+        assert ("layers.0.attn.wq" in split) == (cfg.n_heads % tp == 0)
+        assert "layers.0.mlp.wi" in split
